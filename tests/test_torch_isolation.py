@@ -1,0 +1,88 @@
+"""The port stands alone: it imports neither JAX nor the reference package,
+picks the card unless told otherwise, and never differentiates silently."""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from rayfed_tpu_torch.ops.flash_attention import flash_attention
+from rayfed_tpu_torch.utils import platform
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "rayfed_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+_BLOCKED_IMPORT = r"""
+import importlib, pkgutil, sys
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        top = name.split(".")[0]
+        if top in ("jax", "jaxlib", "rayfed_tpu"):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import rayfed_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(rayfed_tpu_torch.__path__, "rayfed_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke  # its import graph; the phases run only under __main__
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "rayfed_tpu")]
+assert not bad, bad
+print(len(names))
+"""
+
+
+def test_port_imports_with_jax_and_reference_blocked():
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_IMPORT],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 8  # every module was walked
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports_in_source(path):
+    text = path.read_text()
+    assert not re.search(r"^\s*(import|from)\s+(jax|jaxlib)\b", text, re.M)
+    # "rayfed_tpu." and "from/import rayfed_tpu" name the reference; the
+    # port's own name "rayfed_tpu_torch" shares the prefix and is allowed.
+    assert not re.search(r"\brayfed_tpu\.", text)
+    assert not re.search(r"\b(from|import)\s+rayfed_tpu\b(?!_)", text)
+
+
+def test_resolve_device_raises_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        platform.resolve_device()
+    assert platform.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
+    from rayfed_tpu_torch.models import llama
+    from rayfed_tpu_torch.models.convert import llama_params_from_jax
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = llama.llama_tiny()
+    with pytest.raises(RuntimeError):
+        llama.init_llama(cfg, torch.Generator())
+    with pytest.raises(RuntimeError):
+        llama.init_kv_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError):
+        llama_params_from_jax({})
+    assert llama.init_kv_cache(cfg, 1, 8, device="cpu")["k"].device.type == "cpu"
+
+
+@pytest.mark.parametrize("which", [0, 1, 2])
+def test_flash_attention_refuses_inputs_needing_grad(which):
+    qkv = [torch.zeros(1, 8, 2, 8) for _ in range(3)]
+    qkv[which].requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="training"):
+        flash_attention(*qkv, causal=True)
+    with torch.no_grad():  # nothing to differentiate: runs
+        assert flash_attention(*qkv, causal=True).shape == (1, 8, 2, 8)
