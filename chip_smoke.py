@@ -3,16 +3,24 @@
     python3 chip_smoke.py
 
 Phases, each fatal on failure:
-  1. build the CUDA kernels from the sources in the checkout;
+  1. build the CUDA kernels from the sources in the checkout (one nvcc per
+     source, in parallel);
   2. hold each kernel against its plain PyTorch version on the card, at the
-     main path's shapes and at the edge cases (window, offsets with fully
-     masked rows, ragged T, head dim 64, f32 in/out);
-  3. drive the main path: Llama-3-8B at full width and depth (random bf16
-     weights from a seed) serving 4 prompts of 2048 tokens, 32 greedy new
-     tokens each, with flash-attention prefill; check the kernel ran once
-     per layer, the outputs are sane, and batch-1 prefill logits agree
+     main paths' shapes and at the edge cases (window, offsets with fully
+     masked rows, ragged T, head dim 64, f32 in/out, f32 gradients from
+     bf16 inputs), with exact zeros where no key or no query is visible;
+  3. drive the serving path: Llama-3-8B at full width and depth (random
+     bf16 weights from a seed) serving 4 prompts of 2048 tokens, 32 greedy
+     new tokens each, with flash-attention prefill; check the kernel ran
+     once per layer, the outputs are sane, and batch-1 prefill logits agree
      with the dense-attention path;
-  4. time each kernel against its plain version, the library call that
+  4. drive the training path: 4 LoRA (rank 16 on wq/wv) Adam steps of
+     Llama-3-8B at full width and depth, bf16 base, remat, B=1, T=2048,
+     through the flash forward and both backward kernels; check the launch
+     counts per step, finite and falling losses and unchanged adapter
+     scales; then, at depth 4, hold every adapter gradient through flash
+     attention against the one through dense attention;
+  5. time each kernel against its plain version, the library call that
      computes the same function, and the card's bound.
 Prints the card (nvidia-smi), a JSON line of kernel numbers and, last, the
 result line.  Exits non-zero without a result when there is no CUDA card.
@@ -25,17 +33,25 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 import torch.nn.functional as F
 
-from rayfed_tpu_torch.models import llama
+from rayfed_tpu_torch.models import llama, lora
 from rayfed_tpu_torch.ops import _build
 from rayfed_tpu_torch.ops.attention import dot_product_attention
 from rayfed_tpu_torch.ops.flash_attention import (
     NEG_INF,
+    _flash_backward,
+    _flash_backward_reference,
+    _flash_bwd_dkv,
+    _flash_bwd_dkv_reference,
+    _flash_bwd_dq,
+    _flash_bwd_dq_reference,
     _flash_forward,
     _flash_forward_reference,
+    _lse_delta,
     flash_attention,
 )
 
@@ -55,6 +71,20 @@ TOL = {
 # after 32 bf16 layers: the two paths round attention differently, so the
 # gap is held to 5% of the logits' range (a wrong mask moves them by ~100%).
 LOGIT_REL_TOL = 0.05
+# Backward kernels vs their plain versions: |g - ref| <= frac * max|ref| +
+# rtol * |ref|.  f32: summation order only.  bf16: both round dS and P to
+# bf16 before the second products, and the f32 scores differ in the last
+# bits, so a few dS values round the other way; the gradients are then
+# rounded to bf16 (2^-6 relative) and sums over up to 2048 keys add the
+# flipped roundings (1e-2 of the largest gradient).
+BWD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 2.0**-6)}
+# The training slice: BASELINE config #4's LoRA fine-tune step.
+TRAIN_STEPS, TRAIN_LEN, LORA_RANK, TRAIN_LR = 4, 2048, 16, 1e-3
+# Every adapter gradient through the kernels vs through dense attention, at
+# depth 4 in bf16: the two paths round attention and its gradients
+# differently, so the gap is held to 5% of the dense gradient's max |g| (a
+# wrong mask or a missing term moves it by ~100%).
+GRAD_REL_TOL, GRAD_CHECK_LAYERS = 0.05, 4
 
 
 def _sync_ms(fn, iters, warmup=2):
@@ -77,16 +107,31 @@ def _peaks(name):
     return "SXM", PEAKS["SXM"]
 
 
+def _counts():
+    return {name: getattr(flash_attention, f"{name}_launches")
+            for name in ("fwd", "bwd_dq", "bwd_dkv")}
+
+
+def _zero_counts():
+    for name in _counts():
+        setattr(flash_attention, f"{name}_launches", 0)
+
+
 def phase_build():
+    names = ("flash_fwd", "flash_bwd")
     t0 = time.perf_counter()
-    path = _build.build("flash_fwd")
+    with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source, together
+        paths = list(pool.map(_build.build, names))
     _build.flash_fwd_lib()
-    print(f"[build] flash_fwd -> {path.name} in {time.perf_counter() - t0:.2f} s")
-    log = _build.log_path("flash_fwd")
-    if log.exists():
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build]   {line.strip()}")
+    _build.flash_bwd_lib()
+    built = ", ".join(f"{n} -> {p.name}" for n, p in zip(names, paths))
+    print(f"[build] {built} in {time.perf_counter() - t0:.2f} s")
+    for name in names:
+        log = _build.log_path(name)
+        if log.exists():
+            for line in log.read_text().splitlines():
+                if "registers" in line or "spill" in line or "Function properties" in line:
+                    print(f"[build]   {name}: {line.strip()[:150]}")
 
 
 def _qkv(gen, bh, t_q, t_k, d, dtype):
@@ -134,6 +179,65 @@ def phase_kernel_vs_plain(gen):
         if name == "slice_causal":
             slice_err = abs_err
         del q, k, v, o, lse, o_ref, lse_ref, diff
+        torch.cuda.empty_cache()
+    return slice_err
+
+
+def _seen_keys(t_q, t_k, causal, q_off, kv_off, window):
+    """Which keys some query sees (the others must get dK = dV = 0)."""
+    if not causal:
+        return torch.ones(t_k, dtype=torch.bool, device="cuda")
+    q_pos = q_off + torch.arange(t_q, device="cuda")[:, None]
+    k_pos = kv_off + torch.arange(t_k, device="cuda")[None, :]
+    vis = q_pos >= k_pos
+    if window is not None:
+        vis = vis & (q_pos - k_pos < window)
+    return vis.any(dim=0)
+
+
+def phase_bwd_kernel_vs_plain(gen):
+    """Returns the max abs errors of dQ and of dK/dV at the training shape."""
+    cases = [
+        # name, bh, t_q, t_k, d, dtype, out_dtype, causal, q_offset, kv_offset, window
+        ("slice_causal", 32, 2048, 2048, 128, torch.bfloat16, None, True, 0, 0, None),
+        ("causal_window512", 32, 2048, 2048, 128, torch.bfloat16, None, True, 0, 0, 512),
+        ("offsets_masked_rows", 32, 1024, 1536, 128, torch.bfloat16, None, True, 128, 384, None),
+        ("ragged_T1000", 32, 1000, 1000, 128, torch.bfloat16, None, True, 0, 0, None),
+        ("d64", 32, 2048, 2048, 64, torch.bfloat16, None, True, 0, 0, None),
+        ("f32_in_f32_out", 32, 1024, 1024, 128, torch.float32, torch.float32, True, 0, 0, None),
+        ("bf16_in_f32_out", 32, 2048, 2048, 128, torch.bfloat16, torch.float32, True, 0, 0, None),
+    ]
+    slice_err = None
+    for name, bh, t_q, t_k, d, dtype, out_dtype, causal, q_off, kv_off, window in cases:
+        q, k, v = _qkv(gen, bh, t_q, t_k, d, dtype)
+        do = torch.randn(bh, t_q, d, generator=gen, device="cuda").to(dtype)
+        kw = dict(scale=d**-0.5, causal=causal, q_offset=q_off, kv_offset=kv_off, window=window)
+        o, lse = _flash_forward(q, k, v, **kw)
+        grads = _flash_backward(q, k, v, o, lse, do, out_dtype=out_dtype, **kw)
+        torch.cuda.synchronize()
+        refs = _flash_backward_reference(q, k, v, o, lse, do, out_dtype=out_dtype, **kw)
+        frac, rtol = BWD_TOL[dtype]
+        errs, ok = {}, True
+        for gname, got, ref in zip(("dq", "dk", "dv"), grads, refs):
+            ref32 = ref.float()
+            diff = (got.float() - ref32).abs()
+            span = ref32.abs().max()
+            ok = ok and got.dtype == ref.dtype and bool(torch.all(diff <= frac * span + rtol * ref32.abs()))
+            errs[gname] = (diff.max().item(), (diff.max() / span).item())
+        dq, dk, dv = grads
+        masked_rows = lse <= NEG_INF / 2
+        unseen = ~_seen_keys(t_q, t_k, causal, q_off, kv_off, window)
+        zeros_ok = (bool(torch.all(dq[masked_rows] == 0)) and bool(torch.all(dk[:, unseen] == 0))
+                    and bool(torch.all(dv[:, unseen] == 0)))
+        print(f"[bwd kernel] {name}: " + " ".join(
+            f"{g} max_abs_err={a:.3e} (rel {r:.2e})" for g, (a, r) in errs.items())
+            + f" (tol {frac:g}*max|ref| + {rtol:g}*|ref|) exact zeros: {int(masked_rows.sum())} "
+            f"fully masked q rows, {int(unseen.sum()) * bh} unseen keys, ok={zeros_ok}")
+        if not (ok and zeros_ok):
+            raise AssertionError(f"flash backward kernels disagree with the plain version in case {name}")
+        if name == "slice_causal":
+            slice_err = {"dq": errs["dq"][0], "dkv": max(errs["dk"][0], errs["dv"][0])}
+        del q, k, v, do, o, lse, grads, refs, dq, dk, dv
         torch.cuda.empty_cache()
     return slice_err
 
@@ -206,6 +310,127 @@ def phase_slice(gen):
     return launches
 
 
+def phase_train(gen):
+    """The training slice: LoRA Adam steps of Llama-3-8B through the kernels."""
+    cfg = llama.llama3_8b(param_dtype=torch.bfloat16, remat=True)
+    t0 = time.perf_counter()
+    params = llama.init_llama(cfg, gen, device="cuda")
+    lcfg = lora.LoraConfig(rank=LORA_RANK, targets=(r"w[qv]$",))
+    adapters = lora.init_lora(params, lcfg, gen, device="cuda")
+    opt = llama.init_adam(adapters)
+    ids = torch.randint(0, cfg.vocab_size, (1, TRAIN_LEN), generator=gen, device="cuda")
+    scales = {n: e["scale"].clone() for n, e in adapters["layers"].items()}
+    step = llama.make_lora_train_step(cfg, lr=TRAIN_LR, attn_fn=flash_attention)
+    torch.cuda.synchronize()
+    print(f"[train] llama3_8b bf16 base, remat, LoRA rank {LORA_RANK} on w[qv] "
+          f"({lora.num_lora_params(adapters) / 1e6:.3f}e6 adapter params), B=1 T={TRAIN_LEN}, "
+          f"lr={TRAIN_LR:g}: set up in {time.perf_counter() - t0:.1f} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    want = {"fwd": 2 * cfg.num_layers, "bwd_dq": cfg.num_layers, "bwd_dkv": cfg.num_layers}
+    losses, step_ms = [], []
+    _zero_counts()
+    for i in range(TRAIN_STEPS):
+        before = _counts()
+        t0 = time.perf_counter()
+        adapters, opt, loss = step(adapters, opt, params, ids)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.item())
+        per_step = {n: c - before[n] for n, c in _counts().items()}
+        print(f"[train] step {i}: loss={losses[-1]:.6f} {step_ms[-1]:.1f} ms launches={per_step}")
+        if per_step != want:
+            raise AssertionError(f"step {i}: expected launches {want}, got {per_step}")
+        if not torch.isfinite(loss):
+            raise AssertionError(f"step {i}: loss is not finite")
+    launches = _counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steady_ms = sum(step_ms[1:]) / (TRAIN_STEPS - 1)
+    print(f"[train] {TRAIN_STEPS} steps: launches={launches}; steady step {steady_ms:.1f} ms "
+          f"(steps 1-{TRAIN_STEPS - 1}; step 0 {step_ms[0]:.1f} ms), "
+          f"{TRAIN_LEN / steady_ms * 1e3:.0f} tokens/s, max_memory_allocated={peak_gb:.2f} GB")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    if not all(torch.equal(adapters["layers"][n]["scale"], s) for n, s in scales.items()):
+        raise AssertionError("an adapter scale moved")
+    del params, adapters, opt
+    torch.cuda.empty_cache()
+    return dict(launches=launches, steady_ms=steady_ms, step_ms=step_ms, losses=losses, peak_gb=peak_gb)
+
+
+def phase_grad_check(gen):
+    """Adapter gradients through the kernels vs through dense attention."""
+    cfg = llama.llama3_8b(param_dtype=torch.bfloat16, num_layers=GRAD_CHECK_LAYERS)
+    params = llama.init_llama(cfg, gen, device="cuda")
+    adapters = lora.init_lora(params, lora.LoraConfig(rank=LORA_RANK), gen, device="cuda")
+    for entry in adapters["layers"].values():  # B != 0, or dL/dA is exactly 0
+        entry["b"] = 0.01 * torch.randn(entry["b"].shape, generator=gen, device="cuda")
+    ids = torch.randint(0, cfg.vocab_size, (1, TRAIN_LEN), generator=gen, device="cuda")
+    out = {}
+    for name, fn in (("flash", flash_attention), ("dense", dot_product_attention)):
+        out[name] = llama._value_and_grad(llama._lora_loss(cfg, fn), adapters, params, ids)
+    worst = 0.0
+    for target in adapters["layers"]:
+        for leaf in ("a", "b"):
+            g_flash = out["flash"][1]["layers"][target][leaf]
+            g_dense = out["dense"][1]["layers"][target][leaf]
+            gap = (g_flash - g_dense).abs().max().item()
+            span = g_dense.abs().max().item()
+            worst = max(worst, gap / span)
+            print(f"[grads] depth {GRAD_CHECK_LAYERS} B=1 T={TRAIN_LEN}: d{target}.{leaf} flash vs dense "
+                  f"max_abs_diff={gap:.4e} max|g_dense|={span:.4e} (tol {GRAD_REL_TOL:g}*max|g|)")
+            if not (span > 0 and gap <= GRAD_REL_TOL * span):
+                raise AssertionError(f"adapter gradient d{target}.{leaf} through flash disagrees with dense")
+    print(f"[grads] loss flash={out['flash'][0].item():.6f} dense={out['dense'][0].item():.6f}; "
+          f"worst gap {worst:.4f} of max|g|")
+    del params, adapters, out
+    torch.cuda.empty_cache()
+
+
+def _bound(flops, nbytes, card):
+    kind, (flops_peak, bytes_peak) = _peaks(card)
+    flop_ms, byte_ms = flops / flops_peak * 1e3, nbytes / bytes_peak * 1e3
+    return (flop_ms, "operations") if flop_ms >= byte_ms else (byte_ms, "bytes")
+
+
+def phase_bwd_times(gen, card):
+    """dQ and dK/dV at the training shape vs plain, SDPA's backward, the bound."""
+    b, h, t, d = 1, 32, TRAIN_LEN, 128
+    q, k, v = _qkv(gen, b * h, t, t, d, torch.bfloat16)
+    do = torch.randn(b * h, t, d, generator=gen, device="cuda").to(torch.bfloat16)
+    kw = dict(scale=d**-0.5, causal=True)
+    o, lse = _flash_forward(q, k, v, **kw)
+    lse, delta = _lse_delta(o, lse, do)
+    inputs = (q, k, v, do, lse, delta)
+    dq_ms = _sync_ms(lambda: _flash_bwd_dq(*inputs, **kw), iters=20)
+    dkv_ms = _sync_ms(lambda: _flash_bwd_dkv(*inputs, **kw), iters=20)
+    dq_plain = _sync_ms(lambda: _flash_bwd_dq_reference(*inputs, **kw), iters=5)
+    dkv_plain = _sync_ms(lambda: _flash_bwd_dkv_reference(*inputs, **kw), iters=5)
+    # SDPA's backward (all three gradients, one call): fwd+bwd minus fwd.
+    q4, k4, v4 = (x.view(b, h, t, d).clone().requires_grad_(True) for x in (q, k, v))
+    g4 = do.view(b, h, t, d)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+
+    sdpa_fwd = _sync_ms(sdpa, iters=20)
+    sdpa_fwd_bwd = _sync_ms(lambda: torch.autograd.grad(sdpa(), (q4, k4, v4), g4), iters=20)
+    sdpa_bwd = sdpa_fwd_bwd - sdpa_fwd
+    mm = 2 * b * h * d * (t * (t + 1) // 2)  # one causal T×T×D product
+    elem = b * h * t * d * 2  # one bf16 [BH, T, D] tensor
+    rows = 2 * b * h * t * 4  # lse + delta, f32
+    out = {}
+    for name, ms, plain, n_mm, n_io in (("dq", dq_ms, dq_plain, 3, 5), ("dkv", dkv_ms, dkv_plain, 4, 6)):
+        bound_ms, bound_by = _bound(n_mm * mm, n_io * elem + rows, card)
+        out[name] = dict(ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=bound_by, library_ms=sdpa_bwd)
+        print(f"[times] flash_bwd_{name} B={b} H={h} T={t} D={d} causal bf16: kernel {ms:.3f} ms, "
+              f"plain {plain:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}; {n_mm} products, "
+              f"{(n_io * elem + rows) / 1e6:.1f} MB), {n_mm * mm / ms / 1e9:.1f} TFLOP/s achieved")
+    print(f"[times] sdpa backward (dq, dk, dv in one call) {sdpa_bwd:.3f} ms "
+          f"(fwd+bwd {sdpa_fwd_bwd:.3f} - fwd {sdpa_fwd:.3f}); kernels dq+dkv {dq_ms + dkv_ms:.3f} ms")
+    return out
+
+
 def phase_times(gen, card):
     b, h, t, d = BATCH, 32, PROMPT_LEN, 128
     q, k, v = _qkv(gen, b * h, t, t, d, torch.bfloat16)
@@ -238,22 +463,50 @@ def main() -> int:
 
     phase_build()
     slice_err = phase_kernel_vs_plain(gen)
-    launches = phase_slice(gen)
+    bwd_err = phase_bwd_kernel_vs_plain(gen)
+    _zero_counts()
+    serve_launches = phase_slice(gen)
+    train = phase_train(gen)
+    phase_grad_check(gen)
     times = phase_times(gen, card)
+    bwd_times = phase_bwd_times(gen, card)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     )
     print(smi.stdout.strip())
+    # `launches`: the training path's 4 steps; the serving path's count of
+    # the forward kernel stands beside it.
+    train_launches = train["launches"]
+    bwd_src = "rayfed_tpu_torch/ops/csrc/flash_bwd.cu"
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
         "source": "rayfed_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "rayfed_tpu/ops/flash_attention.py:84",
-        "launches": launches,
+        "launches": train_launches["fwd"],
+        "launches_by_path": {"serve": serve_launches, "train": train_launches["fwd"]},
         "max_abs_err": slice_err,
         **times,
+    }, {
+        "name": "flash_bwd_dq",
+        "route": "cuda",
+        "source": bwd_src,
+        "replaces": "rayfed_tpu/ops/flash_attention.py:253",
+        "launches": train_launches["bwd_dq"],
+        "launches_by_path": {"serve": 0, "train": train_launches["bwd_dq"]},
+        "max_abs_err": bwd_err["dq"],
+        **bwd_times["dq"],
+    }, {
+        "name": "flash_bwd_dkv",
+        "route": "cuda",
+        "source": bwd_src,
+        "replaces": "rayfed_tpu/ops/flash_attention.py:325",
+        "launches": train_launches["bwd_dkv"],
+        "launches_by_path": {"serve": 0, "train": train_launches["bwd_dkv"]},
+        "max_abs_err": bwd_err["dkv"],
+        **bwd_times["dkv"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

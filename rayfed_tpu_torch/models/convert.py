@@ -1,9 +1,12 @@
-"""Carry Llama weights across from the reference's param tree.
+"""Carry Llama weights, LoRA adapters and Adam state across from the reference.
 
-The reference's params are a nested dict of arrays; converted to numpy
-(``np.asarray`` per leaf) they arrive here and leave as the same tree of
-torch tensors, key for key, since the port keeps the reference's names and
-``x @ w`` orientation.
+The reference's trees are nested dicts (and tuples, for the Adam state
+``(count, m, v)``) of arrays; converted to numpy (``np.asarray`` per leaf)
+they arrive here and leave as the same tree of torch tensors, key for key,
+since the port keeps the reference's names and ``x @ w`` orientation.
+Every leaf is carried bit for bit (bf16 through its 16-bit patterns), 0-d
+leaves (a LoRA ``scale``, the Adam count) included.  Each helper runs on
+the card unless ``device`` says otherwise.
 """
 
 from __future__ import annotations
@@ -12,23 +15,29 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from rayfed_tpu_torch.utils.platform import resolve_device
 
 
 def _leaf(x: Any, device: torch.device, dtype: Optional[torch.dtype]) -> torch.Tensor:
-    a = np.ascontiguousarray(x)
+    a = np.asarray(x)
     if a.dtype.name == "bfloat16":
         # ml_dtypes' bfloat16, which torch.from_numpy rejects: carry the
         # 16-bit patterns across unchanged (a float round trip could not
         # be bit-exact).  np.array copies, so the tensor owns its memory.
-        t = torch.from_numpy(np.array(a.view(np.uint16))).view(torch.bfloat16)
+        t = torch.from_numpy(np.array(a.view(np.uint16), order="C")).view(torch.bfloat16)
     elif a.dtype.kind in "fiub":
-        t = torch.from_numpy(np.array(a))
+        t = torch.from_numpy(np.array(a, order="C"))
     else:
         raise TypeError(f"cannot convert a leaf of dtype {a.dtype}")
     t = t.to(device)
     return t if dtype is None else t.to(dtype)
+
+
+def _tree_from_jax(tree: Any, device: Optional[torch.device], dtype: Optional[torch.dtype]) -> Any:
+    device = resolve_device(device)
+    return pytree.tree_map(lambda x: _leaf(x, device, dtype), tree)
 
 
 def llama_params_from_jax(
@@ -39,13 +48,18 @@ def llama_params_from_jax(
     """The reference's Llama param tree (numpy leaves) as torch tensors.
 
     ``dtype`` casts every leaf (default: keep each leaf's dtype, bf16
-    bit-exact).  Runs on the card unless ``device`` says otherwise.
+    bit-exact).
     """
-    device = resolve_device(device)
+    return _tree_from_jax(tree, device, dtype)
 
-    def convert(node):
-        if isinstance(node, dict):
-            return {k: convert(v) for k, v in node.items()}
-        return _leaf(node, device, dtype)
 
-    return convert(tree)
+def lora_from_jax(tree: Any, device: Optional[torch.device] = None) -> Any:
+    """The reference's LoRA tree (``{"a", "b", "scale"}`` entries) as torch
+    tensors, each leaf in its own dtype."""
+    return _tree_from_jax(tree, device, None)
+
+
+def adam_from_jax(opt: Any, device: Optional[torch.device] = None) -> Any:
+    """The reference's Adam state ``(count, m, v)`` as torch tensors: the
+    int32 count, ``m`` in the params' dtype and ``v`` in f32, as they were."""
+    return _tree_from_jax(opt, device, None)

@@ -1,26 +1,37 @@
-"""Llama-3-style decoder (RMSNorm, RoPE, GQA, SwiGLU): the serving path.
+"""Llama-3-style decoder (RMSNorm, RoPE, GQA, SwiGLU): serving and training.
 
-The port of ``rayfed_tpu/models/llama.py`` for serving: the training forward
-:func:`apply_llama`, :func:`prefill` and the KV-cache decode step behind
-:func:`generate`.  Parameters stay the reference's stacked tree — a leading
+The port of ``rayfed_tpu/models/llama.py``: the forward :func:`apply_llama`
+(with LoRA adapters and ``remat``), :func:`prefill` and the KV-cache decode
+step behind :func:`generate`, and the training steps — LoRA-only and
+full-parameter Adam (:func:`make_lora_train_step`, :func:`make_train_step`
+and their loops).  Parameters stay the reference's stacked tree — a leading
 layer dim, the reference's names and the ``x @ w`` orientation
 (``wq: [L, D, H·Dh]``, not ``nn.Linear``'s ``[out, in]``) — so weights carry
 across key for key (:mod:`rayfed_tpu_torch.models.convert`).  The
 reference's ``lax.scan`` over layers is a Python loop over ``L``; its donated
-KV cache is a cache updated in place.
+KV cache is a cache updated in place; its ``jax.checkpoint`` is
+``torch.utils.checkpoint``.
 
-Not ported yet, and raising ``NotImplementedError``: LoRA, ``remat`` (the
-training slice), ``kv_quant`` and the rolling cache (the int8 slice).
+Not ported yet, and raising ``NotImplementedError``: ``kv_quant`` and the
+rolling cache (the int8 slice).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import _pytree as pytree
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from rayfed_tpu_torch.models.quant import matmul, split_output_scale
 from rayfed_tpu_torch.ops.attention import NEG_INF, dot_product_attention
@@ -143,7 +154,7 @@ def init_llama(
 class Llama(nn.Module):
     """The param tree as a module: ``state_dict`` keys are the reference's
     tree paths (``embed``, ``layers.wq``, …, ``lm_head``).  The weights are
-    frozen: this slice serves, the backward comes with the training slice."""
+    frozen: a LoRA fine-tune trains adapters beside them (``forward(lora=)``)."""
 
     def __init__(self, config: LlamaConfig, params: Params):
         super().__init__()
@@ -170,8 +181,9 @@ class Llama(nn.Module):
             tree["lm_head"] = self.lm_head
         return tree
 
-    def forward(self, input_ids, *, attn_fn: Callable = dot_product_attention):
-        return apply_llama(self.params(), input_ids, self.config, attn_fn=attn_fn)
+    def forward(self, input_ids, *, lora: Optional[Params] = None,
+                attn_fn: Callable = dot_product_attention):
+        return apply_llama(self.params(), input_ids, self.config, lora=lora, attn_fn=attn_fn)
 
 
 def _rms_norm(x, scale, eps):
@@ -203,41 +215,54 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return torch.stack([r1, r2], dim=-1).reshape(x.shape)
 
 
-def _linear(x, w, dtype):
-    """x @ w in ``dtype``.  The reference's LoRA bypass comes with the LoRA slice."""
-    return matmul(x, w, dtype)
+def _linear(x, w, lora_entry, dtype):
+    """x @ w in ``dtype``, with an optional LoRA bypass (x@A)@B · scale.
+
+    A and B are cast to ``dtype``; ``scale`` is detached, as the
+    reference's ``stop_gradient``."""
+    out = matmul(x, w, dtype)
+    if lora_entry is not None:
+        a = lora_entry["a"].to(dtype)
+        b = lora_entry["b"].to(dtype)
+        scale = lora_entry["scale"].detach().to(dtype)
+        out = out + (x @ a) @ b * scale
+    return out
 
 
-def _qkv_proj(y, lp, config, b, t):
+def _no_lora(name):
+    return None
+
+
+def _qkv_proj(y, lp, config, b, t, lget=_no_lora):
     """Project + reshape q/k/v — shared by the forward and the decode step."""
     h, kv, dh = config.num_heads, config.num_kv_heads, config.head_dim
     dtype = config.dtype
-    q = _linear(y, lp["wq"], dtype).reshape(b, t, h, dh)
-    k = _linear(y, lp["wk"], dtype).reshape(b, t, kv, dh)
-    v = _linear(y, lp["wv"], dtype).reshape(b, t, kv, dh)
+    q = _linear(y, lp["wq"], lget("wq"), dtype).reshape(b, t, h, dh)
+    k = _linear(y, lp["wk"], lget("wk"), dtype).reshape(b, t, kv, dh)
+    v = _linear(y, lp["wv"], lget("wv"), dtype).reshape(b, t, kv, dh)
     return q, k, v
 
 
-def _attn_out(x, attn, lp, config, b, t):
+def _attn_out(x, attn, lp, config, b, t, lget=_no_lora):
     flat = attn.reshape(b, t, config.num_heads * config.head_dim)
-    return x + _linear(flat, lp["wo"], config.dtype)
+    return x + _linear(flat, lp["wo"], lget("wo"), config.dtype)
 
 
-def _mlp_block(x, lp, config):
+def _mlp_block(x, lp, config, lget=_no_lora):
     """RMSNorm + SwiGLU MLP residual — shared by the forward and decode."""
     dtype = config.dtype
     y = _rms_norm(x, lp["mlp_norm"], config.rms_eps)
-    gate = F.silu(_linear(y, lp["w_gate"], dtype))
-    up = _linear(y, lp["w_up"], dtype)
-    return x + _linear(gate * up, lp["w_down"], dtype)
+    gate = F.silu(_linear(y, lp["w_gate"], lget("w_gate"), dtype))
+    up = _linear(y, lp["w_up"], lget("w_up"), dtype)
+    return x + _linear(gate * up, lp["w_down"], lget("w_down"), dtype)
 
 
-def _layer_fwd(x, lp, config, cos, sin, attn_fn, b, t, emit_kv=False):
+def _layer_fwd(x, lp, config, cos, sin, attn_fn, b, t, lget=_no_lora, emit_kv=False):
     """One decoder layer (norm→qkv→RoPE→GQA attn→out→MLP), behind both the
     forward and prefill.  With ``emit_kv`` also returns the pre-repeat k/v."""
     h, kv = config.num_heads, config.num_kv_heads
     y = _rms_norm(x, lp["attn_norm"], config.rms_eps)
-    q, k, v = _qkv_proj(y, lp, config, b, t)
+    q, k, v = _qkv_proj(y, lp, config, b, t, lget)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     k_out, v_out = k, v
@@ -249,13 +274,22 @@ def _layer_fwd(x, lp, config, cos, sin, attn_fn, b, t, emit_kv=False):
         attn = attn_fn(q, k, v, causal=True, window=config.sliding_window)
     else:
         attn = attn_fn(q, k, v, causal=True)
-    x = _attn_out(x, attn, lp, config, b, t)
-    x = _mlp_block(x, lp, config)
+    x = _attn_out(x, attn, lp, config, b, t, lget)
+    x = _mlp_block(x, lp, config, lget)
     return (x, (k_out, v_out)) if emit_kv else (x, None)
 
 
 def _layer(params: Params, i: int) -> Params:
     return {name: w[i] for name, w in params["layers"].items()}
+
+
+def _save_weight_products(ctx, op, *args, **kwargs):
+    """``remat_policy="dots"``: keep the outputs of 2-D products (``aten.mm``:
+    the weight matmuls, which have no batch dims) and recompute the rest —
+    the reference's ``dots_with_no_batch_dims_saveable``."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def _lm_head(x, params, config):
@@ -285,18 +319,44 @@ def apply_llama(
     attn_fn: Callable = dot_product_attention,
     positions: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Forward: [B, T] ids → [B, T, V] float32 logits (causal LM)."""
-    if lora is not None:
-        raise NotImplementedError("LoRA comes with the LoRA fine-tune slice")
-    if config.remat:
-        raise NotImplementedError("remat comes with the training slice")
+    """Forward: [B, T] ids → [B, T, V] float32 logits (causal LM).
+
+    ``lora`` is a tree from :func:`rayfed_tpu_torch.models.lora.init_lora`;
+    its ``layers`` entries add their bypass to the matching projections.
+    With ``config.remat`` each layer runs under ``torch.utils.checkpoint``
+    (non-reentrant, so the backward re-runs the layer's forward, flash
+    kernel included); ``remat_policy="dots"`` keeps the weight products.
+    """
     b, t = input_ids.shape
     x = params["embed"].to(config.dtype)[input_ids]
     if positions is None:
         positions = torch.arange(t, device=input_ids.device)
     cos, sin = rope_tables(positions, config.head_dim, config.rope_theta)
+    lora_layers = (lora or {}).get("layers") or {}
+
+    def layer_body(x, i):
+        def lget(name):
+            entry = lora_layers.get(name)
+            if entry is None:
+                return None
+            return {"a": entry["a"][i], "b": entry["b"][i], "scale": entry["scale"]}
+
+        x, _ = _layer_fwd(x, _layer(params, i), config, cos, sin, attn_fn, b, t, lget)
+        return x
+
+    if config.remat:
+        # The layers draw no random numbers: no RNG state to stash.
+        kw: Dict[str, Any] = dict(use_reentrant=False, preserve_rng_state=False)
+        if config.remat_policy == "dots":
+            kw["context_fn"] = functools.partial(
+                create_selective_checkpoint_contexts, _save_weight_products
+            )
+        elif config.remat_policy is not None:  # unreachable past __post_init__
+            raise AssertionError(config.remat_policy)
+        body = layer_body
+        layer_body = lambda x, i: checkpoint(body, x, i, **kw)  # noqa: E731
     for i in range(config.num_layers):
-        x, _ = _layer_fwd(x, _layer(params, i), config, cos, sin, attn_fn, b, t)
+        x = layer_body(x, i)
     return _lm_head(x, params, config)
 
 
@@ -482,3 +542,218 @@ def greedy_generate(
 ) -> torch.Tensor:
     """Greedy decoding (temperature-0 :func:`generate`)."""
     return generate(params, config, prompt_ids, max_new_tokens, attn_fn=attn_fn)
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+
+def lm_loss(logits: torch.Tensor, targets: torch.Tensor, mask=None) -> torch.Tensor:
+    """Next-token cross entropy; ``targets``[i] is the label for pos i."""
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, targets[..., None].long())[..., 0]
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()
+
+
+def _adam_update(params, grads, opt, lr, b1, b2, eps, *, inplace=False):
+    """Adam step; arithmetic in float32 whatever the storage dtype (params
+    and ``m`` may be bfloat16, ``v`` is float32 — see :func:`init_adam`).
+
+    Returns new tensors, or with ``inplace`` writes the results into
+    ``params``, ``m``, ``v`` and ``count`` and returns those same tensors.
+    """
+    count, m, v = opt
+    f32 = torch.float32
+    new_count = count + 1
+
+    def put(old, new):
+        new = new.to(old.dtype)
+        return old.copy_(new) if inplace else new
+
+    m = pytree.tree_map(lambda m_, g: put(m_, b1 * m_.to(f32) + (1 - b1) * g.to(f32)), m, grads)
+    v = pytree.tree_map(lambda v_, g: put(v_, b2 * v_.to(f32) + (1 - b2) * g.to(f32) ** 2), v, grads)
+    # Bias corrections in f32 from the int32 count, as the reference's.
+    step = new_count.to(f32)
+    mhat_scale = 1.0 / (1 - torch.tensor(b1, dtype=f32, device=step.device) ** step)
+    vhat_scale = 1.0 / (1 - torch.tensor(b2, dtype=f32, device=step.device) ** step)
+    params = pytree.tree_map(
+        lambda p, m_, v_: put(
+            p,
+            p.to(f32) - lr * (m_.to(f32) * mhat_scale) / (torch.sqrt(v_.to(f32) * vhat_scale) + eps),
+        ),
+        params, m, v,
+    )
+    return params, (put(count, new_count), m, v)
+
+
+def _value_and_grad(loss_fn, tree, *args):
+    """``(loss, grads)`` of ``loss_fn(tree, *args)`` w.r.t. every leaf of
+    ``tree``.  Leaves are detached aliases (the inputs are not touched); a
+    LoRA ``scale`` leaf is used detached by the model and gets a zero grad."""
+    leaves, spec = pytree.tree_flatten(tree)
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_(True) for x in leaves]
+        loss = loss_fn(pytree.tree_unflatten(leaves, spec), *args)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
+    return loss.detach(), pytree.tree_unflatten(grads, spec)
+
+
+def _lora_loss(config, attn_fn):
+    def loss_fn(lora, base_params, ids):
+        logits = apply_llama(base_params, ids, config, lora=lora, attn_fn=attn_fn)
+        return lm_loss(logits[:, :-1], ids[:, 1:])
+
+    return loss_fn
+
+
+def _full_loss(config, attn_fn):
+    def loss_fn(params, ids):
+        logits = apply_llama(params, ids, config, attn_fn=attn_fn)
+        return lm_loss(logits[:, :-1], ids[:, 1:])
+
+    return loss_fn
+
+
+def make_lora_train_step(
+    config: LlamaConfig,
+    lr: float = 1e-4,
+    *,
+    attn_fn: Callable = dot_product_attention,
+    b1: float = 0.9,
+    b2: float = 0.999,
+    eps: float = 1e-8,
+    donate: bool = False,
+):
+    """Adam train step over **LoRA params only** (base weights frozen).
+
+    Signature: (lora, opt, base_params, ids) → (lora, opt, loss); the
+    next-token targets are ``ids`` shifted left.  ``opt`` = (step, m, v)
+    from :func:`init_adam`.  By default the inputs are left intact and new
+    tensors returned; ``donate=True`` updates ``lora`` and ``opt`` in place
+    (the reference donates their buffers) and returns them.
+    """
+    loss_fn = _lora_loss(config, attn_fn)
+
+    def step(lora, opt, base_params, ids):
+        loss, grads = _value_and_grad(loss_fn, lora, base_params, ids)
+        lora, opt = _adam_update(lora, grads, opt, lr, b1, b2, eps, inplace=donate)
+        return lora, opt, loss
+
+    return step
+
+
+def make_train_step(
+    config: LlamaConfig,
+    lr: float = 3e-4,
+    *,
+    attn_fn: Callable = dot_product_attention,
+    b1: float = 0.9,
+    b2: float = 0.999,
+    eps: float = 1e-8,
+    donate: bool = False,
+):
+    """Full-parameter Adam train step: (params, opt, ids) → (params, opt, loss).
+
+    The reference always donates params and both moments; here the inputs
+    are left intact unless ``donate=True``, which updates them in place.
+    """
+    loss_fn = _full_loss(config, attn_fn)
+
+    def step(params, opt, ids):
+        loss, grads = _value_and_grad(loss_fn, params, ids)
+        params, opt = _adam_update(params, grads, opt, lr, b1, b2, eps, inplace=donate)
+        return params, opt, loss
+
+    return step
+
+
+def make_train_loop(
+    config: LlamaConfig,
+    num_steps: int,
+    lr: float = 3e-4,
+    *,
+    attn_fn: Callable = dot_product_attention,
+    b1: float = 0.9,
+    b2: float = 0.999,
+    eps: float = 1e-8,
+    donate: bool = False,
+):
+    """N full-param Adam steps: (params, opt, ids) → (params, opt, losses[num_steps]).
+
+    The reference's one compiled ``lax.scan``; here N calls of
+    :func:`make_train_step`'s step (``donate`` as there).
+    """
+    step = make_train_step(config, lr, attn_fn=attn_fn, b1=b1, b2=b2, eps=eps, donate=donate)
+
+    def run(params, opt, ids):
+        losses = []
+        for _ in range(num_steps):
+            params, opt, loss = step(params, opt, ids)
+            losses.append(loss)
+        return params, opt, torch.stack(losses)
+
+    return run
+
+
+def make_lora_train_loop(
+    config: LlamaConfig,
+    num_steps: int,
+    lr: float = 1e-4,
+    *,
+    attn_fn: Callable = dot_product_attention,
+    b1: float = 0.9,
+    b2: float = 0.999,
+    eps: float = 1e-8,
+    donate: bool = False,
+):
+    """N LoRA Adam steps: (lora, opt, base_params, ids) → (lora, opt, losses[num_steps]).
+
+    N calls of :func:`make_lora_train_step`'s step (``donate`` as there).
+    """
+    step = make_lora_train_step(
+        config, lr, attn_fn=attn_fn, b1=b1, b2=b2, eps=eps, donate=donate
+    )
+
+    def run(lora, opt, base_params, ids):
+        losses = []
+        for _ in range(num_steps):
+            lora, opt, loss = step(lora, opt, base_params, ids)
+            losses.append(loss)
+        return lora, opt, torch.stack(losses)
+
+    return run
+
+
+def param_count(params: Params, *, exclude_embed: bool = False) -> int:
+    """Total parameter count (optionally excluding the embedding table).
+
+    Reads only shapes, so a tree of ``meta`` tensors counts without
+    allocating.
+    """
+    return sum(
+        math.prod(leaf.shape)
+        for path, leaf in pytree.tree_flatten_with_path(params)[0]
+        if not (exclude_embed and "embed" in pytree.keystr(path))
+    )
+
+
+def init_adam(params: Params):
+    """Adam state (step, m, v): a 0-d int32 count and zero moments.
+
+    ``v`` is float32 whatever the param storage dtype: with b2=0.999 the
+    0.1% per-step EMA change is under half a bf16 ulp, so a bfloat16 second
+    moment could grow but never decay.  ``m`` follows the param dtype.  The
+    count lives on the params' device.
+    """
+    leaves = pytree.tree_leaves(params)
+    device = leaves[0].device if leaves else torch.device("cpu")
+    return (
+        torch.zeros((), dtype=torch.int32, device=device),
+        pytree.tree_map(torch.zeros_like, params),
+        pytree.tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params),
+    )

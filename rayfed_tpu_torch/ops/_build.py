@@ -83,3 +83,18 @@ def flash_fwd_lib() -> ctypes.CDLL:
     lib.rf_cuda_error_string.argtypes = [i32]
     lib.rf_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def flash_bwd_lib() -> ctypes.CDLL:
+    """The flash-attention backward kernels (dQ, dK/dV), built and loaded once."""
+    lib = ctypes.CDLL(str(build("flash_bwd")))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    tail = [i32] * 7 + [ctypes.c_float] + [i32] * 4 + [ptr]
+    lib.rf_flash_bwd_dq.argtypes = [ptr] * 7 + tail
+    lib.rf_flash_bwd_dkv.argtypes = [ptr] * 8 + tail
+    lib.rf_flash_bwd_dq.restype = i32
+    lib.rf_flash_bwd_dkv.restype = i32
+    lib.rf_cuda_error_string.argtypes = [i32]
+    lib.rf_cuda_error_string.restype = ctypes.c_char_p
+    return lib

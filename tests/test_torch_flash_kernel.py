@@ -1,20 +1,32 @@
-"""The CUDA flash-attention kernel vs its plain version, on the card.
+"""The CUDA flash-attention kernels vs their plain versions, on the card.
 
 Needs an NVIDIA card and nvcc; skipped elsewhere.  This file imports no JAX,
 so it runs where only the port is installed:
 
     python -m pytest --noconftest -m gpu tests/test_torch_flash_kernel.py
 
-Tolerances: f32 inputs differ from the plain version only in summation
-order (1e-4).  bf16 outputs are one bf16 rounding apart at most (|o| < 5:
-4e-2); lse is f32 from exact bf16 products (1e-3).
+Forward tolerances: f32 inputs differ from the plain version only in
+summation order (1e-4).  bf16 outputs are one bf16 rounding apart at most
+(|o| < 5: 4e-2); lse is f32 from exact bf16 products (1e-3).
+
+Backward tolerances, as a share of the plain gradient's max |g| plus a
+share of |g|: f32 in and out, summation order only (1e-4 + 1e-4·|g|).
+bf16: both versions round dS and P to bf16 before the second products, and
+the kernel's f32 scores differ from the plain version's in the last bits,
+so a few dS values round the other way; the gradients are then rounded to
+bf16 (2⁻⁶·|g|) and sums over up to 1000 keys add the flipped roundings
+(1e-2·max|g|).  Where no key is visible to a query, or no query to a key,
+the gradient must be exactly 0.
 """
 
 import pytest
 import torch
 
+from rayfed_tpu_torch.ops.attention import dot_product_attention
 from rayfed_tpu_torch.ops.flash_attention import (
     NEG_INF,
+    _flash_backward,
+    _flash_backward_reference,
     _flash_forward,
     _flash_forward_reference,
     flash_attention,
@@ -73,3 +85,63 @@ def test_unsupported_head_dim_raises(cuda):
     q = torch.zeros(1, 8, 96, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
         _flash_forward(q, q, q, scale=1.0, causal=True)
+
+
+BWD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 2.0**-6)}
+
+
+def _seen_keys(t_q, t_k, causal, q_off, kv_off, window, device):
+    """Which keys some query sees (the others must get dK = dV = 0)."""
+    if not causal:
+        return torch.ones(t_k, dtype=torch.bool, device=device)
+    q_pos = q_off + torch.arange(t_q, device=device)[:, None]
+    k_pos = kv_off + torch.arange(t_k, device=device)[None, :]
+    vis = q_pos >= k_pos
+    if window is not None:
+        vis = vis & (q_pos - k_pos < window)
+    return vis.any(dim=0)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_backward_kernels_match_plain_version(cuda, case):
+    bh, t_q, t_k, d, dtype, out_dtype, causal, q_off, kv_off, window = CASES[case]
+    g = torch.Generator(device=cuda).manual_seed(len(case) + 100)
+    q = torch.randn(bh, t_q, d, generator=g, device=cuda).to(dtype)
+    k = torch.randn(bh, t_k, d, generator=g, device=cuda).to(dtype)
+    v = torch.randn(bh, t_k, d, generator=g, device=cuda).to(dtype)
+    do = torch.randn(bh, t_q, d, generator=g, device=cuda).to(dtype)
+    kw = dict(scale=d**-0.5, causal=causal, q_offset=q_off, kv_offset=kv_off, window=window)
+    o, lse = _flash_forward(q, k, v, **kw)
+    before = (flash_attention.bwd_dq_launches, flash_attention.bwd_dkv_launches)
+    grads = _flash_backward(q, k, v, o, lse, do, out_dtype=out_dtype, **kw)
+    torch.cuda.synchronize()
+    assert (flash_attention.bwd_dq_launches, flash_attention.bwd_dkv_launches) == (
+        before[0] + 1, before[1] + 1)
+    refs = _flash_backward_reference(q, k, v, o, lse, do, out_dtype=out_dtype, **kw)
+    atol_frac, rtol = BWD_TOL[dtype]
+    for name, got, ref in zip(("dq", "dk", "dv"), grads, refs):
+        assert got.dtype == ref.dtype and got.shape == ref.shape, name
+        ref32 = ref.float()
+        err = (got.float() - ref32).abs()
+        limit = atol_frac * ref32.abs().max() + rtol * ref32.abs()
+        assert bool(torch.all(err <= limit)), f"{name}: max err {err.max().item():.3e}"
+    dq, dk, dv = grads
+    assert torch.all(dq[lse <= NEG_INF / 2] == 0)
+    unseen = ~_seen_keys(t_q, t_k, causal, q_off, kv_off, window, cuda)
+    assert torch.all(dk[:, unseen] == 0) and torch.all(dv[:, unseen] == 0)
+
+
+@pytest.mark.parametrize("kw", [dict(causal=True), dict(causal=True, window=40),
+                                dict(causal=False)], ids=["causal", "window", "dense"])
+def test_autograd_through_the_kernels_matches_dense(cuda, kw):
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v, w = (torch.randn(2, 130, 4, 64, generator=g, device=cuda) for _ in range(4))
+    grads = []
+    for fn in (flash_attention, dot_product_attention):
+        qkv = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        before = flash_attention.bwd_dq_launches
+        (fn(*qkv, **kw) * w).sum().backward()
+        assert flash_attention.bwd_dq_launches == before + (fn is flash_attention)
+        grads.append([x.grad for x in qkv])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=1e-4 * b.abs().max().item(), rtol=1e-4)

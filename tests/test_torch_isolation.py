@@ -1,5 +1,6 @@
 """The port stands alone: it imports neither JAX nor the reference package,
-picks the card unless told otherwise, and never differentiates silently."""
+picks the card unless told otherwise, and differentiates flash attention
+through its own backward."""
 
 import re
 import subprocess
@@ -9,6 +10,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from rayfed_tpu_torch.ops.attention import dot_product_attention
 from rayfed_tpu_torch.ops.flash_attention import flash_attention
 from rayfed_tpu_torch.utils import platform
 
@@ -64,8 +66,8 @@ def test_resolve_device_raises_without_a_card(monkeypatch):
 
 
 def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
-    from rayfed_tpu_torch.models import llama
-    from rayfed_tpu_torch.models.convert import llama_params_from_jax
+    from rayfed_tpu_torch.models import llama, lora
+    from rayfed_tpu_torch.models.convert import adam_from_jax, llama_params_from_jax, lora_from_jax
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = llama.llama_tiny()
@@ -73,16 +75,29 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
         llama.init_llama(cfg, torch.Generator())
     with pytest.raises(RuntimeError):
         llama.init_kv_cache(cfg, 1, 8)
+    params = llama.init_llama(cfg, torch.Generator(), device="cpu")
     with pytest.raises(RuntimeError):
-        llama_params_from_jax({})
+        lora.init_lora(params, lora.LoraConfig(), torch.Generator())
+    for convert in (llama_params_from_jax, lora_from_jax, adam_from_jax):
+        with pytest.raises(RuntimeError):
+            convert({})
     assert llama.init_kv_cache(cfg, 1, 8, device="cpu")["k"].device.type == "cpu"
+    adapters = lora.init_lora(params, lora.LoraConfig(), torch.Generator(), device="cpu")
+    assert adapters["layers"]["wq"]["a"].device.type == "cpu"
 
 
 @pytest.mark.parametrize("which", [0, 1, 2])
 def test_flash_attention_refuses_inputs_needing_grad(which):
-    qkv = [torch.zeros(1, 8, 2, 8) for _ in range(3)]
-    qkv[which].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="training"):
-        flash_attention(*qkv, causal=True)
-    with torch.no_grad():  # nothing to differentiate: runs
-        assert flash_attention(*qkv, causal=True).shape == (1, 8, 2, 8)
+    """The gradient of each input flows through the flash backward (on the
+    CPU its plain version) and matches the dense path's."""
+    rng = torch.Generator().manual_seed(which)
+    qkv = [torch.randn(1, 8, 2, 8, generator=rng) for _ in range(3)]
+    w = torch.randn(1, 8, 2, 8, generator=rng)
+    grads = []
+    for fn in (flash_attention, dot_product_attention):
+        args = [x.clone() for x in qkv]
+        args[which].requires_grad_(True)
+        (fn(*args, causal=True) * w).sum().backward()
+        grads.append(args[which].grad)
+    assert grads[0] is not None and grads[0].abs().max() > 0
+    torch.testing.assert_close(grads[0], grads[1], atol=1e-5, rtol=1e-5)
