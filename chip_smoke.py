@@ -4,7 +4,10 @@
 
 Phases, each fatal on failure:
   1. build the CUDA kernels from the sources in the checkout (one nvcc per
-     source, in parallel);
+     source, in parallel); print each kernel function's registers and
+     spills (-Xptxas -v) and its HGMMA (wgmma) and UTMALDG (TMA load)
+     instructions (cuobjdump -sass), and fail if the tensor-core kernels
+     have none;
   2. hold each kernel against its plain PyTorch version on the card, at the
      main paths' shapes and at the edge cases (window, offsets with fully
      masked rows, ragged T, head dim 64, f32 in/out, f32 gradients from
@@ -20,8 +23,10 @@ Phases, each fatal on failure:
      counts per step, finite and falling losses and unchanged adapter
      scales; then, at depth 4, hold every adapter gradient through flash
      attention against the one through dense attention;
-  5. time each kernel against its plain version, the library call that
-     computes the same function, and the card's bound.
+  5. time each kernel (mean over one window of calls) against its plain
+     version, the library call that computes the same function, and the
+     card's bound (the forward at the serving shape B=4 and at the training
+     shape B=1).
 Prints the card (nvidia-smi), a JSON line of kernel numbers and, last, the
 result line.  Exits non-zero without a result when there is no CUDA card.
 Imports neither JAX nor the JAX package.
@@ -30,6 +35,9 @@ Imports neither JAX nor the JAX package.
 from __future__ import annotations
 
 import json
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -117,6 +125,57 @@ def _zero_counts():
         setattr(flash_attention, f"{name}_launches", 0)
 
 
+# The tensor-core kernel of each source: each of its 4 instantiations (head
+# dim 64/128 x bf16/f32 output) must hold wgmma and TMA loads.
+TENSOR_CORE_KERNELS = {"flash_fwd": "flash_fwd_wgmma", "flash_bwd": "flash_bwd_dkv_wgmma"}
+
+
+def _cuda_tool(name):
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    return shutil.which(name) or os.path.join(cuda_home, "bin", name)
+
+
+def _demangle(names):
+    try:
+        out = subprocess.run([_cuda_tool("cu++filt"), *names], capture_output=True,
+                             text=True, check=True).stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError):
+        return {n: n for n in names}
+    return dict(zip(names, out)) if len(out) == len(names) else {n: n for n in names}
+
+
+def _ptxas_info(log):
+    """Per kernel function: (registers, spill store bytes, spill load bytes)."""
+    info, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            info[name] = [None, int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name in info:
+            info[name][0] = int(m.group(1))
+    return info
+
+
+def _sass_counts(lib_path):
+    """Per kernel function: its HGMMA and UTMALDG instructions (cuobjdump -sass)."""
+    sass = subprocess.run([_cuda_tool("cuobjdump"), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = {"HGMMA": 0, "UTMALDG": 0}
+        elif name:
+            for op in counts[name]:
+                counts[name][op] += op in line
+    return counts
+
+
 def phase_build():
     names = ("flash_fwd", "flash_bwd")
     t0 = time.perf_counter()
@@ -126,12 +185,26 @@ def phase_build():
     _build.flash_bwd_lib()
     built = ", ".join(f"{n} -> {p.name}" for n, p in zip(names, paths))
     print(f"[build] {built} in {time.perf_counter() - t0:.2f} s")
-    for name in names:
+    for name, path in zip(names, paths):
         log = _build.log_path(name)
-        if log.exists():
-            for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line or "Function properties" in line:
-                    print(f"[build]   {name}: {line.strip()[:150]}")
+        log = log.read_text() if log.exists() else ""
+        for line in log.splitlines():
+            if "warning" in line:
+                print(f"[build]   {name}: {line.strip()[:200]}")
+        ptxas = _ptxas_info(log)
+        sass = _sass_counts(path)
+        readable = _demangle(sorted(sass))
+        for fn in sorted(sass):
+            regs, spill_st, spill_ld = ptxas.get(fn, (None, None, None))
+            print(f"[build]   {name}: {readable[fn][:110]}: {regs} registers, spill stores "
+                  f"{spill_st} B, spill loads {spill_ld} B, HGMMA {sass[fn]['HGMMA']}, "
+                  f"UTMALDG {sass[fn]['UTMALDG']}")
+        fns = [fn for fn in sass if TENSOR_CORE_KERNELS[name] in fn]
+        if len(fns) != 4:
+            raise AssertionError(f"expected 4 instantiations of {TENSOR_CORE_KERNELS[name]}, got {len(fns)}")
+        for fn in fns:
+            if not (sass[fn]["HGMMA"] and sass[fn]["UTMALDG"]):
+                raise AssertionError(f"{readable[fn]} has no HGMMA or no UTMALDG: {sass[fn]}")
 
 
 def _qkv(gen, bh, t_q, t_k, d, dtype):
@@ -422,33 +495,49 @@ def phase_bwd_times(gen, card):
     out = {}
     for name, ms, plain, n_mm, n_io in (("dq", dq_ms, dq_plain, 3, 5), ("dkv", dkv_ms, dkv_plain, 4, 6)):
         bound_ms, bound_by = _bound(n_mm * mm, n_io * elem + rows, card)
-        out[name] = dict(ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=bound_by, library_ms=sdpa_bwd)
+        tflops = n_mm * mm / ms / 1e9
+        out[name] = dict(ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=bound_by, library_ms=sdpa_bwd,
+                         tflops=tflops, bound_share=bound_ms / ms)
         print(f"[times] flash_bwd_{name} B={b} H={h} T={t} D={d} causal bf16: kernel {ms:.3f} ms, "
               f"plain {plain:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}; {n_mm} products, "
-              f"{(n_io * elem + rows) / 1e6:.1f} MB), {n_mm * mm / ms / 1e9:.1f} TFLOP/s achieved")
+              f"{(n_io * elem + rows) / 1e6:.1f} MB), {tflops:.1f} TFLOP/s achieved, "
+              f"{bound_ms / ms:.3f} of the bound")
     print(f"[times] sdpa backward (dq, dk, dv in one call) {sdpa_bwd:.3f} ms "
           f"(fwd+bwd {sdpa_fwd_bwd:.3f} - fwd {sdpa_fwd:.3f}); kernels dq+dkv {dq_ms + dkv_ms:.3f} ms")
     return out
 
 
-def phase_times(gen, card):
-    b, h, t, d = BATCH, 32, PROMPT_LEN, 128
+def _fwd_times(gen, card, b):
+    h, t, d = 32, PROMPT_LEN, 128
     q, k, v = _qkv(gen, b * h, t, t, d, torch.bfloat16)
     scale = d**-0.5
     ms = _sync_ms(lambda: _flash_forward(q, k, v, scale=scale, causal=True), iters=20)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()  # the host's side of a call: checks, tensor maps, launch
+    for _ in range(20):
+        _flash_forward(q, k, v, scale=scale, causal=True)
+    host_us = (time.perf_counter() - t0) / 20 * 1e6
+    torch.cuda.synchronize()
     plain_ms = _sync_ms(lambda: _flash_forward_reference(q, k, v, scale=scale, causal=True), iters=5)
     q4, k4, v4 = (x.view(b, h, t, d) for x in (q, k, v))
     library_ms = _sync_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True), iters=20)
-    kind, (flops_peak, bytes_peak) = _peaks(card)
     pairs = t * (t + 1) // 2  # visible (q, k) pairs of one causal head
     flops = 4 * b * h * d * pairs  # Q·Kᵀ and P·V
     nbytes = 4 * b * h * t * d * 2 + b * h * t * 4  # q, k, v, o in bf16 + f32 lse
-    flop_ms, byte_ms = flops / flops_peak * 1e3, nbytes / bytes_peak * 1e3
-    bound_ms, bound_by = (flop_ms, "operations") if flop_ms >= byte_ms else (byte_ms, "bytes")
+    bound_ms, bound_by = _bound(flops, nbytes, card)
+    tflops = flops / ms / 1e9
     print(f"[times] flash_fwd B={b} H={h} T={t} D={d} causal bf16: kernel {ms:.3f} ms, "
           f"plain {plain_ms:.3f} ms, sdpa {library_ms:.3f} ms, bound {bound_ms:.4f} ms "
-          f"({bound_by}; H100 {kind} peaks; {flops / ms / 1e9:.1f} TFLOP/s achieved)")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+          f"({bound_by}; H100 {_peaks(card)[0]} peaks; {tflops:.1f} TFLOP/s achieved, "
+          f"{bound_ms / ms:.3f} of the bound); host {host_us:.1f} us per call to enqueue it")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                tflops=tflops, bound_share=bound_ms / ms)
+
+
+def phase_times(gen, card):
+    """The forward at the serving shape (B=4) and at the training shape (B=1)."""
+    serve = _fwd_times(gen, card, BATCH)
+    return serve, _fwd_times(gen, card, 1)
 
 
 def main() -> int:
@@ -468,7 +557,7 @@ def main() -> int:
     serve_launches = phase_slice(gen)
     train = phase_train(gen)
     phase_grad_check(gen)
-    times = phase_times(gen, card)
+    times, train_times = phase_times(gen, card)
     bwd_times = phase_bwd_times(gen, card)
 
     smi = subprocess.run(
@@ -489,6 +578,7 @@ def main() -> int:
         "launches_by_path": {"serve": serve_launches, "train": train_launches["fwd"]},
         "max_abs_err": slice_err,
         **times,
+        "train_shape": train_times,  # B=1: the shape the train step launches it at
     }, {
         "name": "flash_bwd_dq",
         "route": "cuda",

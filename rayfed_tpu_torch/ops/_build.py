@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface; ``nvcc`` compiles it for
 ``sm_90a`` into ``rayfed_tpu_torch/_build/lib<name>-<hash>.so`` and ctypes
 loads it.  This keeps PyTorch's headers out of the compile (seconds instead
 of minutes) and needs no ``ninja``.  The file name carries a hash of the
-source and flags, so an edited source is rebuilt and a stale library is
-never loaded.  A failed build raises with the compiler's output.
+source, every shared header (``csrc/*.cuh``) and the flags, so an edited
+source or header is rebuilt and a stale library is never loaded.  A failed
+build raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -43,13 +44,19 @@ def _nvcc() -> str:
     return nvcc
 
 
+def _source_digest(name: str) -> str:
+    """Hash of ``csrc/<name>.cu``, every ``csrc/*.cuh`` header and the flags."""
+    h = hashlib.sha256()
+    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless an up-to-date library exists."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{name}-{digest}.so"
+    out = BUILD_DIR / f"lib{name}-{_source_digest(name)}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -73,13 +80,16 @@ def log_path(name: str) -> Path:
 
 @functools.lru_cache(maxsize=None)
 def flash_fwd_lib() -> ctypes.CDLL:
-    """The flash-attention forward kernel, built and loaded once per process."""
+    """The flash-attention forward kernels (and the Hopper probe), built and
+    loaded once per process."""
     lib = ctypes.CDLL(str(build("flash_fwd")))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.rf_flash_fwd.argtypes = (
         [ptr] * 5 + [i32] * 7 + [ctypes.c_float] + [i32] * 4 + [ptr]
     )
     lib.rf_flash_fwd.restype = i32
+    lib.rf_hopper_probe.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
+    lib.rf_hopper_probe.restype = i32
     lib.rf_cuda_error_string.argtypes = [i32]
     lib.rf_cuda_error_string.restype = ctypes.c_char_p
     return lib

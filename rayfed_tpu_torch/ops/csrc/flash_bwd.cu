@@ -9,46 +9,60 @@
 //   dS = P ∘ (dO Vᵀ − delta),
 //   dQ = scale·dS K,   dK = scale·dSᵀ Q,   dV = Pᵀ dO.
 // The causal / sliding-window / offset masks are those of the forward.
+// Rounding follows the TPU kernels: scores are f32, scaled after the dot;
+// P is rounded to dO's dtype before Pᵀ dO, dS to K's/Q's dtype before
+// dS K and dSᵀ Q; scale is applied to dQ and dK at the end.
 //
 // What bounds it on the H100: each kernel does three (dQ) or four (dK/dV)
 // T×T×D products per head and reads each input once, ~2·T·D flops per byte
 // at T = 2048, D = 128, far above the card's ~295 flop/byte ridge, so the
-// bound is arithmetic.  This first version does the products on the CUDA
-// cores in f32 (no tensor cores), like flash_fwd.cu, and so runs at a
-// fraction of the bf16 tensor-core bound.  Its design:
-//   * Two kernels and no atomics, as on the TPU, so the gradients are
-//     deterministic.  dQ: one block per (bh, tile of 64 q rows), looping
-//     over 32-row k/v tiles; q, dO, lse and delta stay resident and dQ
-//     accumulates in f32 registers.  dK/dV: one block per (bh, tile of 64
-//     k/v rows), looping over 32-row q tiles from the first one that can
-//     see the block; k and v stay resident and dK, dV accumulate in f32
-//     registers.  The loops take the place of the TPU's sequential third
-//     grid axis.
-//   * Each thread owns 4 resident rows x (2 streamed columns of the score
-//     tile, D/16 output columns), so every 128-bit shared-memory read feeds
-//     4-8 FMAs; streamed rows are padded so the 16 column threads of a row
-//     hit 16 different bank groups.  The two score-shaped products (Q Kᵀ
-//     and dO Vᵀ) share one pass over D.
-//   * Tiles are classified as the TPU's `_causal_dispatch` does: skipped,
-//     unmasked, or masked (diagonal or window edge).  A tile that runs past
-//     T is masked too, so any T works.  A q row that sees no key gets
-//     dQ = 0 and a key that no query sees gets dK = dV = 0, exactly.
-//   * The dK/dV kernel's one P-shaped tile of shared memory holds P for the
-//     dV product and then dS for the dK product, so two blocks fit an SM.
-//   * Heaviest tiles start first: dQ launches q tiles last-first, dK/dV
-//     k tiles first-first.
-// Rounding follows the TPU kernels: scores are f32, scaled after the dot;
-// P is rounded to dO's dtype before Pᵀ dO, dS to K's/Q's dtype before
-// dS K and dSᵀ Q; scale is applied to dQ and dK at the end.
-// Tensor cores (mma.sync / wgmma), TMA and pipelining are later work.
+// bound is arithmetic.  Two kernels and no atomics, as on the TPU, so the
+// gradients are deterministic.  Tiles are classified as the TPU's
+// `_causal_dispatch` does (flash_tiles.cuh): skipped, unmasked, or masked
+// (diagonal or window edge); a tile that runs past T is masked too, so any
+// T works.  A q row that sees no key gets dQ = 0 and a key that no query
+// sees gets dK = dV = 0, exactly.
+//
+// dK/dV, bf16 inputs: `flash_bwd_dkv_wgmma`, on the tensor cores.
+//   * One block per (bh, 128 k/v rows), k/v tiles first-first: a producer
+//     warp (of a warpgroup that gives its registers away with setmaxnreg)
+//     and two consumer warpgroups of 64 keys each.  K and V stay resident;
+//     64-row q and dO tiles stream through a 2-stage TMA ring (130 KB at
+//     D = 128), from the first q tile that can see the block to the end of
+//     the window band.  The producer warp's 32 lanes copy the tile's lse
+//     and δ into the stage with plain loads (a bulk copy would need the
+//     row offset 16-byte aligned, which a ragged T breaks) and arrive on
+//     the stage's "full" barrier beside the TMA bytes.
+//   * The scores come out transposed: Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ, wgmma
+//     m64n64k16 with every operand K-major in shared memory.  Pᵀ and dSᵀ
+//     then sit in accumulator registers with the layout of a register A
+//     operand, so dV += Pᵀ·dO and dK += dSᵀ·Q take them packed to bf16
+//     (dO and Q MN-major): no P or dS tile in shared memory.  dK and dV
+//     accumulate in f32 registers across the loop.
+// dQ (every dtype) and dK/dV for f32 inputs: `flash_bwd_dq_kernel` and
+//   `flash_bwd_dkv_kernel`, the first versions, on the CUDA cores in f32.
+//   (f32 inputs stay there by a fixed dtype rule: tensor cores in bf16 or
+//   TF32 would break the f32 tolerance of 1e-4.)  dQ: one block per (bh,
+//   tile of 64 q rows), looping over 32-row k/v tiles; q, dO, lse and delta
+//   stay resident and dQ accumulates in f32 registers.  dK/dV (f32 in and
+//   out only, like the CUDA-core forward): one block per (bh, tile of 64
+//   k/v rows), looping over 32-row q tiles from the
+//   first one that can see the block; one P-shaped tile of shared memory
+//   holds P for the dV product and then dS for the dK product.  Each
+//   thread owns 4 resident rows x (2 streamed columns of the score tile,
+//   D/16 output columns); the two score-shaped products share one pass
+//   over D.  Heaviest tiles start first: dQ launches q tiles last-first,
+//   dK/dV k tiles first-first.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "flash_tiles.cuh"
+#include "hopper.cuh"
+
 namespace {
 
-constexpr float NEG_INF = -1e30f;
 constexpr int BLOCK_R = 64;             // resident rows per block
 constexpr int BLOCK_C = 32;             // streamed rows per loop step
 constexpr int THREADS = 256;            // 16 x 16: ty picks rows, tx columns
@@ -185,34 +199,9 @@ __device__ __forceinline__ void accumulate(const float* tile, const float* b,
   }
 }
 
-// `_causal_dispatch` for a (q tile, k/v tile) pair: whether the pair is
-// active (some pair of positions is visible) and whether it straddles the
-// diagonal or the window edge (some pair is not).
-struct TileClass {
-  bool active;
-  bool straddles;
-};
-
-__device__ __forceinline__ TileClass classify(int q_first, int q_last,
-                                              int kv_first, int kv_last,
-                                              int causal, int window) {
-  TileClass c{true, false};
-  if (causal) {
-    c.active = kv_first <= q_last;
-    c.straddles = kv_last > q_first;
-    if (window > 0) {
-      c.active = c.active && kv_last > q_first - window;
-      c.straddles = c.straddles || q_last - kv_first >= window;
-    }
-  }
-  return c;
-}
-
-__device__ __forceinline__ bool visible(int q_pos, int k_pos, int causal,
-                                        int window) {
-  if (!causal) return true;
-  return q_pos >= k_pos && (window <= 0 || q_pos - k_pos < window);
-}
+using flash::classify;
+using flash::TileClass;
+using flash::visible;
 
 template <int D>
 constexpr size_t dq_smem_bytes() {
@@ -312,13 +301,13 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
 }
 
-template <typename T, typename TO, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS, 2)
-    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ d_o,
+    flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ d_o,
                          const float* __restrict__ lse,
-                         const float* __restrict__ delta, TO* __restrict__ dk,
-                         TO* __restrict__ dv, int t_q, int t_k, float scale,
+                         const float* __restrict__ delta, float* __restrict__ dk,
+                         float* __restrict__ dv, int t_q, int t_k, float scale,
                          int causal, int q_offset, int kv_offset, int window) {
   constexpr int BSTRIDE = D + 4;
   constexpr int OCOLS = D / 16;
@@ -336,13 +325,13 @@ __global__ void __launch_bounds__(THREADS, 2)
   const int ty = tid / 16;
   const size_t bh = blockIdx.x;
   const int k0 = blockIdx.y * BLOCK_R;
-  const T* qb = q + bh * t_q * D;
-  const T* dob = d_o + bh * t_q * D;
+  const float* qb = q + bh * t_q * D;
+  const float* dob = d_o + bh * t_q * D;
   const float* lseb = lse + bh * t_q;
   const float* deltab = delta + bh * t_q;
 
-  load_rows<T, D>(sk, D, k + bh * t_k * D, k0, BLOCK_R, t_k);
-  load_rows<T, D>(sv, D, v + bh * t_k * D, k0, BLOCK_R, t_k);
+  load_rows<float, D>(sk, D, k + bh * t_k * D, k0, BLOCK_R, t_k);
+  load_rows<float, D>(sv, D, v + bh * t_k * D, k0, BLOCK_R, t_k);
   float dk_acc[ROWS][OCOLS], dv_acc[ROWS][OCOLS];
 #pragma unroll
   for (int i = 0; i < ROWS; ++i)
@@ -374,8 +363,8 @@ __global__ void __launch_bounds__(THREADS, 2)
         tc.straddles || q0 + BLOCK_C > t_q || k0 + BLOCK_R > t_k;
 
     __syncthreads();  // the last tile's products are done with sq, sdo, sp
-    load_rows<T, D>(sq, BSTRIDE, qb, q0, BLOCK_C, t_q);
-    load_rows<T, D>(sdo, BSTRIDE, dob, q0, BLOCK_C, t_q);
+    load_rows<float, D>(sq, BSTRIDE, qb, q0, BLOCK_C, t_q);
+    load_rows<float, D>(sdo, BSTRIDE, dob, q0, BLOCK_C, t_q);
     if (tid < BLOCK_C) {
       const bool in = q0 + tid < t_q;
       slse[tid] = in ? lseb[q0 + tid] : 0.f;
@@ -397,8 +386,8 @@ __global__ void __launch_bounds__(THREADS, 2)
         if (masked && !(q0 + col < t_q && k0 + row < t_k &&
                         visible(q_first + col, kv_first + row, causal, window)))
           p = 0.f;
-        ds[i][j] = round_to<T>(p * (dp[i][j] - sdelta[col]));
-        sp[row * PSTRIDE + col] = round_to<T>(p);
+        ds[i][j] = p * (dp[i][j] - sdelta[col]);
+        sp[row * PSTRIDE + col] = p;
       }
     __syncthreads();
     accumulate<D>(sp, sdo, ty, tx, dv_acc);  // dV += Pᵀ dO
@@ -416,14 +405,14 @@ __global__ void __launch_bounds__(THREADS, 2)
   for (int i = 0; i < ROWS; ++i) {
     const int r = k0 + ty + 16 * i;
     if (r >= t_k) continue;
-    TO* dk_row = dk + (bh * t_k + r) * D;
-    TO* dv_row = dv + (bh * t_k + r) * D;
+    float* dk_row = dk + (bh * t_k + r) * D;
+    float* dv_row = dv + (bh * t_k + r) * D;
 #pragma unroll
     for (int g = 0; g < D / 64; ++g)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        dk_row[64 * g + 4 * tx + e] = from_float<TO>(dk_acc[i][4 * g + e] * scale);
-        dv_row[64 * g + 4 * tx + e] = from_float<TO>(dv_acc[i][4 * g + e]);
+        dk_row[64 * g + 4 * tx + e] = dk_acc[i][4 * g + e] * scale;
+        dv_row[64 * g + 4 * tx + e] = dv_acc[i][4 * g + e];
       }
   }
 }
@@ -453,35 +442,244 @@ cudaError_t launch_dq(const Args& a, void* dq) {
   return cudaGetLastError();
 }
 
-template <typename T, typename TO, int D>
+template <int D>
 cudaError_t launch_dkv(const Args& a, void* dk, void* dv) {
   constexpr size_t smem = dkv_smem_bytes<D>();
-  auto kernel = flash_bwd_dkv_kernel<T, TO, D>;
+  auto kernel = flash_bwd_dkv_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.bh, (a.t_k + BLOCK_R - 1) / BLOCK_R);
   kernel<<<grid, THREADS, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.d_o),
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.d_o),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<TO*>(dk), static_cast<TO*>(dv), a.t_q, a.t_k, a.scale,
+      static_cast<float*>(dk), static_cast<float*>(dv), a.t_q, a.t_k, a.scale,
       a.causal, a.q_offset, a.kv_offset, a.window);
   return cudaGetLastError();
 }
 
+// ------------------------------------------ bf16 dK/dV: wgmma fed by TMA
+
+constexpr int TC_KEYS = 128;     // k/v rows per block: two consumer warpgroups of 64
+constexpr int TC_Q = 64;         // q rows per streamed tile
+constexpr int TC_STAGES = 2;     // q/dO tiles in flight
+constexpr int TC_THREADS = 384;  // producer warpgroup + two consumer warpgroups
+constexpr uint32_t KV_BOX = TC_KEYS * 128;  // bytes of one [rows][64] box
+constexpr uint32_t Q_BOX = TC_Q * 128;
+
+template <int D>
+struct DkvTiles {  // each [rows][64] box 1024-byte aligned (16 KB or 8 KB)
+  __nv_bfloat16 k[D / 64][TC_KEYS][64];
+  __nv_bfloat16 v[D / 64][TC_KEYS][64];
+  __nv_bfloat16 q[TC_STAGES][D / 64][TC_Q][64];
+  __nv_bfloat16 d_o[TC_STAGES][D / 64][TC_Q][64];
+  float lse[TC_STAGES][TC_Q];
+  float delta[TC_STAGES][TC_Q];
+  uint64_t kv_full;
+  uint64_t full[TC_STAGES];   // q, dO (TMA bytes) and lse, δ (32 producer lanes)
+  uint64_t empty[TC_STAGES];  // both consumer warpgroups are done with the stage
+};
+
+template <int D, typename TO>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+    flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v,
+                        const __grid_constant__ CUtensorMap tm_do,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        TO* __restrict__ dk, TO* __restrict__ dv, int t_q, int t_k, float scale,
+                        int causal, int q_offset, int kv_offset, int window) {
+  using namespace hopper;
+  DkvTiles<D>& sm = aligned_smem<DkvTiles<D>>();
+  const int wg = threadIdx.x / 128;
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * TC_KEYS;
+  const int kv_first = kv_offset + k0;
+  const int kv_last = kv_first + TC_KEYS - 1;
+  const int num_q = (t_q + TC_Q - 1) / TC_Q;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.kv_full, 1);
+    for (int s = 0; s < TC_STAGES; ++s) {
+      mbar_init(&sm.full[s], 1 + 32);
+      mbar_init(&sm.empty[s], 256);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // the producer: warp 0; lane 0 issues every TMA load
+    regs_release<24>();
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(&sm.kv_full, sizeof(sm.k) + sizeof(sm.v));
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load_3d(sm.k[c], &tm_k, &sm.kv_full, 64 * c, k0, bh);
+        tma_load_3d(sm.v[c], &tm_v, &sm.kv_full, 64 * c, k0, bh);
+      }
+    }
+    const float* lse_b = lse + (size_t)bh * t_q;
+    const float* delta_b = delta + (size_t)bh * t_q;
+    int it = 0;  // active tiles so far: stage it % 2, ring pass it / 2
+    for (int qt = 0; qt < num_q; ++qt) {
+      const int q0 = qt * TC_Q;
+      const int q_first = q_offset + q0;
+      if (!classify(q_first, q_first + TC_Q - 1, kv_first, kv_last, causal, window).active)
+        continue;
+      const int s = it % TC_STAGES;
+      mbar_wait(&sm.empty[s], ((it / TC_STAGES) & 1) ^ 1);
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&sm.full[s], sizeof(sm.q[0]) + sizeof(sm.d_o[0]));
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load_3d(sm.q[s][c], &tm_q, &sm.full[s], 64 * c, q0, bh);
+          tma_load_3d(sm.d_o[s][c], &tm_do, &sm.full[s], 64 * c, q0, bh);
+        }
+      }
+      for (int i = lane; i < TC_Q; i += 32) {
+        const bool in = q0 + i < t_q;
+        sm.lse[s][i] = in ? lse_b[q0 + i] : 0.f;
+        sm.delta[s][i] = in ? delta_b[q0 + i] : 0.f;
+      }
+      mbar_arrive(&sm.full[s]);
+      ++it;
+    }
+    return;
+  }
+
+  // A consumer warpgroup: keys cw*64 .. cw*64 + 63 of the block.  This
+  // thread holds key rows `row` and `row + 8`; in the transposed score
+  // tiles, query columns 8j + 2t + (0, 1) of the q tile.
+  regs_claim<240>();
+  const int cw = wg - 1;
+  const int lane = threadIdx.x % 32;
+  const int t = lane % 4;
+  const int row = cw * 64 + (threadIdx.x % 128) / 32 * 16 + lane / 4;
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) {
+    dk_acc[i] = 0.f;
+    dv_acc[i] = 0.f;
+  }
+  mbar_wait(&sm.kv_full, 0);
+
+  int it = 0;
+  for (int qt = 0; qt < num_q; ++qt) {
+    const int q0 = qt * TC_Q;
+    const int q_first = q_offset + q0;
+    const TileClass tc = classify(q_first, q_first + TC_Q - 1, kv_first, kv_last, causal, window);
+    if (!tc.active) continue;
+    const bool masked = tc.straddles || q0 + TC_Q > t_q || k0 + TC_KEYS > t_k;
+    const int s = it % TC_STAGES;
+    mbar_wait(&sm.full[s], (it / TC_STAGES) & 1);
+
+    const uint32_t k_rows = smem_u32(sm.k[0][cw * 64]);
+    const uint32_t v_rows = smem_u32(sm.v[0][cw * 64]);
+    const uint32_t q_tile = smem_u32(sm.q[s]);
+    const uint32_t do_tile = smem_u32(sm.d_o[s]);
+    float st[TC_Q / 2], dpt[TC_Q / 2];  // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ, f32
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<TC_Q>(st, desc_k_major(k_rows + kk / 4 * KV_BOX, kk % 4),
+                     desc_k_major(q_tile + kk / 4 * Q_BOX, kk % 4), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<TC_Q>(dpt, desc_k_major(v_rows + kk / 4 * KV_BOX, kk % 4),
+                     desc_k_major(do_tile + kk / 4 * Q_BOX, kk % 4), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    // Pᵀ (unrounded, 0 where masked) into st, dSᵀ = Pᵀ∘(dPᵀ − δ) into dpt.
+#pragma unroll
+    for (int j = 0; j < TC_Q / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * t + e;
+        const float lse_c = sm.lse[s][col];
+        const float delta_c = sm.delta[s][col];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int i = 4 * j + 2 * r + e;
+          float p = __expf(st[i] * scale - lse_c);
+          if (masked && !(q0 + col < t_q && k0 + row + 8 * r < t_k &&
+                          visible(q_first + col, kv_first + row + 8 * r, causal, window)))
+            p = 0.f;
+          st[i] = p;
+          dpt[i] = p * (dpt[i] - delta_c);
+        }
+      }
+
+    // dV += Pᵀ·dO and dK += dSᵀ·Q, Pᵀ and dSᵀ rounded to bf16 in registers.
+    uint32_t pa[TC_Q / 16][4], da[TC_Q / 16][4];
+    acc_to_a<TC_Q>(st, pa);
+    acc_to_a<TC_Q>(dpt, da);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TC_Q / 16; ++kk)
+      wgmma_rs_mn<D>(dv_acc, pa[kk], desc_mn_major(do_tile + 16 * kk * 128, Q_BOX), 1);
+#pragma unroll
+    for (int kk = 0; kk < TC_Q / 16; ++kk)
+      wgmma_rs_mn<D>(dk_acc, da[kk], desc_mn_major(q_tile + 16 * kk * 128, Q_BOX), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    mbar_arrive(&sm.empty[s]);
+    ++it;
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = k0 + row + 8 * r;
+    if (key >= t_k) continue;
+    TO* dk_row = dk + ((size_t)bh * t_k + key) * D;
+    TO* dv_row = dv + ((size_t)bh * t_k + key) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      store_pair(dk_row + 8 * j + 2 * t, dk_acc[4 * j + 2 * r] * scale,
+                 dk_acc[4 * j + 2 * r + 1] * scale);
+      store_pair(dv_row + 8 * j + 2 * t, dv_acc[4 * j + 2 * r], dv_acc[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+template <int D, typename TO>
+cudaError_t launch_dkv_wgmma(const Args& a, void* dk, void* dv) {
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  cudaError_t err = hopper::encode_rows_map(&tm_q, a.q, a.bh, a.t_q, D, TC_Q);
+  if (err == cudaSuccess) err = hopper::encode_rows_map(&tm_do, a.d_o, a.bh, a.t_q, D, TC_Q);
+  if (err == cudaSuccess) err = hopper::encode_rows_map(&tm_k, a.k, a.bh, a.t_k, D, TC_KEYS);
+  if (err == cudaSuccess) err = hopper::encode_rows_map(&tm_v, a.v, a.bh, a.t_k, D, TC_KEYS);
+  if (err != cudaSuccess) return err;
+  constexpr size_t smem = sizeof(DkvTiles<D>) + 1024;
+  auto kernel = flash_bwd_dkv_wgmma<D, TO>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.bh, (a.t_k + TC_KEYS - 1) / TC_KEYS);
+  kernel<<<grid, TC_THREADS, smem, a.stream>>>(
+      tm_q, tm_k, tm_v, tm_do, static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<TO*>(dk), static_cast<TO*>(dv), a.t_q,
+      a.t_k, a.scale, a.causal, a.q_offset, a.kv_offset, a.window);
+  return cudaGetLastError();
+}
+
 // Picks the instantiation: which kernel (dkv), input dtype, output dtype
-// and head dim.
+// and head dim.  bf16 dK/dV takes the tensor-core kernel, f32 inputs the
+// CUDA-core ones, always.
 template <int D>
 cudaError_t dispatch_types(bool dkv, int bf16_in, int f32_out, const Args& a,
                            void* out0, void* out1) {
   if (!bf16_in)
-    return dkv ? launch_dkv<float, float, D>(a, out0, out1)
+    return dkv ? launch_dkv<D>(a, out0, out1)
                : launch_dq<float, float, D>(a, out0);
   if (f32_out)
-    return dkv ? launch_dkv<__nv_bfloat16, float, D>(a, out0, out1)
+    return dkv ? launch_dkv_wgmma<D, float>(a, out0, out1)
                : launch_dq<__nv_bfloat16, float, D>(a, out0);
-  return dkv ? launch_dkv<__nv_bfloat16, __nv_bfloat16, D>(a, out0, out1)
+  return dkv ? launch_dkv_wgmma<D, __nv_bfloat16>(a, out0, out1)
              : launch_dq<__nv_bfloat16, __nv_bfloat16, D>(a, out0);
 }
 
@@ -497,9 +695,10 @@ cudaError_t dispatch(bool dkv, int device, int head_dim, int bf16_in,
 }  // namespace
 
 // q, d_o: [bh, t_q, head_dim]; k, v: [bh, t_k, head_dim]; all contiguous,
-// f32 (bf16_in == 0) or bf16.  lse, delta: [bh, t_q] f32.  dq: [bh, t_q,
-// head_dim]; dk, dv: [bh, t_k, head_dim]; in the input dtype, or f32 when
-// f32_out.  window <= 0 means no window.  Each returns a cudaError_t.
+// f32 (bf16_in == 0) or bf16 (then 16-byte aligned, for dK/dV's TMA).
+// lse, delta: [bh, t_q] f32.  dq: [bh, t_q, head_dim]; dk, dv: [bh, t_k,
+// head_dim]; in the input dtype, or f32 when f32_out.  window <= 0 means
+// no window.  Each returns a cudaError_t.
 extern "C" int rf_flash_bwd_dq(const void* q, const void* k, const void* v,
                                const void* d_o, const void* lse,
                                const void* delta, void* dq, int device, int bh,

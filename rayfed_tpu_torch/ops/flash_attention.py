@@ -13,6 +13,11 @@ ring-attention slice will call.  Dispatch is by the tensors' device only:
 - CUDA tensors launch the kernels in ``csrc/flash_fwd.cu`` and
   ``csrc/flash_bwd.cu`` or raise.  There is no fallback from one to the
   other.
+
+On the card the dtype picks the kernel, by a fixed rule: bf16 inputs run
+the forward and dK/dV on the tensor cores (wgmma fed by TMA, so q, k, v and
+dO must be 16-byte aligned), f32 inputs run them on the CUDA cores in f32
+(tensor cores would break the f32 tolerance).  dQ runs on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -53,6 +58,56 @@ def _flash_forward_reference(
     o = o / torch.where(l == 0.0, 1.0, l)
     lse = m + torch.log(torch.clamp(l, min=1e-37))
     return o.to(out_dtype or q.dtype), lse[..., 0]
+
+
+def _check_tma_aligned(*tensors):
+    """TMA reads a bf16 tensor from a 16-byte-aligned base; raise otherwise."""
+    for x in tensors:
+        if x.dtype == torch.bfloat16 and x.data_ptr() % 16:
+            raise ValueError(
+                f"the bf16 kernels read through TMA and need 16-byte-aligned "
+                f"tensors; got one at address {x.data_ptr():#x} (pass a fresh "
+                f"contiguous copy)"
+            )
+
+
+def _hopper_probe(a, b, v, p):
+    """Known-answer probe of the bf16 kernels' building blocks, on the card.
+
+    ``a``: bf16 ``[2, t_a, D]``; ``b``, ``v``: ``[1, N, D]``; ``p``:
+    ``[64, N]``; D, N in {64, 128}.  One warpgroup TMA-loads the first 64
+    rows of head 1 of ``a`` (rows past ``t_a`` read as zeros) and head 0 of
+    ``b`` and ``v``, then returns ``(s, o, a_tile)``: ``s = A·Bᵀ`` (f32
+    ``[64, N]``, wgmma with both operands from shared memory), ``o = P·V``
+    (f32 ``[64, D]``, wgmma with P from registers and V transposed in shared
+    memory) and the A tile read back through the 128-byte swizzle (bf16
+    ``[64, D]``).  Not a launch of the main path: it counts nothing.
+    """
+    from rayfed_tpu_torch.ops._build import flash_fwd_lib
+
+    d, n = a.shape[-1], b.shape[1]
+    if not (a.ndim == 3 and a.shape[0] == 2 and 0 < a.shape[1] and d in HEAD_DIMS
+            and n in (64, 128) and b.shape == v.shape == (1, n, d) and p.shape == (64, n)):
+        raise ValueError(
+            f"probe shapes: a [2, t, D], b and v [1, N, D], p [64, N] with D and N "
+            f"in (64, 128); got {[tuple(x.shape) for x in (a, b, v, p)]}"
+        )
+    if any(x.dtype != torch.bfloat16 or x.device.type != "cuda" for x in (a, b, v, p)):
+        raise TypeError("the probe takes bf16 CUDA tensors")
+    a, b, v, p = (x.contiguous() for x in (a, b, v, p))
+    _check_tma_aligned(a, b, v, p)
+    s = torch.empty((64, n), dtype=torch.float32, device=a.device)
+    o = torch.empty((64, d), dtype=torch.float32, device=a.device)
+    a_tile = torch.empty((64, d), dtype=torch.bfloat16, device=a.device)
+    lib = flash_fwd_lib()
+    err = lib.rf_hopper_probe(
+        a.data_ptr(), b.data_ptr(), v.data_ptr(), p.data_ptr(), s.data_ptr(),
+        o.data_ptr(), a_tile.data_ptr(), a.device.index, a.shape[1], d, n,
+        torch.cuda.current_stream(a.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"hopper probe failed: {lib.rf_cuda_error_string(err).decode()}")
+    return s, o, a_tile
 
 
 def _flash_forward(
@@ -106,6 +161,7 @@ def _flash_forward(
 
     lib = flash_fwd_lib()
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    _check_tma_aligned(q, k, v)
     err = lib.rf_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         q.device.index,
@@ -224,6 +280,7 @@ def _flash_bwd_dq(q, k, v, do, lse, delta, *, out_dtype=None, **kw):
 
 def _flash_bwd_dkv(q, k, v, do, lse, delta, *, out_dtype=None, **kw):
     """The dK/dV kernel on checked, contiguous CUDA inputs."""
+    _check_tma_aligned(q, k, v, do)
     dk = torch.empty(k.shape, dtype=out_dtype or k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=out_dtype or v.dtype, device=v.device)
     _bwd_launch("flash_bwd_dkv", (q, k, v, do, lse, delta), (dk, dv), **kw)

@@ -17,6 +17,10 @@ so a few dS values round the other way; the gradients are then rounded to
 bf16 (2⁻⁶·|g|) and sums over up to 1000 keys add the flipped roundings
 (1e-2·max|g|).  Where no key is visible to a query, or no query to a key,
 the gradient must be exactly 0.
+
+bf16 inputs run the tensor-core kernels; the known-answer probe holds their
+building blocks (TMA loads, both wgmma forms) against torch's f32 matmul
+(f32 sums of exact bf16 products in another order: 1e-3) and an exact copy.
 """
 
 import pytest
@@ -29,6 +33,7 @@ from rayfed_tpu_torch.ops.flash_attention import (
     _flash_backward_reference,
     _flash_forward,
     _flash_forward_reference,
+    _hopper_probe,
     flash_attention,
 )
 
@@ -54,6 +59,21 @@ CASES = {
     "tiny_t": (2, 1, 5, 64, torch.bfloat16, None, True, 4, 0, None),
     "f32_f32out": (4, 130, 130, 64, torch.float32, torch.float32, True, 0, 0, 33),
     "bf16_f32out": (4, 128, 128, 128, torch.bfloat16, torch.float32, True, 0, 0, None),
+    # The edges of the tensor-core kernels' 128-row tiles (and dK/dV's
+    # 64-row q tiles): one short, exact, one over, two tiles and one over.
+    "bf16_t127": (4, 127, 127, 128, torch.bfloat16, None, True, 0, 0, None),
+    "bf16_t128": (4, 128, 128, 64, torch.bfloat16, None, True, 0, 0, None),
+    "bf16_t129": (4, 129, 129, 128, torch.bfloat16, None, True, 0, 0, None),
+    "bf16_t257": (4, 257, 257, 64, torch.bfloat16, None, True, 0, 0, None),
+    # Offsets that are not multiples of a tile; then q before k, so the
+    # second q tile holds fully masked rows beside live ones.
+    "bf16_offsets_200_72": (4, 300, 400, 128, torch.bfloat16, None, True, 200, 72, None),
+    "bf16_offsets_72_250": (4, 300, 400, 64, torch.bfloat16, None, True, 72, 250, None),
+    "bf16_window1": (4, 200, 200, 128, torch.bfloat16, None, True, 0, 0, 1),
+    # Tk shorter than one k/v tile.
+    "bf16_short_k_d64": (4, 100, 50, 64, torch.bfloat16, None, False, 0, 0, None),
+    "bf16_short_k_d128": (4, 70, 30, 128, torch.bfloat16, None, True, 40, 0, None),
+    "bf16_f32out_ragged": (4, 257, 257, 64, torch.bfloat16, torch.float32, True, 0, 0, 100),
 }
 
 
@@ -79,6 +99,31 @@ def test_kernel_matches_plain_version(cuda, case):
     masked = lse_ref <= NEG_INF / 2
     assert torch.equal(masked, lse <= NEG_INF / 2)
     assert torch.all(o[masked] == 0)
+
+
+@pytest.mark.parametrize("d,n", [(64, 64), (64, 128), (128, 64), (128, 128)])
+def test_hopper_probe_known_answers(cuda, d, n):
+    """TMA loads (ragged box, second head), the SS and RS wgmma products and
+    their shared-memory descriptors, at the kernels' operand shapes."""
+    g = torch.Generator(device=cuda).manual_seed(d + n)
+    a = torch.randn(2, 50, d, generator=g, device=cuda).to(torch.bfloat16)
+    b = torch.randn(1, n, d, generator=g, device=cuda).to(torch.bfloat16)
+    v = torch.randn(1, n, d, generator=g, device=cuda).to(torch.bfloat16)
+    p = torch.rand(64, n, generator=g, device=cuda).to(torch.bfloat16)
+    s, o, a_tile = _hopper_probe(a, b, v, p)
+    torch.cuda.synchronize()
+    a_pad = torch.zeros(64, d, dtype=torch.bfloat16, device=cuda)
+    a_pad[:50] = a[1]
+    assert torch.equal(a_tile, a_pad)
+    # f32 sums of exact bf16 products, in another order than torch's.
+    torch.testing.assert_close(s, a_pad.float() @ b[0].float().T, atol=1e-3, rtol=1e-4)
+    torch.testing.assert_close(o, p.float() @ v[0].float(), atol=1e-3, rtol=1e-4)
+
+
+def test_unaligned_bf16_input_raises(cuda):
+    q = torch.zeros(1, 8 * 128 + 1, dtype=torch.bfloat16, device=cuda)[:, 1:].view(1, 8, 128)
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        _flash_forward(q, q, q, scale=1.0, causal=True)
 
 
 def test_unsupported_head_dim_raises(cuda):
@@ -121,6 +166,13 @@ def test_backward_kernels_match_plain_version(cuda, case):
     atol_frac, rtol = BWD_TOL[dtype]
     for name, got, ref in zip(("dq", "dk", "dv"), grads, refs):
         assert got.dtype == ref.dtype and got.shape == ref.shape, name
+        if window == 1 and name in ("dq", "dk"):
+            # Each query sees one key: P = 1 there, dP = δ, so dS = 0 and
+            # dQ = dK = 0 up to rounding noise, which no tolerance relative
+            # to that noise can hold.  Held to 1e-4 of max|dV| instead.
+            bound = 1e-4 * refs[2].float().abs().max()
+            assert got.float().abs().max() <= bound and ref.float().abs().max() <= bound, name
+            continue
         ref32 = ref.float()
         err = (got.float() - ref32).abs()
         limit = atol_frac * ref32.abs().max() + rtol * ref32.abs()
