@@ -6,12 +6,16 @@ Phases, each fatal on failure:
   1. build the CUDA kernels from the sources in the checkout (one nvcc per
      source, in parallel); print each kernel function's registers and
      spills (-Xptxas -v) and its HGMMA (wgmma) and UTMALDG (TMA load)
-     instructions (cuobjdump -sass), and fail if the tensor-core kernels
-     have none;
+     instructions (cuobjdump -sass), and fail unless each tensor-core
+     kernel (the forward, dQ and dK/dV) has all 4 instantiations and each
+     holds both;
   2. hold each kernel against its plain PyTorch version on the card, at the
      main paths' shapes and at the edge cases (window, offsets with fully
      masked rows, ragged T, head dim 64, f32 in/out, f32 gradients from
      bf16 inputs), with exact zeros where no key or no query is visible;
+     bf16 inputs run all three kernels on the tensor cores, which sum in
+     their own order, so no bf16 case is bit-identical to the plain
+     version, not even at head dim 64;
   3. drive the serving path: Llama-3-8B at full width and depth (random
      bf16 weights from a seed) serving 4 prompts of 2048 tokens, 32 greedy
      new tokens each, with flash-attention prefill; check the kernel ran
@@ -26,7 +30,7 @@ Phases, each fatal on failure:
   5. time each kernel (mean over one window of calls) against its plain
      version, the library call that computes the same function, and the
      card's bound (the forward at the serving shape B=4 and at the training
-     shape B=1).
+     shape B=1), and the host's time to enqueue one forward and one dQ.
 Prints the card (nvidia-smi), a JSON line of kernel numbers and, last, the
 result line.  Exits non-zero without a result when there is no CUDA card.
 Imports neither JAX nor the JAX package.
@@ -81,9 +85,10 @@ TOL = {
 LOGIT_REL_TOL = 0.05
 # Backward kernels vs their plain versions: |g - ref| <= frac * max|ref| +
 # rtol * |ref|.  f32: summation order only.  bf16: both round dS and P to
-# bf16 before the second products, and the f32 scores differ in the last
-# bits, so a few dS values round the other way; the gradients are then
-# rounded to bf16 (2^-6 relative) and sums over up to 2048 keys add the
+# bf16 before the second products, and the tensor cores' f32 scores and
+# sums differ from the plain version's in the last bits (at every head dim,
+# dQ included), so a few dS values round the other way; the gradients are
+# then rounded to bf16 (2^-6 relative) and sums over up to 2048 keys add the
 # flipped roundings (1e-2 of the largest gradient).
 BWD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 2.0**-6)}
 # The training slice: BASELINE config #4's LoRA fine-tune step.
@@ -108,6 +113,18 @@ def _sync_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+def _host_us(fn, calls=20):
+    """The host's side of one call (checks, tensor maps, launch) in µs: the
+    time to enqueue a run of calls, before the card finishes them."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def _peaks(name):
     for key, peaks in PEAKS.items():
         if key in name:
@@ -125,9 +142,12 @@ def _zero_counts():
         setattr(flash_attention, f"{name}_launches", 0)
 
 
-# The tensor-core kernel of each source: each of its 4 instantiations (head
-# dim 64/128 x bf16/f32 output) must hold wgmma and TMA loads.
-TENSOR_CORE_KERNELS = {"flash_fwd": "flash_fwd_wgmma", "flash_bwd": "flash_bwd_dkv_wgmma"}
+# The tensor-core kernels of each source: each of their 4 instantiations
+# (head dim 64/128 x bf16/f32 output) must hold wgmma and TMA loads.
+TENSOR_CORE_KERNELS = {
+    "flash_fwd": ("flash_fwd_wgmma",),
+    "flash_bwd": ("flash_bwd_dkv_wgmma", "flash_bwd_dq_wgmma"),
+}
 
 
 def _cuda_tool(name):
@@ -199,12 +219,13 @@ def phase_build():
             print(f"[build]   {name}: {readable[fn][:110]}: {regs} registers, spill stores "
                   f"{spill_st} B, spill loads {spill_ld} B, HGMMA {sass[fn]['HGMMA']}, "
                   f"UTMALDG {sass[fn]['UTMALDG']}")
-        fns = [fn for fn in sass if TENSOR_CORE_KERNELS[name] in fn]
-        if len(fns) != 4:
-            raise AssertionError(f"expected 4 instantiations of {TENSOR_CORE_KERNELS[name]}, got {len(fns)}")
-        for fn in fns:
-            if not (sass[fn]["HGMMA"] and sass[fn]["UTMALDG"]):
-                raise AssertionError(f"{readable[fn]} has no HGMMA or no UTMALDG: {sass[fn]}")
+        for kernel in TENSOR_CORE_KERNELS[name]:
+            fns = [fn for fn in sass if kernel in fn]
+            if len(fns) != 4:
+                raise AssertionError(f"expected 4 instantiations of {kernel}, got {len(fns)}")
+            for fn in fns:
+                if not (sass[fn]["HGMMA"] and sass[fn]["UTMALDG"]):
+                    raise AssertionError(f"{readable[fn]} has no HGMMA or no UTMALDG: {sass[fn]}")
 
 
 def _qkv(gen, bh, t_q, t_k, d, dtype):
@@ -476,6 +497,7 @@ def phase_bwd_times(gen, card):
     lse, delta = _lse_delta(o, lse, do)
     inputs = (q, k, v, do, lse, delta)
     dq_ms = _sync_ms(lambda: _flash_bwd_dq(*inputs, **kw), iters=20)
+    dq_host_us = _host_us(lambda: _flash_bwd_dq(*inputs, **kw))
     dkv_ms = _sync_ms(lambda: _flash_bwd_dkv(*inputs, **kw), iters=20)
     dq_plain = _sync_ms(lambda: _flash_bwd_dq_reference(*inputs, **kw), iters=5)
     dkv_plain = _sync_ms(lambda: _flash_bwd_dkv_reference(*inputs, **kw), iters=5)
@@ -502,8 +524,10 @@ def phase_bwd_times(gen, card):
               f"plain {plain:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}; {n_mm} products, "
               f"{(n_io * elem + rows) / 1e6:.1f} MB), {tflops:.1f} TFLOP/s achieved, "
               f"{bound_ms / ms:.3f} of the bound")
+    out["dq"]["host_us"] = dq_host_us
     print(f"[times] sdpa backward (dq, dk, dv in one call) {sdpa_bwd:.3f} ms "
-          f"(fwd+bwd {sdpa_fwd_bwd:.3f} - fwd {sdpa_fwd:.3f}); kernels dq+dkv {dq_ms + dkv_ms:.3f} ms")
+          f"(fwd+bwd {sdpa_fwd_bwd:.3f} - fwd {sdpa_fwd:.3f}); kernels dq+dkv {dq_ms + dkv_ms:.3f} ms; "
+          f"host {dq_host_us:.1f} us per call to enqueue dq")
     return out
 
 
@@ -512,12 +536,7 @@ def _fwd_times(gen, card, b):
     q, k, v = _qkv(gen, b * h, t, t, d, torch.bfloat16)
     scale = d**-0.5
     ms = _sync_ms(lambda: _flash_forward(q, k, v, scale=scale, causal=True), iters=20)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()  # the host's side of a call: checks, tensor maps, launch
-    for _ in range(20):
-        _flash_forward(q, k, v, scale=scale, causal=True)
-    host_us = (time.perf_counter() - t0) / 20 * 1e6
-    torch.cuda.synchronize()
+    host_us = _host_us(lambda: _flash_forward(q, k, v, scale=scale, causal=True))
     plain_ms = _sync_ms(lambda: _flash_forward_reference(q, k, v, scale=scale, causal=True), iters=5)
     q4, k4, v4 = (x.view(b, h, t, d) for x in (q, k, v))
     library_ms = _sync_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True), iters=20)
@@ -531,7 +550,7 @@ def _fwd_times(gen, card, b):
           f"({bound_by}; H100 {_peaks(card)[0]} peaks; {tflops:.1f} TFLOP/s achieved, "
           f"{bound_ms / ms:.3f} of the bound); host {host_us:.1f} us per call to enqueue it")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-                tflops=tflops, bound_share=bound_ms / ms)
+                tflops=tflops, bound_share=bound_ms / ms, host_us=host_us)
 
 
 def phase_times(gen, card):

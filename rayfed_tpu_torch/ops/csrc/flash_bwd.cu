@@ -16,13 +16,32 @@
 // What bounds it on the H100: each kernel does three (dQ) or four (dK/dV)
 // T×T×D products per head and reads each input once, ~2·T·D flops per byte
 // at T = 2048, D = 128, far above the card's ~295 flop/byte ridge, so the
-// bound is arithmetic.  Two kernels and no atomics, as on the TPU, so the
-// gradients are deterministic.  Tiles are classified as the TPU's
-// `_causal_dispatch` does (flash_tiles.cuh): skipped, unmasked, or masked
-// (diagonal or window edge); a tile that runs past T is masked too, so any
-// T works.  A q row that sees no key gets dQ = 0 and a key that no query
-// sees gets dK = dV = 0, exactly.
+// bound is the tensor cores' bf16 rate.  Two kernels and no atomics, as on
+// the TPU, so the gradients are deterministic.  Tiles are classified as the
+// TPU's `_causal_dispatch` does (flash_tiles.cuh): skipped, unmasked, or
+// masked (diagonal or window edge); a tile that runs past T is masked too,
+// so any T works.  A q row that sees no key gets dQ = 0 and a key that no
+// query sees gets dK = dV = 0, exactly.  The dtype picks the kernel, by a
+// fixed rule: bf16 inputs run both on the tensor cores, f32 inputs on the
+// CUDA cores in f32 (tensor cores in bf16 or TF32 would break the f32
+// tolerance of 1e-4).  There is no fallback from one to the other.
 //
+// dQ, bf16 inputs: `flash_bwd_dq_wgmma`, on the tensor cores.
+//   * One block per (bh, 128 q rows), q tiles last-first (the heaviest
+//     causal tiles start first): a producer warpgroup whose one thread
+//     issues every TMA load, and two consumer warpgroups of 64 q rows each
+//     (setmaxnreg: 24 registers for the producer, 240 for the consumers).
+//     Q and dO stay resident (one barrier); each consumer thread keeps the
+//     lse and δ of its two rows in registers.  64-key k/v tiles stream
+//     through a 3-stage TMA ring (160 KB at D = 128): a tile is less than a
+//     microsecond of tensor-core work, shorter than a TMA round trip, so two
+//     tiles stay in flight ahead of the consumers.
+//   * S = Q·Kᵀ and dP = dO·Vᵀ are wgmma m64n64k16 with every operand K-major
+//     in shared memory, issued back to back under one commit.  P, dS and the
+//     masks are computed on the f32 accumulators in registers; dS, packed
+//     pairwise to bf16, is the register A operand of dQ += dS·K (wgmma
+//     m64nDk16, the same K tile read MN-major).  dS never touches shared
+//     memory and dQ accumulates in f32 registers across the loop.
 // dK/dV, bf16 inputs: `flash_bwd_dkv_wgmma`, on the tensor cores.
 //   * One block per (bh, 128 k/v rows), k/v tiles first-first: a producer
 //     warp (of a warpgroup that gives its registers away with setmaxnreg)
@@ -39,14 +58,11 @@
 //     operand, so dV += Pᵀ·dO and dK += dSᵀ·Q take them packed to bf16
 //     (dO and Q MN-major): no P or dS tile in shared memory.  dK and dV
 //     accumulate in f32 registers across the loop.
-// dQ (every dtype) and dK/dV for f32 inputs: `flash_bwd_dq_kernel` and
-//   `flash_bwd_dkv_kernel`, the first versions, on the CUDA cores in f32.
-//   (f32 inputs stay there by a fixed dtype rule: tensor cores in bf16 or
-//   TF32 would break the f32 tolerance of 1e-4.)  dQ: one block per (bh,
+// f32 inputs: `flash_bwd_dq_kernel` and `flash_bwd_dkv_kernel`, the first
+//   versions, f32 in and out, on the CUDA cores.  dQ: one block per (bh,
 //   tile of 64 q rows), looping over 32-row k/v tiles; q, dO, lse and delta
-//   stay resident and dQ accumulates in f32 registers.  dK/dV (f32 in and
-//   out only, like the CUDA-core forward): one block per (bh, tile of 64
-//   k/v rows), looping over 32-row q tiles from the
+//   stay resident and dQ accumulates in f32 registers.  dK/dV: one block
+//   per (bh, tile of 64 k/v rows), looping over 32-row q tiles from the
 //   first one that can see the block; one P-shaped tile of shared memory
 //   holds P for the dV product and then dS for the dK product.  Each
 //   thread owns 4 resident rows x (2 streamed columns of the score tile,
@@ -70,43 +86,20 @@ constexpr int ROWS = BLOCK_R / 16;      // resident rows per thread
 constexpr int SCOLS = BLOCK_C / 16;     // score columns per thread
 constexpr int PSTRIDE = BLOCK_C + 4;    // row stride of the P / dS tile (floats)
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// x rounded to T and back: the TPU kernels' astype before a product.
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_float(from_float<T>(x));
-}
-
 __device__ __forceinline__ float component(const float4& x, int u) {
   return u == 0 ? x.x : u == 1 ? x.y : u == 2 ? x.z : x.w;
 }
 
-// Rows [row0, row0 + n) of a [t, D] matrix into shared memory as f32 with
-// row stride `stride`; rows past t are zero.
-template <typename T, int D>
+// Rows [row0, row0 + n) of a [t, D] matrix into shared memory with row
+// stride `stride`; rows past t are zero.
+template <int D>
 __device__ __forceinline__ void load_rows(float* dst, int stride,
-                                          const T* __restrict__ src, int row0,
+                                          const float* __restrict__ src, int row0,
                                           int n, int t) {
   for (int i = threadIdx.x; i < n * D; i += THREADS) {
     const int r = i / D;
     const int c = i % D;
-    dst[r * stride + c] =
-        row0 + r < t ? to_float(src[(size_t)(row0 + r) * D + c]) : 0.f;
+    dst[r * stride + c] = row0 + r < t ? src[(size_t)(row0 + r) * D + c] : 0.f;
   }
 }
 
@@ -215,12 +208,12 @@ constexpr size_t dkv_smem_bytes() {
                           BLOCK_R * PSTRIDE + 2 * BLOCK_C);
 }
 
-template <typename T, typename TO, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS, 2)
-    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ d_o,
+    flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ d_o,
                         const float* __restrict__ lse,
-                        const float* __restrict__ delta, TO* __restrict__ dq,
+                        const float* __restrict__ delta, float* __restrict__ dq,
                         int t_q, int t_k, float scale, int causal,
                         int q_offset, int kv_offset, int window) {
   constexpr int BSTRIDE = D + 4;
@@ -237,11 +230,11 @@ __global__ void __launch_bounds__(THREADS, 2)
   const int ty = tid / 16;
   const size_t bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BLOCK_R;
-  const T* kb = k + bh * t_k * D;
-  const T* vb = v + bh * t_k * D;
+  const float* kb = k + bh * t_k * D;
+  const float* vb = v + bh * t_k * D;
 
-  load_rows<T, D>(sq, D, q + bh * t_q * D, q0, BLOCK_R, t_q);
-  load_rows<T, D>(sdo, D, d_o + bh * t_q * D, q0, BLOCK_R, t_q);
+  load_rows<D>(sq, D, q + bh * t_q * D, q0, BLOCK_R, t_q);
+  load_rows<D>(sdo, D, d_o + bh * t_q * D, q0, BLOCK_R, t_q);
   float row_lse[ROWS], row_delta[ROWS], acc[ROWS][OCOLS];
 #pragma unroll
   for (int i = 0; i < ROWS; ++i) {
@@ -265,8 +258,8 @@ __global__ void __launch_bounds__(THREADS, 2)
     const bool masked = tc.straddles || k0 + BLOCK_C > t_k;
 
     __syncthreads();  // the last tile's dS·K is done with sk, sv and sds
-    load_rows<T, D>(sk, BSTRIDE, kb, k0, BLOCK_C, t_k);
-    load_rows<T, D>(sv, BSTRIDE, vb, k0, BLOCK_C, t_k);
+    load_rows<D>(sk, BSTRIDE, kb, k0, BLOCK_C, t_k);
+    load_rows<D>(sv, BSTRIDE, vb, k0, BLOCK_C, t_k);
     __syncthreads();
 
     float s[ROWS][SCOLS], dp[ROWS][SCOLS];
@@ -281,8 +274,7 @@ __global__ void __launch_bounds__(THREADS, 2)
                         visible(q_first + ty + 16 * i, kv_first + col, causal,
                                 window)))
           p = 0.f;
-        sds[(ty + 16 * i) * PSTRIDE + col] =
-            round_to<T>(p * (dp[i][j] - row_delta[i]));
+        sds[(ty + 16 * i) * PSTRIDE + col] = p * (dp[i][j] - row_delta[i]);
       }
     __syncthreads();
     accumulate<D>(sds, sk, ty, tx, acc);
@@ -292,12 +284,11 @@ __global__ void __launch_bounds__(THREADS, 2)
   for (int i = 0; i < ROWS; ++i) {
     const int r = q0 + ty + 16 * i;
     if (r >= t_q) continue;
-    TO* row = dq + (bh * t_q + r) * D;
+    float* row = dq + (bh * t_q + r) * D;
 #pragma unroll
     for (int g = 0; g < D / 64; ++g)
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        row[64 * g + 4 * tx + e] = from_float<TO>(acc[i][4 * g + e] * scale);
+      for (int e = 0; e < 4; ++e) row[64 * g + 4 * tx + e] = acc[i][4 * g + e] * scale;
   }
 }
 
@@ -330,8 +321,8 @@ __global__ void __launch_bounds__(THREADS, 2)
   const float* lseb = lse + bh * t_q;
   const float* deltab = delta + bh * t_q;
 
-  load_rows<float, D>(sk, D, k + bh * t_k * D, k0, BLOCK_R, t_k);
-  load_rows<float, D>(sv, D, v + bh * t_k * D, k0, BLOCK_R, t_k);
+  load_rows<D>(sk, D, k + bh * t_k * D, k0, BLOCK_R, t_k);
+  load_rows<D>(sv, D, v + bh * t_k * D, k0, BLOCK_R, t_k);
   float dk_acc[ROWS][OCOLS], dv_acc[ROWS][OCOLS];
 #pragma unroll
   for (int i = 0; i < ROWS; ++i)
@@ -363,8 +354,8 @@ __global__ void __launch_bounds__(THREADS, 2)
         tc.straddles || q0 + BLOCK_C > t_q || k0 + BLOCK_R > t_k;
 
     __syncthreads();  // the last tile's products are done with sq, sdo, sp
-    load_rows<float, D>(sq, BSTRIDE, qb, q0, BLOCK_C, t_q);
-    load_rows<float, D>(sdo, BSTRIDE, dob, q0, BLOCK_C, t_q);
+    load_rows<D>(sq, BSTRIDE, qb, q0, BLOCK_C, t_q);
+    load_rows<D>(sdo, BSTRIDE, dob, q0, BLOCK_C, t_q);
     if (tid < BLOCK_C) {
       const bool in = q0 + tid < t_q;
       slse[tid] = in ? lseb[q0 + tid] : 0.f;
@@ -425,19 +416,19 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, typename TO, int D>
+template <int D>
 cudaError_t launch_dq(const Args& a, void* dq) {
   constexpr size_t smem = dq_smem_bytes<D>();
-  auto kernel = flash_bwd_dq_kernel<T, TO, D>;
+  auto kernel = flash_bwd_dq_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.bh, (a.t_q + BLOCK_R - 1) / BLOCK_R);
   kernel<<<grid, THREADS, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.d_o),
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.d_o),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<TO*>(dq), a.t_q, a.t_k, a.scale, a.causal, a.q_offset,
+      static_cast<float*>(dq), a.t_q, a.t_k, a.scale, a.causal, a.q_offset,
       a.kv_offset, a.window);
   return cudaGetLastError();
 }
@@ -667,20 +658,206 @@ cudaError_t launch_dkv_wgmma(const Args& a, void* dk, void* dv) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------- bf16 dQ: wgmma fed by TMA
+
+constexpr int DQ_ROWS = 128;   // q rows per block: two consumer warpgroups of 64
+constexpr int DQ_KEYS = 64;    // keys per streamed k/v tile
+constexpr int DQ_STAGES = 3;   // k/v tiles in flight
+constexpr uint32_t DQ_KEY_BOX = DQ_KEYS * 128;  // bytes of one [keys][64] box
+constexpr uint32_t DQ_ROW_BOX = DQ_ROWS * 128;  // bytes of one [q rows][64] box
+
+template <int D>
+struct DqTiles {  // each [rows][64] box 1024-byte aligned (16 KB or 8 KB)
+  __nv_bfloat16 q[D / 64][DQ_ROWS][64];
+  __nv_bfloat16 d_o[D / 64][DQ_ROWS][64];
+  __nv_bfloat16 k[DQ_STAGES][D / 64][DQ_KEYS][64];
+  __nv_bfloat16 v[DQ_STAGES][D / 64][DQ_KEYS][64];
+  uint64_t q_full;             // q and dO have landed
+  uint64_t full[DQ_STAGES];    // the stage's k and v have landed
+  uint64_t empty[DQ_STAGES];   // both consumer warpgroups are done with it
+};
+
+template <int D, typename TO>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+    flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       const __grid_constant__ CUtensorMap tm_do,
+                       const float* __restrict__ lse, const float* __restrict__ delta,
+                       TO* __restrict__ dq, int t_q, int t_k, float scale, int causal,
+                       int q_offset, int kv_offset, int window) {
+  using namespace hopper;
+  DqTiles<D>& sm = aligned_smem<DqTiles<D>>();
+  const int wg = threadIdx.x / 128;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * DQ_ROWS;
+  const int q_first = q_offset + q0;
+  const int q_last = q_first + DQ_ROWS - 1;
+  const int num_k = (t_k + DQ_KEYS - 1) / DQ_KEYS;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+    for (int s = 0; s < DQ_STAGES; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], 256);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // the producer: one thread issues every TMA load
+    regs_release<24>();
+    if (threadIdx.x != 0) return;
+    mbar_arrive_expect_tx(&sm.q_full, sizeof(sm.q) + sizeof(sm.d_o));
+    for (int c = 0; c < D / 64; ++c) {
+      tma_load_3d(sm.q[c], &tm_q, &sm.q_full, 64 * c, q0, bh);
+      tma_load_3d(sm.d_o[c], &tm_do, &sm.q_full, 64 * c, q0, bh);
+    }
+    int it = 0;  // active tiles so far: stage it % 3, ring pass it / 3
+    for (int kt = 0; kt < num_k; ++kt) {
+      const int kv_first = kv_offset + kt * DQ_KEYS;
+      if (!classify(q_first, q_last, kv_first, kv_first + DQ_KEYS - 1, causal, window).active)
+        continue;
+      const int s = it % DQ_STAGES;
+      mbar_wait(&sm.empty[s], ((it / DQ_STAGES) & 1) ^ 1);
+      mbar_arrive_expect_tx(&sm.full[s], sizeof(sm.k[0]) + sizeof(sm.v[0]));
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load_3d(sm.k[s][c], &tm_k, &sm.full[s], 64 * c, kt * DQ_KEYS, bh);
+        tma_load_3d(sm.v[s][c], &tm_v, &sm.full[s], 64 * c, kt * DQ_KEYS, bh);
+      }
+      ++it;
+    }
+    return;
+  }
+
+  // A consumer warpgroup: q rows cw*64 .. cw*64 + 63 of the block.  This
+  // thread holds rows `row` and `row + 8`, key columns 8j + 2t + (0, 1) of
+  // the score tiles.  Rows past t_q read zeros (TMA) and lse = δ = 0: their
+  // values stay finite, no row's dQ depends on another row, and they are
+  // never stored.
+  regs_claim<240>();
+  const int cw = wg - 1;
+  const int lane = threadIdx.x % 32;
+  const int t = lane % 4;
+  const int row = cw * 64 + (threadIdx.x % 128) / 32 * 16 + lane / 4;
+  float row_lse[2], row_delta[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int q = q0 + row + 8 * r;
+    const bool in = q < t_q;
+    row_lse[r] = in ? lse[(size_t)bh * t_q + q] : 0.f;
+    row_delta[r] = in ? delta[(size_t)bh * t_q + q] : 0.f;
+  }
+  float acc[D / 2];  // dQ / scale, f32
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  mbar_wait(&sm.q_full, 0);
+
+  const uint32_t q_rows = smem_u32(sm.q[0][cw * 64]);
+  const uint32_t do_rows = smem_u32(sm.d_o[0][cw * 64]);
+  int it = 0;
+  for (int kt = 0; kt < num_k; ++kt) {
+    const int k0 = kt * DQ_KEYS;
+    const int kv_first = kv_offset + k0;
+    const TileClass tc = classify(q_first, q_last, kv_first, kv_first + DQ_KEYS - 1, causal, window);
+    if (!tc.active) continue;
+    // Keys past t_k read zeros, and then p = exp(−lse), which is inf for a
+    // row that sees no key: such tiles are masked, and p is zeroed after the
+    // exp.
+    const bool masked = tc.straddles || k0 + DQ_KEYS > t_k;
+    const int s = it % DQ_STAGES;
+    mbar_wait(&sm.full[s], (it / DQ_STAGES) & 1);
+
+    const uint32_t k_tile = smem_u32(sm.k[s]);
+    const uint32_t v_tile = smem_u32(sm.v[s]);
+    float sc[DQ_KEYS / 2], dp[DQ_KEYS / 2];  // S = Q·Kᵀ and dP = dO·Vᵀ, f32
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<DQ_KEYS>(sc, desc_k_major(q_rows + kk / 4 * DQ_ROW_BOX, kk % 4),
+                        desc_k_major(k_tile + kk / 4 * DQ_KEY_BOX, kk % 4), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<DQ_KEYS>(dp, desc_k_major(do_rows + kk / 4 * DQ_ROW_BOX, kk % 4),
+                        desc_k_major(v_tile + kk / 4 * DQ_KEY_BOX, kk % 4), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    // dS = P∘(dP − δ) into dp, P = exp(s·scale − lse), 0 where masked.
+#pragma unroll
+    for (int j = 0; j < DQ_KEYS / 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * r + e;
+          const int col = k0 + 8 * j + 2 * t + e;
+          float p = __expf(sc[i] * scale - row_lse[r]);
+          if (masked && !(col < t_k && visible(q_first + row + 8 * r, kv_offset + col, causal,
+                                               window)))
+            p = 0.f;
+          dp[i] = p * (dp[i] - row_delta[r]);
+        }
+
+    // dQ += dS·K, dS rounded to bf16 in registers, K MN-major.
+    uint32_t da[DQ_KEYS / 16][4];
+    acc_to_a<DQ_KEYS>(dp, da);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DQ_KEYS / 16; ++kk)
+      wgmma_rs_mn<D>(acc, da[kk], desc_mn_major(k_tile + 16 * kk * 128, DQ_KEY_BOX), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(&sm.empty[s]);
+    ++it;
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int q = q0 + row + 8 * r;
+    if (q >= t_q) continue;
+    TO* dq_row = dq + ((size_t)bh * t_q + q) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      store_pair(dq_row + 8 * j + 2 * t, acc[4 * j + 2 * r] * scale,
+                 acc[4 * j + 2 * r + 1] * scale);
+  }
+}
+
+template <int D, typename TO>
+cudaError_t launch_dq_wgmma(const Args& a, void* dq) {
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  cudaError_t err = hopper::encode_rows_map(&tm_q, a.q, a.bh, a.t_q, D, DQ_ROWS);
+  if (err == cudaSuccess) err = hopper::encode_rows_map(&tm_do, a.d_o, a.bh, a.t_q, D, DQ_ROWS);
+  if (err == cudaSuccess) err = hopper::encode_rows_map(&tm_k, a.k, a.bh, a.t_k, D, DQ_KEYS);
+  if (err == cudaSuccess) err = hopper::encode_rows_map(&tm_v, a.v, a.bh, a.t_k, D, DQ_KEYS);
+  if (err != cudaSuccess) return err;
+  constexpr size_t smem = sizeof(DqTiles<D>) + 1024;
+  auto kernel = flash_bwd_dq_wgmma<D, TO>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.bh, (a.t_q + DQ_ROWS - 1) / DQ_ROWS);
+  kernel<<<grid, TC_THREADS, smem, a.stream>>>(
+      tm_q, tm_k, tm_v, tm_do, static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<TO*>(dq), a.t_q, a.t_k, a.scale, a.causal,
+      a.q_offset, a.kv_offset, a.window);
+  return cudaGetLastError();
+}
+
 // Picks the instantiation: which kernel (dkv), input dtype, output dtype
-// and head dim.  bf16 dK/dV takes the tensor-core kernel, f32 inputs the
+// and head dim.  bf16 inputs take the tensor-core kernels, f32 inputs the
 // CUDA-core ones, always.
 template <int D>
 cudaError_t dispatch_types(bool dkv, int bf16_in, int f32_out, const Args& a,
                            void* out0, void* out1) {
-  if (!bf16_in)
-    return dkv ? launch_dkv<D>(a, out0, out1)
-               : launch_dq<float, float, D>(a, out0);
+  if (!bf16_in) return dkv ? launch_dkv<D>(a, out0, out1) : launch_dq<D>(a, out0);
   if (f32_out)
-    return dkv ? launch_dkv_wgmma<D, float>(a, out0, out1)
-               : launch_dq<__nv_bfloat16, float, D>(a, out0);
+    return dkv ? launch_dkv_wgmma<D, float>(a, out0, out1) : launch_dq_wgmma<D, float>(a, out0);
   return dkv ? launch_dkv_wgmma<D, __nv_bfloat16>(a, out0, out1)
-             : launch_dq<__nv_bfloat16, __nv_bfloat16, D>(a, out0);
+             : launch_dq_wgmma<D, __nv_bfloat16>(a, out0);
 }
 
 cudaError_t dispatch(bool dkv, int device, int head_dim, int bf16_in,
@@ -695,7 +872,7 @@ cudaError_t dispatch(bool dkv, int device, int head_dim, int bf16_in,
 }  // namespace
 
 // q, d_o: [bh, t_q, head_dim]; k, v: [bh, t_k, head_dim]; all contiguous,
-// f32 (bf16_in == 0) or bf16 (then 16-byte aligned, for dK/dV's TMA).
+// f32 (bf16_in == 0) or bf16 (then 16-byte aligned, for the TMA loads).
 // lse, delta: [bh, t_q] f32.  dq: [bh, t_q, head_dim]; dk, dv: [bh, t_k,
 // head_dim]; in the input dtype, or f32 when f32_out.  window <= 0 means
 // no window.  Each returns a cudaError_t.

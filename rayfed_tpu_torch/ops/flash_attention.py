@@ -15,9 +15,9 @@ ring-attention slice will call.  Dispatch is by the tensors' device only:
   other.
 
 On the card the dtype picks the kernel, by a fixed rule: bf16 inputs run
-the forward and dK/dV on the tensor cores (wgmma fed by TMA, so q, k, v and
-dO must be 16-byte aligned), f32 inputs run them on the CUDA cores in f32
-(tensor cores would break the f32 tolerance).  dQ runs on the CUDA cores.
+all three kernels (the forward, dQ and dK/dV) on the tensor cores (wgmma fed
+by TMA, so q, k, v and dO must be 16-byte aligned), f32 inputs run all three
+on the CUDA cores in f32 (tensor cores would break the f32 tolerance).
 """
 
 from __future__ import annotations
@@ -272,6 +272,7 @@ def _bwd_launch(name, inputs, outputs, *, scale, causal, q_offset=0, kv_offset=0
 
 def _flash_bwd_dq(q, k, v, do, lse, delta, *, out_dtype=None, **kw):
     """The dQ kernel on checked, contiguous CUDA inputs (see :func:`_flash_backward`)."""
+    _check_tma_aligned(q, k, v, do)
     dq = torch.empty(q.shape, dtype=out_dtype or q.dtype, device=q.device)
     _bwd_launch("flash_bwd_dq", (q, k, v, do, lse, delta), (dq,), **kw)
     flash_attention.bwd_dq_launches += 1

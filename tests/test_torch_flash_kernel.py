@@ -18,7 +18,9 @@ bf16 (2⁻⁶·|g|) and sums over up to 1000 keys add the flipped roundings
 (1e-2·max|g|).  Where no key is visible to a query, or no query to a key,
 the gradient must be exactly 0.
 
-bf16 inputs run the tensor-core kernels; the known-answer probe holds their
+bf16 inputs run the tensor-core kernels (the forward, dQ and dK/dV), which
+sum in their own order, so no bf16 result is bit-identical to the plain
+version; the known-answer probe holds their
 building blocks (TMA loads, both wgmma forms) against torch's f32 matmul
 (f32 sums of exact bf16 products in another order: 1e-3) and an exact copy.
 """
@@ -74,6 +76,15 @@ CASES = {
     "bf16_short_k_d64": (4, 100, 50, 64, torch.bfloat16, None, False, 0, 0, None),
     "bf16_short_k_d128": (4, 70, 30, 128, torch.bfloat16, None, True, 40, 0, None),
     "bf16_f32out_ragged": (4, 257, 257, 64, torch.bfloat16, torch.float32, True, 0, 0, 100),
+    # The edges of dQ's 64-key tiles: one key short, exact, one over.
+    "bf16_tk63_d64": (4, 200, 63, 64, torch.bfloat16, None, True, 0, 0, None),
+    "bf16_tk63_d128": (4, 200, 63, 128, torch.bfloat16, None, False, 0, 0, None),
+    "bf16_tk64_d64": (4, 200, 64, 64, torch.bfloat16, None, False, 0, 0, None),
+    "bf16_tk64_d128": (4, 200, 64, 128, torch.bfloat16, None, True, 0, 0, None),
+    "bf16_tk65_d64": (4, 200, 65, 64, torch.bfloat16, None, True, 0, 0, None),
+    "bf16_tk65_d128": (4, 200, 65, 128, torch.bfloat16, None, False, 0, 0, None),
+    # A kv offset inside a key tile and a window edge that moves mid-tile.
+    "bf16_kv_offset37_window90": (4, 300, 400, 128, torch.bfloat16, None, True, 200, 37, 90),
 }
 
 
