@@ -27,7 +27,19 @@ Phases, each fatal on failure:
      counts per step, finite and falling losses and unchanged adapter
      scales; then, at depth 4, hold every adapter gradient through flash
      attention against the one through dense attention;
-  5. time each kernel (mean over one window of calls) against its plain
+  5. drive the federated path: two party processes, alice and bob, on the
+     one card, running one driver through ``rayfed_tpu_torch``'s API.
+     alice's ``@fed.remote`` actor holds the Llama-3-8B base (bf16, full
+     width and depth, random from the seed) with rank-16 adapters on
+     w[qv], takes one LoRA step through the three kernels (64/32/32
+     launches, counted in her process) and returns the adapters (27.3 MB
+     f32); a second method returns the stacked wq (1.07 GB bf16).  Both
+     parties fetch both; bob's arrive on his card, and a task of each
+     party fingerprints (SHA-256, dtypes, shapes, device) what it holds,
+     which must agree.  Once over TCP, once with the local link "auto";
+     prints each transfer's time and GB/s, the decided backend, the
+     step's time and bob's D2H and H2D copies of wq;
+  6. time each kernel (mean over one window of calls) against its plain
      version, the library call that computes the same function, and the
      card's bound (the forward at the serving shape B=4 and at the training
      shape B=1), and the host's time to enqueue one forward and one dQ.
@@ -38,13 +50,18 @@ Imports neither JAX nor the JAX package.
 
 from __future__ import annotations
 
+import hashlib
 import json
+import multiprocessing as mp
 import os
+import queue
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import time
+import traceback
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
@@ -559,6 +576,271 @@ def phase_times(gen, card):
     return serve, _fwd_times(gen, card, 1)
 
 
+# -- the federated path: two party processes on the one card ----------------
+
+FED_PARTIES = ("alice", "bob")
+FED_LINKS = ("off", "auto")  # TCP, then whatever the local link "auto" decides
+FED_TIMEOUT_S = 540  # hard limit on the party processes, both links together
+FED_INIT = dict(
+    cross_silo_messages_max_size_in_bytes=4 << 30,  # wq is 1.07 GB; default cap 500 MiB
+    cross_silo_retry_policy={"maxAttempts": 30, "initialBackoff": "0.2s", "maxBackoff": "1s"},
+    enable_waiting_for_other_parties_ready=True,
+)
+
+
+def _free_ports(n):
+    socks = [socket.socket() for _ in range(n)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _leaf_digest(value):
+    """SHA-256 over the bytes of every leaf in flatten order, with each
+    tensor's dtype, shape and device type beside it."""
+    from rayfed_tpu_torch import tree_util
+
+    h, meta, nbytes = hashlib.sha256(), [], 0
+    for leaf in tree_util.tree_leaves(value):
+        if isinstance(leaf, torch.Tensor):
+            raw = leaf.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy()
+            h.update(raw)
+            nbytes += raw.nbytes
+            meta.append([str(leaf.dtype), list(leaf.shape), leaf.device.type])
+        else:
+            h.update(repr(leaf).encode())
+    return {"sha256": h.hexdigest(), "meta": meta, "nbytes": nbytes}
+
+
+class _ModelCache:
+    """Keeps alice's model across the fed sessions of her process (one per
+    link mode), so the base is built once.  Not a container: fed passes
+    it to the actor as it is, where a dict would arrive rebuilt."""
+
+    m = None
+
+
+class _Trainer:
+    """alice's actor: the Llama base, rank-16 adapters on w[qv] and Adam
+    state, random from SEED."""
+
+    def __init__(self, cache, cfg_name, cfg_kw, train_len, device):
+        self.device = device
+        if cache.m is None:
+            cfg = getattr(llama, cfg_name)(**cfg_kw)
+            gen = torch.Generator(device=device).manual_seed(SEED)
+            params = llama.init_llama(cfg, gen, device=device)
+            adapters = lora.init_lora(params, lora.LoraConfig(rank=LORA_RANK, targets=(r"w[qv]$",)),
+                                      gen, device=device)
+            cache.m = dict(
+                params=params, adapters=adapters, opt=llama.init_adam(adapters),
+                ids=torch.randint(0, cfg.vocab_size, (1, train_len), generator=gen, device=device),
+                step=llama.make_lora_train_step(cfg, lr=TRAIN_LR, attn_fn=flash_attention),
+            )
+        self.m = cache.m
+
+    def step(self):
+        """One LoRA step through the three kernels; returns the adapters
+        (tensors on this party's card) and the step's launch counts."""
+        m = self.m
+        _zero_counts()
+        _sync(self.device)
+        t0 = time.perf_counter()
+        m["adapters"], m["opt"], loss = m["step"](m["adapters"], m["opt"], m["params"], m["ids"])
+        _sync(self.device)
+        step_ms = (time.perf_counter() - t0) * 1e3
+        return {"adapters": m["adapters"], "loss": loss.item(), "step_ms": step_ms, "launches": _counts()}
+
+    def base_wq(self):
+        return self.m["params"]["layers"]["wq"]
+
+
+def _fed_session(fed, party, cache, cfg_name, cfg_kw, train_len, device):
+    """One exchange: alice steps and both results cross to bob; each party
+    fingerprints what it holds and both require the fingerprints equal."""
+    from rayfed_tpu_torch.runtime import get_runtime
+
+    trainer = fed.remote(_Trainer).party("alice").remote(cache, cfg_name, cfg_kw, train_len, device)
+    objs = {"step": trainer.step.remote(), "wq": trainer.base_wq.remote()}
+    digest = fed.remote(_leaf_digest)
+    digests, get_s = {}, {}
+    for name, obj in objs.items():
+        # One transfer at a time: bob's fingerprint task takes the push,
+        # and both parties wait for its result before the next one moves.
+        t0 = time.perf_counter()
+        digests[("bob", name)] = fed.get(digest.party("bob").remote(obj))
+        get_s[name] = time.perf_counter() - t0
+    got = {n: fed.get(o) for n, o in objs.items()}  # bob's came with the pushes
+    for name, obj in objs.items():
+        digests[("alice", name)] = fed.get(digest.party("alice").remote(obj))
+    for name in objs:
+        a, b = digests[("alice", name)], digests[("bob", name)]
+        if a != b:
+            raise AssertionError(f"{name}: alice holds {a['sha256']} {a['meta'][:2]}, bob {b['sha256']} {b['meta'][:2]}")
+        if not a["meta"] or any(m[2] != device.type for m in a["meta"]):
+            raise AssertionError(f"{name}: leaves not on {device.type}: {a['meta']}")
+    from rayfed_tpu_torch import tree_util
+
+    held = tree_util.tree_leaves(got["step"]["adapters"]) + [got["wq"]]
+    if not all(isinstance(t, torch.Tensor) and t.device.type == device.type for t in held):
+        raise AssertionError(f"{party} holds leaves off {device.type}")
+    tm = get_runtime().transport
+    peer = next(p for p in FED_PARTIES if p != party)
+    tm.ping(peer, timeout_s=10)
+    ids = {o.get_fed_task_id(): n for n, o in objs.items()}
+    transfers = [dict(r._asdict(), name=ids[r.up_id]) for r in tm.transfer_log.records() if r.up_id in ids]
+    return got, {
+        "link": tm.effective_transport_options(peer)["local_link"],
+        "transfers": transfers,
+        "breakdown_ms": tm.get_stats()["send_path_breakdown_ms"],
+        "get_s": get_s,
+        "digests": {n: digests[("alice", n)] for n in objs},
+        "train": {k: v for k, v in got["step"].items() if k != "adapters"},
+    }
+
+
+def _fed_party(party, ports, cfg_name, cfg_kw, train_len, device, out):
+    """A party process of the federated phase; both parties run this same
+    driver, one fed session per link mode.  Puts its report on ``out``."""
+    import rayfed_tpu_torch as fed
+    from rayfed_tpu_torch.transport import wire
+
+    report = {"party": party, "links": {}}
+    try:
+        cache = _ModelCache()
+        for link in FED_LINKS:
+            cluster = {p: {"address": f"127.0.0.1:{port}", "transport_options": {"local_link": link}}
+                       for p, port in zip(FED_PARTIES, ports[link])}
+            runtime = fed.init(address="local", cluster=cluster, party=party, device=device, **FED_INIT)
+            dev = runtime.transport.device
+            got, report["links"][link] = _fed_session(fed, party, cache, cfg_name, cfg_kw, train_len, dev)
+            fed.shutdown()
+        if party == "bob":  # the codec's copies alone, on the received wq
+            wq = got["wq"]
+            d2h_s = []
+            for _ in range(2):  # the second reuses the cached pinned block
+                _sync(dev)
+                t0 = time.perf_counter()
+                bufs = wire.encode_payload(wq)  # card -> pinned host buffer
+                d2h_s.append(time.perf_counter() - t0)
+                payload = bytearray(b"".join(bytes(b) for b in bufs))
+                del bufs
+            t0 = time.perf_counter()
+            back = wire.decode_payload(payload, device_put=True, device=dev)  # host -> card
+            _sync(dev)
+            h2d_s = time.perf_counter() - t0
+            if not torch.equal(back, wq):
+                raise AssertionError("wq changed through encode and decode")
+            report["copies"] = {"nbytes": wq.numel() * wq.element_size(), "d2h_s": d2h_s, "h2d_s": h2d_s}
+        out.put(report)
+    except BaseException:
+        out.put({"party": party, "error": traceback.format_exc()})
+        raise
+
+
+def _run_parties(cfg_name, cfg_kw, train_len, device):
+    """Spawn both parties; every one must report and exit 0 within
+    FED_TIMEOUT_S, or the phase fails (a hung party is killed)."""
+    ctx = mp.get_context("spawn")
+    ports = {link: _free_ports(len(FED_PARTIES)) for link in FED_LINKS}
+    out = ctx.Queue()
+    procs = {p: ctx.Process(target=_fed_party, name=f"party-{p}",
+                            args=(p, ports, cfg_name, cfg_kw, train_len, device, out))
+             for p in FED_PARTIES}
+    for proc in procs.values():
+        proc.start()
+    reports = {}
+    deadline = time.monotonic() + FED_TIMEOUT_S
+    try:
+        while len(reports) < len(procs):  # drain the queue before joining
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"federated parties gave no report in {FED_TIMEOUT_S} s: "
+                                   f"{sorted(set(procs) - set(reports))}")
+            try:
+                r = out.get(timeout=2)
+            except queue.Empty:
+                gone = [p for p, proc in procs.items() if p not in reports and not proc.is_alive()]
+                if gone:
+                    raise RuntimeError(f"party {gone} exited {[procs[p].exitcode for p in gone]} "
+                                       f"without a report")
+                continue
+            reports[r["party"]] = r
+        for proc in procs.values():
+            proc.join(max(0.0, deadline - time.monotonic()))
+    finally:
+        for proc in procs.values():
+            if proc.is_alive():
+                proc.kill()
+                proc.join(10)
+    errors = {p: r["error"] for p, r in reports.items() if "error" in r}
+    if errors:
+        raise AssertionError("federated party failed:\n" + "\n".join(f"[{p}] {e}" for p, e in errors.items()))
+    codes = {p: proc.exitcode for p, proc in procs.items()}
+    if any(codes.values()):
+        raise AssertionError(f"federated party exit codes {codes}")
+    return reports
+
+
+def phase_federated():
+    """The federated path: alice's actor trains and bob receives the
+    adapters and the stacked wq on his card, over TCP and the local link."""
+    cfg = llama.llama3_8b(param_dtype=torch.bfloat16, remat=True)
+    torch.cuda.empty_cache()  # the parties' card state is their own
+    t0 = time.perf_counter()
+    reports = _run_parties("llama3_8b", dict(param_dtype=torch.bfloat16, remat=True), TRAIN_LEN, None)
+    wall = time.perf_counter() - t0
+    want = {"fwd": 2 * cfg.num_layers, "bwd_dq": cfg.num_layers, "bwd_dkv": cfg.num_layers}
+    return _federated_summary(reports, want, wall)
+
+
+def _federated_summary(reports, want, wall):
+    """Check the parties' reports against each other and print them."""
+    alice, bob = reports["alice"], reports["bob"]
+    out = {"wall_s": wall, "links": {}, "launches": {}}
+    for link in FED_LINKS:
+        a, b = alice["links"][link], bob["links"][link]
+        train = a["train"]
+        if train["launches"] != want:
+            raise AssertionError(f"link {link}: expected launches {want} in alice's step, got {train['launches']}")
+        if a["digests"] != b["digests"]:
+            raise AssertionError(f"link {link}: the parties' fingerprints differ")
+        decided = {p: r["links"][link]["link"] for p, r in reports.items()}
+        print(f"[fed] link {link}: decided {decided['alice']} (alice->bob), {decided['bob']} (bob->alice)")
+        if not (decided["alice"] or {}).get("decided"):
+            raise AssertionError(f"link {link}: alice's link to bob was never decided: {decided}")
+        print(f"[fed] link {link}: alice's LoRA step {train['step_ms']:.1f} ms, loss {train['loss']:.6f}, "
+              f"launches {train['launches']}; bob's wait for each result (step included) "
+              f"{ {n: round(t, 3) for n, t in b['get_s'].items()} } s")
+        for rec in sorted(a["transfers"], key=lambda r: r["nbytes"]):
+            if rec["direction"] != "send":
+                continue
+            recv = next(r for r in b["transfers"] if r["name"] == rec["name"] and r["direction"] == "recv")
+            d = a["digests"][rec["name"]]
+            print(f"[fed] link {link}: {rec['name']} {rec['nbytes'] / 1e6:.2f} MB payload "
+                  f"({d['nbytes'] / 1e6:.2f} MB in {len(d['meta'])} tensors, sha256 {d['sha256'][:16]}): "
+                  f"alice's send {rec['seconds'] * 1e3:.1f} ms ({rec['nbytes'] / rec['seconds'] / 1e9:.3f} GB/s), "
+                  f"bob's socket read {recv['seconds'] * 1e3:.1f} ms")
+        print(f"[fed] link {link}: alice's send path {a['breakdown_ms']}")
+        out["links"][link] = {"decided": decided, "train": train, "alice": a, "bob": b}
+        out["launches"] = train["launches"]
+    c = bob["copies"]
+    d2h = ", ".join(f"{t * 1e3:.1f} ms ({c['nbytes'] / t / 1e9:.2f} GB/s)" for t in c["d2h_s"])
+    print(f"[fed] bob's codec copies of wq ({c['nbytes'] / 1e9:.3f} GB): D2H through a pinned buffer "
+          f"{d2h} (first, then with the pinned block cached), H2D from the payload "
+          f"{c['h2d_s'] * 1e3:.1f} ms ({c['nbytes'] / c['h2d_s'] / 1e9:.2f} GB/s)")
+    print(f"[fed] both links in {wall:.1f} s, party processes included")
+    out["copies"] = c
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -576,6 +858,7 @@ def main() -> int:
     serve_launches = phase_slice(gen)
     train = phase_train(gen)
     phase_grad_check(gen)
+    federated = phase_federated()
     times, train_times = phase_times(gen, card)
     bwd_times = phase_bwd_times(gen, card)
 
@@ -594,7 +877,8 @@ def main() -> int:
         "source": "rayfed_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "rayfed_tpu/ops/flash_attention.py:84",
         "launches": train_launches["fwd"],
-        "launches_by_path": {"serve": serve_launches, "train": train_launches["fwd"]},
+        "launches_by_path": {"serve": serve_launches, "train": train_launches["fwd"],
+                             "federated": federated["launches"]["fwd"]},
         "max_abs_err": slice_err,
         **times,
         "train_shape": train_times,  # B=1: the shape the train step launches it at
@@ -604,7 +888,8 @@ def main() -> int:
         "source": bwd_src,
         "replaces": "rayfed_tpu/ops/flash_attention.py:253",
         "launches": train_launches["bwd_dq"],
-        "launches_by_path": {"serve": 0, "train": train_launches["bwd_dq"]},
+        "launches_by_path": {"serve": 0, "train": train_launches["bwd_dq"],
+                             "federated": federated["launches"]["bwd_dq"]},
         "max_abs_err": bwd_err["dq"],
         **bwd_times["dq"],
     }, {
@@ -613,7 +898,8 @@ def main() -> int:
         "source": bwd_src,
         "replaces": "rayfed_tpu/ops/flash_attention.py:325",
         "launches": train_launches["bwd_dkv"],
-        "launches_by_path": {"serve": 0, "train": train_launches["bwd_dkv"]},
+        "launches_by_path": {"serve": 0, "train": train_launches["bwd_dkv"],
+                             "federated": federated["launches"]["bwd_dkv"]},
         "max_abs_err": bwd_err["dkv"],
         **bwd_times["dkv"],
     }]

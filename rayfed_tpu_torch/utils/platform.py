@@ -2,12 +2,13 @@
 
 Entry points run on the CUDA card.  The CPU is used only when the caller
 asks for it (the tests do): a host without a card never falls back to the
-CPU silently.
+CPU silently.  Values handed from one thread to another (a task's result
+to the transport) are ordered on the card by :func:`fence_for_handoff`.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Any, Optional, Union
 
 import torch
 
@@ -25,3 +26,30 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             "no CUDA device is available; pass device='cpu' to run on the CPU"
         )
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def fence_for_handoff(value: Any) -> None:
+    """Order the work that produced ``value``'s CUDA tensors before what is
+    enqueued later on their devices' default streams.
+
+    Call it on the thread that produced ``value``, when handing it to
+    another thread: the transport copies a pushed tensor to the host on
+    its device's default stream, from a thread of its own.  When this
+    thread's current stream is not the default one, the default stream
+    waits on an event recorded on it now; on the default stream the order
+    holds already.
+    """
+    if not torch.cuda.is_initialized():
+        return
+    from rayfed_tpu_torch import tree_util
+
+    devices = {
+        leaf.device
+        for leaf in tree_util.tree_leaves(value)
+        if isinstance(leaf, torch.Tensor) and leaf.is_cuda
+    }
+    for dev in devices:
+        current = torch.cuda.current_stream(dev)
+        default = torch.cuda.default_stream(dev)
+        if current != default:
+            default.wait_stream(current)

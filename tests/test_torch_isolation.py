@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither JAX nor the reference package,
 picks the card unless told otherwise, and differentiates flash attention
-through its own backward."""
+through its own backward.  The one place it names the reference package is
+the wire name of the skeleton classes, a string constant."""
 
 import re
 import subprocess
@@ -45,7 +46,13 @@ def test_port_imports_with_jax_and_reference_blocked():
         cwd=ROOT, capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 8  # every module was walked
+    assert int(proc.stdout.split()[-1]) >= 44  # every module was walked
+
+
+# The skeleton classes' wire name: the only line of the port that may name
+# the reference package (rayfed_tpu_torch/serialization.py).
+WIRE_NAME_FILE = ROOT / "rayfed_tpu_torch" / "serialization.py"
+WIRE_NAME_LINE = 'SKELETON_WIRE_MODULE = "rayfed_tpu.transport.wire"'
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -54,8 +61,19 @@ def test_no_jax_or_reference_imports_in_source(path):
     assert not re.search(r"^\s*(import|from)\s+(jax|jaxlib)\b", text, re.M)
     # "rayfed_tpu." and "from/import rayfed_tpu" name the reference; the
     # port's own name "rayfed_tpu_torch" shares the prefix and is allowed.
-    assert not re.search(r"\brayfed_tpu\.", text)
+    naming = [line.strip() for line in text.splitlines() if re.search(r"\brayfed_tpu\.", line)]
+    allowed = [WIRE_NAME_LINE] if path == WIRE_NAME_FILE else []
+    assert naming == allowed
     assert not re.search(r"\b(from|import)\s+rayfed_tpu\b(?!_)", text)
+
+
+def test_wire_name_is_the_reference_module():
+    from rayfed_tpu_torch import serialization
+    from rayfed_tpu_torch.transport import wire
+
+    module, names = serialization.SKELETON_WIRE_MODULE, serialization._SKELETON_NAMES
+    assert module.replace("rayfed_tpu", "rayfed_tpu_torch", 1) == wire.__name__
+    assert {wire._Skeleton.__qualname__, wire._LeafSlot.__qualname__} == set(names)
 
 
 def test_resolve_device_raises_without_a_card(monkeypatch):
@@ -84,6 +102,14 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
     assert llama.init_kv_cache(cfg, 1, 8, device="cpu")["k"].device.type == "cpu"
     adapters = lora.init_lora(params, lora.LoraConfig(), torch.Generator(), device="cpu")
     assert adapters["layers"]["wq"]["a"].device.type == "cpu"
+
+    import rayfed_tpu_torch as fed
+    from rayfed_tpu_torch.runtime import get_runtime_or_none
+
+    cluster = {"solo": {"address": "127.0.0.1:1"}}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fed.init(address="local", cluster=cluster, party="solo")
+    assert get_runtime_or_none() is None  # raised before starting anything
 
 
 @pytest.mark.parametrize("which", [0, 1, 2])
