@@ -39,7 +39,26 @@ Phases, each fatal on failure:
      which must agree.  Once over TCP, once with the local link "auto";
      prints each transfer's time and GB/s, the decided backend, the
      step's time and bob's D2H and H2D copies of wq;
-  6. time each kernel (mean over one window of calls) against its plain
+     In the same processes, after both exchanges, a packed FedAvg round
+     (local link "auto"): each party's ``@fed.remote`` trainer holds the
+     same Llama-3-8B base (from the seed) and takes one LoRA step per
+     round on its own token ids, and both run ``fl.run_fedavg_rounds``
+     for 2 rounds with bf16 packed wire and ``streaming_agg`` — bob pushes
+     his 13.63 MB packed adapters on a delta stream, alice folds them on
+     her card with her own and broadcasts the mean.  Checks: 64/32/32
+     launches in every step of both parties, equal SHA-256 fingerprints of
+     both parties' final adapters (all leaves on the card), delta frames in
+     round 2; prints each round's local/push/agg seconds, alice's
+     aggregator stats and each party's peak memory;
+  6. the fold alone, before the party processes start: 2 contributions at
+     the adapters' size and 4 at the stacked wq's (536.9e6 bf16 elements),
+     from the seed, fed through a CUDA ``StreamingAggregator``'s sinks in
+     512 KiB pieces in a shuffled interleaving (one added as the local
+     contribution); its result, and the one-shot fold on the card, must
+     equal the CPU fold byte for byte, weights 3/5/7/11 and None; prints
+     the fold's device ms per contribution, the H2D ms of a contribution,
+     the finalize and error-feedback ms, and the fold's GB/s against HBM;
+  7. time each kernel (mean over one window of calls) against its plain
      version, the library call that computes the same function, and the
      card's bound (the forward at the serving shape B=4 and at the training
      shape B=1), and the host's time to enqueue one forward and one dQ.
@@ -67,6 +86,8 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 import torch.nn.functional as F
 
+from rayfed_tpu_torch import fl
+from rayfed_tpu_torch.fl import fedavg, streaming
 from rayfed_tpu_torch.models import llama, lora
 from rayfed_tpu_torch.ops import _build
 from rayfed_tpu_torch.ops.attention import dot_product_attention
@@ -576,11 +597,142 @@ def phase_times(gen, card):
     return serve, _fwd_times(gen, card, 1)
 
 
+# -- the fold: the streaming aggregator alone, in this process ---------------
+
+# Contributions of the fold phase: the round's packed adapters (rank-16
+# w[qv] adapters of llama3_8b, a and b plus the two 0-d scales) and the
+# stacked wq (32 x 4096 x 4096), both as bf16 wire buffers.
+FOLD_SIZES = (("adapters", 2, 6_815_748), ("wq", 4, 32 * 4096 * 4096))
+FOLD_WEIGHTS = (3, 5, 7, 11)
+FOLD_PIECE = 512 * 1024  # bytes handed to a sink at a time
+
+
+def _payload_bytes(packed):
+    """One contribution's wire payload as one writable buffer."""
+    from rayfed_tpu_torch.transport import wire
+
+    views = [memoryview(b).cast("B") for b in wire.encode_payload(packed)]
+    out, off = bytearray(sum(v.nbytes for v in views)), 0
+    for v in views:
+        out[off:off + v.nbytes] = v
+        off += v.nbytes
+    return out
+
+
+def _feed_interleaved(agg, payloads, order, rng):
+    """Hand every payload to its sink in FOLD_PIECE pieces, the streams
+    interleaved at random, as arrivals from several peers would."""
+    sinks = {i: agg.sink(i) for i in order}
+    pos = dict.fromkeys(order, 0)
+    live = list(order)
+    while live:
+        i = rng.choice(live)
+        p = payloads[i]
+        pos[i] = min(len(p), pos[i] + FOLD_PIECE)
+        if pos[i] == len(p):
+            sinks[i].on_complete(p)
+            live.remove(i)
+        else:
+            sinks[i].on_bytes(memoryview(p), pos[i])
+
+
+def _raw(t):
+    return t.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+
+
+def _event_ms(fn):
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def phase_fold(gen, card):
+    """The streaming fold on the card against the CPU fold, and its times."""
+    import random
+
+    _, (_, hbm) = _peaks(card)
+    rng = random.Random(SEED)
+    for name, n, elems in FOLD_SIZES:
+        cpu = []
+        for _ in range(n):
+            x = torch.randn(elems, generator=gen, device="cuda").to(torch.bfloat16)
+            cpu.append(fl.pack_tree({"w": x.cpu()}))
+            del x
+        on_card = [fl.PackedTree(p.buf.cuda(), p.passthrough, p.spec) for p in cpu]
+        t0 = time.perf_counter()
+        payloads = [_payload_bytes(p) for p in cpu]
+        encode_s = time.perf_counter() - t0
+        for weights in (list(FOLD_WEIGHTS[:n]), None):
+            tag = "/".join(map(str, weights)) if weights else "None"
+            t0 = time.perf_counter()
+            plain = fl.packed_weighted_sum(cpu, weights)
+            cpu_s = time.perf_counter() - t0
+            held = []
+            one_shot_ms = _event_ms(lambda: held.append(fl.packed_weighted_sum(on_card, weights)))
+            one_shot = held.pop()
+            local = rng.randrange(n)
+            order = [i for i in range(n) if i != local]
+            agg = streaming.StreamingAggregator(n, weights=weights, device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            agg.add_local(local, on_card[local])
+            _feed_interleaved(agg, payloads, order, rng)
+            got = agg.result(timeout=600)
+            torch.cuda.synchronize()
+            stream_s = time.perf_counter() - t0
+            want = _raw(plain.buf)
+            same = {"streamed": torch.equal(_raw(got.buf), want), "one_shot": torch.equal(_raw(one_shot.buf), want)}
+            print(f"[fold] {name}: {n} x {elems} bf16, weights {tag}, local {local}, arrivals {order} in "
+                  f"{FOLD_PIECE // 1024} KiB pieces: streamed on cuda {stream_s * 1e3:.1f} ms wall "
+                  f"(stats {json.dumps({k: v for k, v in agg.stats.items() if k.startswith('agg_')})}), "
+                  f"one-shot on cuda {one_shot_ms:.3f} ms, CPU fold {cpu_s * 1e3:.1f} ms; "
+                  f"byte-equal to the CPU fold: {same}")
+            if not all(same.values()) or got.buf.device.type != "cuda":
+                raise AssertionError(f"fold {name} weights {tag}: the card's fold differs from the CPU fold")
+            del plain, one_shot, got, agg
+        # Device times of the pieces: one contribution's H2D (pinned), its
+        # fold (product then add per 2^21-element block), the finalize, and
+        # the error-feedback step over the same elements in f32.
+        pinned = cpu[0].buf.pin_memory()
+        h2d_ms = _event_ms(lambda: pinned.to("cuda", non_blocking=True))
+        acc = torch.zeros(elems, dtype=torch.float32, device="cuda")
+        w = fedavg.f32_scalar(3.0, acc.device)
+        src = on_card[0].buf
+        ce = fedavg.DEFAULT_CHUNK_ELEMS
+
+        def fold_one():
+            for off in range(0, elems, ce):
+                streaming._fold_block(acc, off, src[off:off + ce], w)
+
+        fold_one()
+        fold_ms = _event_ms(fold_one)
+        fin_ms = _event_ms(lambda: fedavg.finalize_packed_stripe(acc, 26.0, elems, "bfloat16"))
+        ef = fl.ErrorFeedback()
+        tree32 = {"w": acc}
+        ef.compress(tree32)
+        ef_ms = _event_ms(lambda: ef.compress(tree32))
+        fold_bytes = elems * (2 + 4 + 4)  # read the bf16 block, read and write the f32 slice
+        bound_ms = fold_bytes / hbm * 1e3
+        print(f"[fold] {name}: per contribution on the card: fold {fold_ms:.3f} ms "
+              f"({fold_bytes / fold_ms / 1e6:.1f} GB/s; bound {bound_ms:.3f} ms at {hbm / 1e12:.2f} TB/s, "
+              f"{bound_ms / fold_ms:.3f} of it), H2D of its {elems * 2 / 1e6:.2f} MB from pinned memory "
+              f"{h2d_ms:.3f} ms ({elems * 2 / h2d_ms / 1e6:.1f} GB/s); finalize {fin_ms:.3f} ms; "
+              f"error-feedback step (f32 in, bf16 out) {ef_ms:.3f} ms; encode of the payloads "
+              f"{encode_s * 1e3:.1f} ms")
+        del cpu, on_card, payloads, pinned, acc, src, ef, tree32
+        torch.cuda.empty_cache()
+
+
 # -- the federated path: two party processes on the one card ----------------
 
 FED_PARTIES = ("alice", "bob")
 FED_LINKS = ("off", "auto")  # TCP, then whatever the local link "auto" decides
-FED_TIMEOUT_S = 540  # hard limit on the party processes, both links together
+FED_TIMEOUT_S = 540  # hard limit on the party processes, all three sessions together
+ROUNDS = 2  # FedAvg rounds of the round session (local link "auto")
 FED_INIT = dict(
     cross_silo_messages_max_size_in_bytes=4 << 30,  # wq is 1.07 GB; default cap 500 MiB
     cross_silo_retry_policy={"maxAttempts": 30, "initialBackoff": "0.2s", "maxBackoff": "1s"},
@@ -663,6 +815,74 @@ class _Trainer:
         return self.m["params"]["layers"]["wq"]
 
 
+class _RoundTrainer:
+    """A party's trainer in the FedAvg round: the Llama base (alice's
+    from her cache, bob's built here; both from SEED, so equal), its own
+    Adam state and token ids, one LoRA step per round."""
+
+    def __init__(self, cache, cfg_name, cfg_kw, train_len, device, index):
+        self.device = device
+        if cache.m is None:
+            _Trainer(cache, cfg_name, cfg_kw, train_len, device)
+        self.params, self.step_fn = cache.m["params"], cache.m["step"]
+        gen = torch.Generator(device=device).manual_seed(SEED + 1 + index)
+        vocab = self.params["embed"].shape[0]
+        self.ids = torch.randint(0, vocab, (1, train_len), generator=gen, device=device)
+        self.opt, self.steps = None, []
+
+    def initial(self):
+        """The round's starting adapters, from the seed."""
+        gen = torch.Generator(device=self.device).manual_seed(SEED + 100)
+        return lora.init_lora(self.params, lora.LoraConfig(rank=LORA_RANK, targets=(r"w[qv]$",)),
+                              gen, device=self.device)
+
+    def train(self, wire_adapters):
+        adapters = fl.decompress(wire_adapters)
+        if self.opt is None:
+            self.opt = llama.init_adam(adapters)
+        _zero_counts()
+        _sync(self.device)
+        t0 = time.perf_counter()
+        adapters, self.opt, loss = self.step_fn(adapters, self.opt, self.params, self.ids)
+        _sync(self.device)
+        self.steps.append({"step_ms": (time.perf_counter() - t0) * 1e3, "loss": loss.item(),
+                           "launches": _counts()})
+        return fl.compress(adapters, packed=True)
+
+    def report(self):
+        peak = torch.cuda.max_memory_allocated(self.device) if self.device.type == "cuda" else 0
+        return {"steps": self.steps, "max_memory_allocated": peak}
+
+
+def _round_session(fed, party, cache, cfg_name, cfg_kw, train_len, device):
+    """The packed FedAvg round: both parties train, alice folds on her card."""
+    from rayfed_tpu_torch.runtime import get_runtime
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    trainers = {p: fed.remote(_RoundTrainer).party(p).remote(cache, cfg_name, cfg_kw, train_len, device, i)
+                for i, p in enumerate(FED_PARTIES)}
+    adapters = fed.get(trainers["alice"].initial.remote())
+    timings = []
+    t0 = time.perf_counter()
+    final = fl.run_fedavg_rounds(trainers, adapters, rounds=ROUNDS, compress_wire=True, packed_wire=True,
+                                 streaming_agg=True, timings=timings)
+    _sync(device)
+    wall_s = time.perf_counter() - t0
+    digest = fed.remote(_leaf_digest)
+    digests = fed.get([digest.party(p).remote(final) for p in FED_PARTIES])
+    trainer_reports = fed.get([trainers[p].report.remote() for p in FED_PARTIES])
+    stats = get_runtime().transport.get_stats()
+    return {
+        "wall_s": wall_s,
+        "timings": timings,
+        "digests": dict(zip(FED_PARTIES, digests)),
+        "trainers": dict(zip(FED_PARTIES, trainer_reports)),
+        "delta": {k: stats[k] for k in ("delta_stream_frames", "delta_full_frames",
+                                        "delta_logical_bytes", "delta_wire_bytes")},
+    }
+
+
 def _fed_session(fed, party, cache, cfg_name, cfg_kw, train_len, device):
     """One exchange: alice steps and both results cross to bob; each party
     fingerprints what it holds and both require the fingerprints equal."""
@@ -740,6 +960,15 @@ def _fed_party(party, ports, cfg_name, cfg_kw, train_len, device, out):
             if not torch.equal(back, wq):
                 raise AssertionError("wq changed through encode and decode")
             report["copies"] = {"nbytes": wq.numel() * wq.element_size(), "d2h_s": d2h_s, "h2d_s": h2d_s}
+            del wq, back, payload
+        del got  # bob's received wq leaves the card before the round
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        cluster = {p: {"address": f"127.0.0.1:{port}", "transport_options": {"local_link": "auto"}}
+                   for p, port in zip(FED_PARTIES, ports["round"])}
+        fed.init(address="local", cluster=cluster, party=party, device=device, **FED_INIT)
+        report["round"] = _round_session(fed, party, cache, cfg_name, cfg_kw, train_len, dev)
+        fed.shutdown()
         out.put(report)
     except BaseException:
         out.put({"party": party, "error": traceback.format_exc()})
@@ -750,7 +979,7 @@ def _run_parties(cfg_name, cfg_kw, train_len, device):
     """Spawn both parties; every one must report and exit 0 within
     FED_TIMEOUT_S, or the phase fails (a hung party is killed)."""
     ctx = mp.get_context("spawn")
-    ports = {link: _free_ports(len(FED_PARTIES)) for link in FED_LINKS}
+    ports = {link: _free_ports(len(FED_PARTIES)) for link in (*FED_LINKS, "round")}
     out = ctx.Queue()
     procs = {p: ctx.Process(target=_fed_party, name=f"party-{p}",
                             args=(p, ports, cfg_name, cfg_kw, train_len, device, out))
@@ -836,9 +1065,47 @@ def _federated_summary(reports, want, wall):
     print(f"[fed] bob's codec copies of wq ({c['nbytes'] / 1e9:.3f} GB): D2H through a pinned buffer "
           f"{d2h} (first, then with the pinned block cached), H2D from the payload "
           f"{c['h2d_s'] * 1e3:.1f} ms ({c['nbytes'] / c['h2d_s'] / 1e9:.2f} GB/s)")
-    print(f"[fed] both links in {wall:.1f} s, party processes included")
+    print(f"[fed] both links and the round in {wall:.1f} s, party processes included")
     out["copies"] = c
+    out["round"] = _round_summary(alice["round"], bob["round"], want)
     return out
+
+
+def _round_summary(a, b, want):
+    """Check both parties' reports of the round session and print them."""
+    for party, r in (("alice", a), ("bob", b)):
+        steps = r["trainers"][party]["steps"]
+        if len(steps) != ROUNDS or any(s["launches"] != want for s in steps):
+            raise AssertionError(f"round: {party}'s steps launched {[s['launches'] for s in steps]}, want {want} x {ROUNDS}")
+    if a["digests"] != b["digests"] or a["digests"]["alice"] != a["digests"]["bob"]:
+        raise AssertionError(f"round: the parties' final adapters differ: {a['digests']} vs {b['digests']}")
+    d = a["digests"]["alice"]
+    if not d["meta"] or any(m[2] != "cuda" for m in d["meta"]):
+        raise AssertionError(f"round: final adapters not on the card: {d['meta']}")
+    # Every round's contribution (bob's) and broadcast (alice's) go out on
+    # their delta streams; from round 2 on each send diffs against the
+    # stream's cached base and ships the changed 4 MB chunks only, or a
+    # full frame when every chunk changed (the client's rule).
+    for party, r in (("alice", a), ("bob", b)):
+        frames = r["delta"]["delta_stream_frames"] + r["delta"]["delta_full_frames"]
+        if frames != ROUNDS:
+            raise AssertionError(f"round: {party} sent {frames} frames on its delta stream, want {ROUNDS}: {r['delta']}")
+    launches = {k: 0 for k in want}
+    for party, r in (("alice", a), ("bob", b)):
+        t = r["trainers"][party]
+        for i, (step, rec) in enumerate(zip(t["steps"], r["timings"])):
+            print(f"[round] {party} round {i}: local_s {rec['local_s']:.3f} push_s {rec['push_s']:.3f} "
+                  f"agg_s {rec['agg_s']:.3f}; step {step['step_ms']:.1f} ms loss {step['loss']:.6f} "
+                  f"launches {step['launches']}")
+            if rec.get("agg_stats"):
+                print(f"[round] alice's aggregator, round {i}: {json.dumps(rec['agg_stats'])}")
+            for k in launches:
+                launches[k] += step["launches"][k]
+        print(f"[round] {party}: {ROUNDS} rounds in {r['wall_s']:.2f} s wall, "
+              f"max_memory_allocated {t['max_memory_allocated'] / 1e9:.2f} GB, delta {r['delta']}")
+    print(f"[round] final adapters sha256 {d['sha256'][:16]} ({d['nbytes'] / 1e6:.2f} MB in "
+          f"{len(d['meta'])} tensors) on both parties; launches over both parties' steps {launches}")
+    return {"launches": launches, "wall_s": {"alice": a["wall_s"], "bob": b["wall_s"]}}
 
 
 def main() -> int:
@@ -858,7 +1125,9 @@ def main() -> int:
     serve_launches = phase_slice(gen)
     train = phase_train(gen)
     phase_grad_check(gen)
+    phase_fold(gen, card)
     federated = phase_federated()
+    round_launches = federated["round"]["launches"]
     times, train_times = phase_times(gen, card)
     bwd_times = phase_bwd_times(gen, card)
 
@@ -878,7 +1147,8 @@ def main() -> int:
         "replaces": "rayfed_tpu/ops/flash_attention.py:84",
         "launches": train_launches["fwd"],
         "launches_by_path": {"serve": serve_launches, "train": train_launches["fwd"],
-                             "federated": federated["launches"]["fwd"]},
+                             "federated": federated["launches"]["fwd"],
+                             "round": round_launches["fwd"]},
         "max_abs_err": slice_err,
         **times,
         "train_shape": train_times,  # B=1: the shape the train step launches it at
@@ -889,7 +1159,8 @@ def main() -> int:
         "replaces": "rayfed_tpu/ops/flash_attention.py:253",
         "launches": train_launches["bwd_dq"],
         "launches_by_path": {"serve": 0, "train": train_launches["bwd_dq"],
-                             "federated": federated["launches"]["bwd_dq"]},
+                             "federated": federated["launches"]["bwd_dq"],
+                             "round": round_launches["bwd_dq"]},
         "max_abs_err": bwd_err["dq"],
         **bwd_times["dq"],
     }, {
@@ -899,7 +1170,8 @@ def main() -> int:
         "replaces": "rayfed_tpu/ops/flash_attention.py:325",
         "launches": train_launches["bwd_dkv"],
         "launches_by_path": {"serve": 0, "train": train_launches["bwd_dkv"],
-                             "federated": federated["launches"]["bwd_dkv"]},
+                             "federated": federated["launches"]["bwd_dkv"],
+                             "round": round_launches["bwd_dkv"]},
         "max_abs_err": bwd_err["dkv"],
         **bwd_times["dkv"],
     }]

@@ -220,6 +220,14 @@ def init(
     runtime.recv_proxy = transport
     runtime.transport = transport
 
+    # Pre-warm the fl package ON THIS THREAD, before any cross-thread
+    # traffic exists: the decode paths import fl submodules from worker
+    # threads (a packed skeleton names fl.compression), and two FIRST
+    # imports racing across threads can observe a partially initialized
+    # package.  One eager import here makes every later lookup a
+    # sys.modules hit.
+    import rayfed_tpu_torch.fl  # noqa: F401
+
     if enable_waiting_for_other_parties_ready:
         ping_others(cluster=cluster, self_party=party, max_retries=3600)
     logger.info("Started rayfed_tpu_torch runtime for party %s.", party)

@@ -1,0 +1,70 @@
+"""Federated-learning algorithms built on the fed API.
+
+The ported half of the JAX package's fl package; it exports only
+what is ported:
+
+- :mod:`compression` — the per-leaf and packed wire forms
+  (:class:`PackedTree`, byte-compatible with the JAX package's) and error
+  feedback.
+- :mod:`fedavg` — weighted parameter averaging, the one-shot packed
+  fold and :func:`aggregate`.
+- :mod:`streaming` — the streaming on-card fold and
+  :func:`streaming_aggregate`.
+- :mod:`fedopt` — the legacy server optimizers and FedProx.
+- :mod:`trainer` — :func:`run_fedavg_rounds`, the round loop.
+
+The compressed-domain round, the ring, quorum, hierarchy, overlapped and
+asynchronous rounds, secure aggregation, the packed server optimizers,
+differential privacy, robust reducers and split learning are later items
+of ROADMAP.md's Queue A.
+"""
+
+from rayfed_tpu_torch.fl.compression import (
+    ErrorFeedback,
+    PackedTree,
+    PackSpec,
+    compress,
+    decompress,
+    pack_tree,
+    unpack_tree,
+)
+from rayfed_tpu_torch.fl.fedavg import (
+    FedAvgActorBase,
+    aggregate,
+    packed_weighted_sum,
+    tree_average,
+    tree_weighted_sum,
+)
+from rayfed_tpu_torch.fl.fedopt import (
+    ServerOptimizer,
+    fedprox_loss,
+    server_adam,
+    server_sgd,
+    server_yogi,
+)
+from rayfed_tpu_torch.fl.streaming import StreamingAggregator, streaming_aggregate
+from rayfed_tpu_torch.fl.trainer import run_fedavg_rounds, validate_round_config
+
+__all__ = [
+    "aggregate",
+    "packed_weighted_sum",
+    "streaming_aggregate",
+    "StreamingAggregator",
+    "ErrorFeedback",
+    "FedAvgActorBase",
+    "tree_average",
+    "tree_weighted_sum",
+    "compress",
+    "decompress",
+    "PackedTree",
+    "PackSpec",
+    "pack_tree",
+    "unpack_tree",
+    "ServerOptimizer",
+    "server_sgd",
+    "server_adam",
+    "server_yogi",
+    "fedprox_loss",
+    "validate_round_config",
+    "run_fedavg_rounds",
+]

@@ -1,0 +1,354 @@
+"""FedAvg: cross-party weighted parameter averaging (the float half).
+
+Multi-controller semantics (every party runs the same line): each party
+contributes its local update as a ``FedObject``; :func:`aggregate` fetches
+the contributions and averages them.  Packed contributions
+(:class:`~rayfed_tpu_torch.fl.compression.PackedTree`) reduce as one chain
+over the packed buffers on their device: zero-init, then per party one
+multiply and one add in f32, then one divide and one cast.  Those are
+separate elementwise kernels, never a fused multiply-add, so the streamed
+fold (:mod:`rayfed_tpu_torch.fl.streaming`) and this one-shot fold give the
+same bytes, on the CPU and on the card, as the JAX package's.
+
+Integer-code contributions (the compressed-domain round) are not ported
+yet: they raise ``NotImplementedError`` (ROADMAP.md, Queue A item 6).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from rayfed_tpu_torch import tree_util
+from rayfed_tpu_torch.fl import compression
+from rayfed_tpu_torch.fl.compression import PackedTree, PackSpec
+
+# Elements per block of the canonical chunk grid: one 4 MB bf16 wire chunk.
+DEFAULT_CHUNK_ELEMS = 1 << 21
+
+UNPORTED_QUANT = (
+    "integer-code (compressed-domain) aggregation is not ported yet "
+    "(ROADMAP.md, Queue A item 6)"
+)
+
+
+def _check_weights(weights: Sequence[float]) -> float:
+    """Validated total of a weight vector.
+
+    An empty, all-zero or non-finite weight vector would divide the
+    aggregate by 0 — raise a ValueError naming the problem instead."""
+    if len(weights) == 0:
+        raise ValueError("weights must be non-empty")
+    total = float(sum(float(w) for w in weights))
+    if total == 0.0:
+        raise ValueError(
+            "weights sum to zero (e.g. every party reported 0 examples) "
+            "— the weighted average is undefined; drop the round or pass "
+            "weights=None for a plain mean"
+        )
+    if not math.isfinite(total):
+        raise ValueError(f"weights sum to a non-finite value ({total})")
+    return total
+
+
+def _f32(leaf: Any) -> Any:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.to(torch.float32)
+    return np.asarray(leaf).astype(np.float32)
+
+
+def _mean_leaf(*leaves):
+    """Mean of one leaf position: floats accumulate in f32 and cast back;
+    everything else keeps its library's promoting arithmetic (an int mean
+    is a float, never a truncated int)."""
+    if compression._is_float_leaf(leaves[0]):
+        dt = leaves[0].dtype
+        acc = _f32(leaves[0])
+        for leaf in leaves[1:]:
+            acc = acc + _f32(leaf)
+        if isinstance(acc, torch.Tensor):
+            # A tensor divisor: on the card a CPU scalar one turns the
+            # division into a product with its reciprocal.
+            return (acc / f32_scalar(len(leaves), acc.device)).to(dt)
+        return (acc / len(leaves)).astype(dt)
+    return sum(leaves[1:], start=leaves[0]) / len(leaves)
+
+
+def tree_weighted_sum(trees: Sequence[Any], weights: Sequence[float]) -> Any:
+    """Weighted sum of param pytrees (weights need not be normalized).
+
+    Raises :class:`ValueError` on an empty or zero-sum weight vector.
+    """
+    total = _check_weights(weights)
+    norm = [w / total for w in weights]
+
+    def _leaf(*leaves):
+        floating = compression._is_float_leaf(leaves[0])
+        acc = _f32(leaves[0]) if floating else leaves[0]
+        acc = acc * norm[0]
+        for leaf, w in zip(leaves[1:], norm[1:]):
+            acc = acc + (_f32(leaf) if floating else leaf) * w
+        if not floating:
+            return acc
+        dt = leaves[0].dtype
+        return acc.to(dt) if isinstance(acc, torch.Tensor) else acc.astype(dt)
+
+    return tree_util.tree_map(_leaf, *trees)
+
+
+def as_tensor(buf: Any, device: Optional[torch.device] = None) -> torch.Tensor:
+    """A packed buffer as a tensor: a tensor as it is (on ``device`` when
+    given), an ``np.ndarray`` (a JAX party's host buffer) through its bytes
+    — bfloat16 needs nothing of numpy that way."""
+    if not isinstance(buf, torch.Tensor):
+        arr = np.ascontiguousarray(buf)
+        dt = compression.torch_dtype(arr.dtype.name)
+        raw = torch.from_numpy(arr.reshape(-1).view(np.uint8).copy())
+        buf = raw.view(dt).reshape(arr.shape)
+    return buf if device is None else buf.to(device)
+
+
+def _check_float_wire(spec: PackSpec) -> None:
+    if not compression.torch_dtype(spec.wire_dtype).is_floating_point:
+        raise NotImplementedError(
+            f"a packed buffer of {spec.wire_dtype} codes: {UNPORTED_QUANT}"
+        )
+
+
+def _fold_device(bufs: Sequence[Any]) -> torch.device:
+    """The device a fold of ``bufs`` runs on: the first tensor's."""
+    for b in bufs:
+        if isinstance(b, torch.Tensor):
+            return b.device
+    return torch.device("cpu")
+
+
+def f32_scalar(value: float, device: torch.device) -> torch.Tensor:
+    """``value`` as a 0-d f32 tensor on ``device``, made by a fill kernel
+    (no host-to-device copy, so nothing waits for the stream's queue)."""
+    return torch.full((), float(np.float32(value)), dtype=torch.float32, device=device)
+
+
+def _packed_reduce(bufs, weights: Sequence[float], total_w: float, out_dtype) -> torch.Tensor:
+    """The one-shot fold: zero-init, then per party one multiply and one
+    add in f32, then the finalize (:func:`finalize_packed_stripe`) — the
+    op sequence the streaming fold applies block by block."""
+    device = _fold_device(bufs)
+    xs = [as_tensor(b, device).reshape(-1) for b in bufs]
+    acc = torch.zeros(xs[0].numel(), dtype=torch.float32, device=device)
+    for x, w in zip(xs, weights):
+        acc = acc + f32_scalar(w, device) * x.to(torch.float32)
+    return finalize_packed_stripe(acc, total_w, acc.numel(), out_dtype)
+
+
+def packed_block_grid(total_elems: int, chunk_elems: Optional[int] = None) -> int:
+    """Number of blocks in the packed buffer's canonical chunk grid
+    (``chunk_elems`` per block, default :data:`DEFAULT_CHUNK_ELEMS`; the
+    last block short)."""
+    if chunk_elems is None:
+        chunk_elems = DEFAULT_CHUNK_ELEMS
+    if total_elems < 0:
+        raise ValueError(f"total_elems must be >= 0, got {total_elems}")
+    return max(1, -(-total_elems // int(chunk_elems)))
+
+
+def packed_stripe_schedule(nblocks: int, n_stripes: int) -> List[List[int]]:
+    """Round-robin assignment of the chunk grid to ``n_stripes`` stripes:
+    block ``b`` belongs to stripe ``b % n_stripes`` (a cross-party
+    contract, like the wire format)."""
+    if n_stripes < 1:
+        raise ValueError(f"n_stripes must be >= 1, got {n_stripes}")
+    return [list(range(k, nblocks, n_stripes)) for k in range(n_stripes)]
+
+
+def finalize_packed_stripe(acc: torch.Tensor, total_w: float, total_elems: int, out_dtype):
+    """THE packed-aggregate finalize: ``(acc[:n] / total_w).to(out)``.
+
+    The divisor is an f32 tensor on ``acc``'s device: on the card a CPU
+    scalar divisor would turn the division into a product with its
+    reciprocal, which is not the same bytes.
+    """
+    total = f32_scalar(total_w, acc.device)
+    return (acc[: int(total_elems)] / total).to(compression.torch_dtype(out_dtype))
+
+
+def _packed_result(buf, passthrough, spec: PackSpec, out_name: str) -> PackedTree:
+    """Plain (float) PackedTree around a finalized aggregate buffer."""
+    if out_name != spec.wire_dtype:
+        spec = PackSpec(spec.entries, spec.treedef, out_name)
+    return PackedTree(buf, passthrough, spec)
+
+
+def _reduce_passthrough(passthroughs, weights, total):
+    """Average the non-float (passthrough) leaf tuples of N PackedTrees
+    with :func:`tree_average`'s per-leaf semantics (shared by the one-shot
+    and streaming reduces)."""
+    if not passthroughs[0]:
+        return ()
+    if weights is None:
+        return tuple(_mean_leaf(*ls) for ls in zip(*passthroughs))
+    norm = [float(x) / total for x in weights]
+
+    def _pt(*leaves):
+        acc = leaves[0] * norm[0]
+        for leaf, wt in zip(leaves[1:], norm[1:]):
+            acc = acc + leaf * wt
+        return acc
+
+    return tuple(_pt(*ls) for ls in zip(*passthroughs))
+
+
+def packed_weighted_sum(
+    packed_trees: Sequence[Any],
+    weights: Optional[Sequence[float]] = None,
+    out_dtype: Any = None,
+) -> PackedTree:
+    """One reduce over PackedTree contributions on their device.
+
+    The whole model reduces as one chain over the packed buffers — the
+    math the streaming path applies chunk by chunk, so the two give the
+    same bytes.  Passthrough leaves keep :func:`tree_average`'s per-leaf
+    semantics.  ``out_dtype`` defaults to the contributions' wire dtype;
+    pass f32 when the aggregate feeds a server optimizer or an
+    error-feedback loop.
+    """
+    packeds = list(packed_trees)
+    if not packeds:
+        raise ValueError("packed_weighted_sum needs at least one tree")
+    if not isinstance(packeds[0], PackedTree):
+        raise ValueError(
+            f"contribution 0 is not a PackedTree "
+            f"(got {type(packeds[0]).__name__}) — pack updates with "
+            f"fl.compress(tree, packed=True)"
+        )
+    spec = packeds[0].spec
+    for i, p in enumerate(packeds[1:], 1):
+        if not isinstance(p, PackedTree) or p.spec != spec:
+            raise ValueError(
+                f"contribution {i} is not a PackedTree with the same "
+                f"spec — all parties must pack the identical structure"
+            )
+    _check_float_wire(spec)
+    n = len(packeds)
+    if weights is None:
+        w = [1.0] * n
+        total = float(n)
+    else:
+        if len(weights) != n:
+            raise ValueError(f"{len(weights)} weights for {n} trees")
+        total = _check_weights(weights)
+        w = [float(x) for x in weights]
+    out_name = compression.dtype_name(
+        out_dtype if out_dtype is not None else spec.wire_dtype
+    )
+    buf = _packed_reduce([p.buf for p in packeds], w, total, out_name)
+    passthrough = _reduce_passthrough([p.passthrough for p in packeds], weights, total)
+    return _packed_result(buf, passthrough, spec, out_name)
+
+
+def tree_average(trees: Sequence[Any], weights: Optional[Sequence[float]] = None):
+    """Mean (or example-count-weighted mean) of param pytrees.
+
+    PackedTree contributions with a shared spec take the one-chain reduce
+    (:func:`packed_weighted_sum`).
+    """
+    trees = list(trees)
+    if not trees:
+        raise ValueError("tree_average needs at least one tree")
+    if weights is not None and len(weights) != len(trees):
+        raise ValueError(f"{len(weights)} weights for {len(trees)} trees")
+    if all(isinstance(t, PackedTree) for t in trees) and all(
+        t.spec == trees[0].spec for t in trees[1:]
+    ):
+        return packed_weighted_sum(trees, weights)
+    if weights is None:
+        return tree_util.tree_map(_mean_leaf, *trees)
+    return tree_weighted_sum(trees, tuple(float(w) for w in weights))
+
+
+def aggregate(
+    fed_objects: Sequence[Any],
+    weights: Optional[Sequence[float]] = None,
+    *,
+    mode: str = "auto",
+    coordinator: Optional[str] = None,
+    materialize: bool = True,
+    reducer: Optional[Any] = None,
+):
+    """FedAvg round: fetch every party's update and reduce (mean by default).
+
+    Every party calls this with the same list at the same point in the
+    program, so all parties return the identical averaged tree.
+
+    ``mode``: ``"all_to_all"`` (every owner pushes to every peer, each
+    party averages locally), ``"coordinator"`` (contributions go to one
+    party — default the owner of ``fed_objects[0]`` — which averages and
+    broadcasts) or ``"auto"`` (coordinator when more than two objects or
+    ``materialize=False``).  ``materialize=False`` (coordinator only)
+    returns the average as a FedObject, so consecutive rounds pipeline.
+    ``reducer(values) -> tree`` replaces the mean (exclusive with
+    ``weights``).
+    """
+    import rayfed_tpu_torch as fed
+
+    if reducer is not None and weights is not None:
+        raise ValueError(
+            "reducer and weights are mutually exclusive (a custom "
+            "reducer defines its own weighting)"
+        )
+
+    objs = list(fed_objects)
+    if mode == "auto":
+        mode = "coordinator" if len(objs) > 2 or not materialize else "all_to_all"
+    if mode == "all_to_all":
+        if not materialize:
+            raise ValueError(
+                'materialize=False requires mode="coordinator" (all_to_all '
+                "averages locally, which must fetch the contributions)"
+            )
+        values = fed.get(objs)
+        if reducer is not None:
+            return reducer(values)
+        return tree_average(values, weights)
+    if mode != "coordinator":
+        raise ValueError(f"unknown aggregate mode {mode!r}")
+
+    coord = coordinator or objs[0].get_party()
+    w = None if weights is None else tuple(float(x) for x in weights)
+
+    def _reduce(*trees):
+        if reducer is not None:
+            return reducer(list(trees))
+        return tree_average(trees, w)
+
+    avg_obj = fed.remote(_reduce).party(coord).remote(*objs)
+    if not materialize:
+        return avg_obj
+    return fed.get(avg_obj)
+
+
+class FedAvgActorBase:
+    """Template for a party-local training actor (wrap with ``@fed.remote``).
+
+    Holds params (+ optional extra state) on its device between rounds;
+    subclass or compose with a concrete ``train_step``.
+    """
+
+    def __init__(self, params: Any):
+        self._params = params
+
+    def get_params(self) -> Any:
+        return self._params
+
+    def set_params(self, params: Any) -> None:
+        self._params = params
+
+    def train_local(self, step_fn, batches) -> Any:
+        """Run ``step_fn(params, *batch) -> (params, loss)`` over batches."""
+        loss = None
+        for batch in batches:
+            self._params, loss = step_fn(self._params, *batch)
+        return self._params, loss

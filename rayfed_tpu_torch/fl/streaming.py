@@ -1,0 +1,827 @@
+"""Streaming on-device aggregation of PackedTree contributions.
+
+The classic FedAvg receive path waits for every party's payload, decodes N
+trees and reduces once.  Here aggregation is fused into the receive path:
+the transport surfaces payload bytes **as they land**
+(``TransportManager.recv_stream`` → the server's chunk sinks), and a
+:class:`StreamingAggregator` copies each complete block of the packed wire
+buffer to its device and folds it into an f32 accumulator there while later
+chunks are still on the wire.
+
+Each block folds as two elementwise kernels — the product ``w * x`` in f32,
+then an in-place add into the accumulator's slice — never one fused
+multiply-add, whose single rounding would differ.  Blocks fold in **party
+order per block** (party ``i``'s block ``b`` only after parties
+``0..i-1`` folded theirs), so arrival order only affects scheduling: the
+streamed aggregate is byte-identical to the one-shot reduce
+(:func:`rayfed_tpu_torch.fl.fedavg.packed_weighted_sum`) and to the JAX
+package's, which perform the same zero-init → per-party multiply then add →
+final divide and cast.
+
+On the card the fold runs on a stream of the aggregator's own; the result
+is fenced onto the device's default stream before it is handed on
+(:func:`~rayfed_tpu_torch.utils.platform.fence_for_handoff`), so the
+transport's device→host copy of the broadcast sees finished bytes.
+
+Not ported yet, each raising ``NotImplementedError``: the compressed-domain
+fold (``quant=``, ``quant_downlink=``; ROADMAP.md Queue A item 6), quorum
+rounds and region partial sums (``quorum=``, ``presummed=``; item 7), and
+secure aggregation (``masked=``, ``mask_recovery=``, ``secagg=``; item 8).
+``StripeAggregator`` comes with the ring (item 7).
+
+``streaming_aggregate`` is the multi-controller entry point: every party
+calls it at the same program point with the same arguments; contributions
+flow to the coordinator on named delta streams (only changed chunks cross
+the wire round over round) and the result is broadcast back.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import struct
+import threading
+import time
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from rayfed_tpu_torch.fl import fedavg
+from rayfed_tpu_torch.fl.compression import PackedTree, dtype_name
+from rayfed_tpu_torch.fl.fedavg import DEFAULT_CHUNK_ELEMS
+from rayfed_tpu_torch.transport import wire
+from rayfed_tpu_torch.utils.platform import fence_for_handoff, resolve_device
+
+logger = logging.getLogger(__name__)
+
+# A sink only wakes the aggregator worker after this many new bytes
+# (or on completion) — per-64KB-read notifies would thrash the lock.
+_NOTIFY_BYTES = 512 * 1024
+
+# Seq ids one streaming_aggregate call consumes.
+STREAM_AGG_SEQ_IDS = 2
+
+_UNPORTED = {
+    "quant": "the compressed-domain fold (ROADMAP.md, Queue A item 6)",
+    "quant_ref": "the compressed-domain fold (ROADMAP.md, Queue A item 6)",
+    "quant_downlink": "the compressed-domain fold (ROADMAP.md, Queue A item 6)",
+    "quorum": "quorum rounds (ROADMAP.md, Queue A item 7)",
+    "presummed": "hierarchical partial sums (ROADMAP.md, Queue A item 7)",
+    "masked": "secure aggregation (ROADMAP.md, Queue A item 8)",
+    "mask_recovery": "secure aggregation (ROADMAP.md, Queue A item 8)",
+    "secagg": "secure aggregation (ROADMAP.md, Queue A item 8)",
+}
+
+
+def _refuse_unported(**options: Any) -> None:
+    """Raise ``NotImplementedError`` for the first option set that belongs
+    to a later item of the port."""
+    for name, value in options.items():
+        if value is not None and value is not False:
+            raise NotImplementedError(f"{name}=: {_UNPORTED[name]} is not ported yet")
+
+
+def _fold_block(acc: torch.Tensor, off: int, chunk: torch.Tensor, w: torch.Tensor) -> None:
+    """``acc[off:off+n] += w * x`` as two kernels: the f32 product, then an
+    in-place add (an ``add_`` with ``alpha=w`` or an ``addcmul_`` may
+    contract into one FMA and round differently)."""
+    prod = chunk.to(torch.float32, copy=True)  # never the input's own memory
+    prod.mul_(w)
+    acc[off : off + prod.numel()].add_(prod)
+
+
+class _Stream:
+    """Receive state of one contribution."""
+
+    __slots__ = (
+        "payload", "avail_bytes", "complete", "local_tree", "elems",
+        "ready", "data_start", "data_nbytes", "dtype", "itemsize",
+        "applied_blocks", "t_complete", "notified_bytes",
+    )
+
+    def __init__(self) -> None:
+        self.payload: Optional[memoryview] = None
+        self.avail_bytes = 0
+        self.complete = False
+        self.local_tree = None  # coordinator's own PackedTree
+        self.elems: Optional[torch.Tensor] = None  # its flat buffer
+        self.ready = None  # CUDA event the local buffer's producer recorded
+        self.data_start = -1  # byte offset of the packed buffer
+        self.data_nbytes = -1
+        self.dtype: Optional[torch.dtype] = None
+        self.itemsize = 0
+        self.applied_blocks = 0
+        self.t_complete = 0.0
+        self.notified_bytes = 0
+
+
+class _StreamSink:
+    """Transport-facing adapter: thread-safe, throttled notifies."""
+
+    __slots__ = ("_agg", "_index")
+
+    def __init__(self, agg: "StreamingAggregator", index: int) -> None:
+        self._agg = agg
+        self._index = index
+
+    def on_bytes(self, view: memoryview, total: int) -> None:
+        self._agg._on_bytes(self._index, view, total)
+
+    def on_complete(self, payload) -> None:
+        self._agg._on_complete(self._index, payload)
+
+    def on_error(self, err: Any) -> None:
+        self._agg._on_error(self._index, err)
+
+    def on_frame_abort(self, corrupt: bool = False) -> None:
+        self._agg._on_frame_abort(self._index, corrupt)
+
+
+class StreamingAggregator:
+    """Fold N PackedTree contributions into one as their bytes arrive.
+
+    Usage (coordinator side)::
+
+        agg = StreamingAggregator(n_sources=len(parties), weights=w)
+        for i, party in enumerate(parties):
+            transport.recv_stream(party, up_id, down_id, agg.sink(i))
+        agg.add_local(my_index, my_packed_tree)   # no wire hop for self
+        averaged = agg.result(timeout=60)         # PackedTree, wire dtype
+
+    The reduce holds one f32 accumulator on ``device`` (default: the CUDA
+    card; ``"cpu"`` only when asked) and one block per contribution at a
+    time, never a list of decoded trees.  On a CUDA device the fold runs
+    there or raises: it never carries on on the host.
+    """
+
+    def __init__(
+        self,
+        n_sources: int,
+        weights: Optional[Sequence[float]] = None,
+        allowed: Optional[Dict[str, Any]] = None,
+        chunk_elems: int = DEFAULT_CHUNK_ELEMS,
+        out_dtype: Any = None,
+        quorum: Optional[int] = None,
+        labels: Optional[Sequence[str]] = None,
+        quant: Optional[Any] = None,
+        quant_ref: Optional[Any] = None,
+        masked: bool = False,
+        mask_recovery: Optional[Any] = None,
+        presummed: Optional[str] = None,
+        party: Optional[str] = None,
+        device: Any = None,
+    ) -> None:
+        _refuse_unported(
+            quant=quant, quant_ref=quant_ref, quorum=quorum, presummed=presummed,
+            masked=masked, mask_recovery=mask_recovery,
+        )
+        if n_sources < 1:
+            raise ValueError("streaming aggregation needs >= 1 source")
+        self._party = None if party is None else str(party)
+        if labels is not None and len(labels) != n_sources:
+            raise ValueError(f"{len(labels)} labels for {n_sources} sources")
+        if weights is not None:
+            if len(weights) != n_sources:
+                raise ValueError(f"{len(weights)} weights for {n_sources} sources")
+            self._weights = [float(w) for w in weights]
+            self._total_w = fedavg._check_weights(self._weights)
+        else:
+            self._weights = [1.0] * n_sources
+            self._total_w = float(n_sources)
+        # Original arg (None vs explicit): the passthrough reduce must
+        # take the same code path as packed_weighted_sum's.
+        self._weights_arg = None if weights is None else list(self._weights)
+        self._allowed = allowed
+        self._out_name = None if out_dtype is None else dtype_name(out_dtype)
+        self._chunk_elems = int(chunk_elems)
+        self._device = resolve_device(device)
+        self._stream = (
+            torch.cuda.Stream(self._device) if self._device.type == "cuda" else None
+        )
+        self._n = n_sources
+        self._streams = [_Stream() for _ in range(n_sources)]
+        self._labels = (
+            [str(x) for x in labels]
+            if labels is not None
+            else [f"source {i}" for i in range(n_sources)]
+        )
+        self._cond = threading.Condition()
+        self._acc: Optional[torch.Tensor] = None
+        self._total_elems = -1
+        self._nblocks = -1
+        self._wire_dtype: Optional[torch.dtype] = None
+        self._result: Any = None
+        self._error: Optional[BaseException] = None
+        self._done = False
+        self._worker: Optional[threading.Thread] = None
+        # Timing for the overlap metric.
+        self._t_first_byte = 0.0
+        self._t_all_complete = 0.0
+        self._t_done = 0.0
+        self._busy_s = 0.0
+        self.stats: Dict[str, float] = {}
+
+    # -- source attachment ----------------------------------------------------
+
+    def sink(self, index: int) -> _StreamSink:
+        """The chunk sink for source ``index`` (hand to recv_stream)."""
+        self._ensure_worker()
+        return _StreamSink(self, index)
+
+    def add_local(self, index: int, packed_tree: Any) -> None:
+        """Feed the coordinator's own contribution (no wire hop).
+
+        Its buffer stays where it is when it lies on the aggregator's card
+        (a CUDA tensor, a CPU tensor or a numpy array are all accepted);
+        the fold waits for the work the calling thread queued before it.
+        """
+        if not isinstance(packed_tree, PackedTree):
+            self.fail(
+                TypeError(
+                    "streaming aggregation consumes PackedTree "
+                    f"contributions, got {type(packed_tree).__name__} — "
+                    "produce updates with fl.compress(tree, packed=True)"
+                )
+            )
+            return
+        try:
+            elems = fedavg.as_tensor(packed_tree.buf, self._device).reshape(-1)
+            if not elems.dtype.is_floating_point:
+                raise NotImplementedError(
+                    f"a packed buffer of {dtype_name(elems.dtype)} codes: "
+                    f"{fedavg.UNPORTED_QUANT}"
+                )
+            ready = None
+            if self._stream is not None:
+                ready = torch.cuda.Event()
+                ready.record(torch.cuda.current_stream(self._device))
+                elems.record_stream(self._stream)
+        except Exception as e:  # transferred: fail(e) poisons every waiter
+            self.fail(e)
+            return
+        self._ensure_worker()
+        now = time.perf_counter()
+        with self._cond:
+            s = self._streams[index]
+            s.local_tree = packed_tree
+            s.elems = elems
+            s.ready = ready
+            s.dtype = elems.dtype
+            s.itemsize = elems.element_size()
+            s.data_start = 0
+            s.data_nbytes = elems.numel() * s.itemsize
+            s.avail_bytes = s.data_nbytes
+            s.complete = True
+            s.t_complete = now
+            if not self._t_first_byte:
+                self._t_first_byte = now
+            self._cond.notify_all()
+
+    def fail(self, exc: BaseException) -> None:
+        with self._cond:
+            if self._error is None:
+                self._error = exc
+            self._cond.notify_all()
+
+    # -- sink callbacks (transport threads) -----------------------------------
+
+    def _on_bytes(self, index: int, view: memoryview, total: int) -> None:
+        # ``view`` is the frame's full payload buffer and ``total`` the
+        # CONTIGUOUS bytes available from offset 0 (a growing verified
+        # prefix on multi-rail stripe frames) — the fold only ever reads a
+        # true prefix.  All state writes happen under the lock; only the
+        # worker wake is throttled.
+        s = self._streams[index]
+        with self._cond:
+            if s.complete:
+                return
+            if s.payload is not None and s.payload.obj is not view.obj:
+                # A retry frame with a fresh buffer: drop the stale
+                # binding (applied blocks stay — a retry resends the
+                # identical payload, so they remain a valid prefix).
+                self._reset_frame(s)
+            if s.payload is None:
+                s.payload = view
+                if not self._t_first_byte:
+                    self._t_first_byte = time.perf_counter()
+                s.avail_bytes = total
+            else:
+                s.avail_bytes = max(s.avail_bytes, total)
+            if total - s.notified_bytes >= _NOTIFY_BYTES:
+                s.notified_bytes = total
+                self._cond.notify_all()
+
+    def _on_complete(self, index: int, payload) -> None:
+        now = time.perf_counter()
+        with self._cond:
+            s = self._streams[index]
+            # Delta frames (and mailbox replays) deliver a payload object
+            # the incremental view never saw — rebind.
+            s.payload = memoryview(payload)
+            s.avail_bytes = len(s.payload)
+            s.complete = True
+            s.t_complete = now
+            if not self._t_first_byte:
+                self._t_first_byte = now
+            self._cond.notify_all()
+
+    def _on_error(self, index: int, err: Any) -> None:
+        from rayfed_tpu_torch.exceptions import RemoteError
+
+        if isinstance(err, BaseException):
+            exc: BaseException = err
+        else:
+            try:
+                exc = RemoteError.from_wire(err)
+            except Exception:
+                exc = RuntimeError(f"stream {index} failed: {err!r}")
+        self.fail(exc)
+
+    @staticmethod
+    def _reset_frame(s: _Stream) -> None:
+        """Forget a dead frame's buffer; keep the applied-block prefix
+        (a sender retry re-sends the identical payload bytes)."""
+        s.payload = None
+        s.avail_bytes = 0
+        s.notified_bytes = 0
+        s.data_start = -1
+        s.data_nbytes = -1
+        s.dtype = None
+
+    def _on_frame_abort(self, index: int, corrupt: bool) -> None:
+        """The in-flight frame died (connection drop) or failed
+        verification.  A clean drop resets the frame state and waits for
+        the sender's retry; a CORRUPT frame whose bytes were already
+        folded cannot be rolled back out of the accumulator — fail the
+        aggregation loudly rather than let a retry land on poisoned sums."""
+        with self._cond:
+            s = self._streams[index]
+            if s.complete:
+                return
+            if corrupt and s.applied_blocks > 0:
+                self._error = RuntimeError(
+                    f"contribution {index} failed verification after "
+                    f"{s.applied_blocks} of its blocks were already "
+                    f"aggregated — the accumulator cannot be rolled back; "
+                    f"re-run the round"
+                )
+            else:
+                self._reset_frame(s)
+            self._cond.notify_all()
+
+    # -- result ---------------------------------------------------------------
+
+    def result(self, timeout: Optional[float] = None):
+        """Block until every contribution streamed in; the aggregate as a
+        :class:`~rayfed_tpu_torch.fl.compression.PackedTree` in the wire
+        dtype (or ``out_dtype``), its buffer on the aggregator's device."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        with self._cond:
+            while not self._done and self._error is None:
+                remaining = None
+                if deadline is not None:
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        from rayfed_tpu_torch.exceptions import PartyWaitTimeout
+
+                        self._error = PartyWaitTimeout(
+                            f"streaming aggregation timed out after {timeout}s",
+                            missing_parties=[
+                                self._labels[i]
+                                for i, s in enumerate(self._streams)
+                                if not s.complete
+                            ],
+                        )
+                        self._cond.notify_all()
+                        break
+                self._cond.wait(timeout=remaining)
+            if self._error is not None:
+                raise self._error
+            return self._result
+
+    # -- worker ---------------------------------------------------------------
+
+    def _ensure_worker(self) -> None:
+        with self._cond:
+            if self._worker is None:
+                self._worker = threading.Thread(
+                    target=self._run, name="rayfed-stream-agg", daemon=True
+                )
+                self._worker.start()
+
+    def _parse_layout(self, s: _Stream) -> bool:
+        """Locate the packed buffer inside the payload (needs only the
+        manifest + skeleton-length prefix, i.e. the first chunk)."""
+        if s.data_start >= 0:
+            return True
+        if s.payload is None or s.avail_bytes < 4:
+            return False
+        mv = s.payload
+        (mlen,) = struct.unpack(">I", bytes(mv[:4]))
+        if s.avail_bytes < 4 + mlen:
+            return False
+        manifest = json.loads(bytes(mv[4 : 4 + mlen]))
+        leaves = manifest["leaves"]
+        if not leaves or leaves[0]["k"] not in ("nd", "nds"):
+            raise ValueError(
+                "streaming aggregation expects a PackedTree payload "
+                "(leaf 0 must be the packed wire buffer) — produce "
+                "updates with fl.compress(tree, packed=True)"
+            )
+        spec = leaves[0]
+        if spec["k"] == "nd":
+            nbytes = spec["n"]
+        else:
+            nbytes = sum(e["n"] for e in spec["shards"])
+        # The dtype through the torch table: numpy has no bfloat16 of its own.
+        dt = wire._torch_dtype(spec["dtype"])
+        if not dt.is_floating_point:
+            raise NotImplementedError(
+                f"a packed buffer of {spec['dtype']} codes: {fedavg.UNPORTED_QUANT}"
+            )
+        s.data_start = 4 + mlen + manifest["skel"]
+        s.data_nbytes = nbytes
+        s.itemsize = torch.empty(0, dtype=dt).element_size()
+        s.dtype = dt
+        return True
+
+    def _init_acc(self, s: _Stream) -> None:
+        if s.data_nbytes % s.itemsize:
+            raise ValueError("packed buffer not a whole element count")
+        self._total_elems = s.data_nbytes // s.itemsize
+        if self._total_elems >= 2**31:
+            # The reference's fold offsets ride int32; the same limit holds
+            # here so a round means the same thing on both packages.
+            raise ValueError(
+                f"packed buffer has {self._total_elems} elements — "
+                f"streaming aggregation supports < 2**31 elements per "
+                f"buffer; split the tree into multiple packed buffers"
+            )
+        self._wire_dtype = s.dtype
+        self._nblocks = fedavg.packed_block_grid(self._total_elems, self._chunk_elems)
+        self._acc = torch.zeros(self._total_elems, dtype=torch.float32, device=self._device)
+
+    def _avail_blocks(self, s: _Stream) -> int:
+        if s.complete:
+            return self._nblocks
+        if s.data_start < 0 or s.dtype is None:
+            return 0
+        avail_elems = max(
+            0, (min(s.avail_bytes, s.data_start + s.data_nbytes) - s.data_start)
+            // s.itemsize
+        )
+        return min(self._nblocks, avail_elems // self._chunk_elems)
+
+    def _chunk(self, src: tuple, block: int) -> torch.Tensor:
+        """The block's wire elements on the aggregator's device.
+
+        ``src`` is an under-the-lock snapshot of the stream's ``(elems,
+        payload, dtype, itemsize, data_start)``: a concurrent frame abort
+        may null the live fields mid-fold, but the snapshot's bytes are a
+        stable valid prefix of the payload (a retry resends identical
+        bytes).  Payload bytes are read through ``uint8`` and viewed as the
+        wire dtype, then copied to the device."""
+        elems, payload, dt, itemsize, data_start = src
+        ce = self._chunk_elems
+        first = block * ce
+        count = min(ce, self._total_elems - first)
+        if elems is not None:
+            return elems[first : first + count]
+        lo = data_start + first * itemsize
+        region = payload[lo : lo + count * itemsize]
+        if self._stream is not None:
+            # Through a pinned block, so the copy to the card queues on the
+            # fold's stream without holding this thread (the caching host
+            # allocator keeps the block until the copy has run).
+            host = torch.empty(region.nbytes, dtype=torch.uint8, pin_memory=True)
+            host.numpy()[:] = np.frombuffer(region, dtype=np.uint8)
+            return host.view(dt).to(self._device, non_blocking=True)
+        if region.readonly:
+            return torch.from_numpy(np.frombuffer(region, dtype=np.uint8).copy()).view(dt)
+        return torch.frombuffer(region, dtype=torch.uint8).view(dt)
+
+    def _run(self) -> None:
+        try:
+            if self._stream is not None:
+                with torch.cuda.stream(self._stream):
+                    self._run_inner()
+            else:
+                self._run_inner()
+        except Exception as e:  # transferred: fail(e) poisons every waiter
+            logger.exception("streaming aggregator worker failed")
+            self.fail(e)
+
+    def _run_inner(self) -> None:
+        weights = None
+        order = list(range(self._n))
+        while True:
+            with self._cond:
+                if self._error is not None:
+                    return
+                work: List[tuple] = []
+                try:
+                    for i in order:
+                        s = self._streams[i]
+                        if s.dtype is None and not self._parse_layout(s):
+                            continue
+                        if self._acc is None:
+                            self._init_acc(s)
+                        if (
+                            s.data_nbytes != self._total_elems * s.itemsize
+                            or s.dtype != self._wire_dtype
+                        ):
+                            raise ValueError(
+                                f"contribution {i} layout mismatch: "
+                                f"{s.data_nbytes}B {s.dtype} vs "
+                                f"{self._total_elems} elems of "
+                                f"{self._wire_dtype} — all parties must "
+                                f"pack the same tree structure"
+                            )
+                except Exception as e:
+                    self._error = e
+                    self._cond.notify_all()
+                    return
+                if self._acc is not None:
+                    # Party-order-per-block schedule: stream i may fold
+                    # block b only once every earlier stream folded
+                    # theirs — the result is then independent of arrival
+                    # order.  The chunk source is snapshotted HERE, under
+                    # the lock (see _chunk).
+                    limit = self._nblocks
+                    for i in order:
+                        s = self._streams[i]
+                        target = min(self._avail_blocks(s), limit)
+                        if target > s.applied_blocks:
+                            work.append((
+                                i, s.applied_blocks, target,
+                                (s.elems, s.payload, s.dtype, s.itemsize, s.data_start),
+                                s.ready,
+                            ))
+                        limit = s.applied_blocks
+                all_complete = all(s.complete for s in self._streams)
+                if not work:
+                    if all_complete and self._acc is not None and all(
+                        s.applied_blocks == self._nblocks for s in self._streams
+                    ):
+                        break  # everything folded — finalize below
+                    self._cond.wait(timeout=0.5)
+                    continue
+                if all_complete and not self._t_all_complete:
+                    self._t_all_complete = max(s.t_complete for s in self._streams)
+            # Apply outside the lock (sinks keep landing bytes meanwhile).
+            if weights is None:
+                weights = [fedavg.f32_scalar(w, self._device) for w in self._weights]
+            for i, lo, hi, src, ready in work:
+                t0 = time.perf_counter()
+                if ready is not None:
+                    self._stream.wait_event(ready)
+                for b in range(lo, hi):
+                    _fold_block(self._acc, b * self._chunk_elems, self._chunk(src, b), weights[i])
+                self._busy_s += time.perf_counter() - t0
+                with self._cond:
+                    self._streams[i].applied_blocks = hi
+
+        t0 = time.perf_counter()
+        t0_wall = time.time()
+        result = self._finalize()
+        fin_s = time.perf_counter() - t0
+        self._busy_s += fin_s
+        self._t_done = time.perf_counter()
+        if not self._t_all_complete:
+            self._t_all_complete = self._t_done
+        tail_s = max(0.0, self._t_done - self._t_all_complete)
+        busy = max(self._busy_s, 1e-9)
+        from rayfed_tpu_torch import telemetry as _telemetry
+
+        _tr = _telemetry.active()
+        if _tr is not None:
+            # The fold window (first byte → every block folded) and the
+            # single finalize, as spans.
+            now_p, now_w = time.perf_counter(), time.time()
+            if self._t_first_byte:
+                _tr.emit(
+                    "agg.fold",
+                    party=self._party,
+                    t_start=now_w - (now_p - self._t_first_byte),
+                    dur_s=max(0.0, self._t_all_complete - self._t_first_byte),
+                    detail={
+                        "busy_ms": round(self._busy_s * 1e3, 3),
+                        "parties": len(self._streams),
+                    },
+                )
+            _tr.emit(
+                "agg.finalize", party=self._party,
+                t_start=t0_wall, dur_s=fin_s, detail={"excluded": 0},
+            )
+        self.stats = {
+            "agg_busy_s": self._busy_s,
+            "agg_tail_s": tail_s,
+            "agg_wire_s": max(0.0, self._t_all_complete - self._t_first_byte),
+            "agg_overlap_frac": min(1.0, max(0.0, 1.0 - tail_s / busy)),
+        }
+        with self._cond:
+            self._result = result
+            self._done = True
+            self._cond.notify_all()
+
+    def _finalize(self) -> PackedTree:
+        """Divide + cast once, rebuild the PackedTree around the aggregated
+        buffer (spec/passthrough from one template contribution — they are
+        structural, identical across parties).  On the card the result is
+        fenced onto the default stream before any other thread sees it."""
+        out_name = self._out_name or dtype_name(self._wire_dtype)
+        out_buf = fedavg.finalize_packed_stripe(
+            self._acc, self._total_w, self._total_elems, out_name
+        )
+        self._acc = None
+        if self._stream is not None:
+            fence_for_handoff(out_buf)
+        template = self._template_tree()
+        passthrough = template.passthrough
+        if passthrough:
+            passthrough = fedavg._reduce_passthrough(
+                [self._tree_of(s).passthrough for s in self._streams],
+                self._weights_arg,
+                self._total_w,
+            )
+        return fedavg._packed_result(out_buf, passthrough, template.spec, out_name)
+
+    def _tree_of(self, s: _Stream) -> PackedTree:
+        if s.local_tree is not None:
+            return s.local_tree
+        tree = wire.decode_payload(s.payload, allowed=self._allowed, zero_copy=True)
+        if not isinstance(tree, PackedTree):
+            raise TypeError(
+                "streaming aggregation consumes PackedTree payloads, got "
+                f"{type(tree).__name__}"
+            )
+        return tree
+
+    def _template_tree(self) -> PackedTree:
+        for s in self._streams:
+            if s.local_tree is not None:
+                return s.local_tree
+        return self._tree_of(self._streams[0])
+
+
+def streaming_aggregate(
+    fed_objects: Sequence[Any],
+    weights: Optional[Sequence[float]] = None,
+    *,
+    coordinator: Optional[str] = None,
+    stream: str = "sagg",
+    timeout: Optional[float] = None,
+    out_dtype: Any = None,
+    seq_ids: Optional[Sequence[int]] = None,
+    round_tag: Optional[int] = None,
+    timings: Optional[Dict[str, float]] = None,
+    quant: Optional[Any] = None,
+    quant_ref: Optional[Any] = None,
+    quant_scope: Optional[str] = None,
+    quant_downlink: bool = False,
+    secagg: Optional[Any] = None,
+    server_step: Optional[Any] = None,
+) -> Any:
+    """FedAvg round over the streaming + delta-cache pipeline.
+
+    Drop-in for ``fl.aggregate(...)`` in coordinator topology when the
+    contributions are PackedTrees: every party calls it at the same
+    program point with the same arguments.  Owners push their update to
+    the coordinator on a per-party **delta stream**; the coordinator folds
+    each arriving chunk on its device while later chunks are in flight,
+    and broadcasts the aggregate (also on a delta stream).  Returns the
+    averaged PackedTree on every party.
+
+    ``stream`` names the delta-cache scope — keep it constant across
+    rounds.  ``seq_ids``: :data:`STREAM_AGG_SEQ_IDS` pre-allocated
+    rendezvous ids (a call off the driving thread must pass them).
+    ``round_tag`` stamps every frame with the round index.  ``timings``
+    receives ``push_s`` (this party's pushes ACKed; 0.0 on the
+    coordinator) and ``agg_s`` (wall time of the call), and on the
+    coordinator ``agg_stats`` (the aggregator's ``stats``).  ``server_step``:
+    a hook the coordinator applies to the finalized aggregate before the
+    broadcast.  ``quant*`` and ``secagg`` are not ported yet.
+    """
+    from rayfed_tpu_torch.fed_object import FedObject
+    from rayfed_tpu_torch.proxy import (
+        recv_on_runtime,
+        send_many_on_runtime,
+        send_on_runtime,
+    )
+    from rayfed_tpu_torch.runtime import get_runtime
+
+    _refuse_unported(
+        quant=quant, quant_ref=quant_ref, quant_downlink=quant_downlink, secagg=secagg
+    )
+    del quant_scope  # keys the compressed-domain residual only
+    runtime = get_runtime()
+    objs = list(fed_objects)
+    if not objs:
+        raise ValueError("streaming_aggregate needs at least one object")
+    if weights is not None and len(weights) != len(objs):
+        raise ValueError(f"{len(weights)} weights for {len(objs)} objects")
+    for obj in objs:
+        if not isinstance(obj, FedObject):
+            raise TypeError(
+                "streaming_aggregate consumes FedObjects (party-owned "
+                f"contributions), got {type(obj).__name__}"
+            )
+
+    # Allocated identically on every controller — the determinism
+    # contract that keys the rendezvous.
+    if seq_ids is None:
+        contrib_id = runtime.next_seq_id()
+        result_id = runtime.next_seq_id()
+    else:
+        contrib_id, result_id = seq_ids
+    t_call0 = time.perf_counter()
+    me = runtime.party
+    coord = coordinator or objs[0].get_party()
+    backstop = timeout if timeout is not None else runtime.job_config.recv_backstop_s
+    parties = list(runtime.cluster_config.parties)
+
+    if me != coord:
+        own_seq = 0  # per-owner ordinal: stable under client sampling
+        push_done: List[float] = []
+        for obj in objs:
+            if obj.get_party() == me:
+                push_ref = send_on_runtime(
+                    runtime, coord, obj.get_local_ref(),
+                    obj.get_fed_task_id(), contrib_id,
+                    stream=f"{stream}/up/{me}/{own_seq}",
+                    round_tag=round_tag,
+                )
+                if timings is not None:
+                    push_ref.add_done_callback(
+                        lambda _r: push_done.append(time.perf_counter())
+                    )
+                own_seq += 1
+        result = recv_on_runtime(runtime, coord, result_id, result_id).resolve(
+            timeout=backstop
+        )
+        if timings is not None:
+            # The broadcast only lands after the coordinator folded every
+            # contribution, so the ACK timestamps are complete by now.
+            timings["push_s"] = max(push_done) - t_call0 if push_done else 0.0
+            timings["agg_s"] = time.perf_counter() - t_call0
+        return result
+
+    agg = StreamingAggregator(
+        len(objs),
+        weights=weights,
+        allowed=runtime.cluster_config.serializing_allowed_list,
+        out_dtype=out_dtype,
+        party=me,
+        device=runtime.transport.device,
+    )
+    pending_cancels: List[tuple] = []
+    sink_entries: List[tuple] = []
+    for i, obj in enumerate(objs):
+        if obj.get_party() == me:
+
+            def _feed(ref, i=i):
+                exc = ref.exception()
+                if exc is not None:
+                    agg.fail(exc)
+                    return
+                agg.add_local(i, ref.resolve())
+
+            obj.get_local_ref().add_done_callback(_feed)
+        else:
+            sink_entries.append(
+                (obj.get_party(), obj.get_fed_task_id(), contrib_id, agg.sink(i))
+            )
+            pending_cancels.append((obj.get_fed_task_id(), contrib_id))
+    if sink_entries:
+        # One loop hop registers every contribution sink (and enrolls
+        # their source parties with the health monitor's fail-fast).
+        runtime.transport.recv_stream_many(sink_entries)
+    others = [p for p in parties if p != me]
+    try:
+        result = agg.result(timeout=backstop)
+        if server_step is not None:
+            result = server_step(result)
+    except BaseException as exc:
+        for up, down in pending_cancels:
+            runtime.transport.cancel_stream(up, down)
+        # The peers are parked on the result broadcast — poison that key
+        # so their recv raises the coordinator's error now.
+        poison = getattr(runtime.transport, "_send_poison", None)
+        if poison is not None:
+            for p in others:
+                try:
+                    poison(p, result_id, result_id, exc)
+                except Exception:  # pragma: no cover - best effort
+                    logger.exception("failed to poison streaming result for %s", p)
+        raise
+    if others:
+        send_many_on_runtime(
+            runtime, others, result, result_id, result_id,
+            stream=f"{stream}/down", round_tag=round_tag,
+        )
+    if timings is not None:
+        timings["push_s"] = 0.0  # own contribution never hits the wire
+        timings["agg_s"] = time.perf_counter() - t_call0
+        timings["agg_stats"] = dict(agg.stats)
+    return result

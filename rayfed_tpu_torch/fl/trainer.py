@@ -1,0 +1,406 @@
+"""High-level federated training driver: the round loop as one call.
+
+:func:`run_fedavg_rounds` composes the framework's pieces — coordinator
+aggregation with pipelined (lazy) rounds, the streaming on-card fold, the
+legacy FedOpt server optimizers, error feedback and bf16 wire compression
+— while preserving the multi-controller contract: every party calls it at
+the same program point with the same arguments and walks the identical
+seq-id sequence.
+
+Options of later items of the port raise ``NotImplementedError`` naming
+their ROADMAP.md Queue A item: ``wire_quant`` (6); ``mode="ring"`` /
+``"hierarchy"``, ``region_*``, ``quorum`` and ``overlap`` (7);
+``secure_agg`` and the packed server optimizers (8); ``checkpointer`` (9).
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from typing import Any, Callable, Optional, Sequence
+
+import torch
+
+from rayfed_tpu_torch.fl.compression import ErrorFeedback, compress, decompress
+from rayfed_tpu_torch.fl.fedavg import aggregate
+from rayfed_tpu_torch.fl.fedopt import ServerOptimizer
+
+logger = logging.getLogger(__name__)
+
+# Headroom factor of compressed-domain uplink grids (the JAX package's
+# fl.quantize.QUANT_DELTA_EXPAND), carried for the wire_quant round.
+QUANT_DELTA_EXPAND = 4.0
+
+
+def _unported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, Queue A item {item})")
+
+
+def sample_parties(
+    parties: Sequence[str], sample: int, sample_seed: int, round_index: int
+) -> list:
+    """The per-round participation draw, shared by every controller.
+
+    Draws from the **sorted** party list (two controllers that built their
+    ``trainers`` mapping in different orders must draw the same subset),
+    and returns it sorted, so the coordinator choice is order-stable.
+    """
+    import random as _random
+
+    rng = _random.Random(int(sample_seed) * 1_000_003 + round_index)
+    return sorted(rng.sample(sorted(parties), int(sample)))
+
+
+def validate_round_config(
+    trainers: dict,
+    *,
+    rounds: int = 1,
+    server_opt: Optional[Any] = None,
+    weights: Optional[Sequence[float]] = None,
+    compress_wire: bool = False,
+    packed_wire: bool = False,
+    checkpointer: Any = None,
+    checkpoint_every: int = 0,
+    sample: Optional[int] = None,
+    aggregator: Optional[Callable[[Sequence[Any]], Any]] = None,
+    streaming_agg: bool = False,
+    error_feedback: bool = False,
+    wire_quant: Optional[Any] = None,
+    mode: str = "coordinator",
+    coordinator: Optional[str] = None,
+    overlap: bool = False,
+    ring_chunk_elems: Optional[int] = None,
+    region_size: Optional[int] = None,
+    region_branch: Optional[int] = None,
+    region_quorum: Optional[int] = None,
+    region_deadline_s: Optional[float] = None,
+    quorum: Optional[int] = None,
+    round_deadline_s: Optional[float] = None,
+    join_ticket: Optional[dict] = None,
+    round_log: Optional[list] = None,
+    secure_agg: bool = False,
+) -> dict:
+    """Validate one round-loop configuration WITHOUT running it.
+
+    For the options this package supports, the verdict is the JAX
+    package's: each pair either passes or raises a ``ValueError`` naming
+    the clash.  An option of a later item raises ``NotImplementedError``
+    naming it.  Returns ``{"wire_quant": None, "checkpoint_every": <int>,
+    "server_opt_kind": "none"|"fedopt"}``.
+    """
+    if wire_quant is not None:
+        raise _unported("wire_quant (the compressed-domain round)", 6)
+    if mode in ("ring", "hierarchy"):
+        raise _unported(f"mode={mode!r}", 7)
+    for name, value in (
+        ("region_size", region_size), ("region_branch", region_branch),
+        ("region_quorum", region_quorum), ("region_deadline_s", region_deadline_s),
+        ("quorum", quorum),
+    ):
+        if value is not None:
+            raise _unported(name, 7)
+    if overlap:
+        raise _unported("overlap=True (pipelined rounds)", 7)
+    if secure_agg:
+        raise _unported("secure_agg", 8)
+    if checkpointer is not None:
+        raise _unported("checkpointer", 9)
+    if server_opt is not None and not isinstance(server_opt, ServerOptimizer):
+        if type(server_opt).__name__ == "PackedServerOpt":
+            raise _unported("a packed server_opt (fl.server_opt)", 8)
+        raise ValueError(
+            f"server_opt must be a fl.server_opt.PackedServerOpt "
+            f"(packed-domain momentum/FedAC — composes with "
+            f"wire_quant/quorum/ring/hierarchy) or a legacy "
+            f"fl.fedopt.ServerOptimizer, got "
+            f"{type(server_opt).__name__}"
+        )
+    if rounds < 1:
+        raise ValueError(f"rounds must be >= 1, got {rounds}")
+    if checkpoint_every and checkpointer is None:
+        raise ValueError("checkpoint_every set without a checkpointer")
+    if checkpoint_every < 0:
+        raise ValueError(f"checkpoint_every must be >= 0, got {checkpoint_every}")
+    if aggregator is not None and weights is not None:
+        raise ValueError(
+            "aggregator and weights are mutually exclusive (a custom "
+            "reducer defines its own weighting)"
+        )
+    if sample is not None and not 1 <= int(sample) <= len(trainers):
+        raise ValueError(f"sample must be in [1, {len(trainers)}], got {sample}")
+    if sample is not None and weights is not None:
+        raise ValueError(
+            "sample and weights are mutually exclusive (a weight "
+            "sequence cannot align with a changing per-round subset)"
+        )
+    if streaming_agg and not (compress_wire and packed_wire):
+        raise ValueError(
+            "streaming_agg requires compress_wire=True and "
+            "packed_wire=True (the streamed unit is the packed wire "
+            "buffer)"
+        )
+    if streaming_agg and aggregator is not None:
+        raise ValueError(
+            "streaming_agg and aggregator are mutually exclusive (a "
+            "custom reducer needs the raw per-party values)"
+        )
+    if error_feedback and not (compress_wire and packed_wire):
+        raise ValueError(
+            "error_feedback requires compress_wire=True and "
+            "packed_wire=True (the residual is carried on the packed "
+            "wire buffer)"
+        )
+    if mode != "coordinator":
+        raise ValueError(
+            f"unknown mode {mode!r}: expected 'coordinator', 'ring' or "
+            f"'hierarchy'"
+        )
+    if coordinator is not None and coordinator not in trainers:
+        raise ValueError(
+            f"coordinator {coordinator!r} is not a training party "
+            f"({sorted(trainers)})"
+        )
+    if ring_chunk_elems is not None:
+        raise ValueError(
+            "ring_chunk_elems only applies to mode='ring' or "
+            "mode='hierarchy' (it sets the stripe/chunk grid "
+            "granularity)"
+        )
+    if round_deadline_s is not None:
+        raise ValueError(
+            "round_deadline_s only applies with quorum= (it is the "
+            "straggler cutoff of k-of-n rounds)"
+        )
+    if join_ticket is not None:
+        raise ValueError(
+            "join_ticket only applies with quorum= (elastic membership "
+            "rides the quorum round protocol)"
+        )
+    if round_log is not None:
+        raise ValueError(
+            "round_log only applies with quorum= (the classic loop has "
+            "a fixed roster — there is nothing to log)"
+        )
+    return {
+        "wire_quant": None,
+        "checkpoint_every": checkpoint_every,
+        "server_opt_kind": "none" if server_opt is None else "fedopt",
+    }
+
+
+def run_fedavg_rounds(
+    trainers: dict,
+    params: Any,
+    rounds: int,
+    *,
+    server_opt: Optional[ServerOptimizer] = None,
+    weights: Optional[Sequence[float]] = None,
+    compress_wire: bool = False,
+    packed_wire: bool = False,
+    checkpointer: Any = None,
+    checkpoint_every: int = 0,
+    on_round: Optional[Callable[[int, Any], None]] = None,
+    sample: Optional[int] = None,
+    sample_seed: int = 0,
+    aggregator: Optional[Callable[[Sequence[Any]], Any]] = None,
+    streaming_agg: bool = False,
+    error_feedback: bool = False,
+    wire_dtype: Any = None,
+    wire_quant: Optional[Any] = None,
+    mode: str = "coordinator",
+    coordinator: Optional[str] = None,
+    overlap: bool = False,
+    timings: Optional[list] = None,
+    ring_chunk_elems: Optional[int] = None,
+    region_size: Optional[int] = None,
+    region_branch: Optional[int] = None,
+    region_quorum: Optional[int] = None,
+    region_deadline_s: Optional[float] = None,
+    quorum: Optional[int] = None,
+    round_deadline_s: Optional[float] = None,
+    join_ticket: Optional[dict] = None,
+    round_log: Optional[list] = None,
+    secure_agg: bool = False,
+) -> Any:
+    """Run ``rounds`` FedAvg rounds over party-pinned trainer actors.
+
+    ``trainers``: ``{party: actor}`` where ``actor.train(params)`` returns
+    the party's updated tree (each party's actor runs only on its own
+    silo).  Every controller passes the identical arguments.
+
+    - ``server_opt``: a legacy :class:`~rayfed_tpu_torch.fl.fedopt.
+      ServerOptimizer` applied to the round aggregate (plain replacement
+      when ``None``).
+    - ``compress_wire``: halves the push bytes.  Trainer contract:
+      ``train`` calls :func:`~rayfed_tpu_torch.fl.decompress` on its
+      argument and returns ``compress(updated)``.
+    - ``packed_wire``: with ``compress_wire``, the packed single-buffer
+      wire form (:class:`~rayfed_tpu_torch.fl.PackedTree`).
+    - ``on_round(i, params)``: called after each materialized round.
+    - ``sample``: a deterministic pseudo-random subset of ``sample``
+      parties trains each round (seeded by ``(sample_seed, round)``).
+    - ``aggregator(values) -> tree``: a custom reducer in place of the
+      weighted mean (exclusive with ``weights``).
+    - ``streaming_agg``: aggregate each round with
+      :func:`~rayfed_tpu_torch.fl.streaming.streaming_aggregate`: the
+      coordinator folds each arriving chunk on its card while later chunks
+      are on the wire, and contributions and broadcasts ride per-peer
+      delta streams.  Requires ``compress_wire`` + ``packed_wire``;
+      byte-identical to the one-shot path.
+    - ``error_feedback``: carry the wire cast error of the driver's
+      outgoing compressed model into the next round
+      (:class:`~rayfed_tpu_torch.fl.ErrorFeedback`).
+    - ``wire_dtype``: the driver's outgoing wire dtype (default bf16).
+    - ``coordinator``: the party that anchors the rounds (default the
+      ``min`` party); keep it stable across a run.
+    - ``timings``: a list receiving one ``{"local_s", "push_s", "agg_s",
+      "hidden_s"}`` dict per round (seconds; materializes every round).
+
+    Without a server optimizer the rounds **pipeline**: the averaged model
+    flows into the next round as a lazy ``FedObject`` and only the final
+    round materializes.  Returns the final global params (identical on
+    every controller).
+    """
+    cfg = validate_round_config(
+        trainers,
+        rounds=rounds, server_opt=server_opt, weights=weights,
+        compress_wire=compress_wire, packed_wire=packed_wire,
+        checkpointer=checkpointer, checkpoint_every=checkpoint_every,
+        sample=sample, aggregator=aggregator, streaming_agg=streaming_agg,
+        error_feedback=error_feedback, wire_quant=wire_quant, mode=mode,
+        coordinator=coordinator, overlap=overlap,
+        ring_chunk_elems=ring_chunk_elems, region_size=region_size,
+        region_branch=region_branch, region_quorum=region_quorum,
+        region_deadline_s=region_deadline_s, quorum=quorum,
+        round_deadline_s=round_deadline_s, join_ticket=join_ticket,
+        round_log=round_log, secure_agg=secure_agg,
+    )
+    legacy_opt = server_opt if cfg["server_opt_kind"] == "fedopt" else None
+
+    from rayfed_tpu_torch import telemetry as _telemetry
+    from rayfed_tpu_torch.fed_object import FedObject
+
+    state = legacy_opt.init(params) if legacy_opt is not None else None
+
+    # Pipelined mode only when nothing needs the materialized value each
+    # round.
+    pipeline = (
+        server_opt is None
+        and on_round is None
+        and aggregator is None  # a reducer needs the raw values
+        and not streaming_agg  # streaming materializes at the reducer
+        and not error_feedback  # the residual needs the driver's tree
+        and timings is None  # per-round timing needs a round boundary
+        and len(trainers) > 1
+    )
+    # The coordinator stays the same for the whole run: every delta-stream
+    # cache is keyed by its destination party.
+    coord = coordinator if coordinator is not None else min(trainers)
+    wire_dt = torch.bfloat16 if wire_dtype is None else wire_dtype
+    ef = ErrorFeedback(wire_dt) if error_feedback else None
+    parties = list(trainers)
+
+    def round_parties(r: int):
+        if sample is None or sample == len(parties):
+            return parties
+        return sample_parties(parties, int(sample), sample_seed, r)
+
+    current: Any = params  # tree, or FedObject in pipelined rounds
+    me = None
+    # Flight recorder: armed, every materialized round emits a driver
+    # span carrying the round key the transport stamps on frames.
+    trace_rounds = _telemetry.armed() and not pipeline
+    if timings is not None or trace_rounds:
+        from rayfed_tpu_torch.runtime import get_runtime
+
+        me = get_runtime().party
+
+    for r in range(rounds):
+        active = round_parties(r)
+        # A driver-held tree is compressed before the push (with the
+        # carried error-feedback residual, when enabled); a lazy FedObject
+        # from a pipelined round is already the trainers' wire form.
+        if compress_wire and not isinstance(current, FedObject):
+            outgoing = (
+                ef.compress(current)
+                if ef is not None
+                else compress(current, packed=packed_wire, wire_dtype=wire_dt)
+            )
+        else:
+            outgoing = current
+        rec = None
+        if timings is not None or trace_rounds:
+            rec = {"local_s": 0.0, "push_s": 0.0, "agg_s": 0.0, "hidden_s": 0.0}
+            t_r0 = time.perf_counter()
+            t_r0_wall = time.time()
+        updates = [trainers[p].train.remote(outgoing) for p in active]
+        if rec is not None and me in active:
+            my_ref = updates[active.index(me)].get_local_ref()
+            if my_ref is not None:
+                my_ref.add_done_callback(
+                    lambda _ref, rec=rec, t0=t_r0: rec.__setitem__(
+                        "local_s", time.perf_counter() - t0
+                    )
+                )
+        if pipeline:
+            last = r == rounds - 1
+            current = aggregate(
+                updates, weights, mode="coordinator", coordinator=coord,
+                materialize=last,
+            )
+            if last and compress_wire:
+                current = decompress(current)
+            continue
+
+        # With error feedback (or a server optimizer) the aggregate comes
+        # back in f32: casting the mean to the wire dtype here would
+        # re-quantize it with no residual to compensate.
+        agg_out_dtype = (
+            "float32" if (error_feedback or server_opt is not None) else None
+        )
+        if streaming_agg:
+            from rayfed_tpu_torch.fl.streaming import streaming_aggregate
+
+            avg = streaming_aggregate(
+                updates, weights, stream="fedavg", coordinator=coord,
+                out_dtype=agg_out_dtype, timings=rec,
+            )
+        else:
+            t_a0 = time.perf_counter() if rec is not None else 0.0
+            avg = aggregate(updates, weights, reducer=aggregator, coordinator=coord)
+            if rec is not None:
+                rec["agg_s"] = time.perf_counter() - t_a0
+        if compress_wire:
+            avg = decompress(avg)
+        if legacy_opt is not None:
+            current, state = legacy_opt.apply(current, avg, state)
+        else:
+            current = avg
+        if on_round is not None:
+            on_round(r, current)
+        if rec is not None:
+            # The aggregation call blocks on this party's own training
+            # output before any byte can move, so its walls include the
+            # local wait — subtract it to report the comms-only window.
+            rec["push_s"] = max(0.0, rec["push_s"] - rec["local_s"])
+            rec["agg_s"] = max(0.0, rec["agg_s"] - rec["local_s"])
+            rec["round"] = r
+            rec["epoch"] = None
+            rec["coordinator"] = coord
+            if timings is not None:
+                timings.append(rec)
+            if trace_rounds:
+                _telemetry.emit(
+                    "driver.round", round=r, party=me, peer=coord,
+                    t_start=t_r0_wall, dur_s=time.perf_counter() - t_r0,
+                    detail={
+                        k: (round(v, 6) if isinstance(v, float) else v)
+                        for k, v in rec.items()
+                    },
+                )
+            logger.debug(
+                "round %d timings: local=%.3fs push=%.3fs agg=%.3fs hidden=%.3fs",
+                r, rec["local_s"], rec["push_s"], rec["agg_s"], rec["hidden_s"],
+            )
+
+    return current

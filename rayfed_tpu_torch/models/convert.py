@@ -1,4 +1,6 @@
-"""Carry Llama weights, LoRA adapters and Adam state across from the reference.
+"""Carry model trees across from the reference: Llama weights, LoRA adapters,
+Adam state, and the FL baselines' trees (logistic, MLP, ResNet params and
+BN state).
 
 The reference's trees are nested dicts (and tuples, for the Adam state
 ``(count, m, v)``) of arrays; converted to numpy (``np.asarray`` per leaf)
@@ -63,3 +65,10 @@ def adam_from_jax(opt: Any, device: Optional[torch.device] = None) -> Any:
     """The reference's Adam state ``(count, m, v)`` as torch tensors: the
     int32 count, ``m`` in the params' dtype and ``v`` in f32, as they were."""
     return _tree_from_jax(opt, device, None)
+
+
+def params_from_jax(tree: Any, device: Optional[torch.device] = None) -> Any:
+    """Any of the reference's param or state trees (the logistic and MLP
+    params, ResNet's params and BN state) as torch tensors, each leaf in its
+    own dtype and layout (the port keeps NHWC activations and HWIO kernels)."""
+    return _tree_from_jax(tree, device, None)

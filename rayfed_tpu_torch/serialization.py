@@ -23,30 +23,86 @@ own classes.  Pickle resolves a global's module by importing it, which
 would import the JAX package, so :func:`dumps_skeleton` uses a pickler
 that writes those two globals itself, and every unpickler here maps them
 in ``find_class``.
+
+The packed wire form (``fl.compression``'s ``PackedTree`` and its
+``PackSpec``) travels the same way, under :data:`PACKED_WIRE_MODULE`.  A
+spec carries the tree's structure, which the JAX package pickles as a
+jaxlib ``PyTreeDef``: a NEWOBJ of that class, then a BUILD with
+``(jax._src.tree_util.default_registry, [nodes in post-order])``.  The
+skeleton pickler writes a :class:`~rayfed_tpu_torch.tree_util.TreeDef` in
+that form (:meth:`~rayfed_tpu_torch.tree_util.TreeDef.jax_nodes`), and the
+unpicklers read it back as a ``TreeDef``.  All of these globals are admitted
+whatever the allowlist says, as the reference admits them.
 """
 
 from __future__ import annotations
 
+import copyreg
 import io
 import pickle
 from typing import Any, Dict, Optional
 
 import cloudpickle
 
-# The one module path the skeleton classes travel under (see above).
+from rayfed_tpu_torch.tree_util import TreeDef
+
+# The module paths the skeleton and packed classes travel under (see above).
 SKELETON_WIRE_MODULE = "rayfed_tpu.transport.wire"
 _SKELETON_NAMES = ("_Skeleton", "_LeafSlot")
 _PORT_WIRE_MODULE = "rayfed_tpu_torch.transport.wire"
+PACKED_WIRE_MODULE = "rayfed_tpu.fl.compression"
+_PACKED_NAMES = ("PackedTree", "PackSpec")
+_PORT_PACKED_MODULE = "rayfed_tpu_torch.fl.compression"
+# The globals of a pickled jaxlib PyTreeDef.
+_TREEDEF_WIRE = ("jaxlib._jax.pytree", "PyTreeDef")
+_REGISTRY_WIRE = ("jax._src.tree_util", "default_registry")
 
 
-def _skeleton_class(name: str):
-    from rayfed_tpu_torch.transport import wire
+class _JaxDefaultRegistry:
+    """Stands for ``jax._src.tree_util.default_registry`` in a pickled
+    tree structure (the only registry the JAX package pickles)."""
 
-    return getattr(wire, name)
+    def __reduce__(self):
+        return _REGISTRY_WIRE[1]
 
 
-def _is_skeleton_global(module: str, name: str) -> bool:
-    return module == SKELETON_WIRE_MODULE and name in _SKELETON_NAMES
+JAX_DEFAULT_REGISTRY = _JaxDefaultRegistry()
+
+
+def _wire_global(module: str, name: str) -> Any:
+    """This package's object for a global written under a wire name, or
+    None.  ``PyTreeDef`` is admitted from any jax-owned module: its
+    defining module moved across jaxlib versions."""
+    if module == SKELETON_WIRE_MODULE and name in _SKELETON_NAMES:
+        from rayfed_tpu_torch.transport import wire
+
+        return getattr(wire, name)
+    if module == PACKED_WIRE_MODULE and name in _PACKED_NAMES:
+        from rayfed_tpu_torch.fl import compression
+
+        return getattr(compression, name)
+    if name == _TREEDEF_WIRE[1] and (
+        module == "jaxlib" or module.startswith(("jaxlib.", "jax."))
+    ):
+        return TreeDef
+    if (module, name) == _REGISTRY_WIRE:
+        return JAX_DEFAULT_REGISTRY
+    return None
+
+
+def _wire_name_of(obj: Any) -> Optional[tuple]:
+    """The wire name the skeleton pickler writes ``obj`` under, or None."""
+    if obj is TreeDef:
+        return _TREEDEF_WIRE
+    if obj is JAX_DEFAULT_REGISTRY:
+        return _REGISTRY_WIRE
+    module = getattr(obj, "__module__", None)
+    qualname = getattr(obj, "__qualname__", None)
+    if module == _PORT_WIRE_MODULE and qualname in _SKELETON_NAMES:
+        return SKELETON_WIRE_MODULE, qualname
+    if module == _PORT_PACKED_MODULE and qualname in _PACKED_NAMES:
+        return PACKED_WIRE_MODULE, qualname
+    return None
 
 
 def _compose_whitelist(allowed: Dict[str, Any]) -> tuple[set, set]:
@@ -68,11 +124,12 @@ def _compose_whitelist(allowed: Dict[str, Any]) -> tuple[set, set]:
 
 
 class _Unpickler(pickle.Unpickler):
-    """Maps the skeleton classes' wire names onto this package's classes."""
+    """Maps the wire names (see above) onto this package's objects."""
 
     def find_class(self, module: str, name: str):
-        if _is_skeleton_global(module, name):
-            return _skeleton_class(name)
+        obj = _wire_global(module, name)
+        if obj is not None:
+            return obj
         return super().find_class(module, name)
 
 
@@ -82,8 +139,9 @@ class RestrictedUnpickler(_Unpickler):
         self._exact, self._wildcard = _compose_whitelist(allowed)
 
     def find_class(self, module: str, name: str):
-        if _is_skeleton_global(module, name):
-            return _skeleton_class(name)
+        obj = _wire_global(module, name)
+        if obj is not None:
+            return obj
         if (module, name) in self._exact:
             return pickle.Unpickler.find_class(self, module, name)
         # Wildcard admits the module and any of its submodules
@@ -119,15 +177,25 @@ def dumps(obj: Any) -> bytes:
 
 
 class _SkeletonPickler(pickle._Pickler):
-    """The pure-Python pickler, writing the skeleton classes under their
-    wire names.  The C pickler cannot be taught that (it verifies every
-    global by importing its module); for everything else the two write
-    the same bytes, and classes defined where they cannot be imported go
-    by value through cloudpickle's reducer, as :func:`dumps` sends them."""
+    """The pure-Python pickler, writing the skeleton and packed classes
+    under their wire names and a ``TreeDef`` as a jaxlib ``PyTreeDef``.
+    The C pickler cannot be taught that (it verifies every global by
+    importing its module); for everything else the two write the same
+    bytes, and classes defined where they cannot be imported go by value
+    through cloudpickle's reducer, as :func:`dumps` sends them."""
+
+    def reducer_override(self, obj: Any):
+        if type(obj) is TreeDef:
+            # What pickling a PyTreeDef gives: NEWOBJ of the class, then
+            # BUILD with (registry, nodes).
+            return (
+                copyreg.__newobj__, (TreeDef,),
+                (JAX_DEFAULT_REGISTRY, obj.jax_nodes()),
+            )
+        return cloudpickle.Pickler.reducer_override(self, obj)
 
     # cloudpickle's reducers are plain methods that the pure-Python
     # pickler calls the same way the C one does.
-    reducer_override = cloudpickle.Pickler.reducer_override
     _function_reduce = cloudpickle.Pickler._function_reduce
     _dynamic_function_reduce = cloudpickle.Pickler._dynamic_function_reduce
     _function_getnewargs = cloudpickle.Pickler._function_getnewargs
@@ -138,12 +206,10 @@ class _SkeletonPickler(pickle._Pickler):
         self.globals_ref: Dict[int, Any] = {}
 
     def save_global(self, obj: Any, name: Optional[str] = None) -> None:
-        if (
-            getattr(obj, "__module__", None) == _PORT_WIRE_MODULE
-            and getattr(obj, "__qualname__", None) in _SKELETON_NAMES
-        ):
-            self.save(SKELETON_WIRE_MODULE)
-            self.save(obj.__qualname__)
+        wire_name = _wire_name_of(obj)
+        if wire_name is not None:
+            self.save(wire_name[0])
+            self.save(wire_name[1])
             self.write(pickle.STACK_GLOBAL)
             self.memoize(obj)
             return
@@ -151,8 +217,8 @@ class _SkeletonPickler(pickle._Pickler):
 
 
 def dumps_skeleton(obj: Any) -> bytes:
-    """Pickle a wire skeleton with the skeleton classes under their wire
-    names: the bytes a party of the JAX package writes for the same tree."""
+    """Pickle a wire skeleton with the wire names above: the bytes a party
+    of the JAX package writes for the same tree."""
     buf = io.BytesIO()
     _SkeletonPickler(buf).dump(obj)
     return buf.getvalue()

@@ -295,11 +295,24 @@ class ObjectPlane:
         are offered: quantized/masked subclasses carry round-scoped
         grid/mask state that is not content-stable across receivers.
         """
-        # The port has no PackedTree until its packed round
-        # (fl.compression) is ported, so nothing is offered yet and every
-        # broadcast ships eagerly.
-        del value, min_bytes
-        return None
+        if min_bytes is None or min_bytes <= 0:
+            return None
+        from rayfed_tpu_torch.fl.compression import PackedTree
+
+        if type(value) is not PackedTree:
+            return None
+        try:
+            nb = int(getattr(value.buf, "nbytes", 0))
+        except Exception:  # pragma: no cover - exotic buf
+            return None
+        if nb < int(min_bytes):
+            return None
+        # Slot-pinned: the LATEST offer stays eviction-proof while
+        # receivers pull; earlier offers become ordinary LRU citizens
+        # (still served on a hit, evicted only under byte pressure).
+        fp, n = self.publish_slot("offer", value)
+        self.stats["blob_offers"] += 1
+        return self.handle_for(fp, n)
 
     # -- fetch (puller side) ----------------------------------------------
 

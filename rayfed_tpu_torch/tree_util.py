@@ -14,8 +14,16 @@ behavior).  So this module walks the containers itself, with JAX's rules:
 - ``list``, ``tuple`` and every namedtuple are nodes (other tuple or list
   subclasses, such as ``torch.Size``, are leaves);
 - ``None`` is a node with no children;
+- a class given to :func:`register_pytree_node` (``fl.compression``'s
+  ``PackedTree``) is a node with the children and static data its flatten
+  function returns;
 - everything else is a leaf — tensors, arrays, ``FedObject``,
   ``LocalRef``.
+
+A :class:`TreeDef` also travels inside a packed tree's spec, where the JAX
+package pickles a jaxlib ``PyTreeDef``: :meth:`TreeDef.jax_nodes` gives the
+node list that pickle carries and :meth:`TreeDef.__setstate__` reads it back
+(``serialization`` writes and admits the jaxlib names).
 """
 
 from __future__ import annotations
@@ -31,6 +39,25 @@ _DICT = "dict"
 _ORDERED = "ordered"
 _DEFAULT = "default"
 _NAMED = "named"
+_CUSTOM = "custom"
+
+# Custom node classes: ``cls -> (flatten, unflatten)`` with
+# ``flatten(x) -> (children, aux)`` and ``unflatten(aux, children) -> x``.
+_REGISTRY: dict = {}
+
+
+def register_pytree_node(cls: type, flatten: Callable, unflatten: Callable) -> None:
+    """Make ``cls`` a node: ``flatten(x) -> (children, aux)`` and
+    ``unflatten(aux, children) -> x`` (``jax.tree_util``'s signature)."""
+    _REGISTRY[cls] = (flatten, unflatten)
+
+
+# The node kinds of a pickled jaxlib PyTreeDef (its ``__getstate__`` list).
+_JAX_LEAF, _JAX_NONE, _JAX_TUPLE, _JAX_NAMED, _JAX_LIST, _JAX_DICT, _JAX_CUSTOM = range(7)
+_JAX_KINDS = {
+    _LEAF: _JAX_LEAF, _NONE: _JAX_NONE, _TUPLE: _JAX_TUPLE,
+    _NAMED: _JAX_NAMED, _LIST: _JAX_LIST, _DICT: _JAX_DICT,
+}
 
 
 def _is_namedtuple(x: Any) -> bool:
@@ -50,18 +77,103 @@ class TreeDef:
     """The structure of a flattened pytree (a node kind, its static data
     and its children's structures)."""
 
-    __slots__ = ("kind", "aux", "children", "num_leaves")
+    __slots__ = ("kind", "aux", "children", "num_leaves", "num_nodes")
 
     def __init__(self, kind: str, aux: Any = None, children: Tuple = ()) -> None:
         self.kind = kind
         self.aux = aux
-        self.children = children
+        self.children = tuple(children)
         self.num_leaves = 1 if kind == _LEAF else sum(c.num_leaves for c in children)
+        self.num_nodes = 1 + sum(c.num_nodes for c in children)
 
     def __repr__(self) -> str:
         if self.kind == _LEAF:
             return "*"
         return f"TreeDef({self.kind}, {self.aux!r}, {list(self.children)!r})"
+
+    def __eq__(self, other: Any) -> bool:
+        if not isinstance(other, TreeDef):
+            return NotImplemented
+        return (
+            self.kind == other.kind
+            and self.aux == other.aux
+            and self.children == other.children
+        )
+
+    def __reduce__(self):
+        return (TreeDef, (self.kind, self.aux, self.children))
+
+    # -- the pickled form of a jaxlib PyTreeDef --------------------------------
+
+    def jax_nodes(self) -> List[tuple]:
+        """The node list a jaxlib ``PyTreeDef`` pickles for this structure:
+        post-order ``(kind, arity, node_data, custom, num_leaves,
+        num_nodes)`` tuples.  Each tuple and key list is a new object, as
+        jaxlib builds them (the pickle memo keys on identity)."""
+        out: List[tuple] = []
+        self._jax_nodes(out)
+        return out
+
+    def _jax_nodes(self, out: List[tuple]) -> None:
+        for c in self.children:
+            c._jax_nodes(out)
+        kind, custom = self.kind, None
+        if kind == _DICT:
+            data: Any = list(self.aux)
+        elif kind == _NAMED:
+            data = self.aux
+        elif kind == _ORDERED:
+            data, custom = tuple(list(self.aux)), collections.OrderedDict
+        elif kind == _DEFAULT:
+            data = (self.aux[0], tuple(list(self.aux[1])))
+            custom = collections.defaultdict
+        elif kind in _JAX_KINDS:
+            data = None
+        else:
+            raise NotImplementedError(
+                f"a {self.aux[0].__name__} node inside a pickled tree "
+                f"structure has no PyTreeDef form here"
+            )
+        code = _JAX_KINDS.get(kind, _JAX_CUSTOM)
+        out.append(tuple([
+            code, len(self.children), data, custom, self.num_leaves, self.num_nodes,
+        ]))
+
+    def __setstate__(self, state: tuple) -> None:
+        """Rebuild from a pickled jaxlib ``PyTreeDef``'s state
+        ``(registry, nodes)`` (the unpickler maps that class onto this one)."""
+        _registry, nodes = state
+        stack: List[TreeDef] = []
+        for code, arity, data, custom, _nl, _nn in nodes:
+            children = tuple(stack[len(stack) - arity:]) if arity else ()
+            del stack[len(stack) - arity:]
+            if code == _JAX_LEAF:
+                node = TreeDef(_LEAF)
+            elif code == _JAX_NONE:
+                node = TreeDef(_NONE)
+            elif code == _JAX_TUPLE:
+                node = TreeDef(_TUPLE, None, children)
+            elif code == _JAX_LIST:
+                node = TreeDef(_LIST, None, children)
+            elif code == _JAX_DICT:
+                node = TreeDef(_DICT, tuple(data), children)
+            elif code == _JAX_NAMED:
+                node = TreeDef(_NAMED, data, children)
+            elif code == _JAX_CUSTOM and custom is collections.OrderedDict:
+                node = TreeDef(_ORDERED, tuple(data), children)
+            elif code == _JAX_CUSTOM and custom is collections.defaultdict:
+                node = TreeDef(_DEFAULT, (data[0], tuple(data[1])), children)
+            else:
+                raise ValueError(
+                    f"pickled tree structure has a node of kind {code} "
+                    f"({custom!r}) this package cannot rebuild"
+                )
+            stack.append(node)
+        if len(stack) != 1:
+            raise ValueError("pickled tree structure is not a single tree")
+        root = stack[0]
+        for name in TreeDef.__slots__:
+            setattr(self, name, getattr(root, name))
 
     def unflatten(self, leaves: List[Any]) -> Any:
         it = iter(leaves)
@@ -93,6 +205,9 @@ class TreeDef:
         if kind == _DEFAULT:
             factory, keys = self.aux
             return collections.defaultdict(factory, zip(keys, values))
+        if kind == _CUSTOM:
+            cls, aux = self.aux
+            return _REGISTRY[cls][1](aux, values)
         return self.aux(*values)  # namedtuple
 
     def flatten_up_to(self, tree: Any) -> List[Any]:
@@ -135,6 +250,10 @@ def _node_of(x: Any) -> Optional[Tuple[str, Any, list]]:
         return _DEFAULT, (x.default_factory, tuple(keys)), [x[k] for k in keys]
     if _is_namedtuple(x):
         return _NAMED, t, list(x)
+    rule = _REGISTRY.get(t)
+    if rule is not None:
+        children, aux = rule[0](x)
+        return _CUSTOM, (t, aux), list(children)
     return None
 
 

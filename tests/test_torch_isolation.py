@@ -49,10 +49,15 @@ def test_port_imports_with_jax_and_reference_blocked():
     assert int(proc.stdout.split()[-1]) >= 44  # every module was walked
 
 
-# The skeleton classes' wire name: the only line of the port that may name
-# the reference package (rayfed_tpu_torch/serialization.py).
+# The wire names of the skeleton and packed classes: the only lines of the
+# port that may name the reference package (rayfed_tpu_torch/serialization.py).
+# The jaxlib/jax names a pickled tree structure carries ("jaxlib._jax.pytree",
+# "jax._src.tree_util") are string constants there too, never imports.
 WIRE_NAME_FILE = ROOT / "rayfed_tpu_torch" / "serialization.py"
-WIRE_NAME_LINE = 'SKELETON_WIRE_MODULE = "rayfed_tpu.transport.wire"'
+WIRE_NAME_LINES = [
+    'SKELETON_WIRE_MODULE = "rayfed_tpu.transport.wire"',
+    'PACKED_WIRE_MODULE = "rayfed_tpu.fl.compression"',
+]
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -62,18 +67,24 @@ def test_no_jax_or_reference_imports_in_source(path):
     # "rayfed_tpu." and "from/import rayfed_tpu" name the reference; the
     # port's own name "rayfed_tpu_torch" shares the prefix and is allowed.
     naming = [line.strip() for line in text.splitlines() if re.search(r"\brayfed_tpu\.", line)]
-    allowed = [WIRE_NAME_LINE] if path == WIRE_NAME_FILE else []
+    allowed = WIRE_NAME_LINES if path == WIRE_NAME_FILE else []
     assert naming == allowed
     assert not re.search(r"\b(from|import)\s+rayfed_tpu\b(?!_)", text)
 
 
 def test_wire_name_is_the_reference_module():
     from rayfed_tpu_torch import serialization
+    from rayfed_tpu_torch.fl import compression
     from rayfed_tpu_torch.transport import wire
 
     module, names = serialization.SKELETON_WIRE_MODULE, serialization._SKELETON_NAMES
     assert module.replace("rayfed_tpu", "rayfed_tpu_torch", 1) == wire.__name__
     assert {wire._Skeleton.__qualname__, wire._LeafSlot.__qualname__} == set(names)
+    module, names = serialization.PACKED_WIRE_MODULE, serialization._PACKED_NAMES
+    assert module.replace("rayfed_tpu", "rayfed_tpu_torch", 1) == compression.__name__
+    assert {compression.PackedTree.__qualname__, compression.PackSpec.__qualname__} == set(names)
+    text = WIRE_NAME_FILE.read_text()
+    assert '"jaxlib._jax.pytree"' in text and '"jax._src.tree_util"' in text
 
 
 def test_resolve_device_raises_without_a_card(monkeypatch):
