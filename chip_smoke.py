@@ -49,7 +49,12 @@ Phases, each fatal on failure:
      launches in every step of both parties, equal SHA-256 fingerprints of
      both parties' final adapters (all leaves on the card), delta frames in
      round 2; prints each round's local/push/agg seconds, alice's
-     aggregator stats and each party's peak memory;
+     aggregator stats and each party's peak memory.  Then, in the same
+     processes and from that result, 2 compressed-domain rounds
+     (``wire_quant="uint8"``: the first ships bf16, having no grid yet, the
+     second uint8 codes on a grid ranged by the first's delta, folded in
+     i32 on alice's card and broadcast re-quantized): the same checks,
+     and bob's second push under 0.6x his bf16 push;
   6. the fold alone, before the party processes start: 2 contributions at
      the adapters' size and 4 at the stacked wq's (536.9e6 bf16 elements),
      from the seed, fed through a CUDA ``StreamingAggregator``'s sinks in
@@ -57,7 +62,23 @@ Phases, each fatal on failure:
      contribution); its result, and the one-shot fold on the card, must
      equal the CPU fold byte for byte, weights 3/5/7/11 and None; prints
      the fold's device ms per contribution, the H2D ms of a contribution,
-     the finalize and error-feedback ms, and the fold's GB/s against HBM;
+     the finalize and error-feedback ms, and the fold's GB/s against HBM.
+     The same for the compressed-domain fold (uint8 codes on one grid,
+     folded in i32, streamed and one-shot): the i32 accumulator and the
+     finalized f32 must equal the CPU's byte for byte; prints the i32 fold,
+     finalize, quantize and dequantize device ms beside their bounds;
+  8. (after 4) the int8 serving path: Llama-3-8B on an int8 base
+     (``init_llama_int8``), the int8 KV cache and a 1024-token sliding
+     window, 4 prompts of 2048 tokens through the flash prefill (32
+     launches), then 32 greedy steps of the linear int8 decode and of the
+     rolling decode on a 1024-slot ring, on the same tokens: the logits
+     within 5% of their range and the same greedy token in 90% of steps;
+     the int8 cache at most 0.53x the bf16 cache's bytes; batch-1 prefill
+     logits through flash vs dense; prints prefill and decode times, cache
+     bytes and peak memory beside the bf16 path's;
+  9. (after 8) the training path over the int8 base, BASELINE config #4 as
+     ``bench_lora_8b`` runs it: 4 LoRA steps as in 4, the same checks, and
+     peak memory at least 5 GB below the bf16 base's step;
   7. time each kernel (mean over one window of calls) against its plain
      version, the library call that computes the same function, and the
      card's bound (the forward at the serving shape B=4 and at the training
@@ -425,6 +446,7 @@ def phase_slice(gen):
         raise AssertionError("decode logits are not finite")
     print(f"[slice] prefill {prefill_ms:.1f} ms ({BATCH * PROMPT_LEN / prefill_ms * 1e3:.0f} prompt tok/s); "
           f"decode {decode_ms:.2f} ms/token step ({BATCH * 1e3 / decode_ms:.1f} tok/s at B={BATCH})")
+    cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
     del cache, logits
 
     one = prompts[:1]
@@ -439,7 +461,8 @@ def phase_slice(gen):
         raise AssertionError("flash prefill logits disagree with the dense path")
     del params
     torch.cuda.empty_cache()
-    return launches
+    return dict(launches=launches, prefill_ms=prefill_ms, decode_ms=decode_ms,
+                cache_bytes=cache_bytes, peak_gb=peak_gb)
 
 
 def phase_train(gen):
@@ -517,6 +540,171 @@ def phase_grad_check(gen):
           f"worst gap {worst:.4f} of max|g|")
     del params, adapters, out
     torch.cuda.empty_cache()
+
+
+# The int8 serving path: Llama-3-8B on an int8 base with the int8 KV cache
+# and a sliding window below the prompt length, so the prefill's flash
+# kernel skips out-of-band tiles and the decode wraps a ring of W slots.
+SERVE_WINDOW = 1024
+# Rolling vs linear int8 decode on the same tokens: the ring holds the same
+# window in another slot order, so attention sums in another order; the gap
+# is held to LOGIT_REL_TOL of the logits' range, and the greedy choices must
+# agree in at least this share of (step, sequence) pairs.
+ROLL_ARGMAX_AGREE = 0.9
+# The int8 KV cache against the bf16 one: int8 codes plus an f32 scale per
+# (position, head) over head dim 128 is (128 + 4) / 256 of the bytes.
+INT8_CACHE_RATIO = 0.53
+# The int8 training step's peak memory must be this far below the bf16
+# step's: the int8 base saves ~7.5 GB, and keeping a dequantized copy of
+# every layer's weights alive would eat that.
+INT8_TRAIN_SAVING_GB = 5.0
+
+
+def phase_serve_int8(gen, bf16):
+    """The int8 serving path: int8 weights, int8 KV cache, rolling decode."""
+    from rayfed_tpu_torch.models.quant import tree_nbytes
+
+    cfg = llama.llama3_8b(param_dtype=torch.bfloat16, kv_quant=True, sliding_window=SERVE_WINDOW)
+    t0 = time.perf_counter()
+    params = llama.init_llama_int8(cfg, gen, device="cuda")
+    torch.cuda.synchronize()
+    base_gb = tree_nbytes(params) / 1e9
+    print(f"[serve_int8] llama3_8b int8 base ({base_gb:.3f} GB: int8 layers and head, bf16 embed), "
+          f"kv_quant, window {SERVE_WINDOW}: initialised in {time.perf_counter() - t0:.1f} s")
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT_LEN), generator=gen, device="cuda")
+    max_len = PROMPT_LEN + NEW_TOKENS
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.fwd_launches = 0
+    t0 = time.perf_counter()
+    cache, logits = llama.prefill(params, cfg, prompts, max_len, attn_fn=flash_attention)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = flash_attention.fwd_launches
+    if launches != cfg.num_layers:
+        raise AssertionError(f"expected {cfg.num_layers} flash_fwd launches, got {launches}")
+    if cache["k"].dtype != torch.int8 or not bool(torch.isfinite(logits).all()):
+        raise AssertionError("the int8 prefill gave no int8 cache or non-finite logits")
+    t0 = time.perf_counter()
+    cache, logits = llama.prefill(params, cfg, prompts, max_len, attn_fn=flash_attention)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
+    bf16_bytes = 2 * cache["k"].numel() * 2
+    ratio = cache_bytes / bf16_bytes
+    print(f"[serve_int8] prefill B={BATCH} T0={PROMPT_LEN}: flash_fwd launches={launches}; "
+          f"{prefill_ms:.1f} ms ({first_ms:.1f} ms first call); int8 cache {cache_bytes / 1e6:.2f} MB "
+          f"for {max_len} slots = {ratio:.4f} of the bf16 cache's {bf16_bytes / 1e6:.2f} MB")
+    if ratio > INT8_CACHE_RATIO:
+        raise AssertionError(f"int8 cache at {ratio:.4f} of the bf16 cache's bytes (limit {INT8_CACHE_RATIO})")
+
+    # The linear int8 decode, then the rolling one on the same tokens.
+    ring = llama.roll_kv_cache(cache, cfg, PROMPT_LEN)
+    ring_bytes = sum(t.numel() * t.element_size() for t in ring.values())
+    first = logits.argmax(dim=-1)
+    tokens, lin_logits = [first], []
+    step = llama.make_decode_step(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(NEW_TOKENS):
+        cache, out = step(params, cache, tokens[-1], PROMPT_LEN + i)
+        lin_logits.append(out)
+        tokens.append(out.argmax(dim=-1))
+    torch.cuda.synchronize()
+    linear_ms = (time.perf_counter() - t0) * 1e3 / NEW_TOKENS
+    roll = llama.make_decode_step(cfg, rolling=True)
+    gaps, agree = [], 0
+    roll_ms = 0.0
+    for i in range(NEW_TOKENS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ring, out = roll(params, ring, tokens[i], PROMPT_LEN + i)
+        torch.cuda.synchronize()
+        roll_ms += (time.perf_counter() - t0) * 1e3
+        ref = lin_logits[i]
+        gaps.append((out - ref).abs().max().item() / ref.abs().max().item())
+        agree += int((out.argmax(dim=-1) == ref.argmax(dim=-1)).sum())
+    roll_ms /= NEW_TOKENS
+    share = agree / (NEW_TOKENS * BATCH)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[serve_int8] decode {NEW_TOKENS} steps at B={BATCH} over positions {PROMPT_LEN}.."
+          f"{PROMPT_LEN + NEW_TOKENS - 1}: linear {linear_ms:.2f} ms/step, rolling {roll_ms:.2f} ms/step "
+          f"(ring {ring_bytes / 1e6:.2f} MB, {SERVE_WINDOW} slots); rolling vs linear max|dlogit|/max|logit| "
+          f"{max(gaps):.4e} (tol {LOGIT_REL_TOL:g}), same greedy token in {share:.4f} "
+          f"(need {ROLL_ARGMAX_AGREE:g}); max_memory_allocated={peak_gb:.2f} GB")
+    if not max(gaps) <= LOGIT_REL_TOL or share < ROLL_ARGMAX_AGREE:
+        raise AssertionError("the rolling int8 decode disagrees with the linear one")
+    del cache, ring, lin_logits, logits
+
+    one = prompts[:1]
+    _, via_flash = llama.prefill(params, cfg, one, PROMPT_LEN, attn_fn=flash_attention)
+    _, via_dense = llama.prefill(params, cfg, one, PROMPT_LEN, attn_fn=dot_product_attention)
+    gap = (via_flash - via_dense).abs().max().item()
+    span = via_dense.abs().max().item()
+    print(f"[serve_int8] B=1 prefill logits, flash vs dense (window {SERVE_WINDOW}): max_abs_diff={gap:.4e} "
+          f"max|logit|={span:.4e} (tol {LOGIT_REL_TOL:g}*max|logit|)")
+    if not gap <= LOGIT_REL_TOL * span:
+        raise AssertionError("int8 flash prefill logits disagree with the dense path")
+    print(f"[serve_int8] against the bf16 path (phase_slice, causal, bf16 cache): prefill "
+          f"{prefill_ms:.1f} vs {bf16['prefill_ms']:.1f} ms; decode {roll_ms:.2f} (rolling) / "
+          f"{linear_ms:.2f} (linear) vs {bf16['decode_ms']:.2f} ms/step; cache {cache_bytes / 1e6:.2f} vs "
+          f"{bf16['cache_bytes'] / 1e6:.2f} MB; peak {peak_gb:.2f} vs {bf16['peak_gb']:.2f} GB")
+    del params, prompts
+    torch.cuda.empty_cache()
+    return dict(launches=launches, prefill_ms=prefill_ms, linear_ms=linear_ms, rolling_ms=roll_ms,
+                cache_bytes=cache_bytes, peak_gb=peak_gb)
+
+
+def phase_train_int8(gen, bf16):
+    """BASELINE config #4 as bench_lora_8b runs it: LoRA over an int8 base."""
+    cfg = llama.llama3_8b(param_dtype=torch.bfloat16, remat=True)
+    t0 = time.perf_counter()
+    params = llama.init_llama_int8(cfg, gen, device="cuda")
+    adapters = lora.init_lora(params, lora.LoraConfig(rank=LORA_RANK, targets=(r"w[qv]$",)), gen, device="cuda")
+    opt = llama.init_adam(adapters)
+    ids = torch.randint(0, cfg.vocab_size, (1, TRAIN_LEN), generator=gen, device="cuda")
+    scales = {n: e["scale"].clone() for n, e in adapters["layers"].items()}
+    step = llama.make_lora_train_step(cfg, lr=TRAIN_LR, attn_fn=flash_attention)
+    torch.cuda.synchronize()
+    print(f"[train_int8] llama3_8b int8 base, remat, LoRA rank {LORA_RANK} on w[qv] "
+          f"({lora.num_lora_params(adapters) / 1e6:.3f}e6 adapter params), B=1 T={TRAIN_LEN}, "
+          f"lr={TRAIN_LR:g}: set up in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    want = {"fwd": 2 * cfg.num_layers, "bwd_dq": cfg.num_layers, "bwd_dkv": cfg.num_layers}
+    losses, step_ms = [], []
+    _zero_counts()
+    for i in range(TRAIN_STEPS):
+        before = _counts()
+        t0 = time.perf_counter()
+        adapters, opt, loss = step(adapters, opt, params, ids)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.item())
+        per_step = {n: c - before[n] for n, c in _counts().items()}
+        print(f"[train_int8] step {i}: loss={losses[-1]:.6f} {step_ms[-1]:.1f} ms launches={per_step}")
+        if per_step != want:
+            raise AssertionError(f"int8 step {i}: expected launches {want}, got {per_step}")
+        if not torch.isfinite(loss):
+            raise AssertionError(f"int8 step {i}: loss is not finite")
+    launches = _counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steady_ms = sum(step_ms[1:]) / (TRAIN_STEPS - 1)
+    print(f"[train_int8] {TRAIN_STEPS} steps: launches={launches}; steady step {steady_ms:.1f} ms "
+          f"({TRAIN_LEN / steady_ms * 1e3:.0f} tokens/s; bf16 base {bf16['steady_ms']:.1f} ms, "
+          f"{TRAIN_LEN / bf16['steady_ms'] * 1e3:.0f} tokens/s), max_memory_allocated={peak_gb:.2f} GB "
+          f"(bf16 base {bf16['peak_gb']:.2f} GB, saving {bf16['peak_gb'] - peak_gb:.2f} GB, "
+          f"need {INT8_TRAIN_SAVING_GB:g})")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the int8-base loss did not fall: {losses}")
+    if not all(torch.equal(adapters["layers"][n]["scale"], s) for n, s in scales.items()):
+        raise AssertionError("an adapter scale moved")
+    if not peak_gb <= bf16["peak_gb"] - INT8_TRAIN_SAVING_GB:
+        raise AssertionError(f"int8-base step peak {peak_gb:.2f} GB is not {INT8_TRAIN_SAVING_GB:g} GB "
+                             f"below the bf16 step's {bf16['peak_gb']:.2f} GB")
+    del params, adapters, opt
+    torch.cuda.empty_cache()
+    return dict(launches=launches, steady_ms=steady_ms, step_ms=step_ms, losses=losses, peak_gb=peak_gb)
 
 
 def _bound(flops, nbytes, card):
@@ -725,6 +913,112 @@ def phase_fold(gen, card):
               f"{encode_s * 1e3:.1f} ms")
         del cpu, on_card, payloads, pinned, acc, src, ef, tree32
         torch.cuda.empty_cache()
+    phase_fold_int(gen, card)
+
+
+class _KeepAcc(streaming.StreamingAggregator):
+    """A streaming aggregator that keeps a copy of its i32 accumulator
+    (the finalize drops it) for the comparison with the CPU's."""
+
+    def _finalize(self):
+        self.kept_acc = self._acc.clone()
+        return super()._finalize()
+
+
+def phase_fold_int(gen, card):
+    """The compressed-domain fold on the card against the CPU's: uint8 codes
+    on a shared grid folded in i32 (streamed and one-shot), then the one
+    rescale; and the codec's device times."""
+    import random
+
+    from rayfed_tpu_torch import tree_util
+    from rayfed_tpu_torch.fl import quantize as qz
+
+    _, (_, hbm) = _peaks(card)
+    rng = random.Random(SEED + 1)
+    for name, n, elems in FOLD_SIZES:
+        ref = torch.randn(elems, generator=gen, device="cuda")
+        grid = qz.make_round_grid(0.01 * torch.randn(elems, generator=gen, device="cuda"),
+                                  mode="delta", expand=qz.QUANT_DELTA_EXPAND)
+        spec = fl.PackSpec((("f", 0, elems, (elems,), "float32"),), tree_util.tree_flatten({"w": 0})[1],
+                           grid.wire_dtype)
+        codes = [torch.randint(0, 256, (elems,), dtype=torch.uint8, generator=gen, device="cuda")
+                 for _ in range(n)]
+        cpu = [qz.QuantizedPackedTree(c.cpu().numpy(), grid.scales, grid.zps, (), spec, grid.meta())
+               for c in codes]
+        on_card = [qz.QuantizedPackedTree(c, grid.scales, grid.zps, (), spec, grid.meta()) for c in codes]
+        ref_cpu = ref.cpu()
+        payloads = [_payload_bytes(p) for p in cpu]
+        for weights in (list(FOLD_WEIGHTS[:n]), None):
+            tag = "/".join(map(str, weights)) if weights else "None"
+            iw, _ = fedavg.quant_weights(weights, n)
+            t0 = time.perf_counter()
+            acc_cpu = fedavg._quant_reduce([p.buf for p in cpu], iw, grid.nblocks, grid.chunk_elems,
+                                           torch.device("cpu"))
+            plain = fedavg.packed_quantized_sum(cpu, weights, ref=ref_cpu)
+            cpu_s = time.perf_counter() - t0
+            acc_card = fedavg._quant_reduce([p.buf for p in on_card], iw, grid.nblocks, grid.chunk_elems,
+                                            ref.device)
+            held = []
+            one_shot_ms = _event_ms(lambda: held.append(fl.packed_quantized_sum(on_card, weights, ref=ref)))
+            one_shot = held.pop()
+            local = rng.randrange(n)
+            order = [i for i in range(n) if i != local]
+            agg = _KeepAcc(n, weights=weights, quant=grid, quant_ref=ref, device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            agg.add_local(local, on_card[local])
+            _feed_interleaved(agg, payloads, order, rng)
+            got = agg.result(timeout=600)
+            torch.cuda.synchronize()
+            stream_s = time.perf_counter() - t0
+            want, want_acc = _raw(plain.buf), _raw(acc_cpu)
+            same = {"streamed": torch.equal(_raw(got.buf), want),
+                    "streamed_acc": torch.equal(_raw(agg.kept_acc), want_acc),
+                    "one_shot": torch.equal(_raw(one_shot.buf), want),
+                    "one_shot_acc": torch.equal(_raw(acc_card), want_acc)}
+            print(f"[fold_int] {name}: {n} x {elems} uint8 codes on one grid ({grid.nblocks} blocks), weights "
+                  f"{tag}, local {local}, arrivals {order} in {FOLD_PIECE // 1024} KiB pieces: streamed on "
+                  f"cuda {stream_s * 1e3:.1f} ms wall (stats "
+                  f"{json.dumps({k: v for k, v in agg.stats.items() if k.startswith('agg_')})}), one-shot on "
+                  f"cuda {one_shot_ms:.3f} ms (bound {elems * (n + 8) / hbm * 1e3:.3f}: the codes and ref "
+                  f"read, f32 written), CPU fold {cpu_s * 1e3:.1f} ms; i32 accumulator and finalized "
+                  f"f32 byte-equal to the CPU's: {same}")
+            if not all(same.values()) or got.buf.device.type != "cuda":
+                raise AssertionError(f"integer fold {name} weights {tag}: the card's fold differs from the CPU's")
+            del plain, one_shot, got, agg, acc_cpu, acc_card
+        # Device times of the pieces: one contribution's i32 fold over all
+        # its blocks, the finalize, and the codec's quantize (an f32 update
+        # against the reference, with a residual) and dequantize.
+        acc = torch.zeros(grid.nblocks * grid.chunk_elems, dtype=torch.int32, device="cuda")
+        src = codes[0]
+        ce = grid.chunk_elems
+
+        def fold_one():
+            for off in range(0, elems, ce):
+                fedavg.quantized_accum_kernel(acc, off, src[off:off + ce], 3)
+
+        fold_one()
+        fold_ms = _event_ms(fold_one)
+        fin_ms = _event_ms(lambda: fedavg.finalize_packed_quantized(
+            acc, grid.scales, grid.zps, 26.0, elems, ce, "float32", ref=ref))
+        update = ref + 0.01 * torch.randn(elems, generator=gen, device="cuda")
+        resid = torch.zeros(elems, device="cuda")
+        quantize = lambda: qz._quantize_codes(update, ref, resid, grid)  # noqa: E731
+        dequantize = lambda: qz._dequantize_codes(src, ref, grid, "float32")  # noqa: E731
+        quantize(), dequantize()  # warm: the first calls load their kernels
+        quant_ms, deq_ms = _event_ms(quantize), _event_ms(dequantize)
+        fold_bytes = elems * (1 + 4 + 4)  # read the codes, read and write the i32 slice
+        bound_ms = fold_bytes / hbm * 1e3
+        print(f"[fold_int] {name}: per contribution on the card: i32 fold {fold_ms:.3f} ms "
+              f"({fold_bytes / fold_ms / 1e6:.1f} GB/s; bound {bound_ms:.3f} ms at {hbm / 1e12:.2f} TB/s, "
+              f"{bound_ms / fold_ms:.3f} of it); finalize {fin_ms:.3f} ms (bound "
+              f"{elems * 12 / hbm * 1e3:.3f}: i32 and ref read, f32 written); quantize {quant_ms:.3f} ms "
+              f"(bound {elems * 17 / hbm * 1e3:.3f}: f32 update, ref and residual read, codes and residual "
+              f"written); dequantize {deq_ms:.3f} ms (bound {elems * 9 / hbm * 1e3:.3f}: codes and ref "
+              f"read, f32 written)")
+        del ref, grid, codes, cpu, on_card, ref_cpu, payloads, acc, src, update, resid
+        torch.cuda.empty_cache()
 
 
 # -- the federated path: two party processes on the one card ----------------
@@ -851,7 +1145,8 @@ class _RoundTrainer:
 
     def report(self):
         peak = torch.cuda.max_memory_allocated(self.device) if self.device.type == "cuda" else 0
-        return {"steps": self.steps, "max_memory_allocated": peak}
+        steps, self.steps = self.steps, []
+        return {"steps": steps, "max_memory_allocated": peak}
 
 
 def _round_session(fed, party, cache, cfg_name, cfg_kw, train_len, device):
@@ -863,24 +1158,35 @@ def _round_session(fed, party, cache, cfg_name, cfg_kw, train_len, device):
     trainers = {p: fed.remote(_RoundTrainer).party(p).remote(cache, cfg_name, cfg_kw, train_len, device, i)
                 for i, p in enumerate(FED_PARTIES)}
     adapters = fed.get(trainers["alice"].initial.remote())
-    timings = []
-    t0 = time.perf_counter()
-    final = fl.run_fedavg_rounds(trainers, adapters, rounds=ROUNDS, compress_wire=True, packed_wire=True,
-                                 streaming_agg=True, timings=timings)
-    _sync(device)
-    wall_s = time.perf_counter() - t0
+    tm = get_runtime().transport
     digest = fed.remote(_leaf_digest)
-    digests = fed.get([digest.party(p).remote(final) for p in FED_PARTIES])
-    trainer_reports = fed.get([trainers[p].report.remote() for p in FED_PARTIES])
-    stats = get_runtime().transport.get_stats()
-    return {
-        "wall_s": wall_s,
-        "timings": timings,
-        "digests": dict(zip(FED_PARTIES, digests)),
-        "trainers": dict(zip(FED_PARTIES, trainer_reports)),
-        "delta": {k: stats[k] for k in ("delta_stream_frames", "delta_full_frames",
-                                        "delta_logical_bytes", "delta_wire_bytes")},
-    }
+    out = {}
+    # The bf16 packed rounds, then, in the same processes and from their
+    # result, the compressed-domain rounds (uint8 codes on each round's
+    # grid; the first round of a wire_quant run has no grid yet and ships
+    # bf16, as in the JAX package).
+    for key, kw in (("round", {}), ("round_quant", {"wire_quant": "uint8"})):
+        timings = []
+        logged = tm.transfer_log.total_recorded
+        t0 = time.perf_counter()
+        adapters = fl.run_fedavg_rounds(trainers, adapters, rounds=ROUNDS, compress_wire=True, packed_wire=True,
+                                        streaming_agg=True, timings=timings, **kw)
+        _sync(device)
+        wall_s = time.perf_counter() - t0
+        sent, _ = tm.transfer_log.records_since(logged)
+        digests = fed.get([digest.party(p).remote(adapters) for p in FED_PARTIES])
+        trainer_reports = fed.get([trainers[p].report.remote() for p in FED_PARTIES])
+        stats = tm.get_stats()
+        out[key] = {
+            "wall_s": wall_s,
+            "timings": timings,
+            "pushed": [r.nbytes for r in sent if r.direction == "send"],
+            "digests": dict(zip(FED_PARTIES, digests)),
+            "trainers": dict(zip(FED_PARTIES, trainer_reports)),
+            "delta": {k: stats[k] for k in ("delta_stream_frames", "delta_full_frames",
+                                            "delta_logical_bytes", "delta_wire_bytes")},
+        }
+    return out
 
 
 def _fed_session(fed, party, cache, cfg_name, cfg_kw, train_len, device):
@@ -967,7 +1273,7 @@ def _fed_party(party, ports, cfg_name, cfg_kw, train_len, device, out):
         cluster = {p: {"address": f"127.0.0.1:{port}", "transport_options": {"local_link": "auto"}}
                    for p, port in zip(FED_PARTIES, ports["round"])}
         fed.init(address="local", cluster=cluster, party=party, device=device, **FED_INIT)
-        report["round"] = _round_session(fed, party, cache, cfg_name, cfg_kw, train_len, dev)
+        report.update(_round_session(fed, party, cache, cfg_name, cfg_kw, train_len, dev))
         fed.shutdown()
         out.put(report)
     except BaseException:
@@ -1068,43 +1374,51 @@ def _federated_summary(reports, want, wall):
     print(f"[fed] both links and the round in {wall:.1f} s, party processes included")
     out["copies"] = c
     out["round"] = _round_summary(alice["round"], bob["round"], want)
+    out["round_quant"] = _round_summary(alice["round_quant"], bob["round_quant"], want, quant=True)
     return out
 
 
-def _round_summary(a, b, want):
-    """Check both parties' reports of the round session and print them."""
+def _round_summary(a, b, want, quant=False):
+    """Check both parties' reports of a round session and print them."""
+    tag = "round_quant" if quant else "round"
     for party, r in (("alice", a), ("bob", b)):
         steps = r["trainers"][party]["steps"]
         if len(steps) != ROUNDS or any(s["launches"] != want for s in steps):
-            raise AssertionError(f"round: {party}'s steps launched {[s['launches'] for s in steps]}, want {want} x {ROUNDS}")
+            raise AssertionError(f"{tag}: {party}'s steps launched {[s['launches'] for s in steps]}, want {want} x {ROUNDS}")
     if a["digests"] != b["digests"] or a["digests"]["alice"] != a["digests"]["bob"]:
-        raise AssertionError(f"round: the parties' final adapters differ: {a['digests']} vs {b['digests']}")
+        raise AssertionError(f"{tag}: the parties' final adapters differ: {a['digests']} vs {b['digests']}")
     d = a["digests"]["alice"]
     if not d["meta"] or any(m[2] != "cuda" for m in d["meta"]):
-        raise AssertionError(f"round: final adapters not on the card: {d['meta']}")
+        raise AssertionError(f"{tag}: final adapters not on the card: {d['meta']}")
     # Every round's contribution (bob's) and broadcast (alice's) go out on
     # their delta streams; from round 2 on each send diffs against the
     # stream's cached base and ships the changed 4 MB chunks only, or a
     # full frame when every chunk changed (the client's rule).
     for party, r in (("alice", a), ("bob", b)):
         frames = r["delta"]["delta_stream_frames"] + r["delta"]["delta_full_frames"]
-        if frames != ROUNDS:
-            raise AssertionError(f"round: {party} sent {frames} frames on its delta stream, want {ROUNDS}: {r['delta']}")
+        if frames != ROUNDS * (2 if quant else 1):  # the counts run on from the bf16 rounds
+            raise AssertionError(f"{tag}: {party} sent {frames} frames on its delta stream, want {ROUNDS}: {r['delta']}")
     launches = {k: 0 for k in want}
     for party, r in (("alice", a), ("bob", b)):
         t = r["trainers"][party]
         for i, (step, rec) in enumerate(zip(t["steps"], r["timings"])):
-            print(f"[round] {party} round {i}: local_s {rec['local_s']:.3f} push_s {rec['push_s']:.3f} "
+            print(f"[{tag}] {party} round {i}: local_s {rec['local_s']:.3f} push_s {rec['push_s']:.3f} "
                   f"agg_s {rec['agg_s']:.3f}; step {step['step_ms']:.1f} ms loss {step['loss']:.6f} "
                   f"launches {step['launches']}")
             if rec.get("agg_stats"):
-                print(f"[round] alice's aggregator, round {i}: {json.dumps(rec['agg_stats'])}")
+                print(f"[{tag}] alice's aggregator, round {i}: {json.dumps(rec['agg_stats'])}")
             for k in launches:
                 launches[k] += step["launches"][k]
-        print(f"[round] {party}: {ROUNDS} rounds in {r['wall_s']:.2f} s wall, "
+        print(f"[{tag}] {party}: {ROUNDS} rounds in {r['wall_s']:.2f} s wall, "
               f"max_memory_allocated {t['max_memory_allocated'] / 1e9:.2f} GB, delta {r['delta']}")
-    print(f"[round] final adapters sha256 {d['sha256'][:16]} ({d['nbytes'] / 1e6:.2f} MB in "
+    print(f"[{tag}] final adapters sha256 {d['sha256'][:16]} ({d['nbytes'] / 1e6:.2f} MB in "
           f"{len(d['meta'])} tensors) on both parties; launches over both parties' steps {launches}")
+    # bob's pushes, one per round, in payload bytes: bf16 packed adapters,
+    # and under wire_quant from its second round uint8 codes plus the grid.
+    pushed = b["pushed"]
+    print(f"[{tag}] bob's pushed payloads per round: {[round(x / 1e6, 4) for x in pushed]} MB")
+    if len(pushed) != ROUNDS or (quant and not pushed[-1] < 0.6 * pushed[0]):
+        raise AssertionError(f"{tag}: bob's pushes {pushed}: want {ROUNDS}, the quantized ones under 0.6x bf16")
     return {"launches": launches, "wall_s": {"alice": a["wall_s"], "bob": b["wall_s"]}}
 
 
@@ -1122,12 +1436,16 @@ def main() -> int:
     slice_err = phase_kernel_vs_plain(gen)
     bwd_err = phase_bwd_kernel_vs_plain(gen)
     _zero_counts()
-    serve_launches = phase_slice(gen)
+    serve = phase_slice(gen)
+    serve_launches = serve["launches"]
     train = phase_train(gen)
     phase_grad_check(gen)
+    serve_int8 = phase_serve_int8(gen, serve)
+    train_int8 = phase_train_int8(gen, train)
     phase_fold(gen, card)
     federated = phase_federated()
     round_launches = federated["round"]["launches"]
+    quant_launches = federated["round_quant"]["launches"]
     times, train_times = phase_times(gen, card)
     bwd_times = phase_bwd_times(gen, card)
 
@@ -1148,7 +1466,10 @@ def main() -> int:
         "launches": train_launches["fwd"],
         "launches_by_path": {"serve": serve_launches, "train": train_launches["fwd"],
                              "federated": federated["launches"]["fwd"],
-                             "round": round_launches["fwd"]},
+                             "round": round_launches["fwd"],
+                             "serve_int8": serve_int8["launches"],
+                             "train_int8": train_int8["launches"]["fwd"],
+                             "round_quant": quant_launches["fwd"]},
         "max_abs_err": slice_err,
         **times,
         "train_shape": train_times,  # B=1: the shape the train step launches it at
@@ -1160,7 +1481,9 @@ def main() -> int:
         "launches": train_launches["bwd_dq"],
         "launches_by_path": {"serve": 0, "train": train_launches["bwd_dq"],
                              "federated": federated["launches"]["bwd_dq"],
-                             "round": round_launches["bwd_dq"]},
+                             "round": round_launches["bwd_dq"],
+                             "serve_int8": 0, "train_int8": train_int8["launches"]["bwd_dq"],
+                             "round_quant": quant_launches["bwd_dq"]},
         "max_abs_err": bwd_err["dq"],
         **bwd_times["dq"],
     }, {
@@ -1171,7 +1494,9 @@ def main() -> int:
         "launches": train_launches["bwd_dkv"],
         "launches_by_path": {"serve": 0, "train": train_launches["bwd_dkv"],
                              "federated": federated["launches"]["bwd_dkv"],
-                             "round": round_launches["bwd_dkv"]},
+                             "round": round_launches["bwd_dkv"],
+                             "serve_int8": 0, "train_int8": train_int8["launches"]["bwd_dkv"],
+                             "round_quant": quant_launches["bwd_dkv"]},
         "max_abs_err": bwd_err["dkv"],
         **bwd_times["dkv"],
     }]

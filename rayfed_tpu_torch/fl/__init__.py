@@ -7,13 +7,16 @@ what is ported:
   (:class:`PackedTree`, byte-compatible with the JAX package's) and error
   feedback.
 - :mod:`fedavg` — weighted parameter averaging, the one-shot packed
-  fold and :func:`aggregate`.
+  folds (float and integer codes) and :func:`aggregate`.
+- :mod:`quantize` — the compressed-domain codec: the shared per-round
+  grid, :class:`QuantizedPackedTree` (byte-compatible with the JAX
+  package's) and the error-feedback compressor.
 - :mod:`streaming` — the streaming on-card fold and
   :func:`streaming_aggregate`.
 - :mod:`fedopt` — the legacy server optimizers and FedProx.
 - :mod:`trainer` — :func:`run_fedavg_rounds`, the round loop.
 
-The compressed-domain round, the ring, quorum, hierarchy, overlapped and
+The ring, quorum, hierarchy, overlapped and
 asynchronous rounds, secure aggregation, the packed server optimizers,
 differential privacy, robust reducers and split learning are later items
 of ROADMAP.md's Queue A.
@@ -31,6 +34,7 @@ from rayfed_tpu_torch.fl.compression import (
 from rayfed_tpu_torch.fl.fedavg import (
     FedAvgActorBase,
     aggregate,
+    packed_quantized_sum,
     packed_weighted_sum,
     tree_average,
     tree_weighted_sum,
@@ -42,12 +46,27 @@ from rayfed_tpu_torch.fl.fedopt import (
     server_sgd,
     server_yogi,
 )
+from rayfed_tpu_torch.fl.quantize import (
+    QuantCompressor,
+    QuantGrid,
+    QuantizedPackedTree,
+    dequantize_packed,
+    make_round_grid,
+    quantize_packed,
+)
 from rayfed_tpu_torch.fl.streaming import StreamingAggregator, streaming_aggregate
 from rayfed_tpu_torch.fl.trainer import run_fedavg_rounds, validate_round_config
 
 __all__ = [
     "aggregate",
     "packed_weighted_sum",
+    "packed_quantized_sum",
+    "QuantCompressor",
+    "QuantGrid",
+    "QuantizedPackedTree",
+    "dequantize_packed",
+    "make_round_grid",
+    "quantize_packed",
     "streaming_aggregate",
     "StreamingAggregator",
     "ErrorFeedback",

@@ -298,10 +298,32 @@ def compress(tree: Any, *, packed: bool = False, wire_dtype: Any = torch.bfloat1
 
 
 def decompress(tree: Any, dtype: Any = torch.float32) -> Any:
-    """Restore a wire-compressed tree (either form) to the compute dtype."""
+    """Restore a wire-compressed tree (any form) to the compute dtype,
+    through ``tree.unpack`` (the integer form dequantizes first)."""
     if isinstance(tree, PackedTree):
         return tree.unpack(dtype)
     return cast_floats(tree, dtype)
+
+
+# The shared-grid integer codec, re-exported: one import surface for wire
+# forms.  Lazy (PEP 562): fl.quantize subclasses PackedTree, so it imports
+# this module first.
+_QUANTIZE_EXPORTS = (
+    "QuantCompressor",
+    "QuantGrid",
+    "QuantizedPackedTree",
+    "dequantize_packed",
+    "make_round_grid",
+    "quantize_packed",
+)
+
+
+def __getattr__(name: str):
+    if name in _QUANTIZE_EXPORTS:
+        from rayfed_tpu_torch.fl import quantize
+
+        return getattr(quantize, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 __all__ = [
@@ -313,4 +335,5 @@ __all__ = [
     "decompress",
     "pack_tree",
     "unpack_tree",
+    *_QUANTIZE_EXPORTS,
 ]

@@ -1,4 +1,4 @@
-"""FedAvg: cross-party weighted parameter averaging (the float half).
+"""FedAvg: cross-party weighted parameter averaging.
 
 Multi-controller semantics (every party runs the same line): each party
 contributes its local update as a ``FedObject``; :func:`aggregate` fetches
@@ -10,14 +10,17 @@ separate elementwise kernels, never a fused multiply-add, so the streamed
 fold (:mod:`rayfed_tpu_torch.fl.streaming`) and this one-shot fold give the
 same bytes, on the CPU and on the card, as the JAX package's.
 
-Integer-code contributions (the compressed-domain round) are not ported
-yet: they raise ``NotImplementedError`` (ROADMAP.md, Queue A item 6).
+Integer-code contributions (:class:`~rayfed_tpu_torch.fl.quantize.
+QuantizedPackedTree`, the compressed-domain round) fold in i32: per party an
+in-place ``acc[off:off+n] += w·q`` on an owned accumulator padded onto the
+block grid, exact and associative in any order, then ONE rescale
+(:func:`finalize_packed_quantized`), as the JAX package's.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, List, Optional, Sequence
+from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -28,12 +31,6 @@ from rayfed_tpu_torch.fl.compression import PackedTree, PackSpec
 
 # Elements per block of the canonical chunk grid: one 4 MB bf16 wire chunk.
 DEFAULT_CHUNK_ELEMS = 1 << 21
-
-UNPORTED_QUANT = (
-    "integer-code (compressed-domain) aggregation is not ported yet "
-    "(ROADMAP.md, Queue A item 6)"
-)
-
 
 def _check_weights(weights: Sequence[float]) -> float:
     """Validated total of a weight vector.
@@ -109,13 +106,6 @@ def as_tensor(buf: Any, device: Optional[torch.device] = None) -> torch.Tensor:
         raw = torch.from_numpy(arr.reshape(-1).view(np.uint8).copy())
         buf = raw.view(dt).reshape(arr.shape)
     return buf if device is None else buf.to(device)
-
-
-def _check_float_wire(spec: PackSpec) -> None:
-    if not compression.torch_dtype(spec.wire_dtype).is_floating_point:
-        raise NotImplementedError(
-            f"a packed buffer of {spec.wire_dtype} codes: {UNPORTED_QUANT}"
-        )
 
 
 def _fold_device(bufs: Sequence[Any]) -> torch.device:
@@ -215,9 +205,17 @@ def packed_weighted_sum(
     pass f32 when the aggregate feeds a server optimizer or an
     error-feedback loop.
     """
+    from rayfed_tpu_torch.fl.quantize import QuantizedPackedTree
+
     packeds = list(packed_trees)
     if not packeds:
         raise ValueError("packed_weighted_sum needs at least one tree")
+    if any(isinstance(p, QuantizedPackedTree) for p in packeds):
+        raise ValueError(
+            "packed_weighted_sum got QuantizedPackedTree contributions "
+            "— their buffers are integer CODES, not values; fold them "
+            "with packed_quantized_sum (the compressed-domain reduce)"
+        )
     if not isinstance(packeds[0], PackedTree):
         raise ValueError(
             f"contribution 0 is not a PackedTree "
@@ -231,7 +229,6 @@ def packed_weighted_sum(
                 f"contribution {i} is not a PackedTree with the same "
                 f"spec — all parties must pack the identical structure"
             )
-    _check_float_wire(spec)
     n = len(packeds)
     if weights is None:
         w = [1.0] * n
@@ -249,17 +246,182 @@ def packed_weighted_sum(
     return _packed_result(buf, passthrough, spec, out_name)
 
 
+# ---------------------------------------------------------------------------
+# Compressed-domain (shared-grid integer) aggregation: the aggregator half of
+# the fl.quantize codec.  sum_i w_i*x_i == scale_b*(sum_i w_i*q_i - zp_b*W),
+# so the fold is an exact i32 multiply-add over the codes and the rescale
+# happens ONCE at finalize; streamed and one-shot folds agree in any order.
+# ---------------------------------------------------------------------------
+
+
+def quant_weights(
+    weights: Optional[Sequence[float]], n: int
+) -> Tuple[List[int], int]:
+    """Integer weight vector for the compressed-domain fold.
+
+    The i32 accumulator holds ``sum_i w_i * q_i`` exactly only for
+    non-negative **integral** weights (FedAvg example counts are).  Returns
+    ``(per-source ints, total)``; raises naming the offending weight
+    otherwise.
+    """
+    if weights is None:
+        return [1] * n, n
+    if len(weights) != n:
+        raise ValueError(f"{len(weights)} weights for {n} sources")
+    out: List[int] = []
+    for i, w in enumerate(weights):
+        f = float(w)
+        if not np.isfinite(f) or f < 0 or f != int(f):
+            raise ValueError(
+                f"compressed-domain aggregation needs non-negative "
+                f"integral weights (example counts); weight {i} is "
+                f"{w!r} — pre-scale to integers or use the float path"
+            )
+        out.append(int(f))
+    total = sum(out)
+    if total == 0:
+        raise ValueError(
+            "weights sum to zero — the weighted average is undefined"
+        )
+    return out, total
+
+
+def quantized_accum_kernel(acc: torch.Tensor, off: int, chunk: torch.Tensor, w: int) -> None:
+    """The i32 fold step ``acc[off:off+n] += w * q``, in place on the
+    accumulator the caller owns: the integer sibling of the streaming float
+    fold (``streaming._fold_block``, same signature).  Integer adds are
+    exact, so every fold order gives the same accumulator."""
+    acc[off : off + chunk.numel()].add_(chunk.to(torch.int32) * int(w))
+
+
+def _quant_reduce(bufs, weights: Sequence[int], nblocks: int, chunk_elems: int,
+                  device: torch.device) -> torch.Tensor:
+    """One-shot integer reduce into an i32 accumulator padded onto the
+    block grid (the shape the streaming fold carries)."""
+    acc = torch.zeros(nblocks * chunk_elems, dtype=torch.int32, device=device)
+    for b, w in zip(bufs, weights):
+        quantized_accum_kernel(acc, 0, as_tensor(b, device).reshape(-1), w)
+    return acc
+
+
+def finalize_packed_quantized(
+    acc, scales, zps, total_w: float, total_elems: int,
+    chunk_elems: int, out_dtype, ref=None,
+):
+    """THE compressed-domain finalize: ``[ref +] (scale_b * (acc − zp_b·W))
+    / W`` over a block-grid-padded i32 accumulator holding ``sum_i w_i·q_i``,
+    on the accumulator's device.
+
+    ``ref`` (delta-coded rounds): the shared reference buffer the codes were
+    taken against, ``total_elems`` elements (a tensor or an array).  ``W``
+    is an f32 0-d tensor on the accumulator's device, so the divide is a
+    true division there too.
+    """
+    from rayfed_tpu_torch.fl.quantize import _f32_on
+
+    device = acc.device
+    if ref is not None:
+        ref = _f32_on(ref, device)
+        if ref.numel() != int(total_elems):
+            raise ValueError(
+                f"reference has {ref.numel()} elements, finalize covers "
+                f"{total_elems}"
+            )
+    w = f32_scalar(total_w, device)
+    a = acc.reshape(-1, int(chunk_elems)).to(torch.float32)
+    x = _f32_on(scales, device)[:, None] * (a - _f32_on(zps, device)[:, None] * w)
+    x = x.reshape(-1)[: int(total_elems)] / w
+    if ref is not None:
+        # Delta-coded rounds: the codes summed to W·(mean delta); the
+        # shared reference adds back AFTER the divide.
+        x = ref + x
+    return x.to(compression.torch_dtype(out_dtype))
+
+
+def packed_quantized_sum(
+    quantized_trees: Sequence[Any],
+    weights: Optional[Sequence[float]] = None,
+    out_dtype: Any = None,
+    ref: Any = None,
+):
+    """The one-shot compressed-domain reduce over QuantizedPackedTree
+    contributions sharing one grid: the reference every streamed integer
+    fold equals byte for byte.
+
+    ``ref``: the shared reference buffer of delta-coded contributions.
+    ``out_dtype`` defaults to **float32**.  Runs on the device of the first
+    tensor among the code buffers and ``ref`` (host codes and a host
+    reference: the CPU).
+    """
+    from rayfed_tpu_torch.fl.quantize import QuantizedPackedTree, _check_ref, _device_of
+
+    packeds = list(quantized_trees)
+    if not packeds:
+        raise ValueError("packed_quantized_sum needs at least one tree")
+    for i, p in enumerate(packeds):
+        if not isinstance(p, QuantizedPackedTree):
+            raise ValueError(
+                f"contribution {i} is not a QuantizedPackedTree (got "
+                f"{type(p).__name__}) — quantize with "
+                f"fl.quantize.quantize_packed(tree, grid)"
+            )
+    gmeta = packeds[0].gmeta
+    spec = packeds[0].spec
+    for i, p in enumerate(packeds[1:], 1):
+        if p.gmeta != gmeta or p.spec != spec:
+            raise ValueError(
+                f"contribution {i} was coded on a different grid "
+                f"(fp={p.gmeta.fp:#010x} vs {gmeta.fp:#010x}) — all "
+                f"parties must quantize onto the round's shared grid"
+            )
+    n = len(packeds)
+    iw, itotal = quant_weights(weights, n)
+    grid = packeds[0].grid()
+    grid.check_weight_headroom(itotal)
+    ref = _check_ref(grid, ref)
+    nblocks = packed_block_grid(gmeta.total_elems, gmeta.chunk_elems)
+    device = _device_of(*(p.buf for p in packeds), ref)
+    acc = _quant_reduce([p.buf for p in packeds], iw, nblocks, gmeta.chunk_elems, device)
+    total_w = float(itotal)
+    out_name = compression.dtype_name(out_dtype if out_dtype is not None else torch.float32)
+    buf = finalize_packed_quantized(
+        acc, grid.scales, grid.zps, total_w, gmeta.total_elems,
+        gmeta.chunk_elems, out_name, ref=ref,
+    )
+    passthrough = _reduce_passthrough(
+        [p.passthrough for p in packeds],
+        None if weights is None else list(weights),
+        total_w,
+    )
+    return _packed_result(buf, passthrough, spec, out_name)
+
+
 def tree_average(trees: Sequence[Any], weights: Optional[Sequence[float]] = None):
     """Mean (or example-count-weighted mean) of param pytrees.
 
     PackedTree contributions with a shared spec take the one-chain reduce
-    (:func:`packed_weighted_sum`).
+    (:func:`packed_weighted_sum`); abs-coded QuantizedPackedTrees the
+    integer one (:func:`packed_quantized_sum`).
     """
+    from rayfed_tpu_torch.fl.quantize import QuantizedPackedTree
+
     trees = list(trees)
     if not trees:
         raise ValueError("tree_average needs at least one tree")
     if weights is not None and len(weights) != len(trees):
         raise ValueError(f"{len(weights)} weights for {len(trees)} trees")
+    if all(isinstance(t, QuantizedPackedTree) for t in trees):
+        if trees[0].gmeta.mode != "abs":
+            # Delta codes mean something only against the round's shared
+            # reference, which this signature cannot carry.
+            raise ValueError(
+                "tree_average cannot fold delta-coded "
+                "QuantizedPackedTree contributions (the codes are "
+                "relative to the round's shared reference) — call "
+                "packed_quantized_sum(trees, weights, ref=<shared "
+                "reference buffer>) directly"
+            )
+        return packed_quantized_sum(trees, weights)
     if all(isinstance(t, PackedTree) for t in trees) and all(
         t.spec == trees[0].spec for t in trees[1:]
     ):

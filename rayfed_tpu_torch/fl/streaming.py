@@ -18,16 +18,22 @@ streamed aggregate is byte-identical to the one-shot reduce
 package's, which perform the same zero-init → per-party multiply then add →
 final divide and cast.
 
+In compressed-domain mode (``quant=``, the round's
+:class:`~rayfed_tpu_torch.fl.quantize.QuantGrid`) the contributions are
+integer codes: each block folds into an i32 accumulator as an in-place
+``acc[off:off+n] += w·q`` (exact, so any order gives the same bytes), every
+wire contribution's grid is checked against the round's before the one
+rescale (:func:`~rayfed_tpu_torch.fl.fedavg.finalize_packed_quantized`).
+
 On the card the fold runs on a stream of the aggregator's own; the result
 is fenced onto the device's default stream before it is handed on
 (:func:`~rayfed_tpu_torch.utils.platform.fence_for_handoff`), so the
 transport's device→host copy of the broadcast sees finished bytes.
 
-Not ported yet, each raising ``NotImplementedError``: the compressed-domain
-fold (``quant=``, ``quant_downlink=``; ROADMAP.md Queue A item 6), quorum
-rounds and region partial sums (``quorum=``, ``presummed=``; item 7), and
-secure aggregation (``masked=``, ``mask_recovery=``, ``secagg=``; item 8).
-``StripeAggregator`` comes with the ring (item 7).
+Not ported yet, each raising ``NotImplementedError``: quorum rounds and
+region partial sums (``quorum=``, ``presummed=``; ROADMAP.md Queue A item
+7), and secure aggregation (``masked=``, ``mask_recovery=``, ``secagg=``;
+item 8).  ``StripeAggregator`` comes with the ring (item 7).
 
 ``streaming_aggregate`` is the multi-controller entry point: every party
 calls it at the same program point with the same arguments; contributions
@@ -63,9 +69,6 @@ _NOTIFY_BYTES = 512 * 1024
 STREAM_AGG_SEQ_IDS = 2
 
 _UNPORTED = {
-    "quant": "the compressed-domain fold (ROADMAP.md, Queue A item 6)",
-    "quant_ref": "the compressed-domain fold (ROADMAP.md, Queue A item 6)",
-    "quant_downlink": "the compressed-domain fold (ROADMAP.md, Queue A item 6)",
     "quorum": "quorum rounds (ROADMAP.md, Queue A item 7)",
     "presummed": "hierarchical partial sums (ROADMAP.md, Queue A item 7)",
     "masked": "secure aggregation (ROADMAP.md, Queue A item 8)",
@@ -173,8 +176,7 @@ class StreamingAggregator:
         device: Any = None,
     ) -> None:
         _refuse_unported(
-            quant=quant, quant_ref=quant_ref, quorum=quorum, presummed=presummed,
-            masked=masked, mask_recovery=mask_recovery,
+            quorum=quorum, presummed=presummed, masked=masked, mask_recovery=mask_recovery,
         )
         if n_sources < 1:
             raise ValueError("streaming aggregation needs >= 1 source")
@@ -196,6 +198,40 @@ class StreamingAggregator:
         self._out_name = None if out_dtype is None else dtype_name(out_dtype)
         self._chunk_elems = int(chunk_elems)
         self._device = resolve_device(device)
+        # Compressed-domain mode: the round's grid; delta-coded rounds also
+        # hold the shared reference buffer (flat f32 on this device) the
+        # finalize adds back.
+        self._quant = quant
+        self._int_weights: Optional[List[int]] = None
+        self._quant_ref: Optional[torch.Tensor] = None
+        if quant is not None:
+            if quant.mode == "delta":
+                if quant_ref is None:
+                    raise ValueError(
+                        "a mode='delta' grid needs quant_ref= (the "
+                        "round's shared reference buffer)"
+                    )
+                from rayfed_tpu_torch.fl.quantize import _f32_on
+
+                self._quant_ref = _f32_on(
+                    quant_ref.buf if isinstance(quant_ref, PackedTree) else quant_ref,
+                    self._device,
+                )
+            elif quant_ref is not None:
+                raise ValueError("quant_ref only applies to mode='delta' grids")
+            if self._chunk_elems != int(quant.chunk_elems):
+                raise ValueError(
+                    f"fold grid ({self._chunk_elems} elems/block) must "
+                    f"match the quantization grid "
+                    f"({quant.chunk_elems}) — both ARE the canonical "
+                    f"packed_block_grid chunking"
+                )
+            iw, itotal = fedavg.quant_weights(weights, n_sources)
+            quant.check_weight_headroom(itotal)
+            self._int_weights = iw
+            # Integer totals are exact in f32 up to the headroom bound.
+            self._weights = [float(w) for w in iw]
+            self._total_w = float(itotal)
         self._stream = (
             torch.cuda.Stream(self._device) if self._device.type == "cuda" else None
         )
@@ -236,6 +272,8 @@ class StreamingAggregator:
         (a CUDA tensor, a CPU tensor or a numpy array are all accepted);
         the fold waits for the work the calling thread queued before it.
         """
+        from rayfed_tpu_torch.fl.quantize import QuantizedPackedTree
+
         if not isinstance(packed_tree, PackedTree):
             self.fail(
                 TypeError(
@@ -245,13 +283,36 @@ class StreamingAggregator:
                 )
             )
             return
+        if self._quant is not None:
+            if not isinstance(packed_tree, QuantizedPackedTree):
+                self.fail(
+                    TypeError(
+                        "compressed-domain aggregation consumes "
+                        "QuantizedPackedTree contributions — quantize "
+                        "onto the round grid first (fl.quantize)"
+                    )
+                )
+                return
+            if packed_tree.gmeta != self._quant.meta():
+                self.fail(
+                    ValueError(
+                        f"local contribution {index} was coded on a "
+                        f"different grid (fp={packed_tree.gmeta.fp:#010x}"
+                        f" vs {self._quant.fingerprint():#010x})"
+                    )
+                )
+                return
+        elif isinstance(packed_tree, QuantizedPackedTree):
+            self.fail(
+                TypeError(
+                    "got a QuantizedPackedTree but no quant= grid — "
+                    "construct the aggregator with the round's "
+                    "QuantGrid to fold in the compressed domain"
+                )
+            )
+            return
         try:
             elems = fedavg.as_tensor(packed_tree.buf, self._device).reshape(-1)
-            if not elems.dtype.is_floating_point:
-                raise NotImplementedError(
-                    f"a packed buffer of {dtype_name(elems.dtype)} codes: "
-                    f"{fedavg.UNPORTED_QUANT}"
-                )
             ready = None
             if self._stream is not None:
                 ready = torch.cuda.Event()
@@ -436,10 +497,6 @@ class StreamingAggregator:
             nbytes = sum(e["n"] for e in spec["shards"])
         # The dtype through the torch table: numpy has no bfloat16 of its own.
         dt = wire._torch_dtype(spec["dtype"])
-        if not dt.is_floating_point:
-            raise NotImplementedError(
-                f"a packed buffer of {spec['dtype']} codes: {fedavg.UNPORTED_QUANT}"
-            )
         s.data_start = 4 + mlen + manifest["skel"]
         s.data_nbytes = nbytes
         s.itemsize = torch.empty(0, dtype=dt).element_size()
@@ -460,7 +517,27 @@ class StreamingAggregator:
             )
         self._wire_dtype = s.dtype
         self._nblocks = fedavg.packed_block_grid(self._total_elems, self._chunk_elems)
-        self._acc = torch.zeros(self._total_elems, dtype=torch.float32, device=self._device)
+        if self._quant is None:
+            self._acc = torch.zeros(self._total_elems, dtype=torch.float32, device=self._device)
+            return
+        if dtype_name(s.dtype) != self._quant.wire_dtype:
+            raise ValueError(
+                f"compressed-domain contribution carries "
+                f"{dtype_name(s.dtype)} codes, this round folds "
+                f"{self._quant.wire_dtype} (plain mode) — "
+                f"sender and receiver disagree on the round shape"
+            )
+        if self._total_elems != self._quant.total_elems:
+            raise ValueError(
+                f"contribution has {self._total_elems} codes, the "
+                f"round grid covers {self._quant.total_elems} — "
+                f"all parties must quantize the identical packed "
+                f"layout"
+            )
+        # Padded onto the block grid, the shape the finalize reshapes.
+        self._acc = torch.zeros(
+            self._nblocks * self._chunk_elems, dtype=torch.int32, device=self._device
+        )
 
     def _avail_blocks(self, s: _Stream) -> int:
         if s.complete:
@@ -571,13 +648,17 @@ class StreamingAggregator:
                     self._t_all_complete = max(s.t_complete for s in self._streams)
             # Apply outside the lock (sinks keep landing bytes meanwhile).
             if weights is None:
-                weights = [fedavg.f32_scalar(w, self._device) for w in self._weights]
+                if self._int_weights is not None:
+                    weights, fold = self._int_weights, fedavg.quantized_accum_kernel
+                else:
+                    weights = [fedavg.f32_scalar(w, self._device) for w in self._weights]
+                    fold = _fold_block
             for i, lo, hi, src, ready in work:
                 t0 = time.perf_counter()
                 if ready is not None:
                     self._stream.wait_event(ready)
                 for b in range(lo, hi):
-                    _fold_block(self._acc, b * self._chunk_elems, self._chunk(src, b), weights[i])
+                    fold(self._acc, b * self._chunk_elems, self._chunk(src, b), weights[i])
                 self._busy_s += time.perf_counter() - t0
                 with self._cond:
                     self._streams[i].applied_blocks = hi
@@ -630,10 +711,20 @@ class StreamingAggregator:
         buffer (spec/passthrough from one template contribution — they are
         structural, identical across parties).  On the card the result is
         fenced onto the default stream before any other thread sees it."""
-        out_name = self._out_name or dtype_name(self._wire_dtype)
-        out_buf = fedavg.finalize_packed_stripe(
-            self._acc, self._total_w, self._total_elems, out_name
-        )
+        if self._quant is not None:
+            # Every wire payload's grid is checked first: wrong-grid codes
+            # must never rescale.
+            self._verify_quant_members()
+            out_name = self._out_name or "float32"
+            out_buf = fedavg.finalize_packed_quantized(
+                self._acc, self._quant.scales, self._quant.zps, self._total_w,
+                self._total_elems, self._chunk_elems, out_name, ref=self._quant_ref,
+            )
+        else:
+            out_name = self._out_name or dtype_name(self._wire_dtype)
+            out_buf = fedavg.finalize_packed_stripe(
+                self._acc, self._total_w, self._total_elems, out_name
+            )
         self._acc = None
         if self._stream is not None:
             fence_for_handoff(out_buf)
@@ -646,6 +737,30 @@ class StreamingAggregator:
                 self._total_w,
             )
         return fedavg._packed_result(out_buf, passthrough, template.spec, out_name)
+
+    def _verify_quant_members(self) -> None:
+        """Every wire contribution must be a QuantizedPackedTree coded on
+        exactly the round grid (local ones were checked at ``add_local``)."""
+        from rayfed_tpu_torch.fl.quantize import QuantizedPackedTree
+
+        want = self._quant.meta()
+        for i, s in enumerate(self._streams):
+            if s.local_tree is not None:
+                continue
+            tree = self._tree_of(s)
+            if not isinstance(tree, QuantizedPackedTree):
+                raise TypeError(
+                    f"contribution from {self._labels[i]} is not a "
+                    f"QuantizedPackedTree — all parties must quantize "
+                    f"onto the round's shared grid"
+                )
+            if tree.gmeta != want:
+                raise ValueError(
+                    f"contribution from {self._labels[i]} was coded on "
+                    f"a different grid (fp={tree.gmeta.fp:#010x} vs "
+                    f"{want.fp:#010x}) — aborting before the rescale; "
+                    f"re-run the round on one grid"
+                )
 
     def _tree_of(self, s: _Stream) -> PackedTree:
         if s.local_tree is not None:
@@ -701,7 +816,21 @@ def streaming_aggregate(
     coordinator) and ``agg_s`` (wall time of the call), and on the
     coordinator ``agg_stats`` (the aggregator's ``stats``).  ``server_step``:
     a hook the coordinator applies to the finalized aggregate before the
-    broadcast.  ``quant*`` and ``secagg`` are not ported yet.
+    broadcast.
+
+    ``quant``: the round's shared :class:`~rayfed_tpu_torch.fl.quantize.
+    QuantGrid`: aggregate **in the compressed domain**.  Each party's
+    contribution is quantized onto the grid before the push (already
+    quantized ones pass after a fingerprint check), frames carry the grid
+    descriptor (``wire.QUANT_GRID_KEY``), the coordinator folds the codes
+    in i32 and rescales once.  ``quant_ref``: the round's shared reference
+    buffer for ``mode="delta"`` grids.  ``out_dtype`` defaults to f32 in
+    this mode.  ``quant_scope`` keys the error-feedback residual
+    (:func:`~rayfed_tpu_torch.fl.quantize.compressor`; None quantizes
+    statelessly).  ``quant_downlink`` re-quantizes the broadcast onto a
+    fresh grid carried in the payload; every party, the coordinator
+    included, returns the same dequantized tree.  ``secagg`` is not ported
+    yet (ROADMAP.md, Queue A item 8).
     """
     from rayfed_tpu_torch.fed_object import FedObject
     from rayfed_tpu_torch.proxy import (
@@ -711,10 +840,9 @@ def streaming_aggregate(
     )
     from rayfed_tpu_torch.runtime import get_runtime
 
-    _refuse_unported(
-        quant=quant, quant_ref=quant_ref, quant_downlink=quant_downlink, secagg=secagg
-    )
-    del quant_scope  # keys the compressed-domain residual only
+    from rayfed_tpu_torch.fl import quantize as qz
+
+    _refuse_unported(secagg=secagg)
     runtime = get_runtime()
     objs = list(fed_objects)
     if not objs:
@@ -727,6 +855,15 @@ def streaming_aggregate(
                 "streaming_aggregate consumes FedObjects (party-owned "
                 f"contributions), got {type(obj).__name__}"
             )
+    if quant_downlink and quant is None:
+        raise ValueError("quant_downlink requires quant= (the grid)")
+    if quant is not None and out_dtype is None:
+        # Integer codes make no sense as an output dtype.
+        out_dtype = torch.float32
+    # The sender-side codec discipline (grid check, residual commit); a
+    # no-op without a grid.
+    codec = qz.RoundCodec(quant, quant_ref, quant_scope)
+    qref = codec.ref
 
     # Allocated identically on every controller — the determinism
     # contract that keys the rendezvous.
@@ -746,20 +883,37 @@ def streaming_aggregate(
         push_done: List[float] = []
         for obj in objs:
             if obj.get_party() == me:
+                local_ref = obj.get_local_ref()
+                if quant is not None:
+                    # Quantize on the thread that resolves the update; the
+                    # codes are what the delta cache diffs and the wire ships.
+                    local_ref = local_ref.then(codec.to_wire)
                 push_ref = send_on_runtime(
-                    runtime, coord, obj.get_local_ref(),
+                    runtime, coord, local_ref,
                     obj.get_fed_task_id(), contrib_id,
                     stream=f"{stream}/up/{me}/{own_seq}",
                     round_tag=round_tag,
+                    quant_meta=codec.descriptor,
                 )
                 if timings is not None:
                     push_ref.add_done_callback(
                         lambda _r: push_done.append(time.perf_counter())
                     )
                 own_seq += 1
-        result = recv_on_runtime(runtime, coord, result_id, result_id).resolve(
-            timeout=backstop
-        )
+        try:
+            result = recv_on_runtime(runtime, coord, result_id, result_id).resolve(
+                timeout=backstop
+            )
+        except BaseException:
+            codec.rollback()
+            raise
+        codec.commit()
+        if quant is not None and isinstance(result, qz.QuantizedPackedTree):
+            # Quantized downlink: decoded with the grid the payload carries,
+            # the bytes the coordinator returns.
+            result = result.dequantize(
+                out_dtype, ref=qref if result.gmeta.mode == "delta" else None
+            )
         if timings is not None:
             # The broadcast only lands after the coordinator folded every
             # contribution, so the ACK timestamps are complete by now.
@@ -773,6 +927,10 @@ def streaming_aggregate(
         allowed=runtime.cluster_config.serializing_allowed_list,
         out_dtype=out_dtype,
         party=me,
+        quant=quant,
+        quant_ref=qref,
+        # The fold grid IS the quantization grid.
+        chunk_elems=quant.chunk_elems if quant is not None else DEFAULT_CHUNK_ELEMS,
         device=runtime.transport.device,
     )
     pending_cancels: List[tuple] = []
@@ -785,7 +943,12 @@ def streaming_aggregate(
                 if exc is not None:
                     agg.fail(exc)
                     return
-                agg.add_local(i, ref.resolve())
+                try:
+                    value = codec.to_wire(ref.resolve())
+                except BaseException as e:  # transferred: fail(e) poisons every waiter
+                    agg.fail(e)
+                    return
+                agg.add_local(i, value)
 
             obj.get_local_ref().add_done_callback(_feed)
         else:
@@ -803,6 +966,7 @@ def streaming_aggregate(
         if server_step is not None:
             result = server_step(result)
     except BaseException as exc:
+        codec.rollback()
         for up, down in pending_cancels:
             runtime.transport.cancel_stream(up, down)
         # The peers are parked on the result broadcast — poison that key
@@ -815,10 +979,19 @@ def streaming_aggregate(
                 except Exception:  # pragma: no cover - best effort
                     logger.exception("failed to poison streaming result for %s", p)
         raise
+    codec.commit()
+    wire_result, down_descriptor = result, None
+    if quant_downlink:
+        # The broadcast on a fresh grid derived from the aggregate; the
+        # coordinator returns the dequantized codes, as every peer does.
+        wire_result, result, down_descriptor = qz.quantize_downlink(
+            result, quant, qref, quant_scope, out_dtype=out_dtype
+        )
     if others:
         send_many_on_runtime(
-            runtime, others, result, result_id, result_id,
+            runtime, others, wire_result, result_id, result_id,
             stream=f"{stream}/down", round_tag=round_tag,
+            quant_meta=down_descriptor,
         )
     if timings is not None:
         timings["push_s"] = 0.0  # own contribution never hits the wire

@@ -2,15 +2,15 @@
 
 :func:`run_fedavg_rounds` composes the framework's pieces — coordinator
 aggregation with pipelined (lazy) rounds, the streaming on-card fold, the
-legacy FedOpt server optimizers, error feedback and bf16 wire compression
-— while preserving the multi-controller contract: every party calls it at
-the same program point with the same arguments and walks the identical
-seq-id sequence.
+legacy FedOpt server optimizers, error feedback, bf16 wire compression
+and the compressed-domain round (``wire_quant``) — while preserving the
+multi-controller contract: every party calls it at the same program point
+with the same arguments and walks the identical seq-id sequence.
 
 Options of later items of the port raise ``NotImplementedError`` naming
-their ROADMAP.md Queue A item: ``wire_quant`` (6); ``mode="ring"`` /
-``"hierarchy"``, ``region_*``, ``quorum`` and ``overlap`` (7);
-``secure_agg`` and the packed server optimizers (8); ``checkpointer`` (9).
+their ROADMAP.md Queue A item: ``mode="ring"`` / ``"hierarchy"``,
+``region_*``, ``quorum`` and ``overlap`` (7); ``secure_agg`` and the packed
+server optimizers (8); ``checkpointer`` (9).
 """
 
 from __future__ import annotations
@@ -21,15 +21,20 @@ from typing import Any, Callable, Optional, Sequence
 
 import torch
 
-from rayfed_tpu_torch.fl.compression import ErrorFeedback, compress, decompress
+import numpy as np
+
+from rayfed_tpu_torch.fl.compression import (
+    ErrorFeedback,
+    compress,
+    decompress,
+    dtype_name,
+    pack_tree,
+)
 from rayfed_tpu_torch.fl.fedavg import aggregate
 from rayfed_tpu_torch.fl.fedopt import ServerOptimizer
+from rayfed_tpu_torch.fl.quantize import QUANT_DELTA_EXPAND, _host_f32, make_round_grid
 
 logger = logging.getLogger(__name__)
-
-# Headroom factor of compressed-domain uplink grids (the JAX package's
-# fl.quantize.QUANT_DELTA_EXPAND), carried for the wire_quant round.
-QUANT_DELTA_EXPAND = 4.0
 
 
 def _unported(what: str, item: int) -> NotImplementedError:
@@ -85,11 +90,9 @@ def validate_round_config(
     For the options this package supports, the verdict is the JAX
     package's: each pair either passes or raises a ``ValueError`` naming
     the clash.  An option of a later item raises ``NotImplementedError``
-    naming it.  Returns ``{"wire_quant": None, "checkpoint_every": <int>,
-    "server_opt_kind": "none"|"fedopt"}``.
+    naming it.  Returns ``{"wire_quant": <dtype name or None>,
+    "checkpoint_every": <int>, "server_opt_kind": "none"|"fedopt"}``.
     """
-    if wire_quant is not None:
-        raise _unported("wire_quant (the compressed-domain round)", 6)
     if mode in ("ring", "hierarchy"):
         raise _unported(f"mode={mode!r}", 7)
     for name, value in (
@@ -133,6 +136,45 @@ def validate_round_config(
             "sample and weights are mutually exclusive (a weight "
             "sequence cannot align with a changing per-round subset)"
         )
+    qname = None
+    if wire_quant is not None:
+        qname = (
+            dtype_name(wire_quant) if isinstance(wire_quant, torch.dtype)
+            else np.dtype(wire_quant).name
+        )
+        if qname not in ("uint8", "int8"):
+            raise ValueError(
+                f"wire_quant must be an 8-bit integer dtype (uint8/"
+                f"int8), got {qname!r}"
+            )
+        if not (compress_wire and packed_wire):
+            raise ValueError(
+                "wire_quant requires compress_wire=True and "
+                "packed_wire=True (the quantized unit is the packed "
+                "wire buffer)"
+            )
+        if not streaming_agg:
+            raise ValueError(
+                "wire_quant requires streaming_agg=True, mode='ring', "
+                "mode='hierarchy' or quorum= — the compressed-domain "
+                "fold lives in the streaming/striped aggregators "
+                "(fl.quantize)"
+            )
+        incompat_q = {
+            "error_feedback": error_feedback,  # the grid codec carries its own
+            "aggregator": aggregator is not None,
+            "server_opt": server_opt is not None,  # a legacy tree optimizer
+        }
+        bad_q = [k for k, v in incompat_q.items() if v]
+        if bad_q:
+            raise ValueError(
+                f"wire_quant is incompatible with {bad_q}: the "
+                f"grid codec carries its own error feedback, the "
+                f"other paths have not been taught the quantized round "
+                f"shape, and a legacy fedopt.ServerOptimizer runs "
+                f"per-leaf tree arithmetic — use the packed "
+                f"fl.server_opt optimizers with wire_quant"
+            )
     if streaming_agg and not (compress_wire and packed_wire):
         raise ValueError(
             "streaming_agg requires compress_wire=True and "
@@ -182,7 +224,7 @@ def validate_round_config(
             "a fixed roster — there is nothing to log)"
         )
     return {
-        "wire_quant": None,
+        "wire_quant": qname,
         "checkpoint_every": checkpoint_every,
         "server_opt_kind": "none" if server_opt is None else "fedopt",
     }
@@ -251,6 +293,16 @@ def run_fedavg_rounds(
       outgoing compressed model into the next round
       (:class:`~rayfed_tpu_torch.fl.ErrorFeedback`).
     - ``wire_dtype``: the driver's outgoing wire dtype (default bf16).
+    - ``wire_quant``: aggregate **in the compressed domain** (``"uint8"``
+      or ``"int8"``; :mod:`rayfed_tpu_torch.fl.quantize`).  Each round
+      every controller derives the same grid from the previous round's
+      aggregate delta, contributions are coded as ``update − shared
+      model`` on it with the grid codec's own error feedback (so
+      ``error_feedback`` is excluded), the coordinator folds the codes in
+      i32 and rescales once, and the broadcast is re-quantized on a fresh
+      grid.  The first round has no observed delta and runs unquantized.
+      Requires ``compress_wire``, ``packed_wire`` and ``streaming_agg``;
+      integral non-negative ``weights`` only.
     - ``coordinator``: the party that anchors the rounds (default the
       ``min`` party); keep it stable across a run.
     - ``timings``: a list receiving one ``{"local_s", "push_s", "agg_s",
@@ -281,6 +333,11 @@ def run_fedavg_rounds(
     from rayfed_tpu_torch.fed_object import FedObject
 
     state = legacy_opt.init(params) if legacy_opt is not None else None
+    qname = cfg["wire_quant"]
+    # Compressed-domain state: the previous round's aggregate delta, from
+    # broadcast values only (so equal on every controller); None until one
+    # round has been observed, so the first round runs unquantized.
+    quant_prev_delta = None
 
     # Pipelined mode only when nothing needs the materialized value each
     # round.
@@ -358,18 +415,36 @@ def run_fedavg_rounds(
         agg_out_dtype = (
             "float32" if (error_feedback or server_opt is not None) else None
         )
+        # Compressed-domain round: updates are coded as deltas against the
+        # round's shared starting model (`current`, the same bytes on every
+        # controller) on a grid ranged by the previous round's delta.
+        round_grid = None
+        round_ref = None
+        if qname is not None:
+            round_ref = pack_tree(current, torch.float32).buf
+            if quant_prev_delta is not None:
+                round_grid = make_round_grid(
+                    quant_prev_delta, wire_dtype=qname, mode="delta",
+                    expand=QUANT_DELTA_EXPAND,
+                )
         if streaming_agg:
             from rayfed_tpu_torch.fl.streaming import streaming_aggregate
 
             avg = streaming_aggregate(
                 updates, weights, stream="fedavg", coordinator=coord,
                 out_dtype=agg_out_dtype, timings=rec,
+                quant=round_grid, quant_ref=round_ref, quant_scope="fedavg",
+                quant_downlink=round_grid is not None,
             )
         else:
             t_a0 = time.perf_counter() if rec is not None else 0.0
             avg = aggregate(updates, weights, reducer=aggregator, coordinator=coord)
             if rec is not None:
                 rec["agg_s"] = time.perf_counter() - t_a0
+        if qname is not None:
+            # How far the global model moved, per element: next round's
+            # grid covers that range.
+            quant_prev_delta = _host_f32(avg.buf) - _host_f32(round_ref)
         if compress_wire:
             avg = decompress(avg)
         if legacy_opt is not None:

@@ -7,7 +7,12 @@ The reference's trees are nested dicts (and tuples, for the Adam state
 they arrive here and leave as the same tree of torch tensors, key for key,
 since the port keeps the reference's names and ``x @ w`` orientation.
 Every leaf is carried bit for bit (bf16 through its 16-bit patterns), 0-d
-leaves (a LoRA ``scale``, the Adam count) included.  Each helper runs on
+leaves (a LoRA ``scale``, the Adam count) included.  The reference's int8
+weights (its ``QTensor``, a node of JAX's pytree registry and so a leaf
+here) are recognised by their ``q`` and ``scale`` attributes, without an
+import of the reference, and arrive as this package's
+:class:`~rayfed_tpu_torch.models.quant.QTensor`; a ``dtype`` cast leaves
+them as they are.  Each helper runs on
 the card unless ``device`` says otherwise.
 """
 
@@ -19,6 +24,7 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
+from rayfed_tpu_torch.models.quant import QTensor
 from rayfed_tpu_torch.utils.platform import resolve_device
 
 
@@ -37,9 +43,19 @@ def _leaf(x: Any, device: torch.device, dtype: Optional[torch.dtype]) -> torch.T
     return t if dtype is None else t.to(dtype)
 
 
+def _is_qtensor(x: Any) -> bool:
+    return hasattr(x, "q") and hasattr(x, "scale")
+
+
 def _tree_from_jax(tree: Any, device: Optional[torch.device], dtype: Optional[torch.dtype]) -> Any:
     device = resolve_device(device)
-    return pytree.tree_map(lambda x: _leaf(x, device, dtype), tree)
+
+    def convert(x):
+        if _is_qtensor(x):
+            return QTensor(_leaf(x.q, device, None), _leaf(x.scale, device, None))
+        return _leaf(x, device, dtype)
+
+    return pytree.tree_map(convert, tree, is_leaf=_is_qtensor)
 
 
 def llama_params_from_jax(
@@ -49,8 +65,9 @@ def llama_params_from_jax(
 ) -> Any:
     """The reference's Llama param tree (numpy leaves) as torch tensors.
 
-    ``dtype`` casts every leaf (default: keep each leaf's dtype, bf16
-    bit-exact).
+    ``dtype`` casts every float leaf (default: keep each leaf's dtype, bf16
+    bit-exact); an int8 base's ``QTensor`` leaves keep their int8 codes and
+    f32 scales.
     """
     return _tree_from_jax(tree, device, dtype)
 

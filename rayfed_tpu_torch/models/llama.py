@@ -2,18 +2,18 @@
 
 The port of ``rayfed_tpu/models/llama.py``: the forward :func:`apply_llama`
 (with LoRA adapters and ``remat``), :func:`prefill` and the KV-cache decode
-step behind :func:`generate`, and the training steps — LoRA-only and
-full-parameter Adam (:func:`make_lora_train_step`, :func:`make_train_step`
-and their loops).  Parameters stay the reference's stacked tree — a leading
-layer dim, the reference's names and the ``x @ w`` orientation
-(``wq: [L, D, H·Dh]``, not ``nn.Linear``'s ``[out, in]``) — so weights carry
-across key for key (:mod:`rayfed_tpu_torch.models.convert`).  The
+step behind :func:`generate` (with the int8 KV cache, ``kv_quant``, and the
+O(W) rolling cache of a sliding window), the int8 base
+(:func:`quantize_llama_base`, :func:`init_llama_int8`), and the training
+steps — LoRA-only and full-parameter Adam (:func:`make_lora_train_step`,
+:func:`make_train_step` and their loops).  Parameters stay the reference's
+stacked tree — a leading layer dim, the reference's names and the
+``x @ w`` orientation (``wq: [L, D, H·Dh]``, not ``nn.Linear``'s ``[out,
+in]``) — so weights carry across key for key
+(:mod:`rayfed_tpu_torch.models.convert`).  The
 reference's ``lax.scan`` over layers is a Python loop over ``L``; its donated
 KV cache is a cache updated in place; its ``jax.checkpoint`` is
 ``torch.utils.checkpoint``.
-
-Not ported yet, and raising ``NotImplementedError``: ``kv_quant`` and the
-rolling cache (the int8 slice).
 """
 
 from __future__ import annotations
@@ -33,7 +33,14 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
-from rayfed_tpu_torch.models.quant import matmul, split_output_scale
+from rayfed_tpu_torch.models.quant import (
+    QTensor,
+    int8_product,
+    matmul,
+    output_scale,
+    quantize_int8,
+    split_output_scale,
+)
 from rayfed_tpu_torch.ops.attention import NEG_INF, dot_product_attention
 from rayfed_tpu_torch.utils.platform import resolve_device
 
@@ -56,6 +63,9 @@ class LlamaConfig:
     param_dtype: Any = torch.float32  # storage dtype of the params
     remat: bool = False
     remat_policy: Optional[str] = None
+    # int8 KV cache: per-(position, head) symmetric scales over the head
+    # dim; the decode step reads the int8 planes raw and puts the scales on
+    # the scores and the probabilities.
     kv_quant: bool = False
     # Sliding-window attention (Mistral style): each query sees only its
     # last `sliding_window` keys, in the forward, prefill and decode mask.
@@ -102,11 +112,6 @@ def llama_tiny(**kw) -> LlamaConfig:
     return LlamaConfig(**defaults)
 
 
-def _no_kv_quant(config: LlamaConfig) -> None:
-    if config.kv_quant:
-        raise NotImplementedError("kv_quant=True (int8 KV cache) comes with the int8 slice")
-
-
 def init_llama(
     config: LlamaConfig,
     generator: torch.Generator,
@@ -151,34 +156,138 @@ def init_llama(
     return params
 
 
+_QUANT_LEAVES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+def quantize_llama_base(params: Params) -> Params:
+    """int8-quantize the frozen base for a LoRA fine-tune.
+
+    The seven stacked [L, din, dout] matmul weights get per-(layer,
+    output-channel) scales; ``lm_head`` a per-column scale; embeddings and
+    norms stay in their float dtype.  Use with :func:`make_lora_train_step`
+    (the base must stay frozen: int8 leaves carry no gradient) or for
+    serving.
+    """
+    out = dict(params)
+    out["layers"] = {
+        k: quantize_int8(v, channel_axis=-1, batch_axes=(0,)) if k in _QUANT_LEAVES else v
+        for k, v in params["layers"].items()
+    }
+    if "lm_head" in params:
+        out["lm_head"] = quantize_int8(params["lm_head"], channel_axis=-1)
+    return out
+
+
+def init_llama_int8(
+    config: LlamaConfig,
+    generator: torch.Generator,
+    device: Optional[torch.device] = None,
+) -> Params:
+    """Random int8 base, built without a full-precision pass.
+
+    Each matmul weight is drawn directly as int8, uniform in [-127, 127],
+    with a fan-in-scaled per-channel scale 1/(73·√fan_in) (E[q²] ≈ 127²/3),
+    so the peak memory of the init is the int8 tree itself.  The embedding
+    is drawn as :func:`init_llama`'s, in ``config.param_dtype``.  Draws come
+    from ``generator`` (on ``device``) and differ from the reference's
+    ``jax.random`` draws for the same seed.
+    """
+    device = resolve_device(device)
+    d, dh = config.hidden_size, config.head_dim
+    h, kv = config.num_heads, config.num_kv_heads
+    f, L = config.intermediate_size, config.num_layers
+    pdt = config.param_dtype
+
+    def qdense(*shape, fan_in):
+        q = torch.randint(-127, 128, shape, dtype=torch.int8, generator=generator, device=device)
+        scale_shape = (shape[0], *([1] * (len(shape) - 2)), shape[-1])
+        scale = torch.full(scale_shape, (fan_in**-0.5) / 73.0, dtype=torch.float32, device=device)
+        return QTensor(q=q, scale=scale)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=pdt, device=device)
+
+    embed = torch.randn((config.vocab_size, d), generator=generator, device=device)
+    params: Params = {
+        "embed": (embed * (0.02 * d**0.5)).to(pdt),
+        "layers": {
+            "attn_norm": ones(L, d),
+            "wq": qdense(L, d, h * dh, fan_in=d),
+            "wk": qdense(L, d, kv * dh, fan_in=d),
+            "wv": qdense(L, d, kv * dh, fan_in=d),
+            "wo": qdense(L, h * dh, d, fan_in=h * dh),
+            "mlp_norm": ones(L, d),
+            "w_gate": qdense(L, d, f, fan_in=d),
+            "w_up": qdense(L, d, f, fan_in=d),
+            "w_down": qdense(L, f, d, fan_in=f),
+        },
+        "final_norm": ones(d),
+    }
+    del embed
+    if not config.tie_embeddings:
+        head = torch.randint(-127, 128, (d, config.vocab_size), dtype=torch.int8,
+                             generator=generator, device=device)
+        params["lm_head"] = QTensor(
+            q=head,
+            scale=torch.full((1, config.vocab_size), (d**-0.5) / 73.0, dtype=torch.float32, device=device),
+        )
+    return params
+
+
+class _QLeaf(nn.Module):
+    """An int8 weight of the module: buffers ``q`` and ``scale``, never a
+    ``Parameter`` (it carries no gradient)."""
+
+    def __init__(self, w: QTensor):
+        super().__init__()
+        self.register_buffer("q", w.q)
+        self.register_buffer("scale", w.scale)
+
+    def value(self) -> QTensor:
+        return QTensor(self.q, self.scale)
+
+
+def _attach(parent: nn.Module, name: str, w: Any) -> None:
+    """A frozen ``Parameter``, or an int8 weight's buffers under ``name``."""
+    if isinstance(w, QTensor):
+        parent.add_module(name, _QLeaf(w))
+    else:
+        parent.register_parameter(name, nn.Parameter(w, requires_grad=False))
+
+
+def _attached(parent: nn.Module, name: str) -> Any:
+    w = getattr(parent, name)
+    return w.value() if isinstance(w, _QLeaf) else w
+
+
 class Llama(nn.Module):
     """The param tree as a module: ``state_dict`` keys are the reference's
-    tree paths (``embed``, ``layers.wq``, …, ``lm_head``).  The weights are
+    tree paths (``embed``, ``layers.wq``, …, ``lm_head``; an int8 weight's
+    as ``layers.wq.q`` and ``layers.wq.scale`` buffers).  The weights are
     frozen: a LoRA fine-tune trains adapters beside them (``forward(lora=)``)."""
 
     def __init__(self, config: LlamaConfig, params: Params):
         super().__init__()
         self.config = config
-
-        def frozen(t):
-            return nn.Parameter(t, requires_grad=False)
-
-        self.embed = frozen(params["embed"])
-        self.layers = nn.ParameterDict(
-            {k: frozen(v) for k, v in params["layers"].items()}
-        )
-        self.final_norm = frozen(params["final_norm"])
+        _attach(self, "embed", params["embed"])
+        self.layers = nn.Module()
+        self._layer_names = tuple(params["layers"])
+        for k, v in params["layers"].items():
+            _attach(self.layers, k, v)
+        _attach(self, "final_norm", params["final_norm"])
         head = params.get("lm_head")
-        self.lm_head = None if head is None else frozen(head)
+        self._has_head = head is not None
+        if head is not None:
+            _attach(self, "lm_head", head)
 
     def params(self) -> Params:
         tree: Params = {
             "embed": self.embed,
-            "layers": dict(self.layers),
+            "layers": {k: _attached(self.layers, k) for k in self._layer_names},
             "final_norm": self.final_norm,
         }
-        if self.lm_head is not None:
-            tree["lm_head"] = self.lm_head
+        if self._has_head:
+            tree["lm_head"] = _attached(self, "lm_head")
         return tree
 
     def forward(self, input_ids, *, lora: Optional[Params] = None,
@@ -299,15 +408,21 @@ def _lm_head(x, params, config):
     matmul here would round the logits to bf16 and move greedy argmaxes, so
     both operands are upcast: every bf16 product is exact in f32 and the
     sums are f32, the same arithmetic at the price of an f32 copy of the
-    head (``torch.mm(out_dtype=)`` has no CPU kernel).
+    head (``torch.mm(out_dtype=)`` has no CPU kernel).  An int8 head's codes
+    convert to f32 exactly and its ``[V]`` scale multiplies the logits
+    (:func:`~rayfed_tpu_torch.models.quant.split_output_scale`); that
+    product saves the int8 codes for the backward, not the f32 copy.
     """
     x = _rms_norm(x, params["final_norm"], config.rms_eps)
     head = params.get("lm_head")
+    xf = x.to(config.dtype).float()
     if head is None:
-        head = params["embed"].to(config.dtype).T
-    else:
-        head, _ = split_output_scale(head, config.dtype)
-    return x.to(config.dtype).float() @ head.float()
+        return xf @ params["embed"].to(config.dtype).T.float()
+    out_scale = output_scale(head)
+    if out_scale is not None:
+        return int8_product(xf, head.q, out_scale, torch.float32)
+    head, _ = split_output_scale(head, config.dtype)
+    return xf @ head.float()
 
 
 def apply_llama(
@@ -365,17 +480,72 @@ def apply_llama(
 # ---------------------------------------------------------------------------
 
 
+def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 over the trailing (head) dim: [..., Dh] → (int8
+    [..., Dh], f32 scale [..., 1]).  Zero vectors quantize to zeros (scale
+    floor), so fresh cache slots stay exact.  ``x / scale`` and the scale's
+    ``/ 127`` are true divisions (on the card a Python scalar divisor would
+    become a product with its reciprocal)."""
+    xf = x.to(torch.float32)
+    absmax = torch.amax(torch.abs(xf), dim=-1, keepdim=True)
+    scale = torch.clamp(absmax, min=1e-12) / torch.full((), 127.0, device=x.device)
+    q = torch.clamp(torch.round(xf / scale), -127, 127)
+    return q.to(torch.int8), scale
+
+
 def init_kv_cache(
     config: LlamaConfig, batch: int, max_len: int, device: Optional[torch.device] = None
 ) -> Params:
-    """Static-shape KV cache: ``k``/``v`` are zeros [L, B, max_len, KV, Dh]."""
-    _no_kv_quant(config)
+    """Static-shape KV cache: ``k``/``v`` are zeros [L, B, max_len, KV, Dh].
+
+    With ``config.kv_quant`` the k/v planes are int8 and per-(position,
+    head) f32 scales ride alongside as ``k_scale``/``v_scale`` [L, B,
+    max_len, KV, 1]: 0.53× the bf16 cache's bytes at head dim 128.
+    """
     device = resolve_device(device)
     shape = (config.num_layers, batch, max_len, config.num_kv_heads, config.head_dim)
+    if config.kv_quant:
+        return {
+            "k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.zeros(shape[:-1] + (1,), dtype=torch.float32, device=device),
+            "v_scale": torch.zeros(shape[:-1] + (1,), dtype=torch.float32, device=device),
+        }
     return {
         "k": torch.zeros(shape, dtype=config.dtype, device=device),
         "v": torch.zeros(shape, dtype=config.dtype, device=device),
     }
+
+
+def init_rolling_kv_cache(
+    config: LlamaConfig, batch: int, device: Optional[torch.device] = None
+) -> Params:
+    """Ring-buffer cache of exactly ``sliding_window`` slots: decode memory
+    stays O(W) for unbounded generation (pair with
+    ``make_decode_step(config, rolling=True)``)."""
+    if config.sliding_window is None:
+        raise ValueError("a rolling cache requires config.sliding_window")
+    return init_kv_cache(config, batch, config.sliding_window, device=device)
+
+
+def roll_kv_cache(cache: Params, config: LlamaConfig, t0: int) -> Params:
+    """Re-layout a (prefilled) linear cache into the rolling ring buffer.
+
+    ``t0``: tokens already in the cache (the prefill length).  Slot ``i`` of
+    the ring receives the newest cached position congruent to ``i`` mod W;
+    slots whose position would be negative (``t0 < W``) hold whatever the
+    clamped source held, which the rolling step's validity arithmetic masks
+    out.  Returns new planes (the linear cache is left as it was).
+    """
+    w = config.sliding_window
+    if w is None:
+        raise ValueError("roll_kv_cache requires config.sliding_window")
+    max_len = cache["k"].shape[2]
+    last = t0 - 1
+    slots = torch.arange(w, device=cache["k"].device)
+    src = last - torch.remainder(last - slots, w)  # absolute position of slot i
+    src_idx = torch.clamp(src, 0, max_len - 1)
+    return {name: plane.index_select(2, src_idx) for name, plane in cache.items()}
 
 
 def make_decode_step(config: LlamaConfig, rolling: bool = False):
@@ -389,29 +559,56 @@ def make_decode_step(config: LlamaConfig, rolling: bool = False):
     Attention over the cache is plain torch: bf16 operands are upcast so
     scores and the P·V sum are f32 with exact products, as the reference's
     ``preferred_element_type=f32`` einsums; p is rounded to the activation
-    dtype before P·V, as there.
+    dtype before P·V, as there.  With ``config.kv_quant`` the new k/v are
+    quantized into the int8 planes (:func:`_quantize_kv`), the planes are
+    read raw (int8 converts exactly), the k scale goes onto the scores and
+    the v scale onto p before p is rounded: the cache is never dequantized.
+
+    A linear cache needs ``0 <= pos < max_len`` (else ``ValueError``; the
+    reference's write would clamp onto the last slot).  ``rolling``
+    (requires ``config.sliding_window``): the cache is a ring of exactly
+    ``W`` slots (:func:`init_rolling_kv_cache`, :func:`roll_kv_cache`,
+    else ``ValueError``); token ``pos`` writes slot ``pos % W`` and slot
+    ``i`` is live iff its absolute position ``pos − ((pos − i) mod W)`` is
+    ≥ 0 (the band and causality follow, since every resident position lies
+    in ``(pos − W, pos]``).
     """
-    if rolling:
-        raise NotImplementedError("the rolling KV cache comes with the int8/rolling-cache slice")
-    _no_kv_quant(config)
+    if rolling and config.sliding_window is None:
+        raise ValueError("rolling=True requires config.sliding_window")
     h, kvh, dh = config.num_heads, config.num_kv_heads, config.head_dim
     g = h // kvh
     dtype = config.dtype
+    quant = config.kv_quant
 
     @torch.no_grad()
     def step(params, cache, token_ids, pos):
         pos = int(pos)
         b = token_ids.shape[0]
         max_len = cache["k"].shape[2]
-        if not 0 <= pos < max_len:
-            raise ValueError(f"position {pos} is outside the {max_len}-slot cache")
         device = token_ids.device
+        positions = torch.arange(max_len, device=device)
+        if rolling:
+            # The ring modulus IS the window: a linear cache here would
+            # silently widen the attention window.
+            if max_len != config.sliding_window:
+                raise ValueError(
+                    f"rolling decode needs a {config.sliding_window}-slot "
+                    f"ring cache (init_rolling_kv_cache/roll_kv_cache), "
+                    f"got {max_len} slots"
+                )
+            if pos < 0:
+                raise ValueError(f"position {pos} is negative")
+            write_pos = pos % max_len
+            valid = (pos - torch.remainder(pos - positions, max_len)) >= 0
+        else:
+            if not 0 <= pos < max_len:
+                raise ValueError(f"position {pos} is outside the {max_len}-slot cache")
+            write_pos = pos
+            valid = positions <= pos
+            if config.sliding_window is not None:
+                valid = valid & (positions > pos - config.sliding_window)
         x = params["embed"].to(dtype)[token_ids][:, None, :]  # [B,1,D]
         cos, sin = rope_tables(torch.tensor([pos], device=device), dh, config.rope_theta)
-        positions = torch.arange(max_len, device=device)
-        valid = positions <= pos
-        if config.sliding_window is not None:
-            valid = valid & (positions > pos - config.sliding_window)
         for i in range(config.num_layers):
             lp = _layer(params, i)
             k_cache = cache["k"][i]  # [B, T, KV, Dh] view into the cache
@@ -420,14 +617,28 @@ def make_decode_step(config: LlamaConfig, rolling: bool = False):
             q, k, v = _qkv_proj(y, lp, config, b, 1)
             q = apply_rope(q, cos, sin)
             k = apply_rope(k, cos, sin)
-            k_cache[:, pos] = k[:, 0].to(k_cache.dtype)
-            v_cache[:, pos] = v[:, 0].to(v_cache.dtype)
+            if quant:
+                k_q, k_s = _quantize_kv(k[:, 0])
+                v_q, v_s = _quantize_kv(v[:, 0])
+                k_cache[:, write_pos] = k_q
+                v_cache[:, write_pos] = v_q
+                cache["k_scale"][i][:, write_pos] = k_s
+                cache["v_scale"][i][:, write_pos] = v_s
+            else:
+                k_cache[:, write_pos] = k[:, 0].to(k_cache.dtype)
+                v_cache[:, write_pos] = v[:, 0].to(v_cache.dtype)
             qs = (q.reshape(b, h, dh) * dh**-0.5).to(dtype).reshape(b, kvh, g, dh)
             s = torch.einsum(
                 "bngd,btnd->bngt", qs.float(), k_cache.to(dtype).float()
             )
+            if quant:
+                # The per-(position, head) k scale is constant over the
+                # contracted head dim: it lands on the [B, KV, g, T] scores.
+                s = s * cache["k_scale"][i][..., 0].transpose(1, 2)[:, :, None, :]
             s = torch.where(valid, s, NEG_INF)
             p = torch.softmax(s, dim=-1)
+            if quant:
+                p = p * cache["v_scale"][i][..., 0].transpose(1, 2)[:, :, None, :]
             attn = torch.einsum(
                 "bngt,btnd->bngd", p.to(dtype).float(), v_cache.to(dtype).float()
             )
@@ -452,7 +663,9 @@ def prefill(
     ``(cache, last_logits)`` ready for :func:`make_decode_step`.
 
     Same layer math as :func:`apply_llama`; each layer's k/v is written into
-    the first ``T0`` slots of a zeroed [L, B, max_len, KV, Dh] cache.
+    the first ``T0`` slots of a zeroed [L, B, max_len, KV, Dh] cache (under
+    ``kv_quant`` quantized by the decode step's quantizer, position by
+    position).
     """
     b, t0 = prompt_ids.shape
     if t0 > max_len:
@@ -466,8 +679,16 @@ def prefill(
         x, (k_out, v_out) = _layer_fwd(
             x, _layer(params, i), config, cos, sin, attn_fn, b, t0, emit_kv=True
         )
-        cache["k"][i, :, :t0] = k_out
-        cache["v"][i, :, :t0] = v_out
+        if config.kv_quant:
+            k_q, k_s = _quantize_kv(k_out)
+            v_q, v_s = _quantize_kv(v_out)
+            cache["k"][i, :, :t0] = k_q
+            cache["v"][i, :, :t0] = v_q
+            cache["k_scale"][i, :, :t0] = k_s
+            cache["v_scale"][i, :, :t0] = v_s
+        else:
+            cache["k"][i, :, :t0] = k_out
+            cache["v"][i, :, :t0] = v_out
     return cache, _lm_head(x[:, -1, :], params, config)
 
 

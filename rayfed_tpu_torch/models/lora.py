@@ -48,11 +48,6 @@ def _path_str(path) -> str:
     return "/".join(parts)
 
 
-def _no_int8_base(leaf) -> None:
-    if isinstance(leaf, QTensor):
-        raise NotImplementedError("LoRA over an int8 (QTensor) base comes with the int8 slice")
-
-
 def init_lora(
     params: Params,
     config: LoraConfig,
@@ -72,8 +67,8 @@ def init_lora(
     device = resolve_device(device)
     compiled = [re.compile(pat) for pat in config.targets]
     out: Params = {}
+    # A QTensor is one leaf here: the adapter mirrors the LOGICAL weight.
     for path, leaf in pytree.tree_flatten_with_path(params)[0]:
-        _no_int8_base(leaf)
         path_s = _path_str(path)
         if leaf.ndim < 2 or not any(c.search(path_s) for c in compiled):
             continue
@@ -108,7 +103,12 @@ def merge_lora(params: Params, lora: Params) -> Params:
 
     def _merge(base_node, lora_node):
         if _is_entry(lora_node):
-            _no_int8_base(base_node)
+            if isinstance(base_node, QTensor):
+                raise TypeError(
+                    "cannot merge LoRA into an int8-quantized base; "
+                    "dequantize first (QTensor.dequantize) or keep the "
+                    "adapter separate"
+                )
             return (base_node + lora_delta(lora_node)).to(base_node.dtype)
         if isinstance(lora_node, dict):
             return {

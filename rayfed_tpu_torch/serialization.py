@@ -25,7 +25,9 @@ that writes those two globals itself, and every unpickler here maps them
 in ``find_class``.
 
 The packed wire form (``fl.compression``'s ``PackedTree`` and its
-``PackSpec``) travels the same way, under :data:`PACKED_WIRE_MODULE`.  A
+``PackSpec``) travels the same way, under :data:`PACKED_WIRE_MODULE`, and
+its integer-coded form (``fl.quantize``'s ``QuantizedPackedTree`` and its
+``QuantMeta``) under :data:`QUANT_WIRE_MODULE`.  A
 spec carries the tree's structure, which the JAX package pickles as a
 jaxlib ``PyTreeDef``: a NEWOBJ of that class, then a BUILD with
 ``(jax._src.tree_util.default_registry, [nodes in post-order])``.  The
@@ -53,6 +55,9 @@ _PORT_WIRE_MODULE = "rayfed_tpu_torch.transport.wire"
 PACKED_WIRE_MODULE = "rayfed_tpu.fl.compression"
 _PACKED_NAMES = ("PackedTree", "PackSpec")
 _PORT_PACKED_MODULE = "rayfed_tpu_torch.fl.compression"
+QUANT_WIRE_MODULE = "rayfed_tpu.fl.quantize"
+_QUANT_NAMES = ("QuantizedPackedTree", "QuantMeta")
+_PORT_QUANT_MODULE = "rayfed_tpu_torch.fl.quantize"
 # The globals of a pickled jaxlib PyTreeDef.
 _TREEDEF_WIRE = ("jaxlib._jax.pytree", "PyTreeDef")
 _REGISTRY_WIRE = ("jax._src.tree_util", "default_registry")
@@ -81,6 +86,10 @@ def _wire_global(module: str, name: str) -> Any:
         from rayfed_tpu_torch.fl import compression
 
         return getattr(compression, name)
+    if module == QUANT_WIRE_MODULE and name in _QUANT_NAMES:
+        from rayfed_tpu_torch.fl import quantize
+
+        return getattr(quantize, name)
     if name == _TREEDEF_WIRE[1] and (
         module == "jaxlib" or module.startswith(("jaxlib.", "jax."))
     ):
@@ -102,6 +111,8 @@ def _wire_name_of(obj: Any) -> Optional[tuple]:
         return SKELETON_WIRE_MODULE, qualname
     if module == _PORT_PACKED_MODULE and qualname in _PACKED_NAMES:
         return PACKED_WIRE_MODULE, qualname
+    if module == _PORT_QUANT_MODULE and qualname in _QUANT_NAMES:
+        return QUANT_WIRE_MODULE, qualname
     return None
 
 

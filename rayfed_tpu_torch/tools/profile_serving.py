@@ -1,9 +1,11 @@
 """Where the serving path's time goes on the card.
 
-    python -m rayfed_tpu_torch.tools.profile_serving
+    python -m rayfed_tpu_torch.tools.profile_serving [--int8]
 
 Llama-3-8B at full width and depth (random bf16 weights from a seed), 4
-prompts of 2048 tokens, as ``chip_smoke.py`` drives it.  After one warm-up
+prompts of 2048 tokens, as ``chip_smoke.py`` drives it; with ``--int8`` its
+int8 serving path instead (an ``init_llama_int8`` base, the int8 KV cache,
+a 1024-token window, the decode on a rolling ring).  After one warm-up
 ``generate``, ``torch.profiler`` traces one flash-attention prefill and then
 8 decode steps.  For each it prints the host wall time, the summed device
 kernel time, the device busy share (kernel time / wall time) and the kernels
@@ -12,6 +14,7 @@ that take the most device time.  Needs a CUDA card.
 
 from __future__ import annotations
 
+import sys
 import time
 
 import torch
@@ -22,6 +25,7 @@ from rayfed_tpu_torch.ops.flash_attention import flash_attention
 
 SEED = 0
 BATCH, PROMPT_LEN, DECODE_STEPS = 4, 2048, 8
+WINDOW = 1024  # the int8 path's sliding window (chip_smoke.SERVE_WINDOW)
 
 
 def _report(name, prof, wall_ms, top=12):
@@ -52,9 +56,14 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving needs a CUDA card")
     print(f"[card] {torch.cuda.get_device_name(0)}")
+    int8 = "--int8" in sys.argv[1:]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    cfg = llama.llama3_8b(param_dtype=torch.bfloat16)
-    params = llama.init_llama(cfg, gen, device="cuda")
+    if int8:
+        cfg = llama.llama3_8b(param_dtype=torch.bfloat16, kv_quant=True, sliding_window=WINDOW)
+        params = llama.init_llama_int8(cfg, gen, device="cuda")
+    else:
+        cfg = llama.llama3_8b(param_dtype=torch.bfloat16)
+        params = llama.init_llama(cfg, gen, device="cuda")
     prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT_LEN), generator=gen, device="cuda")
     max_len = PROMPT_LEN + DECODE_STEPS
     llama.generate(params, cfg, prompts, DECODE_STEPS, attn_fn=flash_attention)  # warm-up
@@ -64,7 +73,9 @@ def main() -> None:
     )
     _report("prefill", prof, wall_ms)
 
-    step = llama.make_decode_step(cfg)
+    step = llama.make_decode_step(cfg, rolling=int8)
+    if int8:
+        cache = llama.roll_kv_cache(cache, cfg, PROMPT_LEN)
 
     def decode():
         nonlocal cache, logits

@@ -1,15 +1,17 @@
 """Where the LoRA training step's time goes on the card.
 
-    python -m rayfed_tpu_torch.tools.profile_training
+    python -m rayfed_tpu_torch.tools.profile_training [--int8]
 
-Llama-3-8B at full width and depth (random bf16 base from a seed, remat),
-LoRA rank 16 on wq/wv, B=1, T=2048, flash attention, as ``chip_smoke.py``
-drives it.  After one warm-up step, ``torch.profiler`` traces two steps and
+Llama-3-8B at full width and depth (random bf16 base from a seed, remat;
+with ``--int8`` an ``init_llama_int8`` base), LoRA rank 16 on wq/wv, B=1,
+T=2048, flash attention, as ``chip_smoke.py`` drives it.  After one warm-up step, ``torch.profiler`` traces two steps and
 prints the host wall time, the summed device kernel time, the device busy
 share and the kernels that take the most device time.  Needs a CUDA card.
 """
 
 from __future__ import annotations
+
+import sys
 
 import torch
 
@@ -27,7 +29,8 @@ def main() -> None:
     print(f"[card] {torch.cuda.get_device_name(0)}")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     cfg = llama.llama3_8b(param_dtype=torch.bfloat16, remat=True)
-    params = llama.init_llama(cfg, gen, device="cuda")
+    init = llama.init_llama_int8 if "--int8" in sys.argv[1:] else llama.init_llama
+    params = init(cfg, gen, device="cuda")
     adapters = lora.init_lora(params, lora.LoraConfig(rank=RANK), gen, device="cuda")
     opt = llama.init_adam(adapters)
     ids = torch.randint(0, cfg.vocab_size, (1, SEQ_LEN), generator=gen, device="cuda")

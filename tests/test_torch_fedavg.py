@@ -140,14 +140,6 @@ def test_weight_guards_behave_the_same(pkg):
             StreamingAggregator(2, weights=[0.0, 0.0], device="cpu")
 
 
-def test_integer_codes_name_the_unported_item():
-    t = tc.pack_tree({"w": torch.ones(4)})
-    codes = tc.PackedTree(torch.zeros(4, dtype=torch.uint8), (), tc.PackSpec(
-        t.spec.entries, t.spec.treedef, "uint8"))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tf.packed_weighted_sum([codes, codes])
-
-
 def test_block_grid_and_stripe_schedule_equal_the_reference():
     for total, ce in ((0, 8), (1, 8), (8, 8), (9, 8), (5_000_000, None)):
         assert tf.packed_block_grid(total, ce) == jf.packed_block_grid(total, ce)

@@ -103,7 +103,6 @@ def test_validate_round_config_verdicts_equal_the_reference(pair):
 
 
 @pytest.mark.parametrize("option,item", [
-    ({"wire_quant": "uint8"}, "item 6"),
     ({"mode": "ring"}, "item 7"),
     ({"mode": "hierarchy", "region_size": 1}, "item 7"),
     ({"region_size": 2}, "item 7"),

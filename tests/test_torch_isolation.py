@@ -57,6 +57,7 @@ WIRE_NAME_FILE = ROOT / "rayfed_tpu_torch" / "serialization.py"
 WIRE_NAME_LINES = [
     'SKELETON_WIRE_MODULE = "rayfed_tpu.transport.wire"',
     'PACKED_WIRE_MODULE = "rayfed_tpu.fl.compression"',
+    'QUANT_WIRE_MODULE = "rayfed_tpu.fl.quantize"',
 ]
 
 
@@ -83,6 +84,11 @@ def test_wire_name_is_the_reference_module():
     module, names = serialization.PACKED_WIRE_MODULE, serialization._PACKED_NAMES
     assert module.replace("rayfed_tpu", "rayfed_tpu_torch", 1) == compression.__name__
     assert {compression.PackedTree.__qualname__, compression.PackSpec.__qualname__} == set(names)
+    from rayfed_tpu_torch.fl import quantize
+
+    module, names = serialization.QUANT_WIRE_MODULE, serialization._QUANT_NAMES
+    assert module.replace("rayfed_tpu", "rayfed_tpu_torch", 1) == quantize.__name__
+    assert {quantize.QuantizedPackedTree.__qualname__, quantize.QuantMeta.__qualname__} == set(names)
     text = WIRE_NAME_FILE.read_text()
     assert '"jaxlib._jax.pytree"' in text and '"jax._src.tree_util"' in text
 

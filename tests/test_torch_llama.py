@@ -194,14 +194,17 @@ def test_config_validation_matches_reference():
 
 
 def test_unported_features_raise():
+    """Every feature of the reference's model is ported: the int8 KV cache,
+    the rolling cache and int8 weights construct, and only a rolling step
+    without a window raises, as the reference's does."""
     _, _, cfg, params = _pair()
     ids = torch.zeros(1, 4, dtype=torch.long)
-    with pytest.raises(NotImplementedError):
-        llama.init_kv_cache(llama.llama_tiny(kv_quant=True), 1, 8, device=CPU)
-    with pytest.raises(NotImplementedError):
-        llama.make_decode_step(llama.llama_tiny(sliding_window=4), rolling=True)
-    with pytest.raises(NotImplementedError):
-        QTensor()
+    cache = llama.init_kv_cache(llama.llama_tiny(kv_quant=True), 1, 8, device=CPU)
+    assert cache["k"].dtype == torch.int8 and cache["k_scale"].shape == (2, 1, 8, 2, 1)
+    llama.make_decode_step(llama.llama_tiny(sliding_window=4), rolling=True)
+    with pytest.raises(ValueError, match="sliding_window"):
+        llama.make_decode_step(cfg, rolling=True)
+    assert QTensor(torch.zeros(2, 3, dtype=torch.int8), torch.ones(1, 3)).shape == (2, 3)
     # LoRA and remat are ported: an empty adapter tree and remat change nothing.
     base = llama.apply_llama(params, ids, cfg)
     assert torch.equal(llama.apply_llama(params, ids, cfg, lora={"layers": {}}), base)

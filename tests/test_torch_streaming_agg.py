@@ -230,21 +230,12 @@ def test_result_timeout_names_the_missing_source():
 
 
 @pytest.mark.parametrize("option,item", [
-    ({"quant": object()}, "item 6"), ({"quorum": 1}, "item 7"),
+    ({"quorum": 1}, "item 7"),
     ({"presummed": "int32"}, "item 7"), ({"masked": True}, "item 8"),
 ])
 def test_unported_options_name_their_item(option, item):
     with pytest.raises(NotImplementedError, match=item):
         StreamingAggregator(2, device=CPU, **option)
-
-
-def test_integer_code_payload_names_the_unported_item():
-    spec = tc.pack_tree({"w": torch.ones(8)}).spec
-    codes = tc.PackedTree(torch.zeros(8, dtype=torch.uint8), (), tc.PackSpec(spec.entries, spec.treedef, "uint8"))
-    agg = StreamingAggregator(1, device=CPU)
-    agg.sink(0).on_complete(_payload_of(codes))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        agg.result(timeout=10)
 
 
 # -- managers: delta streams, recv_stream ------------------------------------------
