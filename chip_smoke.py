@@ -4,7 +4,8 @@
 
 Phases, each fatal on failure:
   1. build the CUDA kernels from the sources in the checkout (one nvcc per
-     source, in parallel); print each kernel function's registers and
+     source, in parallel: the flash forward, the flash backward and the
+     float fold's fused multiply-add); print each kernel function's registers and
      spills (-Xptxas -v) and its HGMMA (wgmma) and UTMALDG (TMA load)
      instructions (cuobjdump -sass), and fail unless each tensor-core
      kernel (the forward, dQ and dK/dV) has all 4 instantiations and each
@@ -12,7 +13,8 @@ Phases, each fatal on failure:
   2. hold each kernel against its plain PyTorch version on the card, at the
      main paths' shapes and at the edge cases (window, offsets with fully
      masked rows, ragged T, head dim 64, f32 in/out, f32 gradients from
-     bf16 inputs), with exact zeros where no key or no query is visible;
+     bf16 inputs, and bert_base's attention: [384, 512, 64] bf16,
+     non-causal), with exact zeros where no key or no query is visible;
      bf16 inputs run all three kernels on the tensor cores, which sum in
      their own order, so no bf16 case is bit-identical to the plain
      version, not even at head dim 64;
@@ -62,7 +64,10 @@ Phases, each fatal on failure:
      contribution); its result, and the one-shot fold on the card, must
      equal the CPU fold byte for byte, weights 3/5/7/11 and None; prints
      the fold's device ms per contribution, the H2D ms of a contribution,
-     the finalize and error-feedback ms, and the fold's GB/s against HBM.
+     the finalize and error-feedback ms, and the fold's GB/s against HBM;
+     the fold kernel (one __fmaf_rn per element) is held byte for byte
+     against its plain version on the card and timed beside it and
+     addcmul_, and counted on the round path (alice's folds).
      The same for the compressed-domain fold (uint8 codes on one grid,
      folded in i32, streamed and one-shot): the i32 accumulator and the
      finalized f32 must equal the CPU's byte for byte; prints the i32 fold,
@@ -79,10 +84,27 @@ Phases, each fatal on failure:
   9. (after 8) the training path over the int8 base, BASELINE config #4 as
      ``bench_lora_8b`` runs it: 4 LoRA steps as in 4, the same checks, and
      peak memory at least 5 GB below the bf16 base's step;
+  10. (after 5) the split path, BASELINE config #5: two party processes on
+     the one card, one driver through ``fl.SplitTrainer``; alice holds
+     bert_base's embeddings, 12 layers and pooler (bf16 activations, f32
+     params, random from the seed) and the token ids [32, 512], bob the
+     head and the labels (the parity of the first token id); the encoder's
+     attention is flash_attention.  6 serialized steps, 3 pipelined over 4
+     microbatches of 8, 3 with a bf16 wire.  Checks: 24/12/12 launches per
+     serialized step in alice (the forward, the backward's recompute, the
+     backward), 0 in bob, finite and falling losses per mode, equal
+     fingerprints of both trainers' final params on both parties; prints
+     each mode's step ms and steps/s, the activation and gradient bytes per
+     step with their push ms and GB/s, and each party's peak memory.  Then,
+     in this process, the encoder's gradients at depth 2 through flash vs
+     dense attention (5% of max|g|), and the HF conversion of a 2-layer
+     Llama-3-8B-width state dict on the card, which must give the params
+     back exactly;
   7. time each kernel (mean over one window of calls) against its plain
      version, the library call that computes the same function, and the
      card's bound (the forward at the serving shape B=4 and at the training
-     shape B=1), and the host's time to enqueue one forward and one dQ.
+     shape B=1, the three at bert_base's shape), and the host's time to
+     enqueue one forward and one dQ.
 Prints the card (nvidia-smi), a JSON line of kernel numbers and, last, the
 result line.  Exits non-zero without a result when there is no CUDA card.
 Imports neither JAX nor the JAX package.
@@ -90,8 +112,10 @@ Imports neither JAX nor the JAX package.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
+import math
 import multiprocessing as mp
 import os
 import queue
@@ -109,8 +133,9 @@ import torch.nn.functional as F
 
 from rayfed_tpu_torch import fl
 from rayfed_tpu_torch.fl import fedavg, streaming
-from rayfed_tpu_torch.models import llama, lora
-from rayfed_tpu_torch.ops import _build
+from rayfed_tpu_torch.models import bert, hf, llama, lora
+from rayfed_tpu_torch.models.logistic import softmax_cross_entropy, value_and_grad
+from rayfed_tpu_torch.ops import _build, fold
 from rayfed_tpu_torch.ops.attention import dot_product_attention
 from rayfed_tpu_torch.ops.flash_attention import (
     NEG_INF,
@@ -157,6 +182,16 @@ TRAIN_STEPS, TRAIN_LEN, LORA_RANK, TRAIN_LR = 4, 2048, 16, 1e-3
 # differently, so the gap is held to 5% of the dense gradient's max |g| (a
 # wrong mask or a missing term moves it by ~100%).
 GRAD_REL_TOL, GRAD_CHECK_LAYERS = 0.05, 4
+# The split path: BASELINE config #5, bert_base() (head dim 64, non-causal)
+# with bf16 activations over f32 params, the encoder and pooler at alice,
+# the head at bob; 32 sequences of 512 tokens, 4 microbatches of 8 in the
+# pipelined step.  SGD at 0.004: at 0.01 the loss on the one batch
+# oscillated from the fifth step on.
+SPLIT_BATCH, SPLIT_LEN, SPLIT_MICRO, SPLIT_LR = 32, 512, 4, 0.004
+SPLIT_MODES = (("serial", 6), ("pipelined", 3), ("bf16_wire", 3))
+SPLIT_GRAD_LAYERS = 2
+BERT_BH = SPLIT_BATCH * 12  # B·H of bert_base's attention
+BERT_ERRS = {}  # each kernel's max abs error vs its plain version at the BERT shape
 
 
 def _sync_ms(fn, iters, warmup=2):
@@ -256,12 +291,13 @@ def _sass_counts(lib_path):
 
 
 def phase_build():
-    names = ("flash_fwd", "flash_bwd")
+    names = ("flash_fwd", "flash_bwd", "fold_fma")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source, together
         paths = list(pool.map(_build.build, names))
     _build.flash_fwd_lib()
     _build.flash_bwd_lib()
+    _build.fold_lib()
     built = ", ".join(f"{n} -> {p.name}" for n, p in zip(names, paths))
     print(f"[build] {built} in {time.perf_counter() - t0:.2f} s")
     for name, path in zip(names, paths):
@@ -278,7 +314,7 @@ def phase_build():
             print(f"[build]   {name}: {readable[fn][:110]}: {regs} registers, spill stores "
                   f"{spill_st} B, spill loads {spill_ld} B, HGMMA {sass[fn]['HGMMA']}, "
                   f"UTMALDG {sass[fn]['UTMALDG']}")
-        for kernel in TENSOR_CORE_KERNELS[name]:
+        for kernel in TENSOR_CORE_KERNELS.get(name, ()):
             fns = [fn for fn in sass if kernel in fn]
             if len(fns) != 4:
                 raise AssertionError(f"expected 4 instantiations of {kernel}, got {len(fns)}")
@@ -305,6 +341,7 @@ def phase_kernel_vs_plain(gen):
         ("ragged_T1000", bh, 1000, 1000, 128, torch.bfloat16, None, True, 0, 0, None),
         ("d64", bh, 2048, 2048, 64, torch.bfloat16, None, True, 0, 0, None),
         ("f32_in_f32_out", 32, 1024, 1024, 128, torch.float32, torch.float32, True, 0, 0, None),
+        ("bert_base", BERT_BH, SPLIT_LEN, SPLIT_LEN, 64, torch.bfloat16, None, False, 0, 0, None),
     ]
     slice_err = None
     for name, bh_, t_q, t_k, d, dtype, out_dtype, causal, q_off, kv_off, window in cases:
@@ -331,6 +368,8 @@ def phase_kernel_vs_plain(gen):
             raise AssertionError(f"flash_fwd disagrees with its plain version in case {name}")
         if name == "slice_causal":
             slice_err = abs_err
+        if name == "bert_base":
+            BERT_ERRS["fwd"] = abs_err
         del q, k, v, o, lse, o_ref, lse_ref, diff
         torch.cuda.empty_cache()
     return slice_err
@@ -359,6 +398,7 @@ def phase_bwd_kernel_vs_plain(gen):
         ("d64", 32, 2048, 2048, 64, torch.bfloat16, None, True, 0, 0, None),
         ("f32_in_f32_out", 32, 1024, 1024, 128, torch.float32, torch.float32, True, 0, 0, None),
         ("bf16_in_f32_out", 32, 2048, 2048, 128, torch.bfloat16, torch.float32, True, 0, 0, None),
+        ("bert_base", BERT_BH, SPLIT_LEN, SPLIT_LEN, 64, torch.bfloat16, None, False, 0, 0, None),
     ]
     slice_err = None
     for name, bh, t_q, t_k, d, dtype, out_dtype, causal, q_off, kv_off, window in cases:
@@ -390,6 +430,8 @@ def phase_bwd_kernel_vs_plain(gen):
             raise AssertionError(f"flash backward kernels disagree with the plain version in case {name}")
         if name == "slice_causal":
             slice_err = {"dq": errs["dq"][0], "dkv": max(errs["dk"][0], errs["dv"][0])}
+        if name == "bert_base":
+            BERT_ERRS.update(dq=errs["dq"][0], dkv=max(errs["dk"][0], errs["dv"][0]))
         del q, k, v, do, o, lse, grads, refs, dq, dk, dv
         torch.cuda.empty_cache()
     return slice_err
@@ -785,6 +827,53 @@ def phase_times(gen, card):
     return serve, _fwd_times(gen, card, 1)
 
 
+def phase_bert_times(gen, card):
+    """The three kernels at the split path's shape, bert_base's attention:
+    [B·H = 32·12, T = 512, D = 64] bf16, non-causal, against their plain
+    versions, SDPA and the bound.  A non-causal T×T×D product is 2·BH·T²·D
+    operations; the forward does 2 (QKᵀ, PV), dQ 3 (QKᵀ, dO·Vᵀ, dS·K) and
+    dK/dV 4 (QKᵀ, dO·Vᵀ, Pᵀ·dO, dSᵀ·Q)."""
+    b, h, t, d = SPLIT_BATCH, 12, SPLIT_LEN, 64
+    q, k, v = _qkv(gen, b * h, t, t, d, torch.bfloat16)
+    do = torch.randn(b * h, t, d, generator=gen, device="cuda").to(torch.bfloat16)
+    kw = dict(scale=d**-0.5, causal=False)
+    o, lse = _flash_forward(q, k, v, **kw)
+    lse, delta = _lse_delta(o, lse, do)
+    inputs = (q, k, v, do, lse, delta)
+    ms = {"fwd": _sync_ms(lambda: _flash_forward(q, k, v, **kw), iters=20),
+          "dq": _sync_ms(lambda: _flash_bwd_dq(*inputs, **kw), iters=20),
+          "dkv": _sync_ms(lambda: _flash_bwd_dkv(*inputs, **kw), iters=20)}
+    plain = {"fwd": _sync_ms(lambda: _flash_forward_reference(q, k, v, **kw), iters=5),
+             "dq": _sync_ms(lambda: _flash_bwd_dq_reference(*inputs, **kw), iters=5),
+             "dkv": _sync_ms(lambda: _flash_bwd_dkv_reference(*inputs, **kw), iters=5)}
+    q4, k4, v4 = (x.view(b, h, t, d).clone().requires_grad_(True) for x in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q4, k4, v4)
+
+    sdpa_fwd = _sync_ms(sdpa, iters=20)
+    sdpa_bwd = _sync_ms(lambda: torch.autograd.grad(sdpa(), (q4, k4, v4), do.view(b, h, t, d)),
+                        iters=20) - sdpa_fwd
+    mm = 2 * b * h * t * t * d
+    elem = b * h * t * d * 2
+    rows = b * h * t * 4
+    out = {}
+    for name, n_mm, nbytes, library in (("fwd", 2, 4 * elem + rows, sdpa_fwd),
+                                        ("dq", 3, 5 * elem + 2 * rows, sdpa_bwd),
+                                        ("dkv", 4, 6 * elem + 2 * rows, sdpa_bwd)):
+        bound_ms, bound_by = _bound(n_mm * mm, nbytes, card)
+        out[name] = dict(ms=ms[name], plain_ms=plain[name], bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=library, tflops=n_mm * mm / ms[name] / 1e9,
+                         bound_share=bound_ms / ms[name], max_abs_err=BERT_ERRS[name],
+                         shape=[b * h, t, d], causal=False)
+        print(f"[times] bert_base {name} B={b} H={h} T={t} D={d} non-causal bf16: kernel {ms[name]:.4f} ms, "
+              f"plain {plain[name]:.3f} ms, sdpa {library:.4f} ms{' (whole bwd)' if name != 'fwd' else ''}, "
+              f"bound {bound_ms:.4f} ms ({bound_by}; {n_mm} products of {mm / 1e9:.2f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB), {n_mm * mm / ms[name] / 1e9:.1f} TFLOP/s, "
+              f"{bound_ms / ms[name]:.3f} of the bound")
+    return out
+
+
 # -- the fold: the streaming aggregator alone, in this process ---------------
 
 # Contributions of the fold phase: the round's packed adapters (rank-16
@@ -844,6 +933,7 @@ def phase_fold(gen, card):
 
     _, (_, hbm) = _peaks(card)
     rng = random.Random(SEED)
+    times = {}
     for name, n, elems in FOLD_SIZES:
         cpu = []
         for _ in range(n):
@@ -883,7 +973,7 @@ def phase_fold(gen, card):
                 raise AssertionError(f"fold {name} weights {tag}: the card's fold differs from the CPU fold")
             del plain, one_shot, got, agg
         # Device times of the pieces: one contribution's H2D (pinned), its
-        # fold (product then add per 2^21-element block), the finalize, and
+        # fold (one exactly rounded FMA per 2^21-element block), the finalize, and
         # the error-feedback step over the same elements in f32.
         pinned = cpu[0].buf.pin_memory()
         h2d_ms = _event_ms(lambda: pinned.to("cuda", non_blocking=True))
@@ -896,8 +986,26 @@ def phase_fold(gen, card):
             for off in range(0, elems, ce):
                 streaming._fold_block(acc, off, src[off:off + ce], w)
 
+        def plain_one():  # the kernel's plain version, block by block on the card
+            for off in range(0, elems, ce):
+                seg = acc[off:off + ce]
+                fold.fma(w, src[off:off + ce].float(), seg, out=seg)
+
+        # The kernel against its plain version on the same inputs, at the
+        # round's blocks (2^21 elements, the last one short), byte for byte.
+        before = acc.clone()
+        plain_one()
+        want = acc.clone()
+        acc.copy_(before)
         fold_one()
+        fold_err = (acc - want).abs().max().item()
+        if not torch.equal(acc.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"fold {name}: the kernel's bytes differ from its plain version's")
+        del before, want
         fold_ms = _event_ms(fold_one)
+        plain_ms = _event_ms(plain_one)
+        acc.addcmul_(src, w)  # warm: its first call costs more than the fold
+        library_ms = _event_ms(lambda: acc.addcmul_(src, w))
         fin_ms = _event_ms(lambda: fedavg.finalize_packed_stripe(acc, 26.0, elems, "bfloat16"))
         ef = fl.ErrorFeedback()
         tree32 = {"w": acc}
@@ -905,15 +1013,20 @@ def phase_fold(gen, card):
         ef_ms = _event_ms(lambda: ef.compress(tree32))
         fold_bytes = elems * (2 + 4 + 4)  # read the bf16 block, read and write the f32 slice
         bound_ms = fold_bytes / hbm * 1e3
-        print(f"[fold] {name}: per contribution on the card: fold {fold_ms:.3f} ms "
+        times[name] = dict(ms=fold_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+                           library_ms=library_ms, max_abs_err=fold_err, elems=elems,
+                           bound_share=bound_ms / fold_ms)
+        print(f"[fold] {name}: per contribution on the card: fold kernel {fold_ms:.3f} ms "
               f"({fold_bytes / fold_ms / 1e6:.1f} GB/s; bound {bound_ms:.3f} ms at {hbm / 1e12:.2f} TB/s, "
-              f"{bound_ms / fold_ms:.3f} of it), H2D of its {elems * 2 / 1e6:.2f} MB from pinned memory "
+              f"{bound_ms / fold_ms:.3f} of it; byte-equal to its plain version, {plain_ms:.3f} ms; "
+              f"addcmul_ {library_ms:.3f} ms), H2D of its {elems * 2 / 1e6:.2f} MB from pinned memory "
               f"{h2d_ms:.3f} ms ({elems * 2 / h2d_ms / 1e6:.1f} GB/s); finalize {fin_ms:.3f} ms; "
               f"error-feedback step (f32 in, bf16 out) {ef_ms:.3f} ms; encode of the payloads "
               f"{encode_s * 1e3:.1f} ms")
         del cpu, on_card, payloads, pinned, acc, src, ef, tree32
         torch.cuda.empty_cache()
     phase_fold_int(gen, card)
+    return times
 
 
 class _KeepAcc(streaming.StreamingAggregator):
@@ -1168,17 +1281,20 @@ def _round_session(fed, party, cache, cfg_name, cfg_kw, train_len, device):
     for key, kw in (("round", {}), ("round_quant", {"wire_quant": "uint8"})):
         timings = []
         logged = tm.transfer_log.total_recorded
+        fold.fold_fma_.launches = 0
         t0 = time.perf_counter()
         adapters = fl.run_fedavg_rounds(trainers, adapters, rounds=ROUNDS, compress_wire=True, packed_wire=True,
                                         streaming_agg=True, timings=timings, **kw)
         _sync(device)
         wall_s = time.perf_counter() - t0
+        fold_launches = fold.fold_fma_.launches  # this party's float folds of the session
         sent, _ = tm.transfer_log.records_since(logged)
         digests = fed.get([digest.party(p).remote(adapters) for p in FED_PARTIES])
         trainer_reports = fed.get([trainers[p].report.remote() for p in FED_PARTIES])
         stats = tm.get_stats()
         out[key] = {
             "wall_s": wall_s,
+            "fold_launches": fold_launches,
             "timings": timings,
             "pushed": [r.nbytes for r in sent if r.direction == "send"],
             "digests": dict(zip(FED_PARTIES, digests)),
@@ -1282,22 +1398,28 @@ def _fed_party(party, ports, cfg_name, cfg_kw, train_len, device, out):
 
 
 def _run_parties(cfg_name, cfg_kw, train_len, device):
-    """Spawn both parties; every one must report and exit 0 within
-    FED_TIMEOUT_S, or the phase fails (a hung party is killed)."""
-    ctx = mp.get_context("spawn")
+    """The federated phase's parties: one fed session per link mode, then
+    the round session."""
     ports = {link: _free_ports(len(FED_PARTIES)) for link in (*FED_LINKS, "round")}
+    return _spawn_parties(_fed_party, (ports, cfg_name, cfg_kw, train_len, device), FED_TIMEOUT_S)
+
+
+def _spawn_parties(target, args, timeout_s):
+    """Spawn ``target(party, *args, out)`` for both parties; every one must
+    report and exit 0 within ``timeout_s``, or the phase fails (a hung party
+    is killed)."""
+    ctx = mp.get_context("spawn")
     out = ctx.Queue()
-    procs = {p: ctx.Process(target=_fed_party, name=f"party-{p}",
-                            args=(p, ports, cfg_name, cfg_kw, train_len, device, out))
+    procs = {p: ctx.Process(target=target, name=f"party-{p}", args=(p, *args, out))
              for p in FED_PARTIES}
     for proc in procs.values():
         proc.start()
     reports = {}
-    deadline = time.monotonic() + FED_TIMEOUT_S
+    deadline = time.monotonic() + timeout_s
     try:
         while len(reports) < len(procs):  # drain the queue before joining
             if time.monotonic() > deadline:
-                raise TimeoutError(f"federated parties gave no report in {FED_TIMEOUT_S} s: "
+                raise TimeoutError(f"parties gave no report in {timeout_s} s: "
                                    f"{sorted(set(procs) - set(reports))}")
             try:
                 r = out.get(timeout=2)
@@ -1308,8 +1430,11 @@ def _run_parties(cfg_name, cfg_kw, train_len, device):
                                        f"without a report")
                 continue
             reports[r["party"]] = r
+            if "error" in r:
+                break  # its peer may wait on it forever: fail now
+        failed = any("error" in r for r in reports.values())
         for proc in procs.values():
-            proc.join(max(0.0, deadline - time.monotonic()))
+            proc.join(0 if failed else max(0.0, deadline - time.monotonic()))
     finally:
         for proc in procs.values():
             if proc.is_alive():
@@ -1317,10 +1442,10 @@ def _run_parties(cfg_name, cfg_kw, train_len, device):
                 proc.join(10)
     errors = {p: r["error"] for p, r in reports.items() if "error" in r}
     if errors:
-        raise AssertionError("federated party failed:\n" + "\n".join(f"[{p}] {e}" for p, e in errors.items()))
+        raise AssertionError("party failed:\n" + "\n".join(f"[{p}] {e}" for p, e in errors.items()))
     codes = {p: proc.exitcode for p, proc in procs.items()}
     if any(codes.values()):
-        raise AssertionError(f"federated party exit codes {codes}")
+        raise AssertionError(f"party exit codes {codes}")
     return reports
 
 
@@ -1412,14 +1537,305 @@ def _round_summary(a, b, want, quant=False):
         print(f"[{tag}] {party}: {ROUNDS} rounds in {r['wall_s']:.2f} s wall, "
               f"max_memory_allocated {t['max_memory_allocated'] / 1e9:.2f} GB, delta {r['delta']}")
     print(f"[{tag}] final adapters sha256 {d['sha256'][:16]} ({d['nbytes'] / 1e6:.2f} MB in "
-          f"{len(d['meta'])} tensors) on both parties; launches over both parties' steps {launches}")
+          f"{len(d['meta'])} tensors) on both parties; launches over both parties' steps {launches}; "
+          f"fold_fma launches: alice {a['fold_launches']}, bob {b['fold_launches']}")
+    if not a["fold_launches"]:
+        raise AssertionError(f"{tag}: alice's float folds never launched the fold kernel")
     # bob's pushes, one per round, in payload bytes: bf16 packed adapters,
     # and under wire_quant from its second round uint8 codes plus the grid.
     pushed = b["pushed"]
     print(f"[{tag}] bob's pushed payloads per round: {[round(x / 1e6, 4) for x in pushed]} MB")
     if len(pushed) != ROUNDS or (quant and not pushed[-1] < 0.6 * pushed[0]):
         raise AssertionError(f"{tag}: bob's pushes {pushed}: want {ROUNDS}, the quantized ones under 0.6x bf16")
-    return {"launches": launches, "wall_s": {"alice": a["wall_s"], "bob": b["wall_s"]}}
+    return {"launches": launches, "fold_launches": a["fold_launches"] + b["fold_launches"],
+            "wall_s": {"alice": a["wall_s"], "bob": b["wall_s"]}}
+
+
+# -- the split path: BASELINE config #5 across two party processes ----------
+
+SPLIT_TIMEOUT_S = 420  # hard limit on the split phase's party processes
+
+
+def _split_session(fed, party, dev, cfg_name, cfg_kw, batch, seq):
+    """One driver on both parties: bert_base's encoder and pooler at alice,
+    its head and the labels at bob, through ``fl.SplitTrainer``.  Returns the
+    party's report: per mode each step's ms, loss and alice's launch counts,
+    and this party's pushes; both trainers' final fingerprints; bob's counts;
+    peak memory."""
+    from rayfed_tpu_torch.runtime import get_runtime
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    cfg = getattr(bert, cfg_name)(**cfg_kw)
+    params = bert.init_bert(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    enc_params, head_params = bert.split_params(params)
+
+    def batch_ids():
+        gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+        return torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen, device=dev)
+
+    @fed.remote
+    def load_ids(lo, hi):
+        return batch_ids()[lo:hi].contiguous()
+
+    @fed.remote
+    def load_labels(lo, hi):
+        return batch_ids()[lo:hi, 0] % 2  # the parity of the first token id
+
+    @fed.remote
+    def launches(_after):  # runs after its argument, the encoder actor's last call
+        counts = _counts()
+        _zero_counts()
+        return counts
+
+    @fed.remote
+    def peak():
+        return torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+
+    def encoder_apply(p, ids):
+        return bert.apply_pooler(p, bert.apply_encoder(p, ids, cfg, attn_fn=flash_attention))
+
+    def trainer(wire_dtype):
+        return fl.SplitTrainer(encoder_party="alice", head_party="bob", encoder_params=enc_params,
+                               encoder_apply=encoder_apply, head_params=head_params,
+                               head_apply=bert.apply_head, loss_fn=softmax_cross_entropy,
+                               lr=SPLIT_LR, wire_dtype=wire_dtype)
+
+    mb = batch // SPLIT_MICRO
+    whole = (load_ids.party("alice").remote(0, batch), load_labels.party("bob").remote(0, batch))
+    micro = [(load_ids.party("alice").remote(i * mb, (i + 1) * mb),
+              load_labels.party("bob").remote(i * mb, (i + 1) * mb)) for i in range(SPLIT_MICRO)]
+    fed.get(launches.party("alice").remote(None))  # zero alice's counts before the path
+    tm = get_runtime().transport
+    trainers = {"f32": trainer(None)}
+    report = {"modes": {}}
+    for mode, n in SPLIT_MODES:
+        if mode == "bf16_wire":
+            trainers["bf16_wire"] = trainer(torch.bfloat16)
+        t = trainers["bf16_wire" if mode == "bf16_wire" else "f32"]
+        logged = tm.transfer_log.total_recorded
+        steps = []
+        for _ in range(n):
+            _sync(dev)
+            t0 = time.perf_counter()
+            if mode == "pipelined":
+                losses = [float(fed.get(x)) for x in t.step_pipelined([x for x, _ in micro], [y for _, y in micro])]
+                loss = sum(losses) / len(losses)
+            else:
+                loss = float(fed.get(t.step(*whole)))
+            counts = fed.get(launches.party("alice").remote(t.encoder_params()))
+            steps.append({"ms": (time.perf_counter() - t0) * 1e3, "loss": loss, "launches": counts})
+        sent, _ = tm.transfer_log.records_since(logged)
+        report["modes"][mode] = {"steps": steps,
+                                 "sent": [(r.nbytes, r.seconds) for r in sent if r.direction == "send"]}
+    digest = fed.remote(_leaf_digest)
+    report["digests"] = {}
+    for name, t in trainers.items():
+        enc_obj, head_obj = t.encoder_params(), t.head_params()
+        report["digests"][name] = {p: fed.get([digest.party(p).remote(enc_obj), digest.party(p).remote(head_obj)])
+                                   for p in FED_PARTIES}
+    report["bob_launches"] = fed.get(launches.party("bob").remote(None))
+    report["peak"] = dict(zip(FED_PARTIES, fed.get([peak.party(p).remote() for p in FED_PARTIES])))
+    return report
+
+
+def _split_party(party, port_list, device, cfg_name, cfg_kw, batch, seq, out):
+    """A party process of the split phase; puts its report on ``out``."""
+    import rayfed_tpu_torch as fed
+
+    try:
+        cluster = {p: {"address": f"127.0.0.1:{port}", "transport_options": {"local_link": "auto"}}
+                   for p, port in zip(FED_PARTIES, port_list)}
+        runtime = fed.init(address="local", cluster=cluster, party=party, device=device, **FED_INIT)
+        report = _split_session(fed, party, runtime.transport.device, cfg_name, cfg_kw, batch, seq)
+        fed.shutdown()
+        out.put({"party": party, **report})
+    except BaseException:
+        out.put({"party": party, "error": traceback.format_exc()})
+        raise
+
+
+def _run_split(cfg_name, cfg_kw, batch, seq, device):
+    """Spawn the split phase's parties.  Rehearse on the CPU at toy size:
+    ``_run_split("BertConfig", dict(hidden_size=32, num_layers=2,
+    num_heads=2, intermediate_size=64), 8, 16, "cpu")``."""
+    return _spawn_parties(_split_party, (_free_ports(len(FED_PARTIES)), device, cfg_name, cfg_kw, batch, seq),
+                          SPLIT_TIMEOUT_S)
+
+
+def phase_split():
+    """The split path at bert_base's full width and depth, two parties."""
+    cfg = bert.bert_base()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    reports = _run_split("bert_base", dict(dtype=torch.bfloat16), SPLIT_BATCH, SPLIT_LEN, None)
+    wall = time.perf_counter() - t0
+    return _split_summary(reports, cfg, wall)
+
+
+def _split_summary(reports, cfg, wall):
+    """Check both parties' reports of the split phase and print them."""
+    alice, bob = reports["alice"], reports["bob"]
+    one = {"fwd": 2 * cfg.num_layers, "bwd_dq": cfg.num_layers, "bwd_dkv": cfg.num_layers}
+    total = {k: 0 for k in one}
+    out = {"wall_s": wall, "modes": {}}
+    for mode, n in SPLIT_MODES:
+        steps = alice["modes"][mode]["steps"]
+        micro = SPLIT_MICRO if mode == "pipelined" else 1
+        want = {k: v * micro for k, v in one.items()}
+        if len(steps) != n or any(st["launches"] != want for st in steps):
+            raise AssertionError(f"split {mode}: alice's steps launched {[st['launches'] for st in steps]}, "
+                                 f"want {want} per step")
+        losses = [st["loss"] for st in steps]
+        if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"split {mode}: losses {losses} not finite and falling")
+        for k in total:
+            total[k] += sum(st["launches"][k] for st in steps)
+        ms = [st["ms"] for st in steps]
+        steady = sorted(ms[1:] or ms)[len(ms[1:] or ms) // 2]
+        itemsize = 2 if mode == "bf16_wire" else 4
+        act = SPLIT_BATCH // micro * cfg.hidden_size * itemsize  # one push's raw bytes
+        pushes = {}
+        for party, what in (("alice", "activations"), ("bob", "gradients")):
+            sent = [(b, sec) for b, sec in reports[party]["modes"][mode]["sent"] if b >= act]
+            nbytes, secs = sum(b for b, _ in sent), sum(sec for _, sec in sent)
+            pushes[what] = {"pushes": len(sent), "bytes_per_step": nbytes / n,
+                            "ms_per_push": secs / max(1, len(sent)) * 1e3,
+                            "gbps": nbytes / secs / 1e9 if secs else 0.0}
+        print(f"[split] {mode}: {n} steps of {SPLIT_BATCH} x {SPLIT_LEN} tokens"
+              f"{f' in {SPLIT_MICRO} microbatches' if micro > 1 else ''}: step ms {[round(x, 1) for x in ms]}, "
+              f"steady {steady:.1f} ms ({1e3 / steady:.2f} steps/s, {SPLIT_BATCH * SPLIT_LEN * 1e3 / steady:.0f} tok/s); "
+              f"losses {[round(x, 6) for x in losses]}; launches per step in alice {steps[0]['launches']}")
+        for what, r in pushes.items():
+            print(f"[split] {mode}: {what} {r['bytes_per_step'] / 1e3:.1f} kB payload per step in "
+                  f"{r['pushes']} pushes, {r['ms_per_push']:.3f} ms per push ({r['gbps']:.3f} GB/s)")
+        out["modes"][mode] = {"steady_ms": steady, "steps_per_s": 1e3 / steady, "losses": losses, **pushes}
+    if any(bob["bob_launches"].values()):
+        raise AssertionError(f"split: bob launched flash kernels {bob['bob_launches']}")
+    for name in alice["digests"]:
+        d = {p: r["digests"][name] for p, r in reports.items()}
+        if d["alice"] != d["bob"] or d["alice"]["alice"] != d["alice"]["bob"]:
+            raise AssertionError(f"split {name}: the parties' fingerprints of the final params differ")
+        enc, head = d["alice"]["alice"]
+        if any(m[2] != "cuda" for m in enc["meta"] + head["meta"]):
+            raise AssertionError(f"split {name}: final params not on the card")
+        print(f"[split] {name} trainer: encoder sha256 {enc['sha256'][:16]} ({enc['nbytes'] / 1e6:.1f} MB), "
+              f"head sha256 {head['sha256'][:16]}, equal on both parties")
+    print(f"[split] peak memory: alice {alice['peak']['alice'] / 1e9:.2f} GB, bob {alice['peak']['bob'] / 1e9:.2f} GB; "
+          f"bob's flash launches {bob['bob_launches']}; launches in alice over the phase {total}; "
+          f"{wall:.1f} s wall, party processes included")
+    out.update(launches=total, peak=alice["peak"])
+    return out
+
+
+def _named_leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _named_leaves(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def phase_split_grads(gen):
+    """The split encoder's gradients through the kernels vs through dense
+    attention, at depth 2 and full width, in one process."""
+    cfg = dataclasses.replace(bert.bert_base(dtype=torch.bfloat16), num_layers=SPLIT_GRAD_LAYERS)
+    enc, head = bert.split_params(bert.init_bert(cfg, gen, device="cuda"))
+    ids = torch.randint(0, cfg.vocab_size, (SPLIT_BATCH, SPLIT_LEN), generator=gen, device="cuda")
+    labels = ids[:, 0] % 2
+    out = {}
+    for name, fn in (("flash", flash_attention), ("dense", dot_product_attention)):
+        def loss_fn(p, fn=fn):
+            pooled = bert.apply_pooler(p, bert.apply_encoder(p, ids, cfg, attn_fn=fn))
+            return softmax_cross_entropy(bert.apply_head(head, pooled), labels)
+
+        out[name] = value_and_grad(loss_fn, enc)
+    worst, worst_at = 0.0, None
+    flat = {k: dict(_named_leaves(out[k][1])) for k in out}
+    for path, g_dense in flat["dense"].items():
+        gap = (flat["flash"][path].float() - g_dense.float()).abs().max().item()
+        span = g_dense.float().abs().max().item()
+        if path.endswith("attn/bk"):
+            # Zero but for rounding on both paths: a shift of every key by one
+            # vector moves a query's scores by one constant, which softmax
+            # cancels.  Held against the query bias's gradient instead.
+            span = flat["dense"][path[:-2] + "bq"].float().abs().max().item()
+            noise = max(flat[k][path].float().abs().max().item() for k in flat)
+            if not noise <= GRAD_REL_TOL * span:
+                raise AssertionError(f"{path}: |g| {noise:.4e} is not zero against max|g(bq)| {span:.4e}")
+            continue
+        if not (span > 0 and gap <= GRAD_REL_TOL * span):
+            raise AssertionError(f"encoder gradient {path} through flash disagrees with dense: "
+                                 f"gap {gap:.4e}, max|g| {span:.4e}")
+        if gap / span > worst:
+            worst, worst_at = gap / span, path
+    print(f"[split grads] depth {SPLIT_GRAD_LAYERS} B={SPLIT_BATCH} T={SPLIT_LEN}: {len(flat['dense'])} encoder "
+          f"gradients, flash vs dense within {GRAD_REL_TOL:g}*max|g| each; worst {worst:.4f} of max|g| "
+          f"({worst_at}); loss flash={out['flash'][0].item():.6f} dense={out['dense'][0].item():.6f}")
+    del enc, head, out, flat
+    torch.cuda.empty_cache()
+    return worst
+
+
+# -- HF interop: a Llama-3-8B-width state dict on the card, and back --------
+
+HF_LAYERS = 2
+
+
+def _to_hf_state(params, cfg):
+    """The port's Llama params as a Hugging Face ``LlamaForCausalLM`` state
+    dict, on their device: the inverse of ``models.hf.from_hf_llama`` (each
+    projection transposed back to ``[out, in]``, ``wq``/``wk`` un-permuted
+    from the interleaved RoPE layout to the half-split one)."""
+    dh = cfg.head_dim
+    inv = torch.argsort(hf._rope_perm(dh))
+
+    def unpermute(w, heads):  # [in, H·Dh] interleaved -> [H·Dh, in] half-split
+        d_in = w.shape[0]
+        return w.reshape(d_in, heads, dh)[:, :, inv.to(w.device)].reshape(d_in, heads * dh).t().contiguous()
+
+    lay = params["layers"]
+    state = {"model.embed_tokens.weight": params["embed"], "model.norm.weight": params["final_norm"]}
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}."
+        state[p + "input_layernorm.weight"] = lay["attn_norm"][i]
+        state[p + "self_attn.q_proj.weight"] = unpermute(lay["wq"][i], cfg.num_heads)
+        state[p + "self_attn.k_proj.weight"] = unpermute(lay["wk"][i], cfg.num_kv_heads)
+        state[p + "self_attn.v_proj.weight"] = lay["wv"][i].t().contiguous()
+        state[p + "self_attn.o_proj.weight"] = lay["wo"][i].t().contiguous()
+        state[p + "post_attention_layernorm.weight"] = lay["mlp_norm"][i]
+        state[p + "mlp.gate_proj.weight"] = lay["w_gate"][i].t().contiguous()
+        state[p + "mlp.up_proj.weight"] = lay["w_up"][i].t().contiguous()
+        state[p + "mlp.down_proj.weight"] = lay["w_down"][i].t().contiguous()
+    if not cfg.tie_embeddings:
+        state["lm_head.weight"] = params["lm_head"].t().contiguous()
+    return state
+
+
+def phase_hf(gen):
+    """``from_hf_llama`` on a 2-layer Llama-3-8B-width state dict on the card
+    must give the port's params back exactly, on the card."""
+    cfg = llama.llama3_8b(num_layers=HF_LAYERS, param_dtype=torch.float32)
+    params = llama.init_llama(cfg, gen, device="cuda")
+    state = _to_hf_state(params, cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    back, _ = hf.from_hf_llama(state, config=cfg)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    from rayfed_tpu_torch import tree_util
+
+    mine, got = tree_util.tree_leaves(params), tree_util.tree_leaves(back)
+    nbytes = sum(t.numel() * t.element_size() for t in mine)
+    exact = len(mine) == len(got) and all(
+        a.device.type == "cuda" and a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(got, mine))
+    print(f"[hf] from_hf_llama on a {HF_LAYERS}-layer llama3_8b-width state dict on the card "
+          f"({len(state)} tensors, {nbytes / 1e9:.2f} GB f32): {ms:.1f} ms; params back exactly, on the card: {exact}")
+    if not exact:
+        raise AssertionError("from_hf_llama did not give the params back exactly on the card")
+    del params, state, back, mine, got
+    torch.cuda.empty_cache()
+    return {"ms": ms, "nbytes": nbytes}
 
 
 def main() -> int:
@@ -1442,12 +1858,19 @@ def main() -> int:
     phase_grad_check(gen)
     serve_int8 = phase_serve_int8(gen, serve)
     train_int8 = phase_train_int8(gen, train)
-    phase_fold(gen, card)
+    fold_times = phase_fold(gen, card)
     federated = phase_federated()
     round_launches = federated["round"]["launches"]
     quant_launches = federated["round_quant"]["launches"]
+    round_fold = federated["round"]["fold_launches"]
+    quant_fold = federated["round_quant"]["fold_launches"]
+    split = phase_split()
+    split_launches = split["launches"]
+    phase_split_grads(gen)
+    phase_hf(gen)
     times, train_times = phase_times(gen, card)
     bwd_times = phase_bwd_times(gen, card)
+    bert_times = phase_bert_times(gen, card)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1469,7 +1892,9 @@ def main() -> int:
                              "round": round_launches["fwd"],
                              "serve_int8": serve_int8["launches"],
                              "train_int8": train_int8["launches"]["fwd"],
-                             "round_quant": quant_launches["fwd"]},
+                             "round_quant": quant_launches["fwd"],
+                             "split": split_launches["fwd"]},
+        "bert_shape": bert_times["fwd"],  # bert_base's attention on the split path
         "max_abs_err": slice_err,
         **times,
         "train_shape": train_times,  # B=1: the shape the train step launches it at
@@ -1483,7 +1908,9 @@ def main() -> int:
                              "federated": federated["launches"]["bwd_dq"],
                              "round": round_launches["bwd_dq"],
                              "serve_int8": 0, "train_int8": train_int8["launches"]["bwd_dq"],
-                             "round_quant": quant_launches["bwd_dq"]},
+                             "round_quant": quant_launches["bwd_dq"],
+                             "split": split_launches["bwd_dq"]},
+        "bert_shape": bert_times["dq"],  # bert_base's attention on the split path
         "max_abs_err": bwd_err["dq"],
         **bwd_times["dq"],
     }, {
@@ -1496,9 +1923,24 @@ def main() -> int:
                              "federated": federated["launches"]["bwd_dkv"],
                              "round": round_launches["bwd_dkv"],
                              "serve_int8": 0, "train_int8": train_int8["launches"]["bwd_dkv"],
-                             "round_quant": quant_launches["bwd_dkv"]},
+                             "round_quant": quant_launches["bwd_dkv"],
+                             "split": split_launches["bwd_dkv"]},
+        "bert_shape": bert_times["dkv"],  # bert_base's attention on the split path
         "max_abs_err": bwd_err["dkv"],
         **bwd_times["dkv"],
+    }, {
+        # Not a Pallas kernel: the JAX package's jitted float fold step, which
+        # XLA compiles into fused multiply-adds (the one-shot chain,
+        # rayfed_tpu/fl/fedavg.py:83, is the same kernel's other form).
+        "name": "fold_fma",
+        "route": "cuda",
+        "source": "rayfed_tpu_torch/ops/csrc/fold_fma.cu",
+        "replaces": "rayfed_tpu/fl/streaming.py:63",
+        "launches": round_fold,
+        "launches_by_path": {"serve": 0, "train": 0, "federated": 0, "round": round_fold,
+                             "serve_int8": 0, "train_int8": 0, "round_quant": quant_fold, "split": 0},
+        **fold_times["adapters"],  # one contribution of the round's packed adapters
+        "wq_shape": fold_times["wq"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

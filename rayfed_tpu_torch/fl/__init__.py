@@ -15,11 +15,13 @@ what is ported:
   :func:`streaming_aggregate`.
 - :mod:`fedopt` — the legacy server optimizers and FedProx.
 - :mod:`trainer` — :func:`run_fedavg_rounds`, the round loop.
+- :mod:`split` — :class:`SplitTrainer`, split (vertical) learning across
+  two parties.
 
 The ring, quorum, hierarchy, overlapped and
 asynchronous rounds, secure aggregation, the packed server optimizers,
-differential privacy, robust reducers and split learning are later items
-of ROADMAP.md's Queue A.
+differential privacy and robust reducers are later items of ROADMAP.md's
+Queue A.
 """
 
 from rayfed_tpu_torch.fl.compression import (
@@ -55,6 +57,7 @@ from rayfed_tpu_torch.fl.quantize import (
     quantize_packed,
 )
 from rayfed_tpu_torch.fl.streaming import StreamingAggregator, streaming_aggregate
+from rayfed_tpu_torch.fl.split import SplitTrainer
 from rayfed_tpu_torch.fl.trainer import run_fedavg_rounds, validate_round_config
 
 __all__ = [
@@ -86,4 +89,5 @@ __all__ = [
     "fedprox_loss",
     "validate_round_config",
     "run_fedavg_rounds",
+    "SplitTrainer",
 ]

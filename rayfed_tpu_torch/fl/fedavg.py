@@ -28,6 +28,7 @@ import torch
 from rayfed_tpu_torch import tree_util
 from rayfed_tpu_torch.fl import compression
 from rayfed_tpu_torch.fl.compression import PackedTree, PackSpec
+from rayfed_tpu_torch.ops.fold import fold_fma_, fold_fma_pair
 
 # Elements per block of the canonical chunk grid: one 4 MB bf16 wire chunk.
 DEFAULT_CHUNK_ELEMS = 1 << 21
@@ -123,14 +124,23 @@ def f32_scalar(value: float, device: torch.device) -> torch.Tensor:
 
 
 def _packed_reduce(bufs, weights: Sequence[float], total_w: float, out_dtype) -> torch.Tensor:
-    """The one-shot fold: zero-init, then per party one multiply and one
-    add in f32, then the finalize (:func:`finalize_packed_stripe`) — the
-    op sequence the streaming fold applies block by block."""
+    """The one-shot fold as XLA compiles the JAX package's program on the
+    CPU: the zero init's add folds away, the first two terms become
+    ``fma(w0, x0, w1·x1)`` (the second product rounded, the first fused),
+    each further party one more fused multiply-add, rounded once
+    (:mod:`rayfed_tpu_torch.ops.fold`); then the finalize
+    (:func:`finalize_packed_stripe`).  Where a product is inexact (f32 wire
+    buffers, fractional weights) this is not the streamed fold's order, in
+    the reference as here."""
     device = _fold_device(bufs)
     xs = [as_tensor(b, device).reshape(-1) for b in bufs]
-    acc = torch.zeros(xs[0].numel(), dtype=torch.float32, device=device)
-    for x, w in zip(xs, weights):
-        acc = acc + f32_scalar(w, device) * x.to(torch.float32)
+    ws = [f32_scalar(w, device) for w in weights]
+    if len(xs) == 1:
+        acc = ws[0] * xs[0].to(torch.float32)
+    else:
+        acc = fold_fma_pair(ws[0], xs[0], ws[1], xs[1])
+    for x, w in zip(xs[2:], ws[2:]):
+        fold_fma_(acc, w, x)
     return finalize_packed_stripe(acc, total_w, acc.numel(), out_dtype)
 
 

@@ -34,7 +34,8 @@ half to even, clip, carry the new residual) and :func:`_dequantize_codes`.
 Divisions stay true divisions.  Two of their multiply-adds XLA compiles
 into fused multiply-adds (one rounding): the new residual ``corrected −
 scale·(q − zp)`` and the reference add ``ref + scale·(q − zp)``.  Those two
-are computed here as exactly rounded fused multiply-adds (:func:`_fma`),
+are computed here as exactly rounded fused multiply-adds
+(:func:`rayfed_tpu_torch.ops.fold.fma`),
 the same bytes on the CPU and the card; every other multiply-add stays two
 ops.  So codes, residuals and dequantized buffers equal the reference's
 bytes on the CPU.
@@ -57,6 +58,7 @@ import torch
 from rayfed_tpu_torch import tree_util
 from rayfed_tpu_torch.fl import compression
 from rayfed_tpu_torch.fl.compression import PackedTree, PackSpec
+from rayfed_tpu_torch.ops.fold import fma as _fma
 
 # Version of the shared-grid descriptor and semantics (the JAX package's).
 QUANT_GRID_VERSION = 1
@@ -407,38 +409,6 @@ tree_util.register_pytree_node(
     lambda qt: ((qt.buf, qt.scales, qt.zps, *qt.passthrough), (qt.spec, qt.gmeta)),
     lambda aux, ch: QuantizedPackedTree(ch[0], ch[1], ch[2], tuple(ch[3:]), aux[0], aux[1]),
 )
-
-
-# Rows of a [nblocks, chunk] operand per slice of _fma: its f64
-# temporaries stay near 128 MiB each whatever the buffer's size.
-_FMA_SLICE_ELEMS = 1 << 24
-
-
-def _fma_f64_to_odd(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """``a·b + c`` in f64, rounded to odd: the f32 product is exact in f64,
-    TwoSum gives the sum's exact rounding error, and a nonzero error moves
-    an even result one f64 step toward it.  Rounding that to f32 gives the
-    correctly rounded fused multiply-add (53 ≥ 2·24 + 2 bits)."""
-    p = a.to(torch.float64) * b.to(torch.float64)
-    c = c.to(torch.float64)
-    s = p + c
-    bp = s - c
-    err = (c - (s - bp)) + (p - bp)
-    even = (s.view(torch.int64) & 1) == 0
-    toward = torch.where(err > 0, torch.inf, -torch.inf).to(torch.float64)
-    return torch.where((err != 0) & even, torch.nextafter(s, toward), s)
-
-
-def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """The f32 fused multiply-add ``a·b + c`` with one rounding, for ``b``
-    and ``c`` of shape [nblocks, chunk] and ``a`` of [nblocks, 1]; computed
-    a slice of rows at a time."""
-    rows = max(1, _FMA_SLICE_ELEMS // max(1, b.shape[-1]))
-    out = torch.empty(b.shape, dtype=torch.float32, device=b.device)
-    for lo in range(0, b.shape[0], rows):
-        hi = lo + rows
-        out[lo:hi] = _fma_f64_to_odd(a[lo:hi], b[lo:hi], c[lo:hi]).to(torch.float32)
-    return out
 
 
 def _grid_vectors(grid: QuantGrid, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -56,6 +56,7 @@ import torch
 from rayfed_tpu_torch.fl import fedavg
 from rayfed_tpu_torch.fl.compression import PackedTree, dtype_name
 from rayfed_tpu_torch.fl.fedavg import DEFAULT_CHUNK_ELEMS
+from rayfed_tpu_torch.ops.fold import fold_fma_
 from rayfed_tpu_torch.transport import wire
 from rayfed_tpu_torch.utils.platform import fence_for_handoff, resolve_device
 
@@ -86,12 +87,10 @@ def _refuse_unported(**options: Any) -> None:
 
 
 def _fold_block(acc: torch.Tensor, off: int, chunk: torch.Tensor, w: torch.Tensor) -> None:
-    """``acc[off:off+n] += w * x`` as two kernels: the f32 product, then an
-    in-place add (an ``add_`` with ``alpha=w`` or an ``addcmul_`` may
-    contract into one FMA and round differently)."""
-    prod = chunk.to(torch.float32, copy=True)  # never the input's own memory
-    prod.mul_(w)
-    acc[off : off + prod.numel()].add_(prod)
+    """``acc[off:off+n] = fma(w, f32(x), acc[off:off+n])``, in place, rounded
+    once: the fused multiply-add XLA compiles the JAX package's
+    ``_accum_kernel`` into on the CPU; on the card the fold kernel."""
+    fold_fma_(acc[off : off + chunk.numel()], w, chunk)
 
 
 class _Stream:

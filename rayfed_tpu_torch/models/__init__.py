@@ -1,1 +1,13 @@
-"""Model families of the port (so far the Llama serving path)."""
+"""Model families of the port.
+
+- :mod:`llama`: the Llama-3 decoder (serving, LoRA and full training, the
+  int8 base and KV caches);
+- :mod:`bert`: the BERT encoder and its split (BASELINE.md config #5);
+- :mod:`hf`: Hugging Face Llama checkpoints into :mod:`llama`'s tree;
+- :mod:`lora`, :mod:`quant`: LoRA adapters and int8 weights;
+- :mod:`logistic`, :mod:`resnet`: the FL baselines' models;
+- :mod:`convert`: trees carried across from the JAX package.
+
+The mixture-of-experts model and BERT's tensor-parallel partition rules come
+with the mesh work (ROADMAP.md Queue A item 10).
+"""

@@ -1,6 +1,6 @@
-"""Carry model trees across from the reference: Llama weights, LoRA adapters,
-Adam state, and the FL baselines' trees (logistic, MLP, ResNet params and
-BN state).
+"""Carry model trees across from the reference: Llama and BERT weights, LoRA
+adapters, Adam state, and the FL baselines' trees (logistic, MLP, ResNet
+params and BN state).
 
 The reference's trees are nested dicts (and tuples, for the Adam state
 ``(count, m, v)``) of arrays; converted to numpy (``np.asarray`` per leaf)
@@ -89,3 +89,14 @@ def params_from_jax(tree: Any, device: Optional[torch.device] = None) -> Any:
     params, ResNet's params and BN state) as torch tensors, each leaf in its
     own dtype and layout (the port keeps NHWC activations and HWIO kernels)."""
     return _tree_from_jax(tree, device, None)
+
+
+def bert_params_from_jax(
+    tree: Any,
+    device: Optional[torch.device] = None,
+    dtype: Optional[torch.dtype] = None,
+) -> Any:
+    """The reference's BERT param tree (numpy leaves; whole, or one side of
+    ``split_params``) as torch tensors under the same keys; ``dtype`` casts
+    every leaf (default: keep each leaf's dtype)."""
+    return _tree_from_jax(tree, device, dtype)

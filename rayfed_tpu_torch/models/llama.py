@@ -572,6 +572,14 @@ def make_decode_step(config: LlamaConfig, rolling: bool = False):
     ``i`` is live iff its absolute position ``pos − ((pos − i) mod W)`` is
     ≥ 0 (the band and causality follow, since every resident position lies
     in ``(pos − W, pos]``).
+
+    A linear cache is read over its live slots only: the prefix ``[0, pos]``
+    without a window; with one, the band ``(pos − W, pos]`` gathered in ring
+    order (slot ``i`` holds the position ≡ ``i`` mod W), so the linear and
+    the rolling step reduce over the same W slots in the same order and give
+    the same bytes.  (The reference reduces over all ``max_len`` slots, the
+    masked ones as zeros; that changes the reduction's rounding, not what it
+    computes.)
     """
     if rolling and config.sliding_window is None:
         raise ValueError("rolling=True requires config.sliding_window")
@@ -586,7 +594,6 @@ def make_decode_step(config: LlamaConfig, rolling: bool = False):
         b = token_ids.shape[0]
         max_len = cache["k"].shape[2]
         device = token_ids.device
-        positions = torch.arange(max_len, device=device)
         if rolling:
             # The ring modulus IS the window: a linear cache here would
             # silently widen the attention window.
@@ -598,15 +605,26 @@ def make_decode_step(config: LlamaConfig, rolling: bool = False):
                 )
             if pos < 0:
                 raise ValueError(f"position {pos} is negative")
-            write_pos = pos % max_len
-            valid = (pos - torch.remainder(pos - positions, max_len)) >= 0
+        elif not 0 <= pos < max_len:
+            raise ValueError(f"position {pos} is outside the {max_len}-slot cache")
+        write_pos = pos % max_len if rolling else pos
+        w = config.sliding_window
+        if w is None:
+            valid, band = None, slice(0, pos + 1)  # the live prefix
         else:
-            if not 0 <= pos < max_len:
-                raise ValueError(f"position {pos} is outside the {max_len}-slot cache")
-            write_pos = pos
-            valid = positions <= pos
-            if config.sliding_window is not None:
-                valid = valid & (positions > pos - config.sliding_window)
+            # Slot i of a W-slot ring holds position pos − ((pos − i) mod W),
+            # live iff ≥ 0; a linear cache gathers those positions in order.
+            src = pos - torch.remainder(pos - torch.arange(w, device=device), w)
+            valid = src >= 0
+            band = None if rolling else src.clamp(min=0)
+
+        def live(plane):  # [B, T, ...] -> the slots this step attends to
+            if band is None:
+                return plane
+            if isinstance(band, slice):
+                return plane[:, band]
+            return plane.index_select(1, band)
+
         x = params["embed"].to(dtype)[token_ids][:, None, :]  # [B,1,D]
         cos, sin = rope_tables(torch.tensor([pos], device=device), dh, config.rope_theta)
         for i in range(config.num_layers):
@@ -629,18 +647,19 @@ def make_decode_step(config: LlamaConfig, rolling: bool = False):
                 v_cache[:, write_pos] = v[:, 0].to(v_cache.dtype)
             qs = (q.reshape(b, h, dh) * dh**-0.5).to(dtype).reshape(b, kvh, g, dh)
             s = torch.einsum(
-                "bngd,btnd->bngt", qs.float(), k_cache.to(dtype).float()
+                "bngd,btnd->bngt", qs.float(), live(k_cache).to(dtype).float()
             )
             if quant:
                 # The per-(position, head) k scale is constant over the
                 # contracted head dim: it lands on the [B, KV, g, T] scores.
-                s = s * cache["k_scale"][i][..., 0].transpose(1, 2)[:, :, None, :]
-            s = torch.where(valid, s, NEG_INF)
+                s = s * live(cache["k_scale"][i])[..., 0].transpose(1, 2)[:, :, None, :]
+            if valid is not None:
+                s = torch.where(valid, s, NEG_INF)
             p = torch.softmax(s, dim=-1)
             if quant:
-                p = p * cache["v_scale"][i][..., 0].transpose(1, 2)[:, :, None, :]
+                p = p * live(cache["v_scale"][i])[..., 0].transpose(1, 2)[:, :, None, :]
             attn = torch.einsum(
-                "bngt,btnd->bngd", p.to(dtype).float(), v_cache.to(dtype).float()
+                "bngt,btnd->bngd", p.to(dtype).float(), live(v_cache).to(dtype).float()
             )
             attn = attn.reshape(b, 1, h, dh).to(dtype)
             x = _attn_out(x, attn, lp, config, b, 1)

@@ -108,3 +108,15 @@ def flash_bwd_lib() -> ctypes.CDLL:
     lib.rf_cuda_error_string.argtypes = [i32]
     lib.rf_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def fold_lib() -> ctypes.CDLL:
+    """The float fold's fused multiply-add kernel, built and loaded once."""
+    lib = ctypes.CDLL(str(build("fold_fma")))
+    ptr = ctypes.c_void_p
+    lib.rf_fold_fma.argtypes = [ptr] * 6 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ptr]
+    lib.rf_fold_fma.restype = ctypes.c_int
+    lib.rf_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.rf_cuda_error_string.restype = ctypes.c_char_p
+    return lib

@@ -3,7 +3,8 @@
 :func:`dot_product_attention` is the plain O(T²) attention the model uses
 by default and the oracle the flash kernel is held against.  Layout is
 ``[batch, seq, heads, head_dim]`` (BTHD); scores and softmax are float32
-whatever the input dtype.  The blockwise/ring helpers come with the ring
+whatever the input dtype.  :func:`mha` is the full multi-head block on
+top of it.  ``as_attn_fn`` and the blockwise/ring helpers come with the ring
 attention slice.
 """
 
@@ -58,3 +59,29 @@ def dot_product_attention(
     p = torch.where(s.amax(dim=-1, keepdim=True) <= NEG_INF / 2, 0.0, p)
     o = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
     return o.to(orig_dtype)
+
+
+def mha(
+    x: torch.Tensor,
+    wq: torch.Tensor,
+    wk: torch.Tensor,
+    wv: torch.Tensor,
+    wo: torch.Tensor,
+    *,
+    num_heads: int,
+    causal: bool = False,
+    attn_fn=None,
+) -> torch.Tensor:
+    """Full MHA block: project, attend, merge.  ``x``: [B, T, D_model].
+
+    ``wq/wk/wv``: [D_model, H*Dh]; ``wo``: [H*Dh, D_model].  ``attn_fn``
+    swaps in another attention with :func:`dot_product_attention`'s
+    signature (the flash kernel's ``flash_attention``).
+    """
+    b, t, _ = x.shape
+    attn_fn = attn_fn or dot_product_attention
+    q = (x @ wq).reshape(b, t, num_heads, -1)
+    k = (x @ wk).reshape(b, t, num_heads, -1)
+    v = (x @ wv).reshape(b, t, num_heads, -1)
+    o = attn_fn(q, k, v, causal=causal)
+    return o.reshape(b, t, -1) @ wo

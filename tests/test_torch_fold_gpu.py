@@ -5,9 +5,10 @@ the machine with the card it runs without the repo's conftest:
 
     python -m pytest --noconftest -m gpu tests/test_torch_fold_gpu.py
 
-Tolerance: byte identity.  The fold on CUDA (the product and the add as
-two kernels each block, then one divide and cast) must give the CPU fold's
-bytes, streamed and one-shot; and its stream must wait for the work that
+Tolerance: byte identity.  The fold on CUDA (one exactly rounded
+multiply-add per party and block, then one divide and cast) must give the
+CPU fold's bytes, streamed and one-shot, also where ``w·x`` is inexact (f32
+wire buffers, fractional weights); and its stream must wait for the work that
 produced a local contribution and be waited on by whoever reads the result.
 The compressed-domain round on CUDA (the codec's codes, residuals and
 dequantized buffers, the i32 fold and its finalize) must give the CPU's
@@ -81,6 +82,63 @@ def test_cuda_fold_equals_the_cpu_fold(cuda, weights, out_dtype, chunk_elems):
         sink.on_complete(payload)
     out = agg.result(timeout=120)
     assert out.buf.device.type == "cuda" and _raw(out.buf) == _raw(plain.buf)
+
+
+def _streamed(cpu, weights, device, chunk_elems=1 << 12):
+    agg = StreamingAggregator(len(cpu), weights=weights, out_dtype="float32", chunk_elems=chunk_elems,
+                              device=device)
+    agg.add_local(0, tc.PackedTree(cpu[0].buf.to(device), cpu[0].passthrough, cpu[0].spec))
+    for i in range(1, len(cpu)):
+        payload = bytearray(_payload(cpu[i]))
+        sink = agg.sink(i)
+        sink.on_bytes(memoryview(payload), len(payload) // 2)
+        sink.on_complete(payload)
+    return agg.result(timeout=120).buf
+
+
+@pytest.mark.parametrize("wire_dtype,weights", [(torch.float32, [3, 5, 7, 11]),
+                                                (torch.bfloat16, [1.7, 2.3, 0.9, 4.1])],
+                         ids=["f32-wire", "fractional-weights"])
+def test_cuda_fma_fold_equals_the_cpu_fold(cuda, wire_dtype, weights):
+    """Inexact products: the fused multiply-adds on the card round as the
+    CPU's do, one-shot and streamed."""
+    gen = torch.Generator().manual_seed(1)
+    cpu = [tc.pack_tree({"w": torch.randn(3 * (1 << 12) + 77, generator=gen)}, wire_dtype) for _ in range(4)]
+    plain = tf.packed_weighted_sum(cpu, weights, out_dtype="float32")
+    on_card = [tc.PackedTree(p.buf.to(cuda), p.passthrough, p.spec) for p in cpu]
+    one_shot = tf.packed_weighted_sum(on_card, weights, out_dtype="float32")
+    assert _raw(one_shot.buf) == _raw(plain.buf)
+    assert _raw(_streamed(cpu, weights, cuda)) == _raw(_streamed(cpu, weights, torch.device("cpu")))
+
+
+def _edge_values(n, gen, dtype):
+    """Random values with signed zeros, subnormals and exact ties mixed in."""
+    x = torch.randn(n, generator=gen)
+    x[: n // 8] = torch.tensor([0.0, -0.0, 1e-40, -3e-39, 1.0, -2.0, 2.0**-126, 3.0]).repeat(n // 64 + 1)[: n // 8]
+    return x.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16, torch.int32])
+@pytest.mark.parametrize("n", [1, 1000, (1 << 21) + 3])
+def test_fold_kernel_matches_plain_version(cuda, dtype, n):
+    """``csrc/fold_fma.cu`` against ``fold.fma`` on the same card inputs,
+    both forms, byte for byte (both round once; f16 and integer wire
+    elements go through f32 first, as in the reference)."""
+    from rayfed_tpu_torch.ops import fold
+
+    gen = torch.Generator().manual_seed(n)
+    x, y = (_edge_values(n, gen, torch.float32).mul(100 if dtype == torch.int32 else 1).to(dtype).to(cuda)
+            for _ in range(2))
+    acc = _edge_values(n, gen, torch.float32).to(cuda)
+    w, v = (torch.tensor(val, dtype=torch.float32, device=cuda) for val in (1.7, -0.3))
+    want = fold.fma(w, x.to(torch.float32), acc)
+    before = fold.fold_fma_.launches
+    got = fold.fold_fma_(acc.clone(), w, x)
+    pair = fold.fold_fma_pair(w, x, v, y)
+    torch.cuda.synchronize()
+    assert fold.fold_fma_.launches == before + 2
+    assert _raw(got) == _raw(want)
+    assert _raw(pair) == _raw(fold.fma(w, x.to(torch.float32), v * y.to(torch.float32)))
 
 
 def test_fold_waits_for_its_inputs_and_its_readers_wait_for_it(cuda):

@@ -46,7 +46,33 @@ def test_port_imports_with_jax_and_reference_blocked():
         cwd=ROOT, capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 44  # every module was walked
+    assert int(proc.stdout.split()[-1]) >= 47  # every module was walked
+
+
+_BLOCKED_TRANSFORMERS = r"""
+import sys
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("transformers", "jax", "jaxlib", "rayfed_tpu"):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import rayfed_tpu_torch.models.hf, rayfed_tpu_torch.models.bert, rayfed_tpu_torch.fl.split
+bad = [m for m in sys.modules if m.split(".")[0] in ("transformers", "jax", "jaxlib", "rayfed_tpu")]
+assert not bad, bad
+"""
+
+
+def test_bert_split_and_hf_import_no_jax_and_hf_no_transformers():
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_TRANSFORMERS],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    text = (ROOT / "rayfed_tpu_torch" / "models" / "hf.py").read_text()
+    assert not re.search(r"^\s*(import|from)\s+(transformers|numpy)\b", text, re.M)
 
 
 # The wire names of the skeleton and packed classes: the only lines of the
@@ -102,7 +128,13 @@ def test_resolve_device_raises_without_a_card(monkeypatch):
 
 def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
     from rayfed_tpu_torch.models import llama, lora
-    from rayfed_tpu_torch.models.convert import adam_from_jax, llama_params_from_jax, lora_from_jax
+    from rayfed_tpu_torch.models import bert
+    from rayfed_tpu_torch.models.convert import (
+        adam_from_jax,
+        bert_params_from_jax,
+        llama_params_from_jax,
+        lora_from_jax,
+    )
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = llama.llama_tiny()
@@ -113,9 +145,13 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
     params = llama.init_llama(cfg, torch.Generator(), device="cpu")
     with pytest.raises(RuntimeError):
         lora.init_lora(params, lora.LoraConfig(), torch.Generator())
-    for convert in (llama_params_from_jax, lora_from_jax, adam_from_jax):
+    for convert in (llama_params_from_jax, lora_from_jax, adam_from_jax, bert_params_from_jax):
         with pytest.raises(RuntimeError):
             convert({})
+    with pytest.raises(RuntimeError):
+        bert.init_bert(bert.BertConfig(num_layers=1), torch.Generator())
+    assert bert.init_bert(bert.BertConfig(num_layers=1), torch.Generator(),
+                          device="cpu")["pooler"]["kernel"].device.type == "cpu"
     assert llama.init_kv_cache(cfg, 1, 8, device="cpu")["k"].device.type == "cpu"
     adapters = lora.init_lora(params, lora.LoraConfig(), torch.Generator(), device="cpu")
     assert adapters["layers"]["wq"]["a"].device.type == "cpu"

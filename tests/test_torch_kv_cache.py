@@ -161,6 +161,57 @@ def test_rolling_cache_deep_wraparound(kv_quant):
     _run_rolling(kv_quant, window=16, t0=7, n_new=100, batch=2)
 
 
+def _deep_trajectory(kv_quant, window=16, t0=7, n_new=100, batch=2):
+    """test_rolling_cache_deep_wraparound's trajectory, step by step: yields
+    (step, pos, port linear cache, its logits, port rolling cache, its
+    logits, reference linear cache) after each decode step on the same
+    tokens (the reference's rolling greedy choices)."""
+    jcfg, jparams, cfg, params = _pair(sliding_window=window, kv_quant=kv_quant)
+    ids = _ids(batch, t0)
+    max_len = t0 + n_new
+    cache_lin, _ = llama.prefill(params, cfg, torch.from_numpy(ids).long(), max_len)
+    jcache_lin, jlogits = jax_llama.prefill(jparams, jcfg, jnp.asarray(ids), max_len)
+    cache_roll = llama.roll_kv_cache(cache_lin, cfg, t0)
+    jcache_roll = jax_llama.roll_kv_cache(jcache_lin, jcfg, t0)
+    step_lin, step_roll = llama.make_decode_step(cfg), llama.make_decode_step(cfg, rolling=True)
+    jstep_lin, jstep_roll = jax_llama.make_decode_step(jcfg), jax_llama.make_decode_step(jcfg, rolling=True)
+    tok = np.asarray(jnp.argmax(jlogits, axis=-1)).astype(np.int32)
+    for i in range(n_new):
+        t = torch.from_numpy(tok).long()
+        cache_lin, l_lin = step_lin(params, cache_lin, t, t0 + i)
+        cache_roll, l_roll = step_roll(params, cache_roll, t, t0 + i)
+        jcache_lin, _ = jstep_lin(jparams, jcache_lin, jnp.asarray(tok), t0 + i)
+        jcache_roll, jl_roll = jstep_roll(jparams, jcache_roll, jnp.asarray(tok), t0 + i)
+        yield i, t0 + i, cache_lin, l_lin, cache_roll, l_roll, jcache_lin
+        tok = np.asarray(jl_roll).argmax(-1).astype(np.int32)
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_linear_and_rolling_steps_write_the_same_bytes(kv_quant):
+    """The linear step reads its window's band in ring order, so it and the
+    rolling step reduce over the same slots in the same order: the slot each
+    writes and the logits are the same bytes at every step."""
+    window = 16
+    for i, pos, lin, l_lin, roll, l_roll, _ in _deep_trajectory(kv_quant, window=window):
+        for name in lin:
+            assert _bytes(lin[name][:, :, pos]) == _bytes(roll[name][:, :, pos % window]), (i, name)
+        assert _bytes(l_lin) == _bytes(l_roll), i
+
+
+def test_linear_int8_codes_equal_the_reference():
+    """The port's linear int8 decode writes the reference's int8 k/v codes at
+    every step of test_rolling_cache_deep_wraparound's trajectory (the f32
+    scales may differ in the last bit: both sides' RMSNorm rounds otherwise
+    than XLA's, from its reduction order and its rsqrt)."""
+    for i, pos, lin, _, _, _, jlin in _deep_trajectory(True):
+        for name in ("k", "v"):
+            got, want = lin[name][:, :, pos].numpy(), np.asarray(jlin[name])[:, :, pos]
+            diff = np.argwhere(got != want)
+            assert not diff.size, (
+                f"step {i} (pos {pos}): {len(diff)} {name} codes differ, first at [layer, batch, head, dim] = "
+                f"{diff[0].tolist()}: port {got[tuple(diff[0])]}, reference {want[tuple(diff[0])]}")
+
+
 @pytest.mark.parametrize("kv_quant", [False, True])
 def test_rolling_cache_short_prompt(kv_quant):
     """t0 < W: unwritten ring slots must be masked, not attended."""

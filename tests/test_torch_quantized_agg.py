@@ -31,12 +31,14 @@ from rayfed_tpu.config import (
 from rayfed_tpu.fl import compression as jc
 from rayfed_tpu.fl import fedavg as jf
 from rayfed_tpu.fl import quantize as jqz
+from rayfed_tpu.fl import streaming as jss
 from rayfed_tpu.transport import wire as jwire
 from rayfed_tpu.transport.manager import TransportManager as JTransportManager
 from rayfed_tpu_torch.config import ClusterConfig, JobConfig, PartyConfig
 from rayfed_tpu_torch.fl import compression as tc
 from rayfed_tpu_torch.fl import fedavg as tf
 from rayfed_tpu_torch.fl import quantize as qz
+from rayfed_tpu_torch.fl import streaming as tss
 from rayfed_tpu_torch.fl import trainer as ttrainer
 from rayfed_tpu_torch.fl.streaming import StreamingAggregator
 from rayfed_tpu_torch.transport import wire
@@ -816,24 +818,58 @@ def _fma_probe(size=40_000):
         jt = [jc.pack_tree({"w": jnp.asarray(b)}, jnp.float32 if wire_dt == "f32" else jnp.bfloat16) for b in bufs]
         tt = [tc.pack_tree({"w": torch.from_numpy(b)}, torch.float32 if wire_dt == "f32" else torch.bfloat16)
               for b in bufs]
+        w32 = np.asarray(weights, np.float32)
+        total = np.float32(sum(weights))
+        xs = [np.asarray(t.buf, np.float32) for t in jt]
+        two_op = np.zeros(size, np.float32)
+        for w, x in zip(w32, xs):
+            two_op = two_op + w * x
+        two_op = two_op / total
+        # One-shot: packed_weighted_sum in both packages.
         want = np.asarray(jf.packed_weighted_sum(jt, weights, out_dtype=np.float32).buf)
         got = tf.packed_weighted_sum(tt, weights, out_dtype="float32").buf.numpy()
-        diff = np.flatnonzero(got != want)
-        at = int(diff[0]) if diff.size else None
-        out[name] = (None, int(diff.size), at, None if at is None else (float(want[at]), float(got[at])))
+        out[name + ", one-shot"] = _fold_mismatch(two_op, want, got)
+        # Streamed: the per-block fold steps from a zeroed accumulator, then
+        # the stripe finalize, in both packages.
+        step = jss._accum_kernel(CE, "float32", jt[0].spec.wire_dtype)
+        jacc, tacc = jnp.zeros(nb * CE, jnp.float32), torch.zeros(nb * CE)
+        for w, jp_i, tp_i in zip(w32, jt, tt):
+            jbuf = jnp.concatenate([jp_i.buf, jnp.zeros(nb * CE - size, jp_i.buf.dtype)])
+            for b in range(nb):
+                jacc = step(jacc, jbuf[b * CE:(b + 1) * CE], b * CE, jnp.float32(w))
+                tss._fold_block(tacc, b * CE, tp_i.buf[b * CE:(b + 1) * CE], tf.f32_scalar(w, CPU))
+        want = np.asarray(jf.finalize_packed_stripe(jacc, float(total), size, np.float32))
+        got = tf.finalize_packed_stripe(tacc, float(total), size, "float32").numpy()
+        out[name + ", streamed"] = _fold_mismatch(two_op, want, got)
     return out
 
 
+def _fold_mismatch(two_op, want, got):
+    """(two-op chain's mismatches, port's, the port's first differing element
+    and its (reference, port) values) against the reference's bytes."""
+    diff = np.flatnonzero(got != want)
+    at = int(diff[0]) if diff.size else None
+    return (int(np.sum(two_op != want)), int(diff.size), at,
+            None if at is None else (float(want[at]), float(got[at])))
+
+
 def test_the_port_rounds_once_where_the_reference_fuses():
-    """The quantize residual and the dequantize's reference add are fused
-    multiply-adds in the reference's compiled program (a two-op chain
-    differs from its bytes) and the port's exact FMA gives its bytes; the
-    finalize is not fused, and the port's two ops give its bytes."""
+    """The quantize residual, the dequantize's reference add and the float
+    fold's multiply-adds (one-shot and streamed, f32 wire and fractional
+    weights) are fused multiply-adds in the reference's compiled programs (a
+    two-op chain differs from their bytes) and the port's exact FMAs give
+    their bytes; the finalize is not fused, and the port's two ops give its
+    bytes."""
     probe = _fma_probe(size=20_000)
     for name in ("quantize residual", "dequantize ref add"):
         two_op, port = probe[name]
         assert two_op > 0 and port == 0, (name, probe[name])
     assert probe["finalize"] == (0, 0)
+    folds = [name for name in probe if name.startswith("float fold")]
+    assert len(folds) == 4
+    for name in folds:
+        two_op, port, _, _ = probe[name]
+        assert two_op > 0 and port == 0, (name, probe[name])
 
 
 if __name__ == "__main__":

@@ -25,6 +25,7 @@ from rayfed_tpu.config import (
 )
 from rayfed_tpu.fl import compression as jc
 from rayfed_tpu.fl import fedavg as jf
+from rayfed_tpu.fl import streaming as jss
 from rayfed_tpu.transport.manager import TransportManager as JTransportManager
 from rayfed_tpu_torch.config import ClusterConfig, JobConfig, PartyConfig
 from rayfed_tpu_torch.fl import compression as tc
@@ -104,11 +105,28 @@ def test_streamed_equals_one_shot_equals_jax_under_shuffled_arrival(order_seed, 
     assert set(agg.stats) >= {"agg_busy_s", "agg_tail_s", "agg_wire_s", "agg_overlap_frac"}
 
 
+def _reference_streamed_fold(packed, weights, chunk_elems):
+    """The JAX package's streamed fold of f32 wire buffers: its per-block
+    multiply-add step (``_accum_kernel``) from a zeroed accumulator, party by
+    party, then its stripe finalize.  Where ``w·x`` is inexact its fused
+    multiply-adds round otherwise than the one-shot chain's, so the streamed
+    bytes are the reference's streamed fold's, not ``packed_weighted_sum``'s."""
+    n = packed[0].buf.numel()
+    acc = jnp.zeros(n, jnp.float32)
+    for p, w in zip(packed, weights):
+        x = jnp.asarray(p.buf.numpy())
+        for off in range(0, n, chunk_elems):
+            c = min(chunk_elems, n - off)
+            acc = jss._accum_kernel(c, "float32", "float32")(acc, x[off:off + c], off, jnp.float32(w))
+    return np.asarray(jf.finalize_packed_stripe(acc, float(sum(weights)), n, np.float32))
+
+
 def test_f32_wire_fold_leaves_its_inputs_untouched():
     """An f32 wire buffer needs no cast: the fold must still not scale the
-    local contribution or a writable payload in place."""
+    local contribution or a writable payload in place, and its bytes are the
+    reference's streamed fold's."""
     tp = _packed(_np_trees(3, seed=3), torch.float32)
-    reference = tf.packed_weighted_sum(tp, [3, 5, 7])
+    reference = _reference_streamed_fold(tp, [3, 5, 7], 1 << 10)
     before = [_raw(p.buf) for p in tp]
     payloads = [_payload_of(p, writable=True) for p in tp]
     kept = [bytes(p) for p in payloads]
@@ -116,7 +134,7 @@ def test_f32_wire_fold_leaves_its_inputs_untouched():
     agg.add_local(0, tp[0])
     for i in (2, 1):
         _feed(agg.sink(i), payloads[i], np.random.default_rng(i))
-    assert _raw(agg.result(timeout=60).buf) == _raw(reference.buf)
+    assert _raw(agg.result(timeout=60).buf) == reference.tobytes()
     assert [_raw(p.buf) for p in tp] == before
     assert [bytes(p) for p in payloads[1:]] == kept[1:]
 
