@@ -56,7 +56,10 @@ Phases, each fatal on failure:
      (``wire_quant="uint8"``: the first ships bf16, having no grid yet, the
      second uint8 codes on a grid ranged by the first's delta, folded in
      i32 on alice's card and broadcast re-quantized): the same checks,
-     and bob's second push under 0.6x his bf16 push;
+     and bob's second push under 0.6x his bf16 push.  Then 2 ring rounds
+     (``mode="ring"``: two stripes, each folded by its owner on its card,
+     gathered back): 64/32/32 launches per step, the fold kernel at both
+     parties, equal fingerprints;
   6. the fold alone, before the party processes start: 2 contributions at
      the adapters' size and 4 at the stacked wq's (536.9e6 bf16 elements),
      from the seed, fed through a CUDA ``StreamingAggregator``'s sinks in
@@ -100,6 +103,23 @@ Phases, each fatal on failure:
      dense attention (5% of max|g|), and the HF conversion of a 2-layer
      Llama-3-8B-width state dict on the card, which must give the params
      back exactly;
+  11. (after 10) the topologies, BASELINE config #3: four party processes
+     (alice, bob, carol, dave) train ResNet-18 (10 classes, random from the
+     seed) one SGD step per round on synthetic CIFAR-10-shaped shards of 32
+     images and average with bf16 packed wire: 3 hub rounds
+     (``streaming_agg``), 3 ring rounds from the same start, 2 quantized
+     ring rounds (``wire_quant="uint8"``), then 3 quorum rounds
+     (``quorum=2``, a 3 s deadline) under a seeded chaos schedule: carol
+     straggles 8 s in round 1, dave crashes at round 1 and the coordinator
+     alice after round 2's cutoff.  Checks: equal fingerprints within each
+     part, the ring's final params equal the hub's, alice's share of the
+     cluster's ingress in the ring at most 0.4, the quantized ring round's
+     bytes under 0.6x a bf16 ring round's, the fold kernel at every ring
+     party and quorum coordinator; in the quorum part alice and dave exit
+     with the crash code, bob and carol finish every round with equal
+     params, round 1 aggregates a strict subset, the roster epoch reaches 2
+     and each survivor failed over once; prints each round's wall,
+     local/push/agg seconds, sent and received bytes and fold launches;
   7. time each kernel (mean over one window of calls) against its plain
      version, the library call that computes the same function, and the
      card's bound (the forward at the serving shape B=4 and at the training
@@ -1264,6 +1284,7 @@ class _RoundTrainer:
 
 def _round_session(fed, party, cache, cfg_name, cfg_kw, train_len, device):
     """The packed FedAvg round: both parties train, alice folds on her card."""
+    from rayfed_tpu_torch.fl.ring import RING_STATS
     from rayfed_tpu_torch.runtime import get_runtime
 
     if device.type == "cuda":
@@ -1277,14 +1298,19 @@ def _round_session(fed, party, cache, cfg_name, cfg_kw, train_len, device):
     # The bf16 packed rounds, then, in the same processes and from their
     # result, the compressed-domain rounds (uint8 codes on each round's
     # grid; the first round of a wire_quant run has no grid yet and ships
-    # bf16, as in the JAX package).
-    for key, kw in (("round", {}), ("round_quant", {"wire_quant": "uint8"})):
+    # bf16, as in the JAX package), then the ring rounds (two parties: two
+    # stripes, each folded by its owner; streaming_agg is the hub's, off).
+    for key, kw in (("round", {"streaming_agg": True}),
+                    ("round_quant", {"streaming_agg": True, "wire_quant": "uint8"}),
+                    ("round_ring", {"mode": "ring"})):
         timings = []
         logged = tm.transfer_log.total_recorded
+        in0 = tm.get_stats()["receive_bytes"]
         fold.fold_fma_.launches = 0
+        ring0 = dict(RING_STATS)
         t0 = time.perf_counter()
         adapters = fl.run_fedavg_rounds(trainers, adapters, rounds=ROUNDS, compress_wire=True, packed_wire=True,
-                                        streaming_agg=True, timings=timings, **kw)
+                                        timings=timings, **kw)
         _sync(device)
         wall_s = time.perf_counter() - t0
         fold_launches = fold.fold_fma_.launches  # this party's float folds of the session
@@ -1295,10 +1321,12 @@ def _round_session(fed, party, cache, cfg_name, cfg_kw, train_len, device):
         out[key] = {
             "wall_s": wall_s,
             "fold_launches": fold_launches,
+            "ring_stats": {k: RING_STATS[k] - ring0[k] for k in RING_STATS},
             "timings": timings,
             "pushed": [r.nbytes for r in sent if r.direction == "send"],
             "digests": dict(zip(FED_PARTIES, digests)),
             "trainers": dict(zip(FED_PARTIES, trainer_reports)),
+            "ingress": stats["receive_bytes"] - in0,
             "delta": {k: stats[k] for k in ("delta_stream_frames", "delta_full_frames",
                                             "delta_logical_bytes", "delta_wire_bytes")},
         }
@@ -1404,17 +1432,19 @@ def _run_parties(cfg_name, cfg_kw, train_len, device):
     return _spawn_parties(_fed_party, (ports, cfg_name, cfg_kw, train_len, device), FED_TIMEOUT_S)
 
 
-def _spawn_parties(target, args, timeout_s):
-    """Spawn ``target(party, *args, out)`` for both parties; every one must
-    report and exit 0 within ``timeout_s``, or the phase fails (a hung party
-    is killed)."""
+def _spawn_parties(target, args, timeout_s, parties=FED_PARTIES, exit_codes=None):
+    """Spawn ``target(party, *args, out)`` for every party; each must put its
+    final report on ``out`` and exit with ``exit_codes.get(party, 0)`` within
+    ``timeout_s``, or the phase fails (a hung party is killed).  A message
+    with ``"progress": True`` is not final: it is kept in order under the
+    party's ``"progress"`` key."""
     ctx = mp.get_context("spawn")
     out = ctx.Queue()
     procs = {p: ctx.Process(target=target, name=f"party-{p}", args=(p, *args, out))
-             for p in FED_PARTIES}
+             for p in parties}
     for proc in procs.values():
         proc.start()
-    reports = {}
+    reports, progress = {}, {p: [] for p in parties}
     deadline = time.monotonic() + timeout_s
     try:
         while len(reports) < len(procs):  # drain the queue before joining
@@ -1428,6 +1458,9 @@ def _spawn_parties(target, args, timeout_s):
                 if gone:
                     raise RuntimeError(f"party {gone} exited {[procs[p].exitcode for p in gone]} "
                                        f"without a report")
+                continue
+            if r.get("progress"):
+                progress[r["party"]].append(r)
                 continue
             reports[r["party"]] = r
             if "error" in r:
@@ -1444,8 +1477,12 @@ def _spawn_parties(target, args, timeout_s):
     if errors:
         raise AssertionError("party failed:\n" + "\n".join(f"[{p}] {e}" for p, e in errors.items()))
     codes = {p: proc.exitcode for p, proc in procs.items()}
-    if any(codes.values()):
-        raise AssertionError(f"party exit codes {codes}")
+    want = {p: (exit_codes or {}).get(p, 0) for p in procs}
+    if codes != want:
+        raise AssertionError(f"party exit codes {codes}, want {want}")
+    for p, r in reports.items():
+        if progress[p]:
+            r["progress"] = progress[p]
     return reports
 
 
@@ -1500,6 +1537,7 @@ def _federated_summary(reports, want, wall):
     out["copies"] = c
     out["round"] = _round_summary(alice["round"], bob["round"], want)
     out["round_quant"] = _round_summary(alice["round_quant"], bob["round_quant"], want, quant=True)
+    out["round_ring"] = _ring_round_summary(alice["round_ring"], bob["round_ring"], want)
     return out
 
 
@@ -1547,6 +1585,43 @@ def _round_summary(a, b, want, quant=False):
     print(f"[{tag}] bob's pushed payloads per round: {[round(x / 1e6, 4) for x in pushed]} MB")
     if len(pushed) != ROUNDS or (quant and not pushed[-1] < 0.6 * pushed[0]):
         raise AssertionError(f"{tag}: bob's pushes {pushed}: want {ROUNDS}, the quantized ones under 0.6x bf16")
+    return {"launches": launches, "fold_launches": a["fold_launches"] + b["fold_launches"],
+            "wall_s": {"alice": a["wall_s"], "bob": b["wall_s"]}}
+
+
+def _ring_round_summary(a, b, want):
+    """Check both parties' reports of the ring session and print them: the
+    launches of every step, equal final adapters on the card, and the fold
+    kernel at both parties (each folds its own stripe)."""
+    tag = "round_ring"
+    for party, r in (("alice", a), ("bob", b)):
+        steps = r["trainers"][party]["steps"]
+        if len(steps) != ROUNDS or any(s["launches"] != want for s in steps):
+            raise AssertionError(f"{tag}: {party}'s steps launched {[s['launches'] for s in steps]}, want {want} x {ROUNDS}")
+    if a["digests"] != b["digests"] or a["digests"]["alice"] != a["digests"]["bob"]:
+        raise AssertionError(f"{tag}: the parties' final adapters differ: {a['digests']} vs {b['digests']}")
+    d = a["digests"]["alice"]
+    if not d["meta"] or any(m[2] != "cuda" for m in d["meta"]):
+        raise AssertionError(f"{tag}: final adapters not on the card: {d['meta']}")
+    launches = {k: 0 for k in want}
+    for party, r in (("alice", a), ("bob", b)):
+        t = r["trainers"][party]
+        for i, (step, rec) in enumerate(zip(t["steps"], r["timings"])):
+            print(f"[{tag}] {party} round {i}: local_s {rec['local_s']:.3f} push_s {rec['push_s']:.3f} "
+                  f"agg_s {rec['agg_s']:.3f}; step {step['step_ms']:.1f} ms loss {step['loss']:.6f} "
+                  f"launches {step['launches']}")
+            for k in launches:
+                launches[k] += step["launches"][k]
+        print(f"[{tag}] {party}: {ROUNDS} rounds in {r['wall_s']:.2f} s wall, ingress "
+              f"{r['ingress'] / 1e6:.3f} MB, pushed {[round(x / 1e6, 4) for x in r['pushed']]} MB, "
+              f"fold_fma launches {r['fold_launches']}, ring {r['ring_stats']}")
+        if not r["fold_launches"]:
+            raise AssertionError(f"{tag}: {party}'s stripe folds never launched the fold kernel")
+        # Every round completed as a ring, none through the coordinator fallback.
+        if r["ring_stats"] != {"rounds_completed": ROUNDS, "rounds_aborted": 0, "fallback_rounds": 0}:
+            raise AssertionError(f"{tag}: {party}'s ring counters {r['ring_stats']}, want {ROUNDS} completed")
+    print(f"[{tag}] final adapters sha256 {d['sha256'][:16]} on both parties; launches over both "
+          f"parties' steps {launches}")
     return {"launches": launches, "fold_launches": a["fold_launches"] + b["fold_launches"],
             "wall_s": {"alice": a["wall_s"], "bob": b["wall_s"]}}
 
@@ -1728,6 +1803,295 @@ def _split_summary(reports, cfg, wall):
     return out
 
 
+# -- the topologies: BASELINE config #3, four parties, hub / ring / quorum ---
+
+TOPO_PARTIES = ("alice", "bob", "carol", "dave")
+TOPO_TIMEOUT_S = 300  # hard limit on the topology phase's party processes
+TOPO_ROUNDS, TOPO_QUANT_ROUNDS = 3, 2
+RESNET_N, RESNET_HW, RESNET_LR = 32, 32, 0.05  # a CIFAR-10-shaped shard per party
+RING_INGRESS_MAX = 0.4  # alice's share of cluster ingress in a ring round
+QUANT_BYTES_MAX = 0.6  # a quantized ring round's bytes against a bf16 ring round's
+QUORUM_K, QUORUM_DEADLINE_S = 2, 3.0
+CRASH_EXIT = 3  # the exit code of a party the chaos schedule crashes
+# The seeded chaos schedule of the quorum part: carol straggles 8 s in
+# round 1, dave crashes at round 1, and the coordinator alice crashes after
+# round 2's cutoff, before anyone has heard its result.
+TOPO_CHAOS = {"seed": 11, "rules": [
+    {"hook": "round", "party": "carol", "match": {"round": 1}, "op": "delay_ms", "value": 8000},
+    {"hook": "round", "party": "dave", "match": {"round": 1}, "op": "crash_party"},
+    {"hook": "announce", "party": "alice", "match": {"round": 2}, "op": "crash_party"},
+]}
+TOPO_INIT = dict(
+    cross_silo_retry_policy={"maxAttempts": 30, "initialBackoff": "0.2s", "maxBackoff": "1s"},
+    enable_waiting_for_other_parties_ready=True,
+)
+# Death is declared after two missed pings 0.5 s apart, well inside a
+# round's deadline.
+QUORUM_INIT = dict(
+    cross_silo_retry_policy={"maxAttempts": 2, "initialBackoff": "0.2s", "maxBackoff": "0.5s"},
+    enable_waiting_for_other_parties_ready=True, peer_health_interval_in_seconds=0.5,
+    peer_death_pings=2, cross_silo_timeout_in_seconds=15, recv_backstop_in_seconds=60,
+)
+
+
+class _ResNetTrainer:
+    """A party's trainer of BASELINE config #3: ResNet-18 (10 classes), one
+    SGD step per round on its own synthetic CIFAR-10-shaped shard — normal
+    images from the party's seed, labels from a fixed random probe of their
+    mean colour."""
+
+    def __init__(self, seed, device):
+        from rayfed_tpu_torch.models import resnet
+
+        gen = torch.Generator().manual_seed(seed)
+        x = torch.randn(RESNET_N, RESNET_HW, RESNET_HW, 3, generator=gen)
+        probe = torch.randn(3, 10, generator=torch.Generator().manual_seed(0))
+        self.x, self.y = x.to(device), torch.argmax(x.mean(dim=(1, 2)) @ probe, dim=-1).to(device)
+        self.step = resnet.make_fed_train_step(resnet.resnet18(num_classes=10), lr=RESNET_LR)
+        self.losses = []
+
+    def train(self, bundle):
+        out, loss = self.step(bundle, self.x, self.y)
+        self.losses.append(float(loss))
+        return out
+
+    def report(self):
+        losses, self.losses = self.losses, []
+        return losses
+
+
+def _topo_part(fed, party, trainers, params, rounds, kw):
+    """One part of the topology phase: ``rounds`` rounds from ``params``.
+    Returns the final params and this party's report: the round walls and
+    timings, the bytes it sent and received per round and received in all,
+    its fold and flash launches, its ring round counters and the final
+    params' fingerprint."""
+    from rayfed_tpu_torch.fl.ring import RING_STATS
+    from rayfed_tpu_torch.runtime import get_runtime
+
+    tm = get_runtime().transport
+    barrier = fed.remote(lambda: 0)
+    fed.get([barrier.party(p).remote() for p in TOPO_PARTIES])
+
+    def mark():
+        stats = tm.get_stats()
+        return time.perf_counter(), stats["send_bytes"], stats["receive_bytes"]
+
+    marks, ring0 = [mark()], dict(RING_STATS)
+    in0 = marks[0][2]
+
+    def on_round(r, _params):
+        marks.append(mark())
+
+    timings = []
+    fold.fold_fma_.launches = 0
+    _zero_counts()
+    final = fl.run_fedavg_rounds(trainers, params, rounds=rounds, compress_wire=True, packed_wire=True,
+                                 timings=timings, on_round=on_round, **kw)
+    fold_launches, flash_launches = fold.fold_fma_.launches, _counts()
+    fed.get([barrier.party(p).remote() for p in TOPO_PARTIES])
+    return final, {
+        "round_s": [b[0] - a[0] for a, b in zip(marks, marks[1:])],
+        "sent": [b[1] - a[1] for a, b in zip(marks, marks[1:])],
+        "received": [b[2] - a[2] for a, b in zip(marks, marks[1:])],
+        "ingress": tm.get_stats()["receive_bytes"] - in0,
+        "timings": timings,
+        "fold_launches": fold_launches,
+        "flash_launches": flash_launches,
+        "ring_stats": {k: RING_STATS[k] - ring0[k] for k in RING_STATS},
+        "losses": fed.get([trainers[p].report.remote() for p in TOPO_PARTIES])[TOPO_PARTIES.index(party)],
+        "digest": _leaf_digest(final),
+    }
+
+
+def _topo_party(party, ports, device, out):
+    """A party process of the topology phase: the hub, ring and quantized
+    ring parts in one runtime, then the quorum part under the chaos
+    schedule in a second one.  A party the schedule crashes reports and
+    exits with CRASH_EXIT."""
+    # Deterministic convolutions and GEMMs: the hub and the ring parts must
+    # train the same bytes from the same inputs.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    import rayfed_tpu_torch as fed
+    from rayfed_tpu_torch import chaos
+    from rayfed_tpu_torch.fl import quorum as fq
+    from rayfed_tpu_torch.models import resnet
+    from rayfed_tpu_torch.runtime import get_runtime
+
+    try:
+        cluster = {p: {"address": f"127.0.0.1:{port}"} for p, port in zip(TOPO_PARTIES, ports["rounds"])}
+        dev = fed.init(address="local", cluster=cluster, party=party, device=device, **TOPO_INIT).transport.device
+        params0 = resnet.init_resnet(torch.Generator().manual_seed(SEED), resnet.resnet18(num_classes=10),
+                                     device=dev)
+        trainers = {p: fed.remote(_ResNetTrainer).party(p).remote(SEED + 1 + i, dev)
+                    for i, p in enumerate(TOPO_PARTIES)}
+        report = {"party": party, "parts": {}}
+        report["elements"] = fl.pack_tree(params0, torch.bfloat16).buf.numel()
+        _, report["parts"]["hub"] = _topo_part(fed, party, trainers, params0, TOPO_ROUNDS, {"streaming_agg": True})
+        final, report["parts"]["ring"] = _topo_part(fed, party, trainers, params0, TOPO_ROUNDS, {"mode": "ring"})
+        _, report["parts"]["ring_quant"] = _topo_part(fed, party, trainers, final, TOPO_QUANT_ROUNDS,
+                                                      {"mode": "ring", "wire_quant": "uint8"})
+        fed.shutdown()
+        out.put({"party": party, "progress": True, **report})
+
+        chaos.install(TOPO_CHAOS)
+        cluster = {p: {"address": f"127.0.0.1:{port}"} for p, port in zip(TOPO_PARTIES, ports["quorum"])}
+        fed.init(address="local", cluster=cluster, party=party, device=device, **QUORUM_INIT)
+        trainers = {p: fed.remote(_ResNetTrainer).party(p).remote(SEED + 1 + i, dev)
+                    for i, p in enumerate(TOPO_PARTIES)}
+        tm, log, timings, marks = get_runtime().transport, [], [], [time.perf_counter()]
+
+        def on_round(r, _params):
+            marks.append(time.perf_counter())
+            out.put({"party": party, "progress": True, "quorum_round": r,
+                     "fold_launches": fold.fold_fma_.launches})
+
+        fold.fold_fma_.launches = 0
+        _zero_counts()
+        in0 = tm.get_stats()["receive_bytes"]
+        try:
+            final = fl.run_fedavg_rounds(
+                trainers, params0, rounds=TOPO_ROUNDS, compress_wire=True, packed_wire=True,
+                quorum=QUORUM_K, round_deadline_s=QUORUM_DEADLINE_S, coordinator="alice",
+                round_log=log, timings=timings, on_round=on_round,
+            )
+        except chaos.ChaosPartyCrash:
+            # A crash as the schedule means it: sockets die, no goodbyes.
+            out.put({"party": party, "crashed": True, "fold_launches": fold.fold_fma_.launches,
+                     "flash_launches": _counts()})
+            out.close()
+            out.join_thread()
+            os._exit(CRASH_EXIT)
+        out.put({"party": party, "crashed": False, "log": log, "timings": timings,
+                 "round_s": [b - a for a, b in zip(marks, marks[1:])],
+                 "epoch": tm.roster.snapshot()[0], "stats": dict(fq.QUORUM_STATS),
+                 "metrics": fed.metrics_snapshot()["quorum"], "ingress": tm.get_stats()["receive_bytes"] - in0,
+                 "fold_launches": fold.fold_fma_.launches, "flash_launches": _counts(),
+                 "digest": _leaf_digest(final)})
+        fed.shutdown()
+    except BaseException:
+        out.put({"party": party, "error": traceback.format_exc()})
+        raise
+
+
+def phase_topologies():
+    """BASELINE config #3 on the one card: four party processes train
+    ResNet-18 on CIFAR-10-shaped shards and average over the hub, the ring
+    and the quantized ring, then run quorum rounds through a straggler, a
+    crash and a coordinator crash."""
+    torch.cuda.empty_cache()
+    ports = {k: _free_ports(len(TOPO_PARTIES)) for k in ("rounds", "quorum")}
+    t0 = time.perf_counter()
+    reports = _spawn_parties(_topo_party, (ports, None), TOPO_TIMEOUT_S, parties=TOPO_PARTIES,
+                             exit_codes={"alice": CRASH_EXIT, "dave": CRASH_EXIT})
+    return _topology_summary(reports, time.perf_counter() - t0)
+
+
+def _topology_summary(reports, wall):
+    """Check the four parties' reports of the topology phase and print them."""
+    parts = {p: r["progress"][0]["parts"] for p, r in reports.items()}
+    n_elems = reports["alice"]["progress"][0]["elements"]
+    print(f"[topo] ResNet-18 (10 classes): {n_elems} packed elements, {n_elems * 2 / 1e6:.2f} MB bf16; "
+          f"{len(TOPO_PARTIES)} parties, {RESNET_N} images of {RESNET_HW}x{RESNET_HW}x3 each per round")
+    out = {"wall_s": wall, "fold_launches": {}, "flash_launches": {}}
+    for name in ("hub", "ring", "ring_quant"):
+        rep = {p: parts[p][name] for p in TOPO_PARTIES}
+        digests = {p: r["digest"]["sha256"] for p, r in rep.items()}
+        if len(set(digests.values())) != 1:
+            raise AssertionError(f"[topo {name}] the parties' final params differ: {digests}")
+        total_in = sum(r["ingress"] for r in rep.values())
+        n_rounds = len(rep["alice"]["sent"])
+        # Every ring round completed as a ring: an aborted one would have
+        # been rerun through the coordinator with the same bytes.
+        want_ring = {"rounds_completed": n_rounds if name != "hub" else 0, "rounds_aborted": 0,
+                     "fallback_rounds": 0}
+        for p, r in rep.items():
+            for i, rec in enumerate(r["timings"]):
+                print(f"[topo {name}] {p} round {i}: wall {r['round_s'][i]:.3f} s, local_s {rec['local_s']:.3f} "
+                      f"push_s {rec['push_s']:.3f} agg_s {rec['agg_s']:.3f}, sent {r['sent'][i] / 1e6:.3f} MB, "
+                      f"received {r['received'][i] / 1e6:.3f} MB")
+            print(f"[topo {name}] {p}: ingress {r['ingress'] / 1e6:.3f} MB ({r['ingress'] / total_in:.3f} of "
+                  f"the cluster's), fold_fma launches {r['fold_launches']}, flash launches {r['flash_launches']}, "
+                  f"ring {r['ring_stats']}, losses {r['losses']}")
+            if r["ring_stats"] != want_ring:
+                raise AssertionError(f"[topo {name}] {p}'s ring counters {r['ring_stats']}, want {want_ring}")
+        out[name] = {"ingress_share": {p: r["ingress"] / total_in for p, r in rep.items()},
+                     "round_share": [{p: r["received"][i] / sum(q["received"][i] for q in rep.values())
+                                      for p, r in rep.items()} for i in range(n_rounds)],
+                     "sent_per_round": [sum(r["sent"][i] for r in rep.values()) for i in range(n_rounds)],
+                     "round_s": rep["alice"]["round_s"], "digest": digests["alice"]}
+        out["fold_launches"][name] = sum(r["fold_launches"] for r in rep.values())
+        out["flash_launches"][name] = {k: sum(r["flash_launches"][k] for r in rep.values())
+                                       for k in rep["alice"]["flash_launches"]}
+    hub, ring, quant = out["hub"], out["ring"], out["ring_quant"]
+    if ring["digest"] != hub["digest"]:
+        raise AssertionError(f"[topo] the ring's final params {ring['digest'][:16]} differ from the hub's "
+                             f"{hub['digest'][:16]}")
+    share = ring["ingress_share"]["alice"]
+    print(f"[topo] alice's share of cluster ingress: ring {share:.3f}, hub {hub['ingress_share']['alice']:.3f}")
+    if share > RING_INGRESS_MAX:
+        raise AssertionError(f"[topo] alice received {share:.3f} of the ring's cluster ingress (> {RING_INGRESS_MAX})")
+    bf16_round = sum(ring["sent_per_round"]) / len(ring["sent_per_round"])
+    q_round = quant["sent_per_round"][-1]  # the first quantized round has no grid yet and ships bf16
+    print(f"[topo] cluster bytes per ring round: bf16 {bf16_round / 1e6:.3f} MB, uint8 {q_round / 1e6:.3f} MB "
+          f"({q_round / bf16_round:.3f})")
+    if not q_round < QUANT_BYTES_MAX * bf16_round:
+        raise AssertionError(f"[topo] the quantized ring round sent {q_round} B, not < {QUANT_BYTES_MAX} x {bf16_round}")
+    q_share = quant["round_share"][-1]["alice"]
+    print(f"[topo] alice's share of cluster ingress in the uint8 ring round: {q_share:.3f}")
+    if q_share > RING_INGRESS_MAX:
+        raise AssertionError(f"[topo] alice received {q_share:.3f} of the uint8 ring round's cluster ingress "
+                             f"(> {RING_INGRESS_MAX})")
+    for p in TOPO_PARTIES:
+        if not parts[p]["ring"]["fold_launches"]:
+            raise AssertionError(f"[topo ring] {p}'s stripe folds never launched the fold kernel")
+
+    # The quorum part: bob and carol survive; alice and dave crashed.
+    crashed = sorted(p for p, r in reports.items() if r.get("crashed"))
+    if crashed != ["alice", "dave"]:
+        raise AssertionError(f"[topo quorum] crashed parties {crashed}, want alice and dave")
+    bob, carol = reports["bob"], reports["carol"]
+    if bob["digest"] != carol["digest"]:
+        raise AssertionError("[topo quorum] bob's and carol's final params differ")
+    log = bob["log"]
+    if len(log) != TOPO_ROUNDS or carol["log"] != log:
+        raise AssertionError(f"[topo quorum] round logs: bob {bob['log']}, carol {carol['log']}")
+    if not set(log[1]["members"]) < set(log[1]["active"]):
+        raise AssertionError(f"[topo quorum] round 1 aggregated {log[1]['members']} of {log[1]['active']}")
+    for p, r in (("bob", bob), ("carol", carol)):
+        if r["epoch"] < 2 or r["stats"]["coordinator_failovers"] < 1 or r["metrics"] != r["stats"]:
+            raise AssertionError(f"[topo quorum] {p}: epoch {r['epoch']}, stats {r['stats']}, metrics {r['metrics']}")
+        for i, rec in enumerate(r["timings"]):
+            e = log[i]
+            print(f"[topo quorum] {p} round {i}: wall {r['round_s'][i]:.3f} s, local_s {rec['local_s']:.3f} "
+                  f"agg_s {rec['agg_s']:.3f}; epoch {e['epoch']}, coordinator {e['coordinator']}, "
+                  f"members {e['members']} of {e['active']}")
+        print(f"[topo quorum] {p}: roster epoch {r['epoch']}, {r['stats']}, ingress {r['ingress'] / 1e6:.3f} MB, "
+              f"fold_fma launches {r['fold_launches']}")
+    # Every coordinator folded on the card: alice in rounds 0 and 1 (her
+    # last report before the crash), bob in round 2.
+    alice_folds = max([m["fold_launches"] for m in reports["alice"].get("progress", []) if "quorum_round" in m] or [0])
+    if not alice_folds or not bob["fold_launches"]:
+        raise AssertionError(f"[topo quorum] fold launches: alice {alice_folds}, bob {bob['fold_launches']}")
+    print(f"[topo quorum] fold_fma launches: alice {alice_folds} (rounds 0-1), bob {bob['fold_launches']}; "
+          f"final sha256 {bob['digest']['sha256'][:16]} on bob and carol")
+    out["fold_launches"]["quorum"] = alice_folds + bob["fold_launches"] + carol["fold_launches"]
+    # Every party's flash launches, the crashed parties' up to their crash.
+    out["flash_launches"]["quorum"] = {k: sum(r["flash_launches"][k] for r in reports.values())
+                                       for k in bob["flash_launches"]}
+    # ResNet-18 has no attention: the flash kernels launch nowhere here.
+    flash = {name: c for name, c in out["flash_launches"].items() if any(c.values())}
+    print(f"[topo] flash launches over all parties: {out['flash_launches']}")
+    if flash:
+        raise AssertionError(f"[topo] ResNet-18 rounds launched flash kernels: {flash}")
+    out["quorum"] = {"log": log, "round_s": bob["round_s"], "epoch": bob["epoch"]}
+    print(f"[topo] four parties, all parts in {wall:.1f} s, party processes included")
+    return out
+
+
 def _named_leaves(tree, prefix=""):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -1866,6 +2230,10 @@ def main() -> int:
     quant_fold = federated["round_quant"]["fold_launches"]
     split = phase_split()
     split_launches = split["launches"]
+    topo = phase_topologies()
+    topo_fold, topo_flash = topo["fold_launches"], topo["flash_launches"]
+    ring_launches = federated["round_ring"]["launches"]
+    ring_fold = federated["round_ring"]["fold_launches"]
     phase_split_grads(gen)
     phase_hf(gen)
     times, train_times = phase_times(gen, card)
@@ -1893,7 +2261,10 @@ def main() -> int:
                              "serve_int8": serve_int8["launches"],
                              "train_int8": train_int8["launches"]["fwd"],
                              "round_quant": quant_launches["fwd"],
-                             "split": split_launches["fwd"]},
+                             "split": split_launches["fwd"],
+                             "round_ring": ring_launches["fwd"],
+                             "ring_resnet": topo_flash["ring"]["fwd"] + topo_flash["ring_quant"]["fwd"],
+                             "quorum_resnet": topo_flash["quorum"]["fwd"]},
         "bert_shape": bert_times["fwd"],  # bert_base's attention on the split path
         "max_abs_err": slice_err,
         **times,
@@ -1909,7 +2280,10 @@ def main() -> int:
                              "round": round_launches["bwd_dq"],
                              "serve_int8": 0, "train_int8": train_int8["launches"]["bwd_dq"],
                              "round_quant": quant_launches["bwd_dq"],
-                             "split": split_launches["bwd_dq"]},
+                             "split": split_launches["bwd_dq"],
+                             "round_ring": ring_launches["bwd_dq"],
+                             "ring_resnet": topo_flash["ring"]["bwd_dq"] + topo_flash["ring_quant"]["bwd_dq"],
+                             "quorum_resnet": topo_flash["quorum"]["bwd_dq"]},
         "bert_shape": bert_times["dq"],  # bert_base's attention on the split path
         "max_abs_err": bwd_err["dq"],
         **bwd_times["dq"],
@@ -1924,7 +2298,10 @@ def main() -> int:
                              "round": round_launches["bwd_dkv"],
                              "serve_int8": 0, "train_int8": train_int8["launches"]["bwd_dkv"],
                              "round_quant": quant_launches["bwd_dkv"],
-                             "split": split_launches["bwd_dkv"]},
+                             "split": split_launches["bwd_dkv"],
+                             "round_ring": ring_launches["bwd_dkv"],
+                             "ring_resnet": topo_flash["ring"]["bwd_dkv"] + topo_flash["ring_quant"]["bwd_dkv"],
+                             "quorum_resnet": topo_flash["quorum"]["bwd_dkv"]},
         "bert_shape": bert_times["dkv"],  # bert_base's attention on the split path
         "max_abs_err": bwd_err["dkv"],
         **bwd_times["dkv"],
@@ -1938,7 +2315,13 @@ def main() -> int:
         "replaces": "rayfed_tpu/fl/streaming.py:63",
         "launches": round_fold,
         "launches_by_path": {"serve": 0, "train": 0, "federated": 0, "round": round_fold,
-                             "serve_int8": 0, "train_int8": 0, "round_quant": quant_fold, "split": 0},
+                             "serve_int8": 0, "train_int8": 0, "round_quant": quant_fold, "split": 0,
+                             "round_ring": ring_fold,
+                             # every party's folds: the 4 stripe owners of the ring
+                             # (bf16 and the quantized ring's bootstrap round), the
+                             # quorum coordinators (alice, then bob after the failover)
+                             "ring_resnet": topo_fold["ring"] + topo_fold["ring_quant"],
+                             "quorum_resnet": topo_fold["quorum"]},
         **fold_times["adapters"],  # one contribution of the round's packed adapters
         "wq_shape": fold_times["wq"],
     }]

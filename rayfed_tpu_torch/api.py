@@ -6,9 +6,10 @@ Runtime (executor + transport proxies + cleanup watchdog) instead of a Ray
 cluster; config lives on the Runtime rather than a GCS KV; ``@remote``
 tasks run torch callables on the party's CUDA card.
 
-The JAX package's mesh, multi-host and elastic-membership options raise
-``NotImplementedError`` here until their slices are ported (ROADMAP.md,
-Queue A items 7 and 10).
+The JAX package's mesh and multi-host options raise ``NotImplementedError``
+here until their slice is ported (ROADMAP.md, Queue A item 10).  Elastic
+membership (``join``/``leave``) rides the quorum rounds of
+:mod:`rayfed_tpu_torch.fl.quorum`.
 """
 
 from __future__ import annotations
@@ -403,21 +404,29 @@ def metrics_snapshot() -> Dict[str, Any]:
 
 def join(coordinator: Optional[str] = None,
          timeout: Optional[float] = None) -> dict:
-    """(Re)join an in-progress quorum run.  Elastic membership
-    (``fl.quorum``) is not ported yet (ROADMAP.md, Queue A item 7)."""
-    raise NotImplementedError(
-        "fed.join: elastic membership is not ported yet (ROADMAP.md, "
-        "Queue A item 7)"
-    )
+    """(Re)join an in-progress quorum run — elastic membership's entry door.
+    Sends a join request to the run's coordinator and parks until its next
+    round boundary returns the **welcome ticket** (round index, session,
+    roster epoch — applied to this runtime before returning — the current
+    coordinator and the current global model).  Pass the ticket to
+    ``fl.run_fedavg_rounds(..., quorum=k, join_ticket=ticket)`` to enter the
+    loop; no other party restarts anything.  ``coordinator`` must name the
+    run's current coordinator.  See :mod:`rayfed_tpu_torch.fl.quorum`."""
+    from rayfed_tpu_torch.fl.quorum import join_cluster
+
+    return join_cluster(coordinator=coordinator, timeout=timeout)
 
 
 def leave() -> None:
-    """Gracefully leave an in-progress quorum run.  Elastic membership
-    (``fl.quorum``) is not ported yet (ROADMAP.md, Queue A item 7)."""
-    raise NotImplementedError(
-        "fed.leave: elastic membership is not ported yet (ROADMAP.md, "
-        "Queue A item 7)"
-    )
+    """Gracefully leave an in-progress quorum run at the next round
+    boundary: the coordinator announces the departure (roster epoch
+    advance) and this party's ``run_fedavg_rounds`` returns the last
+    broadcast model once the roster drops it.  A leaving coordinator
+    completes its round and hands the lease to the announced successor.
+    See :mod:`rayfed_tpu_torch.fl.quorum`."""
+    from rayfed_tpu_torch.fl.quorum import request_leave
+
+    request_leave()
 
 
 def shutdown() -> None:

@@ -12,13 +12,18 @@ what is ported:
   grid, :class:`QuantizedPackedTree` (byte-compatible with the JAX
   package's) and the error-feedback compressor.
 - :mod:`streaming` — the streaming on-card fold and
-  :func:`streaming_aggregate`.
+  :func:`streaming_aggregate`, its quorum cutoff and the ring's
+  :class:`StripeAggregator`.
+- :mod:`ring` — :func:`ring_aggregate`, the chunk-striped ring round.
+- :mod:`quorum` — k-of-n rounds, elastic membership and coordinator
+  failover (``run_fedavg_rounds(quorum=...)``, ``fed.join``/``fed.leave``).
+- :mod:`overlap` — :func:`dga_correct`, the late fold of a straggler.
 - :mod:`fedopt` — the legacy server optimizers and FedProx.
 - :mod:`trainer` — :func:`run_fedavg_rounds`, the round loop.
 - :mod:`split` — :class:`SplitTrainer`, split (vertical) learning across
   two parties.
 
-The ring, quorum, hierarchy, overlapped and
+The hierarchy, the pipelined (overlapped) and the
 asynchronous rounds, secure aggregation, the packed server optimizers,
 differential privacy and robust reducers are later items of ROADMAP.md's
 Queue A.
@@ -56,7 +61,10 @@ from rayfed_tpu_torch.fl.quantize import (
     make_round_grid,
     quantize_packed,
 )
-from rayfed_tpu_torch.fl.streaming import StreamingAggregator, streaming_aggregate
+from rayfed_tpu_torch.fl.overlap import dga_correct
+from rayfed_tpu_torch.fl.quorum import QuorumRoundError, quorum_aggregate, run_quorum_rounds
+from rayfed_tpu_torch.fl.ring import RingRoundError, ring_aggregate
+from rayfed_tpu_torch.fl.streaming import StreamingAggregator, StripeAggregator, streaming_aggregate
 from rayfed_tpu_torch.fl.split import SplitTrainer
 from rayfed_tpu_torch.fl.trainer import run_fedavg_rounds, validate_round_config
 
@@ -72,6 +80,13 @@ __all__ = [
     "quantize_packed",
     "streaming_aggregate",
     "StreamingAggregator",
+    "StripeAggregator",
+    "ring_aggregate",
+    "RingRoundError",
+    "QuorumRoundError",
+    "quorum_aggregate",
+    "run_quorum_rounds",
+    "dga_correct",
     "ErrorFeedback",
     "FedAvgActorBase",
     "tree_average",

@@ -4,11 +4,11 @@ Multi-controller semantics (every party runs the same line): each party
 contributes its local update as a ``FedObject``; :func:`aggregate` fetches
 the contributions and averages them.  Packed contributions
 (:class:`~rayfed_tpu_torch.fl.compression.PackedTree`) reduce as one chain
-over the packed buffers on their device: zero-init, then per party one
-multiply and one add in f32, then one divide and one cast.  Those are
-separate elementwise kernels, never a fused multiply-add, so the streamed
-fold (:mod:`rayfed_tpu_torch.fl.streaming`) and this one-shot fold give the
-same bytes, on the CPU and on the card, as the JAX package's.
+over the packed buffers on their device, as XLA compiles the JAX package's
+on the CPU: ``fma(w0, x0, w1·x1)``, then one exactly rounded fused
+multiply-add per further party, then one divide and one cast (the fold
+kernel on the card, :mod:`rayfed_tpu_torch.ops.fold`), so this one-shot fold
+gives the JAX package's one-shot bytes on the CPU and on the card.
 
 Integer-code contributions (:class:`~rayfed_tpu_torch.fl.quantize.
 QuantizedPackedTree`, the compressed-domain round) fold in i32: per party an
@@ -28,6 +28,7 @@ import torch
 from rayfed_tpu_torch import tree_util
 from rayfed_tpu_torch.fl import compression
 from rayfed_tpu_torch.fl.compression import PackedTree, PackSpec
+from rayfed_tpu_torch.ops import xla_cpu
 from rayfed_tpu_torch.ops.fold import fold_fma_, fold_fma_pair
 
 # Elements per block of the canonical chunk grid: one 4 MB bf16 wire chunk.
@@ -338,9 +339,13 @@ def finalize_packed_quantized(
                 f"{total_elems}"
             )
     w = f32_scalar(total_w, device)
-    a = acc.reshape(-1, int(chunk_elems)).to(torch.float32)
-    x = _f32_on(scales, device)[:, None] * (a - _f32_on(zps, device)[:, None] * w)
-    x = x.reshape(-1)[: int(total_elems)] / w
+    n, ce = int(total_elems), int(chunk_elems)
+    a = acc.reshape(-1, ce).to(torch.float32)
+    zp = _f32_on(zps, device)[:, None]
+    # An f32 output's a − zp·W as XLA compiles it (fused in its scalar tail).
+    inner = xla_cpu.sub_scaled(a, zp, w, n) if compression.dtype_name(out_dtype) == "float32" else a - zp * w
+    x = _f32_on(scales, device)[:, None] * inner
+    x = x.reshape(-1)[:n] / w
     if ref is not None:
         # Delta-coded rounds: the codes summed to W·(mean delta); the
         # shared reference adds back AFTER the divide.

@@ -8,15 +8,14 @@ the transport surfaces payload bytes **as they land**
 buffer to its device and folds it into an f32 accumulator there while later
 chunks are still on the wire.
 
-Each block folds as two elementwise kernels — the product ``w * x`` in f32,
-then an in-place add into the accumulator's slice — never one fused
-multiply-add, whose single rounding would differ.  Blocks fold in **party
-order per block** (party ``i``'s block ``b`` only after parties
+Each block folds as one exactly rounded fused multiply-add per element,
+``acc = fma(w, f32(x), acc)`` from a zeroed accumulator — the program XLA
+compiles the JAX package's ``_accum_kernel`` into on the CPU: on the card
+the fold kernel ``ops/csrc/fold_fma.cu`` (``__fmaf_rn``), on the CPU its
+plain version (:func:`rayfed_tpu_torch.ops.fold.fma`).  Blocks fold in
+**party order per block** (party ``i``'s block ``b`` only after parties
 ``0..i-1`` folded theirs), so arrival order only affects scheduling: the
-streamed aggregate is byte-identical to the one-shot reduce
-(:func:`rayfed_tpu_torch.fl.fedavg.packed_weighted_sum`) and to the JAX
-package's, which perform the same zero-init → per-party multiply then add →
-final divide and cast.
+streamed aggregate is byte-identical to the JAX package's streamed fold.
 
 In compressed-domain mode (``quant=``, the round's
 :class:`~rayfed_tpu_torch.fl.quantize.QuantGrid`) the contributions are
@@ -25,15 +24,22 @@ integer codes: each block folds into an i32 accumulator as an in-place
 wire contribution's grid is checked against the round's before the one
 rescale (:func:`~rayfed_tpu_torch.fl.fedavg.finalize_packed_quantized`).
 
+Quorum (k-of-n) mode (``quorum=``, :mod:`rayfed_tpu_torch.fl.quorum`): once
+``result(deadline_s=)``'s deadline passes, or the missing contributions
+provably cannot arrive, with at least ``quorum`` complete, the worker pins
+the arrived set, reweights to its Σw, zeroes the accumulator and refolds the
+retained payloads: the result equals the fold over that subset, byte for
+byte.  :class:`StripeAggregator` folds one stripe of the chunk grid for the
+ring (:mod:`rayfed_tpu_torch.fl.ring`) through the same fold.
+
 On the card the fold runs on a stream of the aggregator's own; the result
 is fenced onto the device's default stream before it is handed on
 (:func:`~rayfed_tpu_torch.utils.platform.fence_for_handoff`), so the
 transport's device→host copy of the broadcast sees finished bytes.
 
-Not ported yet, each raising ``NotImplementedError``: quorum rounds and
-region partial sums (``quorum=``, ``presummed=``; ROADMAP.md Queue A item
-7), and secure aggregation (``masked=``, ``mask_recovery=``, ``secagg=``;
-item 8).  ``StripeAggregator`` comes with the ring (item 7).
+Not ported yet, each raising ``NotImplementedError``: region partial sums
+(``presummed=``; ROADMAP.md Queue A item 7, with the hierarchy) and secure
+aggregation (``masked=``, ``mask_recovery=``, ``secagg=``; item 8).
 
 ``streaming_aggregate`` is the multi-controller entry point: every party
 calls it at the same program point with the same arguments; contributions
@@ -70,7 +76,6 @@ _NOTIFY_BYTES = 512 * 1024
 STREAM_AGG_SEQ_IDS = 2
 
 _UNPORTED = {
-    "quorum": "quorum rounds (ROADMAP.md, Queue A item 7)",
     "presummed": "hierarchical partial sums (ROADMAP.md, Queue A item 7)",
     "masked": "secure aggregation (ROADMAP.md, Queue A item 8)",
     "mask_recovery": "secure aggregation (ROADMAP.md, Queue A item 8)",
@@ -99,7 +104,7 @@ class _Stream:
     __slots__ = (
         "payload", "avail_bytes", "complete", "local_tree", "elems",
         "ready", "data_start", "data_nbytes", "dtype", "itemsize",
-        "applied_blocks", "t_complete", "notified_bytes",
+        "applied_blocks", "t_complete", "notified_bytes", "error", "manifest",
     )
 
     def __init__(self) -> None:
@@ -116,6 +121,8 @@ class _Stream:
         self.applied_blocks = 0
         self.t_complete = 0.0
         self.notified_bytes = 0
+        self.error: Optional[BaseException] = None  # quorum mode: a failed source
+        self.manifest: Optional[Dict[str, Any]] = None  # the payload's, once parsed
 
 
 class _StreamSink:
@@ -155,6 +162,10 @@ class StreamingAggregator:
     card; ``"cpu"`` only when asked) and one block per contribution at a
     time, never a list of decoded trees.  On a CUDA device the fold runs
     there or raises: it never carries on on the host.
+
+    ``quorum``: k-of-n mode — see the module docstring and
+    :meth:`result`'s ``deadline_s``.  ``labels`` name the sources in errors
+    and in ``stats["quorum_failed_sources"]``.
     """
 
     def __init__(
@@ -174,12 +185,12 @@ class StreamingAggregator:
         party: Optional[str] = None,
         device: Any = None,
     ) -> None:
-        _refuse_unported(
-            quorum=quorum, presummed=presummed, masked=masked, mask_recovery=mask_recovery,
-        )
+        _refuse_unported(presummed=presummed, masked=masked, mask_recovery=mask_recovery)
         if n_sources < 1:
             raise ValueError("streaming aggregation needs >= 1 source")
         self._party = None if party is None else str(party)
+        if quorum is not None and not 1 <= int(quorum) <= n_sources:
+            raise ValueError(f"quorum must be in [1, {n_sources}], got {quorum}")
         if labels is not None and len(labels) != n_sources:
             raise ValueError(f"{len(labels)} labels for {n_sources} sources")
         if weights is not None:
@@ -199,8 +210,11 @@ class StreamingAggregator:
         self._device = resolve_device(device)
         # Compressed-domain mode: the round's grid; delta-coded rounds also
         # hold the shared reference buffer (flat f32 on this device) the
-        # finalize adds back.
+        # finalize adds back.  A StripeAggregator folds a block subset of
+        # the grid and gets its stripe's slice of the reference; the base
+        # class checks the full buffer's element count.
         self._quant = quant
+        self._quant_full = True
         self._int_weights: Optional[List[int]] = None
         self._quant_ref: Optional[torch.Tensor] = None
         if quant is not None:
@@ -236,11 +250,20 @@ class StreamingAggregator:
         )
         self._n = n_sources
         self._streams = [_Stream() for _ in range(n_sources)]
+        self._quorum = None if quorum is None else int(quorum)
         self._labels = (
             [str(x) for x in labels]
             if labels is not None
             else [f"source {i}" for i in range(n_sources)]
         )
+        # Sorted indices of the contributions aggregated; None until a
+        # quorum cutoff excludes someone.
+        self._participating: Optional[List[int]] = None
+        self._deadline_at: Optional[float] = None  # monotonic cutoff time
+        # Set by a transport thread that needs the fold rolled back (a
+        # corrupt mid-fold stream under quorum); consumed by the worker,
+        # the only thread that touches the accumulator.
+        self._needs_reset = False
         self._cond = threading.Condition()
         self._acc: Optional[torch.Tensor] = None
         self._total_elems = -1
@@ -255,7 +278,7 @@ class StreamingAggregator:
         self._t_all_complete = 0.0
         self._t_done = 0.0
         self._busy_s = 0.0
-        self.stats: Dict[str, float] = {}
+        self.stats: Dict[str, Any] = {}
 
     # -- source attachment ----------------------------------------------------
 
@@ -310,8 +333,13 @@ class StreamingAggregator:
                 )
             )
             return
+        self._attach_local(index, packed_tree.buf, tree=packed_tree)
+
+    def _attach_local(self, index: int, buf: Any, tree: Any = None) -> None:
+        """Bind a contribution that needs no wire hop (a buffer on any
+        device, or a host array)."""
         try:
-            elems = fedavg.as_tensor(packed_tree.buf, self._device).reshape(-1)
+            elems = fedavg.as_tensor(buf, self._device).reshape(-1)
             ready = None
             if self._stream is not None:
                 ready = torch.cuda.Event()
@@ -324,7 +352,7 @@ class StreamingAggregator:
         now = time.perf_counter()
         with self._cond:
             s = self._streams[index]
-            s.local_tree = packed_tree
+            s.local_tree = tree
             s.elems = elems
             s.ready = ready
             s.dtype = elems.dtype
@@ -376,6 +404,15 @@ class StreamingAggregator:
         now = time.perf_counter()
         with self._cond:
             s = self._streams[index]
+            if s.error is not None:
+                # A stream that failed earlier delivered clean bytes (the
+                # sender's retry or the party's revival won): it rejoins
+                # the fold pool, or the ordered fold would stall at it.
+                logger.info(
+                    "contribution from %s recovered (clean retry after %s)",
+                    self._labels[index], s.error,
+                )
+                s.error = None
             # Delta frames (and mailbox replays) deliver a payload object
             # the incremental view never saw — rebind.
             s.payload = memoryview(payload)
@@ -396,7 +433,22 @@ class StreamingAggregator:
                 exc = RemoteError.from_wire(err)
             except Exception:
                 exc = RuntimeError(f"stream {index} failed: {err!r}")
-        self.fail(exc)
+        if self._quorum is None:
+            self.fail(exc)
+            return
+        # Quorum mode: one failed contribution is survivable — mark it and
+        # let the cutoff aggregate the rest.  The give-up verdict belongs to
+        # the deadline (_maybe_cutoff_locked): an error may clear.
+        with self._cond:
+            s = self._streams[index]
+            if s.complete or s.error is not None:
+                return
+            s.error = exc
+            logger.warning(
+                "contribution from %s failed (%s); continuing toward "
+                "quorum %d/%d", self._labels[index], exc, self._quorum, self._n,
+            )
+            self._cond.notify_all()
 
     @staticmethod
     def _reset_frame(s: _Stream) -> None:
@@ -414,30 +466,116 @@ class StreamingAggregator:
         verification.  A clean drop resets the frame state and waits for
         the sender's retry; a CORRUPT frame whose bytes were already
         folded cannot be rolled back out of the accumulator — fail the
-        aggregation loudly rather than let a retry land on poisoned sums."""
+        aggregation loudly, unless quorum mode can refold the others."""
         with self._cond:
             s = self._streams[index]
             if s.complete:
                 return
             if corrupt and s.applied_blocks > 0:
-                self._error = RuntimeError(
-                    f"contribution {index} failed verification after "
-                    f"{s.applied_blocks} of its blocks were already "
-                    f"aggregated — the accumulator cannot be rolled back; "
-                    f"re-run the round"
-                )
+                if self._quorum is not None:
+                    # Excluded and refolded: the worker zeroes the
+                    # accumulator and refolds the healthy contributions
+                    # from their retained payloads.
+                    s.error = RuntimeError(
+                        f"contribution from {self._labels[index]} failed "
+                        f"verification mid-fold; excluded and refolding"
+                    )
+                    self._reset_frame(s)
+                    self._needs_reset = True
+                else:
+                    self._error = RuntimeError(
+                        f"contribution {index} failed verification after "
+                        f"{s.applied_blocks} of its blocks were already "
+                        f"aggregated — the accumulator cannot be rolled back; "
+                        f"re-run the round"
+                    )
             else:
                 self._reset_frame(s)
             self._cond.notify_all()
 
+    def _reset_fold_locked(self) -> None:
+        """Zero the accumulator and forget all applied blocks (cutoff /
+        quorum rollback); the retained payloads and local buffers are the
+        refold's sources — no bytes cross the wire again."""
+        if self._acc is not None:
+            self._acc = torch.zeros_like(self._acc)
+        for s in self._streams:
+            s.applied_blocks = 0
+
+    def _maybe_cutoff_locked(self) -> None:
+        """Quorum cutoff (worker loop, under the lock): once the deadline
+        passes — or the missing contributions provably cannot arrive —
+        with at least ``quorum`` complete, pin the arrived set, reweight to
+        its Σw and refold.  All arrived never reaches here with a subset,
+        so quorum=n with no faults is the all-of-n fold."""
+        if self._quorum is None or self._participating is not None:
+            return
+        # Ready = complete and healthy: the cutoff never pins a failed
+        # stream into the fold set.
+        ready = [i for i, s in enumerate(self._streams) if s.complete and s.error is None]
+        if len(ready) == self._n:
+            return
+        failed = sum(1 for s in self._streams if s.error is not None)
+        deadline_hit = self._deadline_at is not None and time.monotonic() >= self._deadline_at
+        if len(ready) < self._quorum:
+            # Give up only at the deadline, when even the pending healthy
+            # streams could not fill the quorum.
+            pending = self._n - len(ready) - failed
+            if deadline_hit and len(ready) + pending < self._quorum and self._error is None:
+                failed_names = [self._labels[i] for i, s in enumerate(self._streams) if s.error is not None]
+                exc: BaseException = RuntimeError(
+                    f"quorum {self._quorum}/{self._n} unreachable: only "
+                    f"{len(ready)} contributions arrived by the round "
+                    f"deadline and those from {failed_names} failed"
+                )
+                for s in self._streams:
+                    if s.error is not None:
+                        exc.__cause__ = s.error
+                        break
+                self._error = exc
+                self._cond.notify_all()
+            return
+        if not deadline_hit and not (failed and len(ready) + failed == self._n):
+            return
+        self._participating = ready  # sorted by construction
+        excluded = [self._labels[i] for i in range(self._n) if i not in set(ready)]
+        logger.warning(
+            "quorum cutoff: aggregating %d/%d contributions (excluded: %s); "
+            "reweighting to the arrived sum", len(ready), self._n, excluded,
+        )
+        from rayfed_tpu_torch import telemetry
+
+        telemetry.event(
+            "quorum.cutoff", party=self._party,
+            detail={"members": [self._labels[i] for i in ready], "excluded": excluded},
+        )
+        if self._weights_arg is not None:
+            self._total_w = fedavg._check_weights([self._weights[i] for i in ready])
+        else:
+            self._total_w = float(len(ready))
+        # Partial folds may hold excluded streams' blocks: restart from zero
+        # over the pinned set in party order — the subset's fold.
+        self._reset_fold_locked()
+
     # -- result ---------------------------------------------------------------
 
-    def result(self, timeout: Optional[float] = None):
+    def result(self, timeout: Optional[float] = None, deadline_s: Optional[float] = None):
         """Block until every contribution streamed in; the aggregate as a
         :class:`~rayfed_tpu_torch.fl.compression.PackedTree` in the wire
-        dtype (or ``out_dtype``), its buffer on the aggregator's device."""
+        dtype (or ``out_dtype``), its buffer on the aggregator's device.
+
+        ``deadline_s`` (quorum mode only): seconds from this call after
+        which the wait stops for stragglers — once at least ``quorum``
+        contributions are complete, the worker cuts the round over to the
+        arrived set (reweighted to its Σw).  Its granularity is the
+        worker's wake interval (≤ 0.5 s past the deadline)."""
+        if deadline_s is not None and self._quorum is None:
+            raise ValueError("deadline_s needs quorum= at construction")
         deadline = None if timeout is None else time.monotonic() + timeout
         with self._cond:
+            if deadline_s is not None and self._deadline_at is None:
+                self._deadline_at = time.monotonic() + float(deadline_s)
+                self._cond.notify_all()  # the worker re-times its waits
             while not self._done and self._error is None:
                 remaining = None
                 if deadline is not None:
@@ -459,6 +597,24 @@ class StreamingAggregator:
             if self._error is not None:
                 raise self._error
             return self._result
+
+    @property
+    def quorum_members(self) -> List[int]:
+        """Sorted indices of the contributions the aggregate includes (all
+        of them unless a quorum cutoff excluded stragglers).  Meaningful
+        once :meth:`result` returned."""
+        with self._cond:
+            if self._participating is not None:
+                return list(self._participating)
+            return list(range(self._n))
+
+    @property
+    def agg_overlap_frac(self) -> float:
+        """Fraction of aggregation busy time hidden under the wire."""
+        return self.stats.get("agg_overlap_frac", 0.0)
+
+    def _members(self) -> List[int]:
+        return self._participating if self._participating is not None else list(range(self._n))
 
     # -- worker ---------------------------------------------------------------
 
@@ -482,6 +638,7 @@ class StreamingAggregator:
         if s.avail_bytes < 4 + mlen:
             return False
         manifest = json.loads(bytes(mv[4 : 4 + mlen]))
+        s.manifest = manifest  # sideband consumers (StripeAggregator)
         leaves = manifest["leaves"]
         if not leaves or leaves[0]["k"] not in ("nd", "nds"):
             raise ValueError(
@@ -526,7 +683,7 @@ class StreamingAggregator:
                 f"{self._quant.wire_dtype} (plain mode) — "
                 f"sender and receiver disagree on the round shape"
             )
-        if self._total_elems != self._quant.total_elems:
+        if self._quant_full and self._total_elems != self._quant.total_elems:
             raise ValueError(
                 f"contribution has {self._total_elems} codes, the "
                 f"round grid covers {self._quant.total_elems} — "
@@ -590,15 +747,23 @@ class StreamingAggregator:
 
     def _run_inner(self) -> None:
         weights = None
-        order = list(range(self._n))
         while True:
             with self._cond:
                 if self._error is not None:
                     return
+                if self._needs_reset:
+                    self._needs_reset = False
+                    self._reset_fold_locked()
+                self._maybe_cutoff_locked()
+                # The fold set: every stream, or the pinned quorum subset
+                # (excluded stragglers are ignored even if bytes arrive).
+                order = self._members()
                 work: List[tuple] = []
                 try:
                     for i in order:
                         s = self._streams[i]
+                        if s.error is not None:
+                            continue
                         if s.dtype is None and not self._parse_layout(s):
                             continue
                         if self._acc is None:
@@ -620,13 +785,16 @@ class StreamingAggregator:
                     return
                 if self._acc is not None:
                     # Party-order-per-block schedule: stream i may fold
-                    # block b only once every earlier stream folded
-                    # theirs — the result is then independent of arrival
-                    # order.  The chunk source is snapshotted HERE, under
-                    # the lock (see _chunk).
+                    # block b only once every earlier stream of the fold
+                    # set folded theirs — the result is then independent of
+                    # arrival order.  A failed stream stalls its successors
+                    # until the cutoff excludes it.  The chunk source is
+                    # snapshotted HERE, under the lock (see _chunk).
                     limit = self._nblocks
                     for i in order:
                         s = self._streams[i]
+                        if s.error is not None:
+                            break
                         target = min(self._avail_blocks(s), limit)
                         if target > s.applied_blocks:
                             work.append((
@@ -635,16 +803,22 @@ class StreamingAggregator:
                                 s.ready,
                             ))
                         limit = s.applied_blocks
-                all_complete = all(s.complete for s in self._streams)
+                all_complete = all(self._streams[i].complete for i in order) and (
+                    self._participating is not None
+                    or not any(s.error is not None for s in self._streams)
+                )
                 if not work:
                     if all_complete and self._acc is not None and all(
-                        s.applied_blocks == self._nblocks for s in self._streams
+                        self._streams[i].applied_blocks == self._nblocks for i in order
                     ):
                         break  # everything folded — finalize below
-                    self._cond.wait(timeout=0.5)
+                    wait_s = 0.5
+                    if self._deadline_at is not None and self._participating is None:
+                        wait_s = min(wait_s, max(0.05, self._deadline_at - time.monotonic()))
+                    self._cond.wait(timeout=wait_s)
                     continue
                 if all_complete and not self._t_all_complete:
-                    self._t_all_complete = max(s.t_complete for s in self._streams)
+                    self._t_all_complete = max(self._streams[i].t_complete for i in order)
             # Apply outside the lock (sinks keep landing bytes meanwhile).
             if weights is None:
                 if self._int_weights is not None:
@@ -672,6 +846,7 @@ class StreamingAggregator:
             self._t_all_complete = self._t_done
         tail_s = max(0.0, self._t_done - self._t_all_complete)
         busy = max(self._busy_s, 1e-9)
+        excluded = 0 if self._participating is None else self._n - len(self._participating)
         from rayfed_tpu_torch import telemetry as _telemetry
 
         _tr = _telemetry.active()
@@ -692,13 +867,19 @@ class StreamingAggregator:
                 )
             _tr.emit(
                 "agg.finalize", party=self._party,
-                t_start=t0_wall, dur_s=fin_s, detail={"excluded": 0},
+                t_start=t0_wall, dur_s=fin_s, detail={"excluded": excluded},
             )
         self.stats = {
             "agg_busy_s": self._busy_s,
             "agg_tail_s": tail_s,
             "agg_wire_s": max(0.0, self._t_all_complete - self._t_first_byte),
             "agg_overlap_frac": min(1.0, max(0.0, 1.0 - tail_s / busy)),
+            "quorum_excluded": excluded,
+            # Sources cut with a standing error (dead party, failed
+            # verification), as against merely late ones.
+            "quorum_failed_sources": [
+                self._labels[i] for i, s in enumerate(self._streams) if s.error is not None
+            ],
         }
         with self._cond:
             self._result = result
@@ -710,10 +891,11 @@ class StreamingAggregator:
         buffer (spec/passthrough from one template contribution — they are
         structural, identical across parties).  On the card the result is
         fenced onto the default stream before any other thread sees it."""
+        members = self._members()
         if self._quant is not None:
             # Every wire payload's grid is checked first: wrong-grid codes
             # must never rescale.
-            self._verify_quant_members()
+            self._verify_quant_members(members)
             out_name = self._out_name or "float32"
             out_buf = fedavg.finalize_packed_quantized(
                 self._acc, self._quant.scales, self._quant.zps, self._total_w,
@@ -730,20 +912,24 @@ class StreamingAggregator:
         template = self._template_tree()
         passthrough = template.passthrough
         if passthrough:
+            # After a cutoff only the members' trees reduce, with their
+            # weights.
             passthrough = fedavg._reduce_passthrough(
-                [self._tree_of(s).passthrough for s in self._streams],
-                self._weights_arg,
+                [self._tree_of(self._streams[i]).passthrough for i in members],
+                None if self._weights_arg is None else [self._weights[i] for i in members],
                 self._total_w,
             )
         return fedavg._packed_result(out_buf, passthrough, template.spec, out_name)
 
-    def _verify_quant_members(self) -> None:
-        """Every wire contribution must be a QuantizedPackedTree coded on
-        exactly the round grid (local ones were checked at ``add_local``)."""
+    def _verify_quant_members(self, members: Sequence[int]) -> None:
+        """Every member wire contribution must be a QuantizedPackedTree
+        coded on exactly the round grid (local ones were checked at
+        ``add_local``)."""
         from rayfed_tpu_torch.fl.quantize import QuantizedPackedTree
 
         want = self._quant.meta()
-        for i, s in enumerate(self._streams):
+        for i in members:
+            s = self._streams[i]
             if s.local_tree is not None:
                 continue
             tree = self._tree_of(s)
@@ -773,10 +959,149 @@ class StreamingAggregator:
         return tree
 
     def _template_tree(self) -> PackedTree:
-        for s in self._streams:
-            if s.local_tree is not None:
-                return s.local_tree
-        return self._tree_of(self._streams[0])
+        members = self._members()
+        for i in members:
+            if self._streams[i].local_tree is not None:
+                return self._streams[i].local_tree
+        return self._tree_of(self._streams[members[0]])
+
+
+class StripeAggregator(StreamingAggregator):
+    """Fold one *stripe* of the packed chunk grid as its bytes arrive.
+
+    The ring (:mod:`rayfed_tpu_torch.fl.ring`) stripes the packed buffer's
+    chunk grid across the sorted party ring; each stripe owner runs one of
+    these over the compacted stripe payloads its peers send (leaf 0 of each
+    payload is the stripe's chunks back to back, in ascending block order).
+    The sinks, the frame-abort semantics and the party-order-per-block fold
+    schedule are :class:`StreamingAggregator`'s, and so is the fold: one
+    exactly rounded FMA per element (``fold_fma.cu`` on the card).  Both the
+    fold and the finalize are elementwise, so the stripe result is
+    byte-identical to the same element range of the whole-buffer fold.
+
+    ``expect_elems``: the stripe's element count from the schedule — a
+    mis-wired payload fails fast.  ``meta_check``: called with the
+    payload's ``rsm`` manifest string (its last leaf) before any of its
+    blocks fold.  ``quant_blocks``: a compressed-domain stripe's global
+    block indices, which select its rows of the round grid for the
+    finalize; ``quant_ref`` is then the stripe's slice of the reference.
+    """
+
+    def __init__(
+        self,
+        n_sources: int,
+        weights: Optional[Sequence[float]] = None,
+        allowed: Optional[Dict[str, Any]] = None,
+        chunk_elems: int = DEFAULT_CHUNK_ELEMS,
+        out_dtype: Any = None,
+        expect_elems: Optional[int] = None,
+        label: str = "stripe",
+        meta_check: Optional[Any] = None,
+        quant: Optional[Any] = None,
+        quant_blocks: Optional[Sequence[int]] = None,
+        quant_ref: Optional[Any] = None,
+        party: Optional[str] = None,
+        device: Any = None,
+    ) -> None:
+        super().__init__(
+            n_sources, weights=weights, allowed=allowed,
+            chunk_elems=chunk_elems, out_dtype=out_dtype, party=party,
+            quant=quant, quant_ref=quant_ref, device=device,
+        )
+        self._expect_elems = None if expect_elems is None else int(expect_elems)
+        self._label = label
+        self._meta_check = meta_check
+        # Stripe payloads are bare code arrays (grid agreement is the
+        # ring's rsm cross-check), so the full-buffer checks are skipped.
+        self._quant_full = False
+        if quant is not None and quant_blocks is None:
+            raise ValueError(
+                f"{label}: compressed-domain stripes need quant_blocks "
+                f"(the stripe's global block indices)"
+            )
+        self._quant_blocks = None if quant_blocks is None else [int(b) for b in quant_blocks]
+
+    def _parse_layout(self, s: _Stream) -> bool:
+        already = s.data_start >= 0
+        if not super()._parse_layout(s):
+            return False
+        if self._meta_check is not None and not already and s.manifest is not None:
+            # Wire payloads only (the owner's own stripe has no manifest);
+            # once, before any of its blocks fold.
+            last = s.manifest["leaves"][-1]
+            if last.get("k") != "py" or not isinstance(last.get("v"), str):
+                raise ValueError(f"{self._label}: stripe payload is missing its 'rsm' manifest leaf")
+            self._meta_check(last["v"])
+        return True
+
+    def add_local(self, index: int, stripe: Any) -> None:
+        """Feed the owner's own stripe (a 1-D wire-dtype tensor, on any
+        device, or host array)."""
+        n = stripe.numel() if isinstance(stripe, torch.Tensor) else int(np.asarray(stripe).size)
+        if self._expect_elems is not None and n != self._expect_elems:
+            self.fail(
+                ValueError(
+                    f"{self._label}: local stripe has {n} elements, "
+                    f"schedule expects {self._expect_elems}"
+                )
+            )
+            return
+        if self._quant is not None:
+            got = dtype_name(stripe.dtype if isinstance(stripe, torch.Tensor) else np.asarray(stripe).dtype)
+            if got != self._quant.wire_dtype:
+                self.fail(
+                    ValueError(
+                        f"{self._label}: local stripe is {got}, the "
+                        f"round grid codes {self._quant.wire_dtype}"
+                    )
+                )
+                return
+        self._attach_local(index, stripe)
+
+    def _init_acc(self, s: _Stream) -> None:
+        super()._init_acc(s)
+        if self._expect_elems is not None and self._total_elems != self._expect_elems:
+            raise ValueError(
+                f"{self._label}: contribution carries "
+                f"{self._total_elems} elements, schedule expects "
+                f"{self._expect_elems} — ring peers disagree on the "
+                f"stripe layout"
+            )
+
+    def payload_value(self, index: int) -> Any:
+        """The decoded payload of source ``index`` (the stripe dict with
+        its sideband fields), None for the owner's own source."""
+        s = self._streams[index]
+        if s.payload is None:
+            return None
+        return wire.decode_payload(s.payload, allowed=self._allowed, zero_copy=True)
+
+    def _finalize(self) -> torch.Tensor:
+        """The bare stripe buffer in the output dtype, on the aggregator's
+        device: the assembly scatters it back onto the chunk grid."""
+        if self._quant is not None:
+            # Stripe block i of the compacted payload IS global block
+            # quant_blocks[i]: its rows of the grid make the rescale the
+            # whole-buffer finalize's at those elements.
+            if len(self._quant_blocks) != self._nblocks:
+                raise ValueError(
+                    f"{self._label}: {self._nblocks} folded blocks vs "
+                    f"{len(self._quant_blocks)} scheduled quant blocks"
+                )
+            scales, zps = self._quant.rows(self._quant_blocks)
+            out_buf = fedavg.finalize_packed_quantized(
+                self._acc, scales, zps, self._total_w, self._total_elems,
+                self._chunk_elems, self._out_name or "float32", ref=self._quant_ref,
+            )
+        else:
+            out_buf = fedavg.finalize_packed_stripe(
+                self._acc, self._total_w, self._total_elems,
+                self._out_name or dtype_name(self._wire_dtype),
+            )
+        self._acc = None
+        if self._stream is not None:
+            fence_for_handoff(out_buf)
+        return out_buf
 
 
 def streaming_aggregate(

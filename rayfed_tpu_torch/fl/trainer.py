@@ -7,10 +7,14 @@ and the compressed-domain round (``wire_quant``) — while preserving the
 multi-controller contract: every party calls it at the same program point
 with the same arguments and walks the identical seq-id sequence.
 
-Options of later items of the port raise ``NotImplementedError`` naming
-their ROADMAP.md Queue A item: ``mode="ring"`` / ``"hierarchy"``,
-``region_*``, ``quorum`` and ``overlap`` (7); ``secure_agg`` and the packed
-server optimizers (8); ``checkpointer`` (9).
+``mode="ring"`` aggregates over the chunk-striped ring
+(:mod:`rayfed_tpu_torch.fl.ring`), falling back to the coordinator topology
+for a round the ring aborts; ``quorum=`` hands the loop to
+:func:`rayfed_tpu_torch.fl.quorum.run_quorum_rounds` (k-of-n rounds, elastic
+membership, coordinator failover).  Options of later items of the port raise
+``NotImplementedError`` naming their ROADMAP.md Queue A item:
+``mode="hierarchy"``, ``region_*`` and ``overlap`` (7); ``secure_agg`` and
+the packed server optimizers (8); ``checkpointer`` (9).
 """
 
 from __future__ import annotations
@@ -93,12 +97,11 @@ def validate_round_config(
     naming it.  Returns ``{"wire_quant": <dtype name or None>,
     "checkpoint_every": <int>, "server_opt_kind": "none"|"fedopt"}``.
     """
-    if mode in ("ring", "hierarchy"):
-        raise _unported(f"mode={mode!r}", 7)
+    if mode == "hierarchy":
+        raise _unported("mode='hierarchy'", 7)
     for name, value in (
         ("region_size", region_size), ("region_branch", region_branch),
         ("region_quorum", region_quorum), ("region_deadline_s", region_deadline_s),
-        ("quorum", quorum),
     ):
         if value is not None:
             raise _unported(name, 7)
@@ -118,6 +121,7 @@ def validate_round_config(
             f"fl.fedopt.ServerOptimizer, got "
             f"{type(server_opt).__name__}"
         )
+    legacy_opt = server_opt
     if rounds < 1:
         raise ValueError(f"rounds must be >= 1, got {rounds}")
     if checkpoint_every and checkpointer is None:
@@ -153,7 +157,7 @@ def validate_round_config(
                 "packed_wire=True (the quantized unit is the packed "
                 "wire buffer)"
             )
-        if not streaming_agg:
+        if not streaming_agg and mode != "ring" and quorum is None:
             raise ValueError(
                 "wire_quant requires streaming_agg=True, mode='ring', "
                 "mode='hierarchy' or quorum= — the compressed-domain "
@@ -163,7 +167,7 @@ def validate_round_config(
         incompat_q = {
             "error_feedback": error_feedback,  # the grid codec carries its own
             "aggregator": aggregator is not None,
-            "server_opt": server_opt is not None,  # a legacy tree optimizer
+            "server_opt": legacy_opt is not None,  # a legacy tree optimizer
         }
         bad_q = [k for k, v in incompat_q.items() if v]
         if bad_q:
@@ -192,33 +196,87 @@ def validate_round_config(
             "packed_wire=True (the residual is carried on the packed "
             "wire buffer)"
         )
-    if mode != "coordinator":
+    if mode not in ("coordinator", "ring"):
         raise ValueError(
             f"unknown mode {mode!r}: expected 'coordinator', 'ring' or "
             f"'hierarchy'"
         )
+    if mode == "ring":
+        if not (compress_wire and packed_wire):
+            raise ValueError(
+                "mode='ring' requires compress_wire=True and "
+                "packed_wire=True (the striped unit is the packed wire "
+                "buffer)"
+            )
+        if aggregator is not None:
+            raise ValueError(
+                "mode='ring' and aggregator are mutually exclusive (a "
+                "custom reducer needs the raw per-party values at one "
+                "place)"
+            )
+        if sample is not None and sample != len(trainers):
+            raise ValueError(
+                "mode='ring' requires full participation: sampling "
+                "churns ring membership, re-striping the chunk grid "
+                "and thrashing the per-peer delta caches every round — "
+                "use mode='coordinator' for sampled rounds"
+            )
+        if streaming_agg:
+            raise ValueError(
+                "mode='ring' and streaming_agg are mutually exclusive: "
+                "the ring replaces the hub topology streaming_agg "
+                "folds on (the ring's fallback path streams on its "
+                "own) — drop streaming_agg or use mode='coordinator'"
+            )
     if coordinator is not None and coordinator not in trainers:
         raise ValueError(
             f"coordinator {coordinator!r} is not a training party "
             f"({sorted(trainers)})"
         )
-    if ring_chunk_elems is not None:
+    if ring_chunk_elems is not None and mode != "ring":
         raise ValueError(
             "ring_chunk_elems only applies to mode='ring' or "
             "mode='hierarchy' (it sets the stripe/chunk grid "
             "granularity)"
         )
+    if quorum is not None:
+        if not 1 <= int(quorum) <= len(trainers):
+            raise ValueError(f"quorum must be in [1, {len(trainers)}], got {quorum}")
+        if not (compress_wire and packed_wire):
+            raise ValueError(
+                "quorum requires compress_wire=True and packed_wire=True "
+                "(the quorum cutoff and the DGA late fold run on the "
+                "packed wire buffer)"
+            )
+        incompat = {
+            "server_opt": legacy_opt is not None,
+            "aggregator": aggregator is not None,
+            "sample": sample is not None and sample != len(trainers),
+            "error_feedback": error_feedback,
+            "overlap": overlap,
+        }
+        bad = [k for k, v in incompat.items() if v]
+        if bad:
+            raise ValueError(
+                f"quorum is incompatible with {bad}: each needs the "
+                "exact fixed-roster synchronous round boundary that "
+                "k-of-n cutoffs and elastic membership give up (packed "
+                "fl.server_opt optimizers DO compose with quorum)"
+            )
     if round_deadline_s is not None:
-        raise ValueError(
-            "round_deadline_s only applies with quorum= (it is the "
-            "straggler cutoff of k-of-n rounds)"
-        )
-    if join_ticket is not None:
+        if quorum is None:
+            raise ValueError(
+                "round_deadline_s only applies with quorum= (it is the "
+                "straggler cutoff of k-of-n rounds)"
+            )
+        if not round_deadline_s > 0:
+            raise ValueError(f"round_deadline_s must be > 0, got {round_deadline_s}")
+    if join_ticket is not None and quorum is None:
         raise ValueError(
             "join_ticket only applies with quorum= (elastic membership "
             "rides the quorum round protocol)"
         )
-    if round_log is not None:
+    if round_log is not None and quorum is None:
         raise ValueError(
             "round_log only applies with quorum= (the classic loop has "
             "a fixed roster — there is nothing to log)"
@@ -303,8 +361,22 @@ def run_fedavg_rounds(
       grid.  The first round has no observed delta and runs unquantized.
       Requires ``compress_wire``, ``packed_wire`` and ``streaming_agg``;
       integral non-negative ``weights`` only.
+    - ``mode="ring"``: aggregate over the chunk-striped ring
+      (:func:`~rayfed_tpu_torch.fl.ring.ring_aggregate`): per-party traffic
+      ~2·|model| whatever the party count; a round the ring aborts falls
+      back to the coordinator topology, in lockstep, with the same bytes.
+      Requires ``compress_wire`` + ``packed_wire``, full participation and
+      no ``streaming_agg``.  ``ring_chunk_elems`` sets the stripe grid.
     - ``coordinator``: the party that anchors the rounds (default the
-      ``min`` party); keep it stable across a run.
+      ``min`` party); keep it stable across a run.  Under ``quorum`` it
+      names the initial lease holder only.
+    - ``quorum``: k-of-n rounds (:mod:`rayfed_tpu_torch.fl.quorum`): the
+      round aggregates the arrived contributions once ``round_deadline_s``
+      passes with at least ``quorum`` of them, stragglers fold their
+      progress into the next round, the roster is elastic (``fed.join`` /
+      ``fed.leave``) and the coordinator fails over.  ``join_ticket``: the
+      welcome ``fed.join()`` returned; ``round_log``: a list receiving each
+      round's roster, members and coordinator.
     - ``timings``: a list receiving one ``{"local_s", "push_s", "agg_s",
       "hidden_s"}`` dict per round (seconds; materializes every round).
 
@@ -328,6 +400,25 @@ def run_fedavg_rounds(
         round_log=round_log, secure_agg=secure_agg,
     )
     legacy_opt = server_opt if cfg["server_opt_kind"] == "fedopt" else None
+    # The coordinator stays the same for the whole run: every delta-stream
+    # cache is keyed by its destination party.
+    coord = coordinator if coordinator is not None else min(trainers)
+    wire_dt = torch.bfloat16 if wire_dtype is None else wire_dtype
+
+    if quorum is not None:
+        # k-of-n rounds with elastic membership own their loop shape
+        # (roster-driven active set, DGA late folds, round-index-derived
+        # rendezvous keys) — see fl/quorum.py.
+        from rayfed_tpu_torch.fl.quorum import run_quorum_rounds
+
+        return run_quorum_rounds(
+            trainers, params, rounds,
+            quorum=int(quorum), round_deadline_s=round_deadline_s,
+            weights=weights, coordinator=coord, wire_dtype=wire_dt,
+            mode=mode, ring_chunk_elems=ring_chunk_elems, on_round=on_round,
+            timings=timings, join_ticket=join_ticket, round_log=round_log,
+            wire_quant=cfg["wire_quant"],
+        )
 
     from rayfed_tpu_torch import telemetry as _telemetry
     from rayfed_tpu_torch.fed_object import FedObject
@@ -347,13 +438,10 @@ def run_fedavg_rounds(
         and aggregator is None  # a reducer needs the raw values
         and not streaming_agg  # streaming materializes at the reducer
         and not error_feedback  # the residual needs the driver's tree
+        and mode == "coordinator"  # the ring assembles (materializes) per round
         and timings is None  # per-round timing needs a round boundary
         and len(trainers) > 1
     )
-    # The coordinator stays the same for the whole run: every delta-stream
-    # cache is keyed by its destination party.
-    coord = coordinator if coordinator is not None else min(trainers)
-    wire_dt = torch.bfloat16 if wire_dtype is None else wire_dtype
     ef = ErrorFeedback(wire_dt) if error_feedback else None
     parties = list(trainers)
 
@@ -425,9 +513,40 @@ def run_fedavg_rounds(
             if quant_prev_delta is not None:
                 round_grid = make_round_grid(
                     quant_prev_delta, wire_dtype=qname, mode="delta",
+                    # The grid chunking IS the ring's stripe chunking, or
+                    # ring_aggregate's chunk-match guard would abort (and
+                    # fall back) every quantized ring round.
+                    chunk_elems=ring_chunk_elems if mode == "ring" else None,
                     expand=QUANT_DELTA_EXPAND,
                 )
-        if streaming_agg:
+        if mode == "ring":
+            from rayfed_tpu_torch.fl.ring import RING_STATS, RingRoundError, ring_aggregate
+
+            try:
+                avg = ring_aggregate(
+                    updates, weights, stream="fedavg", out_dtype=agg_out_dtype,
+                    chunk_elems=ring_chunk_elems, timings=rec,
+                    quant=round_grid, quant_ref=round_ref, quant_scope="fedavg",
+                )
+            except RingRoundError as e:
+                # The abort reached every controller (poison cascade +
+                # commit ring), so all of them take this branch in
+                # lockstep: the same round's updates re-aggregate over the
+                # coordinator topology, with the same grid and the same
+                # uncommitted residual.
+                from rayfed_tpu_torch.fl.streaming import streaming_aggregate
+
+                logger.warning(
+                    "ring round %d aborted (%s); falling back to coordinator "
+                    "aggregation at %r", r, e, coord,
+                )
+                RING_STATS["fallback_rounds"] += 1
+                avg = streaming_aggregate(
+                    updates, weights, stream="fedavg", coordinator=coord,
+                    out_dtype=agg_out_dtype, timings=rec,
+                    quant=round_grid, quant_ref=round_ref, quant_scope="fedavg",
+                )
+        elif streaming_agg:
             from rayfed_tpu_torch.fl.streaming import streaming_aggregate
 
             avg = streaming_aggregate(

@@ -167,8 +167,12 @@ METRICS_SCHEMA: Dict[str, Dict[str, type]] = {
         "blob_cache_bytes": int,
         "blob_pinned_bytes": int,
     },
-    # The reference's "quorum" and "async" sections (fl.quorum,
-    # fl.async_rounds) join this schema when those modules are ported.
+    "quorum": {
+        "coordinator_failovers": int,
+        "graceful_handovers": int,
+    },
+    # The reference's "async" section (fl.async_rounds) joins this schema
+    # when that module is ported.
     "telemetry": {
         "trace_armed": bool,
     },
@@ -179,13 +183,16 @@ def metrics_snapshot() -> Dict[str, Any]:
     """Every subsystem's counters under ONE documented schema
     (:data:`METRICS_SCHEMA`): ``transport`` (the :func:`get_stats`
     surface), ``secagg`` / ``object_plane`` / ``telemetry`` (hoisted
-    from their get_stats sections).  The reference's ``quorum`` and
-    ``async`` sections are left out until ``fl.quorum`` and
-    ``fl.async_rounds`` are ported.  Returns ``{}`` before ``fed.init``
-    — a snapshot of nothing is not an error."""
+    from their get_stats sections) and ``quorum``
+    (``fl.quorum.QUORUM_STATS``, per process, not on the transport).  The
+    reference's ``async`` section is left out until ``fl.async_rounds`` is
+    ported.  Returns ``{}`` before ``fed.init`` — a snapshot of nothing is
+    not an error."""
     stats = get_stats()
     if not stats:
         return {}
+    from rayfed_tpu_torch.fl.quorum import QUORUM_STATS
+
     out: Dict[str, Any] = {
         "transport": {
             k: v for k, v in stats.items()
@@ -194,6 +201,7 @@ def metrics_snapshot() -> Dict[str, Any]:
         "secagg": dict(stats.get("secagg") or {}),
         "object_plane": dict(stats.get("object_plane") or {}),
         "telemetry": dict(stats.get("telemetry") or {}),
+        "quorum": dict(QUORUM_STATS),
     }
     return out
 

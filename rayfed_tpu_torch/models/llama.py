@@ -41,6 +41,7 @@ from rayfed_tpu_torch.models.quant import (
     quantize_int8,
     split_output_scale,
 )
+from rayfed_tpu_torch.ops import xla_cpu
 from rayfed_tpu_torch.ops.attention import NEG_INF, dot_product_attention
 from rayfed_tpu_torch.utils.platform import resolve_device
 
@@ -297,8 +298,14 @@ class Llama(nn.Module):
 
 def _rms_norm(x, scale, eps):
     xf = x.float()
-    norm = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
-    return (norm * scale.float()).to(x.dtype)
+    r = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    if xf.device.type == "cpu":
+        # The JAX package's bytes on the CPU (ops/xla_cpu.py).  The two
+        # values lie within an ulp, so ``r + (exact − r)`` is ``exact``
+        # to the bit, while the gradient stays torch.rsqrt's.
+        exact = xla_cpu.rms_rsqrt(xf.detach(), eps)
+        r = r + (exact - r).detach()
+    return (xf * r * scale.float()).to(x.dtype)
 
 
 def rope_tables(positions: torch.Tensor, head_dim: int, theta: float):
@@ -483,12 +490,11 @@ def apply_llama(
 def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 over the trailing (head) dim: [..., Dh] → (int8
     [..., Dh], f32 scale [..., 1]).  Zero vectors quantize to zeros (scale
-    floor), so fresh cache slots stay exact.  ``x / scale`` and the scale's
-    ``/ 127`` are true divisions (on the card a Python scalar divisor would
-    become a product with its reciprocal)."""
+    floor), so fresh cache slots stay exact.  ``x / scale`` is a true
+    division; the scale's ``/ 127`` is XLA's (``xla_cpu.div_const``)."""
     xf = x.to(torch.float32)
     absmax = torch.amax(torch.abs(xf), dim=-1, keepdim=True)
-    scale = torch.clamp(absmax, min=1e-12) / torch.full((), 127.0, device=x.device)
+    scale = xla_cpu.div_const(torch.clamp(absmax, min=1e-12), 127.0)
     q = torch.clamp(torch.round(xf / scale), -127, 127)
     return q.to(torch.int8), scale
 

@@ -266,3 +266,47 @@ def gather_copy(buffers: Sequence, with_crc: bool = False):
         return out, int(crc.value)
     lib.rf_gather_copy(ctypes.addressof(dst), src_arr, len_arr, n)
     return out
+
+
+# ---------------------------------------------------------------------------
+# The x86 rsqrt estimate (XLA:CPU's rsqrt starts from it)
+# ---------------------------------------------------------------------------
+
+_RSQRT_SRC = os.path.join(_HERE, "rsqrt_estimate.cc")
+_RSQRT_LIB = os.path.join(_BUILD_DIR, "librsqrtest.so")
+_rsqrt_lib: Optional[ctypes.CDLL] = None
+
+
+def _load_rsqrt() -> ctypes.CDLL:
+    """Build (g++, AVX) at first use and load the estimate's library;
+    raises when it cannot be built — there is no other source of its bits."""
+    global _rsqrt_lib
+    with _build_lock:
+        if _rsqrt_lib is not None:
+            return _rsqrt_lib
+        if not os.path.exists(_RSQRT_LIB) or (
+            os.path.getmtime(_RSQRT_LIB) < os.path.getmtime(_RSQRT_SRC)
+        ):
+            os.makedirs(_BUILD_DIR, exist_ok=True)
+            tmp = f"{_RSQRT_LIB}.{os.getpid()}.tmp"
+            subprocess.run(
+                ["g++", "-O2", "-mavx", "-shared", "-fPIC", _RSQRT_SRC, "-o", tmp],
+                check=True, capture_output=True, timeout=120,
+            )
+            os.replace(tmp, _RSQRT_LIB)
+        lib = ctypes.CDLL(_RSQRT_LIB)
+        lib.rf_rsqrt_estimate.restype = None
+        lib.rf_rsqrt_estimate.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64]
+        _rsqrt_lib = lib
+        return lib
+
+
+def rsqrt_estimate(x):
+    """The hardware reciprocal square root estimate of every element of a
+    CPU f32 tensor (``vrsqrtps``/``rsqrtss``), as a new tensor."""
+    import torch
+
+    src = x.detach().to(torch.float32).contiguous()
+    out = torch.empty_like(src)
+    _load_rsqrt().rf_rsqrt_estimate(src.data_ptr(), out.data_ptr(), src.numel())
+    return out

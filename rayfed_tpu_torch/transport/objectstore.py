@@ -334,7 +334,8 @@ class ObjectPlane:
         fp = handle["fp"]
         data = self.store.get(fp)
         if data is not None:
-            self.stats["blob_cache_hits"] += 1
+            with self._lock:  # concurrent fetches count every resolve
+                self.stats["blob_cache_hits"] += 1
             # Flight recorder: one record per resolve with its pull
             # temperature (warm hit / dedup ride / cold wire pull) —
             # the "did the handle actually save bytes" question, per
@@ -347,7 +348,6 @@ class ObjectPlane:
                     outcome="warm", detail={"fp": fp},
                 )
             return self._decode(data) if decode else data
-        self.stats["blob_cache_misses"] += 1
         import concurrent.futures as _futures
 
         backstop = (
@@ -355,11 +355,16 @@ class ObjectPlane:
             else float(self._manager._job.recv_backstop_s)
         )
         with self._lock:
+            # The counters move under the lock: concurrent waiters'
+            # unlocked ``+=`` could lose increments.
+            self.stats["blob_cache_misses"] += 1
             fut = self._inflight.get(fp)
             owner = fut is None
             if owner:
                 fut = _futures.Future()
                 self._inflight[fp] = fut
+            else:
+                self.stats["blob_dedup_waits"] += 1
         if not owner:
             # Concurrent-fetch dedup: ride the in-flight transfer.  The
             # owner may legitimately spend up to one backstop PER named
@@ -367,7 +372,6 @@ class ObjectPlane:
             # holder count — and a waiter timeout surfaces as the
             # plane's own loud error type, never a bare futures
             # TimeoutError.
-            self.stats["blob_dedup_waits"] += 1
             t0_wall, t0 = time.time(), time.perf_counter()
             try:
                 data = fut.result(

@@ -126,17 +126,28 @@ def test_unported_init_options_raise(kwargs):
 
 
 def test_join_and_leave_raise():
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+    # Elastic membership is ported (fl.quorum, its own tests): without a
+    # runtime there is no roster to join or leave, and both say so.
+    with pytest.raises(RuntimeError, match="fed.init"):
         fed.join("alice")
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+    with pytest.raises(RuntimeError, match="fed.init"):
         fed.leave()
+    # The coordinator cannot join its own run.
+    fed.init(address="local", cluster=make_cluster(["solo"]), party="solo", device=CPU)
+    try:
+        with pytest.raises(ValueError, match="cannot join its own run"):
+            fed.join("solo")
+    finally:
+        fed.shutdown()
 
 
 def test_metrics_snapshot_leaves_out_unported_sections():
     fed.init(address="local", cluster=make_cluster(["solo"]), party="solo", device=CPU)
     try:
         snap = fed.metrics_snapshot()
-        assert set(snap) == {"transport", "secagg", "object_plane", "telemetry"}
+        # The reference's "async" section waits for fl.async_rounds.
+        assert set(snap) == {"transport", "secagg", "object_plane", "telemetry", "quorum"}
+        assert snap["quorum"].keys() == {"coordinator_failovers", "graceful_handovers"}
         assert "send_op_count" in snap["transport"]
     finally:
         fed.shutdown()

@@ -57,7 +57,11 @@ SUPPORTED = [
     ("coordinator", "a"),
     ("coordinator", "zed"),
     ("ring_chunk_elems", 8),
+    ("mode", "ring"),
+    ("quorum", 1),
+    ("quorum", 5),
     ("round_deadline_s", 1.0),
+    ("round_deadline_s", -1.0),
     ("join_ticket", {}),
     ("round_log", []),
 ]
@@ -102,12 +106,58 @@ def test_validate_round_config_verdicts_equal_the_reference(pair):
     )
 
 
+# The port's features of tests/test_composition_matrix.py, pairwise (and its
+# quorum x ring x quant triple): each merged configuration gets the
+# reference's verdict.
+PORTED_FEATURES = ("wire_quant", "quorum", "ring", "server_opt_legacy", "streaming_agg",
+                   "error_feedback", "sample")
+
+
+def _feature(name, which):
+    from tests import test_composition_matrix as cm
+
+    frag = dict(cm.FEATURES[name])
+    if name == "server_opt_legacy" and which == "port":
+        frag["server_opt"] = tfedopt.server_sgd(0.5, 0.9)
+    return frag
+
+
+@pytest.mark.parametrize("a,b", list(itertools.combinations(PORTED_FEATURES, 2)), ids=lambda v: str(v))
+def test_composition_pairs_equal_the_reference(a, b):
+    from rayfed_tpu.fl import trainer as jtrainer
+    from tests import test_composition_matrix as cm
+
+    trainers = dict(cm.PARTIES)
+    merged = {w: cm._merge({a, b}, _feature(a, w), _feature(b, w)) for w in ("ref", "port")}
+    if merged["ref"] is None:
+        assert merged["port"] is None
+        return
+
+    def verdict(fn, kw):
+        try:
+            return ("ok", fn(trainers, **kw))
+        except ValueError as e:
+            return ("ValueError", str(e))
+
+    assert verdict(ttrainer.validate_round_config, merged["port"]) == verdict(
+        jtrainer.validate_round_config, merged["ref"])
+
+
+def test_quorum_ring_quant_triple_equals_the_reference():
+    from rayfed_tpu.fl import trainer as jtrainer
+
+    kw = dict(quorum=2, round_deadline_s=5.0, mode="ring", wire_quant="uint8", compress_wire=True,
+              packed_wire=True, ring_chunk_elems=64)
+    trainers = {f"p{i}": None for i in range(4)}
+    assert ttrainer.validate_round_config(trainers, **kw) == jtrainer.validate_round_config(trainers, **kw)
+
+
 @pytest.mark.parametrize("option,item", [
-    ({"mode": "ring"}, "item 7"),
+    ({"region_branch": 2}, "item 7"),
     ({"mode": "hierarchy", "region_size": 1}, "item 7"),
     ({"region_size": 2}, "item 7"),
     ({"region_quorum": 1}, "item 7"),
-    ({"quorum": 1}, "item 7"),
+    ({"region_deadline_s": 1.0}, "item 7"),
     ({"overlap": True}, "item 7"),
     ({"secure_agg": True}, "item 8"),
     ({"checkpointer": object()}, "item 9"),
@@ -199,7 +249,7 @@ def test_one_party_rounds_validate_before_running(solo):
     with pytest.raises(ValueError, match="streaming_agg requires"):
         fed.fl.run_fedavg_rounds(solo, {}, rounds=1, streaming_agg=True)
     with pytest.raises(NotImplementedError, match="item 7"):
-        fed.fl.run_fedavg_rounds(solo, {}, rounds=1, quorum=1)
+        fed.fl.run_fedavg_rounds(solo, {}, rounds=1, overlap=True)
 
 
 # -- the mixed two-process round ------------------------------------------------

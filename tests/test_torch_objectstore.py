@@ -17,6 +17,7 @@ subprocesses.
 import logging
 import os
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -201,6 +202,21 @@ def test_concurrent_fetch_single_transfer(manager_trio):
     fp, n = mgrs["alice"].objects.publish(tree)
     handle = mgrs["alice"].objects.handle_for(fp, n)
     results, errors = [], []
+
+    # A gate on alice's serve of this fingerprint: the transfer proceeds
+    # only once the five other fetches ride it, so a thread that starts
+    # late (a loaded host) cannot find the bytes already cached.
+    plane, serve = mgrs["alice"].objects, mgrs["alice"].objects._serve
+
+    def _gated_serve(requester, req):
+        if req.get("fp") == fp:
+            deadline = time.monotonic() + 30
+            while (mgrs["bob"].objects.stats["blob_dedup_waits"] < 5
+                   and time.monotonic() < deadline):
+                time.sleep(0.005)
+        serve(requester, req)
+
+    plane._serve = _gated_serve
 
     def _fetch():
         try:

@@ -248,7 +248,7 @@ def test_result_timeout_names_the_missing_source():
 
 
 @pytest.mark.parametrize("option,item", [
-    ({"quorum": 1}, "item 7"),
+    ({"presummed": "int16"}, "item 7"),
     ({"presummed": "int32"}, "item 7"), ({"masked": True}, "item 8"),
 ])
 def test_unported_options_name_their_item(option, item):

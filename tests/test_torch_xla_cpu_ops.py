@@ -1,0 +1,156 @@
+"""Ops of the port whose CPU bytes follow XLA:CPU's program of the JAX
+reference (``rayfed_tpu_torch/ops/xla_cpu.py``; CPU, f32, the tests' width
+D = 64 and the wider 128 and 256).
+
+- ``_rms_norm``: XLA sums the row of squares in zero-padded windows of 32
+  (each from 0.0 in index order, then the window sums in order), multiplies
+  by 1/D, adds eps and takes ``rsqrt`` as the hardware estimate followed by
+  two contracted Newton steps.  The port's CPU form reproduces that program;
+  the norm's bytes equal the jitted reference's (tolerance: byte identity).
+- ``_quantize_kv``: XLA turns the scale's division by 127.0 into a product
+  with f32(1/127); the port computes that product, and its scales equal the
+  reference's byte for byte.
+- ``fedavg.finalize_packed_quantized``: where the last block is short, XLA
+  computes the loop's last few elements in scalar code and LLVM fuses
+  ``acc − zp·W`` there; the port fuses the same elements.
+- The gradient through the norm is torch.rsqrt's (the exact forward value
+  rides on it), held against ``jax.grad`` at the model tests' 1e-5.
+- ``_probe`` checks each of ``xla_cpu``'s assumptions against the installed
+  jaxlib on this host and names the one that fails; run ``JAX_PLATFORMS=cpu
+  python -m tests.test_torch_xla_cpu_ops`` to print it.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rayfed_tpu.models import llama as jax_llama
+from rayfed_tpu_torch.models import llama
+
+D = 64
+
+
+def _rows(seed, shape=(2, 7, D)):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(shape) * rng.uniform(0.05, 8.0)).astype(np.float32)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_rms_norm_bytes_equal_xla(seed):
+    x = _rows(seed)
+    scale = np.random.default_rng(100 + seed).standard_normal(D).astype(np.float32)
+    want = np.asarray(jax.jit(jax_llama._rms_norm, static_argnums=2)(jnp.asarray(x), jnp.asarray(scale), 1e-5))
+    got = llama._rms_norm(torch.from_numpy(x), torch.from_numpy(scale), 1e-5).numpy()
+    assert got.tobytes() == want.tobytes()
+
+
+@pytest.mark.parametrize("width", [128, 256])
+def test_rms_norm_bytes_equal_xla_at_wider_rows(width):
+    for seed in range(3):
+        x = _rows(seed, (2, 7, width))
+        scale = np.random.default_rng(200 + seed).standard_normal(width).astype(np.float32)
+        want = np.asarray(jax.jit(jax_llama._rms_norm, static_argnums=2)(jnp.asarray(x), jnp.asarray(scale), 1e-5))
+        got = llama._rms_norm(torch.from_numpy(x), torch.from_numpy(scale), 1e-5).numpy()
+        assert got.tobytes() == want.tobytes(), seed
+
+
+def test_rms_norm_bytes_equal_xla_in_bf16():
+    import ml_dtypes
+
+    x = _rows(7).astype(ml_dtypes.bfloat16)
+    scale = np.ones(D, np.float32)
+    want = np.asarray(jax.jit(jax_llama._rms_norm, static_argnums=2)(jnp.asarray(x), jnp.asarray(scale), 1e-5))
+    got = llama._rms_norm(torch.from_numpy(x.view(np.uint16)).view(torch.bfloat16),
+                          torch.from_numpy(scale), 1e-5)
+    assert got.view(torch.uint16).numpy().tobytes() == want.view(np.uint16).tobytes()
+
+
+def test_rms_norm_gradient_follows_the_reference():
+    x = _rows(3)
+    scale = np.random.default_rng(4).standard_normal(D).astype(np.float32)
+    gx, gs = jax.grad(lambda a, s: jnp.sum(jax_llama._rms_norm(a, s, 1e-5) ** 2), argnums=(0, 1))(
+        jnp.asarray(x), jnp.asarray(scale))
+    tx = torch.from_numpy(x).requires_grad_()
+    ts = torch.from_numpy(scale).requires_grad_()
+    (llama._rms_norm(tx, ts, 1e-5) ** 2).sum().backward()
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(gx), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(ts.grad.numpy(), np.asarray(gs), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_quantize_kv_scales_equal_xla(seed):
+    x = _rows(seed, (2, 7, 2, 16))
+    wq, ws = jax.jit(jax_llama._quantize_kv)(jnp.asarray(x))
+    q, s = llama._quantize_kv(torch.from_numpy(x))
+    assert s.numpy().tobytes() == np.asarray(ws).tobytes()
+    assert q.numpy().tobytes() == np.asarray(wq).tobytes()
+
+
+@pytest.mark.parametrize("with_ref", [False, True])
+@pytest.mark.parametrize("nb,tail", [(2, t) for t in range(16)] + [(1, 9), (5, 11)])
+def test_quantized_finalize_bytes_equal_xla(nb, tail, with_ref):
+    """``finalize_packed_quantized`` over a padded block grid whose last
+    block is short: XLA:CPU fuses ``acc − zp·W`` in the elements its loop
+    leaves to scalar code (``xla_cpu._scalar_tail``), and the port's
+    bytes equal the reference's at every element."""
+    from rayfed_tpu.fl import fedavg as jf
+    from rayfed_tpu_torch.fl import fedavg as tf
+
+    ce = 1024
+    n = (nb - 1) * ce + 16 * 20 + tail
+    for seed in range(4):
+        rng = np.random.default_rng(1000 * nb + 10 * tail + seed)
+        scales = rng.uniform(1e-3, 1e-2, nb).astype(np.float32)
+        zps = rng.uniform(50, 200, nb).astype(np.float32)
+        acc = rng.integers(0, 6 * 255, size=nb * ce).astype(np.int32)
+        ref = rng.normal(size=n).astype(np.float32) if with_ref else None
+        want = np.asarray(jf.finalize_packed_quantized(acc, scales, zps, 6.0, n, ce, np.float32, ref=ref))
+        got = tf.finalize_packed_quantized(torch.from_numpy(acc), scales, zps, 6.0, n, ce, "float32", ref=ref)
+        assert got.numpy().tobytes() == want.tobytes(), seed
+
+
+def _probe(size=200_000):
+    """Elements, per assumption of ``xla_cpu``, where the installed jaxlib's
+    program and the port's form differ (0 everywhere while each holds), and
+    the reduce window read from the compiled HLO at D = 64."""
+    import re
+
+    from rayfed_tpu.fl import fedavg as jf
+    from rayfed_tpu_torch.fl import fedavg as tf
+    from rayfed_tpu_torch.ops import xla_cpu
+
+    out = {}
+    hlo = jax.jit(jax_llama._rms_norm, static_argnums=2).lower(
+        jnp.zeros((2, 7, D), jnp.float32), jnp.zeros(D, jnp.float32), 1e-5).compile().as_text()
+    windows = {int(w) for w in re.findall(r"reduce-window\([^\n]*window=\{size=(?:\d+x)*(\d+) ", hlo)}
+    out["REDUCE_WINDOW"] = int(windows != {xla_cpu.REDUCE_WINDOW})
+    x = np.random.default_rng(0).lognormal(0.0, 6.0, size).astype(np.float32)
+    want = np.asarray(jax.jit(jax.lax.rsqrt)(jnp.asarray(x)))
+    out["rsqrt"] = int(np.sum(xla_cpu.rsqrt(torch.from_numpy(x)).numpy().view(np.uint32) != want.view(np.uint32)))
+    want = np.asarray(jax.jit(lambda a: a / 127.0)(jnp.asarray(x)))
+    got = xla_cpu.div_const(torch.from_numpy(x), 127.0).numpy()
+    out["div_const"] = int(np.sum(got.view(np.uint32) != want.view(np.uint32)))
+    bad, ce = 0, 1024
+    for tail in range(xla_cpu.VECTOR_WIDTH * xla_cpu.UNROLL):
+        n = ce + 16 * 20 + tail
+        rng = np.random.default_rng(tail)
+        scales = rng.uniform(1e-3, 1e-2, 2).astype(np.float32)
+        zps = rng.uniform(50, 200, 2).astype(np.float32)
+        acc = rng.integers(0, 6 * 255, size=2 * ce).astype(np.int32)
+        want = np.asarray(jf.finalize_packed_quantized(acc, scales, zps, 6.0, n, ce, np.float32))
+        got = tf.finalize_packed_quantized(torch.from_numpy(acc), scales, zps, 6.0, n, ce, "float32").numpy()
+        bad += int(np.sum(got.view(np.uint32) != want.view(np.uint32)))
+    out["VECTOR_WIDTH, UNROLL"] = bad
+    return out
+
+
+def test_xla_cpu_assumptions_hold_on_this_jaxlib():
+    probe = _probe(size=50_000)
+    assert not any(probe.values()), f"assumptions of ops/xla_cpu.py that fail: {probe}"
+
+
+if __name__ == "__main__":
+    for name, count in _probe().items():
+        print(f"{name}: {count}")
