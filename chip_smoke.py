@@ -59,7 +59,15 @@ Phases, each fatal on failure:
      and bob's second push under 0.6x his bf16 push.  Then 2 ring rounds
      (``mode="ring"``: two stripes, each folded by its owner on its card,
      gathered back): 64/32/32 launches per step, the fold kernel at both
-     parties, equal fingerprints;
+     parties, equal fingerprints.  Then the pipelined rounds
+     (``overlap=True``: round k's exchange and fold on a comms lane under
+     round k+1's steps, one round of staleness fixed by the DGA correction):
+     3 in coordinator mode, 2 ring, 2 ``wire_quant="uint8"``; 64/32/32
+     launches per step, equal fingerprints, the fold kernel where floats
+     fold, every ring round a ring, and the coordinator-mode result equal
+     byte for byte to the DGA recurrence replayed on the card from each
+     party's recorded step outputs; prints each part's walls beside the
+     synchronous rounds';
   6. the fold alone, before the party processes start: 2 contributions at
      the adapters' size and 4 at the stacked wq's (536.9e6 bf16 elements),
      from the seed, fed through a CUDA ``StreamingAggregator``'s sinks in
@@ -119,7 +127,27 @@ Phases, each fatal on failure:
      with the crash code, bob and carol finish every round with equal
      params, round 1 aggregates a strict subset, the roster epoch reaches 2
      and each survivor failed over once; prints each round's wall,
-     local/push/agg seconds, sent and received bytes and fold launches;
+     local/push/agg seconds, sent and received bytes and fold launches.
+     phase_hierarchy, in the same processes before the quorum part, each
+     from the same start: 4 rounds of ``mode="hierarchy"`` (uint8, two
+     regions of two, weights 32; round 0 is the flat bootstrap), 4 of the
+     flat quantized hub, 3 of the quorum loop over the tree.  Checks: equal
+     fingerprints at every party and the tree's equal to the hub's, every
+     tree round completed as a tree (no abort, no fallback), int16 partial
+     sums, no flash launch, and a party's mean bytes sent and received per
+     tree round (from round 2) at most 1.25 x 2·|model| (bf16);
+  12. (after 11) phase_hierarchy_multilevel, in this process: 16 virtual
+     parties (bare TransportManagers on loopback), region_size 4 and
+     branch 2 (4 leaf regions, 2 interior nodes, the root), each
+     contribution a ResNet-18-sized f32 buffer on the card from the seed,
+     weight 32, uint8 on one grid.  Round 1 must equal
+     ``packed_quantized_sum`` over the 16 on the card and on the CPU byte
+     for byte at every party, with int16 leaf sums and int32 interior sums;
+     round 2 (``region_quorum=3``) holds one member past its region's 3 s
+     deadline and must equal the sum over the 15 that arrived, with a
+     region cutoff and no aborted round.  Prints the walls, the root's
+     egress, the largest ingress, the integer fold's calls per level and,
+     alone on the card, its ms per block against its byte bound;
   7. time each kernel (mean over one window of calls) against its plain
      version, the library call that computes the same function, and the
      card's bound (the forward at the serving shape B=4 and at the training
@@ -1160,6 +1188,8 @@ FED_PARTIES = ("alice", "bob")
 FED_LINKS = ("off", "auto")  # TCP, then whatever the local link "auto" decides
 FED_TIMEOUT_S = 540  # hard limit on the party processes, all three sessions together
 ROUNDS = 2  # FedAvg rounds of the round session (local link "auto")
+OVERLAP_ROUNDS = 3  # pipelined rounds in coordinator mode
+OVERLAP_PARTS = ("round_overlap", "round_overlap_ring", "round_overlap_quant")
 FED_INIT = dict(
     cross_silo_messages_max_size_in_bytes=4 << 30,  # wq is 1.07 GB; default cap 500 MiB
     cross_silo_retry_policy={"maxAttempts": 30, "initialBackoff": "0.2s", "maxBackoff": "1s"},
@@ -1167,14 +1197,41 @@ FED_INIT = dict(
 )
 
 
+_PORTS_GIVEN = set()  # never hand a port out twice in one run
+
+
 def _free_ports(n):
-    socks = [socket.socket() for _ in range(n)]
-    for s in socks:
-        s.bind(("127.0.0.1", 0))
-    ports = [s.getsockname()[1] for s in socks]
-    for s in socks:
-        s.close()
-    return ports
+    """``n`` loopback ports for one session's listeners, free when chosen.
+
+    A port is released before its party binds it, and a session binds its
+    ports only after earlier sessions ran.  A port from the kernel's
+    ephemeral range could meanwhile become the local port of any outgoing
+    connection (an earlier session's, this one's peers'), and the party's
+    bind would fail with EADDRINUSE; so the ports come from below that
+    range, where only an explicit bind takes a port."""
+    import random
+
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            lo, hi = map(int, f.read().split())
+    except (OSError, ValueError):
+        lo, hi = 32768, 60999
+    pool = list(range(10000, lo)) if lo - 10000 >= 64 * n else list(range(hi + 1, 65536))
+    random.SystemRandom().shuffle(pool)
+    ports = []
+    for port in pool:
+        if port in _PORTS_GIVEN:
+            continue
+        with socket.socket() as s:  # no SO_REUSEADDR: a port in TIME_WAIT is passed over
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        _PORTS_GIVEN.add(port)
+        ports.append(port)
+        if len(ports) == n:
+            return ports
+    raise RuntimeError(f"no {n} free loopback ports outside the ephemeral range {lo}-{hi}")
 
 
 def _sync(device):
@@ -1256,6 +1313,10 @@ class _RoundTrainer:
         vocab = self.params["embed"].shape[0]
         self.ids = torch.randint(0, vocab, (1, train_len), generator=gen, device=device)
         self.opt, self.steps = None, []
+        self.sent = None  # a list while recording the packed train outputs
+
+    def record(self, on):
+        self.sent = [] if on else None
 
     def initial(self):
         """The round's starting adapters, from the seed."""
@@ -1274,7 +1335,15 @@ class _RoundTrainer:
         _sync(self.device)
         self.steps.append({"step_ms": (time.perf_counter() - t0) * 1e3, "loss": loss.item(),
                            "launches": _counts()})
-        return fl.compress(adapters, packed=True)
+        out = fl.compress(adapters, packed=True)
+        if self.sent is not None:
+            self.sent.append(out)
+        return out
+
+    def contributions(self):
+        """The recorded train outputs, one per round, and stop recording."""
+        sent, self.sent = self.sent, None
+        return sent
 
     def report(self):
         peak = torch.cuda.max_memory_allocated(self.device) if self.device.type == "cuda" else 0
@@ -1282,8 +1351,41 @@ class _RoundTrainer:
         return {"steps": steps, "max_memory_allocated": peak}
 
 
+def _dga_replay(sent):
+    """The pipelined rounds' recurrence replayed from the recorded train
+    outputs ``sent[party][r]``: round 0 folds the raw outputs, round r the
+    DGA-corrected ones ``agg + (u_r − c_{r−1})``; the fold is the one-shot
+    packed mean (weights 1: the streamed fold's bytes).  On the card the
+    outputs came to."""
+    from rayfed_tpu_torch.fl.overlap import dga_correct
+
+    contribs, agg = None, None
+    for r in range(len(sent[FED_PARTIES[0]])):
+        u = {p: sent[p][r] for p in FED_PARTIES}
+        contribs = u if agg is None else {p: dga_correct(agg, u[p], contribs[p]) for p in FED_PARTIES}
+        agg = fedavg.packed_weighted_sum([contribs[p] for p in FED_PARTIES])
+    return fl.decompress(agg)
+
+
+# The round session's parts in order, each from the last one's result:
+# (key, run_fedavg_rounds options, rounds).  The first wire_quant round has
+# no grid yet and ships bf16, as in the JAX package.
+ROUND_PARTS = (
+    ("round", {"streaming_agg": True}, ROUNDS),
+    ("round_quant", {"streaming_agg": True, "wire_quant": "uint8"}, ROUNDS),
+    # Two parties: two stripes, each folded by its owner (streaming_agg is
+    # the hub's, off).
+    ("round_ring", {"mode": "ring"}, ROUNDS),
+    # The pipelined rounds: round k's aggregation under round k+1's step.
+    ("round_overlap", {"overlap": True}, OVERLAP_ROUNDS),
+    ("round_overlap_ring", {"overlap": True, "mode": "ring"}, ROUNDS),
+    ("round_overlap_quant", {"overlap": True, "streaming_agg": True, "wire_quant": "uint8"}, ROUNDS),
+)
+
+
 def _round_session(fed, party, cache, cfg_name, cfg_kw, train_len, device):
-    """The packed FedAvg round: both parties train, alice folds on her card."""
+    """The packed FedAvg rounds: both parties train, alice folds on her
+    card; then the ring and the pipelined rounds."""
     from rayfed_tpu_torch.fl.ring import RING_STATS
     from rayfed_tpu_torch.runtime import get_runtime
 
@@ -1295,21 +1397,17 @@ def _round_session(fed, party, cache, cfg_name, cfg_kw, train_len, device):
     tm = get_runtime().transport
     digest = fed.remote(_leaf_digest)
     out = {}
-    # The bf16 packed rounds, then, in the same processes and from their
-    # result, the compressed-domain rounds (uint8 codes on each round's
-    # grid; the first round of a wire_quant run has no grid yet and ships
-    # bf16, as in the JAX package), then the ring rounds (two parties: two
-    # stripes, each folded by its owner; streaming_agg is the hub's, off).
-    for key, kw in (("round", {"streaming_agg": True}),
-                    ("round_quant", {"streaming_agg": True, "wire_quant": "uint8"}),
-                    ("round_ring", {"mode": "ring"})):
+    for key, kw, rounds in ROUND_PARTS:
+        replay = key == "round_overlap"  # its result is replayed from the recorded outputs
+        if replay:
+            fed.get([trainers[p].record.remote(True) for p in FED_PARTIES])
         timings = []
         logged = tm.transfer_log.total_recorded
         in0 = tm.get_stats()["receive_bytes"]
         fold.fold_fma_.launches = 0
         ring0 = dict(RING_STATS)
         t0 = time.perf_counter()
-        adapters = fl.run_fedavg_rounds(trainers, adapters, rounds=ROUNDS, compress_wire=True, packed_wire=True,
+        adapters = fl.run_fedavg_rounds(trainers, adapters, rounds=rounds, compress_wire=True, packed_wire=True,
                                         timings=timings, **kw)
         _sync(device)
         wall_s = time.perf_counter() - t0
@@ -1319,6 +1417,10 @@ def _round_session(fed, party, cache, cfg_name, cfg_kw, train_len, device):
         trainer_reports = fed.get([trainers[p].report.remote() for p in FED_PARTIES])
         stats = tm.get_stats()
         out[key] = {
+            "rounds": rounds,
+            "replay": (_leaf_digest(_dga_replay(dict(zip(FED_PARTIES, fed.get(
+                [trainers[p].contributions.remote() for p in FED_PARTIES])))))
+                       if replay else None),
             "wall_s": wall_s,
             "fold_launches": fold_launches,
             "ring_stats": {k: RING_STATS[k] - ring0[k] for k in RING_STATS},
@@ -1538,21 +1640,75 @@ def _federated_summary(reports, want, wall):
     out["round"] = _round_summary(alice["round"], bob["round"], want)
     out["round_quant"] = _round_summary(alice["round_quant"], bob["round_quant"], want, quant=True)
     out["round_ring"] = _ring_round_summary(alice["round_ring"], bob["round_ring"], want)
+    for key in OVERLAP_PARTS:
+        out[key] = _overlap_summary(alice[key], bob[key], want, key)
+    sync = {k: alice[k]["wall_s"] / alice[k]["rounds"] for k in ("round", "round_quant", "round_ring")}
+    pipelined = {k: alice[k]["wall_s"] / alice[k]["rounds"]
+                 for k in ("round_overlap", "round_overlap_quant", "round_overlap_ring")}
+    print(f"[round_overlap] alice's wall per round: synchronous {json.dumps(sync)} s, "
+          f"pipelined {json.dumps(pipelined)} s")
+    out["round_overlap"]["per_round_s"] = {"sync": sync, "pipelined": pipelined}
     return out
 
 
-def _round_summary(a, b, want, quant=False):
-    """Check both parties' reports of a round session and print them."""
-    tag = "round_quant" if quant else "round"
+def _overlap_summary(a, b, want, tag):
+    """Check both parties' reports of a pipelined part and print them: the
+    launches of every step, equal final adapters on the card, the fold
+    kernel where the part folds floats, every ring round completed as a ring
+    and, in coordinator mode, the final adapters equal to the DGA recurrence
+    replayed from the recorded train outputs."""
+    rounds = a["rounds"]
+    d = _check_session(a, b, want, tag, rounds)
+    for party, r in (("alice", a), ("bob", b)):
+        if r["replay"] is not None and r["replay"] != d:
+            raise AssertionError(f"{tag}: {party}'s replay of the DGA recurrence {r['replay']['sha256'][:16]} "
+                                 f"differs from the pipelined result {d['sha256'][:16]}")
+    ring = "ring" in tag
+    launches = {k: 0 for k in want}
+    for party, r in (("alice", a), ("bob", b)):
+        t = r["trainers"][party]
+        for i, (step, rec) in enumerate(zip(t["steps"], r["timings"])):
+            print(f"[{tag}] {party} round {i}: local_s {rec['local_s']:.3f} push_s {rec['push_s']:.3f} "
+                  f"agg_s {rec['agg_s']:.3f} hidden_s {rec['hidden_s']:.3f}; step {step['step_ms']:.1f} ms "
+                  f"loss {step['loss']:.6f} launches {step['launches']}")
+            for k in launches:
+                launches[k] += step["launches"][k]
+        print(f"[{tag}] {party}: {rounds} rounds in {r['wall_s']:.2f} s wall, pushed "
+              f"{[round(x / 1e6, 4) for x in r['pushed']]} MB, fold_fma launches {r['fold_launches']}, "
+              f"ring {r['ring_stats']}")
+        want_ring = {"rounds_completed": rounds if ring else 0, "rounds_aborted": 0, "fallback_rounds": 0}
+        if r["ring_stats"] != want_ring:
+            raise AssertionError(f"{tag}: {party}'s ring counters {r['ring_stats']}, want {want_ring}")
+        if (ring or party == "alice") and not r["fold_launches"]:
+            raise AssertionError(f"{tag}: {party}'s float folds never launched the fold kernel")
+    print(f"[{tag}] final adapters sha256 {d['sha256'][:16]} on both parties"
+          + (", equal to the replayed DGA recurrence" if a["replay"] is not None else "")
+          + f"; launches over both parties' steps {launches}")
+    return {"launches": launches, "fold_launches": a["fold_launches"] + b["fold_launches"],
+            "wall_s": {"alice": a["wall_s"], "bob": b["wall_s"]}}
+
+
+def _check_session(a, b, want, tag, rounds):
+    """The checks every part of the round session shares: each party's
+    ``rounds`` steps launched ``want``, and both parties hold the same final
+    adapters, on the card.  Returns their fingerprint."""
     for party, r in (("alice", a), ("bob", b)):
         steps = r["trainers"][party]["steps"]
-        if len(steps) != ROUNDS or any(s["launches"] != want for s in steps):
-            raise AssertionError(f"{tag}: {party}'s steps launched {[s['launches'] for s in steps]}, want {want} x {ROUNDS}")
+        if len(steps) != rounds or any(s["launches"] != want for s in steps):
+            raise AssertionError(f"{tag}: {party}'s steps launched {[s['launches'] for s in steps]}, "
+                                 f"want {want} x {rounds}")
     if a["digests"] != b["digests"] or a["digests"]["alice"] != a["digests"]["bob"]:
         raise AssertionError(f"{tag}: the parties' final adapters differ: {a['digests']} vs {b['digests']}")
     d = a["digests"]["alice"]
     if not d["meta"] or any(m[2] != "cuda" for m in d["meta"]):
         raise AssertionError(f"{tag}: final adapters not on the card: {d['meta']}")
+    return d
+
+
+def _round_summary(a, b, want, quant=False):
+    """Check both parties' reports of a round session and print them."""
+    tag = "round_quant" if quant else "round"
+    d = _check_session(a, b, want, tag, ROUNDS)
     # Every round's contribution (bob's) and broadcast (alice's) go out on
     # their delta streams; from round 2 on each send diffs against the
     # stream's cached base and ships the changed 4 MB chunks only, or a
@@ -1594,15 +1750,7 @@ def _ring_round_summary(a, b, want):
     launches of every step, equal final adapters on the card, and the fold
     kernel at both parties (each folds its own stripe)."""
     tag = "round_ring"
-    for party, r in (("alice", a), ("bob", b)):
-        steps = r["trainers"][party]["steps"]
-        if len(steps) != ROUNDS or any(s["launches"] != want for s in steps):
-            raise AssertionError(f"{tag}: {party}'s steps launched {[s['launches'] for s in steps]}, want {want} x {ROUNDS}")
-    if a["digests"] != b["digests"] or a["digests"]["alice"] != a["digests"]["bob"]:
-        raise AssertionError(f"{tag}: the parties' final adapters differ: {a['digests']} vs {b['digests']}")
-    d = a["digests"]["alice"]
-    if not d["meta"] or any(m[2] != "cuda" for m in d["meta"]):
-        raise AssertionError(f"{tag}: final adapters not on the card: {d['meta']}")
+    d = _check_session(a, b, want, tag, ROUNDS)
     launches = {k: 0 for k in want}
     for party, r in (("alice", a), ("bob", b)):
         t = r["trainers"][party]
@@ -1806,8 +1954,13 @@ def _split_summary(reports, cfg, wall):
 # -- the topologies: BASELINE config #3, four parties, hub / ring / quorum ---
 
 TOPO_PARTIES = ("alice", "bob", "carol", "dave")
-TOPO_TIMEOUT_S = 300  # hard limit on the topology phase's party processes
+TOPO_TIMEOUT_S = 420  # hard limit on the topology phase's party processes
 TOPO_ROUNDS, TOPO_QUANT_ROUNDS = 3, 2
+# The hierarchy's parts: two regions of two, uint8 codes, each party
+# weighted by its shard's image count; round 0 is the flat bootstrap.
+HIER_ROUNDS = 4
+HIER_PARTS = ("hier", "hier_flat", "hier_quorum")
+HIER_BYTES_MAX = 1.25  # mean bytes a party sends and receives per tree round, over 2·|model| (bf16)
 RESNET_N, RESNET_HW, RESNET_LR = 32, 32, 0.05  # a CIFAR-10-shaped shard per party
 RING_INGRESS_MAX = 0.4  # alice's share of cluster ingress in a ring round
 QUANT_BYTES_MAX = 0.6  # a quantized ring round's bytes against a bf16 ring round's
@@ -1866,6 +2019,7 @@ def _topo_part(fed, party, trainers, params, rounds, kw):
     timings, the bytes it sent and received per round and received in all,
     its fold and flash launches, its ring round counters and the final
     params' fingerprint."""
+    from rayfed_tpu_torch.fl.hierarchy import HIER_STATS
     from rayfed_tpu_torch.fl.ring import RING_STATS
     from rayfed_tpu_torch.runtime import get_runtime
 
@@ -1877,7 +2031,7 @@ def _topo_part(fed, party, trainers, params, rounds, kw):
         stats = tm.get_stats()
         return time.perf_counter(), stats["send_bytes"], stats["receive_bytes"]
 
-    marks, ring0 = [mark()], dict(RING_STATS)
+    marks, ring0, hier0 = [mark()], dict(RING_STATS), dict(HIER_STATS)
     in0 = marks[0][2]
 
     def on_round(r, _params):
@@ -1899,6 +2053,7 @@ def _topo_part(fed, party, trainers, params, rounds, kw):
         "fold_launches": fold_launches,
         "flash_launches": flash_launches,
         "ring_stats": {k: RING_STATS[k] - ring0[k] for k in RING_STATS},
+        "hier_stats": {k: HIER_STATS[k] - hier0[k] for k in HIER_STATS},
         "losses": fed.get([trainers[p].report.remote() for p in TOPO_PARTIES])[TOPO_PARTIES.index(party)],
         "digest": _leaf_digest(final),
     }
@@ -1934,6 +2089,20 @@ def _topo_party(party, ports, device, out):
         final, report["parts"]["ring"] = _topo_part(fed, party, trainers, params0, TOPO_ROUNDS, {"mode": "ring"})
         _, report["parts"]["ring_quant"] = _topo_part(fed, party, trainers, final, TOPO_QUANT_ROUNDS,
                                                       {"mode": "ring", "wire_quant": "uint8"})
+        # The hierarchy (phase_hierarchy), each part from the same start
+        # and a fresh codec residual: the tree, the flat quantized hub, the
+        # tree under the quorum loop.
+        from rayfed_tpu_torch.fl import quantize as qz
+
+        hier_kw = {"wire_quant": "uint8", "weights": [RESNET_N] * len(TOPO_PARTIES)}
+        for name, kw, rounds in (
+            ("hier", {"mode": "hierarchy", "region_size": 2}, HIER_ROUNDS),
+            ("hier_flat", {"streaming_agg": True}, HIER_ROUNDS),
+            ("hier_quorum", {"mode": "hierarchy", "region_size": 2, "quorum": QUORUM_K,
+                             "round_deadline_s": 30.0}, TOPO_ROUNDS),
+        ):
+            qz.reset_compressors()
+            _, report["parts"][name] = _topo_part(fed, party, trainers, params0, rounds, {**hier_kw, **kw})
         fed.shutdown()
         out.put({"party": party, "progress": True, **report})
 
@@ -2048,6 +2217,11 @@ def _topology_summary(reports, wall):
     for p in TOPO_PARTIES:
         if not parts[p]["ring"]["fold_launches"]:
             raise AssertionError(f"[topo ring] {p}'s stripe folds never launched the fold kernel")
+    out["hierarchy"] = _hierarchy_summary(parts, n_elems)
+    for name in HIER_PARTS:
+        out["fold_launches"][name] = sum(parts[p][name]["fold_launches"] for p in TOPO_PARTIES)
+        out["flash_launches"][name] = {k: sum(parts[p][name]["flash_launches"][k] for p in TOPO_PARTIES)
+                                       for k in parts["alice"][name]["flash_launches"]}
 
     # The quorum part: bob and carol survive; alice and dave crashed.
     crashed = sorted(p for p, r in reports.items() if r.get("crashed"))
@@ -2088,7 +2262,267 @@ def _topology_summary(reports, wall):
     if flash:
         raise AssertionError(f"[topo] ResNet-18 rounds launched flash kernels: {flash}")
     out["quorum"] = {"log": log, "round_s": bob["round_s"], "epoch": bob["epoch"]}
+    out["elements"] = n_elems
     print(f"[topo] four parties, all parts in {wall:.1f} s, party processes included")
+    return out
+
+
+# -- the multi-level hierarchy: 16 virtual parties in this process ----------
+
+HIER_ML_PARTIES = tuple(f"v{i:02d}" for i in range(16))
+HIER_ML_REGION, HIER_ML_BRANCH, HIER_ML_WEIGHT = 4, 2, 32  # 4 leaf regions -> 2 interior nodes -> the root
+HIER_ML_QUORUM, HIER_ML_DEADLINE_S = 3, 3.0
+HIER_ML_LATE = "v05"  # a member of leaf region 1 (v04..v07), held past the region's deadline
+HIER_ML_BACKSTOP_S = 300
+HBM_BYTES_PER_S = PEAKS["SXM"][1]
+
+
+class _IntFoldMeter:
+    """Counts the compressed-domain fold's calls on this process's
+    aggregators, keyed by the folded dtype: uint8 codes at the leaf stripe
+    owners, the int16 leaf sums at the interior nodes, the int32 interior
+    sums at the root.  Wraps ``fedavg.quantized_accum_kernel`` (a torch
+    ``add_``, not a kernel of the port) for the rounds only; its device time
+    per level is taken alone (``_int_fold_times``), since 16 parties' threads
+    share one interpreter and would time their launch delays."""
+
+    def __init__(self):
+        import threading
+
+        self.lock, self.calls, self.orig = threading.Lock(), {}, fedavg.quantized_accum_kernel
+
+    def __enter__(self):
+        def fold(acc, off, chunk, w):
+            self.orig(acc, off, chunk, w)
+            key = str(chunk.dtype).replace("torch.", "")
+            with self.lock:
+                n, elems = self.calls.get(key, (0, 0))
+                self.calls[key] = (n + 1, elems + chunk.numel())
+
+        fedavg.quantized_accum_kernel = fold
+        return self
+
+    def __exit__(self, *exc):
+        fedavg.quantized_accum_kernel = self.orig
+
+    def take(self):
+        with self.lock:
+            calls, self.calls = self.calls, {}
+        return {dt: {"launches": n, "elements": e} for dt, (n, e) in calls.items()}
+
+
+def _int_fold_times(dev, chunk_elems):
+    """The integer fold of one full block at each level's dtype and weight,
+    on the card alone: device ms per call (CUDA events over 20 calls)
+    against its byte bound (the chunk read, the i32 accumulator read and
+    written, at HBM rate)."""
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    for dt, w, hi in (("uint8", HIER_ML_WEIGHT, 256), ("int16", 1, 1 << 14), ("int32", 1, 1 << 20)):
+        chunk = torch.randint(0, hi, (chunk_elems,), generator=gen, device=dev).to(getattr(torch, dt))
+        acc = torch.zeros(chunk_elems, dtype=torch.int32, device=dev)
+        ms = _sync_ms(lambda: fedavg.quantized_accum_kernel(acc, 0, chunk, w), 20)
+        out[dt] = {"ms": ms, "bound_ms": chunk_elems * (chunk.element_size() + 8) / HBM_BYTES_PER_S * 1e3}
+    return out
+
+
+def _hier_ml_round(mgrs, dev, contribs, grid, ref, keys, **kw):
+    """One HierarchyRound on a thread per virtual party; returns per party
+    (result, timings, seconds) and the managers' byte counts over the
+    round."""
+    import threading
+
+    from rayfed_tpu_torch.fl import hierarchy as hier
+
+    results, errors, timings, secs = {}, {}, {}, {}
+    before = {p: (m.get_stats()["send_bytes"], m.get_stats()["receive_bytes"]) for p, m in mgrs.items()}
+    late = kw.pop("late", None)
+
+    def run(p):
+        try:
+            timings[p] = {}
+            rnd = hier.HierarchyRound(
+                mgrs[p], party=p, members=HIER_ML_PARTIES, region_size=HIER_ML_REGION, grid=grid, quant_ref=ref,
+                keys=keys, weights={q: float(HIER_ML_WEIGHT) for q in HIER_ML_PARTIES}, stream="hml",
+                backstop=HIER_ML_BACKSTOP_S, branch=HIER_ML_BRANCH, timings=timings[p], device=dev, **kw)
+            if p == late:
+                time.sleep(HIER_ML_DEADLINE_S + 2.0)
+            t0 = time.perf_counter()
+            results[p] = rnd.run(contribs[p])
+            secs[p] = time.perf_counter() - t0
+        except BaseException as e:  # reported below, with the party
+            errors[p] = e
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=run, args=(p,), daemon=True) for p in HIER_ML_PARTIES]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(HIER_ML_BACKSTOP_S)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        raise TimeoutError(f"[hier_ml] a party's round is still running after {HIER_ML_BACKSTOP_S} s")
+    if errors:
+        raise AssertionError(f"[hier_ml] parties failed: {errors}")
+    moved = {p: (m.get_stats()["send_bytes"] - before[p][0], m.get_stats()["receive_bytes"] - before[p][1])
+             for p, m in mgrs.items()}
+    return results, timings, secs, moved, wall
+
+
+def phase_hierarchy_multilevel(n_elems, device=None, chunk_elems=None):
+    """A three-level tree in this process: 16 virtual parties, each a bare
+    TransportManager on loopback driving ``HierarchyRound`` (region_size 4,
+    branch 2: 4 leaf regions fold into 2 interior nodes, then the root), each
+    contribution a ResNet-18-sized f32 buffer made on the card from the
+    seed, weight 32, coded as uint8 on one shared grid.  Round 1 must equal
+    ``packed_quantized_sum`` over the 16 on the card and on the CPU byte for
+    byte, with int16 leaf sums and int32 interior sums; round 2 holds one
+    member of leaf region 1 past its region's deadline under
+    ``region_quorum=3`` and must equal the sum over the 15 that arrived, with
+    a region cutoff and no aborted round."""
+    from rayfed_tpu_torch.config import ClusterConfig, JobConfig, PartyConfig
+    from rayfed_tpu_torch.fl import hierarchy as hier
+    from rayfed_tpu_torch.fl import quantize as qz
+    from rayfed_tpu_torch.transport.manager import TransportManager
+    from rayfed_tpu_torch.utils.platform import resolve_device
+
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    ref = 0.05 * torch.randn(n_elems, generator=gen, device=dev)
+    contribs = {p: fl.pack_tree({"w": ref + 0.01 * torch.randn(n_elems, generator=gen, device=dev)}, torch.float32)
+                for p in HIER_ML_PARTIES}
+    prev = (0.01 * torch.randn(n_elems, generator=gen, device=dev)).cpu().numpy()
+    grid = qz.make_round_grid(prev, mode="delta", expand=qz.QUANT_DELTA_EXPAND, chunk_elems=chunk_elems)
+    qts = {p: qz.quantize_packed(c, grid, ref=ref) for p, c in contribs.items()}
+    weights = [HIER_ML_WEIGHT] * len(HIER_ML_PARTIES)
+    print(f"[hier_ml] {len(HIER_ML_PARTIES)} virtual parties, {n_elems} f32 elements each "
+          f"({len(HIER_ML_PARTIES) * n_elems * 4 / 1e9:.3f} GB of contributions on {dev}), weight {HIER_ML_WEIGHT}, "
+          f"uint8 on one grid of {grid.nblocks} blocks; region_size {HIER_ML_REGION}, branch {HIER_ML_BRANCH}")
+    ports = _free_ports(len(HIER_ML_PARTIES))
+    cluster = {p: PartyConfig.from_dict({"address": f"127.0.0.1:{port}"}) for p, port in zip(HIER_ML_PARTIES, ports)}
+    mgrs = {p: TransportManager(ClusterConfig(parties=cluster, current_party=p),
+                                JobConfig(cross_silo_timeout_s=120), device=dev)
+            for p in HIER_ML_PARTIES}
+    for m in mgrs.values():
+        m.start()
+    out = {}
+    try:
+        lay = hier.region_layout(HIER_ML_PARTIES, HIER_ML_REGION, branch=HIER_ML_BRANCH)
+        root = lay.root
+        rounds = ((1, {}, HIER_ML_PARTIES),
+                  (2, {"region_quorum": HIER_ML_QUORUM, "region_deadline_s": HIER_ML_DEADLINE_S,
+                       "late": HIER_ML_LATE}, tuple(p for p in HIER_ML_PARTIES if p != HIER_ML_LATE)))
+        # The one-shot sums each round must give, on the card and the CPU.
+        wants = {}
+        for rnd, _, members in rounds:
+            sub = [qts[p] for p in members]
+            want = fedavg.packed_quantized_sum(sub, weights[:len(sub)], ref=ref)
+            want_cpu = fedavg.packed_quantized_sum(sub, weights[:len(sub)], ref=ref.cpu())
+            if not torch.equal(want.buf.cpu().view(torch.int32), want_cpu.buf.view(torch.int32)):
+                raise AssertionError(f"[hier_ml] round {rnd}: packed_quantized_sum on {dev} differs from the CPU's")
+            wants[rnd] = want_cpu.buf.view(torch.int32)
+            del want
+        stats0 = dict(hier.HIER_STATS)
+        for rnd, kw, members in rounds:
+            fold.fold_fma_.launches = 0
+            _zero_counts()
+            with _IntFoldMeter() as meter:
+                results, timings, secs, moved, wall = _hier_ml_round(
+                    mgrs, dev, contribs, grid, ref, [f"hml{rnd}.{j}" for j in range(hier.HIER_SEQ_IDS)], **kw)
+            folds = meter.take()
+            launches = {"fold_fma": fold.fold_fma_.launches, **_counts()}
+            raw = wants[rnd]
+            for p, got in results.items():
+                if not torch.equal(got.buf.detach().cpu().view(torch.int32), raw):
+                    raise AssertionError(f"[hier_ml] round {rnd}: {p}'s result differs from packed_quantized_sum "
+                                         f"over {len(members)} parties")
+            dtypes = {tuple(t["ps_dtypes"]) for t in timings.values()}
+            if dtypes != {("int16", "int32")}:
+                raise AssertionError(f"[hier_ml] round {rnd}: partial sums {dtypes}, want int16 leaves and "
+                                     f"int32 interior nodes")
+            ingress = max(moved, key=lambda p: moved[p][1])
+            print(f"[hier_ml] round {rnd}: wall {wall:.3f} s (the parties' rounds {min(secs.values()):.3f}–"
+                  f"{max(secs.values()):.3f} s), every party holds packed_quantized_sum over {len(members)} "
+                  f"parties, equal on {dev.type} and cpu; partial sums: leaves int16, interior nodes int32, the "
+                  f"root folds int32 (partial_sum_dtype(255, {HIER_ML_WEIGHT * len(HIER_ML_PARTIES)}) = "
+                  f"{hier.partial_sum_dtype(grid.qabs_max, HIER_ML_WEIGHT * len(HIER_ML_PARTIES))})")
+            print(f"[hier_ml] round {rnd}: root {root} egress {moved[root][0] / 1e6:.3f} MB, ingress "
+                  f"{moved[root][1] / 1e6:.3f} MB; largest ingress {moved[ingress][1] / 1e6:.3f} MB at {ingress}; "
+                  f"launches {launches}")
+            for dt, f in sorted(folds.items()):
+                print(f"[hier_ml] round {rnd}: integer fold of {dt} chunks: {f['launches']} launches, "
+                      f"{f['elements']} elements")
+            out[f"round{rnd}"] = {"wall_s": wall, "party_s": secs, "root_egress": moved[root][0],
+                                  "max_ingress": [ingress, moved[ingress][1]], "folds": folds,
+                                  "launches": launches}
+        stats = {k: hier.HIER_STATS[k] - stats0[k] for k in stats0}
+        print(f"[hier_ml] HIER_STATS over both rounds (all 16 parties): {stats}")
+        if dev.type == "cuda":
+            out["fold_times"] = _int_fold_times(dev, grid.chunk_elems)
+            for dt, f in out["fold_times"].items():
+                print(f"[hier_ml] integer fold of one {grid.chunk_elems}-element {dt} block alone: "
+                      f"{f['ms']:.4f} ms on the card against a {f['bound_ms']:.4f} ms byte bound "
+                      f"({f['bound_ms'] / f['ms']:.3f} of it)")
+        if stats["rounds_aborted"] or stats["fallback_rounds"] or stats["region_cutoffs"] < 1:
+            raise AssertionError(f"[hier_ml] counters {stats}: want no aborted round and >= 1 region cutoff")
+        out["stats"] = stats
+    finally:
+        # In parallel: a manager's shutdown can wait out its peers' links.
+        with ThreadPoolExecutor(len(mgrs)) as pool:
+            list(pool.map(lambda m: m.stop(), mgrs.values()))
+    del contribs, qts
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _hierarchy_summary(parts, n_elems):
+    """phase_hierarchy, BASELINE config #3 under ``mode="hierarchy"`` (run in
+    the topology phase's party processes): check the three hierarchy parts
+    and print them.  The tree's final params equal the flat quantized hub's
+    at every party; every tree round completed as a tree (round 0 is the
+    flat bootstrap); the quorum loop's tree rounds never fell back; a party
+    sends and receives at most HIER_BYTES_MAX x 2·|model| per tree round,
+    over the tree rounds after the first (the coordinator's bootstrap
+    broadcast completes inside the first tree round's window)."""
+    model_bytes = 2 * n_elems  # the bf16 bundle
+    out = {}
+    for name in HIER_PARTS:
+        rep = {p: parts[p][name] for p in TOPO_PARTIES}
+        digests = {p: r["digest"]["sha256"] for p, r in rep.items()}
+        if len(set(digests.values())) != 1:
+            raise AssertionError(f"[hier {name}] the parties' final params differ: {digests}")
+        n_rounds = len(rep["alice"]["sent"])
+        tree_rounds = 0 if name == "hier_flat" else n_rounds - 1
+        for p, r in rep.items():
+            total_in = [sum(q["received"][i] for q in rep.values()) for i in range(n_rounds)]
+            for i, rec in enumerate(r["timings"]):
+                print(f"[hier {name}] {p} round {i}: wall {r['round_s'][i]:.3f} s, local_s {rec['local_s']:.3f} "
+                      f"push_s {rec['push_s']:.3f} agg_s {rec['agg_s']:.3f}, sent {r['sent'][i] / 1e6:.3f} MB, "
+                      f"received {r['received'][i] / 1e6:.3f} MB ({r['received'][i] / total_in[i]:.3f} of the "
+                      f"cluster's ingress), partial sums {rec.get('ps_dtypes', 'none (flat)')}")
+            hs = r["hier_stats"]
+            print(f"[hier {name}] {p}: HIER_STATS {hs}, fold_fma launches {r['fold_launches']}, flash launches "
+                  f"{r['flash_launches']}, losses {r['losses']}")
+            want = {"rounds_completed": tree_rounds, "rounds_aborted": 0, "fallback_rounds": 0, "region_cutoffs": 0}
+            if hs != want:
+                raise AssertionError(f"[hier {name}] {p}'s hierarchy counters {hs}, want {want}")
+            dtypes = {tuple(rec["ps_dtypes"]) for rec in r["timings"] if "ps_dtypes" in rec}
+            if tree_rounds and dtypes != {("int16",)}:
+                raise AssertionError(f"[hier {name}] {p}'s partial sums rode {dtypes}, want int16 (255 x 64)")
+        per_party = [(r["sent"][i] + r["received"][i]) for r in rep.values() for i in range(2, n_rounds)]
+        frac = sum(per_party) / len(per_party) / (2 * model_bytes)
+        out[name] = {"digest": digests["alice"], "round_s": rep["alice"]["round_s"], "bytes_frac": frac,
+                     "bytes_per_party_round": sum(per_party) / len(per_party)}
+        print(f"[hier {name}] mean bytes a party sent and received per round from round 2: "
+              f"{sum(per_party) / len(per_party) / 1e6:.3f} MB, {frac:.3f} of 2·|model| "
+              f"({2 * model_bytes / 1e6:.2f} MB)")
+        if name == "hier" and frac > HIER_BYTES_MAX:
+            raise AssertionError(f"[hier] a party moved {frac:.3f} x 2·|model| per tree round (> {HIER_BYTES_MAX})")
+    if out["hier"]["digest"] != out["hier_flat"]["digest"]:
+        raise AssertionError(f"[hier] the tree's final params {out['hier']['digest'][:16]} differ from the flat "
+                             f"quantized hub's {out['hier_flat']['digest'][:16]}")
+    print(f"[hier] the tree's final params equal the flat quantized hub's: sha256 {out['hier']['digest'][:16]}")
     return out
 
 
@@ -2232,6 +2666,13 @@ def main() -> int:
     split_launches = split["launches"]
     topo = phase_topologies()
     topo_fold, topo_flash = topo["fold_launches"], topo["flash_launches"]
+    hier_ml = phase_hierarchy_multilevel(topo["elements"])
+    ml_launches = {k: v for k, v in hier_ml["round1"]["launches"].items()}
+    for k, v in hier_ml["round2"]["launches"].items():
+        ml_launches[k] += v
+    overlap = {k: sum(federated[part]["launches"][k] for part in OVERLAP_PARTS)
+               for k in ("fwd", "bwd_dq", "bwd_dkv")}
+    overlap_fold = sum(federated[part]["fold_launches"] for part in OVERLAP_PARTS)
     ring_launches = federated["round_ring"]["launches"]
     ring_fold = federated["round_ring"]["fold_launches"]
     phase_split_grads(gen)
@@ -2264,7 +2705,10 @@ def main() -> int:
                              "split": split_launches["fwd"],
                              "round_ring": ring_launches["fwd"],
                              "ring_resnet": topo_flash["ring"]["fwd"] + topo_flash["ring_quant"]["fwd"],
-                             "quorum_resnet": topo_flash["quorum"]["fwd"]},
+                             "quorum_resnet": topo_flash["quorum"]["fwd"],
+                             "hierarchy_resnet": sum(topo_flash[n]["fwd"] for n in HIER_PARTS),
+                             "hier_multilevel": ml_launches["fwd"],
+                             "round_overlap": overlap["fwd"]},
         "bert_shape": bert_times["fwd"],  # bert_base's attention on the split path
         "max_abs_err": slice_err,
         **times,
@@ -2283,7 +2727,10 @@ def main() -> int:
                              "split": split_launches["bwd_dq"],
                              "round_ring": ring_launches["bwd_dq"],
                              "ring_resnet": topo_flash["ring"]["bwd_dq"] + topo_flash["ring_quant"]["bwd_dq"],
-                             "quorum_resnet": topo_flash["quorum"]["bwd_dq"]},
+                             "quorum_resnet": topo_flash["quorum"]["bwd_dq"],
+                             "hierarchy_resnet": sum(topo_flash[n]["bwd_dq"] for n in HIER_PARTS),
+                             "hier_multilevel": ml_launches["bwd_dq"],
+                             "round_overlap": overlap["bwd_dq"]},
         "bert_shape": bert_times["dq"],  # bert_base's attention on the split path
         "max_abs_err": bwd_err["dq"],
         **bwd_times["dq"],
@@ -2301,7 +2748,10 @@ def main() -> int:
                              "split": split_launches["bwd_dkv"],
                              "round_ring": ring_launches["bwd_dkv"],
                              "ring_resnet": topo_flash["ring"]["bwd_dkv"] + topo_flash["ring_quant"]["bwd_dkv"],
-                             "quorum_resnet": topo_flash["quorum"]["bwd_dkv"]},
+                             "quorum_resnet": topo_flash["quorum"]["bwd_dkv"],
+                             "hierarchy_resnet": sum(topo_flash[n]["bwd_dkv"] for n in HIER_PARTS),
+                             "hier_multilevel": ml_launches["bwd_dkv"],
+                             "round_overlap": overlap["bwd_dkv"]},
         "bert_shape": bert_times["dkv"],  # bert_base's attention on the split path
         "max_abs_err": bwd_err["dkv"],
         **bwd_times["dkv"],
@@ -2321,7 +2771,12 @@ def main() -> int:
                              # (bf16 and the quantized ring's bootstrap round), the
                              # quorum coordinators (alice, then bob after the failover)
                              "ring_resnet": topo_fold["ring"] + topo_fold["ring_quant"],
-                             "quorum_resnet": topo_fold["quorum"]},
+                             "quorum_resnet": topo_fold["quorum"],
+                             # the hierarchy folds integers; its float folds are the
+                             # flat bootstrap rounds' (and the flat quantized hub's)
+                             "hierarchy_resnet": sum(topo_fold[n] for n in HIER_PARTS),
+                             "hier_multilevel": ml_launches["fold_fma"],
+                             "round_overlap": overlap_fold},
         **fold_times["adapters"],  # one contribution of the round's packed adapters
         "wq_shape": fold_times["wq"],
     }]

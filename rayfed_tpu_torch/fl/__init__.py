@@ -15,16 +15,21 @@ what is ported:
   :func:`streaming_aggregate`, its quorum cutoff and the ring's
   :class:`StripeAggregator`.
 - :mod:`ring` — :func:`ring_aggregate`, the chunk-striped ring round.
+- :mod:`hierarchy` — :func:`hierarchy_aggregate`, the multi-level region
+  tree of integer partial sums (``run_fedavg_rounds(mode="hierarchy")``),
+  with :class:`RegionSumTree`, its wire form.
 - :mod:`quorum` — k-of-n rounds, elastic membership and coordinator
   failover (``run_fedavg_rounds(quorum=...)``, ``fed.join``/``fed.leave``).
-- :mod:`overlap` — :func:`dga_correct`, the late fold of a straggler.
+- :mod:`overlap` — :class:`PipelinedRoundRunner`, rounds whose
+  aggregation runs under the next round's compute
+  (``run_fedavg_rounds(overlap=True)``), and :func:`dga_correct`, its
+  staleness correction and the late fold of a straggler.
 - :mod:`fedopt` — the legacy server optimizers and FedProx.
 - :mod:`trainer` — :func:`run_fedavg_rounds`, the round loop.
 - :mod:`split` — :class:`SplitTrainer`, split (vertical) learning across
   two parties.
 
-The hierarchy, the pipelined (overlapped) and the
-asynchronous rounds, secure aggregation, the packed server optimizers,
+The asynchronous rounds, secure aggregation, the packed server optimizers,
 differential privacy and robust reducers are later items of ROADMAP.md's
 Queue A.
 """
@@ -61,7 +66,8 @@ from rayfed_tpu_torch.fl.quantize import (
     make_round_grid,
     quantize_packed,
 )
-from rayfed_tpu_torch.fl.overlap import dga_correct
+from rayfed_tpu_torch.fl.hierarchy import HierarchyRoundError, RegionSumTree, hierarchy_aggregate
+from rayfed_tpu_torch.fl.overlap import PipelinedRoundRunner, dga_correct
 from rayfed_tpu_torch.fl.quorum import QuorumRoundError, quorum_aggregate, run_quorum_rounds
 from rayfed_tpu_torch.fl.ring import RingRoundError, ring_aggregate
 from rayfed_tpu_torch.fl.streaming import StreamingAggregator, StripeAggregator, streaming_aggregate
@@ -86,6 +92,10 @@ __all__ = [
     "QuorumRoundError",
     "quorum_aggregate",
     "run_quorum_rounds",
+    "hierarchy_aggregate",
+    "HierarchyRoundError",
+    "RegionSumTree",
+    "PipelinedRoundRunner",
     "dga_correct",
     "ErrorFeedback",
     "FedAvgActorBase",

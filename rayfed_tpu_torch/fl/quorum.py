@@ -37,10 +37,12 @@ Every rendezvous key of a quorum round derives from ``(session, stream,
 round index)``, so a party that rejoins needs only the round index and the
 session from its welcome to re-align.
 
+``mode="ring"`` and ``mode="hierarchy"`` run their topology first and fall
+back to the coordinator's quorum cutoff for a round it aborts.
+
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP.md
-Queue A item: ``mode="hierarchy"`` and the ``region_*`` options (item 7),
-a packed server optimizer and ``secure_agg`` (item 8), ``checkpointer``
-(item 9).
+Queue A item: a packed server optimizer and ``secure_agg`` (item 8),
+``checkpointer`` (item 9).
 """
 
 from __future__ import annotations
@@ -403,11 +405,13 @@ def run_quorum_rounds(
       "coordinator"}`` dict per round;
     - ``wire_quant``: the rounds run in the compressed domain from the
       second round on, the grid ranged by the previous broadcast's delta
-      (the welcome carries it to joiners).
+      (the welcome carries it to joiners);
+    - ``mode="hierarchy"`` (requires ``wire_quant`` and ``region_size``):
+      each round with a grid runs the region tree first, with per-region
+      cutoffs under ``region_quorum``/``region_deadline_s``.
 
-    ``mode="hierarchy"`` and the ``region_*`` options (item 7), a packed
-    ``server_opt`` and ``secure_agg`` (item 8) and ``checkpointer`` (item 9)
-    raise ``NotImplementedError``.
+    A packed ``server_opt`` and ``secure_agg`` (item 8) and ``checkpointer``
+    (item 9) raise ``NotImplementedError``.
     """
     import rayfed_tpu_torch as fed
     from rayfed_tpu_torch.fl import quantize as qz
@@ -417,10 +421,6 @@ def run_quorum_rounds(
     from rayfed_tpu_torch.runtime import get_runtime
     from rayfed_tpu_torch.transport.manager import roster_successor
 
-    if mode == "hierarchy" or any(
-        v is not None for v in (region_size, region_branch, region_quorum, region_deadline_s)
-    ):
-        raise _unported("hierarchical quorum rounds (mode='hierarchy', region_*)", 7)
     if server_opt is not None:
         raise _unported("a packed server_opt in quorum rounds (fl.server_opt)", 8)
     if secure_agg:
@@ -434,6 +434,31 @@ def run_quorum_rounds(
         raise QuorumRoundError(
             "this transport has no roster (quorum rounds need the "
             "single-process TransportManager)"
+        )
+    if mode == "hierarchy":
+        if wire_quant is None:
+            raise QuorumRoundError(
+                "mode='hierarchy' requires wire_quant — hierarchical "
+                "aggregation is compressed-domain only (fl.hierarchy)"
+            )
+        if region_size is None or int(region_size) < 1:
+            raise QuorumRoundError(
+                "mode='hierarchy' requires region_size= (the "
+                "deterministic partition width)"
+            )
+        if region_branch is not None and int(region_branch) < 2:
+            raise QuorumRoundError(f"region_branch must be >= 2, got {region_branch!r}")
+        if region_quorum is not None and int(region_quorum) < 1:
+            raise QuorumRoundError(f"region_quorum must be >= 1, got {region_quorum!r}")
+        if region_deadline_s is not None and region_quorum is None:
+            raise QuorumRoundError(
+                "region_deadline_s needs region_quorum= (the "
+                "per-region minimum arrived count the deadline gates)"
+            )
+    elif region_branch is not None or region_quorum is not None or region_deadline_s is not None:
+        raise QuorumRoundError(
+            "region_branch/region_quorum/region_deadline_s only apply "
+            "to mode='hierarchy'"
         )
     me = runtime.party
     all_parties = sorted(trainers)
@@ -515,7 +540,7 @@ def run_quorum_rounds(
                     quant_prev_delta, wire_dtype=wire_quant, mode="delta",
                     expand=qz.QUANT_DELTA_EXPAND,
                     # The grid chunking IS the ring's stripe grid.
-                    chunk_elems=ring_chunk_elems if mode == "ring" else None,
+                    chunk_elems=ring_chunk_elems if mode in ("ring", "hierarchy") else None,
                 )
         rec = None
         trace_round = telemetry.armed()
@@ -552,6 +577,8 @@ def run_quorum_rounds(
                     # The residual is keyed by the caller's stream: it
                     # carries across attempts and coordinators.
                     quant_scope=stream if round_grid is not None else None,
+                    region_size=region_size, region_branch=region_branch,
+                    region_quorum=region_quorum, region_deadline_s=region_deadline_s,
                 )
                 break
             except QuorumRoundError as exc:
@@ -659,19 +686,24 @@ def _aggregate_with_mode(
     runtime, updates, w_map, *, session, round_index, quorum, deadline_s,
     coordinator, stream, epoch, mode, ring_chunk_elems, announce_fn,
     backstop, active, timings, quant=None, quant_ref=None, quant_scope=None,
+    region_size=None, region_branch=None, region_quorum=None, region_deadline_s=None,
 ) -> QuorumRoundOutcome:
-    """Ring first when ``mode="ring"``: a straggler or dead party aborts the
-    ring on every controller (poison cascade + commit pass), and the same
-    round re-aggregates over the coordinator topology with the quorum
-    cutoff."""
+    """The topology first when ``mode`` is ``"ring"`` or ``"hierarchy"``: a
+    straggler or dead party aborts it on every controller (poison cascade +
+    commit pass), and the same round re-aggregates over the coordinator
+    topology with the quorum cutoff.  The hierarchy runs from the first
+    round with a grid (it is compressed-domain only), with per-region
+    cutoffs under ``region_quorum=``, so a slow region folds its arrived
+    members instead of aborting the tree."""
     from rayfed_tpu_torch.proxy import recv_on_runtime
 
     me = runtime.party
     down = _round_key(session, stream, round_index)
 
     def _announce_after_topology(result) -> QuorumRoundOutcome:
-        """The roster transition after a ring round: a tiny announce frame
-        rides after every such round (usually ``{"a": None}``)."""
+        """The roster transition after a ring or hierarchy round: a tiny
+        announce frame rides after every such round (usually ``{"a":
+        None}``)."""
         members = list(active)
         announce = None
         welcomes: list = []
@@ -726,6 +758,34 @@ def _aggregate_with_mode(
                 "the coordinator topology with quorum %d cutoff", round_index, exc, quorum,
             )
             RING_STATS["fallback_rounds"] += 1
+            stream = f"{stream}.fb"
+    if mode == "hierarchy" and len(active) > 1 and quant is not None:
+        from rayfed_tpu_torch.fl.hierarchy import HIER_STATS, HierarchyRoundError, hierarchy_aggregate
+
+        try:
+            result = hierarchy_aggregate(
+                [updates[p] for p in sorted(updates)],
+                None if w_map is None else [w_map[p] for p in sorted(updates)],
+                region_size=int(region_size), region_branch=region_branch,
+                region_quorum=region_quorum, region_deadline_s=region_deadline_s,
+                stream=f"{stream}/hier",
+                quant=quant, quant_ref=quant_ref, quant_scope=quant_scope, quant_downlink=True,
+                seq_ids=tuple(f"{down}.h{i}" for i in range(6)),
+                round_tag=round_index, epoch=epoch,
+                timeout=deadline_s if deadline_s is not None else backstop,
+                timings=timings,
+            )
+            return _announce_after_topology(result)
+        except HierarchyRoundError as exc:
+            # A dead region coordinator (or root) aborts the tree on every
+            # controller; the flat quorum re-run cuts the corpse off at the
+            # deadline, the announcement drops it from the roster, and a
+            # dead quorum coordinator reaches the failover arm.
+            logger.warning(
+                "round %d: hierarchy aborted (%s); re-aggregating the same round over "
+                "the coordinator topology with quorum %d cutoff", round_index, exc, quorum,
+            )
+            HIER_STATS["fallback_rounds"] += 1
             stream = f"{stream}.fb"
     return quorum_aggregate(
         runtime, updates, w_map, session=session, round_index=round_index,

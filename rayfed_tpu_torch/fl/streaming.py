@@ -37,9 +37,15 @@ is fenced onto the device's default stream before it is handed on
 (:func:`~rayfed_tpu_torch.utils.platform.fence_for_handoff`), so the
 transport's device→host copy of the broadcast sees finished bytes.
 
-Not ported yet, each raising ``NotImplementedError``: region partial sums
-(``presummed=``; ROADMAP.md Queue A item 7, with the hierarchy) and secure
-aggregation (``masked=``, ``mask_recovery=``, ``secagg=``; item 8).
+Presummed mode (``presummed=``, :mod:`rayfed_tpu_torch.fl.hierarchy`):
+the sources are region partial sums ``Σ w_p·q_p``
+(:class:`~rayfed_tpu_torch.fl.hierarchy.RegionSumTree`, int16 or int32)
+with the weights already folded in, so each folds at unit weight into the
+same i32 accumulator; ``weights`` are then the regions' integer totals, so
+the finalize divides by the whole roster's Σw, exactly as the flat fold.
+
+Not ported yet, each raising ``NotImplementedError``: secure aggregation
+(``masked=``, ``mask_recovery=``, ``secagg=``; ROADMAP.md Queue A item 8).
 
 ``streaming_aggregate`` is the multi-controller entry point: every party
 calls it at the same program point with the same arguments; contributions
@@ -76,7 +82,6 @@ _NOTIFY_BYTES = 512 * 1024
 STREAM_AGG_SEQ_IDS = 2
 
 _UNPORTED = {
-    "presummed": "hierarchical partial sums (ROADMAP.md, Queue A item 7)",
     "masked": "secure aggregation (ROADMAP.md, Queue A item 8)",
     "mask_recovery": "secure aggregation (ROADMAP.md, Queue A item 8)",
     "secagg": "secure aggregation (ROADMAP.md, Queue A item 8)",
@@ -185,7 +190,7 @@ class StreamingAggregator:
         party: Optional[str] = None,
         device: Any = None,
     ) -> None:
-        _refuse_unported(presummed=presummed, masked=masked, mask_recovery=mask_recovery)
+        _refuse_unported(masked=masked, mask_recovery=mask_recovery)
         if n_sources < 1:
             raise ValueError("streaming aggregation needs >= 1 source")
         self._party = None if party is None else str(party)
@@ -245,6 +250,21 @@ class StreamingAggregator:
             # Integer totals are exact in f32 up to the headroom bound.
             self._weights = [float(w) for w in iw]
             self._total_w = float(itotal)
+        # Presummed (hierarchy) mode names the partial sums' integer wire
+        # dtype (fl.hierarchy.partial_sum_dtype).
+        self._presummed = None if presummed is None else str(presummed)
+        if self._presummed is not None:
+            if quant is None:
+                raise ValueError(
+                    "presummed aggregation requires quant= (the round's "
+                    "shared grid) — partial sums live in its integer "
+                    "domain"
+                )
+            if np.dtype(self._presummed).kind != "i":
+                raise ValueError(
+                    f"presummed= names the partial-sum integer wire "
+                    f"dtype, got {self._presummed!r}"
+                )
         self._stream = (
             torch.cuda.Stream(self._device) if self._device.type == "cuda" else None
         )
@@ -312,6 +332,20 @@ class StreamingAggregator:
                         "compressed-domain aggregation consumes "
                         "QuantizedPackedTree contributions — quantize "
                         "onto the round grid first (fl.quantize)"
+                    )
+                )
+                return
+            from rayfed_tpu_torch.fl.hierarchy import RegionSumTree
+
+            if (self._presummed is not None) != isinstance(packed_tree, RegionSumTree):
+                self.fail(
+                    TypeError(
+                        "presummed fold got a per-party contribution "
+                        "(expected a RegionSumTree partial sum)"
+                        if self._presummed is not None else
+                        "got a RegionSumTree but this aggregator is "
+                        "not presummed — construct it with presummed= "
+                        "(fl.hierarchy) or send per-party codes"
                     )
                 )
                 return
@@ -676,11 +710,13 @@ class StreamingAggregator:
         if self._quant is None:
             self._acc = torch.zeros(self._total_elems, dtype=torch.float32, device=self._device)
             return
-        if dtype_name(s.dtype) != self._quant.wire_dtype:
+        # Presummed rounds carry partial sums at their own integer width.
+        want_dt = self._presummed if self._presummed is not None else self._quant.wire_dtype
+        if dtype_name(s.dtype) != want_dt:
             raise ValueError(
                 f"compressed-domain contribution carries "
                 f"{dtype_name(s.dtype)} codes, this round folds "
-                f"{self._quant.wire_dtype} (plain mode) — "
+                f"{want_dt} ({'presummed' if self._presummed is not None else 'plain'} mode) — "
                 f"sender and receiver disagree on the round shape"
             )
         if self._quant_full and self._total_elems != self._quant.total_elems:
@@ -821,7 +857,10 @@ class StreamingAggregator:
                     self._t_all_complete = max(self._streams[i].t_complete for i in order)
             # Apply outside the lock (sinks keep landing bytes meanwhile).
             if weights is None:
-                if self._int_weights is not None:
+                if self._presummed is not None:
+                    # A partial sum already carries Σ w_p·q_p.
+                    weights, fold = [1] * self._n, fedavg.quantized_accum_kernel
+                elif self._int_weights is not None:
                     weights, fold = self._int_weights, fedavg.quantized_accum_kernel
                 else:
                     weights = [fedavg.f32_scalar(w, self._device) for w in self._weights]
@@ -925,6 +964,7 @@ class StreamingAggregator:
         """Every member wire contribution must be a QuantizedPackedTree
         coded on exactly the round grid (local ones were checked at
         ``add_local``)."""
+        from rayfed_tpu_torch.fl.hierarchy import RegionSumTree
         from rayfed_tpu_torch.fl.quantize import QuantizedPackedTree
 
         want = self._quant.meta()
@@ -938,6 +978,14 @@ class StreamingAggregator:
                     f"contribution from {self._labels[i]} is not a "
                     f"QuantizedPackedTree — all parties must quantize "
                     f"onto the round's shared grid"
+                )
+            if (self._presummed is not None) != isinstance(tree, RegionSumTree):
+                raise TypeError(
+                    f"contribution from {self._labels[i]} is "
+                    f"{'a per-party code tree' if self._presummed is not None else 'a RegionSumTree partial sum'}"
+                    f" but this fold is "
+                    f"{'presummed' if self._presummed is not None else 'per-party'}"
+                    f" — hierarchy levels must agree on the round shape"
                 )
             if tree.gmeta != want:
                 raise ValueError(

@@ -9,12 +9,15 @@ with the same arguments and walks the identical seq-id sequence.
 
 ``mode="ring"`` aggregates over the chunk-striped ring
 (:mod:`rayfed_tpu_torch.fl.ring`), falling back to the coordinator topology
-for a round the ring aborts; ``quorum=`` hands the loop to
+for a round the ring aborts; ``mode="hierarchy"`` over the region tree
+(:mod:`rayfed_tpu_torch.fl.hierarchy`), falling back to the flat streaming
+fold for a round the tree aborts; ``overlap=True`` hands the loop to
+:class:`rayfed_tpu_torch.fl.overlap.PipelinedRoundRunner` (round *k*'s
+aggregation under round *k+1*'s compute); ``quorum=`` to
 :func:`rayfed_tpu_torch.fl.quorum.run_quorum_rounds` (k-of-n rounds, elastic
 membership, coordinator failover).  Options of later items of the port raise
 ``NotImplementedError`` naming their ROADMAP.md Queue A item:
-``mode="hierarchy"``, ``region_*`` and ``overlap`` (7); ``secure_agg`` and
-the packed server optimizers (8); ``checkpointer`` (9).
+``secure_agg`` and the packed server optimizers (8); ``checkpointer`` (9).
 """
 
 from __future__ import annotations
@@ -97,16 +100,6 @@ def validate_round_config(
     naming it.  Returns ``{"wire_quant": <dtype name or None>,
     "checkpoint_every": <int>, "server_opt_kind": "none"|"fedopt"}``.
     """
-    if mode == "hierarchy":
-        raise _unported("mode='hierarchy'", 7)
-    for name, value in (
-        ("region_size", region_size), ("region_branch", region_branch),
-        ("region_quorum", region_quorum), ("region_deadline_s", region_deadline_s),
-    ):
-        if value is not None:
-            raise _unported(name, 7)
-    if overlap:
-        raise _unported("overlap=True (pipelined rounds)", 7)
     if secure_agg:
         raise _unported("secure_agg", 8)
     if checkpointer is not None:
@@ -157,7 +150,7 @@ def validate_round_config(
                 "packed_wire=True (the quantized unit is the packed "
                 "wire buffer)"
             )
-        if not streaming_agg and mode != "ring" and quorum is None:
+        if not streaming_agg and mode not in ("ring", "hierarchy") and quorum is None:
             raise ValueError(
                 "wire_quant requires streaming_agg=True, mode='ring', "
                 "mode='hierarchy' or quorum= — the compressed-domain "
@@ -196,11 +189,86 @@ def validate_round_config(
             "packed_wire=True (the residual is carried on the packed "
             "wire buffer)"
         )
-    if mode not in ("coordinator", "ring"):
+    if mode not in ("coordinator", "ring", "hierarchy"):
         raise ValueError(
             f"unknown mode {mode!r}: expected 'coordinator', 'ring' or "
             f"'hierarchy'"
         )
+    if mode == "hierarchy":
+        if wire_quant is None:
+            raise ValueError(
+                "mode='hierarchy' requires wire_quant: hierarchical "
+                "aggregation is compressed-domain ONLY (float partial "
+                "sums would re-associate a non-associative fold and "
+                "silently break hierarchical == flat byte-identity) — "
+                "pass e.g. wire_quant='uint8'"
+            )
+        if region_size is None or int(region_size) < 1:
+            raise ValueError(
+                "mode='hierarchy' requires region_size= (the "
+                "deterministic partition width of the sorted roster), "
+                f"got {region_size!r}"
+            )
+        if streaming_agg:
+            raise ValueError(
+                "mode='hierarchy' and streaming_agg are mutually "
+                "exclusive: the hierarchy replaces the flat hub "
+                "topology streaming_agg folds on (its fallback path "
+                "streams on its own) — drop streaming_agg"
+            )
+        if sample is not None and sample != len(trainers):
+            raise ValueError(
+                "mode='hierarchy' requires full participation: "
+                "sampling churns the region partition every round, "
+                "re-striping every region ring — use "
+                "mode='coordinator' for sampled rounds"
+            )
+        if aggregator is not None:
+            raise ValueError(
+                "mode='hierarchy' and aggregator are mutually "
+                "exclusive (a custom reducer needs the raw per-party "
+                "values at one place)"
+            )
+    if region_size is not None and mode != "hierarchy":
+        raise ValueError(
+            "region_size only applies to mode='hierarchy' (it sets "
+            "the deterministic region partition width)"
+        )
+    if region_branch is not None:
+        if mode != "hierarchy":
+            raise ValueError(
+                "region_branch only applies to mode='hierarchy' (it "
+                "sets the interior tree degree of the derived "
+                "multi-level hierarchy)"
+            )
+        if int(region_branch) < 2:
+            raise ValueError(
+                f"region_branch must be >= 2 (a 1-ary interior level "
+                f"folds nothing), got {region_branch!r}"
+            )
+    if region_quorum is not None:
+        if mode != "hierarchy":
+            raise ValueError(
+                "region_quorum only applies to mode='hierarchy' (it "
+                "sets the per-region minimum arrived count for the "
+                "deadline-gated region cutoff)"
+            )
+        if int(region_quorum) < 1:
+            raise ValueError(
+                f"region_quorum must be >= 1 (the minimum arrived "
+                f"member count per region), got {region_quorum!r}"
+            )
+    if region_deadline_s is not None:
+        if region_quorum is None:
+            raise ValueError(
+                "region_deadline_s needs region_quorum= (the "
+                "per-region minimum arrived count the deadline gates)"
+            )
+        if float(region_deadline_s) <= 0:
+            raise ValueError(
+                f"region_deadline_s must be positive, got "
+                f"{region_deadline_s!r}"
+            )
     if mode == "ring":
         if not (compress_wire and packed_wire):
             raise ValueError(
@@ -233,7 +301,7 @@ def validate_round_config(
             f"coordinator {coordinator!r} is not a training party "
             f"({sorted(trainers)})"
         )
-    if ring_chunk_elems is not None and mode != "ring":
+    if ring_chunk_elems is not None and mode not in ("ring", "hierarchy"):
         raise ValueError(
             "ring_chunk_elems only applies to mode='ring' or "
             "mode='hierarchy' (it sets the stripe/chunk grid "
@@ -281,6 +349,38 @@ def validate_round_config(
             "round_log only applies with quorum= (the classic loop has "
             "a fixed roster — there is nothing to log)"
         )
+    if overlap:
+        if not (compress_wire and packed_wire):
+            raise ValueError(
+                "overlap=True requires compress_wire=True and "
+                "packed_wire=True (the overlapped aggregation unit is "
+                "the packed wire buffer, and the DGA correction runs on "
+                "it)"
+            )
+        if mode == "hierarchy":
+            raise ValueError(
+                "overlap=True is incompatible with mode='hierarchy' — "
+                "the pipelined engine drives the coordinator/ring "
+                "collectives from its comms lane; the hierarchy's "
+                "region-cutoff/regroup protocol has no lane-callable "
+                "collective yet (loud exclusion, never a silent flat "
+                "fallback)"
+            )
+        incompat = {
+            "server_opt": legacy_opt is not None,
+            "aggregator": aggregator is not None,
+            "sample": sample is not None and sample != len(trainers),
+            "error_feedback": error_feedback,
+            "checkpointer": checkpointer is not None,
+        }
+        bad = [k for k, v in incompat.items() if v]
+        if bad:
+            raise ValueError(
+                f"overlap=True is incompatible with {bad}: each needs "
+                "the exact synchronous round boundary (the overlapped "
+                "aggregate lands one round late, under the next round's "
+                "compute)"
+            )
     return {
         "wire_quant": qname,
         "checkpoint_every": checkpoint_every,
@@ -367,6 +467,25 @@ def run_fedavg_rounds(
       back to the coordinator topology, in lockstep, with the same bytes.
       Requires ``compress_wire`` + ``packed_wire``, full participation and
       no ``streaming_agg``.  ``ring_chunk_elems`` sets the stripe grid.
+    - ``mode="hierarchy"``: aggregate over the region tree
+      (:func:`~rayfed_tpu_torch.fl.hierarchy.hierarchy_aggregate`): the
+      sorted roster partitions into regions of ``region_size``, each
+      region runs the stripe ring, region coordinators stream integer
+      partial sums up to a root, which rescales once; the result equals the
+      flat compressed-domain fold byte for byte.  Requires ``wire_quant``
+      and ``region_size``; the first round (no grid yet) runs the flat
+      streaming fold, and a round the tree aborts re-aggregates over it, in
+      lockstep.  ``region_branch``: the interior degree (the tree recurses
+      past it); ``region_quorum``/``region_deadline_s``: per-region cutoffs
+      (a region folds its arrived members once the deadline passes).
+    - ``overlap``: double-buffer the rounds
+      (:class:`~rayfed_tpu_torch.fl.overlap.PipelinedRoundRunner`): round
+      *k*'s push and aggregation run on a comms lane under round *k+1*'s
+      local steps, with one round of staleness fixed by the DGA correction.
+      Coordinator or ring mode, ``wire_quant`` included; requires
+      ``compress_wire`` + ``packed_wire``; excludes ``mode="hierarchy"``,
+      ``quorum``, ``sample``, ``aggregator``, ``error_feedback`` and a
+      legacy ``server_opt``.
     - ``coordinator``: the party that anchors the rounds (default the
       ``min`` party); keep it stable across a run.  Under ``quorum`` it
       names the initial lease holder only.
@@ -417,8 +536,21 @@ def run_fedavg_rounds(
             weights=weights, coordinator=coord, wire_dtype=wire_dt,
             mode=mode, ring_chunk_elems=ring_chunk_elems, on_round=on_round,
             timings=timings, join_ticket=join_ticket, round_log=round_log,
-            wire_quant=cfg["wire_quant"],
+            wire_quant=cfg["wire_quant"], region_size=region_size,
+            region_branch=region_branch, region_quorum=region_quorum,
+            region_deadline_s=region_deadline_s,
         )
+
+    if overlap:
+        # The pipelined engine owns its loop shape (double-buffered rounds,
+        # the DGA correction, the comms lane) — see fl/overlap.py.
+        from rayfed_tpu_torch.fl.overlap import PipelinedRoundRunner
+
+        runner = PipelinedRoundRunner(
+            trainers, weights=weights, mode=mode, coordinator=coord, wire_dtype=wire_dt,
+            on_round=on_round, ring_chunk_elems=ring_chunk_elems, wire_quant=cfg["wire_quant"],
+        )
+        return runner.run(params, rounds, timings=timings)
 
     from rayfed_tpu_torch import telemetry as _telemetry
     from rayfed_tpu_torch.fed_object import FedObject
@@ -516,10 +648,47 @@ def run_fedavg_rounds(
                     # The grid chunking IS the ring's stripe chunking, or
                     # ring_aggregate's chunk-match guard would abort (and
                     # fall back) every quantized ring round.
-                    chunk_elems=ring_chunk_elems if mode == "ring" else None,
+                    chunk_elems=ring_chunk_elems if mode in ("ring", "hierarchy") else None,
                     expand=QUANT_DELTA_EXPAND,
                 )
-        if mode == "ring":
+        if mode == "hierarchy":
+            from rayfed_tpu_torch.fl.streaming import streaming_aggregate
+
+            if round_grid is None:
+                # The first round has no grid and the hierarchy is
+                # compressed-domain only: the flat streaming round, as the
+                # quantized loop's own first round.
+                avg = streaming_aggregate(
+                    updates, weights, stream="fedavg", coordinator=coord,
+                    out_dtype=agg_out_dtype, timings=rec,
+                )
+            else:
+                from rayfed_tpu_torch.fl.hierarchy import HIER_STATS, HierarchyRoundError, hierarchy_aggregate
+
+                try:
+                    avg = hierarchy_aggregate(
+                        updates, weights, region_size=int(region_size), region_branch=region_branch,
+                        region_quorum=region_quorum, region_deadline_s=region_deadline_s,
+                        stream="fedavg", quant=round_grid, quant_ref=round_ref, quant_scope="fedavg",
+                        # The broadcast down the tree is quantized too.
+                        quant_downlink=True, round_tag=r, timings=rec,
+                    )
+                except HierarchyRoundError as e:
+                    # The abort reached every controller (poison cascade and
+                    # commit/release), so all of them take this branch in
+                    # lockstep: the same round's updates re-aggregate over
+                    # the flat streaming fold, with the same grid and the
+                    # same uncommitted residual.
+                    logger.warning(
+                        "hierarchy round %d aborted (%s); falling back to flat "
+                        "streaming aggregation at %r", r, e, coord,
+                    )
+                    HIER_STATS["fallback_rounds"] += 1
+                    avg = streaming_aggregate(
+                        updates, weights, stream="fedavg", coordinator=coord, timings=rec,
+                        quant=round_grid, quant_ref=round_ref, quant_scope="fedavg",
+                    )
+        elif mode == "ring":
             from rayfed_tpu_torch.fl.ring import RING_STATS, RingRoundError, ring_aggregate
 
             try:

@@ -308,10 +308,18 @@ def _rms_norm(x, scale, eps):
     return (xf * r * scale.float()).to(x.dtype)
 
 
-def rope_tables(positions: torch.Tensor, head_dim: int, theta: float):
-    """cos/sin tables [T, head_dim/2] (f32) for the given absolute positions."""
-    exponents = torch.arange(0, head_dim, 2, dtype=torch.float32, device=positions.device)
-    freqs = 1.0 / theta ** (exponents / head_dim)
+def rope_tables(positions: torch.Tensor, head_dim: int, theta: float, *, folded: bool = False):
+    """cos/sin tables [T, head_dim/2] (f32) for the given absolute positions.
+
+    On CPU tensors the bytes are XLA:CPU's (ops/xla_cpu.py): ``folded``
+    takes the frequencies as the JAX package's jitted decode step folds
+    them, else as its eager prefill computes them.  The card's tables are
+    PyTorch's."""
+    exponents = torch.arange(0, head_dim, 2, dtype=torch.float32, device=positions.device) / head_dim
+    if positions.device.type == "cpu":
+        angles = positions.float()[:, None] * xla_cpu.rope_freqs(exponents, theta, folded)[None, :]
+        return xla_cpu.cos(angles), xla_cpu.sin(angles)
+    freqs = 1.0 / theta ** exponents
     angles = positions.float()[:, None] * freqs[None, :]
     return torch.cos(angles), torch.sin(angles)
 
@@ -632,7 +640,8 @@ def make_decode_step(config: LlamaConfig, rolling: bool = False):
             return plane.index_select(1, band)
 
         x = params["embed"].to(dtype)[token_ids][:, None, :]  # [B,1,D]
-        cos, sin = rope_tables(torch.tensor([pos], device=device), dh, config.rope_theta)
+        # The JAX package's decode step is one jitted program.
+        cos, sin = rope_tables(torch.tensor([pos], device=device), dh, config.rope_theta, folded=True)
         for i in range(config.num_layers):
             lp = _layer(params, i)
             k_cache = cache["k"][i]  # [B, T, KV, Dh] view into the cache

@@ -269,44 +269,76 @@ def gather_copy(buffers: Sequence, with_crc: bool = False):
 
 
 # ---------------------------------------------------------------------------
-# The x86 rsqrt estimate (XLA:CPU's rsqrt starts from it)
+# Host math XLA:CPU takes its bits from: the x86 rsqrt estimate, libm's
+# cosf, sinf and powf
 # ---------------------------------------------------------------------------
 
-_RSQRT_SRC = os.path.join(_HERE, "rsqrt_estimate.cc")
-_RSQRT_LIB = os.path.join(_BUILD_DIR, "librsqrtest.so")
-_rsqrt_lib: Optional[ctypes.CDLL] = None
+_MATH_SRC = os.path.join(_HERE, "xla_cpu_math.cc")
+_MATH_LIB = os.path.join(_BUILD_DIR, "libxlacpumath.so")
+_math_lib: Optional[ctypes.CDLL] = None
 
 
-def _load_rsqrt() -> ctypes.CDLL:
-    """Build (g++, AVX) at first use and load the estimate's library;
+def _load_math() -> ctypes.CDLL:
+    """Build (g++, AVX, no fast-math) at first use and load the library;
     raises when it cannot be built — there is no other source of its bits."""
-    global _rsqrt_lib
+    global _math_lib
     with _build_lock:
-        if _rsqrt_lib is not None:
-            return _rsqrt_lib
-        if not os.path.exists(_RSQRT_LIB) or (
-            os.path.getmtime(_RSQRT_LIB) < os.path.getmtime(_RSQRT_SRC)
+        if _math_lib is not None:
+            return _math_lib
+        if not os.path.exists(_MATH_LIB) or (
+            os.path.getmtime(_MATH_LIB) < os.path.getmtime(_MATH_SRC)
         ):
             os.makedirs(_BUILD_DIR, exist_ok=True)
-            tmp = f"{_RSQRT_LIB}.{os.getpid()}.tmp"
+            tmp = f"{_MATH_LIB}.{os.getpid()}.tmp"
             subprocess.run(
-                ["g++", "-O2", "-mavx", "-shared", "-fPIC", _RSQRT_SRC, "-o", tmp],
+                ["g++", "-O2", "-mavx", "-shared", "-fPIC", _MATH_SRC, "-o", tmp],
                 check=True, capture_output=True, timeout=120,
             )
-            os.replace(tmp, _RSQRT_LIB)
-        lib = ctypes.CDLL(_RSQRT_LIB)
-        lib.rf_rsqrt_estimate.restype = None
-        lib.rf_rsqrt_estimate.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64]
-        _rsqrt_lib = lib
+            os.replace(tmp, _MATH_LIB)
+        lib = ctypes.CDLL(_MATH_LIB)
+        for name in ("rf_rsqrt_estimate", "rf_libm_cosf", "rf_libm_sinf"):
+            fn = getattr(lib, name)
+            fn.restype = None
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64]
+        lib.rf_libm_powf_base.restype = None
+        lib.rf_libm_powf_base.argtypes = [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64]
+        _math_lib = lib
         return lib
+
+
+def _elementwise(name: str, x):
+    import torch
+
+    src = x.detach().to(torch.float32).contiguous()
+    out = torch.empty_like(src)
+    getattr(_load_math(), name)(src.data_ptr(), out.data_ptr(), src.numel())
+    return out
 
 
 def rsqrt_estimate(x):
     """The hardware reciprocal square root estimate of every element of a
     CPU f32 tensor (``vrsqrtps``/``rsqrtss``), as a new tensor."""
+    return _elementwise("rf_rsqrt_estimate", x)
+
+
+def libm_cos(x):
+    """The C library's ``cosf`` of every element of a CPU f32 tensor, as a
+    new tensor."""
+    return _elementwise("rf_libm_cosf", x)
+
+
+def libm_sin(x):
+    """The C library's ``sinf`` of every element of a CPU f32 tensor, as a
+    new tensor."""
+    return _elementwise("rf_libm_sinf", x)
+
+
+def libm_pow(base: float, x):
+    """The C library's ``powf(base, e)`` of every element ``e`` of a CPU
+    f32 tensor, as a new tensor."""
     import torch
 
     src = x.detach().to(torch.float32).contiguous()
     out = torch.empty_like(src)
-    _load_rsqrt().rf_rsqrt_estimate(src.data_ptr(), out.data_ptr(), src.numel())
+    _load_math().rf_libm_powf_base(base, src.data_ptr(), out.data_ptr(), src.numel())
     return out

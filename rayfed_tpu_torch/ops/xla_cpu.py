@@ -20,17 +20,28 @@ The assumptions:
   also equal XLA's at D = 128 and 256, and not at narrower rows or at 96,
   whose programs were not read.
 - The rsqrt: ``xla.rsqrt.f32`` is the hardware estimate (``vrsqrtps``,
-  read through ``native/rsqrt_estimate.cc``) and two Newton steps that LLVM
+  read through ``native/xla_cpu_math.cc``) and two Newton steps that LLVM
   contracts into FMAs, the raw estimate kept for special inputs.
+- ``cos`` and ``sin``: XLA lowers ``llvm.cos``/``llvm.sin`` to one call of
+  the C library's ``cosf``/``sinf`` per element (glibc's, resolved in the
+  process), unrolled 16 wide but never vectorised, so the bytes do not
+  depend on the table's length; the port calls the same functions through
+  ``native/xla_cpu_math.cc``.  PyTorch's vectorised ``cos``/``sin`` differ
+  from them by an ulp in a few percent of the elements.
+- RoPE's frequencies ``1/θ^e``: op by op (the JAX package's prefill and
+  ``apply_llama`` run eagerly) XLA divides 1 by libm's ``powf(θ, e)``;
+  inside a jitted program (its decode step) the frequencies are constants,
+  and XLA's simplifier rewrites ``1/pow(θ, e)`` to ``pow(θ, −e)`` before
+  its constant folder takes libm's ``powf``, one rounding instead of two.
 - ``VECTOR_WIDTH`` and ``UNROLL``: the compressed-domain finalize's loop
   runs 8-wide unrolled twice, then 4-wide epilogues, and its scalar
   remainder fuses ``acc − zp·W`` into an FMA.
 - A division by a constant is a product with the constant's f32
   reciprocal (XLA's algebraic simplifier rewrites it before codegen).
 
-Which device follows which: the RMSNorm's form applies to CPU tensors
-only (the card's norm is PyTorch's, within an ulp, as the model tests'
-tolerances allow).  The reciprocal and the finalize's fused tail apply on
+Which device follows which: the RMSNorm's form and ``cos``/``sin`` apply
+to CPU tensors only (the card's norm and RoPE tables are PyTorch's, within
+an ulp, as the model tests' tolerances allow).  The reciprocal and the finalize's fused tail apply on
 every device, so that a round's bytes do not depend on the device that
 finalized them: the ring's stripe owners, a hub coordinator and the
 coordinator fallback may each run on the card or on the CPU, beside
@@ -83,6 +94,32 @@ def rsqrt(x: torch.Tensor) -> torch.Tensor:
         e = fma(flat * y, y, minus_one)
         y = fma(y * -0.5, e, y)
     return torch.where(torch.isfinite(flat) & (flat > 0), y, y0).reshape(x.shape)
+
+
+def cos(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.cos`` of a CPU f32 tensor as XLA:CPU computes it: libm's
+    ``cosf`` of each element."""
+    from rayfed_tpu_torch.native import libm_cos
+
+    return libm_cos(x)
+
+
+def sin(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.sin`` of a CPU f32 tensor as XLA:CPU computes it: libm's
+    ``sinf`` of each element."""
+    from rayfed_tpu_torch.native import libm_sin
+
+    return libm_sin(x)
+
+
+def rope_freqs(exponents: torch.Tensor, theta: float, folded: bool) -> torch.Tensor:
+    """RoPE's ``1/θ^e`` of a CPU f32 tensor of exponents: as XLA folds it
+    inside a jitted program (``folded``), else as its eager ops compute it."""
+    from rayfed_tpu_torch.native import libm_pow
+
+    if folded:
+        return libm_pow(theta, -exponents)
+    return 1.0 / libm_pow(theta, exponents)
 
 
 def rms_rsqrt(xf: torch.Tensor, eps: float) -> torch.Tensor:

@@ -27,7 +27,9 @@ in ``find_class``.
 The packed wire form (``fl.compression``'s ``PackedTree`` and its
 ``PackSpec``) travels the same way, under :data:`PACKED_WIRE_MODULE`, and
 its integer-coded form (``fl.quantize``'s ``QuantizedPackedTree`` and its
-``QuantMeta``) under :data:`QUANT_WIRE_MODULE`.  A
+``QuantMeta``) under :data:`QUANT_WIRE_MODULE`, and the hierarchy's partial
+sum (``fl.hierarchy``'s ``RegionSumTree``) under
+:data:`HIERARCHY_WIRE_MODULE`.  A
 spec carries the tree's structure, which the JAX package pickles as a
 jaxlib ``PyTreeDef``: a NEWOBJ of that class, then a BUILD with
 ``(jax._src.tree_util.default_registry, [nodes in post-order])``.  The
@@ -58,6 +60,9 @@ _PORT_PACKED_MODULE = "rayfed_tpu_torch.fl.compression"
 QUANT_WIRE_MODULE = "rayfed_tpu.fl.quantize"
 _QUANT_NAMES = ("QuantizedPackedTree", "QuantMeta")
 _PORT_QUANT_MODULE = "rayfed_tpu_torch.fl.quantize"
+HIERARCHY_WIRE_MODULE = "rayfed_tpu.fl.hierarchy"
+_HIERARCHY_NAMES = ("RegionSumTree",)
+_PORT_HIERARCHY_MODULE = "rayfed_tpu_torch.fl.hierarchy"
 # The globals of a pickled jaxlib PyTreeDef.
 _TREEDEF_WIRE = ("jaxlib._jax.pytree", "PyTreeDef")
 _REGISTRY_WIRE = ("jax._src.tree_util", "default_registry")
@@ -90,6 +95,10 @@ def _wire_global(module: str, name: str) -> Any:
         from rayfed_tpu_torch.fl import quantize
 
         return getattr(quantize, name)
+    if module == HIERARCHY_WIRE_MODULE and name in _HIERARCHY_NAMES:
+        from rayfed_tpu_torch.fl import hierarchy
+
+        return getattr(hierarchy, name)
     if name == _TREEDEF_WIRE[1] and (
         module == "jaxlib" or module.startswith(("jaxlib.", "jax."))
     ):
@@ -113,6 +122,8 @@ def _wire_name_of(obj: Any) -> Optional[tuple]:
         return PACKED_WIRE_MODULE, qualname
     if module == _PORT_QUANT_MODULE and qualname in _QUANT_NAMES:
         return QUANT_WIRE_MODULE, qualname
+    if module == _PORT_HIERARCHY_MODULE and qualname in _HIERARCHY_NAMES:
+        return HIERARCHY_WIRE_MODULE, qualname
     return None
 
 

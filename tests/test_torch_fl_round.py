@@ -58,6 +58,12 @@ SUPPORTED = [
     ("coordinator", "zed"),
     ("ring_chunk_elems", 8),
     ("mode", "ring"),
+    ("mode", "hierarchy"),
+    ("region_size", 2),
+    ("region_branch", 2),
+    ("region_quorum", 1),
+    ("region_deadline_s", 1.0),
+    ("overlap", True),
     ("quorum", 1),
     ("quorum", 5),
     ("round_deadline_s", 1.0),
@@ -110,7 +116,7 @@ def test_validate_round_config_verdicts_equal_the_reference(pair):
 # quorum x ring x quant triple): each merged configuration gets the
 # reference's verdict.
 PORTED_FEATURES = ("wire_quant", "quorum", "ring", "server_opt_legacy", "streaming_agg",
-                   "error_feedback", "sample")
+                   "error_feedback", "sample", "hierarchy", "overlap")
 
 
 def _feature(name, which):
@@ -153,18 +159,36 @@ def test_quorum_ring_quant_triple_equals_the_reference():
 
 
 @pytest.mark.parametrize("option,item", [
-    ({"region_branch": 2}, "item 7"),
-    ({"mode": "hierarchy", "region_size": 1}, "item 7"),
-    ({"region_size": 2}, "item 7"),
-    ({"region_quorum": 1}, "item 7"),
-    ({"region_deadline_s": 1.0}, "item 7"),
-    ({"overlap": True}, "item 7"),
     ({"secure_agg": True}, "item 8"),
     ({"checkpointer": object()}, "item 9"),
 ])
 def test_unported_options_name_their_item(option, item):
     with pytest.raises(NotImplementedError, match=item):
         ttrainer.validate_round_config(TRAINERS, compress_wire=True, packed_wire=True, **option)
+
+
+@pytest.mark.parametrize("option,match", [
+    ({"region_branch": 2}, "region_branch only applies"),
+    ({"mode": "hierarchy", "region_size": 1}, "requires wire_quant"),
+    ({"region_size": 2}, "region_size only applies"),
+    ({"region_quorum": 1}, "region_quorum only applies"),
+    ({"region_deadline_s": 1.0}, "needs region_quorum"),
+    ({"mode": "hierarchy", "wire_quant": "uint8"}, "requires region_size"),
+    ({"mode": "hierarchy", "wire_quant": "uint8", "region_size": 2, "overlap": True},
+     "incompatible with mode='hierarchy'"),
+    ({"overlap": True, "quorum": 2}, r"quorum is incompatible with \['overlap'\]"),
+    ({"overlap": True, "error_feedback": True}, "overlap=True is incompatible with"),
+], ids=lambda v: v if isinstance(v, str) else "+".join(sorted(v)))
+def test_hierarchy_and_overlap_options_give_the_reference_errors(option, match):
+    """The options that raised ``NotImplementedError`` (Queue A item 7)
+    until the hierarchy and the pipelined rounds were ported now give the
+    JAX package's ``ValueError`` for each clash."""
+    from rayfed_tpu.fl import trainer as jtrainer
+
+    kw = dict(compress_wire=True, packed_wire=True, **option)
+    with pytest.raises(ValueError, match=match):
+        ttrainer.validate_round_config(TRAINERS, **kw)
+    assert _verdict(ttrainer.validate_round_config, kw) == _verdict(jtrainer.validate_round_config, kw)
 
 
 def test_sample_parties_equals_the_reference():
@@ -248,7 +272,7 @@ def test_one_party_rounds_run(solo, kw):
 def test_one_party_rounds_validate_before_running(solo):
     with pytest.raises(ValueError, match="streaming_agg requires"):
         fed.fl.run_fedavg_rounds(solo, {}, rounds=1, streaming_agg=True)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="overlap=True requires compress_wire"):
         fed.fl.run_fedavg_rounds(solo, {}, rounds=1, overlap=True)
 
 

@@ -247,13 +247,22 @@ def test_result_timeout_names_the_missing_source():
     assert info.value.missing_parties == ["bob"]
 
 
-@pytest.mark.parametrize("option,item", [
-    ({"presummed": "int16"}, "item 7"),
-    ({"presummed": "int32"}, "item 7"), ({"masked": True}, "item 8"),
-])
+@pytest.mark.parametrize("option,item", [({"masked": True}, "item 8")])
 def test_unported_options_name_their_item(option, item):
     with pytest.raises(NotImplementedError, match=item):
         StreamingAggregator(2, device=CPU, **option)
+
+
+@pytest.mark.parametrize("presummed", ["int16", "int32"])
+def test_presummed_needs_a_grid_as_in_the_reference(presummed):
+    """``presummed=`` (ported with the hierarchy) folds region partial sums
+    in the compressed domain only: without ``quant=`` both packages refuse
+    it with the same error."""
+    with pytest.raises(ValueError) as ours:
+        StreamingAggregator(2, presummed=presummed, device=CPU)
+    with pytest.raises(ValueError) as theirs:
+        jss.StreamingAggregator(2, presummed=presummed)
+    assert str(ours.value) == str(theirs.value)
 
 
 # -- managers: delta streams, recv_stream ------------------------------------------

@@ -13,6 +13,11 @@ D = 64 and the wider 128 and 256).
 - ``fedavg.finalize_packed_quantized``: where the last block is short, XLA
   computes the loop's last few elements in scalar code and LLVM fuses
   ``acc − zp·W`` there; the port fuses the same elements.
+- ``rope_tables``: XLA:CPU takes ``cos``/``sin`` from libm's ``cosf``/
+  ``sinf`` and RoPE's frequencies from libm's ``powf`` (``1/powf(θ, e)`` op
+  by op, ``powf(θ, −e)`` folded inside a jitted program); the port's CPU
+  tables equal the eager and the jitted reference's byte for byte at every
+  probed length.
 - The gradient through the norm is torch.rsqrt's (the exact forward value
   rides on it), held against ``jax.grad`` at the model tests' 1e-5.
 - ``_probe`` checks each of ``xla_cpu``'s assumptions against the installed
@@ -111,6 +116,43 @@ def test_quantized_finalize_bytes_equal_xla(nb, tail, with_ref):
         assert got.numpy().tobytes() == want.tobytes(), seed
 
 
+ROPE_LENGTHS = [1, 7, 8, 9, 100, 2048]
+ROPE_HALF_DIMS = [8, 64]
+
+
+def _angles(t, half, theta=500000.0):
+    """RoPE angles built as both packages build them (f32)."""
+    e = (np.arange(0, 2 * half, 2, dtype=np.float32) / np.float32(2 * half)).astype(np.float32)
+    freqs = (np.float32(1.0) / np.power(np.float32(theta), e)).astype(np.float32)
+    return (np.arange(t, dtype=np.float32)[:, None] * freqs[None, :]).astype(np.float32)
+
+
+@pytest.mark.parametrize("half", ROPE_HALF_DIMS)
+@pytest.mark.parametrize("t", ROPE_LENGTHS)
+def test_cos_sin_bytes_equal_xla(t, half):
+    from rayfed_tpu_torch.ops import xla_cpu
+
+    a = _angles(t, half)
+    for ours, theirs in ((xla_cpu.cos, jnp.cos), (xla_cpu.sin, jnp.sin)):
+        want = np.asarray(jax.jit(theirs)(jnp.asarray(a)))
+        assert ours(torch.from_numpy(a)).numpy().tobytes() == want.tobytes(), theirs.__name__
+
+
+@pytest.mark.parametrize("half", ROPE_HALF_DIMS)
+@pytest.mark.parametrize("t", ROPE_LENGTHS)
+def test_rope_tables_bytes_equal_the_reference(t, half):
+    """Eager, as the JAX package's prefill builds them, and jitted with the
+    positions traced, as its decode step does (``folded=True``)."""
+    dh, theta = 2 * half, 500000.0
+    pos = np.arange(t, dtype=np.int32)
+    cases = ((False, jax_llama.rope_tables(jnp.asarray(pos), dh, theta)),
+             (True, jax.jit(lambda p: jax_llama.rope_tables(p, dh, theta))(jnp.asarray(pos))))
+    for folded, want in cases:
+        got = llama.rope_tables(torch.from_numpy(pos).long(), dh, theta, folded=folded)
+        for g, w in zip(got, want):
+            assert g.numpy().tobytes() == np.asarray(w).tobytes(), folded
+
+
 def _probe(size=200_000):
     """Elements, per assumption of ``xla_cpu``, where the installed jaxlib's
     program and the port's form differ (0 everywhere while each holds), and
@@ -143,6 +185,19 @@ def _probe(size=200_000):
         got = tf.finalize_packed_quantized(torch.from_numpy(acc), scales, zps, 6.0, n, ce, "float32").numpy()
         bad += int(np.sum(got.view(np.uint32) != want.view(np.uint32)))
     out["VECTOR_WIDTH, UNROLL"] = bad
+    a = np.random.default_rng(1).uniform(-1e4, 1e4, size).astype(np.float32)
+    for name, ours, theirs in (("cos", xla_cpu.cos, jnp.cos), ("sin", xla_cpu.sin, jnp.sin)):
+        want = np.asarray(jax.jit(theirs)(jnp.asarray(a)))
+        out[name] = int(np.sum(ours(torch.from_numpy(a)).numpy().view(np.uint32) != want.view(np.uint32)))
+    bad = 0
+    for dh in range(8, 257, 8):
+        for theta in (10000.0, 500000.0, 123456.7):
+            e = torch.arange(0, dh, 2, dtype=torch.float32) / dh
+            for folded, fn in ((False, lambda: 1.0 / theta ** (jnp.arange(0, dh, 2, dtype=jnp.float32) / dh)),
+                               (True, jax.jit(lambda: 1.0 / theta ** (jnp.arange(0, dh, 2, dtype=jnp.float32) / dh)))):
+                want = np.asarray(fn())
+                bad += int(np.sum(xla_cpu.rope_freqs(e, theta, folded).numpy().view(np.uint32) != want.view(np.uint32)))
+    out["rope_freqs (eager, folded)"] = bad
     return out
 
 
