@@ -148,13 +148,43 @@ Phases, each fatal on failure:
      region cutoff and no aborted round.  Prints the walls, the root's
      egress, the largest ingress, the integer fold's calls per level and,
      alone on the card, its ms per block against its byte bound;
+  13. (after 6) phase_server_opt, in this process: the packed server
+     optimizers' step and resync (``fl/fedavg.py`` ``server_step_kernel``
+     and ``server_resync_kernel``, their fused multiply-adds on the fold
+     kernel) at 4099 elements, a ResNet-18 buffer and the Llama-3-8B w[qv]
+     adapters, under server momentum, FedAC and both plain-FedAvg configs,
+     byte-equal to the CPU plain version; their device ms, fold launches
+     and byte bounds; FedAC's rounds to target on the two-party quadratic
+     through the card's step and resync, at most 0.8x plain FedAvg's; the
+     post-step quantized downlink, decoded from its wire bytes, byte-equal
+     across the streaming fold, a quorum cutoff round and the hierarchy's
+     regrouped fold, on the card and the CPU.  In the round session (5),
+     after the pipelined parts: 2 rounds of ``wire_quant="uint8"`` under
+     ``server_opt=fedac(1.0, 3.0, 0.5)`` and 2 pipelined rounds under
+     ``server_momentum(1.0, 0.9)``; 64/32/32 launches per step, equal
+     adapters, and the optimizer state's SHA-256 equal at both parties after
+     every resync, on the card; prints the walls beside the same run's
+     rounds without the optimizer.  In the topology processes (11), after
+     the hierarchy's parts: 3 tree rounds and 3 flat quantized hub rounds
+     under FedAC from the same start, equal params at all four parties and
+     between the two, no aborted or fallback round, no flash launch;
+  14. (after 12) phase_async, in this process: ``run_async_fleet`` with
+     virtual parties (a thread each over bare TransportManagers, the
+     buffer and the models on the card).  The quadratic under a 2-10x
+     straggler against the thread-barrier loop (``async_tt_frac`` at most
+     0.8), every emitted version byte-equal to the sorted refold of its
+     recorded folds on the card and the CPU; 64 parties' version rate (at
+     least 1 a second); BASELINE #3 asynchronous (3 ResNet-18 members, one
+     4x slower, 4 cycles, buffer 2): every version refolded, stale folds,
+     no flash launch, the fold's device ms; then 2 cycles under server
+     momentum, the emitted models equal to the step replayed on the card;
   7. time each kernel (mean over one window of calls) against its plain
      version, the library call that computes the same function, and the
      card's bound (the forward at the serving shape B=4 and at the training
      shape B=1, the three at bert_base's shape), and the host's time to
      enqueue one forward and one dQ.
-Prints the card (nvidia-smi), a JSON line of kernel numbers and, last, the
-result line.  Exits non-zero without a result when there is no CUDA card.
+Prints each phase's wall, the card (nvidia-smi), a JSON line of kernel
+numbers and, last, the result line.  Exits non-zero without a result when there is no CUDA card.
 Imports neither JAX nor the JAX package.
 """
 
@@ -169,7 +199,6 @@ import os
 import queue
 import re
 import shutil
-import socket
 import subprocess
 import sys
 import time
@@ -185,6 +214,7 @@ from rayfed_tpu_torch.models import bert, hf, llama, lora
 from rayfed_tpu_torch.models.logistic import softmax_cross_entropy, value_and_grad
 from rayfed_tpu_torch.ops import _build, fold
 from rayfed_tpu_torch.ops.attention import dot_product_attention
+from rayfed_tpu_torch.utils.ports import free_loopback_ports as _free_ports
 from rayfed_tpu_torch.ops.flash_attention import (
     NEG_INF,
     _flash_backward,
@@ -1184,6 +1214,188 @@ def phase_fold_int(gen, card):
 
 # -- the federated path: two party processes on the one card ----------------
 
+# -- the packed server optimizers: step and resync, card against CPU ---------
+
+# The configs of the step: server momentum and FedAC, then both degenerate
+# (plain FedAvg) configs.
+SOPT_CONFIGS = (("momentum", (0.7, 0.9)), ("fedac", (0.8, 6.0, 0.7)),
+                ("momentum", (1.0, 0.0)), ("fedac", (1.0, 3.0, 0.0)))
+# 4099 elements, a ResNet-18 buffer, the Llama-3-8B rank-16 w[qv] adapters.
+SOPT_SIZES = (("small", 4099), ("resnet18", 11_183_562), ("llama_adapters", 6_815_748))
+SOPT_QUAD_SIZE, SOPT_QUAD_MAX = 1 << 14, 450
+SOPT_FEDAC_FRAC = 0.8  # fedac_rounds_to_target_frac: FedAC in at most 0.8x plain FedAvg's rounds
+SOPT_CE = 1 << 12
+
+
+def _sopt_rounds_to_target(opt, dev):
+    """The reference bench's 2-party heterogeneous quadratic at 2^14
+    elements on ``dev``, each round's mean stepped through the card's step
+    and resync (``opt`` None: plain FedAvg).  Returns (rounds, wall s)."""
+    gen = torch.Generator().manual_seed(11)
+    size = SOPT_QUAD_SIZE
+    opt_point = torch.randn(size, generator=gen).to(dev)
+    shift = (0.3 * torch.randn(size, generator=gen)).to(dev)
+    curv = torch.linspace(0.02, 0.12, size, device=dev)
+    target = 1e-3 * float((opt_point ** 2).mean())
+    tmpl = fl.pack_tree({"w": torch.zeros(size)}, torch.float32)
+    runner = None if opt is None else fl.PackedServerOptimizer(opt, device=dev)
+    x = torch.zeros(size, device=dev)
+    t0 = time.perf_counter()
+    for r in range(SOPT_QUAD_MAX):
+        ups = [x - curv * (x - (opt_point + s)) for s in (shift, -shift)]
+        avg = (ups[0] + ups[1]) * 0.5
+        if runner is not None:
+            runner.ensure(x)
+            new_x = runner.step_fn(x)(fl.PackedTree(avg, tmpl.passthrough, tmpl.spec)).buf
+            runner.resync(x, new_x)
+            x = new_x
+        else:
+            x = avg
+        if float(((x - opt_point) ** 2).mean()) <= target:
+            return r + 1, time.perf_counter() - t0
+    return SOPT_QUAD_MAX, time.perf_counter() - t0
+
+
+def _sopt_topologies(dev):
+    """The reference bench's topology byte-identity on ``dev``: from one
+    replicated state, the post-step quantized downlink of the streaming
+    fold, of a quorum cutoff round (whose subset refold feeds the step at
+    the subset's Σw) and of the hierarchy's regrouped presummed fold, each
+    decoded from its serialized wire bytes.  Returns each path's (the
+    coordinator's decode, the receiver's decode) as host bytes."""
+    from rayfed_tpu_torch.fl import quantize as qz
+    from rayfed_tpu_torch.fl.hierarchy import RegionSumTree, partial_sum_dtype
+    from rayfed_tpu_torch.transport import wire
+
+    gen = torch.Generator().manual_seed(SEED + 11)
+    n = 40_000
+    ref = torch.randn(n, generator=gen)
+    packeds = [fl.pack_tree({"w": ref + 0.01 * torch.randn(n, generator=gen)}, torch.float32) for _ in range(4)]
+    grid = qz.make_round_grid((0.01 * torch.randn(n, generator=gen)).numpy(), chunk_elems=SOPT_CE,
+                              mode="delta", expand=4.0)
+    ws = [3, 1, 2, 1]
+    qts = [qz.quantize_packed(p, grid, ref=ref) for p in packeds]
+    ref_d = ref.to(dev)
+
+    def step_and_downlink(result):
+        runner = fl.PackedServerOptimizer(fl.fedac(1.0, 3.0, 0.5), device=dev)
+        runner.ensure(ref_d)
+        wire_result, decoded, _ = qz.quantize_downlink(runner.step_fn(ref_d)(result), grid, ref_d, None)
+        got = wire.decode_payload(_payload_bytes(wire_result), allowed={})
+        receiver = got.dequantize(torch.float32, ref=ref_d)
+        return _raw(decoded.buf), _raw(receiver.buf)
+
+    def agg(k, **kw):
+        return streaming.StreamingAggregator(k, chunk_elems=SOPT_CE, quant=grid, quant_ref=ref_d, device=dev, **kw)
+
+    flat = agg(4, weights=ws)
+    for i, q in enumerate(qts):
+        flat.add_local(i, q)
+    out = {"streaming": step_and_downlink(flat.result(timeout=120))}
+    ps_dt = partial_sum_dtype(grid.qabs_max, sum(ws))
+    root = agg(2, weights=[float(ws[0] + ws[1]), float(ws[2] + ws[3])], presummed=ps_dt)
+    for g, members in enumerate(((0, 1), (2, 3))):
+        acc = sum(ws[i] * torch.as_tensor(qts[i].buf).to(torch.int64) for i in members)
+        spec = fl.PackSpec(qts[0].spec.entries, qts[0].spec.treedef, ps_dt)
+        root.add_local(g, RegionSumTree(acc.numpy().astype(ps_dt), grid.scales, grid.zps, (), spec, grid.meta()))
+    out["hierarchy"] = step_and_downlink(root.result(timeout=120))
+    cut = agg(4, weights=ws, quorum=3, labels=["a", "b", "c", "d"])
+    cut.sink(1)  # never arrives
+    for i in (0, 2, 3):
+        cut.add_local(i, qts[i])
+    out["quorum_cutoff"] = step_and_downlink(cut.result(timeout=120, deadline_s=0.4))
+    out["quorum_subset"] = step_and_downlink(
+        fedavg.packed_quantized_sum([qts[0], qts[2], qts[3]], [ws[0], ws[2], ws[3]], ref=ref_d))
+    return out
+
+
+def phase_server_opt(card):
+    """The packed server optimizers on the card (one process, after the
+    reference bench's server-opt section): the step and the resync at three
+    sizes and four configs byte-equal to the CPU plain version, their device
+    ms and fold_fma launches per call; FedAC's rounds to target on the
+    quadratic through the card's step and resync; the post-step quantized
+    downlink byte-equal across the streaming fold, a quorum cutoff round and
+    the hierarchy's regrouped fold, on the card and the CPU alike."""
+    _, (_, hbm) = _peaks(card)
+    gen = torch.Generator().manual_seed(SEED + 10)
+    out = {"step": {}}
+    for size_name, n in SOPT_SIZES:
+        x = torch.randn(n, generator=gen)
+        avg = x - 0.01 * torch.randn(n, generator=gen)
+        st = torch.randn(n, generator=gen)
+        xc, avgc, stc = x.cuda(), avg.cuda(), st.cuda()
+        for kind, hyper in SOPT_CONFIGS:
+            step = fedavg.server_step_kernel(kind, hyper)
+            resync = fedavg.server_resync_kernel(kind, hyper)
+            want = step(x, avg, st)
+            want_r = resync(x, want, st)[0]
+            fold.fold_fma_.launches = 0
+            got = step(xc, avgc, stc)
+            step_launches = fold.fold_fma_.launches
+            fold.fold_fma_.launches = 0
+            got_r = resync(xc, got, stc)[0]
+            resync_launches = fold.fold_fma_.launches
+            same = (torch.equal(_raw(got), _raw(want)), torch.equal(_raw(got_r), _raw(want_r)))
+            if not all(same) or got.device.type != "cuda" or got_r.device.type != "cuda":
+                raise AssertionError(f"[server_opt] {size_name} {kind}{hyper}: the card's step/resync differ from "
+                                     f"the CPU's: {same}")
+            step_ms = _sync_ms(lambda: step(xc, avgc, stc), 10)
+            resync_ms = _sync_ms(lambda: resync(xc, got, stc), 10)
+            degenerate = step_launches == 0
+            # The step reads x, avg and the state and writes x' (16 B per
+            # element); the resync reads x, x' (and z) and writes the state.
+            step_bytes = 0 if degenerate else 16 * n
+            resync_bytes = (12 if kind == "momentum" else 16) * n
+            rec = dict(ms=step_ms, resync_ms=resync_ms, launches=step_launches, resync_launches=resync_launches,
+                       bound_ms=step_bytes / hbm * 1e3, resync_bound_ms=resync_bytes / hbm * 1e3, elems=n)
+            if size_name == "llama_adapters" and (kind, hyper) == SOPT_CONFIGS[1]:
+                # The plain version of the same step on the card (ops/fold.py fma).
+                lam, gamma, beta = hyper
+
+                def plain():
+                    d = xc - avgc
+                    y = fold.fma(fedavg.f32_scalar(-lam, xc.device), d, xc)
+                    z = fold.fma(fedavg.f32_scalar(-gamma, xc.device), d, stc)
+                    return fold.fma(fedavg.f32_scalar(1.0 - beta, xc.device), y,
+                                    fedavg.f32_scalar(beta, xc.device) * z)
+
+                if not torch.equal(_raw(plain()), _raw(got)):
+                    raise AssertionError("[server_opt] the card's FedAC step differs from its plain version")
+                rec["plain_ms"] = _sync_ms(plain, 5)
+            out["step"][(size_name, kind, hyper)] = rec
+            print(f"[server_opt] {size_name} ({n} f32) {kind}{hyper}: step {step_ms:.4f} ms on the card "
+                  f"({step_launches} fold_fma launches; bound {rec['bound_ms']:.3g} ms at 16 B/elem"
+                  + (", the aggregate itself" if degenerate else f", {rec['bound_ms'] / step_ms:.3f} of it")
+                  + f"), resync {resync_ms:.4f} ms ({resync_launches} launches; bound {rec['resync_bound_ms']:.3g} "
+                  f"ms); byte-equal to the CPU plain version: step and resync")
+        del x, avg, st, xc, avgc, stc
+        torch.cuda.empty_cache()
+    plain_rounds, plain_s = _sopt_rounds_to_target(None, torch.device("cuda"))
+    fedac_rounds, fedac_s = _sopt_rounds_to_target(fl.fedac(1.0, 6.0, 0.7), torch.device("cuda"))
+    frac = fedac_rounds / plain_rounds
+    print(f"[server_opt] rounds to target (quadratic, 2 parties, 2^14 elements, the card's step and resync): "
+          f"plain FedAvg {plain_rounds} rounds in {plain_s:.3f} s, fedac(1.0, 6.0, 0.7) {fedac_rounds} rounds in "
+          f"{fedac_s:.3f} s; fedac_rounds_to_target_frac {frac:.4f} (gate <= {SOPT_FEDAC_FRAC})")
+    if plain_rounds >= SOPT_QUAD_MAX or frac > SOPT_FEDAC_FRAC:
+        raise AssertionError(f"[server_opt] rounds to target: plain {plain_rounds}, fedac {fedac_rounds}")
+    card_paths, cpu_paths = _sopt_topologies(torch.device("cuda")), _sopt_topologies(torch.device("cpu"))
+    ref_coord, ref_recv = card_paths["streaming"]
+    bitexact = all(torch.equal(c, ref_coord) and torch.equal(r, ref_recv) for c, r in
+                   (card_paths["streaming"], card_paths["hierarchy"])) and all(
+        torch.equal(c, r) for c, r in card_paths.values()) and all(
+        torch.equal(card_paths[k][0], card_paths["quorum_subset"][0]) for k in ("quorum_cutoff",)) and all(
+        torch.equal(card_paths[k][i], cpu_paths[k][i]) for k in card_paths for i in (0, 1))
+    print(f"[server_opt] post-step quantized downlink, decoded from its wire bytes: streaming fold = hierarchy "
+          f"regrouped fold, quorum cutoff = its subset refold, coordinator = receiver, card = CPU: "
+          f"server_opt_agg_bitexact {bitexact}")
+    if not bitexact:
+        raise AssertionError("[server_opt] server_opt_agg_bitexact failed")
+    out.update(plain_rounds=plain_rounds, fedac_rounds=fedac_rounds, rounds_frac=frac, plain_s=plain_s,
+               fedac_s=fedac_s, bitexact=bitexact)
+    return out
+
+
 FED_PARTIES = ("alice", "bob")
 FED_LINKS = ("off", "auto")  # TCP, then whatever the local link "auto" decides
 FED_TIMEOUT_S = 540  # hard limit on the party processes, all three sessions together
@@ -1195,43 +1407,6 @@ FED_INIT = dict(
     cross_silo_retry_policy={"maxAttempts": 30, "initialBackoff": "0.2s", "maxBackoff": "1s"},
     enable_waiting_for_other_parties_ready=True,
 )
-
-
-_PORTS_GIVEN = set()  # never hand a port out twice in one run
-
-
-def _free_ports(n):
-    """``n`` loopback ports for one session's listeners, free when chosen.
-
-    A port is released before its party binds it, and a session binds its
-    ports only after earlier sessions ran.  A port from the kernel's
-    ephemeral range could meanwhile become the local port of any outgoing
-    connection (an earlier session's, this one's peers'), and the party's
-    bind would fail with EADDRINUSE; so the ports come from below that
-    range, where only an explicit bind takes a port."""
-    import random
-
-    try:
-        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
-            lo, hi = map(int, f.read().split())
-    except (OSError, ValueError):
-        lo, hi = 32768, 60999
-    pool = list(range(10000, lo)) if lo - 10000 >= 64 * n else list(range(hi + 1, 65536))
-    random.SystemRandom().shuffle(pool)
-    ports = []
-    for port in pool:
-        if port in _PORTS_GIVEN:
-            continue
-        with socket.socket() as s:  # no SO_REUSEADDR: a port in TIME_WAIT is passed over
-            try:
-                s.bind(("127.0.0.1", port))
-            except OSError:
-                continue
-        _PORTS_GIVEN.add(port)
-        ports.append(port)
-        if len(ports) == n:
-            return ports
-    raise RuntimeError(f"no {n} free loopback ports outside the ephemeral range {lo}-{hi}")
 
 
 def _sync(device):
@@ -1380,7 +1555,36 @@ ROUND_PARTS = (
     ("round_overlap", {"overlap": True}, OVERLAP_ROUNDS),
     ("round_overlap_ring", {"overlap": True, "mode": "ring"}, ROUNDS),
     ("round_overlap_quant", {"overlap": True, "streaming_agg": True, "wire_quant": "uint8"}, ROUNDS),
+    # The packed server optimizers: FedAC over the compressed-domain hub
+    # (stepped at alice before the downlink), server momentum under the
+    # pipelined rounds (the one-round-stale mean displacement).
+    ("round_server_opt", {"streaming_agg": True, "wire_quant": "uint8", "server_opt": fl.fedac(1.0, 3.0, 0.5)},
+     ROUNDS),
+    ("round_overlap_server_opt", {"overlap": True, "server_opt": fl.server_momentum(1.0, 0.9)}, ROUNDS),
 )
+SOPT_PARTS = ("round_server_opt", "round_overlap_server_opt")
+
+
+class _StateDigests:
+    """Records the SHA-256 of this process's server-opt state after every
+    resync (the replicated state the parties must agree on), for the parts
+    run inside it."""
+
+    def __enter__(self):
+        from rayfed_tpu_torch.fl import server_opt
+
+        self.seen, cls = [], server_opt.PackedServerOptimizer
+        self.cls, self.resync = cls, cls.resync
+
+        def recording(opt, x_buf, new_buf):
+            self.resync(opt, x_buf, new_buf)
+            self.seen.append(_leaf_digest(list(opt.state.bufs)))
+
+        cls.resync = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.resync = self.resync
 
 
 def _round_session(fed, party, cache, cfg_name, cfg_kw, train_len, device):
@@ -1407,9 +1611,10 @@ def _round_session(fed, party, cache, cfg_name, cfg_kw, train_len, device):
         fold.fold_fma_.launches = 0
         ring0 = dict(RING_STATS)
         t0 = time.perf_counter()
-        adapters = fl.run_fedavg_rounds(trainers, adapters, rounds=rounds, compress_wire=True, packed_wire=True,
-                                        timings=timings, **kw)
-        _sync(device)
+        with _StateDigests() as states:
+            adapters = fl.run_fedavg_rounds(trainers, adapters, rounds=rounds, compress_wire=True,
+                                            packed_wire=True, timings=timings, **kw)
+            _sync(device)
         wall_s = time.perf_counter() - t0
         fold_launches = fold.fold_fma_.launches  # this party's float folds of the session
         sent, _ = tm.transfer_log.records_since(logged)
@@ -1422,6 +1627,7 @@ def _round_session(fed, party, cache, cfg_name, cfg_kw, train_len, device):
                 [trainers[p].contributions.remote() for p in FED_PARTIES])))))
                        if replay else None),
             "wall_s": wall_s,
+            "state_digests": states.seen,
             "fold_launches": fold_launches,
             "ring_stats": {k: RING_STATS[k] - ring0[k] for k in RING_STATS},
             "timings": timings,
@@ -1642,6 +1848,9 @@ def _federated_summary(reports, want, wall):
     out["round_ring"] = _ring_round_summary(alice["round_ring"], bob["round_ring"], want)
     for key in OVERLAP_PARTS:
         out[key] = _overlap_summary(alice[key], bob[key], want, key)
+    out["round_server_opt"] = _server_opt_round_summary(alice, bob, want, "round_server_opt", "round_quant")
+    out["round_overlap_server_opt"] = _server_opt_round_summary(alice, bob, want, "round_overlap_server_opt",
+                                                                "round_overlap")
     sync = {k: alice[k]["wall_s"] / alice[k]["rounds"] for k in ("round", "round_quant", "round_ring")}
     pipelined = {k: alice[k]["wall_s"] / alice[k]["rounds"]
                  for k in ("round_overlap", "round_overlap_quant", "round_overlap_ring")}
@@ -1686,6 +1895,42 @@ def _overlap_summary(a, b, want, tag):
           + f"; launches over both parties' steps {launches}")
     return {"launches": launches, "fold_launches": a["fold_launches"] + b["fold_launches"],
             "wall_s": {"alice": a["wall_s"], "bob": b["wall_s"]}}
+
+
+def _server_opt_round_summary(alice, bob, want, tag, base):
+    """Check both parties' reports of a server-opt part and print them: the
+    launches of every step, equal final adapters on the card, the state's
+    SHA-256 equal at both parties after every resync and on the card; the
+    walls per round beside the same run's part ``base`` without the
+    optimizer."""
+    a, b = alice[tag], bob[tag]
+    rounds = a["rounds"]
+    d = _check_session(a, b, want, tag, rounds)
+    sa, sb = a["state_digests"], b["state_digests"]
+    # A pipelined run resyncs as each round lands, the last one excepted.
+    n_resync = rounds - 1 if "overlap" in tag else rounds
+    if len(sa) != n_resync or sa != sb or any(m[2] != "cuda" for s in sa for m in s["meta"]):
+        raise AssertionError(f"{tag}: server-opt state digests: alice {sa}, bob {sb} (want {n_resync}, equal, on "
+                             f"the card)")
+    launches = {k: 0 for k in want}
+    for party, r in (("alice", a), ("bob", b)):
+        t = r["trainers"][party]
+        for i, (step, rec) in enumerate(zip(t["steps"], r["timings"])):
+            print(f"[{tag}] {party} round {i}: local_s {rec['local_s']:.3f} push_s {rec['push_s']:.3f} "
+                  f"agg_s {rec['agg_s']:.3f}; step {step['step_ms']:.1f} ms loss {step['loss']:.6f} "
+                  f"launches {step['launches']}")
+            for k in launches:
+                launches[k] += step["launches"][k]
+    per_round = {p: r[tag]["wall_s"] / rounds for p, r in (("alice", alice), ("bob", bob))}
+    per_round_base = {p: r[base]["wall_s"] / r[base]["rounds"] for p, r in (("alice", alice), ("bob", bob))}
+    print(f"[{tag}] state sha256 after each resync, equal at both parties on the card: "
+          f"{[s['sha256'][:16] for s in sa]}; final adapters sha256 {d['sha256'][:16]}; launches over both "
+          f"parties' steps {launches}; fold_fma launches: alice {a['fold_launches']}, bob {b['fold_launches']}")
+    print(f"[{tag}] wall per round: {json.dumps(per_round)} s, beside {base} without the optimizer "
+          f"{json.dumps(per_round_base)} s")
+    return {"launches": launches, "fold_launches": a["fold_launches"] + b["fold_launches"],
+            "wall_s": {"alice": a["wall_s"], "bob": b["wall_s"]}, "per_round_s": per_round,
+            "base_per_round_s": per_round_base}
 
 
 def _check_session(a, b, want, tag, rounds):
@@ -1961,6 +2206,9 @@ TOPO_ROUNDS, TOPO_QUANT_ROUNDS = 3, 2
 HIER_ROUNDS = 4
 HIER_PARTS = ("hier", "hier_flat", "hier_quorum")
 HIER_BYTES_MAX = 1.25  # mean bytes a party sends and receives per tree round, over 2·|model| (bf16)
+# BASELINE #3 under FedAC, each from the same start as the hierarchy's
+# parts: the tree, then the flat quantized hub (TOPO_ROUNDS rounds each).
+SOPT_TOPO_PARTS = (("sopt_hier", {"mode": "hierarchy", "region_size": 2}), ("sopt_flat", {"streaming_agg": True}))
 RESNET_N, RESNET_HW, RESNET_LR = 32, 32, 0.05  # a CIFAR-10-shaped shard per party
 RING_INGRESS_MAX = 0.4  # alice's share of cluster ingress in a ring round
 QUANT_BYTES_MAX = 0.6  # a quantized ring round's bytes against a bf16 ring round's
@@ -2103,6 +2351,10 @@ def _topo_party(party, ports, device, out):
         ):
             qz.reset_compressors()
             _, report["parts"][name] = _topo_part(fed, party, trainers, params0, rounds, {**hier_kw, **kw})
+        for name, kw in SOPT_TOPO_PARTS:
+            qz.reset_compressors()
+            _, report["parts"][name] = _topo_part(fed, party, trainers, params0, TOPO_ROUNDS,
+                                                  {**hier_kw, **kw, "server_opt": fl.fedac(1.0, 3.0, 0.5)})
         fed.shutdown()
         out.put({"party": party, "progress": True, **report})
 
@@ -2218,7 +2470,8 @@ def _topology_summary(reports, wall):
         if not parts[p]["ring"]["fold_launches"]:
             raise AssertionError(f"[topo ring] {p}'s stripe folds never launched the fold kernel")
     out["hierarchy"] = _hierarchy_summary(parts, n_elems)
-    for name in HIER_PARTS:
+    out["server_opt"] = _server_opt_topo_summary(parts)
+    for name in HIER_PARTS + tuple(n for n, _ in SOPT_TOPO_PARTS):
         out["fold_launches"][name] = sum(parts[p][name]["fold_launches"] for p in TOPO_PARTIES)
         out["flash_launches"][name] = {k: sum(parts[p][name]["flash_launches"][k] for p in TOPO_PARTIES)
                                        for k in parts["alice"][name]["flash_launches"]}
@@ -2476,6 +2729,328 @@ def phase_hierarchy_multilevel(n_elems, device=None, chunk_elems=None):
     return out
 
 
+# -- buffered asynchronous rounds: in-process virtual parties ---------------
+
+# Leg 1, after the reference bench's async section: a quadratic toward a
+# shared optimum, each step a fixed 50 ms of "compute", p4 slowed 2-10x by a
+# seeded schedule; the thread-barrier sync loop against the async fleet.
+ASYNC_PARTIES = ("coord", "p1", "p2", "p3", "p4")
+ASYNC_DIM, ASYNC_BASE_S, ASYNC_LR, ASYNC_TARGET_FRAC, ASYNC_SYNC_ROUNDS = 4096, 0.05, 0.5, 0.05, 6
+ASYNC_CHAOS = {"seed": 11, "rules": [{"hook": "local_step", "party": "p4", "op": "local_slowdown",
+                                      "value": [2.0, 10.0]}]}
+ASYNC_TT_FRAC = 0.8  # async_tt_frac: async time to target at most 0.8x the barrier's
+ASYNC_N64 = 64  # leg 2: 1 coordinator + 63 members, 2 cycles each
+ASYNC_VPS_MIN = 1.0  # async_versions_per_sec
+# Legs 3-4: BASELINE config #3 asynchronous, a coordinator and 3 ResNet-18
+# members on their 32-image shards; m3 runs 4x slower.
+ASYNC_RESNET = ("coord", "m1", "m2", "m3")
+ASYNC_RESNET_CHAOS = {"seed": 13, "rules": [{"hook": "local_step", "party": "m3", "op": "local_slowdown",
+                                             "value": [4.0, 4.0]}]}
+ASYNC_RESNET_CYCLES, ASYNC_RESNET_K, ASYNC_WEIGHT = 4, 2, 16
+
+
+def _qt_on(qt, dev):
+    """A QuantizedPackedTree with its codes on ``dev``."""
+    from rayfed_tpu_torch.fl.quantize import QuantizedPackedTree
+
+    return QuantizedPackedTree(fedavg.as_tensor(qt.buf, dev), qt.scales, qt.zps, qt.passthrough, qt.spec, qt.gmeta)
+
+
+def _async_refold_means(vlog, folds, dev):
+    """Each version's buffered mean (before any server step): the sorted
+    refold of its folds on ``dev``, as a PackedTree."""
+    import collections
+
+    by_v = collections.defaultdict(list)
+    for f in folds:
+        if f["w_eff"] > 0:
+            by_v[f["version"]].append(f)
+    out, prev = [], None
+    for rec in vlog:
+        fset = sorted(by_v[rec["version"] - 1], key=lambda f: f["party"])
+        if not fset:
+            raise AssertionError(f"[async] version {rec['version']} folded nothing")
+        qts = [_qt_on(f["qt"], dev) for f in fset]
+        ref = None if qts[0].gmeta.mode != "delta" else torch.from_numpy(prev).to(dev)
+        out.append(fedavg.packed_quantized_sum(qts, [f["w_eff"] for f in fset], ref=ref))
+        prev = rec["model"]
+    return out
+
+
+def _async_check_refold(vlog, folds, tag, dev):
+    """Every version byte-equal to its refold on ``dev`` (the card) and on
+    the CPU (``async_refold_bitexact``)."""
+    models = [torch.from_numpy(rec["model"]).view(torch.uint8) for rec in vlog]
+    card, cpu = ([_raw(m.buf) for m in _async_refold_means(vlog, folds, torch.device(d))] for d in (dev, "cpu"))
+    ok = bool(vlog) and all(torch.equal(a, m) and torch.equal(b, m) for a, b, m in zip(card, cpu, models))
+    print(f"[async {tag}] {len(vlog)} versions, each byte-equal to the sorted refold of its folds on the card "
+          f"and on the CPU: async_refold_bitexact {ok}")
+    if not ok:
+        raise AssertionError(f"[async {tag}] an emitted version differs from its refold")
+    return ok
+
+
+def _async_quadratic_legs(dev):
+    """Legs 1 and 2 (the reference bench's): time to target under a
+    straggler, async against the thread-barrier loop, and the 64-party
+    throughput."""
+    import threading
+
+    from rayfed_tpu_torch import chaos
+    from rayfed_tpu_torch.fl import async_rounds as ar
+    from rayfed_tpu_torch.fl import quantize as qz
+
+    gen = torch.Generator().manual_seed(7)
+    c_host = 0.25 + 0.5 * torch.rand(ASYNC_DIM, generator=gen)
+    w0 = torch.rand(ASYNC_DIM, generator=gen)
+    c_vec = c_host.to(dev)
+
+    def loss(w):
+        return float(0.5 * ((torch.as_tensor(w).to(c_host.device) - c_host) ** 2).mean())
+
+    target = ASYNC_TARGET_FRAC * loss(w0)
+    members = [p for p in ASYNC_PARTIES if p != "coord"]
+
+    def local_step(party, packed, version, cycle):
+        buf = packed.buf.to(torch.float32)
+        time.sleep(ASYNC_BASE_S)
+        return fl.PackedTree(buf + ASYNC_LR * (c_vec[: buf.numel()] - buf), packed.passthrough, packed.spec)
+
+    # Warm the codec and the fold outside the timed legs.
+    ar.run_async_fleet(["coord", "p1"], {"w": w0}, local_step, cycles=2, buffer_k=1, timeout_s=120, device=dev)
+    ar.reset_async_stats()
+    qz.reset_compressors()
+
+    chaos.install(ASYNC_CHAOS)
+    barrier = threading.Barrier(len(members))
+    model = {"w": w0.to(dev)}
+    contribs, sync_curve = {}, []
+    t0 = time.time()
+
+    def sync_member(p):
+        for rnd in range(ASYNC_SYNC_ROUNDS):
+            w = model["w"]
+            t1 = time.perf_counter()
+            time.sleep(ASYNC_BASE_S)
+            new = w + ASYNC_LR * (c_vec - w)
+            chaos.fire("local_step", p, version=rnd, cycle=rnd, baseline_s=time.perf_counter() - t1)
+            contribs[p] = new
+            if barrier.wait() == 0:
+                model["w"] = torch.stack([contribs[m] for m in members]).mean(dim=0)
+                sync_curve.append((time.time() - t0, loss(model["w"].cpu())))
+            barrier.wait()
+
+    threads = [threading.Thread(target=sync_member, args=(p,), daemon=True) for p in members]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    chaos.uninstall()
+    tt_sync = next((t for t, lo in sync_curve if lo <= target), None)
+
+    chaos.install(ASYNC_CHAOS)
+    vlog, folds = [], []
+    t0 = time.time()
+    out = ar.run_async_fleet(ASYNC_PARTIES, {"w": w0}, local_step, cycles={"p1": 10, "p2": 10, "p3": 10, "p4": 4},
+                             weights={p: ASYNC_WEIGHT for p in members}, buffer_k=3, timeout_s=120,
+                             version_log=vlog, record_folds=folds, device=dev)
+    chaos.uninstall()
+    hist = dict(ar.ASYNC_STATS["staleness_hist"])
+    tt_async = next((r["t_wall"] - t0 for r in vlog if loss(torch.from_numpy(r["model"][:ASYNC_DIM])) <= target), None)
+    frac = None if tt_async is None or not tt_sync else tt_async / tt_sync
+    print(f"[async quadratic] time to target (excess loss <= {ASYNC_TARGET_FRAC} of the initial, p4 slowed "
+          f"2-10x): sync barrier {tt_sync} s over {len(sync_curve)} rounds, async {tt_async} s; "
+          f"async_tt_frac {frac} (gate <= {ASYNC_TT_FRAC}); {out['versions']} versions from {out['folds']} folds, "
+          f"staleness histogram {hist}")
+    if frac is None or frac > ASYNC_TT_FRAC:
+        raise AssertionError(f"[async quadratic] async_tt_frac {frac}: sync {tt_sync} s, async {tt_async} s")
+    bitexact = _async_check_refold(vlog, folds, "quadratic", dev)
+
+    ar.reset_async_stats()
+    qz.reset_compressors()
+    n64 = ["coord"] + [f"m{i:02d}" for i in range(ASYNC_N64 - 1)]
+
+    def fast_step(party, packed, version, cycle):
+        buf = packed.buf.to(torch.float32)
+        return fl.PackedTree(buf + ASYNC_LR * (c_vec[: buf.numel()] - buf), packed.passthrough, packed.spec)
+
+    t1 = time.time()
+    out64 = ar.run_async_fleet(n64, {"w": w0[:256]}, fast_step, cycles=2,
+                               weights={p: ASYNC_WEIGHT for p in n64[1:]}, buffer_k=8, timeout_s=240, device=dev)
+    wall64 = time.time() - t1
+    vps = out64["versions"] / wall64
+    print(f"[async n64] {ASYNC_N64} virtual parties ({ASYNC_N64 - 1} members, 2 cycles each, no chaos): "
+          f"{out64['versions']} versions from {out64['folds']} folds in {wall64:.3f} s; async_versions_per_sec "
+          f"{vps:.3f} (gate >= {ASYNC_VPS_MIN})")
+    if vps < ASYNC_VPS_MIN:
+        raise AssertionError(f"[async n64] async_versions_per_sec {vps}")
+    return {"tt_sync_s": tt_sync, "tt_async_s": tt_async, "tt_frac": frac, "versions": out["versions"],
+            "folds": out["folds"], "staleness_hist": hist, "refold_bitexact": bitexact,
+            "n64_versions": out64["versions"], "n64_wall_s": wall64, "versions_per_sec": vps}
+
+
+class _AsyncResNetStep:
+    """The members' local step of the asynchronous BASELINE #3: one SGD step
+    of ResNet-18 on the member's 32 seeded CIFAR-10-shaped images, on the
+    card, f32 packed in and out."""
+
+    def __init__(self, dev):
+        from rayfed_tpu_torch.models import resnet
+
+        self.data = {}
+        for i, p in enumerate(ASYNC_RESNET[1:]):
+            gen = torch.Generator().manual_seed(SEED + 1 + i)
+            x = torch.randn(RESNET_N, RESNET_HW, RESNET_HW, 3, generator=gen)
+            probe = torch.randn(3, 10, generator=torch.Generator().manual_seed(0))
+            self.data[p] = (x.to(dev), torch.argmax(x.mean(dim=(1, 2)) @ probe, dim=-1).to(dev))
+        self.step = resnet.make_fed_train_step(resnet.resnet18(num_classes=10), lr=RESNET_LR,
+                                               wire_dtype=torch.float32)
+
+    def __call__(self, party, packed, version, cycle):
+        x, y = self.data[party]
+        out, _ = self.step(packed, x, y)
+        return out
+
+
+def _async_resnet_leg(dev, params0, step, cycles, server_opt=None):
+    from rayfed_tpu_torch import chaos
+    from rayfed_tpu_torch.fl import async_rounds as ar
+    from rayfed_tpu_torch.fl import quantize as qz
+
+    ar.reset_async_stats()
+    qz.reset_compressors()
+    chaos.install(ASYNC_RESNET_CHAOS)
+    vlog, folds = [], []
+    fold.fold_fma_.launches = 0
+    _zero_counts()
+    t0 = time.time()
+    try:
+        out = ar.run_async_fleet(ASYNC_RESNET, params0, step, cycles=cycles,
+                                 weights={p: ASYNC_WEIGHT for p in ASYNC_RESNET[1:]}, buffer_k=ASYNC_RESNET_K,
+                                 server_opt=server_opt, timeout_s=300, version_log=vlog, record_folds=folds,
+                                 device=dev)
+    finally:
+        chaos.uninstall()
+    wall = time.time() - t0
+    return out, vlog, folds, wall, {"fold_fma": fold.fold_fma_.launches, **_counts()}, dict(ar.ASYNC_STATS)
+
+
+def phase_async(card, device=None):
+    """Buffered asynchronous rounds, ``run_async_fleet`` with in-process
+    virtual parties (the JAX package's own harness: a thread per party over
+    bare TransportManagers, the buffer and the models on the card).  Leg 1:
+    time to target under a straggler, async against the barrier
+    (``async_tt_frac``), every version byte-equal to its refold on the card
+    and the CPU; leg 2: 64 parties' version rate; leg 3: BASELINE #3
+    asynchronous (ResNet-18 members, one 4x slower), every version refolded,
+    stale folds, no flash launch; leg 4: leg 3 under server momentum, the
+    emitted models equal to the step replayed on the card from the
+    versions' refolds.  ``device`` (default the card) lets the CPU rehearse
+    it, without the fold's device time."""
+    import numpy as np
+
+    from rayfed_tpu_torch.fl import server_opt
+    from rayfed_tpu_torch.models import resnet
+    from rayfed_tpu_torch.utils.platform import resolve_device
+
+    dev = resolve_device(device)
+    _, (_, hbm) = _peaks(card)
+    out = {"quadratic": _async_quadratic_legs(dev)}
+
+    params0 = resnet.init_resnet(torch.Generator().manual_seed(SEED), resnet.resnet18(num_classes=10), device=dev)
+    step = _AsyncResNetStep(dev)
+    res, vlog, folds, wall, launches, stats = _async_resnet_leg(dev, params0, step, ASYNC_RESNET_CYCLES)
+    hist = stats["staleness_hist"]
+    walls = [b["t_wall"] - a["t_wall"] for a, b in zip(vlog, vlog[1:])]
+    vps = res["versions"] / wall
+    print(f"[async resnet] {len(ASYNC_RESNET) - 1} ResNet-18 members x {ASYNC_RESNET_CYCLES} cycles, buffer_k "
+          f"{ASYNC_RESNET_K}, m3 4x slower: {res['versions']} versions from {res['folds']} folds in {wall:.3f} s "
+          f"({vps:.3f} versions/s); gaps between versions {[round(w, 3) for w in walls]} s; staleness histogram "
+          f"{hist}; re-coded stale {stats['recoded_stale']}, decayed out {stats['dropped_decayed_out']}; launches "
+          f"{launches}")
+    _async_check_refold(vlog, folds, "resnet", dev)
+    if not any(int(s) >= 1 for s in hist):
+        raise AssertionError(f"[async resnet] no stale fold: staleness histogram {hist}")
+    if any(launches[k] for k in ("fwd", "bwd_dq", "bwd_dkv")):
+        raise AssertionError(f"[async resnet] ResNet-18 launched flash kernels: {launches}")
+    n = int(vlog[0]["model"].size)
+    fold_ms, fold_bound = None, n * 9 / hbm * 1e3  # the codes read, the i32 accumulator read and written
+    if dev.type == "cuda":
+        codes = torch.randint(0, 256, (n,), generator=torch.Generator(device=dev).manual_seed(SEED), device=dev,
+                              dtype=torch.uint8)
+        acc = torch.zeros(n, dtype=torch.int32, device=dev)
+        fold_ms = _sync_ms(lambda: fedavg.quantized_accum_kernel(acc, 0, codes, ASYNC_WEIGHT), 20)
+        print(f"[async resnet] the buffer's fold of one contribution ({n} uint8 codes into the i32 accumulator) "
+              f"alone on the card: {fold_ms:.4f} ms against a {fold_bound:.4f} ms byte bound "
+              f"({fold_bound / fold_ms:.3f} of it)")
+        del codes, acc
+    out["resnet"] = {"versions": res["versions"], "folds": res["folds"], "wall_s": wall, "versions_per_sec": vps,
+                     "version_gaps_s": walls, "staleness_hist": hist, "launches": launches,
+                     "fold_ms": fold_ms, "fold_bound_ms": fold_bound}
+
+    opt = fl.server_momentum(1.0, 0.9)
+    res, vlog, folds, wall, launches4, _ = _async_resnet_leg(dev, params0, step, 2, server_opt=opt)
+    replica = fl.PackedServerOptimizer(opt, device=dev)
+    model = fl.pack_tree(params0, torch.float32).buf.to(dev)
+    ref_model, ref_state = model.cpu().numpy(), [np.zeros(n, np.float32)]
+    refolds = _async_refold_means(vlog, folds, dev)
+    worst = 0.0
+    for rec, mean in zip(vlog, refolds):
+        replica.ensure(model)
+        stepped = replica.step_fn(model)(mean)
+        replica.resync(model, stepped.buf)
+        if not torch.equal(_raw(stepped.buf), torch.from_numpy(rec["model"]).view(torch.uint8)):
+            raise AssertionError(f"[async server_opt] version {rec['version']}: the emitted model differs from the "
+                                 f"step replayed on the card")
+        ref_model, ref_state = server_opt.reference_step(opt, ref_model, mean.buf.cpu().numpy(), ref_state)
+        worst = max(worst, float(np.abs(ref_model - rec["model"]).max()))
+        model = stepped.buf
+    print(f"[async server_opt] server_momentum(1.0, 0.9), {res['versions']} versions from {res['folds']} folds in "
+          f"{wall:.3f} s: every emitted model equals the step and resync replayed on the card from the "
+          f"versions' refolds, byte for byte; the numpy reference_step within {worst:.3e}; launches {launches4}")
+    if not worst <= 1e-4:
+        raise AssertionError(f"[async server_opt] reference_step differs by {worst}")
+    out["server_opt"] = {"versions": res["versions"], "wall_s": wall, "launches": launches4,
+                         "reference_step_max_err": worst}
+    out["launches"] = {k: launches[k] + launches4[k] for k in launches}
+    del params0, step
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _server_opt_topo_summary(parts):
+    """BASELINE #3 under ``server_opt=fedac(1.0, 3.0, 0.5)``: the tree and
+    the flat quantized hub from the same start.  Each part's final params
+    equal at all four parties and equal between the parts; every tree round
+    completed as a tree (no abort, no fallback)."""
+    out = {}
+    for name, _ in SOPT_TOPO_PARTS:
+        rep = {p: parts[p][name] for p in TOPO_PARTIES}
+        digests = {p: r["digest"]["sha256"] for p, r in rep.items()}
+        if len(set(digests.values())) != 1:
+            raise AssertionError(f"[topo {name}] the parties' final params differ: {digests}")
+        for p, r in rep.items():
+            for i, rec in enumerate(r["timings"]):
+                print(f"[topo {name}] {p} round {i}: wall {r['round_s'][i]:.3f} s, local_s {rec['local_s']:.3f} "
+                      f"push_s {rec['push_s']:.3f} agg_s {rec['agg_s']:.3f}, sent {r['sent'][i] / 1e6:.3f} MB, "
+                      f"received {r['received'][i] / 1e6:.3f} MB")
+            hs = r["hier_stats"]
+            want = {"rounds_completed": TOPO_ROUNDS - 1 if name == "sopt_hier" else 0, "rounds_aborted": 0,
+                    "fallback_rounds": 0, "region_cutoffs": 0}
+            print(f"[topo {name}] {p}: HIER_STATS {hs}, fold_fma launches {r['fold_launches']}, flash launches "
+                  f"{r['flash_launches']}, losses {r['losses']}")
+            if hs != want:
+                raise AssertionError(f"[topo {name}] {p}'s hierarchy counters {hs}, want {want}")
+        out[name] = {"digest": digests["alice"], "round_s": rep["alice"]["round_s"]}
+    if out["sopt_hier"]["digest"] != out["sopt_flat"]["digest"]:
+        raise AssertionError(f"[topo server_opt] the tree's final params {out['sopt_hier']['digest'][:16]} differ "
+                             f"from the flat quantized hub's {out['sopt_flat']['digest'][:16]} under FedAC")
+    print(f"[topo server_opt] under fedac(1.0, 3.0, 0.5) the tree's final params equal the flat quantized hub's at "
+          f"all four parties: sha256 {out['sopt_hier']['digest'][:16]}")
+    return out
+
+
 def _hierarchy_summary(parts, n_elems):
     """phase_hierarchy, BASELINE config #3 under ``mode="hierarchy"`` (run in
     the topology phase's party processes): check the three hierarchy parts
@@ -2636,6 +3211,15 @@ def phase_hf(gen):
     return {"ms": ms, "nbytes": nbytes}
 
 
+def _timed(walls, fn, *args, **kw):
+    """Run one phase and print its wall."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    walls[fn.__name__] = time.perf_counter() - t0
+    print(f"[wall] {fn.__name__}: {walls[fn.__name__]:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -2645,41 +3229,58 @@ def main() -> int:
     card = torch.cuda.get_device_name(0)
     print(f"[card] {card}, torch {torch.__version__}, CUDA {torch.version.cuda}")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    walls, t_start = {}, time.perf_counter()
 
-    phase_build()
-    slice_err = phase_kernel_vs_plain(gen)
-    bwd_err = phase_bwd_kernel_vs_plain(gen)
+    _timed(walls, phase_build)
+    slice_err = _timed(walls, phase_kernel_vs_plain, gen)
+    bwd_err = _timed(walls, phase_bwd_kernel_vs_plain, gen)
     _zero_counts()
-    serve = phase_slice(gen)
+    serve = _timed(walls, phase_slice, gen)
     serve_launches = serve["launches"]
-    train = phase_train(gen)
-    phase_grad_check(gen)
-    serve_int8 = phase_serve_int8(gen, serve)
-    train_int8 = phase_train_int8(gen, train)
-    fold_times = phase_fold(gen, card)
-    federated = phase_federated()
+    train = _timed(walls, phase_train, gen)
+    _timed(walls, phase_grad_check, gen)
+    serve_int8 = _timed(walls, phase_serve_int8, gen, serve)
+    train_int8 = _timed(walls, phase_train_int8, gen, train)
+    fold_times = _timed(walls, phase_fold, gen, card)
+    sopt = _timed(walls, phase_server_opt, card)
+    federated = _timed(walls, phase_federated)
     round_launches = federated["round"]["launches"]
     quant_launches = federated["round_quant"]["launches"]
     round_fold = federated["round"]["fold_launches"]
     quant_fold = federated["round_quant"]["fold_launches"]
-    split = phase_split()
+    split = _timed(walls, phase_split)
     split_launches = split["launches"]
-    topo = phase_topologies()
+    topo = _timed(walls, phase_topologies)
     topo_fold, topo_flash = topo["fold_launches"], topo["flash_launches"]
-    hier_ml = phase_hierarchy_multilevel(topo["elements"])
+    hier_ml = _timed(walls, phase_hierarchy_multilevel, topo["elements"])
     ml_launches = {k: v for k, v in hier_ml["round1"]["launches"].items()}
     for k, v in hier_ml["round2"]["launches"].items():
         ml_launches[k] += v
+    asyn = _timed(walls, phase_async, card)
     overlap = {k: sum(federated[part]["launches"][k] for part in OVERLAP_PARTS)
                for k in ("fwd", "bwd_dq", "bwd_dkv")}
     overlap_fold = sum(federated[part]["fold_launches"] for part in OVERLAP_PARTS)
     ring_launches = federated["round_ring"]["launches"]
     ring_fold = federated["round_ring"]["fold_launches"]
-    phase_split_grads(gen)
-    phase_hf(gen)
-    times, train_times = phase_times(gen, card)
-    bwd_times = phase_bwd_times(gen, card)
-    bert_times = phase_bert_times(gen, card)
+    sopt_llama = {k: sum(federated[part]["launches"][k] for part in SOPT_PARTS)
+                  for k in ("fwd", "bwd_dq", "bwd_dkv")}
+    sopt_llama_fold = sum(federated[part]["fold_launches"] for part in SOPT_PARTS)
+    sopt_resnet = {k: sum(topo_flash[n][k] for n, _ in SOPT_TOPO_PARTS) for k in ("fwd", "bwd_dq", "bwd_dkv")}
+    sopt_resnet_fold = sum(topo_fold[n] for n, _ in SOPT_TOPO_PARTS)
+    async_launches = asyn["launches"]
+    _timed(walls, phase_split_grads, gen)
+    _timed(walls, phase_hf, gen)
+    times, train_times = _timed(walls, phase_times, gen, card)
+    bwd_times = _timed(walls, phase_bwd_times, gen, card)
+    bert_times = _timed(walls, phase_bert_times, gen, card)
+    # The server step's share of a server-opt round: its device ms at the
+    # adapters' size against alice's wall per round.
+    step_rec = sopt["step"][("llama_adapters",) + SOPT_CONFIGS[1]]
+    round_s = federated["round_server_opt"]["per_round_s"]["alice"]
+    print(f"[server_opt] the step's device time at the adapters' size, {step_rec['ms']:.4f} ms "
+          f"({step_rec['launches']} fold_fma launches) + resync {step_rec['resync_ms']:.4f} ms, is "
+          f"{(step_rec['ms'] + step_rec['resync_ms']) / 1e3 / round_s:.2e} of alice's {round_s:.3f} s server-opt round")
+    print(f"[wall] all phases: {time.perf_counter() - t_start:.1f} s")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2708,7 +3309,10 @@ def main() -> int:
                              "quorum_resnet": topo_flash["quorum"]["fwd"],
                              "hierarchy_resnet": sum(topo_flash[n]["fwd"] for n in HIER_PARTS),
                              "hier_multilevel": ml_launches["fwd"],
-                             "round_overlap": overlap["fwd"]},
+                             "round_overlap": overlap["fwd"],
+                             "server_opt_llama": sopt_llama["fwd"],
+                             "server_opt_resnet": sopt_resnet["fwd"],
+                             "async_resnet": async_launches["fwd"]},
         "bert_shape": bert_times["fwd"],  # bert_base's attention on the split path
         "max_abs_err": slice_err,
         **times,
@@ -2730,7 +3334,10 @@ def main() -> int:
                              "quorum_resnet": topo_flash["quorum"]["bwd_dq"],
                              "hierarchy_resnet": sum(topo_flash[n]["bwd_dq"] for n in HIER_PARTS),
                              "hier_multilevel": ml_launches["bwd_dq"],
-                             "round_overlap": overlap["bwd_dq"]},
+                             "round_overlap": overlap["bwd_dq"],
+                             "server_opt_llama": sopt_llama["bwd_dq"],
+                             "server_opt_resnet": sopt_resnet["bwd_dq"],
+                             "async_resnet": async_launches["bwd_dq"]},
         "bert_shape": bert_times["dq"],  # bert_base's attention on the split path
         "max_abs_err": bwd_err["dq"],
         **bwd_times["dq"],
@@ -2751,7 +3358,10 @@ def main() -> int:
                              "quorum_resnet": topo_flash["quorum"]["bwd_dkv"],
                              "hierarchy_resnet": sum(topo_flash[n]["bwd_dkv"] for n in HIER_PARTS),
                              "hier_multilevel": ml_launches["bwd_dkv"],
-                             "round_overlap": overlap["bwd_dkv"]},
+                             "round_overlap": overlap["bwd_dkv"],
+                             "server_opt_llama": sopt_llama["bwd_dkv"],
+                             "server_opt_resnet": sopt_resnet["bwd_dkv"],
+                             "async_resnet": async_launches["bwd_dkv"]},
         "bert_shape": bert_times["dkv"],  # bert_base's attention on the split path
         "max_abs_err": bwd_err["dkv"],
         **bwd_times["dkv"],
@@ -2776,9 +3386,21 @@ def main() -> int:
                              # flat bootstrap rounds' (and the flat quantized hub's)
                              "hierarchy_resnet": sum(topo_fold[n] for n in HIER_PARTS),
                              "hier_multilevel": ml_launches["fold_fma"],
-                             "round_overlap": overlap_fold},
+                             "round_overlap": overlap_fold,
+                             # the server step and resync (rayfed_tpu/fl/fedavg.py:365, :433)
+                             # on the card, both parties' rounds
+                             "server_opt_llama": sopt_llama_fold,
+                             "server_opt_resnet": sopt_resnet_fold,
+                             "async_resnet": async_launches["fold_fma"]},
         **fold_times["adapters"],  # one contribution of the round's packed adapters
         "wq_shape": fold_times["wq"],
+        # The same kernel as the server step's fused multiply-adds: FedAC at
+        # the adapters' size, against the step's plain version (ops/fold.py
+        # fma on the card) and its bytes (x, avg and z read, x' written).
+        "server_step": {"replaces": "rayfed_tpu/fl/fedavg.py:365", "launches": step_rec["launches"],
+                        "ms": step_rec["ms"], "plain_ms": step_rec["plain_ms"], "bound_ms": step_rec["bound_ms"],
+                        "bound_by": "bytes", "library_ms": None, "max_abs_err": 0.0,
+                        "resync_ms": step_rec["resync_ms"], "resync_bound_ms": step_rec["resync_bound_ms"]},
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

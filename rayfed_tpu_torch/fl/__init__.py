@@ -24,14 +24,17 @@ what is ported:
   aggregation runs under the next round's compute
   (``run_fedavg_rounds(overlap=True)``), and :func:`dga_correct`, its
   staleness correction and the late fold of a straggler.
+- :mod:`async_rounds` — buffered asynchronous rounds with exact integer
+  staleness decay (:class:`AsyncBuffer`, :func:`run_async_fleet`).
+- :mod:`server_opt` — the packed server optimizers (server momentum,
+  FedAC), stepped where a round finalizes.
 - :mod:`fedopt` — the legacy server optimizers and FedProx.
 - :mod:`trainer` — :func:`run_fedavg_rounds`, the round loop.
 - :mod:`split` — :class:`SplitTrainer`, split (vertical) learning across
   two parties.
 
-The asynchronous rounds, secure aggregation, the packed server optimizers,
-differential privacy and robust reducers are later items of ROADMAP.md's
-Queue A.
+Secure aggregation, differential privacy and the robust reducers are later
+items of ROADMAP.md's Queue A.
 """
 
 from rayfed_tpu_torch.fl.compression import (
@@ -68,9 +71,24 @@ from rayfed_tpu_torch.fl.quantize import (
 )
 from rayfed_tpu_torch.fl.hierarchy import HierarchyRoundError, RegionSumTree, hierarchy_aggregate
 from rayfed_tpu_torch.fl.overlap import PipelinedRoundRunner, dga_correct
+from rayfed_tpu_torch.fl.async_rounds import (
+    AsyncBuffer,
+    bootstrap_grid,
+    decay_weight,
+    run_async_coordinator,
+    run_async_fleet,
+    run_async_party,
+)
 from rayfed_tpu_torch.fl.quorum import QuorumRoundError, quorum_aggregate, run_quorum_rounds
 from rayfed_tpu_torch.fl.ring import RingRoundError, ring_aggregate
 from rayfed_tpu_torch.fl.streaming import StreamingAggregator, StripeAggregator, streaming_aggregate
+from rayfed_tpu_torch.fl.server_opt import (
+    PackedServerOpt,
+    PackedServerOptimizer,
+    PackedServerState,
+    fedac,
+    server_momentum,
+)
 from rayfed_tpu_torch.fl.split import SplitTrainer
 from rayfed_tpu_torch.fl.trainer import run_fedavg_rounds, validate_round_config
 
@@ -97,6 +115,12 @@ __all__ = [
     "RegionSumTree",
     "PipelinedRoundRunner",
     "dga_correct",
+    "AsyncBuffer",
+    "bootstrap_grid",
+    "decay_weight",
+    "run_async_coordinator",
+    "run_async_fleet",
+    "run_async_party",
     "ErrorFeedback",
     "FedAvgActorBase",
     "tree_average",
@@ -112,6 +136,11 @@ __all__ = [
     "server_adam",
     "server_yogi",
     "fedprox_loss",
+    "PackedServerOpt",
+    "PackedServerOptimizer",
+    "PackedServerState",
+    "fedac",
+    "server_momentum",
     "validate_round_config",
     "run_fedavg_rounds",
     "SplitTrainer",

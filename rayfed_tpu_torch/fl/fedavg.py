@@ -19,6 +19,7 @@ block grid, exact and associative in any order, then ONE rescale
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, List, Optional, Sequence, Tuple
 
@@ -351,6 +352,109 @@ def finalize_packed_quantized(
         # shared reference adds back AFTER the divide.
         x = ref + x
     return x.to(compression.torch_dtype(out_dtype))
+
+
+def _server_bufs(*bufs):
+    """The operands of the step or the resync as f32 [n] tensors on the
+    device of the first tensor among them, never copies of a tensor already
+    there in f32."""
+    device = _fold_device(bufs)
+    return [as_tensor(b, device).reshape(-1).to(torch.float32) for b in bufs]
+
+
+@functools.lru_cache(maxsize=None)
+def server_step_kernel(kind: str, hyper: Tuple[float, ...]):
+    """One server-optimization step over packed f32 buffers,
+    ``step(x, avg, *state) -> x'``: ``x`` the round's shared starting
+    buffer, ``avg`` the finalized aggregate, ``state`` the packed auxiliary
+    sequence (:mod:`rayfed_tpu_torch.fl.server_opt`).  Runs on the
+    aggregate's device and writes one new buffer: ``avg`` and the state
+    are read, never written or aliased by the output.
+
+    The JAX package's program, as XLA:CPU compiles it, contracts the
+    multiply-adds; the port computes each contraction as one exactly
+    rounded FMA (the fold's forms, :mod:`rayfed_tpu_torch.ops.fold`: ``fma``
+    on CPU tensors, ``csrc/fold_fma.cu`` on the card), so the bytes are the
+    reference's on the CPU and the same on the card.  With ``Δ = x − avg``:
+
+    - ``"momentum"`` ``(lr, momentum)``: ``fma(−lr, fma(momentum, m, Δ),
+      x)``; ``lr=1, momentum=0`` returns ``avg`` itself (plain FedAvg).
+    - ``"fedac"`` ``(lam, gamma, beta)``: ``fma(1−β, fma(−λ, Δ, x),
+      f32(β·fma(−γ, Δ, z)))``; ``lam=1, beta=0`` returns ``avg`` itself.
+
+    The state advances only through :func:`server_resync_kernel`.
+    """
+    if kind == "momentum":
+        lr, momentum = (float(h) for h in hyper)
+
+        def _step(x, avg, m):
+            avg, x, m = _server_bufs(avg, x, m)
+            if momentum == 0.0 and lr == 1.0:
+                return avg  # plain FedAvg, bit-exactly
+            one = f32_scalar(1.0, avg.device)
+            t = x - avg
+            fold_fma_(t, f32_scalar(momentum, avg.device), m)
+            return fold_fma_pair(f32_scalar(-lr, avg.device), t, one, x)
+
+        return _step
+    if kind == "fedac":
+        lam, gamma, beta = (float(h) for h in hyper)
+
+        def _step(x, avg, z):
+            avg, x, z = _server_bufs(avg, x, z)
+            if beta == 0.0 and lam == 1.0:
+                return avg  # plain FedAvg, bit-exactly
+            dev = avg.device
+            one = f32_scalar(1.0, dev)
+            delta = x - avg
+            y_new = fold_fma_pair(f32_scalar(-lam, dev), delta, one, x)
+            z_new = fold_fma_pair(f32_scalar(-gamma, dev), delta, one, z)
+            return fold_fma_pair(f32_scalar(1.0 - beta, dev), y_new, f32_scalar(beta, dev), z_new)
+
+        return _step
+    raise ValueError(
+        f"unknown server-opt kind {kind!r} — one of 'momentum', 'fedac'"
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def server_resync_kernel(kind: str, hyper: Tuple[float, ...]):
+    """Advance the packed server-opt state from the round's broadcast pair,
+    ``resync(x, x_new, *state) -> new state tuple``: a function of buffers
+    every controller already holds byte for byte, so every replica of the
+    state stays byte-identical.  New buffers, on ``x_new``'s device; the
+    old state is not written.
+
+    - ``"momentum"``: ``m' = (x − x_new)·f32(1/lr)``, the step the
+      broadcast realized.
+    - ``"fedac"``: ``z' = fma(−c, fma(1−β, x, f32(β·z)) − x_new, z)`` with
+      ``c = f32(γ/D)`` and ``D = (1−β)·λ + β·γ``, the reference's
+      ``z − (γ/D)·((1−β)·x + β·z − x_new)`` as XLA:CPU contracts it.
+    """
+    if kind == "momentum":
+        lr, _momentum = (float(h) for h in hyper)
+
+        def _resync(x, x_new, m):
+            del m  # replaced wholesale by the realized step
+            x_new, x = _server_bufs(x_new, x)
+            inv_lr = 1.0 / f32_scalar(lr, x.device)
+            return ((x - x_new) * inv_lr,)
+
+        return _resync
+    if kind == "fedac":
+        lam, gamma, beta = (float(h) for h in hyper)
+        denom = (1.0 - beta) * lam + beta * gamma
+
+        def _resync(x, x_new, z):
+            x_new, x, z = _server_bufs(x_new, x, z)
+            dev = x.device
+            inner = fold_fma_pair(f32_scalar(1.0 - beta, dev), x, f32_scalar(beta, dev), z)
+            return (fold_fma_pair(f32_scalar(-(gamma / denom), dev), inner - x_new, f32_scalar(1.0, dev), z),)
+
+        return _resync
+    raise ValueError(
+        f"unknown server-opt kind {kind!r} — one of 'momentum', 'fedac'"
+    )
 
 
 def packed_quantized_sum(

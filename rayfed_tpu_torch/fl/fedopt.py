@@ -11,8 +11,7 @@
 Per-leaf tensor arithmetic on the driver's decompressed tree, in f32: every
 controller computes the identical update on the identical aggregate.  These
 are the legacy (unpacked-tree) optimizers of the JAX package's
-``fl.fedopt``; its packed ``fl.server_opt`` is not ported yet (ROADMAP.md,
-Queue A item 8).
+``fl.fedopt``; the packed ones are :mod:`rayfed_tpu_torch.fl.server_opt`.
 """
 
 from __future__ import annotations

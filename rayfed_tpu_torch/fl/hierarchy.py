@@ -460,10 +460,6 @@ class HierarchyRound:
                 "== flat byte-identity — pass the round's shared "
                 "QuantGrid (wire_quant)"
             )
-        if server_step is not None:
-            raise NotImplementedError(
-                "a server step (server_step=) is not ported yet (ROADMAP.md, Queue A item 8)"
-            )
         if len(keys) != HIER_SEQ_IDS:
             raise ValueError(f"hierarchy rounds consume {HIER_SEQ_IDS} rendezvous ids, got {len(keys)}")
         self._t = transport
@@ -490,6 +486,7 @@ class HierarchyRound:
         self._quant_scope = quant_scope
         self._quant_downlink = bool(quant_downlink)
         self._timings = timings
+        self._server_step = server_step
         self._device = resolve_device(device if device is not None else getattr(transport, "device", None))
         contributors = [p for p in self._members if p not in self._dead]
         w_list = None if weights is None else [float(weights[p]) for p in contributors]
@@ -748,6 +745,14 @@ class HierarchyRound:
         wire_down = None
         chain: List[str] = []
         if is_root:
+            if self._server_step is not None:
+                # The round's one server step (fl.server_opt): the exact
+                # finalized f32 in, the post-step model out, so the
+                # downlink's fresh grid is ranged by the post-step delta.
+                # A failure aborts through the poison cascade and the
+                # driver re-runs the same step from the same state on the
+                # flat path.
+                result = self._server_step(result)
             wire_down = result
             if self._quant_downlink:
                 wire_down, result, down_descr = qz.quantize_downlink(
@@ -1182,8 +1187,9 @@ def hierarchy_aggregate(
     every frame.  ``timings`` receives ``push_s``, ``agg_s`` and
     ``ps_dtypes`` (the partial sums' wire dtype per level, leaves first).
     An aborted round raises :class:`HierarchyRoundError` on
-    every controller.  ``server_step`` is not ported yet (ROADMAP.md, Queue
-    A item 8).
+    every controller.  ``server_step`` (:mod:`rayfed_tpu_torch.fl.
+    server_opt`): applied once, at the root, between its rescale and the
+    downlink, so every controller receives the post-step model.
     """
     from rayfed_tpu_torch.fed_object import FedObject
     from rayfed_tpu_torch.runtime import get_runtime

@@ -34,9 +34,16 @@ the party's local displacement over one round, the quantity the delta grid
 is ranged for; :func:`dga_correct` computes in f32 and casts once, so
 coding the corrected contribution codes that displacement.  Round 0 runs
 unquantized (nothing observed yet), later rounds on a grid from the
-previous broadcast's delta, as the synchronous quantized loop.  A packed
-server optimizer under overlap is not ported yet (ROADMAP.md, Queue A item
-8).
+previous broadcast's delta, as the synchronous quantized loop.
+
+A packed server optimizer composes the same way: the broadcast is
+``b_k = step(x_k, m_k)`` with ``m_k`` the round's mean, and anchoring the
+correction on that post-step broadcast gives ``m_k − b_{k−1} = mean_p u_p −
+m_{k−1}``, so the step's pseudo-gradient is the mean local displacement one
+round stale.  The runner hands the step to the collective (the coordinator
+steps once; on the ring every controller steps the same assembly) and
+resyncs the replicated state from each landed broadcast pair
+(:mod:`rayfed_tpu_torch.fl.server_opt`).
 
 ``dga_correct`` is also the quorum loop's late fold of a straggler's missed
 round (:mod:`rayfed_tpu_torch.fl.quorum`).
@@ -123,8 +130,9 @@ class PipelinedRoundRunner:
     (falling back to the coordinator topology for a round the ring aborts);
     both fold on the runtime's device.  ``wire_quant``: ``"uint8"`` or
     ``"int8"``, compressed-domain rounds as in the synchronous loop (module
-    docstring).  ``server_opt`` is not ported yet (ROADMAP.md, Queue A item
-    8).
+    docstring).  ``server_opt``: a packed
+    :class:`~rayfed_tpu_torch.fl.server_opt.PackedServerOptimizer` (or its
+    bare spec), stepping each round's mean (module docstring).
 
     Every controller constructs the runner with the same arguments and
     calls :meth:`run` at the same program point.
@@ -154,11 +162,13 @@ class PipelinedRoundRunner:
             raise ValueError(
                 f"coordinator {coordinator!r} is not a training party ({sorted(trainers)})"
             )
-        if server_opt is not None:
-            raise NotImplementedError(
-                "a packed server optimizer under overlap=True (server_opt=) is not "
-                "ported yet (ROADMAP.md, Queue A item 8)"
-            )
+        if server_opt is not None and not hasattr(server_opt, "step_fn"):
+            # A bare packed spec from a direct caller: wrap it as
+            # run_fedavg_rounds does.
+            from rayfed_tpu_torch.fl.server_opt import PackedServerOptimizer
+
+            server_opt = PackedServerOptimizer(server_opt)
+        self._sopt = server_opt
         self._trainers = trainers
         self._weights = None if weights is None else [float(w) for w in weights]
         self._mode = mode
@@ -176,11 +186,15 @@ class PipelinedRoundRunner:
 
     def _aggregate_round(self, r: int, objs: List[Any], seq_ids: Sequence[int],
                          fallback_ids: Sequence[int], rec: Dict[str, float],
-                         grid: Any = None, ref: Any = None) -> Any:
+                         grid: Any = None, ref: Any = None,
+                         step_fn: Optional[Callable[[Any], Any]] = None) -> Any:
         from rayfed_tpu_torch.fl.ring import RING_STATS, RingRoundError, ring_aggregate
         from rayfed_tpu_torch.fl.streaming import streaming_aggregate
 
         scope = self._stream if grid is not None else None
+        # Under a server step the aggregate comes back in f32 (quantized
+        # rounds finalize in f32 already).
+        out_dtype = "float32" if step_fn is not None else None
         t0 = time.perf_counter()
         try:
             if self._mode != "ring":
@@ -189,23 +203,28 @@ class PipelinedRoundRunner:
                 # same way, and the error reaches every controller.
                 return streaming_aggregate(
                     objs, self._weights, stream=self._stream, coordinator=self._coord,
-                    seq_ids=seq_ids, round_tag=r, timings=rec,
+                    seq_ids=seq_ids, round_tag=r, timings=rec, out_dtype=out_dtype,
                     quant=grid, quant_ref=ref, quant_scope=scope,
                     # The broadcast is quantized too, as in the synchronous loop.
-                    quant_downlink=grid is not None,
+                    quant_downlink=grid is not None, server_step=step_fn,
                 )
             try:
-                return ring_aggregate(
+                agg = ring_aggregate(
                     objs, self._weights, stream=self._stream, chunk_elems=self._ring_chunk_elems,
-                    seq_ids=seq_ids, round_tag=r, timings=rec,
+                    seq_ids=seq_ids, round_tag=r, timings=rec, out_dtype=out_dtype,
                     quant=grid, quant_ref=ref, quant_scope=scope,
                 )
+                if step_fn is not None:
+                    # No downlink: every controller steps the same assembly.
+                    agg = step_fn(agg)
+                return agg
             except RingRoundError as exc:
                 # The abort reached every controller (poison cascade and
                 # commit ring), so all take this branch together: the same
                 # round's contributions re-aggregate over the coordinator
                 # topology, on the same grid with the same uncommitted
-                # residual (the downlink stays plain on this recovery path).
+                # residual (the downlink stays plain on this recovery path),
+                # and the same step from the same, never resynced, state.
                 logger.warning(
                     "pipelined round %d ring aggregation failed (%s); "
                     "re-aggregating the same round synchronously over "
@@ -214,8 +233,8 @@ class PipelinedRoundRunner:
                 RING_STATS["fallback_rounds"] += 1
                 return streaming_aggregate(
                     objs, self._weights, stream=self._stream, coordinator=self._coord,
-                    seq_ids=fallback_ids, round_tag=r, timings=rec,
-                    quant=grid, quant_ref=ref, quant_scope=scope,
+                    seq_ids=fallback_ids, round_tag=r, timings=rec, out_dtype=out_dtype,
+                    quant=grid, quant_ref=ref, quant_scope=scope, server_step=step_fn,
                 )
         finally:
             # The raw lane window; _collect turns it into the comms wall.
@@ -312,12 +331,18 @@ class PipelinedRoundRunner:
         backstop = runtime.job_config.recv_backstop_s
         parties = list(self._trainers)
         outgoing = compress(params, packed=True, wire_dtype=self._wire_dtype)
-        # Compressed-domain state: ``round_base`` is the f32 reference every
-        # controller holds for the round about to be submitted (round 0:
-        # the packed init; later: the latest landed broadcast), and
-        # ``prev_delta`` how far the last landed round moved the model.
+        # Compressed-domain and server-opt state: ``round_base`` is the f32
+        # reference every controller holds for the round about to be
+        # submitted (round 0: the packed init; later: the latest landed
+        # broadcast), ``inflight_base`` the in-flight round's (its step and
+        # its resync when it lands), and ``prev_delta`` how far the last
+        # landed round moved the model (after the server step).
+        sopt = self._sopt
         use_quant = self._wire_quant is not None
-        round_base = pack_tree(params, torch.float32).buf if use_quant else None
+        round_base = (
+            pack_tree(params, torch.float32).buf if use_quant or sopt is not None else None
+        )
+        inflight_base = None
         prev_delta = None
         lane = CommsLane(name=f"rayfed-comms-{me}", bind_runtime_fn=runtime._bind_to_current_thread)
         try:
@@ -352,9 +377,14 @@ class PipelinedRoundRunner:
                     # round r's compute); the DGA correction runs as a
                     # party-local task chained on round r's train output.
                     agg_prev = self._collect(inflight, backstop, u_done)
-                    if use_quant:
+                    if use_quant or sopt is not None:
                         new_base = fedavg.as_tensor(agg_prev.buf).to(torch.float32)
-                        prev_delta = qz._host_f32(new_base) - qz._host_f32(round_base)
+                        if sopt is not None:
+                            # Every replica advances from the landed
+                            # round's broadcast pair.
+                            sopt.resync(inflight_base, agg_prev.buf)
+                        if use_quant:
+                            prev_delta = qz._host_f32(new_base) - qz._host_f32(round_base)
                         round_base = new_base
                     if self._on_round is not None:
                         self._on_round(inflight.round_index, decompress(agg_prev))
@@ -378,12 +408,17 @@ class PipelinedRoundRunner:
                         chunk_elems=self._ring_chunk_elems if self._mode == "ring" else None,
                         expand=qz.QUANT_DELTA_EXPAND,
                     )
+                step_fn = None
+                if sopt is not None:
+                    sopt.ensure(round_base)
+                    step_fn = sopt.step_fn(round_base)
+                inflight_base = round_base
                 seq_ids, fallback_ids = self._alloc_ids(runtime)
                 inflight = _InFlight(
                     r,
                     lane.submit(
                         self._aggregate_round, r, list(contribs.values()), seq_ids, fallback_ids,
-                        rec, round_grid, round_base if use_quant else None,
+                        rec, round_grid, round_base if use_quant else None, step_fn,
                     ),
                     rec,
                 )

@@ -40,9 +40,14 @@ session from its welcome to re-align.
 ``mode="ring"`` and ``mode="hierarchy"`` run their topology first and fall
 back to the coordinator's quorum cutoff for a round it aborts.
 
+``server_opt=`` (a packed :mod:`rayfed_tpu_torch.fl.server_opt` optimizer):
+the coordinator, the hierarchy's root or, on the ring, every controller
+steps the round's mean; every controller resyncs its state replica from the
+broadcast, and a welcome carries the optimizer's stamp and a content handle
+to the state, so a joiner enters on the run's trajectory.
+
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP.md
-Queue A item: a packed server optimizer and ``secure_agg`` (item 8),
-``checkpointer`` (item 9).
+Queue A item: ``secure_agg`` (item 8), ``checkpointer`` (item 9).
 """
 
 from __future__ import annotations
@@ -63,11 +68,6 @@ logger = logging.getLogger(__name__)
 # re-established a round through; ``graceful_handovers`` — announced
 # coordinator ``fed.leave()`` handovers applied.
 QUORUM_STATS = {"coordinator_failovers": 0, "graceful_handovers": 0}
-
-# The checkpoint and welcome stamp of the server optimizer: the port's
-# quorum loop runs plain FedAvg (packed server optimizers are item 8).
-_SERVER_OPT_NONE = {"kind": "none"}
-
 
 def _unported(what: str, item: int) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, Queue A item {item})")
@@ -146,16 +146,17 @@ def quorum_aggregate(
     re-quantized on a fresh payload-carried grid
     (:func:`~rayfed_tpu_torch.fl.quantize.quantize_downlink`).
     ``quant_scope`` keys the residual, committed only when the round's
-    broadcast lands.  ``secagg`` and ``server_step`` are not ported yet
-    (ROADMAP.md, Queue A item 8).
+    broadcast lands.  ``server_step`` (:mod:`rayfed_tpu_torch.fl.server_opt`):
+    applied by the coordinator after the cutoff and before the broadcast,
+    to the arrived subset's mean, so every controller receives the
+    post-step model.  ``secagg`` is not ported yet (ROADMAP.md, Queue A
+    item 8).
     """
     from rayfed_tpu_torch.fl import quantize as qz
     from rayfed_tpu_torch.proxy import recv_on_runtime
 
     if secagg is not None:
         raise _unported("secure aggregation (secagg=)", 8)
-    if server_step is not None:
-        raise _unported("a server step (server_step=)", 8)
     me = runtime.party
     parties = sorted(updates)
     down = _round_key(session, stream, round_index)
@@ -211,6 +212,10 @@ def quorum_aggregate(
         # The fold grid IS the quantization grid.
         agg_kwargs["chunk_elems"] = quant.chunk_elems
         agg_kwargs["quant_ref"] = qref
+    elif server_step is not None:
+        # The step consumes the exact f32 aggregate (quantized rounds
+        # finalize in f32 already).
+        agg_kwargs["out_dtype"] = "float32"
     agg = StreamingAggregator(
         len(parties),
         weights=w_list,
@@ -250,6 +255,11 @@ def quorum_aggregate(
     try:
         result = agg.result(timeout=backstop, deadline_s=deadline_s)
         members = [parties[i] for i in agg.quorum_members]
+        if server_step is not None:
+            # After the cutoff and before the broadcast: the step's
+            # pseudo-gradient is the arrived subset's mean, and a failure
+            # reaches the parked peers through the poison below.
+            result = server_step(result)
         # Excluded stragglers' sinks must not linger: an armed sink keeps
         # the health monitor probing its source, and a late payload would
         # park unread.
@@ -410,8 +420,12 @@ def run_quorum_rounds(
       each round with a grid runs the region tree first, with per-region
       cutoffs under ``region_quorum``/``region_deadline_s``.
 
-    A packed ``server_opt`` and ``secure_agg`` (item 8) and ``checkpointer``
-    (item 9) raise ``NotImplementedError``.
+    - ``server_opt``: a packed :class:`~rayfed_tpu_torch.fl.server_opt.
+      PackedServerOpt`, stepped where the round finalizes and resynced on
+      every controller; welcomes carry its state.
+
+    ``secure_agg`` (item 8) and ``checkpointer`` (item 9) raise
+    ``NotImplementedError``.
     """
     import rayfed_tpu_torch as fed
     from rayfed_tpu_torch.fl import quantize as qz
@@ -421,14 +435,36 @@ def run_quorum_rounds(
     from rayfed_tpu_torch.runtime import get_runtime
     from rayfed_tpu_torch.transport.manager import roster_successor
 
+    from rayfed_tpu_torch.fl.server_opt import (
+        PackedServerOpt,
+        PackedServerOptimizer,
+        describe_server_opt,
+    )
+
     if server_opt is not None:
-        raise _unported("a packed server_opt in quorum rounds (fl.server_opt)", 8)
+        if not isinstance(server_opt, PackedServerOpt):
+            raise QuorumRoundError(
+                "quorum rounds take a fl.server_opt.PackedServerOpt "
+                "(the packed-domain server optimizer, e.g. fl.server_opt"
+                ".fedac(...)); legacy fedopt.ServerOptimizer optimizers "
+                "run per-leaf tree arithmetic and need the exact "
+                "fixed-roster classic loop"
+            )
+        if secure_agg:
+            raise QuorumRoundError(
+                "server_opt does not compose with secure_agg yet — the "
+                "masked recovery window has not been exercised with a "
+                "post-finalize step (loud exclusion, fl.server_opt)"
+            )
     if secure_agg:
         raise _unported("secure_agg", 8)
     if checkpointer is not None:
         raise _unported("checkpointer (quorum snapshots)", 9)
     runtime = get_runtime()
     transport = runtime.transport
+    # The replicated state lives on the party's card (its device).
+    sopt = None if server_opt is None else PackedServerOptimizer(server_opt, device=transport.device)
+    sopt_descr = describe_server_opt(server_opt)
     roster = getattr(transport, "roster", None)
     if roster is None:
         raise QuorumRoundError(
@@ -492,7 +528,7 @@ def run_quorum_rounds(
         coord = str(join_ticket.get("coordinator", coord))
         if wire_quant is not None:
             quant_prev_delta = join_ticket.get("qd")
-        _apply_ticket_server_opt(join_ticket)
+        _apply_ticket_server_opt(transport, join_ticket, sopt, sopt_descr)
     else:
         start_round = 0
         # One id per run, drawn identically on every non-joining controller.
@@ -542,6 +578,14 @@ def run_quorum_rounds(
                     # The grid chunking IS the ring's stripe grid.
                     chunk_elems=ring_chunk_elems if mode in ("ring", "hierarchy") else None,
                 )
+        # The round's shared starting buffer anchors the step (where the
+        # round finalizes) and the resync (on every controller).
+        step_fn = None
+        x_srv = None
+        if sopt is not None:
+            x_srv = round_ref if round_ref is not None else as_tensor(current.buf).reshape(-1).to(torch.float32)
+            sopt.ensure(x_srv)
+            step_fn = sopt.step_fn(x_srv)
         rec = None
         trace_round = telemetry.armed()
         if timings is not None or trace_round:
@@ -579,6 +623,7 @@ def run_quorum_rounds(
                     quant_scope=stream if round_grid is not None else None,
                     region_size=region_size, region_branch=region_branch,
                     region_quorum=region_quorum, region_deadline_s=region_deadline_s,
+                    server_step=step_fn,
                 )
                 break
             except QuorumRoundError as exc:
@@ -646,6 +691,11 @@ def run_quorum_rounds(
             from rayfed_tpu_torch.objects import canonical_host
 
             plane.publish_slot("model", canonical_host(current))
+        if sopt is not None:
+            # Every replica advances from the broadcast pair; a failed
+            # attempt never reaches here, so a failover re-runs the same
+            # step from the same state.
+            sopt.resync(x_srv, avg.buf)
         if wire_quant is not None:
             quant_prev_delta = qz._host_f32(avg.buf) - qz._host_f32(round_ref)
         if rec is not None:
@@ -668,6 +718,9 @@ def run_quorum_rounds(
             _send_welcomes(
                 runtime, outcome.welcomes, roster, current, r + 1, session, backstop,
                 coordinator=next_coord, quant_delta=quant_prev_delta,
+                server_opt_descr=sopt_descr,
+                # The post-resync state anchors the next round everywhere.
+                server_state=sopt.state if sopt is not None else None,
             )
         coord = next_coord
         r += 1
@@ -687,6 +740,7 @@ def _aggregate_with_mode(
     coordinator, stream, epoch, mode, ring_chunk_elems, announce_fn,
     backstop, active, timings, quant=None, quant_ref=None, quant_scope=None,
     region_size=None, region_branch=None, region_quorum=None, region_deadline_s=None,
+    server_step=None,
 ) -> QuorumRoundOutcome:
     """The topology first when ``mode`` is ``"ring"`` or ``"hierarchy"``: a
     straggler or dead party aborts it on every controller (poison cascade +
@@ -743,6 +797,8 @@ def _aggregate_with_mode(
                 [updates[p] for p in sorted(updates)],
                 None if w_map is None else [w_map[p] for p in sorted(updates)],
                 stream=f"{stream}/ring",
+                # The step consumes the exact f32 assembly.
+                out_dtype="float32" if server_step is not None else None,
                 chunk_elems=ring_chunk_elems,
                 seq_ids=(f"{down}.rs", f"{down}.ag", f"{down}.c", f"{down}.rl", f"{down}.nm"),
                 round_tag=round_index,
@@ -751,6 +807,10 @@ def _aggregate_with_mode(
                 timings=timings,
                 quant=quant, quant_ref=quant_ref, quant_scope=quant_scope,
             )
+            if server_step is not None:
+                # No downlink: every controller holds the same assembly
+                # and steps it locally.
+                result = server_step(result)
             return _announce_after_topology(result)
         except RingRoundError as exc:
             logger.warning(
@@ -773,7 +833,7 @@ def _aggregate_with_mode(
                 seq_ids=tuple(f"{down}.h{i}" for i in range(6)),
                 round_tag=round_index, epoch=epoch,
                 timeout=deadline_s if deadline_s is not None else backstop,
-                timings=timings,
+                timings=timings, server_step=server_step,
             )
             return _announce_after_topology(result)
         except HierarchyRoundError as exc:
@@ -792,41 +852,86 @@ def _aggregate_with_mode(
         quorum=quorum, deadline_s=deadline_s, coordinator=coordinator,
         stream=stream, epoch=epoch, announce_fn=announce_fn, backstop=backstop,
         timings=timings, quant=quant, quant_ref=quant_ref, quant_scope=quant_scope,
+        server_step=server_step,
     )
 
 
-def _apply_ticket_server_opt(join_ticket: Dict[str, Any]) -> None:
-    """A welcome stamped with a server optimizer other than plain FedAvg
-    belongs to a run this port cannot enter yet: refuse loudly, naming both
-    sides (packed server optimizers are ROADMAP.md Queue A item 8)."""
+def _normalize_server_opt_descr(descr) -> Dict[str, Any]:
+    out: Dict[str, Any] = {"kind": str(descr.get("kind", "none"))}
+    if "hyper" in descr:
+        out["hyper"] = [float(h) for h in descr["hyper"]]
+    return out
+
+
+def _apply_ticket_server_opt(transport, join_ticket: Dict[str, Any], sopt, sopt_descr) -> None:
+    """Validate a welcome's server-opt stamp against this run's and load
+    the state its handle names (pulled through the object plane).  Every
+    mismatch raises, naming both sides: a joiner entering on another
+    trajectory would reset the optimizer for the whole run the first time
+    it holds the coordinator lease."""
     t_descr = join_ticket.get("server_opt")
-    if t_descr is not None and str(t_descr.get("kind", "none")) != "none":
+    mine = _normalize_server_opt_descr(sopt_descr)
+    if t_descr is not None:
+        theirs = _normalize_server_opt_descr(t_descr)
+        if theirs != mine:
+            raise QuorumRoundError(
+                f"server_opt mismatch between this joiner and the run "
+                f"it is entering: the welcome was stamped {theirs}, "
+                f"this run_fedavg_rounds call is configured {mine} — "
+                f"pass the matching server_opt"
+            )
+    elif sopt is not None:
         raise QuorumRoundError(
-            f"server_opt mismatch between this joiner and the run it is "
-            f"entering: the welcome was stamped {dict(t_descr)}, this "
-            f"run_fedavg_rounds call is configured {_SERVER_OPT_NONE} — "
-            f"pass the matching server_opt"
+            f"this run is configured with server_opt={mine} but the "
+            f"welcome carries no server_opt stamp (a coordinator from "
+            f"before welcomes carried optimizer state?) — the joiner "
+            f"cannot resync the trajectory; restart the run or drop "
+            f"server_opt"
         )
+    if sopt is None:
+        return
+    state_handle = join_ticket.get("server_state")
+    if state_handle is None:
+        raise QuorumRoundError(
+            "the welcome stamps a packed server_opt but carries no "
+            "server_state handle — cannot resync the optimizer "
+            "trajectory"
+        )
+    from rayfed_tpu_torch.objects import maybe_resolve_handle
+
+    sopt.load_state(maybe_resolve_handle(transport, state_handle))
 
 
 def _send_welcomes(runtime, welcomes, roster, current, next_round, session, backstop,
-                   coordinator: str, quant_delta=None) -> None:
+                   coordinator: str, quant_delta=None, server_opt_descr=None,
+                   server_state=None) -> None:
     """Coordinator: hand each joiner what it needs to enter the loop at the
     next round — round index, session, the roster epoch and members, the
     current coordinator, the global model (by content handle when the
     transport has an object plane: a warm joiner pulls ~zero bytes) and,
-    for compressed-domain runs, the grid reference delta.  Best-effort: a
-    joiner that died again re-requests later."""
+    for compressed-domain runs, the grid reference delta; under a packed
+    server optimizer its stamp and a content handle to the replicated
+    state.  Best-effort: a joiner that died again re-requests later."""
     from rayfed_tpu_torch.objects import canonical_host
 
     epoch, members = roster.snapshot()
     plane = getattr(runtime.transport, "objects", None)
-    shared: Dict[str, Any] = {"server_opt": dict(_SERVER_OPT_NONE)}
+    shared: Dict[str, Any] = {}
     if plane is not None:
         fp, n = plane.publish(canonical_host(current))
         shared["model"] = plane.handle_for(fp, n, extra_holders=members)
     else:
         shared["params"] = current
+    if server_opt_descr is not None:
+        shared["server_opt"] = dict(server_opt_descr)
+    if server_state is not None:
+        if plane is None:
+            raise QuorumRoundError(
+                "a server_opt run's welcome needs the object plane to "
+                "carry the optimizer state; this transport has none"
+            )
+        sfp, sn = plane.publish(canonical_host(server_state))
+        shared["server_state"] = plane.handle_for(sfp, sn)
     for party, nonce in welcomes:
         payload = {
             "round": int(next_round),

@@ -15,9 +15,12 @@ fold for a round the tree aborts; ``overlap=True`` hands the loop to
 :class:`rayfed_tpu_torch.fl.overlap.PipelinedRoundRunner` (round *k*'s
 aggregation under round *k+1*'s compute); ``quorum=`` to
 :func:`rayfed_tpu_torch.fl.quorum.run_quorum_rounds` (k-of-n rounds, elastic
-membership, coordinator failover).  Options of later items of the port raise
+membership, coordinator failover).  A packed ``server_opt``
+(:mod:`rayfed_tpu_torch.fl.server_opt`) steps the aggregate where it
+finalizes and every controller resyncs its state replica from the
+broadcast.  Options of later items of the port raise
 ``NotImplementedError`` naming their ROADMAP.md Queue A item:
-``secure_agg`` and the packed server optimizers (8); ``checkpointer`` (9).
+``secure_agg`` (8); ``checkpointer`` (9).
 """
 
 from __future__ import annotations
@@ -98,15 +101,21 @@ def validate_round_config(
     package's: each pair either passes or raises a ``ValueError`` naming
     the clash.  An option of a later item raises ``NotImplementedError``
     naming it.  Returns ``{"wire_quant": <dtype name or None>,
-    "checkpoint_every": <int>, "server_opt_kind": "none"|"fedopt"}``.
+    "checkpoint_every": <int>, "server_opt_kind": "none"|"fedopt"|"packed"}``.
     """
+    from rayfed_tpu_torch.fl.server_opt import PackedServerOpt
+
+    packed_opt = server_opt if isinstance(server_opt, PackedServerOpt) else None
     if secure_agg:
+        if packed_opt is not None:
+            # The JAX package's exclusion, ahead of the refusal below.
+            _check_packed_opt(trainers, compress_wire, packed_wire, error_feedback,
+                              aggregator, secure_agg, sample)
         raise _unported("secure_agg", 8)
     if checkpointer is not None:
         raise _unported("checkpointer", 9)
-    if server_opt is not None and not isinstance(server_opt, ServerOptimizer):
-        if type(server_opt).__name__ == "PackedServerOpt":
-            raise _unported("a packed server_opt (fl.server_opt)", 8)
+    legacy_opt = server_opt if packed_opt is None else None
+    if legacy_opt is not None and not isinstance(legacy_opt, ServerOptimizer):
         raise ValueError(
             f"server_opt must be a fl.server_opt.PackedServerOpt "
             f"(packed-domain momentum/FedAC — composes with "
@@ -114,7 +123,6 @@ def validate_round_config(
             f"fl.fedopt.ServerOptimizer, got "
             f"{type(server_opt).__name__}"
         )
-    legacy_opt = server_opt
     if rounds < 1:
         raise ValueError(f"rounds must be >= 1, got {rounds}")
     if checkpoint_every and checkpointer is None:
@@ -381,11 +389,46 @@ def validate_round_config(
                 "aggregate lands one round late, under the next round's "
                 "compute)"
             )
+    if packed_opt is not None:
+        _check_packed_opt(trainers, compress_wire, packed_wire, error_feedback,
+                          aggregator, secure_agg, sample)
     return {
         "wire_quant": qname,
         "checkpoint_every": checkpoint_every,
-        "server_opt_kind": "none" if server_opt is None else "fedopt",
+        "server_opt_kind": (
+            "none" if server_opt is None
+            else "packed" if packed_opt is not None
+            else "fedopt"
+        ),
     }
+
+
+def _check_packed_opt(trainers, compress_wire, packed_wire, error_feedback,
+                      aggregator, secure_agg, sample) -> None:
+    """The JAX package's exclusions of a packed ``server_opt``."""
+    if not (compress_wire and packed_wire):
+        raise ValueError(
+            "a packed server_opt (fl.server_opt) requires "
+            "compress_wire=True and packed_wire=True — the fused "
+            "step runs over the packed wire buffer"
+        )
+    incompat_s = {
+        # Under a server step the broadcast already is the stepped model:
+        # the outgoing-wire residual would correct the wrong model.
+        "error_feedback": error_feedback,
+        # A custom reducer's output is not the weighted mean the step
+        # assumes.
+        "aggregator": aggregator is not None,
+        "secure_agg": secure_agg,
+        "sample": sample is not None and sample != len(trainers),
+    }
+    bad_s = [k for k, v in incompat_s.items() if v]
+    if bad_s:
+        raise ValueError(
+            f"packed server_opt is incompatible with {bad_s} — "
+            f"loud exclusion (see fl.server_opt's composition "
+            f"notes)"
+        )
 
 
 def run_fedavg_rounds(
@@ -393,7 +436,7 @@ def run_fedavg_rounds(
     params: Any,
     rounds: int,
     *,
-    server_opt: Optional[ServerOptimizer] = None,
+    server_opt: Optional[Any] = None,
     weights: Optional[Sequence[float]] = None,
     compress_wire: bool = False,
     packed_wire: bool = False,
@@ -428,9 +471,12 @@ def run_fedavg_rounds(
     the party's updated tree (each party's actor runs only on its own
     silo).  Every controller passes the identical arguments.
 
-    - ``server_opt``: a legacy :class:`~rayfed_tpu_torch.fl.fedopt.
-      ServerOptimizer` applied to the round aggregate (plain replacement
-      when ``None``).
+    - ``server_opt``: a packed :class:`~rayfed_tpu_torch.fl.server_opt.
+      PackedServerOpt` (server momentum or FedAC over the packed buffer,
+      stepped where the aggregate finalizes; composes with ``wire_quant``,
+      ``quorum``, the ring, the hierarchy and ``overlap``), or a legacy
+      :class:`~rayfed_tpu_torch.fl.fedopt.ServerOptimizer` applied to the
+      round aggregate (plain replacement when ``None``).
     - ``compress_wire``: halves the push bytes.  Trainer contract:
       ``train`` calls :func:`~rayfed_tpu_torch.fl.decompress` on its
       argument and returns ``compress(updated)``.
@@ -519,6 +565,7 @@ def run_fedavg_rounds(
         round_log=round_log, secure_agg=secure_agg,
     )
     legacy_opt = server_opt if cfg["server_opt_kind"] == "fedopt" else None
+    packed_opt = server_opt if cfg["server_opt_kind"] == "packed" else None
     # The coordinator stays the same for the whole run: every delta-stream
     # cache is keyed by its destination party.
     coord = coordinator if coordinator is not None else min(trainers)
@@ -538,8 +585,17 @@ def run_fedavg_rounds(
             timings=timings, join_ticket=join_ticket, round_log=round_log,
             wire_quant=cfg["wire_quant"], region_size=region_size,
             region_branch=region_branch, region_quorum=region_quorum,
-            region_deadline_s=region_deadline_s,
+            region_deadline_s=region_deadline_s, server_opt=packed_opt,
         )
+
+    from rayfed_tpu_torch.fl.server_opt import PackedServerOptimizer
+    from rayfed_tpu_torch.runtime import get_runtime
+
+    # The replicated state lives on the party's card (its device).
+    sopt = (
+        PackedServerOptimizer(packed_opt, device=get_runtime().transport.device)
+        if packed_opt is not None else None
+    )
 
     if overlap:
         # The pipelined engine owns its loop shape (double-buffered rounds,
@@ -549,6 +605,7 @@ def run_fedavg_rounds(
         runner = PipelinedRoundRunner(
             trainers, weights=weights, mode=mode, coordinator=coord, wire_dtype=wire_dt,
             on_round=on_round, ring_chunk_elems=ring_chunk_elems, wire_quant=cfg["wire_quant"],
+            server_opt=sopt,
         )
         return runner.run(params, rounds, timings=timings)
 
@@ -588,8 +645,6 @@ def run_fedavg_rounds(
     # span carrying the round key the transport stamps on frames.
     trace_rounds = _telemetry.armed() and not pipeline
     if timings is not None or trace_rounds:
-        from rayfed_tpu_torch.runtime import get_runtime
-
         me = get_runtime().party
 
     for r in range(rounds):
@@ -651,6 +706,15 @@ def run_fedavg_rounds(
                     chunk_elems=ring_chunk_elems if mode in ("ring", "hierarchy") else None,
                     expand=QUANT_DELTA_EXPAND,
                 )
+        # Packed server optimization: the round's shared starting buffer
+        # anchors the step (at the finalizing node, or on every controller
+        # for the ring and the one-shot path) and the resync below.
+        step_fn = None
+        x_srv = None
+        if sopt is not None:
+            x_srv = round_ref if round_ref is not None else pack_tree(current, torch.float32).buf
+            sopt.ensure(x_srv)
+            step_fn = sopt.step_fn(x_srv)
         if mode == "hierarchy":
             from rayfed_tpu_torch.fl.streaming import streaming_aggregate
 
@@ -660,7 +724,7 @@ def run_fedavg_rounds(
                 # quantized loop's own first round.
                 avg = streaming_aggregate(
                     updates, weights, stream="fedavg", coordinator=coord,
-                    out_dtype=agg_out_dtype, timings=rec,
+                    out_dtype=agg_out_dtype, timings=rec, server_step=step_fn,
                 )
             else:
                 from rayfed_tpu_torch.fl.hierarchy import HIER_STATS, HierarchyRoundError, hierarchy_aggregate
@@ -671,7 +735,7 @@ def run_fedavg_rounds(
                         region_quorum=region_quorum, region_deadline_s=region_deadline_s,
                         stream="fedavg", quant=round_grid, quant_ref=round_ref, quant_scope="fedavg",
                         # The broadcast down the tree is quantized too.
-                        quant_downlink=True, round_tag=r, timings=rec,
+                        quant_downlink=True, round_tag=r, timings=rec, server_step=step_fn,
                     )
                 except HierarchyRoundError as e:
                     # The abort reached every controller (poison cascade and
@@ -684,9 +748,11 @@ def run_fedavg_rounds(
                         "streaming aggregation at %r", r, e, coord,
                     )
                     HIER_STATS["fallback_rounds"] += 1
+                    # No resync happened: the same step from the same state.
                     avg = streaming_aggregate(
                         updates, weights, stream="fedavg", coordinator=coord, timings=rec,
                         quant=round_grid, quant_ref=round_ref, quant_scope="fedavg",
+                        server_step=step_fn,
                     )
         elif mode == "ring":
             from rayfed_tpu_torch.fl.ring import RING_STATS, RingRoundError, ring_aggregate
@@ -697,6 +763,10 @@ def run_fedavg_rounds(
                     chunk_elems=ring_chunk_elems, timings=rec,
                     quant=round_grid, quant_ref=round_ref, quant_scope="fedavg",
                 )
+                if step_fn is not None:
+                    # No downlink: every controller holds the same
+                    # assembled aggregate and steps it locally.
+                    avg = step_fn(avg)
             except RingRoundError as e:
                 # The abort reached every controller (poison cascade +
                 # commit ring), so all of them take this branch in
@@ -714,6 +784,7 @@ def run_fedavg_rounds(
                     updates, weights, stream="fedavg", coordinator=coord,
                     out_dtype=agg_out_dtype, timings=rec,
                     quant=round_grid, quant_ref=round_ref, quant_scope="fedavg",
+                    server_step=step_fn,
                 )
         elif streaming_agg:
             from rayfed_tpu_torch.fl.streaming import streaming_aggregate
@@ -722,16 +793,22 @@ def run_fedavg_rounds(
                 updates, weights, stream="fedavg", coordinator=coord,
                 out_dtype=agg_out_dtype, timings=rec,
                 quant=round_grid, quant_ref=round_ref, quant_scope="fedavg",
-                quant_downlink=round_grid is not None,
+                quant_downlink=round_grid is not None, server_step=step_fn,
             )
         else:
             t_a0 = time.perf_counter() if rec is not None else 0.0
             avg = aggregate(updates, weights, reducer=aggregator, coordinator=coord)
+            if step_fn is not None:
+                avg = step_fn(avg)
             if rec is not None:
                 rec["agg_s"] = time.perf_counter() - t_a0
+        if sopt is not None:
+            # Every controller advances its replica from the broadcast
+            # pair, which all of them hold byte for byte.
+            sopt.resync(x_srv, avg.buf)
         if qname is not None:
-            # How far the global model moved, per element: next round's
-            # grid covers that range.
+            # How far the global model moved (after the server step), per
+            # element: next round's grid covers that range.
             quant_prev_delta = _host_f32(avg.buf) - _host_f32(round_ref)
         if compress_wire:
             avg = decompress(avg)

@@ -171,8 +171,19 @@ METRICS_SCHEMA: Dict[str, Dict[str, type]] = {
         "coordinator_failovers": int,
         "graceful_handovers": int,
     },
-    # The reference's "async" section (fl.async_rounds) joins this schema
-    # when that module is ported.
+    "async": {
+        # fl.async_rounds: buffered asynchronous rounds.  The histogram
+        # maps decay shift (min(staleness, cap)) -> folds;
+        # decay_shift_total is the summed shifts (how much weight the
+        # fleet's staleness cost, in halvings).
+        "versions_emitted": int,
+        "folds": int,
+        "buffer_occupancy": int,
+        "staleness_hist": dict,
+        "decay_shift_total": int,
+        "dropped_decayed_out": int,
+        "recoded_stale": int,
+    },
     "telemetry": {
         "trace_armed": bool,
     },
@@ -183,14 +194,15 @@ def metrics_snapshot() -> Dict[str, Any]:
     """Every subsystem's counters under ONE documented schema
     (:data:`METRICS_SCHEMA`): ``transport`` (the :func:`get_stats`
     surface), ``secagg`` / ``object_plane`` / ``telemetry`` (hoisted
-    from their get_stats sections) and ``quorum``
-    (``fl.quorum.QUORUM_STATS``, per process, not on the transport).  The
-    reference's ``async`` section is left out until ``fl.async_rounds`` is
-    ported.  Returns ``{}`` before ``fed.init`` — a snapshot of nothing is
-    not an error."""
+    from their get_stats sections), ``quorum``
+    (``fl.quorum.QUORUM_STATS``) and ``async``
+    (``fl.async_rounds.ASYNC_STATS``) — the last two live per process, not
+    on the transport.  Returns ``{}`` before ``fed.init`` — a snapshot of
+    nothing is not an error."""
     stats = get_stats()
     if not stats:
         return {}
+    from rayfed_tpu_torch.fl.async_rounds import ASYNC_STATS
     from rayfed_tpu_torch.fl.quorum import QUORUM_STATS
 
     out: Dict[str, Any] = {
@@ -202,6 +214,12 @@ def metrics_snapshot() -> Dict[str, Any]:
         "object_plane": dict(stats.get("object_plane") or {}),
         "telemetry": dict(stats.get("telemetry") or {}),
         "quorum": dict(QUORUM_STATS),
+        # A copy of the histogram: the snapshot must not alias the live
+        # counter dict the async driver keeps mutating.
+        "async": {
+            **ASYNC_STATS,
+            "staleness_hist": dict(ASYNC_STATS["staleness_hist"]),
+        },
     }
     return out
 

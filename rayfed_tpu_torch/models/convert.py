@@ -1,6 +1,6 @@
 """Carry model trees across from the reference: Llama and BERT weights, LoRA
-adapters, Adam state, and the FL baselines' trees (logistic, MLP, ResNet
-params and BN state).
+adapters, Adam state, the FL baselines' trees (logistic, MLP, ResNet params
+and BN state) and the packed server optimizer's state, which also goes back.
 
 The reference's trees are nested dicts (and tuples, for the Adam state
 ``(count, m, v)``) of arrays; converted to numpy (``np.asarray`` per leaf)
@@ -100,3 +100,27 @@ def bert_params_from_jax(
     ``split_params``) as torch tensors under the same keys; ``dtype`` casts
     every leaf (default: keep each leaf's dtype)."""
     return _tree_from_jax(tree, device, dtype)
+
+
+def server_state_from_jax(state: Any, device: Optional[torch.device] = None) -> Any:
+    """The reference's packed server-optimizer state (its
+    ``PackedServerState``: a kind, the hyperparameters and f32 buffers) as
+    this package's :class:`~rayfed_tpu_torch.fl.server_opt.PackedServerState`
+    with its buffers on ``device``, bit for bit.  Read by attribute, so the
+    reference's class need not be imported."""
+    from rayfed_tpu_torch.fl.server_opt import PackedServerState
+
+    device = resolve_device(device)
+    bufs = tuple(_leaf(b, device, None).reshape(-1) for b in state.bufs)
+    return PackedServerState(state.kind, state.hyper, bufs)
+
+
+def server_state_to_jax(state: Any) -> Any:
+    """This package's packed server-optimizer state with host numpy
+    buffers, the reference's form of it: on the wire it pickles under the
+    reference's module path and a JAX party reads it as its own class."""
+    from rayfed_tpu_torch.fl.server_opt import PackedServerState
+    from rayfed_tpu_torch.transport.wire import tensor_to_numpy
+
+    bufs = tuple(tensor_to_numpy(b) if isinstance(b, torch.Tensor) else np.asarray(b) for b in state.bufs)
+    return PackedServerState(state.kind, state.hyper, bufs)

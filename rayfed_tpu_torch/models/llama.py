@@ -296,14 +296,17 @@ class Llama(nn.Module):
         return apply_llama(self.params(), input_ids, self.config, lora=lora, attn_fn=attn_fn)
 
 
-def _rms_norm(x, scale, eps):
+def _rms_norm(x, scale, eps, jitted=False):
+    """RMSNorm.  ``jitted``: the JAX package runs this call site inside one
+    jitted program (its decode and train steps), whose CPU bytes differ
+    from its op-by-op ones (ops/xla_cpu.py)."""
     xf = x.float()
     r = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
     if xf.device.type == "cpu":
         # The JAX package's bytes on the CPU (ops/xla_cpu.py).  The two
         # values lie within an ulp, so ``r + (exact − r)`` is ``exact``
         # to the bit, while the gradient stays torch.rsqrt's.
-        exact = xla_cpu.rms_rsqrt(xf.detach(), eps)
+        exact = xla_cpu.rms_rsqrt(xf.detach(), eps, jitted)
         r = r + (exact - r).detach()
     return (xf * r * scale.float()).to(x.dtype)
 
@@ -372,20 +375,20 @@ def _attn_out(x, attn, lp, config, b, t, lget=_no_lora):
     return x + _linear(flat, lp["wo"], lget("wo"), config.dtype)
 
 
-def _mlp_block(x, lp, config, lget=_no_lora):
+def _mlp_block(x, lp, config, lget=_no_lora, jitted=False):
     """RMSNorm + SwiGLU MLP residual — shared by the forward and decode."""
     dtype = config.dtype
-    y = _rms_norm(x, lp["mlp_norm"], config.rms_eps)
+    y = _rms_norm(x, lp["mlp_norm"], config.rms_eps, jitted)
     gate = F.silu(_linear(y, lp["w_gate"], lget("w_gate"), dtype))
     up = _linear(y, lp["w_up"], lget("w_up"), dtype)
     return x + _linear(gate * up, lp["w_down"], lget("w_down"), dtype)
 
 
-def _layer_fwd(x, lp, config, cos, sin, attn_fn, b, t, lget=_no_lora, emit_kv=False):
+def _layer_fwd(x, lp, config, cos, sin, attn_fn, b, t, lget=_no_lora, emit_kv=False, jitted=False):
     """One decoder layer (norm→qkv→RoPE→GQA attn→out→MLP), behind both the
     forward and prefill.  With ``emit_kv`` also returns the pre-repeat k/v."""
     h, kv = config.num_heads, config.num_kv_heads
-    y = _rms_norm(x, lp["attn_norm"], config.rms_eps)
+    y = _rms_norm(x, lp["attn_norm"], config.rms_eps, jitted)
     q, k, v = _qkv_proj(y, lp, config, b, t, lget)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
@@ -399,7 +402,7 @@ def _layer_fwd(x, lp, config, cos, sin, attn_fn, b, t, lget=_no_lora, emit_kv=Fa
     else:
         attn = attn_fn(q, k, v, causal=True)
     x = _attn_out(x, attn, lp, config, b, t, lget)
-    x = _mlp_block(x, lp, config, lget)
+    x = _mlp_block(x, lp, config, lget, jitted)
     return (x, (k_out, v_out)) if emit_kv else (x, None)
 
 
@@ -416,7 +419,7 @@ def _save_weight_products(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _lm_head(x, params, config):
+def _lm_head(x, params, config, jitted=False):
     """Final norm + vocabulary projection ([..., D] → [..., V] f32).
 
     The reference multiplies bf16 operands into an f32 result.  A bf16
@@ -428,7 +431,7 @@ def _lm_head(x, params, config):
     (:func:`~rayfed_tpu_torch.models.quant.split_output_scale`); that
     product saves the int8 codes for the backward, not the f32 copy.
     """
-    x = _rms_norm(x, params["final_norm"], config.rms_eps)
+    x = _rms_norm(x, params["final_norm"], config.rms_eps, jitted)
     head = params.get("lm_head")
     xf = x.to(config.dtype).float()
     if head is None:
@@ -448,8 +451,13 @@ def apply_llama(
     lora: Optional[Params] = None,
     attn_fn: Callable = dot_product_attention,
     positions: Optional[torch.Tensor] = None,
+    jitted: bool = False,
 ) -> torch.Tensor:
     """Forward: [B, T] ids → [B, T, V] float32 logits (causal LM).
+
+    ``jitted``: the caller stands for a jitted program of the JAX package
+    (its train steps); on CPU tensors the norms then take that program's
+    bytes (:func:`_rms_norm`).
 
     ``lora`` is a tree from :func:`rayfed_tpu_torch.models.lora.init_lora`;
     its ``layers`` entries add their bypass to the matching projections.
@@ -471,7 +479,7 @@ def apply_llama(
                 return None
             return {"a": entry["a"][i], "b": entry["b"][i], "scale": entry["scale"]}
 
-        x, _ = _layer_fwd(x, _layer(params, i), config, cos, sin, attn_fn, b, t, lget)
+        x, _ = _layer_fwd(x, _layer(params, i), config, cos, sin, attn_fn, b, t, lget, jitted=jitted)
         return x
 
     if config.remat:
@@ -487,7 +495,7 @@ def apply_llama(
         layer_body = lambda x, i: checkpoint(body, x, i, **kw)  # noqa: E731
     for i in range(config.num_layers):
         x = layer_body(x, i)
-    return _lm_head(x, params, config)
+    return _lm_head(x, params, config, jitted)
 
 
 # ---------------------------------------------------------------------------
@@ -646,7 +654,7 @@ def make_decode_step(config: LlamaConfig, rolling: bool = False):
             lp = _layer(params, i)
             k_cache = cache["k"][i]  # [B, T, KV, Dh] view into the cache
             v_cache = cache["v"][i]
-            y = _rms_norm(x, lp["attn_norm"], config.rms_eps)
+            y = _rms_norm(x, lp["attn_norm"], config.rms_eps, jitted=True)
             q, k, v = _qkv_proj(y, lp, config, b, 1)
             q = apply_rope(q, cos, sin)
             k = apply_rope(k, cos, sin)
@@ -678,8 +686,8 @@ def make_decode_step(config: LlamaConfig, rolling: bool = False):
             )
             attn = attn.reshape(b, 1, h, dh).to(dtype)
             x = _attn_out(x, attn, lp, config, b, 1)
-            x = _mlp_block(x, lp, config)
-        return cache, _lm_head(x[:, 0, :], params, config)
+            x = _mlp_block(x, lp, config, jitted=True)
+        return cache, _lm_head(x[:, 0, :], params, config, jitted=True)
 
     return step
 
@@ -860,7 +868,7 @@ def _value_and_grad(loss_fn, tree, *args):
 
 def _lora_loss(config, attn_fn):
     def loss_fn(lora, base_params, ids):
-        logits = apply_llama(base_params, ids, config, lora=lora, attn_fn=attn_fn)
+        logits = apply_llama(base_params, ids, config, lora=lora, attn_fn=attn_fn, jitted=True)
         return lm_loss(logits[:, :-1], ids[:, 1:])
 
     return loss_fn
@@ -868,7 +876,7 @@ def _lora_loss(config, attn_fn):
 
 def _full_loss(config, attn_fn):
     def loss_fn(params, ids):
-        logits = apply_llama(params, ids, config, attn_fn=attn_fn)
+        logits = apply_llama(params, ids, config, attn_fn=attn_fn, jitted=True)
         return lm_loss(logits[:, :-1], ids[:, 1:])
 
     return loss_fn

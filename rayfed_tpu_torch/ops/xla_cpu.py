@@ -14,11 +14,20 @@ that no longer holds.
 
 The assumptions:
 
-- ``REDUCE_WINDOW``: the row sum of the RMSNorm's ``mean(x²)`` is a
-  ``reduce-window`` of 32, each window summed in index order from 0.0 and
-  the window sums then added in order from 0.0.  Read at D = 64; the bytes
-  also equal XLA's at D = 128 and 256, and not at narrower rows or at 96,
-  whose programs were not read.
+- ``REDUCE_WINDOW``: the RMSNorm's row sum of squares.  XLA's tree
+  reduction rewriter turns a row longer than 32 into a ``reduce-window`` of
+  32 after padding it with zeros to a multiple of 32, half the padding
+  (rounded down) before the row and the rest after; it repeats that on the
+  window sums while more than 32 remain, then sums what is left.  Each
+  window, and the last sum, adds in index order from 0.0.  Within one jitted
+  program (the JAX package's decode and train steps), a row of at most 32
+  fuses its squares into the sum, and LLVM contracts each step into an FMA
+  ``fma(x, x, acc)``, except at 5 to 8 elements, where the row becomes one
+  vector that is squared before it is summed; the mean's ``·(1/D) + eps``
+  then contracts into ``fma(sum, f32(1/D), eps)``.  Op by op (its prefill
+  and ``apply_llama``), the squares, the sum, the product with f32(1/D) and
+  the ``+ eps`` round one by one.  Read from the dumps at D = 8, 16, 48, 64,
+  96, 384, 2048 and 4096, eager and jitted; probed at every width to 4099.
 - The rsqrt: ``xla.rsqrt.f32`` is the hardware estimate (``vrsqrtps``,
   read through ``native/xla_cpu_math.cc``) and two Newton steps that LLVM
   contracts into FMAs, the raw estimate kept for special inputs.
@@ -61,24 +70,53 @@ REDUCE_WINDOW = 32
 VECTOR_WIDTH, UNROLL = 8, 2
 
 
-def mean_sq(xf: torch.Tensor) -> torch.Tensor:
-    """``mean(xf², axis=-1, keepdims=True)`` summed in XLA:CPU's order:
-    zero-padded windows of ``REDUCE_WINDOW``, each in index order from 0.0,
-    then the window sums in order from 0.0, times ``1/D``."""
+def _tree_sum(sq: torch.Tensor) -> torch.Tensor:
+    """The sum over the last axis as XLA:CPU's tree reduction computes it."""
+    while sq.shape[-1] > REDUCE_WINDOW:
+        n = sq.shape[-1]
+        nw = -(-n // REDUCE_WINDOW)
+        lo = (nw * REDUCE_WINDOW - n) // 2
+        hi = nw * REDUCE_WINDOW - n - lo
+        sq = torch.cat([sq.new_zeros(*sq.shape[:-1], lo), sq, sq.new_zeros(*sq.shape[:-1], hi)], dim=-1)
+        windows = sq.reshape(*sq.shape[:-1], nw, REDUCE_WINDOW)
+        sq = windows.new_zeros(windows.shape[:-1])
+        for i in range(REDUCE_WINDOW):
+            sq = sq + windows[..., i]
+    total = sq.new_zeros(sq.shape[:-1])
+    for i in range(sq.shape[-1]):
+        total = total + sq[..., i]
+    return total
+
+
+def _fuses_squares(d: int) -> bool:
+    """Whether a jitted program's row sum of ``d`` squares is an FMA chain."""
+    return d <= REDUCE_WINDOW and not 5 <= d <= 8
+
+
+def sum_sq(xf: torch.Tensor, jitted: bool) -> torch.Tensor:
+    """``sum(xf², axis=-1)`` of a CPU f32 tensor in XLA:CPU's order, inside
+    a jitted program (``jitted``) or op by op."""
     d = xf.shape[-1]
-    sq = xf * xf
-    nw = -(-d // REDUCE_WINDOW)
-    pad = nw * REDUCE_WINDOW - d
-    if pad:
-        sq = torch.cat([sq, sq.new_zeros(*sq.shape[:-1], pad)], dim=-1)
-    windows = sq.reshape(*sq.shape[:-1], nw, REDUCE_WINDOW)
-    partial = windows.new_zeros(windows.shape[:-1])
-    for i in range(REDUCE_WINDOW):
-        partial = partial + windows[..., i]
-    total = partial.new_zeros(partial.shape[:-1])
-    for j in range(nw):
-        total = total + partial[..., j]
-    return (total / d)[..., None]
+    if jitted and _fuses_squares(d):
+        total = xf.new_zeros(xf.shape[:-1])
+        for i in range(d):
+            col = xf[..., i].contiguous()
+            total = fma(col, col, total)
+        return total
+    return _tree_sum(xf * xf)
+
+
+def rms_rsqrt(xf: torch.Tensor, eps: float, jitted: bool = False) -> torch.Tensor:
+    """``rsqrt(mean(xf²) + eps)`` [..., 1] of a CPU f32 tensor, as XLA:CPU
+    compiles the JAX package's RMSNorm inside a jitted program
+    (``jitted``) or op by op."""
+    total = sum_sq(xf, jitted)
+    inv_d = torch.full_like(total, 1.0 / xf.shape[-1])
+    if jitted:
+        mean_eps = fma(total, inv_d, torch.full_like(total, eps))
+    else:
+        mean_eps = total * inv_d + eps
+    return rsqrt(mean_eps)[..., None]
 
 
 def rsqrt(x: torch.Tensor) -> torch.Tensor:
@@ -120,12 +158,6 @@ def rope_freqs(exponents: torch.Tensor, theta: float, folded: bool) -> torch.Ten
     if folded:
         return libm_pow(theta, -exponents)
     return 1.0 / libm_pow(theta, exponents)
-
-
-def rms_rsqrt(xf: torch.Tensor, eps: float) -> torch.Tensor:
-    """``rsqrt(mean(xf²) + eps)`` [..., 1] of a CPU f32 tensor, as XLA:CPU
-    compiles the JAX package's RMSNorm."""
-    return rsqrt(mean_sq(xf) + eps)
 
 
 def div_const(x: torch.Tensor, c: float) -> torch.Tensor:

@@ -27,9 +27,11 @@ in ``find_class``.
 The packed wire form (``fl.compression``'s ``PackedTree`` and its
 ``PackSpec``) travels the same way, under :data:`PACKED_WIRE_MODULE`, and
 its integer-coded form (``fl.quantize``'s ``QuantizedPackedTree`` and its
-``QuantMeta``) under :data:`QUANT_WIRE_MODULE`, and the hierarchy's partial
+``QuantMeta``) under :data:`QUANT_WIRE_MODULE`, the hierarchy's partial
 sum (``fl.hierarchy``'s ``RegionSumTree``) under
-:data:`HIERARCHY_WIRE_MODULE`.  A
+:data:`HIERARCHY_WIRE_MODULE`, and the server optimizer's replicated state
+(``fl.server_opt``'s ``PackedServerState``) under
+:data:`SERVER_OPT_WIRE_MODULE`.  A
 spec carries the tree's structure, which the JAX package pickles as a
 jaxlib ``PyTreeDef``: a NEWOBJ of that class, then a BUILD with
 ``(jax._src.tree_util.default_registry, [nodes in post-order])``.  The
@@ -63,6 +65,9 @@ _PORT_QUANT_MODULE = "rayfed_tpu_torch.fl.quantize"
 HIERARCHY_WIRE_MODULE = "rayfed_tpu.fl.hierarchy"
 _HIERARCHY_NAMES = ("RegionSumTree",)
 _PORT_HIERARCHY_MODULE = "rayfed_tpu_torch.fl.hierarchy"
+SERVER_OPT_WIRE_MODULE = "rayfed_tpu.fl.server_opt"
+_SERVER_OPT_NAMES = ("PackedServerState",)
+_PORT_SERVER_OPT_MODULE = "rayfed_tpu_torch.fl.server_opt"
 # The globals of a pickled jaxlib PyTreeDef.
 _TREEDEF_WIRE = ("jaxlib._jax.pytree", "PyTreeDef")
 _REGISTRY_WIRE = ("jax._src.tree_util", "default_registry")
@@ -99,6 +104,10 @@ def _wire_global(module: str, name: str) -> Any:
         from rayfed_tpu_torch.fl import hierarchy
 
         return getattr(hierarchy, name)
+    if module == SERVER_OPT_WIRE_MODULE and name in _SERVER_OPT_NAMES:
+        from rayfed_tpu_torch.fl import server_opt
+
+        return getattr(server_opt, name)
     if name == _TREEDEF_WIRE[1] and (
         module == "jaxlib" or module.startswith(("jaxlib.", "jax."))
     ):
@@ -124,6 +133,8 @@ def _wire_name_of(obj: Any) -> Optional[tuple]:
         return QUANT_WIRE_MODULE, qualname
     if module == _PORT_HIERARCHY_MODULE and qualname in _HIERARCHY_NAMES:
         return HIERARCHY_WIRE_MODULE, qualname
+    if module == _PORT_SERVER_OPT_MODULE and qualname in _SERVER_OPT_NAMES:
+        return SERVER_OPT_WIRE_MODULE, qualname
     return None
 
 

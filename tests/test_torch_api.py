@@ -145,9 +145,11 @@ def test_metrics_snapshot_leaves_out_unported_sections():
     fed.init(address="local", cluster=make_cluster(["solo"]), party="solo", device=CPU)
     try:
         snap = fed.metrics_snapshot()
-        # The reference's "async" section waits for fl.async_rounds.
-        assert set(snap) == {"transport", "secagg", "object_plane", "telemetry", "quorum"}
+        # Every section of the reference's snapshot, "async" included
+        # since fl.async_rounds is ported.
+        assert set(snap) == {"transport", "secagg", "object_plane", "telemetry", "quorum", "async"}
         assert snap["quorum"].keys() == {"coordinator_failovers", "graceful_handovers"}
+        assert {"versions_emitted", "folds", "staleness_hist", "recoded_stale"} <= snap["async"].keys()
         assert "send_op_count" in snap["transport"]
     finally:
         fed.shutdown()

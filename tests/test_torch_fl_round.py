@@ -39,9 +39,11 @@ def _agg(values):
 # (This module imports no JAX at the top: the port's party process of the
 # mixed round below imports it and must load no JAX.)
 SGD = "server_sgd()"  # each package's own ServerOptimizer
+FEDAC = "fedac()"  # each package's own packed server optimizer spec
 SUPPORTED = [
     ("rounds", 0),
     ("server_opt", SGD),
+    ("server_opt", FEDAC),
     ("server_opt", "not-an-optimizer"),
     ("weights", [1.0, 2.0]),
     ("compress_wire", True),
@@ -85,11 +87,15 @@ def _verdict(fn, kwargs):
 
 def _split(pair):
     from rayfed_tpu.fl import fedopt as jfedopt
+    from rayfed_tpu.fl import server_opt as jso
+    from rayfed_tpu_torch.fl import server_opt as tso
 
     ref_kw, port_kw = {}, {}
     for name, value in pair:
         if value is SGD:
             ref_kw[name], port_kw[name] = jfedopt.server_sgd(), tfedopt.server_sgd()
+        elif value is FEDAC:
+            ref_kw[name], port_kw[name] = jso.fedac(1.0, 3.0, 0.5), tso.fedac(1.0, 3.0, 0.5)
         else:
             ref_kw[name] = port_kw[name] = value
     return ref_kw, port_kw
@@ -115,16 +121,19 @@ def test_validate_round_config_verdicts_equal_the_reference(pair):
 # The port's features of tests/test_composition_matrix.py, pairwise (and its
 # quorum x ring x quant triple): each merged configuration gets the
 # reference's verdict.
-PORTED_FEATURES = ("wire_quant", "quorum", "ring", "server_opt_legacy", "streaming_agg",
+PORTED_FEATURES = ("wire_quant", "quorum", "ring", "server_opt", "server_opt_legacy", "streaming_agg",
                    "error_feedback", "sample", "hierarchy", "overlap")
 
 
 def _feature(name, which):
+    from rayfed_tpu_torch.fl import server_opt as tso
     from tests import test_composition_matrix as cm
 
     frag = dict(cm.FEATURES[name])
     if name == "server_opt_legacy" and which == "port":
         frag["server_opt"] = tfedopt.server_sgd(0.5, 0.9)
+    if name == "server_opt" and which == "port":
+        frag["server_opt"] = tso.fedac(1.0, 3.0, 0.5)
     return frag
 
 

@@ -554,15 +554,19 @@ def test_hierarchy_region_quorum_cutoff_absorbs_dead_member():
 
 
 def test_hierarchy_region_quorum_validation():
-    ref, _, _, grid, _ = _toy(2)
+    ref, _, _, grid, jgrid = _toy(2)
     kw = dict(party="a", members=["a", "b"], region_size=2, grid=grid, quant_ref=ref, keys=["k"] * 6, device=CPU)
     with pytest.raises(ValueError, match="region_quorum"):
         H.HierarchyRound(object(), region_quorum=0, **kw)
     with pytest.raises(ValueError, match="needs region_quorum"):
         H.HierarchyRound(object(), region_deadline_s=1.0, **kw)
-    # A server step is a later item of the port.
-    with pytest.raises(NotImplementedError, match="item 8"):
-        H.HierarchyRound(object(), server_step=lambda x: x, **kw)
+    # A server step is taken, as the JAX package takes it: the root applies
+    # it once before the downlink (held by bytes in test_torch_server_opt).
+    step = lambda x: x  # noqa: E731
+    assert H.HierarchyRound(object(), server_step=step, **kw)._server_step is step
+    jkw = dict(kw, grid=jgrid, quant_ref=np.asarray(ref))
+    jkw.pop("device")
+    assert JH.HierarchyRound(object(), server_step=step, **jkw)._server_step is step
 
 
 def test_hierarchy_refuses_passthrough_and_unquantized():

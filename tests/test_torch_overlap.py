@@ -416,10 +416,22 @@ def test_runner_validation_and_the_unported_server_step():
         PipelinedRoundRunner(trainers, weights=[1.0])
     with pytest.raises(ValueError, match="not a training party"):
         PipelinedRoundRunner(trainers, coordinator="zed")
-    # The server_opt half of the reference's composition test: a packed
-    # server optimizer under overlap is Queue A item 8.
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # The server_opt half of the reference's composition test: a bare
+    # packed spec is wrapped as run_fedavg_rounds wraps it, anything else
+    # is refused, as in the JAX package.
+    from rayfed_tpu.fl import overlap as jov
+    from rayfed_tpu.fl import server_opt as jso
+    from rayfed_tpu_torch.fl import server_opt as tso
+
+    runner = PipelinedRoundRunner(trainers, server_opt=tso.fedac(1.0, 3.0, 0.5))
+    assert isinstance(runner._sopt, tso.PackedServerOptimizer)
+    assert runner._sopt.opt == tso.fedac(1.0, 3.0, 0.5)
+    jrunner = jov.PipelinedRoundRunner(trainers, server_opt=jso.fedac(1.0, 3.0, 0.5))
+    assert isinstance(jrunner._sopt, jso.PackedServerOptimizer)
+    with pytest.raises(TypeError, match="wraps a PackedServerOpt"):
         PipelinedRoundRunner(trainers, server_opt=object())
+    with pytest.raises(TypeError, match="wraps a PackedServerOpt"):
+        jov.PipelinedRoundRunner(trainers, server_opt=object())
     with pytest.raises(ValueError, match="rounds must be >= 1"):
         PipelinedRoundRunner(trainers).run({}, 0)
 

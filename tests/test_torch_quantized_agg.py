@@ -661,6 +661,7 @@ QUANT_OPTIONS = [
 ]
 OTHER_OPTIONS = [
     ("rounds", 0), ("server_opt", "server_sgd()"), ("server_opt", "not-an-optimizer"),
+    ("server_opt", "fedac()"),
     ("weights", [1.0, 2.0]), ("compress_wire", False), ("packed_wire", False),
     ("checkpoint_every", 2), ("sample", 1), ("sample", 5), ("aggregator", len),
     ("streaming_agg", False), ("error_feedback", True), ("mode", "bogus"), ("coordinator", "a"),
@@ -693,6 +694,12 @@ def test_wire_quant_verdicts_equal_the_reference(quant, other, base):
     for name, value in [quant] + ([other] if other else []):
         if value == "server_sgd()":
             ref_kw[name], port_kw[name] = jfedopt.server_sgd(), tfedopt.server_sgd()
+        elif value == "fedac()":
+            # Each package's own packed optimizer spec.
+            from rayfed_tpu.fl import server_opt as jso
+            from rayfed_tpu_torch.fl import server_opt as tso
+
+            ref_kw[name], port_kw[name] = jso.fedac(1.0, 3.0, 0.5), tso.fedac(1.0, 3.0, 0.5)
         else:
             ref_kw[name] = port_kw[name] = value
     assert _verdict(ttrainer.validate_round_config, port_kw) == _verdict(jtrainer.validate_round_config, ref_kw)

@@ -281,10 +281,26 @@ DIM, ROUNDS, DEADLINE_S = 8, 4, 2.0
 PARTY_TIMEOUT_S = 60
 
 
-def run_quorum_party(party, cluster, outdir):
+def run_quorum_party(party, cluster, outdir, server_opt=None):
     import rayfed_tpu_torch as fed
     from rayfed_tpu_torch import chaos
     from rayfed_tpu_torch.fl.quorum import QUORUM_STATS
+    from rayfed_tpu_torch.fl.server_opt import PackedServerOptimizer, fedac
+
+    states = []
+    if server_opt is not None:
+        # Every resync's state bytes, to hold the replicas (a welcomed
+        # joiner's included) against each other.
+        resync = PackedServerOptimizer.resync
+
+        def recording_resync(self, x_buf, new_buf):
+            resync(self, x_buf, new_buf)
+            states.append(self.state.bufs[0].numpy().tolist())
+
+        PackedServerOptimizer.resync = recording_resync
+        kw_opt = {"server_opt": fedac(*server_opt)}
+    else:
+        kw_opt = {}
 
     chaos.install({"seed": 3, "rules": [
         # carol's round 0 starts past its deadline: cut, late-folded.
@@ -309,7 +325,7 @@ def run_quorum_party(party, cluster, outdir):
     trainers = {p: Trainer.party(p).remote(DELTAS[p]) for p in PARTIES4}
     params = {"w": torch.zeros(DIM)}
     kw = dict(compress_wire=True, packed_wire=True, wire_dtype=torch.float32, quorum=2,
-              round_deadline_s=DEADLINE_S)
+              round_deadline_s=DEADLINE_S, **kw_opt)
     if party in ("alice", "dave"):
         fed.leave()  # alice is the coordinator: a graceful handover
     log: list = []
@@ -323,6 +339,7 @@ def run_quorum_party(party, cluster, outdir):
                                          join_ticket=ticket, **kw)
         report["log"] = log + log2
     report["final"] = final["w"].numpy().tolist()
+    report["states"] = states
     report["stats"] = dict(QUORUM_STATS)
     report["metrics"] = fed.metrics_snapshot()["quorum"]
     with open(os.path.join(outdir, f"{party}.json"), "w") as f:
@@ -345,17 +362,21 @@ def _port_child(fn_name, party, args):
     assert not loaded, loaded
 
 
-def _replay(log):
+def _replay(log, server_opt=None):
     """The quorum recurrence from the member log, by the JAX package:
     members' mean (sorted-party fold order), DGA late folds for active
-    stragglers, the broadcast as a (re)joiner's input."""
+    stragglers, the broadcast as a (re)joiner's input; under ``server_opt``
+    (FedAC's hyperparameters) the mean stepped from the replicated state.
+    Returns the final params and the final state."""
     import jax.numpy as jnp
 
     from rayfed_tpu.fl import compression as C
+    from rayfed_tpu.fl import server_opt as SO
     from rayfed_tpu.fl.fedavg import packed_weighted_sum
     from rayfed_tpu.fl.overlap import dga_correct
 
     current = C.compress({"w": jnp.zeros(DIM, jnp.float32)}, packed=True, wire_dtype=jnp.float32)
+    sopt = None if server_opt is None else SO.PackedServerOptimizer(SO.fedac(*server_opt))
     late = {}
     for entry in log:
         active, members = entry["active"], entry["members"]
@@ -365,17 +386,24 @@ def _replay(log):
         inputs = {p: late.pop(p, current) for p in active}
         ups = {p: C.compress({"w": C.decompress(inputs[p], jnp.float32)["w"] + DELTAS[p]}, packed=True,
                              wire_dtype=jnp.float32) for p in active}
+        x_srv = np.asarray(current.buf).astype(np.float32)
         current = packed_weighted_sum([ups[p] for p in sorted(members)], None)
+        if sopt is not None:
+            sopt.ensure(x_srv)
+            current = sopt.step_fn(x_srv)(current)
+            sopt.resync(x_srv, np.asarray(current.buf))
         for p in active:
             if p not in members:
                 late[p] = dga_correct(current, ups[p], inputs[p])
-    return np.asarray(C.decompress(current, jnp.float32)["w"], np.float32)
+    state = None if sopt is None else np.asarray(sopt.state.bufs[0], np.float32)
+    return np.asarray(C.decompress(current, jnp.float32)["w"], np.float32), state
 
 
-def test_quorum_straggler_handover_and_join(tmp_path):
+def _run_quorum_parties(tmp_path, server_opt=None):
     cluster = make_cluster(PARTIES4)
     ctx = mp.get_context("spawn")
-    procs = {p: ctx.Process(target=_port_child, args=("run_quorum_party", p, (cluster, str(tmp_path))))
+    procs = {p: ctx.Process(target=_port_child,
+                            args=("run_quorum_party", p, (cluster, str(tmp_path), server_opt)))
              for p in PARTIES4}
     for proc in procs.values():
         proc.start()
@@ -388,7 +416,11 @@ def test_quorum_straggler_handover_and_join(tmp_path):
         procs[p].join(5)
     assert not hung, f"parties {hung} timed out after {PARTY_TIMEOUT_S}s"
     assert {p: proc.exitcode for p, proc in procs.items()} == {p: 0 for p in PARTIES4}
-    rep = {p: json.loads((tmp_path / f"{p}.json").read_text()) for p in PARTIES4}
+    return {p: json.loads((tmp_path / f"{p}.json").read_text()) for p in PARTIES4}
+
+
+def test_quorum_straggler_handover_and_join(tmp_path):
+    rep = _run_quorum_parties(tmp_path)
     log = rep["bob"]["log"]
     assert len(log) == ROUNDS
     # Round 0: alice coordinated, carol missed the deadline.
@@ -405,9 +437,31 @@ def test_quorum_straggler_handover_and_join(tmp_path):
     assert rep["dave"]["log"] == log[:1] + log[w:]
     assert rep["alice"]["log"] == log[:1]
     # The survivors hold the same bytes: the JAX package's replay.
-    want = _replay(log)
+    want, _ = _replay(log)
     for p in ("bob", "carol", "dave"):
         assert np.asarray(rep[p]["final"], np.float32).tobytes() == want.tobytes(), p
     for p in ("alice", "bob", "carol"):
         assert rep[p]["stats"]["graceful_handovers"] >= 1, p
         assert rep[p]["metrics"] == rep[p]["stats"], p
+
+
+def test_quorum_handover_and_join_carry_the_server_opt_state(tmp_path):
+    """The same four-party run under ``server_opt=fedac(1, 3, 0.5)``: the
+    coordinators step each round's mean, alice's handover passes the lease
+    to bob with the state every replica already holds, and dave's welcome
+    carries the optimizer's stamp and a content handle to its state.  The
+    survivors' params and their last state equal the JAX package's replay,
+    byte for byte, dave's included."""
+    hyper = (1.0, 3.0, 0.5)
+    rep = _run_quorum_parties(tmp_path, server_opt=hyper)
+    log = rep["bob"]["log"]
+    assert len(log) == ROUNDS and log[0]["coordinator"] == "alice"
+    want, want_state = _replay(log, server_opt=hyper)
+    w = rep["dave"]["ticket"]["round"]
+    for p in ("bob", "carol", "dave"):
+        assert np.asarray(rep[p]["final"], np.float32).tobytes() == want.tobytes(), p
+        assert np.asarray(rep[p]["states"][-1], np.float32).tobytes() == want_state.tobytes(), p
+    # One resync per round a party took part in (dave: round 0, then his
+    # welcome's round on, from the welcomed state).
+    assert len(rep["bob"]["states"]) == ROUNDS
+    assert len(rep["dave"]["states"]) == 1 + ROUNDS - w

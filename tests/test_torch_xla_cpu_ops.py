@@ -2,11 +2,14 @@
 reference (``rayfed_tpu_torch/ops/xla_cpu.py``; CPU, f32, the tests' width
 D = 64 and the wider 128 and 256).
 
-- ``_rms_norm``: XLA sums the row of squares in zero-padded windows of 32
-  (each from 0.0 in index order, then the window sums in order), multiplies
-  by 1/D, adds eps and takes ``rsqrt`` as the hardware estimate followed by
-  two contracted Newton steps.  The port's CPU form reproduces that program;
-  the norm's bytes equal the jitted reference's (tolerance: byte identity).
+- ``_rms_norm``: XLA sums a row of squares longer than 32 as a tree of
+  zero-padded windows of 32 (half the padding before the row), a shorter
+  row inside a jitted program as a chain of FMAs; it multiplies by f32(1/D)
+  and adds eps (one FMA inside a jitted program) and takes ``rsqrt`` as the
+  hardware estimate followed by two contracted Newton steps.  The port's
+  CPU form reproduces both programs (``jitted=``); the norm's bytes equal
+  the eager and the jitted reference's at every width of ``NORM_WIDTHS``
+  (tolerance: byte identity).
 - ``_quantize_kv``: XLA turns the scale's division by 127.0 into a product
   with f32(1/127); the port computes that product, and its scales equal the
   reference's byte for byte.
@@ -47,7 +50,7 @@ def test_rms_norm_bytes_equal_xla(seed):
     x = _rows(seed)
     scale = np.random.default_rng(100 + seed).standard_normal(D).astype(np.float32)
     want = np.asarray(jax.jit(jax_llama._rms_norm, static_argnums=2)(jnp.asarray(x), jnp.asarray(scale), 1e-5))
-    got = llama._rms_norm(torch.from_numpy(x), torch.from_numpy(scale), 1e-5).numpy()
+    got = llama._rms_norm(torch.from_numpy(x), torch.from_numpy(scale), 1e-5, jitted=True).numpy()
     assert got.tobytes() == want.tobytes()
 
 
@@ -57,8 +60,30 @@ def test_rms_norm_bytes_equal_xla_at_wider_rows(width):
         x = _rows(seed, (2, 7, width))
         scale = np.random.default_rng(200 + seed).standard_normal(width).astype(np.float32)
         want = np.asarray(jax.jit(jax_llama._rms_norm, static_argnums=2)(jnp.asarray(x), jnp.asarray(scale), 1e-5))
-        got = llama._rms_norm(torch.from_numpy(x), torch.from_numpy(scale), 1e-5).numpy()
+        got = llama._rms_norm(torch.from_numpy(x), torch.from_numpy(scale), 1e-5, jitted=True).numpy()
         assert got.tobytes() == want.tobytes(), seed
+
+
+NORM_WIDTHS = [8, 16, 48, 64, 96, 128, 160, 384, 768, 1024, 2048, 4096]
+
+
+def _reference_norm(x, scale, jitted):
+    args = (jnp.asarray(x), jnp.asarray(scale), 1e-5)
+    if jitted:
+        return np.asarray(jax.jit(jax_llama._rms_norm, static_argnums=2)(*args))
+    return np.asarray(jax_llama._rms_norm(*args))
+
+
+@pytest.mark.parametrize("jitted", [False, True], ids=["eager", "jitted"])
+@pytest.mark.parametrize("width", NORM_WIDTHS)
+def test_rms_norm_bytes_equal_the_reference_at_every_width(width, jitted):
+    """64 seeded rows: the port's norm equals the reference's op by op (its
+    prefill and ``apply_llama``) and inside one jitted program (its decode
+    and train steps), byte for byte."""
+    x = _rows(width, (64, width))
+    scale = np.random.default_rng(300 + width).standard_normal(width).astype(np.float32)
+    got = llama._rms_norm(torch.from_numpy(x), torch.from_numpy(scale), 1e-5, jitted=jitted).numpy()
+    assert got.tobytes() == _reference_norm(x, scale, jitted).tobytes()
 
 
 def test_rms_norm_bytes_equal_xla_in_bf16():
@@ -68,7 +93,7 @@ def test_rms_norm_bytes_equal_xla_in_bf16():
     scale = np.ones(D, np.float32)
     want = np.asarray(jax.jit(jax_llama._rms_norm, static_argnums=2)(jnp.asarray(x), jnp.asarray(scale), 1e-5))
     got = llama._rms_norm(torch.from_numpy(x.view(np.uint16)).view(torch.bfloat16),
-                          torch.from_numpy(scale), 1e-5)
+                          torch.from_numpy(scale), 1e-5, jitted=True)
     assert got.view(torch.uint16).numpy().tobytes() == want.view(np.uint16).tobytes()
 
 
@@ -168,6 +193,14 @@ def _probe(size=200_000):
         jnp.zeros((2, 7, D), jnp.float32), jnp.zeros(D, jnp.float32), 1e-5).compile().as_text()
     windows = {int(w) for w in re.findall(r"reduce-window\([^\n]*window=\{size=(?:\d+x)*(\d+) ", hlo)}
     out["REDUCE_WINDOW"] = int(windows != {xla_cpu.REDUCE_WINDOW})
+    bad = 0
+    for width in list(range(2, 65)) + [96, 160, 384, 768, 1000, 2048, 4096, 4099]:
+        xs = _rows(width, (64, width))
+        ones = np.ones(width, np.float32)
+        for jitted in (False, True):
+            got = llama._rms_norm(torch.from_numpy(xs), torch.from_numpy(ones), 1e-5, jitted=jitted).numpy()
+            bad += int(np.sum(got.view(np.uint32) != _reference_norm(xs, ones, jitted).view(np.uint32)))
+    out["rms_norm widths 2-64 and wider (eager, jitted)"] = bad
     x = np.random.default_rng(0).lognormal(0.0, 6.0, size).astype(np.float32)
     want = np.asarray(jax.jit(jax.lax.rsqrt)(jnp.asarray(x)))
     out["rsqrt"] = int(np.sum(xla_cpu.rsqrt(torch.from_numpy(x)).numpy().view(np.uint32) != want.view(np.uint32)))
