@@ -178,6 +178,27 @@ Phases, each fatal on failure:
      4x slower, 4 cycles, buffer 2): every version refolded, stale folds,
      no flash launch, the fold's device ms; then 2 cycles under server
      momentum, the emitted models equal to the step replayed on the card;
+  15. (after 14) phase_secagg: secure aggregation, DP clipping and the
+     robust reducers.  Prints the negotiated suite (x25519/aes with the
+     ``cryptography`` package, else nonce/philox, whose group key this
+     script sets in its environment for every party process).  (a) The
+     weight-and-mask step and the dropout correction on the card against
+     the CPU at the ring's wrap edges and at 11.18e6 elements, 0 differing
+     elements, their device ms beside their byte bounds.  (b) In the
+     topology processes (11), after the hierarchy's parts: 3 quorum rounds
+     of BASELINE #3 (uint8, ``quorum=3``, ``secure_agg=True``) in which dave
+     crashes at round 1, so the cutoff recovers his masks, then the same
+     schedule unmasked: equal SHA-256 at every survivor, at least one mask
+     recovery at alice; prints both runs' round walls and their ratio.
+     (c) In the round session (5), last: 3 compressed-domain rounds plain,
+     3 masked (the flash kernels in every step), then the masked run's
+     recorded train outputs replayed through plain rounds: the masked final
+     equals the replay's at both parties; prints the walls, the masking
+     overhead and alice's unhidden keystream time.  (d) tree_median,
+     tree_trimmed_mean(trim=1), krum(num_byzantine=1) and
+     clip_by_global_norm over four ResNet-18 contributions (one x100) on
+     the card: the reducers equal the CPU's by SHA-256, the clip within
+     1e-5 relative; their device ms;
   7. time each kernel (mean over one window of calls) against its plain
      version, the library call that computes the same function, and the
      card's bound (the forward at the serving shape B=4 and at the training
@@ -1489,9 +1510,15 @@ class _RoundTrainer:
         self.ids = torch.randint(0, vocab, (1, train_len), generator=gen, device=device)
         self.opt, self.steps = None, []
         self.sent = None  # a list while recording the packed train outputs
+        self.play = None  # recorded outputs handed back, in order, instead of a step
 
     def record(self, on):
         self.sent = [] if on else None
+
+    def replay(self, on):
+        """Return the recorded outputs, one per round, instead of stepping
+        (on), or step again (off)."""
+        self.play, self.sent = (self.sent, None) if on else (None, self.sent)
 
     def initial(self):
         """The round's starting adapters, from the seed."""
@@ -1500,6 +1527,8 @@ class _RoundTrainer:
                               gen, device=self.device)
 
     def train(self, wire_adapters):
+        if self.play is not None:
+            return self.play.pop(0)
         adapters = fl.decompress(wire_adapters)
         if self.opt is None:
             self.opt = llama.init_adam(adapters)
@@ -1638,6 +1667,59 @@ def _round_session(fed, party, cache, cfg_name, cfg_kw, train_len, device):
             "delta": {k: stats[k] for k in ("delta_stream_frames", "delta_full_frames",
                                             "delta_logical_bytes", "delta_wire_bytes")},
         }
+    out.update(_secagg_round_parts(fed, party, trainers, adapters, device))
+    return out
+
+
+# Secure aggregation on the Llama round (phase_secagg (c)): from one start,
+# compressed-domain rounds plain and masked, both stepping (their walls
+# compared), then the masked run's recorded train outputs replayed through
+# plain rounds (the masked aggregate's bytes compared).
+SECAGG_ROUNDS = 3
+SECAGG_ROUND_PARTS = (("round_secagg_plain", False, False), ("round_secagg", True, False),
+                      ("round_secagg_replay", False, True))
+
+
+def _secagg_round_parts(fed, party, trainers, adapters, device):
+    """The secure-aggregation parts of the round session: each run's round
+    walls, timings, final digests and masked-round count, and alice's
+    unhidden keystream time at the adapters' size (``mask_gen_ms``)."""
+    from rayfed_tpu_torch.fl import quantize as qz
+    from rayfed_tpu_torch.fl import secagg as sa
+    from rayfed_tpu_torch.runtime import get_runtime
+
+    digest = fed.remote(_leaf_digest)
+    out = {}
+    for key, secure, replay in SECAGG_ROUND_PARTS:
+        qz.reset_compressors()
+        if replay:
+            fed.get([trainers[p].replay.remote(True) for p in FED_PARTIES])
+        elif secure:
+            fed.get([trainers[p].record.remote(True) for p in FED_PARTIES])
+        masked0, marks, timings = sa.SECAGG_STATS["masked_rounds"], [time.perf_counter()], []
+        final = fl.run_fedavg_rounds(trainers, adapters, rounds=SECAGG_ROUNDS, compress_wire=True,
+                                     packed_wire=True, streaming_agg=True, wire_quant="uint8",
+                                     secure_agg=secure, timings=timings,
+                                     on_round=lambda r, _p: marks.append(time.perf_counter()))
+        _sync(device)
+        if replay:
+            fed.get([trainers[p].replay.remote(False) for p in FED_PARTIES])
+        out[key] = {
+            "round_s": [b - a for a, b in zip(marks, marks[1:])], "timings": timings,
+            "masked_rounds": sa.SECAGG_STATS["masked_rounds"] - masked0,
+            "digests": dict(zip(FED_PARTIES, fed.get([digest.party(p).remote(final) for p in FED_PARTIES]))),
+            "trainers": dict(zip(FED_PARTIES, fed.get([trainers[p].report.remote() for p in FED_PARTIES]))),
+        }
+    tm = get_runtime().transport
+    n = fl.pack_tree(adapters, torch.float32).buf.numel()
+    masker = sa.RoundMasker(tm.secagg_keys, party, [p for p in FED_PARTIES if p != party],
+                            session="probe", stream="probe", round_index=0)
+    t0 = time.perf_counter()
+    masker.net_mask(n)
+    out["round_secagg"]["mask_gen_ms"] = (time.perf_counter() - t0) * 1e3
+    out["round_secagg"]["elements"] = n
+    out["round_secagg"]["suite"] = [tm.secagg_keys.kex_scheme, tm.secagg_keys.prg_scheme]
+    out["round_secagg"]["stats"] = dict(sa.SECAGG_STATS)
     return out
 
 
@@ -1851,6 +1933,7 @@ def _federated_summary(reports, want, wall):
     out["round_server_opt"] = _server_opt_round_summary(alice, bob, want, "round_server_opt", "round_quant")
     out["round_overlap_server_opt"] = _server_opt_round_summary(alice, bob, want, "round_overlap_server_opt",
                                                                 "round_overlap")
+    out["round_secagg"] = _secagg_round_summary(alice, bob, want)
     sync = {k: alice[k]["wall_s"] / alice[k]["rounds"] for k in ("round", "round_quant", "round_ring")}
     pipelined = {k: alice[k]["wall_s"] / alice[k]["rounds"]
                  for k in ("round_overlap", "round_overlap_quant", "round_overlap_ring")}
@@ -1858,6 +1941,39 @@ def _federated_summary(reports, want, wall):
           f"pipelined {json.dumps(pipelined)} s")
     out["round_overlap"]["per_round_s"] = {"sync": sync, "pipelined": pipelined}
     return out
+
+
+def _secagg_round_summary(alice, bob, want):
+    """Check the masked Llama rounds: every step of the masked run took
+    the flash kernels' launches, both parties masked every round with a
+    grid, the masked run's final adapters equal the replay of its train
+    outputs through plain rounds at both parties; print the walls, the
+    keystream time and the masking overhead as bench.py defines it (the
+    masked run's compressed-domain rounds against the plain run's, round
+    0 being the unmasked bootstrap of both)."""
+    for party, rep in (("alice", alice), ("bob", bob)):
+        masked, replay = rep["round_secagg"], rep["round_secagg_replay"]
+        if masked["masked_rounds"] != SECAGG_ROUNDS - 1:
+            raise AssertionError(f"[round_secagg] {party} masked {masked['masked_rounds']} rounds, "
+                                 f"want {SECAGG_ROUNDS - 1}")
+        for step in masked["trainers"][party]["steps"]:
+            if step["launches"] != want:
+                raise AssertionError(f"[round_secagg] {party}'s step launched {step['launches']}, want {want}")
+        if masked["digests"] != replay["digests"] or masked["digests"]["alice"] != masked["digests"]["bob"]:
+            raise AssertionError(f"[round_secagg] the masked final differs from the plain replay at {party}: "
+                                 f"{masked['digests']} vs {replay['digests']}")
+    a = alice["round_secagg"]
+    plain_s = alice["round_secagg_plain"]["round_s"][1:]
+    masked_s = a["round_s"][1:]
+    frac = min(masked_s) / min(plain_s) - 1.0
+    print(f"[round_secagg] suite {a['suite'][0]}/{a['suite'][1]}; alice's SECAGG_STATS {json.dumps(a['stats'])}")
+    print(f"[round_secagg] Llama-3-8B LoRA, 2 parties, {a['elements']} elements: masked final == plain replay "
+          f"(sha256 {a['digests']['alice']['sha256'][:16]}) at both parties; round walls masked "
+          f"{[round(t, 3) for t in a['round_s']]} s, plain {[round(t, 3) for t in alice['round_secagg_plain']['round_s']]} s "
+          f"(round 0 unmasked in both); overhead frac {frac:.4f} (fastest masked over fastest plain "
+          f"quantized round); mask_gen_ms {a['mask_gen_ms']:.2f} (alice's net mask, unhidden)")
+    return {"overhead_frac": frac, "mask_gen_ms": a["mask_gen_ms"], "round_s": a["round_s"],
+            "plain_round_s": alice["round_secagg_plain"]["round_s"], "suite": a["suite"]}
 
 
 def _overlap_summary(a, b, want, tag):
@@ -2235,6 +2351,70 @@ QUORUM_INIT = dict(
 )
 
 
+# Secure aggregation on BASELINE #3 (phase_secagg (b)): quorum rounds of
+# the four ResNet-18 parties on uint8 codes, masked and then plain, under
+# one schedule: dave crashes at round 1 (the first round with a grid), so
+# its cutoff recovers his masks.  Each run is a runtime of its own.
+SECAGG_QUORUM_K, SECAGG_QUORUM_ROUNDS = 3, 3
+SECAGG_CHAOS = {"seed": 17, "rules": [
+    {"hook": "round", "party": "dave", "match": {"round": 1}, "op": "crash_party"},
+]}
+SECAGG_RUNS = (("secagg_masked", True), ("secagg_plain", False))
+
+
+def _secagg_quorum_runs(party, ports, device, params0, out):
+    """The masked and the plain quorum run of BASELINE #3 in this party
+    process; each puts a progress report (the round walls and log, the
+    final digest, SECAGG_STATS) on ``out``.  dave's crash ends his run:
+    its runtime goes down and he takes part in the next one."""
+    import rayfed_tpu_torch as fed
+    from rayfed_tpu_torch import chaos
+    from rayfed_tpu_torch.fl import quantize as qz
+    from rayfed_tpu_torch.fl import secagg as sa
+
+    for tag, secure in SECAGG_RUNS:
+        chaos.install(SECAGG_CHAOS)
+        qz.reset_compressors()
+        cluster = {p: {"address": f"127.0.0.1:{port}"} for p, port in zip(TOPO_PARTIES, ports[tag])}
+        dev = fed.init(address="local", cluster=cluster, party=party, device=device, **QUORUM_INIT).transport.device
+        trainers = {p: fed.remote(_ResNetTrainer).party(p).remote(SEED + 1 + i, dev)
+                    for i, p in enumerate(TOPO_PARTIES)}
+        stats0, log, marks = dict(sa.SECAGG_STATS), [], [time.perf_counter()]
+        rep = {"crashed": False}
+        try:
+            final = fl.run_fedavg_rounds(
+                trainers, params0, rounds=SECAGG_QUORUM_ROUNDS, compress_wire=True, packed_wire=True,
+                wire_quant="uint8", secure_agg=secure, quorum=SECAGG_QUORUM_K, round_deadline_s=QUORUM_DEADLINE_S,
+                coordinator="alice", round_log=log, on_round=lambda r, _p: marks.append(time.perf_counter()),
+            )
+            rep.update(digest=_leaf_digest(final), log=log)
+        except chaos.ChaosPartyCrash:
+            rep["crashed"] = True
+        rep["round_s"] = [b - a for a, b in zip(marks, marks[1:])]
+        rep["stats"] = {k: sa.SECAGG_STATS[k] - stats0[k] for k in ("masked_rounds", "mask_recoveries",
+                                                                     "recovered_seeds")}
+        fed.shutdown()
+        out.put({"party": party, "progress": True, tag: rep})
+    chaos.install({"rules": []})
+
+
+def _secagg_party(party, ports, device, out):
+    """The masked and plain BASELINE #3 quorum runs alone, in a party
+    process of their own (a rehearsal of phase_secagg (b)): ``ports`` maps
+    each of SECAGG_RUNS' tags to four ports."""
+    from rayfed_tpu_torch.models import resnet
+    from rayfed_tpu_torch.utils.platform import resolve_device
+
+    try:
+        params0 = resnet.init_resnet(torch.Generator().manual_seed(SEED), resnet.resnet18(num_classes=10),
+                                     device=resolve_device(device))
+        _secagg_quorum_runs(party, ports, device, params0, out)
+        out.put({"party": party})
+    except BaseException:
+        out.put({"party": party, "error": traceback.format_exc()})
+        raise
+
+
 class _ResNetTrainer:
     """A party's trainer of BASELINE config #3: ResNet-18 (10 classes), one
     SGD step per round on its own synthetic CIFAR-10-shaped shard — normal
@@ -2357,6 +2537,7 @@ def _topo_party(party, ports, device, out):
                                                   {**hier_kw, **kw, "server_opt": fl.fedac(1.0, 3.0, 0.5)})
         fed.shutdown()
         out.put({"party": party, "progress": True, **report})
+        _secagg_quorum_runs(party, ports, device, params0, out)
 
         chaos.install(TOPO_CHAOS)
         cluster = {p: {"address": f"127.0.0.1:{port}"} for p, port in zip(TOPO_PARTIES, ports["quorum"])}
@@ -2404,7 +2585,7 @@ def phase_topologies():
     and the quantized ring, then run quorum rounds through a straggler, a
     crash and a coordinator crash."""
     torch.cuda.empty_cache()
-    ports = {k: _free_ports(len(TOPO_PARTIES)) for k in ("rounds", "quorum")}
+    ports = {k: _free_ports(len(TOPO_PARTIES)) for k in ("rounds", "quorum", *(t for t, _ in SECAGG_RUNS))}
     t0 = time.perf_counter()
     reports = _spawn_parties(_topo_party, (ports, None), TOPO_TIMEOUT_S, parties=TOPO_PARTIES,
                              exit_codes={"alice": CRASH_EXIT, "dave": CRASH_EXIT})
@@ -2515,9 +2696,47 @@ def _topology_summary(reports, wall):
     if flash:
         raise AssertionError(f"[topo] ResNet-18 rounds launched flash kernels: {flash}")
     out["quorum"] = {"log": log, "round_s": bob["round_s"], "epoch": bob["epoch"]}
+    out["secagg"] = _secagg_quorum_summary(reports)
     out["elements"] = n_elems
     print(f"[topo] four parties, all parts in {wall:.1f} s, party processes included")
     return out
+
+
+def _secagg_quorum_summary(reports):
+    """Check the masked and plain quorum runs of BASELINE #3: dave crashed
+    in both, round 1 aggregated the three survivors, the masked final's
+    SHA-256 equals the plain one's at every survivor, alice (the
+    coordinator) recovered masks; print the round walls of both runs."""
+    runs = {tag: {p: next(m[tag] for m in r["progress"] if tag in m) for p, r in reports.items()}
+            for tag, _ in SECAGG_RUNS}
+    masked, plain = runs["secagg_masked"], runs["secagg_plain"]
+    survivors = [p for p in TOPO_PARTIES if p != "dave"]
+    for tag, run in runs.items():
+        if not run["dave"]["crashed"] or any(run[p]["crashed"] for p in survivors):
+            raise AssertionError(f"[secagg quorum] {tag}: crashed {[p for p in run if run[p]['crashed']]}")
+        members = run["alice"]["log"][1]["members"]
+        if sorted(members) != survivors:
+            raise AssertionError(f"[secagg quorum] {tag}: round 1 aggregated {members}")
+    for p in survivors:
+        if masked[p]["digest"]["sha256"] != plain[p]["digest"]["sha256"]:
+            raise AssertionError(f"[secagg quorum] {p}: masked final != plain final")
+        if masked[p]["stats"]["masked_rounds"] < SECAGG_QUORUM_ROUNDS - 1:
+            raise AssertionError(f"[secagg quorum] {p} masked {masked[p]['stats']} rounds")
+    if masked["alice"]["stats"]["mask_recoveries"] < 1:
+        raise AssertionError(f"[secagg quorum] alice recovered no masks: {masked['alice']['stats']}")
+    if len({masked[p]["digest"]["sha256"] for p in survivors}) != 1:
+        raise AssertionError("[secagg quorum] the survivors' finals differ")
+    walls = {tag: run["alice"]["round_s"] for tag, run in runs.items()}
+    ratio = sum(walls["secagg_masked"]) / sum(walls["secagg_plain"])
+    ratio_masked = sum(walls["secagg_masked"][1:]) / sum(walls["secagg_plain"][1:])
+    print(f"[secagg quorum] BASELINE #3, 4 parties, uint8, quorum {SECAGG_QUORUM_K}, dave crashed at round 1: "
+          f"masked final == plain final (sha256 {masked['alice']['digest']['sha256'][:16]}) at "
+          f"{', '.join(survivors)}; alice's SECAGG_STATS {masked['alice']['stats']}; round members "
+          f"{[e['members'] for e in masked['alice']['log']]}")
+    print(f"[secagg quorum] alice's round walls masked {[round(t, 3) for t in walls['secagg_masked']]} s, plain "
+          f"{[round(t, 3) for t in walls['secagg_plain']]} s; masked/plain {ratio:.3f} (the three rounds), "
+          f"{ratio_masked:.3f} (rounds 1-2, the masked ones; round 0 is the unmasked bootstrap)")
+    return {"walls": walls, "ratio": ratio, "ratio_masked_rounds": ratio_masked, "stats": masked["alice"]["stats"]}
 
 
 # -- the multi-level hierarchy: 16 virtual parties in this process ----------
@@ -3211,6 +3430,138 @@ def phase_hf(gen):
     return {"ms": ms, "nbytes": nbytes}
 
 
+# phase_secagg: the masked steps at ResNet-18's size, and the robust
+# reducers and the DP clip over four ResNet-18 contributions.
+SECAGG_ELEMS = 11_183_562
+SECAGG_GROUP_KEY = "chip-smoke-secagg-group-key"
+DP_CLIP, DP_RTOL = 1.0, 1e-5  # the card's norm sums in PyTorch's order: held to 1e-5 relative
+
+
+def _secagg_suite():
+    """The negotiated secure-aggregation suite; without ``cryptography``
+    the nonce/philox suite needs a group key, set here for every party
+    process this script starts."""
+    from rayfed_tpu_torch.transport.secagg import HAVE_X25519, KeyAgreement
+
+    if not HAVE_X25519:
+        os.environ.setdefault("RAYFED_SECAGG_GROUP_KEY", SECAGG_GROUP_KEY)
+    k = KeyAgreement("probe")
+    return k.kex_scheme, k.prg_scheme
+
+
+def _masked_steps(card, dev):
+    """(a): the weight-and-mask step and the correction on the card against
+    the CPU, at the ring's wrap edges and at ResNet-18's size; the card's
+    time of each against its bound (each input read once, the output
+    written once)."""
+    import numpy as np
+
+    edges = np.array([0, 2**31 - 1, 2**31, 2**32 - 1], np.uint32)
+    diff = 0
+    for wire_dtype, w_max in (("uint8", (2**31 - 1) // 255), ("int8", (2**31 - 1) // 128)):
+        info = np.iinfo(wire_dtype)
+        q = np.repeat(np.array([info.min, info.max, 0, 1], wire_dtype), 4)
+        for w in (0, 1, 7, w_max):
+            for m in edges:
+                mask = np.tile(edges, 4) + m
+                cpu = fedavg.masked_code_kernel(torch.from_numpy(q), w, mask)
+                gpu = fedavg.masked_code_kernel(torch.from_numpy(q).to(dev), w, mask)
+                diff += int((gpu.cpu() != cpu).sum())
+    rng = np.random.default_rng(SEED)
+    n = SECAGG_ELEMS
+    q = torch.from_numpy(rng.integers(0, 256, n, dtype=np.uint8))
+    mask = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+    corr = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+    acc = torch.from_numpy(rng.integers(-(2**31), 2**31 - 1, n, dtype=np.int32))
+    w = (2**31 - 1) // (255 * 4)
+    cpu_codes = fedavg.masked_code_kernel(q, w, mask)
+    q_dev = q.to(dev)
+    mask_dev = fedavg._ring_words(mask, dev)
+    corr_dev = fedavg._ring_words(corr, dev)
+    gpu_codes = fedavg.masked_code_kernel(q_dev, w, mask_dev)
+    diff_codes = int((gpu_codes.cpu() != cpu_codes).sum())
+    cpu_acc = fedavg.masked_correction_kernel(acc.clone(), corr)
+    acc_dev = acc.to(dev)
+    fedavg.masked_correction_kernel(acc_dev, corr_dev)
+    diff_corr = int((acc_dev.cpu() != cpu_acc).sum())
+    if diff or diff_codes or diff_corr:
+        raise AssertionError(f"[secagg steps] card != CPU: edges {diff}, codes {diff_codes}, correction {diff_corr}")
+    code_ms = _sync_ms(lambda: fedavg.masked_code_kernel(q_dev, w, mask_dev), 10)
+    corr_ms = _sync_ms(lambda: fedavg.masked_correction_kernel(acc_dev, corr_dev), 10)
+    upload_ms = _sync_ms(lambda: fedavg._ring_words(mask, dev), 3)
+    code_bound, _ = _bound(0, n * (1 + 4 + 4), card)
+    corr_bound, _ = _bound(0, n * (4 + 4 + 4), card)
+    print(f"[secagg steps] card == CPU at the wrap edges (codes ±qabs_max, weights to the headroom bound, "
+          f"masks 0, 2^31-1, 2^31, 2^32-1) and at {n} elements: 0 differing elements")
+    print(f"[secagg steps] masked_code_kernel {code_ms:.4f} ms (bound {code_bound:.4f} ms, bytes), "
+          f"masked_correction_kernel {corr_ms:.4f} ms (bound {corr_bound:.4f} ms, bytes), "
+          f"the net mask's upload through pinned staging {upload_ms:.3f} ms, at {n} elements")
+    return {"code_ms": code_ms, "code_bound_ms": code_bound, "corr_ms": corr_ms, "corr_bound_ms": corr_bound,
+            "upload_ms": upload_ms}
+
+
+def _robust_on_card(card, dev):
+    """(d): tree_median, tree_trimmed_mean(trim=1), krum(num_byzantine=1)
+    and clip_by_global_norm over four ResNet-18 contributions (one scaled
+    x100) on the card, against the same calls on the CPU."""
+    from rayfed_tpu_torch import tree_util
+    from rayfed_tpu_torch.fl import dp, robust
+    from rayfed_tpu_torch.models import resnet
+
+    cpu = [resnet.init_resnet(torch.Generator().manual_seed(SEED + 40 + i), resnet.resnet18(num_classes=10),
+                              device=torch.device("cpu"))[0]
+           for i in range(4)]
+    cpu[3] = tree_util.tree_map(lambda x: x * 100.0, cpu[3])
+    card_trees = [tree_util.tree_map(lambda x: x.to(dev), t) for t in cpu]
+    n = sum(x.numel() for x in tree_util.tree_leaves(cpu[0]))
+    out = {}
+    for name, fn in (("tree_median", robust.tree_median),
+                     ("tree_trimmed_mean", lambda ts: robust.tree_trimmed_mean(ts, trim=1)),
+                     ("krum", lambda ts: robust.krum(ts, num_byzantine=1))):
+        want = _leaf_digest(fn(cpu))["sha256"]
+        got = _leaf_digest(tree_util.tree_map(lambda x: x.cpu(), fn(card_trees)))["sha256"]
+        if got != want:
+            raise AssertionError(f"[robust] {name}: the card's result differs from the CPU's")
+        out[name] = _sync_ms(lambda: fn(card_trees), 3, warmup=1)
+    pick = robust.krum(card_trees, num_byzantine=1)
+    picked = next(i for i, t in enumerate(card_trees) if t is pick)
+    if picked == 3:
+        raise AssertionError("[robust] krum picked the scaled contribution")
+    (cpu_clip, cpu_norm), (gpu_clip, gpu_norm) = dp.clip_by_global_norm(cpu[3], DP_CLIP), \
+        dp.clip_by_global_norm(card_trees[3], DP_CLIP)
+    norm_rel = abs(float(gpu_norm) - float(cpu_norm)) / float(cpu_norm)
+    clip_rel = max(float(((g.cpu() - c).abs() / c.abs().clamp_min(1e-30)).max())
+                   for g, c in zip(tree_util.tree_leaves(gpu_clip), tree_util.tree_leaves(cpu_clip)))
+    if norm_rel > DP_RTOL or clip_rel > DP_RTOL:
+        raise AssertionError(f"[dp] clip on the card vs the CPU: norm rel {norm_rel:.2e}, leaves rel {clip_rel:.2e}")
+    out["clip_by_global_norm"] = _sync_ms(lambda: dp.clip_by_global_norm(card_trees[3], DP_CLIP), 3, warmup=1)
+    print(f"[robust] four ResNet-18 contributions ({n} elements each, one x100) on the card == CPU by SHA-256: "
+          f"tree_median {out['tree_median']:.3f} ms, tree_trimmed_mean(trim=1) {out['tree_trimmed_mean']:.3f} ms, "
+          f"krum(num_byzantine=1) {out['krum']:.3f} ms (picked contribution {picked})")
+    print(f"[dp] clip_by_global_norm on the card {out['clip_by_global_norm']:.3f} ms; norm {float(gpu_norm):.6e} "
+          f"(rel {norm_rel:.2e} from the CPU's), clipped leaves within rel {clip_rel:.2e} (tolerance {DP_RTOL})")
+    return out
+
+
+def phase_secagg(card, suite, topo, federated):
+    """Secure aggregation, DP clipping and the robust reducers on the card:
+    the suite, (a) the masked steps card vs CPU, (b) and (c) the masked
+    rounds (run in the topology and federated processes, summarized there),
+    (d) the robust reducers and the clip."""
+    from rayfed_tpu_torch.fl import secagg as sa
+
+    dev = torch.device("cuda", 0)
+    print(f"[secagg] suite kex={suite[0]} prg={suite[1]}"
+          f"{' (group key set by this script)' if suite[0] == 'nonce' else ''}; this process's SECAGG_STATS "
+          f"{json.dumps(sa.SECAGG_STATS)}")
+    steps = _masked_steps(card, dev)
+    robust_ms = _robust_on_card(card, dev)
+    q, r = topo["secagg"], federated["round_secagg"]
+    print(f"[secagg] BASELINE #3 masked/plain round walls {q['ratio']:.3f}; Llama-3-8B LoRA masking overhead "
+          f"{r['overhead_frac']:.4f} of a round, mask_gen_ms {r['mask_gen_ms']:.2f}")
+    return {"steps": steps, "robust_ms": robust_ms, "quorum": q, "llama": r}
+
+
 def _timed(walls, fn, *args, **kw):
     """Run one phase and print its wall."""
     t0 = time.perf_counter()
@@ -3228,6 +3579,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = torch.cuda.get_device_name(0)
     print(f"[card] {card}, torch {torch.__version__}, CUDA {torch.version.cuda}")
+    suite = _secagg_suite()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     walls, t_start = {}, time.perf_counter()
 
@@ -3257,6 +3609,7 @@ def main() -> int:
     for k, v in hier_ml["round2"]["launches"].items():
         ml_launches[k] += v
     asyn = _timed(walls, phase_async, card)
+    _timed(walls, phase_secagg, card, suite, topo, federated)
     overlap = {k: sum(federated[part]["launches"][k] for part in OVERLAP_PARTS)
                for k in ("fwd", "bwd_dq", "bwd_dkv")}
     overlap_fold = sum(federated[part]["fold_launches"] for part in OVERLAP_PARTS)

@@ -1,7 +1,6 @@
 """Federated-learning algorithms built on the fed API.
 
-The ported half of the JAX package's fl package; it exports only
-what is ported:
+The port of the JAX package's fl package:
 
 - :mod:`compression` — the per-leaf and packed wire forms
   (:class:`PackedTree`, byte-compatible with the JAX package's) and error
@@ -32,9 +31,14 @@ what is ported:
 - :mod:`trainer` — :func:`run_fedavg_rounds`, the round loop.
 - :mod:`split` — :class:`SplitTrainer`, split (vertical) learning across
   two parties.
-
-Secure aggregation, differential privacy and the robust reducers are later
-items of ROADMAP.md's Queue A.
+- :mod:`secagg` — secure aggregation: pairwise-masked integer folds with
+  quorum-dropout mask recovery (``run_fedavg_rounds(secure_agg=True)``),
+  and the seed-era in-process primitives (:mod:`secure` is their
+  deprecated shim).
+- :mod:`dp` — differential privacy: global-norm clipping and Gaussian
+  noise on outgoing updates.
+- :mod:`robust` — Byzantine-robust aggregation (coordinate median, trimmed
+  mean, Krum/multi-Krum) bounding any single party's influence.
 """
 
 from rayfed_tpu_torch.fl.compression import (
@@ -46,6 +50,7 @@ from rayfed_tpu_torch.fl.compression import (
     pack_tree,
     unpack_tree,
 )
+from rayfed_tpu_torch.fl.dp import clip_by_global_norm, privatize
 from rayfed_tpu_torch.fl.fedavg import (
     FedAvgActorBase,
     aggregate,
@@ -88,6 +93,15 @@ from rayfed_tpu_torch.fl.server_opt import (
     PackedServerState,
     fedac,
     server_momentum,
+)
+from rayfed_tpu_torch.fl.robust import krum, multi_krum, tree_median, tree_trimmed_mean
+from rayfed_tpu_torch.fl.secagg import (
+    MaskedCodeTree,
+    MaskedRoundCodec,
+    RoundMasker,
+    SecAggError,
+    mask_update,
+    unmask_sum,
 )
 from rayfed_tpu_torch.fl.split import SplitTrainer
 from rayfed_tpu_torch.fl.trainer import run_fedavg_rounds, validate_round_config
@@ -142,6 +156,18 @@ __all__ = [
     "fedac",
     "server_momentum",
     "validate_round_config",
+    "mask_update",
+    "unmask_sum",
+    "MaskedCodeTree",
+    "MaskedRoundCodec",
+    "RoundMasker",
+    "SecAggError",
+    "privatize",
+    "clip_by_global_norm",
     "run_fedavg_rounds",
     "SplitTrainer",
+    "tree_median",
+    "tree_trimmed_mean",
+    "krum",
+    "multi_krum",
 ]

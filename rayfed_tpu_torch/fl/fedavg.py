@@ -14,7 +14,10 @@ Integer-code contributions (:class:`~rayfed_tpu_torch.fl.quantize.
 QuantizedPackedTree`, the compressed-domain round) fold in i32: per party an
 in-place ``acc[off:off+n] += w·q`` on an owned accumulator padded onto the
 block grid, exact and associative in any order, then ONE rescale
-(:func:`finalize_packed_quantized`), as the JAX package's.
+(:func:`finalize_packed_quantized`), as the JAX package's.  A secure round's
+codes are masked on the sender (:func:`masked_code_kernel`) and its dropout
+correction subtracted in place (:func:`masked_correction_kernel`), both as
+int32 adds on bitcast views of the JAX package's ``uint32`` words.
 """
 
 from __future__ import annotations
@@ -304,6 +307,41 @@ def quantized_accum_kernel(acc: torch.Tensor, off: int, chunk: torch.Tensor, w: 
     fold (``streaming._fold_block``, same signature).  Integer adds are
     exact, so every fold order gives the same accumulator."""
     acc[off : off + chunk.numel()].add_(chunk.to(torch.int32) * int(w))
+
+
+def _ring_words(x: Any, device: torch.device) -> torch.Tensor:
+    """uint32 words (a host array, or a uint32/int32 tensor) as their int32
+    bitcast on ``device``; a host array goes to a card through pinned
+    staging."""
+    if isinstance(x, torch.Tensor):
+        x = x.view(torch.int32) if x.dtype == torch.uint32 else x
+        return x.to(device)
+    t = torch.from_numpy(np.ascontiguousarray(x, dtype=np.uint32).view(np.int32))
+    if device.type != "cuda":
+        return t
+    host = torch.empty(t.shape, dtype=torch.int32, pin_memory=True)
+    host.copy_(t)
+    return host.to(device, non_blocking=True)
+
+
+def masked_code_kernel(q: torch.Tensor, w: int, net_mask: Any) -> torch.Tensor:
+    """The weight-and-mask step of a secure round (``fl.secagg``):
+    ``bitcast_i32(u32(w·q) + net_mask)`` over the whole code buffer, on the
+    codes' device.  The codes widen to i32 and take the party's own integral
+    weight (``|w·q| ≤ qabs_max·W`` is exact in i32); the net mask's uint32
+    words are added as their int32 bitcast, the same ring mod 2³².  The
+    receiver folds the result with :func:`quantized_accum_kernel` at weight
+    1, so once every pair mask met its negative the accumulator holds
+    exactly ``Σ w_i·q_i``."""
+    v = q.to(torch.int32) * int(w)
+    return v.add_(_ring_words(net_mask, v.device).reshape(v.shape))
+
+
+def masked_correction_kernel(acc: torch.Tensor, corr: Any) -> torch.Tensor:
+    """Subtract a dropout round's orphaned-mask correction
+    (``fl.secagg.mask_correction``, uint32 words) from the i32 accumulator
+    the caller owns, in place, mod 2³²; returns ``acc``."""
+    return acc.sub_(_ring_words(corr, acc.device).reshape(acc.shape))
 
 
 def _quant_reduce(bufs, weights: Sequence[int], nblocks: int, chunk_elems: int,

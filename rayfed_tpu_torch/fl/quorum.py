@@ -46,8 +46,14 @@ steps the round's mean; every controller resyncs its state replica from the
 broadcast, and a welcome carries the optimizer's stamp and a content handle
 to the state, so a joiner enters on the run's trajectory.
 
-Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP.md
-Queue A item: ``secure_agg`` (item 8), ``checkpointer`` (item 9).
+``secure_agg=`` (:mod:`rayfed_tpu_torch.fl.secagg`): contributions ship as
+``w·q`` plus pairwise and self masks, the coordinator folds at unit weight,
+and after the cutoff it announces the member set; every member replies with
+its self-mask seed and its seeds toward the dropped parties, and the
+orphaned masks are subtracted before the finalize rescale.
+
+Not ported yet, raising ``NotImplementedError`` naming its ROADMAP.md Queue
+A item: ``checkpointer`` (item 9).
 """
 
 from __future__ import annotations
@@ -149,20 +155,56 @@ def quorum_aggregate(
     broadcast lands.  ``server_step`` (:mod:`rayfed_tpu_torch.fl.server_opt`):
     applied by the coordinator after the cutoff and before the broadcast,
     to the arrived subset's mean, so every controller receives the
-    post-step model.  ``secagg`` is not ported yet (ROADMAP.md, Queue A
-    item 8).
+    post-step model; mutually exclusive with ``secagg``.
+
+    ``secagg``: the transport's key-agreement plane
+    (:class:`~rayfed_tpu_torch.transport.secagg.KeyAgreement`); requires
+    ``quant``.  The round runs masked: contributions ship as ``w·q`` plus
+    pairwise masks and a private self-mask (Bonawitz double masking) in
+    i32, the coordinator folds them at unit weight, and after the cutoff it
+    announces the pinned members (``<round>.sa.c``); each member replies
+    with its self-mask seed and its seeds toward the dropped parties
+    (``<round>.sa.r.<party>``), and the orphaned masks are subtracted before
+    the rescale.  A coordinator crash in that window reaches the round loop's
+    failover arm like any coordinator death; the successor's stream scope
+    re-keys every mask.
     """
     from rayfed_tpu_torch.fl import quantize as qz
     from rayfed_tpu_torch.proxy import recv_on_runtime
 
-    if secagg is not None:
-        raise _unported("secure aggregation (secagg=)", 8)
     me = runtime.party
     parties = sorted(updates)
     down = _round_key(session, stream, round_index)
     backstop = backstop if backstop is not None else runtime.job_config.recv_backstop_s
     t0 = time.perf_counter()
-    codec = qz.RoundCodec(quant, quant_ref, quant_scope)
+    masker = None
+    if secagg is not None:
+        if server_step is not None:
+            raise QuorumRoundError(
+                "server_step does not compose with masked (secure_agg) "
+                "rounds yet — loud exclusion, see fl.server_opt"
+            )
+        if quant is None:
+            raise QuorumRoundError(
+                "secure aggregation requires the quantized domain "
+                "(quant=) — masks live on the shared integer grid"
+            )
+        from rayfed_tpu_torch.fl import secagg as sa
+        from rayfed_tpu_torch.fl.fedavg import quant_weights
+
+        iw, _ = quant_weights(None if weights is None else [float(weights[p]) for p in parties], len(parties))
+        masker = sa.RoundMasker(
+            secagg, me, [p for p in parties if p != me],
+            session=session, stream=stream, round_index=round_index,
+            weight=iw[parties.index(me)],
+            # Double masking: a quorum round can exclude a live straggler,
+            # and recovering its pairwise masks would otherwise unmask its
+            # late payload; the private self-mask keeps it noise.
+            self_mask=True,
+        )
+        codec = sa.MaskedRoundCodec(quant, quant_ref, quant_scope, masker)
+    else:
+        codec = qz.RoundCodec(quant, quant_ref, quant_scope)
     qref = codec.ref
 
     # Quorum control-plane sends go directly through the transport, not
@@ -176,13 +218,32 @@ def quorum_aggregate(
             local_ref = local_ref.then(codec.to_wire)
         runtime.send_proxy.send(
             coordinator, local_ref, f"{down}.up.{me}", down,
-            stream=f"{stream}/up/{me}", round_tag=round_index,
-            epoch_tag=epoch, quant_meta=codec.descriptor,
+            # Masked codes are fresh noise every round: plain sends.
+            stream=None if masker is not None else f"{stream}/up/{me}",
+            round_tag=round_index, epoch_tag=epoch, quant_meta=codec.descriptor,
         )
         # The push is not a success gate: a late push may be
         # epoch-rejected — the protocol working; the local progress folds
         # into the next round via dga_correct.
         try:
+            if masker is not None:
+                # The coordinator's post-cutoff announcement comes before the
+                # broadcast.  Every member replies with its self-mask seed
+                # and its seeds toward the dropped; an excluded party falls
+                # through, its self-mask seed kept private.  Inside this try:
+                # a coordinator crash here reaches the failover arm.
+                ctl = sa.check_recovery_message(
+                    recv_on_runtime(runtime, coordinator, f"{down}.sa.c", down).resolve(timeout=backstop),
+                    "request",
+                )
+                dropped = list(ctl["dr"])
+                if me in ctl["m"]:
+                    runtime.send_proxy.send(
+                        coordinator,
+                        sa.make_recovery_reply(me, masker.recovery_seeds(dropped), masker.self_seed_hex()),
+                        f"{down}.sa.r.{me}", down,
+                        round_tag=round_index, epoch_tag=epoch,
+                    )
             value = recv_on_runtime(runtime, coordinator, f"{down}.down", down).resolve(timeout=backstop)
         except BaseException as exc:
             codec.rollback()
@@ -216,6 +277,55 @@ def quorum_aggregate(
         # The step consumes the exact f32 aggregate (quantized rounds
         # finalize in f32 already).
         agg_kwargs["out_dtype"] = "float32"
+    if masker is not None:
+
+        def _mask_recovery(member_labels):
+            # On the aggregator worker, between the cutoff and the rescale.
+            # The chaos hook sits first: a harness can kill the coordinator
+            # in the recovery window.
+            chaos.fire("secagg_recovery", party=me, round=round_index, epoch=epoch)
+            dropped = sorted(set(parties) - set(member_labels))
+            # To every active peer: excluded stragglers are parked on this
+            # key too and fall through to the broadcast.
+            runtime.send_proxy.send_many(
+                others, sa.make_recovery_request(member_labels, dropped),
+                f"{down}.sa.c", down, round_tag=round_index, epoch_tag=epoch,
+            )
+            if dropped:
+                sa.SECAGG_STATS["mask_recoveries"] += 1
+                logger.warning(
+                    "round %d: recovering masks of dropped parties %s from %d survivors",
+                    round_index, dropped, len(member_labels),
+                )
+            survivor_seeds = {}
+            self_seeds = {}
+            if me in member_labels:
+                survivor_seeds[me] = masker.recovery_seeds(dropped)
+                self_seeds[me] = masker.self_seed_hex()
+            # Park every reply's recv first, resolve after: one round trip.
+            reply_refs = {
+                p: recv_on_runtime(runtime, p, f"{down}.sa.r.{p}", down)
+                for p in member_labels if p != me
+            }
+            for p, ref in reply_refs.items():
+                reply = sa.check_recovery_message(ref.resolve(timeout=backstop), "reply")
+                if str(reply["p"]) != p:
+                    # The sender decides the mask signs (sorted-name order):
+                    # a mis-stamped reply would corrupt the correction.
+                    raise sa.SecAggError(
+                        f"recovery reply on {p!r}'s rendezvous claims "
+                        f"to be from {reply['p']!r} — refusing to "
+                        f"finalize the round"
+                    )
+                survivor_seeds[p] = dict(reply["sd"])
+                self_seeds[p] = str(reply["b"])
+            return sa.mask_correction(
+                survivor_seeds, dropped, quant.total_elems, secagg.prg_scheme,
+                members=member_labels, self_seeds=self_seeds,
+            )
+
+        agg_kwargs["masked"] = True
+        agg_kwargs["mask_recovery"] = _mask_recovery
     agg = StreamingAggregator(
         len(parties),
         weights=w_list,
@@ -276,9 +386,14 @@ def quorum_aggregate(
     except BaseException as exc:
         codec.rollback()
         if isinstance(exc, chaos.ChaosPartyCrash):
-            # An injected crash must look like a real one: no poison.
+            # An injected crash must look like a real one: no poison (the
+            # secagg_recovery hook fires on the aggregator worker, so its
+            # crash surfaces here).
             raise
         _poison_round_key(runtime, others, f"{down}.down", down, exc)
+        if masker is not None:
+            # Masked peers may still be parked on the announcement.
+            _poison_round_key(runtime, others, f"{down}.sa.c", down, exc)
         for _p, up, dwn in cancel_keys:
             runtime.transport.cancel_stream(up, dwn)
         raise QuorumRoundError(f"round {round_index}: quorum aggregation failed: {exc!r}") from exc
@@ -424,8 +539,11 @@ def run_quorum_rounds(
       PackedServerOpt`, stepped where the round finalizes and resynced on
       every controller; welcomes carry its state.
 
-    ``secure_agg`` (item 8) and ``checkpointer`` (item 9) raise
-    ``NotImplementedError``.
+    - ``secure_agg`` (requires ``wire_quant``): every round with a grid
+      runs masked (:func:`quorum_aggregate`'s ``secagg``); the first round
+      runs unquantized and unmasked.
+
+    ``checkpointer`` (item 9) raises ``NotImplementedError``.
     """
     import rayfed_tpu_torch as fed
     from rayfed_tpu_torch.fl import quantize as qz
@@ -456,8 +574,6 @@ def run_quorum_rounds(
                 "masked recovery window has not been exercised with a "
                 "post-finalize step (loud exclusion, fl.server_opt)"
             )
-    if secure_agg:
-        raise _unported("secure_agg", 8)
     if checkpointer is not None:
         raise _unported("checkpointer (quorum snapshots)", 9)
     runtime = get_runtime()
@@ -465,6 +581,20 @@ def run_quorum_rounds(
     # The replicated state lives on the party's card (its device).
     sopt = None if server_opt is None else PackedServerOptimizer(server_opt, device=transport.device)
     sopt_descr = describe_server_opt(server_opt)
+    secagg_keys = None
+    if secure_agg:
+        if wire_quant is None:
+            raise QuorumRoundError(
+                "secure_agg requires wire_quant — masks live in the "
+                "shared-grid integer domain (fl.secagg)"
+            )
+        secagg_keys = getattr(transport, "secagg_keys", None)
+        if secagg_keys is None or not hasattr(transport, "ensure_secagg_peer_keys"):
+            raise QuorumRoundError(
+                "secure_agg needs the transport key-agreement plane "
+                "(TransportManager.secagg_keys) — this transport has "
+                "none"
+            )
     roster = getattr(transport, "roster", None)
     if roster is None:
         raise QuorumRoundError(
@@ -481,6 +611,12 @@ def run_quorum_rounds(
             raise QuorumRoundError(
                 "mode='hierarchy' requires region_size= (the "
                 "deterministic partition width)"
+            )
+        if secure_agg:
+            raise QuorumRoundError(
+                "mode='hierarchy' and secure_agg are mutually "
+                "exclusive — pairwise masks only cancel over the full "
+                "party set (fl.hierarchy)"
             )
         if region_branch is not None and int(region_branch) < 2:
             raise QuorumRoundError(f"region_branch must be >= 2, got {region_branch!r}")
@@ -566,6 +702,10 @@ def run_quorum_rounds(
                 f"round {r}: live roster {active} is smaller than the "
                 f"quorum ({quorum}) — the run cannot make progress"
             )
+        if secure_agg:
+            # One HELLO ping per missing pair (a no-op once every active
+            # peer's key is recorded, so a joiner is pinged once).
+            transport.ensure_secagg_peer_keys(active)
         round_grid = None
         round_ref = None
         if wire_quant is not None:
@@ -623,6 +763,7 @@ def run_quorum_rounds(
                     quant_scope=stream if round_grid is not None else None,
                     region_size=region_size, region_branch=region_branch,
                     region_quorum=region_quorum, region_deadline_s=region_deadline_s,
+                    secagg=secagg_keys if round_grid is not None else None,
                     server_step=step_fn,
                 )
                 break
@@ -739,8 +880,8 @@ def _aggregate_with_mode(
     runtime, updates, w_map, *, session, round_index, quorum, deadline_s,
     coordinator, stream, epoch, mode, ring_chunk_elems, announce_fn,
     backstop, active, timings, quant=None, quant_ref=None, quant_scope=None,
-    region_size=None, region_branch=None, region_quorum=None, region_deadline_s=None,
-    server_step=None,
+    secagg=None, region_size=None, region_branch=None, region_quorum=None,
+    region_deadline_s=None, server_step=None,
 ) -> QuorumRoundOutcome:
     """The topology first when ``mode`` is ``"ring"`` or ``"hierarchy"``: a
     straggler or dead party aborts it on every controller (poison cascade +
@@ -852,7 +993,7 @@ def _aggregate_with_mode(
         quorum=quorum, deadline_s=deadline_s, coordinator=coordinator,
         stream=stream, epoch=epoch, announce_fn=announce_fn, backstop=backstop,
         timings=timings, quant=quant, quant_ref=quant_ref, quant_scope=quant_scope,
-        server_step=server_step,
+        secagg=secagg, server_step=server_step,
     )
 
 

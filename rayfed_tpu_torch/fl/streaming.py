@@ -44,8 +44,14 @@ with the weights already folded in, so each folds at unit weight into the
 same i32 accumulator; ``weights`` are then the regions' integer totals, so
 the finalize divides by the whole roster's Σw, exactly as the flat fold.
 
-Not ported yet, each raising ``NotImplementedError``: secure aggregation
-(``masked=``, ``mask_recovery=``, ``secagg=``; ROADMAP.md Queue A item 8).
+Masked mode (``masked=``, :mod:`rayfed_tpu_torch.fl.secagg`): the sources
+are masked i32 codes ``w_i·q_i + net pairwise mask``, each folded at unit
+weight (the party folded its own weight in), so the accumulator holds
+``Σ w_i·q_i`` once the pair masks cancel; the float weights stay the true
+ones for the cutoff's reweight and the finalize.  ``mask_recovery``
+(quorum rounds) runs on the worker with the member labels before the
+finalize and returns the orphaned-mask correction, subtracted in place from
+the accumulator (:func:`~rayfed_tpu_torch.fl.fedavg.masked_correction_kernel`).
 
 ``streaming_aggregate`` is the multi-controller entry point: every party
 calls it at the same program point with the same arguments; contributions
@@ -80,21 +86,6 @@ _NOTIFY_BYTES = 512 * 1024
 
 # Seq ids one streaming_aggregate call consumes.
 STREAM_AGG_SEQ_IDS = 2
-
-_UNPORTED = {
-    "masked": "secure aggregation (ROADMAP.md, Queue A item 8)",
-    "mask_recovery": "secure aggregation (ROADMAP.md, Queue A item 8)",
-    "secagg": "secure aggregation (ROADMAP.md, Queue A item 8)",
-}
-
-
-def _refuse_unported(**options: Any) -> None:
-    """Raise ``NotImplementedError`` for the first option set that belongs
-    to a later item of the port."""
-    for name, value in options.items():
-        if value is not None and value is not False:
-            raise NotImplementedError(f"{name}=: {_UNPORTED[name]} is not ported yet")
-
 
 def _fold_block(acc: torch.Tensor, off: int, chunk: torch.Tensor, w: torch.Tensor) -> None:
     """``acc[off:off+n] = fma(w, f32(x), acc[off:off+n])``, in place, rounded
@@ -190,7 +181,6 @@ class StreamingAggregator:
         party: Optional[str] = None,
         device: Any = None,
     ) -> None:
-        _refuse_unported(masked=masked, mask_recovery=mask_recovery)
         if n_sources < 1:
             raise ValueError("streaming aggregation needs >= 1 source")
         self._party = None if party is None else str(party)
@@ -250,6 +240,18 @@ class StreamingAggregator:
             # Integer totals are exact in f32 up to the headroom bound.
             self._weights = [float(w) for w in iw]
             self._total_w = float(itotal)
+        # Masked mode: unit-weight folds of masked codes; the float weights
+        # above stay the true counts (the cutoff's reweight and the
+        # finalize see the unmasked round's numbers).
+        self._masked = bool(masked)
+        self._mask_recovery = mask_recovery
+        if self._masked and quant is None:
+            raise ValueError(
+                "masked aggregation requires quant= (the round's shared "
+                "grid) — masks live in the integer domain"
+            )
+        if mask_recovery is not None and not self._masked:
+            raise ValueError("mask_recovery only applies with masked=True")
         # Presummed (hierarchy) mode names the partial sums' integer wire
         # dtype (fl.hierarchy.partial_sum_dtype).
         self._presummed = None if presummed is None else str(presummed)
@@ -259,6 +261,11 @@ class StreamingAggregator:
                     "presummed aggregation requires quant= (the round's "
                     "shared grid) — partial sums live in its integer "
                     "domain"
+                )
+            if self._masked:
+                raise ValueError(
+                    "presummed and masked are mutually exclusive (a "
+                    "region partial sum is already an unmaskable fold)"
                 )
             if np.dtype(self._presummed).kind != "i":
                 raise ValueError(
@@ -332,6 +339,19 @@ class StreamingAggregator:
                         "compressed-domain aggregation consumes "
                         "QuantizedPackedTree contributions — quantize "
                         "onto the round grid first (fl.quantize)"
+                    )
+                )
+                return
+            from rayfed_tpu_torch.fl.secagg import MaskedCodeTree
+
+            if self._masked != isinstance(packed_tree, MaskedCodeTree):
+                self.fail(
+                    TypeError(
+                        "masked fold got an unmasked contribution"
+                        if self._masked else
+                        "got a MaskedCodeTree but this aggregator is "
+                        "not masked — construct it with masked=True "
+                        "(fl.secagg) or send plain quantized codes"
                     )
                 )
                 return
@@ -710,13 +730,21 @@ class StreamingAggregator:
         if self._quant is None:
             self._acc = torch.zeros(self._total_elems, dtype=torch.float32, device=self._device)
             return
-        # Presummed rounds carry partial sums at their own integer width.
-        want_dt = self._presummed if self._presummed is not None else self._quant.wire_dtype
+        # Masked rounds widen the codes to i32 (the ring of the masks);
+        # presummed rounds carry partial sums at their own integer width.
+        from rayfed_tpu_torch.fl.secagg import MASKED_WIRE_DTYPE
+
+        if self._masked:
+            want_dt, mode_name = MASKED_WIRE_DTYPE, "masked"
+        elif self._presummed is not None:
+            want_dt, mode_name = self._presummed, "presummed"
+        else:
+            want_dt, mode_name = self._quant.wire_dtype, "plain"
         if dtype_name(s.dtype) != want_dt:
             raise ValueError(
                 f"compressed-domain contribution carries "
                 f"{dtype_name(s.dtype)} codes, this round folds "
-                f"{want_dt} ({'presummed' if self._presummed is not None else 'plain'} mode) — "
+                f"{want_dt} ({mode_name} mode) — "
                 f"sender and receiver disagree on the round shape"
             )
         if self._quant_full and self._total_elems != self._quant.total_elems:
@@ -857,8 +885,10 @@ class StreamingAggregator:
                     self._t_all_complete = max(self._streams[i].t_complete for i in order)
             # Apply outside the lock (sinks keep landing bytes meanwhile).
             if weights is None:
-                if self._presummed is not None:
-                    # A partial sum already carries Σ w_p·q_p.
+                if self._masked or self._presummed is not None:
+                    # A masked code carries its party's own weight (pair
+                    # masks cancel only at unit fold weight), a partial sum
+                    # Σ w_p·q_p: both fold at weight 1.
                     weights, fold = [1] * self._n, fedavg.quantized_accum_kernel
                 elif self._int_weights is not None:
                     weights, fold = self._int_weights, fedavg.quantized_accum_kernel
@@ -935,6 +965,25 @@ class StreamingAggregator:
             # Every wire payload's grid is checked first: wrong-grid codes
             # must never rescale.
             self._verify_quant_members(members)
+            if self._masked and self._mask_recovery is not None:
+                # Dropout mask recovery (quorum rounds): the hook runs the
+                # announce/reply round trip with the members and returns the
+                # orphaned-mask correction, subtracted before the rescale
+                # (this worker is the only thread that touches the
+                # accumulator).  With no dropout it still announces the
+                # member set and returns None.
+                corr = self._mask_recovery([self._labels[i] for i in members])
+                if corr is not None:
+                    corr = np.asarray(corr, np.uint32).reshape(-1)
+                    if corr.size != self._total_elems:
+                        raise ValueError(
+                            f"mask correction covers {corr.size} "
+                            f"elements, round folds {self._total_elems}"
+                        )
+                    pad = self._nblocks * self._chunk_elems - corr.size
+                    if pad:
+                        corr = np.concatenate([corr, np.zeros(pad, np.uint32)])
+                    fedavg.masked_correction_kernel(self._acc, corr)
             out_name = self._out_name or "float32"
             out_buf = fedavg.finalize_packed_quantized(
                 self._acc, self._quant.scales, self._quant.zps, self._total_w,
@@ -966,6 +1015,7 @@ class StreamingAggregator:
         ``add_local``)."""
         from rayfed_tpu_torch.fl.hierarchy import RegionSumTree
         from rayfed_tpu_torch.fl.quantize import QuantizedPackedTree
+        from rayfed_tpu_torch.fl.secagg import MaskedCodeTree
 
         want = self._quant.meta()
         for i in members:
@@ -978,6 +1028,14 @@ class StreamingAggregator:
                     f"contribution from {self._labels[i]} is not a "
                     f"QuantizedPackedTree — all parties must quantize "
                     f"onto the round's shared grid"
+                )
+            if self._masked != isinstance(tree, MaskedCodeTree):
+                raise TypeError(
+                    f"contribution from {self._labels[i]} is "
+                    f"{'unmasked' if self._masked else 'masked'} but "
+                    f"this round folds "
+                    f"{'masked' if self._masked else 'plain'} codes — "
+                    f"all parties must agree on secure_agg for the round"
                 )
             if (self._presummed is not None) != isinstance(tree, RegionSumTree):
                 raise TypeError(
@@ -1201,8 +1259,14 @@ def streaming_aggregate(
     (:func:`~rayfed_tpu_torch.fl.quantize.compressor`; None quantizes
     statelessly).  ``quant_downlink`` re-quantizes the broadcast onto a
     fresh grid carried in the payload; every party, the coordinator
-    included, returns the same dequantized tree.  ``secagg`` is not ported
-    yet (ROADMAP.md, Queue A item 8).
+    included, returns the same dequantized tree.
+
+    ``secagg``: this party's :class:`~rayfed_tpu_torch.fl.secagg.RoundMasker`
+    (requires ``quant``): each contribution ships as ``w·q + pairwise masks``
+    in i32 (plain sends: masked codes are fresh noise every round, nothing
+    for a delta stream to reuse), the coordinator folds at unit weight and
+    the masks cancel exactly.  The all-of-n path fails the round on any
+    loss, so no mask can be orphaned here.
     """
     from rayfed_tpu_torch.fed_object import FedObject
     from rayfed_tpu_torch.proxy import (
@@ -1214,7 +1278,6 @@ def streaming_aggregate(
 
     from rayfed_tpu_torch.fl import quantize as qz
 
-    _refuse_unported(secagg=secagg)
     runtime = get_runtime()
     objs = list(fed_objects)
     if not objs:
@@ -1229,12 +1292,29 @@ def streaming_aggregate(
             )
     if quant_downlink and quant is None:
         raise ValueError("quant_downlink requires quant= (the grid)")
+    if secagg is not None and quant is None:
+        raise ValueError(
+            "secagg= requires quant= — masks live in the shared-grid "
+            "integer domain (fl.secagg)"
+        )
+    if server_step is not None and secagg is not None:
+        raise ValueError(
+            "server_step does not compose with masked (secure_agg) "
+            "rounds yet — the recovery window has not been exercised "
+            "with a post-finalize step (loud exclusion, see "
+            "fl.server_opt)"
+        )
     if quant is not None and out_dtype is None:
         # Integer codes make no sense as an output dtype.
         out_dtype = torch.float32
     # The sender-side codec discipline (grid check, residual commit); a
     # no-op without a grid.
-    codec = qz.RoundCodec(quant, quant_ref, quant_scope)
+    if secagg is not None:
+        from rayfed_tpu_torch.fl.secagg import MaskedRoundCodec
+
+        codec = MaskedRoundCodec(quant, quant_ref, quant_scope, secagg)
+    else:
+        codec = qz.RoundCodec(quant, quant_ref, quant_scope)
     qref = codec.ref
 
     # Allocated identically on every controller — the determinism
@@ -1263,7 +1343,7 @@ def streaming_aggregate(
                 push_ref = send_on_runtime(
                     runtime, coord, local_ref,
                     obj.get_fed_task_id(), contrib_id,
-                    stream=f"{stream}/up/{me}/{own_seq}",
+                    stream=None if secagg is not None else f"{stream}/up/{me}/{own_seq}",
                     round_tag=round_tag,
                     quant_meta=codec.descriptor,
                 )
@@ -1301,6 +1381,7 @@ def streaming_aggregate(
         party=me,
         quant=quant,
         quant_ref=qref,
+        masked=secagg is not None,
         # The fold grid IS the quantization grid.
         chunk_elems=quant.chunk_elems if quant is not None else DEFAULT_CHUNK_ELEMS,
         device=runtime.transport.device,

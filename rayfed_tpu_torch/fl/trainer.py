@@ -18,9 +18,10 @@ aggregation under round *k+1*'s compute); ``quorum=`` to
 membership, coordinator failover).  A packed ``server_opt``
 (:mod:`rayfed_tpu_torch.fl.server_opt`) steps the aggregate where it
 finalizes and every controller resyncs its state replica from the
-broadcast.  Options of later items of the port raise
-``NotImplementedError`` naming their ROADMAP.md Queue A item:
-``secure_agg`` (8); ``checkpointer`` (9).
+broadcast.  ``secure_agg`` masks each round's quantized contributions
+(:mod:`rayfed_tpu_torch.fl.secagg`): the coordinator learns only the sum.
+An option of a later item of the port raises ``NotImplementedError`` naming
+its ROADMAP.md Queue A item: ``checkpointer`` (9).
 """
 
 from __future__ import annotations
@@ -106,12 +107,6 @@ def validate_round_config(
     from rayfed_tpu_torch.fl.server_opt import PackedServerOpt
 
     packed_opt = server_opt if isinstance(server_opt, PackedServerOpt) else None
-    if secure_agg:
-        if packed_opt is not None:
-            # The JAX package's exclusion, ahead of the refusal below.
-            _check_packed_opt(trainers, compress_wire, packed_wire, error_feedback,
-                              aggregator, secure_agg, sample)
-        raise _unported("secure_agg", 8)
     if checkpointer is not None:
         raise _unported("checkpointer", 9)
     legacy_opt = server_opt if packed_opt is None else None
@@ -180,6 +175,24 @@ def validate_round_config(
                 f"per-leaf tree arithmetic — use the packed "
                 f"fl.server_opt optimizers with wire_quant"
             )
+    if secure_agg:
+        if wire_quant is None:
+            raise ValueError(
+                "secure_agg requires wire_quant — pairwise masks live "
+                "in the shared-grid integer domain (fl.secagg); pass "
+                "e.g. wire_quant='uint8'"
+            )
+        if mode == "ring":
+            raise ValueError(
+                "secure_agg runs the streaming/quorum coordinator "
+                "topology — mode='ring' is a loud exclusion (stripe "
+                "owners would each see a maskable subset)"
+            )
+        if sample is not None and sample != len(trainers):
+            raise ValueError(
+                "secure_agg and sample are mutually exclusive: the "
+                "mask peer set is the round's full active roster"
+            )
     if streaming_agg and not (compress_wire and packed_wire):
         raise ValueError(
             "streaming_agg requires compress_wire=True and "
@@ -230,6 +243,14 @@ def validate_round_config(
                 "sampling churns the region partition every round, "
                 "re-striping every region ring — use "
                 "mode='coordinator' for sampled rounds"
+            )
+        if secure_agg:
+            raise ValueError(
+                "mode='hierarchy' and secure_agg are mutually "
+                "exclusive: pairwise masks only cancel over the FULL "
+                "party set, so a region's partial sum would be "
+                "un-finalizable ring noise — loud exclusion, never "
+                "silent garbage"
             )
         if aggregator is not None:
             raise ValueError(
@@ -373,6 +394,15 @@ def validate_round_config(
                 "region-cutoff/regroup protocol has no lane-callable "
                 "collective yet (loud exclusion, never a silent flat "
                 "fallback)"
+            )
+        if secure_agg:
+            raise ValueError(
+                "overlap=True is incompatible with secure_agg — "
+                "pairwise masks are keyed by a synchronous (session, "
+                "stream, round) tuple over the round's full roster; "
+                "the pipelined lane's in-flight round would need a "
+                "mask-recovery window that has never been exercised "
+                "under overlap (loud exclusion)"
             )
         incompat = {
             "server_opt": legacy_opt is not None,
@@ -542,6 +572,15 @@ def run_fedavg_rounds(
       ``fed.leave``) and the coordinator fails over.  ``join_ticket``: the
       welcome ``fed.join()`` returned; ``round_log``: a list receiving each
       round's roster, members and coordinator.
+    - ``secure_agg``: secure aggregation (:mod:`rayfed_tpu_torch.fl.secagg`):
+      each party's quantized contribution ships as ``w·q`` plus pairwise
+      masks derived from the transport's HELLO key agreement, so the
+      coordinator learns only the sum, and the finalized bytes equal the
+      unmasked round's.  Requires ``wire_quant`` (with ``streaming_agg`` or
+      ``quorum``, where a dropout triggers mask recovery); excludes
+      ``mode="ring"``/``"hierarchy"``, ``overlap``, ``sample`` and a packed
+      ``server_opt``.  The first round (no grid yet) runs unquantized and
+      unmasked.
     - ``timings``: a list receiving one ``{"local_s", "push_s", "agg_s",
       "hidden_s"}`` dict per round (seconds; materializes every round).
 
@@ -586,6 +625,7 @@ def run_fedavg_rounds(
             wire_quant=cfg["wire_quant"], region_size=region_size,
             region_branch=region_branch, region_quorum=region_quorum,
             region_deadline_s=region_deadline_s, server_opt=packed_opt,
+            secure_agg=secure_agg,
         )
 
     from rayfed_tpu_torch.fl.server_opt import PackedServerOptimizer
@@ -644,8 +684,24 @@ def run_fedavg_rounds(
     # Flight recorder: armed, every materialized round emits a driver
     # span carrying the round key the transport stamps on frames.
     trace_rounds = _telemetry.armed() and not pipeline
-    if timings is not None or trace_rounds:
+    if timings is not None or trace_rounds or secure_agg:
         me = get_runtime().party
+    if secure_agg:
+        _rt = get_runtime()
+        _transport = _rt.transport
+        sa_keys = getattr(_transport, "secagg_keys", None)
+        if sa_keys is None or not hasattr(_transport, "ensure_secagg_peer_keys"):
+            raise ValueError(
+                "secure_agg needs the transport key-agreement plane "
+                "(TransportManager.secagg_keys) — this transport has "
+                "none"
+            )
+        # One HELLO ping per missing pair, before the first masked round.
+        _transport.ensure_secagg_peer_keys(parties)
+        # A fresh mask-seed scope per run, drawn identically on every
+        # controller: a (session, stream, round) seed reused over other
+        # data would be a two-time pad.
+        sa_session = str(_rt.next_seq_id())
 
     for r in range(rounds):
         active = round_parties(r)
@@ -715,6 +771,22 @@ def run_fedavg_rounds(
             x_srv = round_ref if round_ref is not None else pack_tree(current, torch.float32).buf
             sopt.ensure(x_srv)
             step_fn = sopt.step_fn(x_srv)
+        # Secure aggregation: this party's round masker (pairwise seeds
+        # toward every active peer, at its own fold weight); the keystream
+        # expands on a background thread under the local step.  The first
+        # round (no grid) runs unmasked.
+        round_masker = None
+        if secure_agg and round_grid is not None and me in trainers:
+            from rayfed_tpu_torch.fl import secagg as _sa
+            from rayfed_tpu_torch.fl.fedavg import quant_weights
+
+            _iw, _ = quant_weights(None if weights is None else [float(w) for w in weights], len(active))
+            round_masker = _sa.RoundMasker(
+                sa_keys, me, [p for p in active if p != me],
+                session=sa_session, stream="fedavg", round_index=r,
+                weight=_iw[active.index(me)],
+            )
+            round_masker.prefetch(round_grid.total_elems)
         if mode == "hierarchy":
             from rayfed_tpu_torch.fl.streaming import streaming_aggregate
 
@@ -793,7 +865,8 @@ def run_fedavg_rounds(
                 updates, weights, stream="fedavg", coordinator=coord,
                 out_dtype=agg_out_dtype, timings=rec,
                 quant=round_grid, quant_ref=round_ref, quant_scope="fedavg",
-                quant_downlink=round_grid is not None, server_step=step_fn,
+                quant_downlink=round_grid is not None, secagg=round_masker,
+                server_step=step_fn,
             )
         else:
             t_a0 = time.perf_counter() if rec is not None else 0.0

@@ -25,6 +25,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from rayfed_tpu_torch.ops import xla_cpu
 from rayfed_tpu_torch.ops.attention import dot_product_attention
 from rayfed_tpu_torch.utils.platform import resolve_device
 
@@ -95,12 +96,32 @@ def init_bert(
     return params
 
 
-def _layer_norm(x, p, eps):
-    """LayerNorm in the activation dtype, population variance."""
+class _ForwardValue(torch.autograd.Function):
+    """``value`` forward, the gradient of ``out`` backward."""
+
+    @staticmethod
+    def forward(ctx, out, value):
+        return value
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def _layer_norm(x, p, eps, jitted=False):
+    """LayerNorm in the activation dtype, population variance.  On f32 CPU
+    tensors the value is XLA:CPU's program of the JAX package's norm, op by
+    op or inside one jitted program (``jitted``; ops/xla_cpu.py), and the
+    gradient PyTorch's."""
     mean = x.mean(dim=-1, keepdim=True)
     var = x.var(dim=-1, keepdim=True, unbiased=False)
     out = (x - mean) * torch.rsqrt(var + eps)
-    return out * p["scale"].to(x.dtype) + p["bias"].to(x.dtype)
+    scale, bias = p["scale"].to(x.dtype), p["bias"].to(x.dtype)
+    out = out * scale + bias
+    if x.device.type == "cpu" and x.dtype == torch.float32:
+        exact = xla_cpu.layer_norm(x.detach(), scale.detach(), bias.detach(), eps, jitted)
+        out = _ForwardValue.apply(out, exact)
+    return out
 
 
 def apply_encoder(
@@ -110,11 +131,14 @@ def apply_encoder(
     *,
     attention_mask: Optional[torch.Tensor] = None,
     attn_fn: Callable = dot_product_attention,
+    jitted: bool = False,
 ) -> torch.Tensor:
     """Encoder: [B, T] token ids → [B, T, D] contextual embeddings.
 
     ``attention_mask`` [B, T] (1 = attend) masks keys; ``flash_attention``
-    raises on it.
+    raises on it.  ``jitted``: the caller stands for a jitted program of the
+    JAX package (its split encoder step), whose CPU norms differ from its
+    op-by-op ones in the last bit (:func:`_layer_norm`).
     """
     b, t = input_ids.shape
     d, h = config.hidden_size, config.num_heads
@@ -123,7 +147,7 @@ def apply_encoder(
     # Gather, then cast: the rows the reference's cast-then-gather gives.
     x = emb["word"][input_ids].to(dtype)
     x = x + emb["position"][:t].to(dtype)[None]
-    x = _layer_norm(x, emb["ln"], config.layer_norm_eps)
+    x = _layer_norm(x, emb["ln"], config.layer_norm_eps, jitted)
 
     mask = None
     if attention_mask is not None:
@@ -139,12 +163,12 @@ def apply_encoder(
         q, k, v = proj(a["wq"], a["bq"]), proj(a["wk"], a["bk"]), proj(a["wv"], a["bv"])
         attn = attn_fn(q, k, v, mask=mask) if mask is not None else attn_fn(q, k, v)
         attn = attn.reshape(b, t, d) @ a["wo"].to(x.dtype) + a["bo"].to(x.dtype)
-        x = _layer_norm(x + attn, layer["ln1"], config.layer_norm_eps)
+        x = _layer_norm(x + attn, layer["ln1"], config.layer_norm_eps, jitted)
 
         m = layer["mlp"]
         y = F.gelu(x @ m["wi"].to(x.dtype) + m["bi"].to(x.dtype), approximate="tanh")
         y = y @ m["wo"].to(x.dtype) + m["bo"].to(x.dtype)
-        x = _layer_norm(x + y, layer["ln2"], config.layer_norm_eps)
+        x = _layer_norm(x + y, layer["ln2"], config.layer_norm_eps, jitted)
     return x
 
 

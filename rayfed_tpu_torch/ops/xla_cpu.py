@@ -62,6 +62,7 @@ with the fold kernel it is the plain version of (``ops/fold.py``).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from rayfed_tpu_torch.ops.fold import fma
@@ -106,6 +107,59 @@ def sum_sq(xf: torch.Tensor, jitted: bool) -> torch.Tensor:
     return _tree_sum(xf * xf)
 
 
+def _seq_sum(a: np.ndarray) -> np.ndarray:
+    """The sum over the last axis in index order from 0.0, in f32 (numpy's
+    ``add.accumulate`` is sequential in the array's dtype)."""
+    if a.shape[-1] == 0:
+        return np.zeros(a.shape[:-1], np.float32)
+    return np.add.accumulate(a, axis=-1, dtype=np.float32)[..., -1]
+
+
+def _window_sum_all(a: np.ndarray) -> np.ndarray:
+    """A whole-array f32 sum as XLA:CPU's tree reduction rewriter lays it
+    out: while any dimension exceeds ``REDUCE_WINDOW``, every dimension
+    longer than that is zero-padded to a multiple of it (half the padding,
+    rounded down, before) and cut into windows of it, a shorter one is one
+    window of its whole length; each window adds in row-major order from
+    0.0.  The small remainder reduces one axis at a time, the last first,
+    each in index order from 0.0."""
+    while any(d > REDUCE_WINDOW for d in a.shape):
+        pads, split = [], []
+        for d in a.shape:
+            if d > REDUCE_WINDOW:
+                n = -(-d // REDUCE_WINDOW)
+                lo = (n * REDUCE_WINDOW - d) // 2
+                pads.append((lo, n * REDUCE_WINDOW - d - lo))
+                split += [n, REDUCE_WINDOW]
+            else:
+                pads.append((0, 0))
+                split += [1, d]
+        a = np.pad(a, pads).reshape(split)
+        rank = len(split) // 2
+        a = a.transpose([2 * i for i in range(rank)] + [2 * i + 1 for i in range(rank)])
+        outer = a.shape[:rank]
+        a = _seq_sum(a.reshape(*outer, -1))
+    while a.ndim:
+        a = _seq_sum(a)
+    return a
+
+
+def leaf_sum_sq(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.sum(x ** 2)`` over every axis of a CPU f32 tensor, as XLA:CPU
+    compiles it inside a jitted program: a leaf with a dimension longer
+    than ``REDUCE_WINDOW`` squares, then sums as :func:`_window_sum_all`
+    lays it out; a smaller one fuses its squares into the sum, an FMA
+    chain ``fma(x, x, acc)`` in row-major order (a 0-d f32 tensor)."""
+    a = x.detach().reshape(x.shape).numpy().astype(np.float32, copy=False)
+    if any(d > REDUCE_WINDOW for d in a.shape):
+        return torch.from_numpy(np.asarray(_window_sum_all(a * a), np.float32).reshape(()))
+    flat = torch.from_numpy(np.ascontiguousarray(a).reshape(-1, 1))
+    acc = torch.zeros(1, 1, dtype=torch.float32)
+    for i in range(flat.shape[0]):
+        acc = fma(flat[i : i + 1], flat[i : i + 1], acc)
+    return acc.reshape(())
+
+
 def rms_rsqrt(xf: torch.Tensor, eps: float, jitted: bool = False) -> torch.Tensor:
     """``rsqrt(mean(xf²) + eps)`` [..., 1] of a CPU f32 tensor, as XLA:CPU
     compiles the JAX package's RMSNorm inside a jitted program
@@ -117,6 +171,36 @@ def rms_rsqrt(xf: torch.Tensor, eps: float, jitted: bool = False) -> torch.Tenso
     else:
         mean_eps = total * inv_d + eps
     return rsqrt(mean_eps)[..., None]
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float,
+               jitted: bool = False) -> torch.Tensor:
+    """``(x − mean)·rsqrt(var + eps)·scale + bias`` over the last axis of a
+    CPU f32 tensor, as XLA:CPU compiles the JAX package's LayerNorm
+    (``jnp.mean``, ``jnp.var``) inside a jitted program (``jitted``) or op
+    by op.  Both sum rows in the tree order (``_tree_sum``) and take the
+    mean as ``sum·f32(1/D)``; the variance sums the squares of ``x −
+    mean`` (a separate loop: no FMA).  Op by op the variance divides its
+    sum by ``D`` and every later op rounds alone; inside a jitted program
+    the division is ``·f32(1/D)`` contracted with ``+ eps`` into one FMA,
+    and the affine tail ``t·scale + bias`` into another."""
+    d = x.shape[-1]
+    inv_d = torch.full((), 1.0 / d, dtype=torch.float32)
+    mean = (_tree_sum(x) * inv_d)[..., None]
+    c = x - mean
+    # ``jnp.var`` is one program even op by op: a short row fuses its
+    # squares into the sum as ``sum_sq`` does inside a jitted program.
+    s = sum_sq(c, True)
+    if jitted:
+        mean_eps = fma(s, inv_d.expand(s.shape).contiguous(), torch.full_like(s, eps))
+    else:
+        mean_eps = s / d + eps
+    t = c * rsqrt(mean_eps)[..., None]
+    if not jitted:
+        return t * scale + bias
+    lead = t.reshape(-1, d)
+    out = fma(scale.expand(lead.shape).contiguous(), lead, bias.expand(lead.shape).contiguous())
+    return out.reshape(x.shape)
 
 
 def rsqrt(x: torch.Tensor) -> torch.Tensor:

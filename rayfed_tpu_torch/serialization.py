@@ -31,7 +31,8 @@ its integer-coded form (``fl.quantize``'s ``QuantizedPackedTree`` and its
 sum (``fl.hierarchy``'s ``RegionSumTree``) under
 :data:`HIERARCHY_WIRE_MODULE`, and the server optimizer's replicated state
 (``fl.server_opt``'s ``PackedServerState``) under
-:data:`SERVER_OPT_WIRE_MODULE`.  A
+:data:`SERVER_OPT_WIRE_MODULE`, and a secure round's masked codes
+(``fl.secagg``'s ``MaskedCodeTree``) under :data:`SECAGG_WIRE_MODULE`.  A
 spec carries the tree's structure, which the JAX package pickles as a
 jaxlib ``PyTreeDef``: a NEWOBJ of that class, then a BUILD with
 ``(jax._src.tree_util.default_registry, [nodes in post-order])``.  The
@@ -68,6 +69,9 @@ _PORT_HIERARCHY_MODULE = "rayfed_tpu_torch.fl.hierarchy"
 SERVER_OPT_WIRE_MODULE = "rayfed_tpu.fl.server_opt"
 _SERVER_OPT_NAMES = ("PackedServerState",)
 _PORT_SERVER_OPT_MODULE = "rayfed_tpu_torch.fl.server_opt"
+SECAGG_WIRE_MODULE = "rayfed_tpu.fl.secagg"
+_SECAGG_NAMES = ("MaskedCodeTree",)
+_PORT_SECAGG_MODULE = "rayfed_tpu_torch.fl.secagg"
 # The globals of a pickled jaxlib PyTreeDef.
 _TREEDEF_WIRE = ("jaxlib._jax.pytree", "PyTreeDef")
 _REGISTRY_WIRE = ("jax._src.tree_util", "default_registry")
@@ -108,6 +112,10 @@ def _wire_global(module: str, name: str) -> Any:
         from rayfed_tpu_torch.fl import server_opt
 
         return getattr(server_opt, name)
+    if module == SECAGG_WIRE_MODULE and name in _SECAGG_NAMES:
+        from rayfed_tpu_torch.fl import secagg
+
+        return getattr(secagg, name)
     if name == _TREEDEF_WIRE[1] and (
         module == "jaxlib" or module.startswith(("jaxlib.", "jax."))
     ):
@@ -135,6 +143,8 @@ def _wire_name_of(obj: Any) -> Optional[tuple]:
         return HIERARCHY_WIRE_MODULE, qualname
     if module == _PORT_SERVER_OPT_MODULE and qualname in _SERVER_OPT_NAMES:
         return SERVER_OPT_WIRE_MODULE, qualname
+    if module == _PORT_SECAGG_MODULE and qualname in _SECAGG_NAMES:
+        return SECAGG_WIRE_MODULE, qualname
     return None
 
 

@@ -253,9 +253,8 @@ def test_presummed_aggregator_validation():
         StreamingAggregator(2, presummed="int16", device=CPU)
     with pytest.raises(ValueError, match="integer wire dtype"):
         StreamingAggregator(2, chunk_elems=CE, quant=grid, quant_ref=ref, presummed="float32", device=CPU)
-    # Secure aggregation is a later item of the port (the reference says
-    # "mutually exclusive" for masked + presummed).
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # The reference's verdict: a partial sum is already an unmaskable fold.
+    with pytest.raises(ValueError, match="presummed and masked are mutually exclusive"):
         StreamingAggregator(2, chunk_elems=CE, quant=grid, quant_ref=ref, masked=True,
                             presummed="int32", device=CPU)
     qts = [qz.quantize_packed(p, grid, ref=ref) for p in tp]
@@ -691,8 +690,8 @@ def test_run_fedavg_rounds_hierarchy_validation():
     with pytest.raises(ValueError, match="streaming_agg are mutually"):
         run_fedavg_rounds(trainers, {}, rounds=1, mode="hierarchy", region_size=1, wire_quant="uint8",
                           streaming_agg=True, **base)
-    # secure_agg is a later item of the port: it raises before the clash.
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # The JAX package's exclusion: masks cancel only over the full party set.
+    with pytest.raises(ValueError, match="mode='hierarchy' and secure_agg are mutually"):
         run_fedavg_rounds(trainers, {}, rounds=1, mode="hierarchy", region_size=1, wire_quant="uint8",
                           secure_agg=True, **base)
     with pytest.raises(ValueError, match="region_size only applies"):

@@ -75,8 +75,8 @@ def test_bert_split_and_hf_import_no_jax_and_hf_no_transformers():
     assert not re.search(r"^\s*(import|from)\s+(transformers|numpy)\b", text, re.M)
 
 
-# The wire names of the skeleton, packed, quantized, hierarchy and server-opt
-# state classes: the only lines of the port that may name the reference
+# The wire names of the skeleton, packed, quantized, hierarchy, server-opt
+# state and masked-code classes: the only lines of the port that may name the reference
 # package (rayfed_tpu_torch/serialization.py).
 # The jaxlib/jax names a pickled tree structure carries ("jaxlib._jax.pytree",
 # "jax._src.tree_util") are string constants there too, never imports.
@@ -87,6 +87,7 @@ WIRE_NAME_LINES = [
     'QUANT_WIRE_MODULE = "rayfed_tpu.fl.quantize"',
     'HIERARCHY_WIRE_MODULE = "rayfed_tpu.fl.hierarchy"',
     'SERVER_OPT_WIRE_MODULE = "rayfed_tpu.fl.server_opt"',
+    'SECAGG_WIRE_MODULE = "rayfed_tpu.fl.secagg"',
 ]
 
 
@@ -128,6 +129,11 @@ def test_wire_name_is_the_reference_module():
     module, names = serialization.SERVER_OPT_WIRE_MODULE, serialization._SERVER_OPT_NAMES
     assert module.replace("rayfed_tpu", "rayfed_tpu_torch", 1) == server_opt.__name__
     assert {server_opt.PackedServerState.__qualname__} == set(names)
+    from rayfed_tpu_torch.fl import secagg
+
+    module, names = serialization.SECAGG_WIRE_MODULE, serialization._SECAGG_NAMES
+    assert module.replace("rayfed_tpu", "rayfed_tpu_torch", 1) == secagg.__name__
+    assert {secagg.MaskedCodeTree.__qualname__} == set(names)
     text = WIRE_NAME_FILE.read_text()
     assert '"jaxlib._jax.pytree"' in text and '"jax._src.tree_util"' in text
 

@@ -5,7 +5,7 @@ arrival orders, must give the bytes of the port's one-shot
 ``packed_weighted_sum`` and of the JAX package's (tolerance: byte
 identity).  Also: the local contribution, a frame abort with a clean retry,
 a corrupt frame, passthrough leaves, a layout mismatch, the timeout, the
-unported options, and PackedTrees on delta streams between a JAX-package
+masked option's verdict, and PackedTrees on delta streams between a JAX-package
 manager and a port manager in one process.
 """
 
@@ -249,8 +249,14 @@ def test_result_timeout_names_the_missing_source():
 
 @pytest.mark.parametrize("option,item", [({"masked": True}, "item 8")])
 def test_unported_options_name_their_item(option, item):
-    with pytest.raises(NotImplementedError, match=item):
+    """Item 8 is ported: ``masked=`` without a grid gets the JAX package's
+    ``ValueError``."""
+    with pytest.raises(ValueError) as ours:
         StreamingAggregator(2, device=CPU, **option)
+    with pytest.raises(ValueError) as theirs:
+        jss.StreamingAggregator(2, **option)
+    assert str(ours.value) == str(theirs.value)
+    assert "masked aggregation requires quant=" in str(ours.value)
 
 
 @pytest.mark.parametrize("presummed", ["int16", "int32"])

@@ -21,6 +21,19 @@ D = 64 and the wider 128 and 256).
   by op, ``powf(θ, −e)`` folded inside a jitted program); the port's CPU
   tables equal the eager and the jitted reference's byte for byte at every
   probed length.
+- BERT's ``_layer_norm``: both programs sum rows in the tree order and
+  take the mean as ``sum·f32(1/D)``; op by op the variance divides its sum
+  by D, inside a jitted program it is ``fma(sum, f32(1/D), eps)`` and the
+  affine tail ``fma(scale, t, bias)``; a row of at most 32 sums the
+  variance's squares as an FMA chain (``jnp.var`` is one program).  The
+  port's CPU norm equals the eager and the jitted reference's byte for byte
+  at every width of ``LN_WIDTHS``.
+- ``fl.dp.global_norm``'s per-leaf sum of squares
+  (``xla_cpu.leaf_sum_sq``): every dimension longer than 32 is cut into
+  zero-padded windows of 32, a shorter one is one window, each window adds
+  in row-major order and the remainder one axis at a time; a leaf with no
+  long dimension is an FMA chain.  ``_probe_open`` counts the windows whose
+  inner extent is narrow, where XLA's loop differs (ROADMAP.md Queue C).
 - The gradient through the norm is torch.rsqrt's (the exact forward value
   rides on it), held against ``jax.grad`` at the model tests' 1e-5.
 - ``_probe`` checks each of ``xla_cpu``'s assumptions against the installed
@@ -178,6 +191,52 @@ def test_rope_tables_bytes_equal_the_reference(t, half):
             assert g.numpy().tobytes() == np.asarray(w).tobytes(), folded
 
 
+LN_WIDTHS = [64, 128, 384, 768, 1024, 4096]
+
+
+def _reference_layer_norm(x, scale, bias, jitted):
+    from rayfed_tpu.models import bert as jax_bert
+
+    args = (jnp.asarray(x), {"scale": jnp.asarray(scale), "bias": jnp.asarray(bias)}, 1e-12)
+    if jitted:
+        return np.asarray(jax.jit(jax_bert._layer_norm, static_argnums=2)(*args))
+    return np.asarray(jax_bert._layer_norm(*args))
+
+
+def _ln_inputs(width):
+    rng = np.random.default_rng(width)
+    x = (rng.standard_normal((64, width)) * 3).astype(np.float32)
+    return x, rng.standard_normal(width).astype(np.float32), rng.standard_normal(width).astype(np.float32)
+
+
+@pytest.mark.parametrize("jitted", [False, True], ids=["eager", "jitted"])
+@pytest.mark.parametrize("width", LN_WIDTHS)
+def test_layer_norm_bytes_equal_the_reference(width, jitted):
+    """64 seeded rows (normals × 3, seeded scale and bias, eps 1e-12): BERT's
+    norm equals the reference's op by op and inside one jitted program (its
+    split encoder step), byte for byte."""
+    from rayfed_tpu_torch.models import bert
+
+    x, scale, bias = _ln_inputs(width)
+    p = {"scale": torch.from_numpy(scale), "bias": torch.from_numpy(bias)}
+    got = bert._layer_norm(torch.from_numpy(x), p, 1e-12, jitted=jitted).numpy()
+    assert got.tobytes() == _reference_layer_norm(x, scale, bias, jitted).tobytes()
+
+
+def test_layer_norm_gradient_is_torchs():
+    from rayfed_tpu_torch.models import bert
+
+    x, scale, bias = _ln_inputs(64)
+    tx = torch.from_numpy(x).requires_grad_()
+    p = {"scale": torch.from_numpy(scale), "bias": torch.from_numpy(bias)}
+    (bert._layer_norm(tx, p, 1e-12, jitted=True) ** 2).sum().backward()
+    ux = torch.from_numpy(x).requires_grad_()
+    mean = ux.mean(-1, keepdim=True)
+    ref = (ux - mean) * torch.rsqrt(ux.var(-1, keepdim=True, unbiased=False) + 1e-12)
+    ((ref * p["scale"] + p["bias"]) ** 2).sum().backward()
+    np.testing.assert_allclose(tx.grad.numpy(), ux.grad.numpy(), rtol=1e-5, atol=1e-5)
+
+
 def _probe(size=200_000):
     """Elements, per assumption of ``xla_cpu``, where the installed jaxlib's
     program and the port's form differ (0 everywhere while each holds), and
@@ -201,6 +260,23 @@ def _probe(size=200_000):
             got = llama._rms_norm(torch.from_numpy(xs), torch.from_numpy(ones), 1e-5, jitted=jitted).numpy()
             bad += int(np.sum(got.view(np.uint32) != _reference_norm(xs, ones, jitted).view(np.uint32)))
     out["rms_norm widths 2-64 and wider (eager, jitted)"] = bad
+    bad = 0
+    for width in [2, 4, 16, 32, 33, 100, 1000] + LN_WIDTHS:
+        x, scale, bias = _ln_inputs(width)
+        for jitted in (False, True):
+            got = xla_cpu.layer_norm(torch.from_numpy(x), torch.from_numpy(scale), torch.from_numpy(bias),
+                                     1e-12, jitted).numpy()
+            want = _reference_layer_norm(x, scale, bias, jitted)
+            bad += int(np.sum(got.view(np.uint32) != want.view(np.uint32)))
+    out["layer_norm (eager, jitted)"] = bad
+    f = jax.jit(lambda x: jnp.sum(x.astype(jnp.float32) ** 2))
+    bad = 0
+    for i, shape in enumerate([(3, 3, 64, 64), (3, 1000), (40, 3), (7, 9), (100,), (33,), (57,), (64, 48),
+                               (512, 10), (2, 33, 40), (65543,), (9, 32), (16, 16), (1,), (64, 9), (64, 32)]):
+        x = _rows(i, shape)
+        want = np.asarray(f(jnp.asarray(x)))
+        bad += int(xla_cpu.leaf_sum_sq(torch.from_numpy(x)).numpy().view(np.uint32) != want.view(np.uint32))
+    out["leaf_sum_sq (window layout, FMA chain)"] = bad
     x = np.random.default_rng(0).lognormal(0.0, 6.0, size).astype(np.float32)
     want = np.asarray(jax.jit(jax.lax.rsqrt)(jnp.asarray(x)))
     out["rsqrt"] = int(np.sum(xla_cpu.rsqrt(torch.from_numpy(x)).numpy().view(np.uint32) != want.view(np.uint32)))
@@ -234,6 +310,50 @@ def _probe(size=200_000):
     return out
 
 
+def _probe_open(seeds=6):
+    """Elements where a form of ``xla_cpu`` is known to differ from the
+    installed jaxlib's program (ROADMAP.md Queue C): the layer norm at
+    widths 5 to 8, a leaf's sum of squares whose reduce window has a narrow
+    inner extent, (64, b) for b from 2 to 8 and (64, 3, 1), and
+    ``fl.dp.global_norm`` over random trees."""
+    from rayfed_tpu_torch.models import bert
+    from rayfed_tpu_torch.ops import xla_cpu
+
+    out = {}
+    bad = 0
+    for width in range(5, 9):
+        x, scale, bias = _ln_inputs(width)
+        p = {"scale": torch.from_numpy(scale), "bias": torch.from_numpy(bias)}
+        for jitted in (False, True):
+            got = bert._layer_norm(torch.from_numpy(x), p, 1e-12, jitted=jitted).numpy()
+            bad += int(np.sum(got.view(np.uint32) != _reference_layer_norm(x, scale, bias, jitted).view(np.uint32)))
+    out["layer_norm widths 5-8 (eager, jitted; of 3328 elements)"] = bad
+    f = jax.jit(lambda x: jnp.sum(x.astype(jnp.float32) ** 2))
+    bad = total = 0
+    for shape in [(64, b) for b in range(2, 9)] + [(64, 3, 1)]:
+        for seed in range(seeds):
+            rng = np.random.default_rng(seed)
+            x = (rng.standard_normal(shape) * rng.uniform(0.01, 3)).astype(np.float32)
+            want = np.asarray(f(jnp.asarray(x)))
+            bad += int(xla_cpu.leaf_sum_sq(torch.from_numpy(x)).numpy().view(np.uint32) != want.view(np.uint32))
+            total += 1
+    out[f"leaf_sum_sq narrow windows (of {total} sums)"] = bad
+    from rayfed_tpu.fl import dp as jax_dp
+    from rayfed_tpu_torch.fl import dp
+
+    bad = 0
+    for seed in range(300):
+        rng = np.random.default_rng(seed)
+        shapes = [tuple(int(d) for d in rng.integers(1, 70, rng.integers(0, 4))) for _ in range(rng.integers(1, 6))]
+        tree = {f"l{i}": (rng.standard_normal(s) * rng.uniform(0.01, 3)).astype(np.float32)
+                for i, s in enumerate(shapes)}
+        want = np.asarray(jax_dp.global_norm(tree))
+        got = dp.global_norm({k: torch.from_numpy(np.asarray(v)) for k, v in tree.items()}).numpy()
+        bad += int(got.view(np.uint32) != want.view(np.uint32))
+    out["global_norm of random trees, ranks 0-3, dims 1-69 (of 300)"] = bad
+    return out
+
+
 def test_xla_cpu_assumptions_hold_on_this_jaxlib():
     probe = _probe(size=50_000)
     assert not any(probe.values()), f"assumptions of ops/xla_cpu.py that fail: {probe}"
@@ -242,3 +362,6 @@ def test_xla_cpu_assumptions_hold_on_this_jaxlib():
 if __name__ == "__main__":
     for name, count in _probe().items():
         print(f"{name}: {count}")
+    print("known open (ROADMAP.md Queue C):")
+    for name, count in _probe_open().items():
+        print(f"  {name}: {count}")
