@@ -198,7 +198,26 @@ Phases, each fatal on failure:
      tree_trimmed_mean(trim=1), krum(num_byzantine=1) and
      clip_by_global_norm over four ResNet-18 contributions (one x100) on
      the card: the reducers equal the CPU's by SHA-256, the clip within
-     1e-5 relative; their device ms;
+     1e-5 relative; their device ms beside their byte bounds;
+  16. (after 15) phase_checkpoint: per-party snapshots (``FedCheckpointer``)
+     and resume.  (a) In the round session (5), last: two uninterrupted
+     runs of 4 Llama-3-8B LoRA rounds under FedAC (``streaming_agg``, one
+     step per round from the broadcast with a fresh Adam state, a snapshot
+     every round), which must agree at every snapshot; then two fresh party
+     processes whose checkpointers hold the first run's snapshots to round
+     2 resume it: the restored state equals the saved one byte for byte,
+     the steps launch 64/32/32, and the final adapters and FedAC state
+     equal the uninterrupted run's by SHA-256 at both parties.  (b) Four
+     ResNet-18 party processes (BASELINE #3, ``quorum=2``) run 4 rounds
+     with a snapshot every round, then the same run crashes at round 2 at
+     every party (the chaos harness), and four fresh processes resume it
+     from the snapshots with the flight recorder armed: the final params
+     equal the uninterrupted run's at every party, the member log spans the
+     restart, and alice's ``fed.trace_collect`` carries spans from all four
+     parties and the ``ckpt.save``/``ckpt.restore`` spans, exports to
+     Perfetto, and ``tool/trace_report.round_report`` agrees with every
+     round's driver span within 0.25.  Prints the save ms and bytes, the
+     restore ms from the content cache and from disk, the snapshot's size;
   7. time each kernel (mean over one window of calls) against its plain
      version, the library call that computes the same function, and the
      card's bound (the forward at the serving shape B=4 and at the training
@@ -222,6 +241,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from concurrent.futures import ThreadPoolExecutor
@@ -230,6 +250,7 @@ import torch
 import torch.nn.functional as F
 
 from rayfed_tpu_torch import fl
+from rayfed_tpu_torch.checkpoint import FedCheckpointer
 from rayfed_tpu_torch.fl import fedavg, streaming
 from rayfed_tpu_torch.models import bert, hf, llama, lora
 from rayfed_tpu_torch.models.logistic import softmax_cross_entropy, value_and_grad
@@ -1616,7 +1637,7 @@ class _StateDigests:
         self.cls.resync = self.resync
 
 
-def _round_session(fed, party, cache, cfg_name, cfg_kw, train_len, device):
+def _round_session(fed, party, cache, cfg_name, cfg_kw, train_len, device, ckpt_root):
     """The packed FedAvg rounds: both parties train, alice folds on her
     card; then the ring and the pipelined rounds."""
     from rayfed_tpu_torch.fl.ring import RING_STATS
@@ -1668,6 +1689,7 @@ def _round_session(fed, party, cache, cfg_name, cfg_kw, train_len, device):
                                             "delta_logical_bytes", "delta_wire_bytes")},
         }
     out.update(_secagg_round_parts(fed, party, trainers, adapters, device))
+    out.update(_ckpt_round_parts(fed, party, cache, cfg_name, cfg_kw, train_len, device, adapters, ckpt_root))
     return out
 
 
@@ -1767,7 +1789,7 @@ def _fed_session(fed, party, cache, cfg_name, cfg_kw, train_len, device):
     }
 
 
-def _fed_party(party, ports, cfg_name, cfg_kw, train_len, device, out):
+def _fed_party(party, ports, cfg_name, cfg_kw, train_len, device, ckpt_root, out):
     """A party process of the federated phase; both parties run this same
     driver, one fed session per link mode.  Puts its report on ``out``."""
     import rayfed_tpu_torch as fed
@@ -1807,7 +1829,7 @@ def _fed_party(party, ports, cfg_name, cfg_kw, train_len, device, out):
         cluster = {p: {"address": f"127.0.0.1:{port}", "transport_options": {"local_link": "auto"}}
                    for p, port in zip(FED_PARTIES, ports["round"])}
         fed.init(address="local", cluster=cluster, party=party, device=device, **FED_INIT)
-        report.update(_round_session(fed, party, cache, cfg_name, cfg_kw, train_len, dev))
+        report.update(_round_session(fed, party, cache, cfg_name, cfg_kw, train_len, dev, ckpt_root))
         fed.shutdown()
         out.put(report)
     except BaseException:
@@ -1815,11 +1837,13 @@ def _fed_party(party, ports, cfg_name, cfg_kw, train_len, device, out):
         raise
 
 
-def _run_parties(cfg_name, cfg_kw, train_len, device):
+def _run_parties(cfg_name, cfg_kw, train_len, device, ckpt_root=None):
     """The federated phase's parties: one fed session per link mode, then
-    the round session."""
+    the round session (its checkpointed runs write under ``ckpt_root``, a
+    temporary directory when None)."""
     ports = {link: _free_ports(len(FED_PARTIES)) for link in (*FED_LINKS, "round")}
-    return _spawn_parties(_fed_party, (ports, cfg_name, cfg_kw, train_len, device), FED_TIMEOUT_S)
+    ckpt_root = ckpt_root or tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    return _spawn_parties(_fed_party, (ports, cfg_name, cfg_kw, train_len, device, ckpt_root), FED_TIMEOUT_S)
 
 
 def _spawn_parties(target, args, timeout_s, parties=FED_PARTIES, exit_codes=None):
@@ -1876,13 +1900,13 @@ def _spawn_parties(target, args, timeout_s, parties=FED_PARTIES, exit_codes=None
     return reports
 
 
-def phase_federated():
+def phase_federated(ckpt_root):
     """The federated path: alice's actor trains and bob receives the
     adapters and the stacked wq on his card, over TCP and the local link."""
     cfg = llama.llama3_8b(param_dtype=torch.bfloat16, remat=True)
     torch.cuda.empty_cache()  # the parties' card state is their own
     t0 = time.perf_counter()
-    reports = _run_parties("llama3_8b", dict(param_dtype=torch.bfloat16, remat=True), TRAIN_LEN, None)
+    reports = _run_parties("llama3_8b", dict(param_dtype=torch.bfloat16, remat=True), TRAIN_LEN, None, ckpt_root)
     wall = time.perf_counter() - t0
     want = {"fwd": 2 * cfg.num_layers, "bwd_dq": cfg.num_layers, "bwd_dkv": cfg.num_layers}
     return _federated_summary(reports, want, wall)
@@ -1934,6 +1958,7 @@ def _federated_summary(reports, want, wall):
     out["round_overlap_server_opt"] = _server_opt_round_summary(alice, bob, want, "round_overlap_server_opt",
                                                                 "round_overlap")
     out["round_secagg"] = _secagg_round_summary(alice, bob, want)
+    out["checkpoint"] = {tag: {"alice": alice[tag], "bob": bob[tag]} for tag in CKPT_RUNS}
     sync = {k: alice[k]["wall_s"] / alice[k]["rounds"] for k in ("round", "round_quant", "round_ring")}
     pipelined = {k: alice[k]["wall_s"] / alice[k]["rounds"]
                  for k in ("round_overlap", "round_overlap_quant", "round_overlap_ring")}
@@ -2492,12 +2517,8 @@ def _topo_party(party, ports, device, out):
     ring parts in one runtime, then the quorum part under the chaos
     schedule in a second one.  A party the schedule crashes reports and
     exits with CRASH_EXIT."""
-    # Deterministic convolutions and GEMMs: the hub and the ring parts must
-    # train the same bytes from the same inputs.
-    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-    torch.backends.cudnn.benchmark = False
-    torch.backends.cudnn.deterministic = True
-    torch.use_deterministic_algorithms(True, warn_only=True)
+    # The hub and the ring parts must train the same bytes from the same inputs.
+    _deterministic()
     import rayfed_tpu_torch as fed
     from rayfed_tpu_torch import chaos
     from rayfed_tpu_torch.fl import quorum as fq
@@ -3535,11 +3556,19 @@ def _robust_on_card(card, dev):
     if norm_rel > DP_RTOL or clip_rel > DP_RTOL:
         raise AssertionError(f"[dp] clip on the card vs the CPU: norm rel {norm_rel:.2e}, leaves rel {clip_rel:.2e}")
     out["clip_by_global_norm"] = _sync_ms(lambda: dp.clip_by_global_norm(card_trees[3], DP_CLIP), 3, warmup=1)
+    # Bounds: f32 inputs read once and outputs written once (the median and
+    # the trimmed mean read four trees and write one, krum reads four and
+    # hands back one of them, the clip reads one tree and writes it scaled).
+    bounds = {name: _bound(0, n * 4 * trees, card)[0] for name, trees in
+              (("tree_median", 5), ("tree_trimmed_mean", 5), ("krum", 4), ("clip_by_global_norm", 2))}
     print(f"[robust] four ResNet-18 contributions ({n} elements each, one x100) on the card == CPU by SHA-256: "
           f"tree_median {out['tree_median']:.3f} ms, tree_trimmed_mean(trim=1) {out['tree_trimmed_mean']:.3f} ms, "
           f"krum(num_byzantine=1) {out['krum']:.3f} ms (picked contribution {picked})")
     print(f"[dp] clip_by_global_norm on the card {out['clip_by_global_norm']:.3f} ms; norm {float(gpu_norm):.6e} "
           f"(rel {norm_rel:.2e} from the CPU's), clipped leaves within rel {clip_rel:.2e} (tolerance {DP_RTOL})")
+    print(f"[robust] bounds (bytes, each f32 input read and output written once): "
+          f"{json.dumps({k: round(v, 4) for k, v in bounds.items()})} ms")
+    out["bound_ms"] = bounds
     return out
 
 
@@ -3560,6 +3589,377 @@ def phase_secagg(card, suite, topo, federated):
     print(f"[secagg] BASELINE #3 masked/plain round walls {q['ratio']:.3f}; Llama-3-8B LoRA masking overhead "
           f"{r['overhead_frac']:.4f} of a round, mask_gen_ms {r['mask_gen_ms']:.2f}")
     return {"steps": steps, "robust_ms": robust_ms, "quorum": q, "llama": r}
+
+
+# phase_checkpoint: per-party snapshots and resume.  (a) The Llama-3-8B LoRA
+# round under FedAC, the streaming hub: in the round session (5) two
+# uninterrupted runs of CKPT_ROUNDS rounds, a snapshot every round, which
+# must agree on the card; then fresh party processes whose checkpointers hold
+# the first run's snapshots up to round CKPT_RESUME resume it and run the
+# rest.  (b) BASELINE #3 quorum rounds: four party processes run
+# uninterrupted, then the whole cluster crashes at a round boundary (the
+# chaos harness), and fresh processes resume from the snapshots with the
+# flight recorder armed.
+CKPT_ROUNDS, CKPT_RESUME = 4, 2
+CKPT_RUNS = ("ckpt_a", "ckpt_a2")
+CKPT_ROUND_KW = {"streaming_agg": True, "server_opt": fl.fedac(1.0, 3.0, 0.5)}
+CKPT_TIMEOUT_S = 300  # hard limit on each spawn of phase_checkpoint's party processes
+CKPT_Q_CHAOS = {"seed": 19, "rules": [{"hook": "round", "match": {"round": CKPT_RESUME}, "op": "crash_party"}]}
+CKPT_Q_KW = dict(compress_wire=True, packed_wire=True, quorum=QUORUM_K, round_deadline_s=30.0,
+                 coordinator="alice", checkpoint_every=1)
+CKPT_TRACE_TOL = 0.25  # trace_report's round wall against the driver's (bench.py's trace_critical_path_agrees)
+
+
+class _CkptTrainer(_RoundTrainer):
+    """A party's trainer of the checkpointed rounds: one LoRA step per round
+    from the broadcast adapters with a fresh Adam state, so a restarted
+    party trains what an uninterrupted one does (the snapshot holds the
+    server's state, not the trainer's)."""
+
+    def train(self, wire_adapters):
+        self.opt = None
+        return super().train(wire_adapters)
+
+
+class _RecordingCheckpointer(FedCheckpointer):
+    """A FedCheckpointer that records each snapshot's SHA-256 (params and
+    server state), save ms, content-cache bytes and size on disk, and each
+    restore's SHA-256, ms and source (the content cache or the disk)."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.saves, self.restores, self._source = {}, [], None
+
+    def save(self, round_num, state, *, metadata=None):
+        t0 = time.perf_counter()
+        super().save(round_num, state, metadata=metadata)
+        ms = (time.perf_counter() - t0) * 1e3
+        path = self._round_dir(round_num)
+        self.saves[round_num] = {
+            "digest": _leaf_digest(state), "ms": ms, "blob_n": self.load_metadata(round_num).get("blob_n", 0),
+            "disk_bytes": sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)),
+        }
+
+    def _restore_from_blob(self, round_num, target, dev):
+        got = super()._restore_from_blob(round_num, target, dev)
+        self._source = "disk" if got is None else "blob"
+        return got
+
+    def restore(self, round_num=None, *, target=None):
+        t0 = time.perf_counter()
+        got_round, state = super().restore(round_num, target=target)
+        ms = (time.perf_counter() - t0) * 1e3
+        self.restores.append({"round": got_round, "digest": _leaf_digest(state), "ms": ms, "source": self._source})
+        return got_round, state
+
+
+def _ckpt_round_parts(fed, party, cache, cfg_name, cfg_kw, train_len, device, adapters, ckpt_root):
+    """(a)'s uninterrupted runs in the round session, each from ``adapters``
+    with its own checkpointer, then a warm restore of its last snapshot
+    from this party's content cache."""
+    trainers = {p: fed.remote(_CkptTrainer).party(p).remote(cache, cfg_name, cfg_kw, train_len, device, i)
+                for i, p in enumerate(FED_PARTIES)}
+    digest = fed.remote(_leaf_digest)
+    out = {}
+    for tag in CKPT_RUNS:
+        ckpt = _RecordingCheckpointer(os.path.join(ckpt_root, tag), party)
+        fold.fold_fma_.launches = 0
+        t0 = time.perf_counter()
+        final = fl.run_fedavg_rounds(trainers, adapters, rounds=CKPT_ROUNDS, compress_wire=True, packed_wire=True,
+                                     checkpointer=ckpt, checkpoint_every=1, **CKPT_ROUND_KW)
+        _sync(device)
+        wall_s = time.perf_counter() - t0
+        fold_launches = fold.fold_fma_.launches
+        target = {"params": final,
+                  "server_state": CKPT_ROUND_KW["server_opt"].init(fl.pack_tree(final, torch.float32).buf, device)}
+        ckpt.restore(CKPT_ROUNDS, target=target)
+        out[tag] = {
+            "wall_s": wall_s, "fold_launches": fold_launches, "saves": ckpt.saves, "restores": ckpt.restores,
+            "dir": ckpt._dir,
+            "digests": dict(zip(FED_PARTIES, fed.get([digest.party(p).remote(final) for p in FED_PARTIES]))),
+            "trainers": dict(zip(FED_PARTIES, fed.get([trainers[p].report.remote() for p in FED_PARTIES]))),
+        }
+    return out
+
+
+def _ckpt_resume_party(party, ports, cfg_name, cfg_kw, train_len, ckpt_dir, device, out):
+    """(a)'s resumed run in a fresh party process: the checkpointer holds the
+    first run's snapshots up to round CKPT_RESUME; the rounds after it run
+    here."""
+    import rayfed_tpu_torch as fed
+
+    try:
+        cluster = {p: {"address": f"127.0.0.1:{port}"} for p, port in zip(FED_PARTIES, ports)}
+        dev = fed.init(address="local", cluster=cluster, party=party, device=device, **FED_INIT).transport.device
+        cache = _ModelCache()
+        trainers = {p: fed.remote(_CkptTrainer).party(p).remote(cache, cfg_name, cfg_kw, train_len, dev, i)
+                    for i, p in enumerate(FED_PARTIES)}
+        start = fed.get(trainers["alice"].initial.remote())  # the snapshot's params take its place
+        ckpt = _RecordingCheckpointer(ckpt_dir, party)
+        seen = []
+        fold.fold_fma_.launches = 0
+        t0 = time.perf_counter()
+        final = fl.run_fedavg_rounds(trainers, start, rounds=CKPT_ROUNDS, compress_wire=True, packed_wire=True,
+                                     checkpointer=ckpt, checkpoint_every=1,
+                                     on_round=lambda r, _p: seen.append(r), **CKPT_ROUND_KW)
+        _sync(dev)
+        report = {"party": party, "wall_s": time.perf_counter() - t0, "rounds": seen,
+                  "fold_launches": fold.fold_fma_.launches, "saves": ckpt.saves, "restores": ckpt.restores,
+                  "final": _leaf_digest(final),
+                  "trainer": fed.get([trainers[p].report.remote() for p in FED_PARTIES])[FED_PARTIES.index(party)]}
+        fed.shutdown()
+        out.put(report)
+    except BaseException:
+        out.put({"party": party, "error": traceback.format_exc()})
+        raise
+
+
+def _deterministic():
+    """Deterministic convolutions and GEMMs on the card: runs that must give
+    the same bytes train the same bytes from the same inputs."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+
+
+def _file_barrier(root, name, party, parties, timeout_s=120):
+    """Wait until every party has reached ``name`` (a file each under ``root``)."""
+    open(os.path.join(root, f"{name}.{party}"), "w").close()
+    deadline = time.monotonic() + timeout_s
+    while not all(os.path.exists(os.path.join(root, f"{name}.{p}")) for p in parties):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{name}: parties never arrived")
+        time.sleep(0.05)
+
+
+def _ckpt_quorum_party(party, ports, ckpt_root, stage, device, out):
+    """(b)'s party process.  ``stage="first"``: the uninterrupted quorum run,
+    then the same run from a fresh runtime under CKPT_Q_CHAOS, which crashes
+    every party at round CKPT_RESUME (each waits for the others, so all have
+    the round's snapshot; then it exits with CRASH_EXIT).  ``stage=
+    "resume"``: a fresh runtime, the flight recorder armed, resumes the
+    crashed run from its snapshots; alice merges every party's trace."""
+    _deterministic()
+    import rayfed_tpu_torch as fed
+    from rayfed_tpu_torch import chaos
+    from rayfed_tpu_torch.models import resnet
+
+    def run(tag, ckpt, log, **init_kw):
+        cluster = {p: {"address": f"127.0.0.1:{port}"} for p, port in zip(TOPO_PARTIES, ports[tag])}
+        dev = fed.init(address="local", cluster=cluster, party=party, device=device, **QUORUM_INIT,
+                       **init_kw).transport.device
+        params0 = resnet.init_resnet(torch.Generator().manual_seed(SEED), resnet.resnet18(num_classes=10),
+                                     device=dev)
+        trainers = {p: fed.remote(_ResNetTrainer).party(p).remote(SEED + 1 + i, dev)
+                    for i, p in enumerate(TOPO_PARTIES)}
+        fold.fold_fma_.launches = 0
+        _zero_counts()
+        final = fl.run_fedavg_rounds(trainers, params0, rounds=CKPT_ROUNDS, round_log=log, checkpointer=ckpt,
+                                     **CKPT_Q_KW)
+        return final
+
+    def summary(ckpt, log, final=None):
+        return {"saves": ckpt.saves, "restores": ckpt.restores, "log": log, "fold_launches": fold.fold_fma_.launches,
+                "flash_launches": _counts(), "digest": None if final is None else _leaf_digest(final)}
+
+    try:
+        if stage == "first":
+            ckpt, log = _RecordingCheckpointer(os.path.join(ckpt_root, "q_u"), party), []
+            final = run("uninterrupted", ckpt, log)
+            fed.shutdown()
+            out.put({"party": party, "progress": True, "uninterrupted": summary(ckpt, log, final)})
+            chaos.install(CKPT_Q_CHAOS)
+            ckpt, log = _RecordingCheckpointer(os.path.join(ckpt_root, "q_a"), party), []
+            try:
+                run("crashed", ckpt, log)
+                raise AssertionError("the chaos schedule never crashed this party")
+            except chaos.ChaosPartyCrash:
+                _file_barrier(ckpt_root, "q_down", party, TOPO_PARTIES)
+                out.put({"party": party, "crashed": True, **summary(ckpt, log)})
+                out.close()
+                out.join_thread()
+                os._exit(CRASH_EXIT)
+        from rayfed_tpu_torch import telemetry
+
+        ckpt, log = _RecordingCheckpointer(os.path.join(ckpt_root, "q_a"), party), []
+        final = run("resumed", ckpt, log, trace=True)
+        report = {"party": party, **summary(ckpt, log, final)}
+        barrier = fed.remote(lambda: 0)
+        fed.get([barrier.party(p).remote() for p in TOPO_PARTIES])
+        if party == "alice":
+            from tool.trace_report import round_report
+
+            trace = fed.trace_collect(timeout=60)
+            records = trace["records"]
+            perfetto = telemetry.to_trace_events(records, trace["clock_offsets"])
+            rep = round_report(records, tolerance=CKPT_TRACE_TOL)
+            report["trace"] = {
+                "records": len(records), "missing": trace["missing"],
+                "events": len(perfetto.get("traceEvents", [])),
+                "parties_with_spans": sorted({str(r.get("party")) for r in records
+                                              if r.get("phase") != "driver.round"}),
+                "phases": sorted({str(r.get("phase")) for r in records}),
+                "ckpt": {ph: sum(r.get("phase") == ph for r in records) for ph in ("ckpt.save", "ckpt.restore")},
+                "rounds": {int(k): {"wall_s": v["wall_s"], "driver_wall_s": v["driver_wall_s"],
+                                    "wall_agrees": v["wall_agrees"]} for k, v in rep.items()},
+            }
+        fed.get([barrier.party(p).remote() for p in TOPO_PARTIES])
+        fed.shutdown()
+        out.put(report)
+    except BaseException:
+        out.put({"party": party, "error": traceback.format_exc()})
+        raise
+
+
+def _ckpt_llama_summary(federated, resumed, want):
+    """(a)'s checks and prints: the two uninterrupted runs agree; the resumed
+    run restored round CKPT_RESUME's snapshot byte for byte, stepped through
+    the three kernels (``want`` launches per step) and ends where the
+    uninterrupted run ended (adapters and FedAC state), at both parties."""
+    a, a2 = (federated["checkpoint"][t] for t in CKPT_RUNS)
+    launches = {k: 0 for k in want}
+    fold_launches = 0
+    for tag, run in zip(CKPT_RUNS, (a, a2)):
+        for p in FED_PARTIES:
+            r = run[p]
+            if r["digests"]["alice"] != r["digests"]["bob"] or r["digests"] != run["alice"]["digests"]:
+                raise AssertionError(f"[ckpt] {tag}: the parties' final adapters differ")
+            steps = r["trainers"][p]["steps"]
+            if len(steps) != CKPT_ROUNDS or any(s["launches"] != want for s in steps):
+                raise AssertionError(f"[ckpt] {tag}: {p}'s steps launched {[s['launches'] for s in steps]}")
+            for s in steps:
+                for k in launches:
+                    launches[k] += s["launches"][k]
+            fold_launches += r["fold_launches"]
+            if sorted(r["saves"]) != list(range(1, CKPT_ROUNDS + 1)):
+                raise AssertionError(f"[ckpt] {tag}: {p} saved rounds {sorted(r['saves'])}")
+    for p in FED_PARTIES:
+        if any(a[p]["saves"][n]["digest"] != a2[p]["saves"][n]["digest"] for n in a[p]["saves"]):
+            raise AssertionError(f"[ckpt] two uninterrupted runs disagree on the card at {p}: "
+                                 f"{[(n, a[p]['saves'][n]['digest']['sha256'][:16], a2[p]['saves'][n]['digest']['sha256'][:16]) for n in a[p]['saves']]}")
+    if any(want.values()) and not a["alice"]["fold_launches"]:
+        raise AssertionError("[ckpt] alice's folds never launched the fold kernel")
+    for p in FED_PARTIES:
+        b = resumed[p]
+        rest = b["restores"]
+        if b["rounds"] != list(range(CKPT_RESUME, CKPT_ROUNDS)) or len(rest) != 1 or rest[0]["round"] != CKPT_RESUME:
+            raise AssertionError(f"[ckpt] resumed {p}: rounds {b['rounds']}, restores {rest}")
+        if rest[0]["digest"] != a[p]["saves"][CKPT_RESUME]["digest"]:
+            raise AssertionError(f"[ckpt] resumed {p}: the restored round-{CKPT_RESUME} state differs from the saved "
+                                 f"one: {rest[0]['digest']} vs {a[p]['saves'][CKPT_RESUME]['digest']}")
+        if b["final"]["sha256"] != a[p]["digests"][p]["sha256"]:
+            raise AssertionError(f"[ckpt] resumed {p}: final adapters {b['final']['sha256'][:16]} != the uninterrupted "
+                                 f"run's {a[p]['digests'][p]['sha256'][:16]}")
+        if b["saves"][CKPT_ROUNDS]["digest"] != a[p]["saves"][CKPT_ROUNDS]["digest"]:
+            raise AssertionError(f"[ckpt] resumed {p}: the round-{CKPT_ROUNDS} snapshot (adapters and FedAC state) "
+                                 f"differs from the uninterrupted run's")
+        steps = b["trainer"]["steps"]
+        if len(steps) != CKPT_ROUNDS - CKPT_RESUME or any(s["launches"] != want for s in steps):
+            raise AssertionError(f"[ckpt] resumed {p}: steps launched {[s['launches'] for s in steps]}")
+        for s in steps:
+            for k in launches:
+                launches[k] += s["launches"][k]
+        fold_launches += b["fold_launches"]
+    sa = a["alice"]["saves"]
+    warm = a["alice"]["restores"][0]
+    cold = resumed["alice"]["restores"][0]
+    if (warm["source"], cold["source"]) != ("blob", "disk"):
+        raise AssertionError(f"[ckpt] restore sources {warm['source']}, {cold['source']}: want blob, disk")
+    print(f"[ckpt] Llama-3-8B LoRA, FedAC, {CKPT_ROUNDS} rounds, a snapshot per round and party: two uninterrupted "
+          f"runs equal (SHA-256 of every snapshot); resumed from round {CKPT_RESUME} in fresh processes: the restored "
+          f"state equal to the saved one, the final adapters ({a['alice']['digests']['alice']['sha256'][:16]}) and "
+          f"FedAC state equal to the uninterrupted run's at both parties")
+    print(f"[ckpt] alice's ckpt.save per round {[round(sa[n]['ms'], 1) for n in sorted(sa)]} ms, "
+          f"{sa[CKPT_ROUNDS]['blob_n'] / 1e6:.2f} MB content-cache bytes, {sa[CKPT_ROUNDS]['disk_bytes'] / 1e6:.2f} MB "
+          f"on disk per snapshot; ckpt.restore {warm['ms']:.1f} ms from the content cache (blob, round "
+          f"{warm['round']}), {cold['ms']:.1f} ms from disk (a fresh process, round {cold['round']})")
+    print(f"[ckpt] walls: uninterrupted {a['alice']['wall_s']:.2f} / {a2['alice']['wall_s']:.2f} s for {CKPT_ROUNDS} "
+          f"rounds; resumed {resumed['alice']['wall_s']:.2f} s for {CKPT_ROUNDS - CKPT_RESUME}, the restore included; "
+          f"flash launches over every step {launches}, fold_fma launches {fold_launches}")
+    return {"launches": launches, "fold_launches": fold_launches, "save_ms": [sa[n]["ms"] for n in sorted(sa)],
+            "blob_bytes": sa[CKPT_ROUNDS]["blob_n"], "disk_bytes": sa[CKPT_ROUNDS]["disk_bytes"],
+            "restore_ms": {"blob": warm["ms"], "disk": cold["ms"]}}
+
+
+def _ckpt_quorum_summary(first, resumed):
+    """(b)'s checks and prints: every party crashed at round CKPT_RESUME with
+    its snapshot; the resumed run's member log spans the restart and its
+    final params equal the uninterrupted run's at every party; no flash
+    launch; the merged trace covers all four parties, carries the
+    checkpoint spans, exports to Perfetto and its round walls agree with
+    the drivers'."""
+    unint = {p: r["progress"][0]["uninterrupted"] for p, r in first.items()}
+    u = {unint[p]["digest"]["sha256"] for p in TOPO_PARTIES}
+    fin = {resumed[p]["digest"]["sha256"] for p in TOPO_PARTIES}
+    if len(u) != 1 or fin != u:
+        raise AssertionError(f"[ckpt quorum] finals: uninterrupted {u}, resumed {fin}")
+    for p in TOPO_PARTIES:
+        crashed, res = first[p], resumed[p]
+        if not crashed.get("crashed") or max(crashed["saves"]) != CKPT_RESUME:
+            raise AssertionError(f"[ckpt quorum] {p} crashed {crashed.get('crashed')} with snapshots "
+                                 f"{sorted(crashed['saves'])}")
+        log = res["log"]
+        if [e["round"] for e in log] != list(range(CKPT_ROUNDS)) or log[:CKPT_RESUME] != crashed["log"]:
+            raise AssertionError(f"[ckpt quorum] {p}'s resumed log {log} does not span the restart")
+        if res["restores"][0]["digest"] != crashed["saves"][CKPT_RESUME]["digest"]:
+            raise AssertionError(f"[ckpt quorum] {p}: the restored state differs from the saved one")
+        if any(res["flash_launches"].values()) or any(unint[p]["flash_launches"].values()):
+            raise AssertionError(f"[ckpt quorum] {p}: flash launches on ResNet-18")
+    t = resumed["alice"]["trace"]
+    rounds = {r: v for r, v in t["rounds"].items() if v["driver_wall_s"] is not None}
+    print(f"[ckpt quorum] BASELINE #3, {len(TOPO_PARTIES)} parties, quorum {QUORUM_K}: uninterrupted and resumed "
+          f"finals equal at every party ({next(iter(u))[:16]}); every party crashed at round {CKPT_RESUME} with its "
+          f"snapshot, the resumed member log spans the restart")
+    sa = resumed["alice"]["saves"]
+    print(f"[ckpt quorum] alice's ckpt.save {[round(sa[n]['ms'], 1) for n in sorted(sa)]} ms, "
+          f"{sa[max(sa)]['disk_bytes'] / 1e6:.2f} MB on disk per snapshot; ckpt.restore "
+          f"{resumed['alice']['restores'][0]['ms']:.1f} ms ({resumed['alice']['restores'][0]['source']})")
+    print(f"[ckpt quorum] merged trace: {t['records']} records, {t['events']} Perfetto events, spans from "
+          f"{t['parties_with_spans']}, ckpt spans {t['ckpt']}, missing {t['missing']}; per round trace wall vs "
+          f"driver wall {json.dumps({r: [round(v['wall_s'], 4), round(v['driver_wall_s'], 4)] for r, v in rounds.items()})} s")
+    bad = [r for r, v in rounds.items() if not v["wall_agrees"]]
+    if (set(t["parties_with_spans"]) != set(TOPO_PARTIES) or not t["events"] or not t["ckpt"]["ckpt.save"]
+            or not t["ckpt"]["ckpt.restore"] or t["missing"] or sorted(rounds) != list(range(CKPT_RESUME, CKPT_ROUNDS))
+            or bad):
+        raise AssertionError(f"[ckpt quorum] trace check failed: rounds disagreeing {bad}, {t}")
+    fold_launches = sum(unint[p]["fold_launches"] + resumed[p]["fold_launches"] for p in TOPO_PARTIES)
+    flash = {k: sum(unint[p]["flash_launches"][k] + resumed[p]["flash_launches"][k] for p in TOPO_PARTIES)
+             for k in ("fwd", "bwd_dq", "bwd_dkv")}
+    return {"fold_launches": fold_launches, "flash_launches": flash, "trace_rounds": rounds,
+            "save_ms": [sa[n]["ms"] for n in sorted(sa)], "disk_bytes": sa[max(sa)]["disk_bytes"]}
+
+
+def phase_checkpoint(federated, ckpt_root, cfg_name="llama3_8b", cfg_kw=None, train_len=None, device=None):
+    """Checkpoint and resume on the card: (a) the Llama-3-8B LoRA rounds'
+    resumed run in fresh party processes against the round session's
+    uninterrupted ones; (b) BASELINE #3's crashed and resumed quorum run,
+    with its merged trace."""
+    cfg_kw = dict(param_dtype=torch.bfloat16, remat=True) if cfg_kw is None else cfg_kw
+    train_len = TRAIN_LEN if train_len is None else train_len
+    cfg = getattr(llama, cfg_name)(**cfg_kw)
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    resumed_dir = os.path.join(ckpt_root, "ckpt_b")
+    for p in FED_PARTIES:  # a fresh checkpointer directory holding the first run's snapshots to CKPT_RESUME
+        src = federated["checkpoint"][CKPT_RUNS[0]][p]["dir"]
+        for name in os.listdir(src):
+            m = re.fullmatch(r"round_(\d+)", name)
+            if m and int(m.group(1)) <= CKPT_RESUME:
+                shutil.copytree(os.path.join(src, name), os.path.join(resumed_dir, p, name))
+    resumed = _spawn_parties(_ckpt_resume_party, (_free_ports(len(FED_PARTIES)), cfg_name, cfg_kw, train_len,
+                                                  resumed_dir, device), CKPT_TIMEOUT_S)
+    # The kernels launch on the card only (a CPU rehearsal runs their plain versions).
+    on_card = device is None or torch.device(device).type == "cuda"
+    want = {"fwd": 2 * cfg.num_layers, "bwd_dq": cfg.num_layers, "bwd_dkv": cfg.num_layers}
+    llama_out = _ckpt_llama_summary(federated, resumed, {k: v if on_card else 0 for k, v in want.items()})
+    ports = {k: _free_ports(len(TOPO_PARTIES)) for k in ("uninterrupted", "crashed", "resumed")}
+    first = _spawn_parties(_ckpt_quorum_party, (ports, ckpt_root, "first", device), CKPT_TIMEOUT_S,
+                           parties=TOPO_PARTIES, exit_codes={p: CRASH_EXIT for p in TOPO_PARTIES})
+    resumed_q = _spawn_parties(_ckpt_quorum_party, (ports, ckpt_root, "resume", device), CKPT_TIMEOUT_S,
+                               parties=TOPO_PARTIES)
+    quorum_out = _ckpt_quorum_summary(first, resumed_q)
+    return {"llama": llama_out, "quorum": quorum_out}
 
 
 def _timed(walls, fn, *args, **kw):
@@ -3595,7 +3995,8 @@ def main() -> int:
     train_int8 = _timed(walls, phase_train_int8, gen, train)
     fold_times = _timed(walls, phase_fold, gen, card)
     sopt = _timed(walls, phase_server_opt, card)
-    federated = _timed(walls, phase_federated)
+    ckpt_root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    federated = _timed(walls, phase_federated, ckpt_root)
     round_launches = federated["round"]["launches"]
     quant_launches = federated["round_quant"]["launches"]
     round_fold = federated["round"]["fold_launches"]
@@ -3610,6 +4011,9 @@ def main() -> int:
         ml_launches[k] += v
     asyn = _timed(walls, phase_async, card)
     _timed(walls, phase_secagg, card, suite, topo, federated)
+    ckpt = _timed(walls, phase_checkpoint, federated, ckpt_root)
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    ckpt_llama, ckpt_resnet = ckpt["llama"]["launches"], ckpt["quorum"]["flash_launches"]
     overlap = {k: sum(federated[part]["launches"][k] for part in OVERLAP_PARTS)
                for k in ("fwd", "bwd_dq", "bwd_dkv")}
     overlap_fold = sum(federated[part]["fold_launches"] for part in OVERLAP_PARTS)
@@ -3665,7 +4069,9 @@ def main() -> int:
                              "round_overlap": overlap["fwd"],
                              "server_opt_llama": sopt_llama["fwd"],
                              "server_opt_resnet": sopt_resnet["fwd"],
-                             "async_resnet": async_launches["fwd"]},
+                             "async_resnet": async_launches["fwd"],
+                             "checkpoint_llama": ckpt_llama["fwd"],
+                             "checkpoint_resnet": ckpt_resnet["fwd"]},
         "bert_shape": bert_times["fwd"],  # bert_base's attention on the split path
         "max_abs_err": slice_err,
         **times,
@@ -3690,7 +4096,9 @@ def main() -> int:
                              "round_overlap": overlap["bwd_dq"],
                              "server_opt_llama": sopt_llama["bwd_dq"],
                              "server_opt_resnet": sopt_resnet["bwd_dq"],
-                             "async_resnet": async_launches["bwd_dq"]},
+                             "async_resnet": async_launches["bwd_dq"],
+                             "checkpoint_llama": ckpt_llama["bwd_dq"],
+                             "checkpoint_resnet": ckpt_resnet["bwd_dq"]},
         "bert_shape": bert_times["dq"],  # bert_base's attention on the split path
         "max_abs_err": bwd_err["dq"],
         **bwd_times["dq"],
@@ -3714,7 +4122,9 @@ def main() -> int:
                              "round_overlap": overlap["bwd_dkv"],
                              "server_opt_llama": sopt_llama["bwd_dkv"],
                              "server_opt_resnet": sopt_resnet["bwd_dkv"],
-                             "async_resnet": async_launches["bwd_dkv"]},
+                             "async_resnet": async_launches["bwd_dkv"],
+                             "checkpoint_llama": ckpt_llama["bwd_dkv"],
+                             "checkpoint_resnet": ckpt_resnet["bwd_dkv"]},
         "bert_shape": bert_times["dkv"],  # bert_base's attention on the split path
         "max_abs_err": bwd_err["dkv"],
         **bwd_times["dkv"],
@@ -3744,7 +4154,12 @@ def main() -> int:
                              # on the card, both parties' rounds
                              "server_opt_llama": sopt_llama_fold,
                              "server_opt_resnet": sopt_resnet_fold,
-                             "async_resnet": async_launches["fold_fma"]},
+                             "async_resnet": async_launches["fold_fma"],
+                             # both parties' folds, steps and resyncs over the three
+                             # checkpointed Llama runs; the four ResNet-18 parties'
+                             # over the uninterrupted and the resumed quorum runs
+                             "checkpoint_llama": ckpt["llama"]["fold_launches"],
+                             "checkpoint_resnet": ckpt["quorum"]["fold_launches"]},
         **fold_times["adapters"],  # one contribution of the round's packed adapters
         "wq_shape": fold_times["wq"],
         # The same kernel as the server step's fused multiply-adds: FedAC at

@@ -10,6 +10,13 @@ a party of the JAX package reads too.  Tasks run torch code on the party's
 CUDA card (``init(..., device=)``).
 """
 
+# Lock-order sanitizer (RAYFED_SANITIZE=1): installs BEFORE the submodules
+# below construct their module and instance locks, since only locks built
+# after install() are tracked.  One environment read when the flag is unset.
+from rayfed_tpu_torch import _sanitizer as _sanitizer
+
+_sanitizer.maybe_install_from_env()
+
 from rayfed_tpu_torch.api import (
     init,
     shutdown,

@@ -644,7 +644,8 @@ def run_async_fleet(
                     server_opt=server_opt, stream=stream, timeout_s=timeout_s,
                     version_log=version_log, record_folds=record_folds,
                 )
-            except BaseException as e:  # transferred: re-raised after the join
+            # fedlint: disable=FED004 — transferred, not swallowed: the parent re-raises from the errors dict after join
+            except BaseException as e:
                 errors[coordinator] = e
 
         def _member(p: str) -> None:
@@ -656,7 +657,8 @@ def run_async_fleet(
                     wire_quant=wire_quant, chunk_elems=chunk_elems,
                     stream=stream, timeout_s=timeout_s,
                 )
-            except BaseException as e:  # transferred: re-raised after the join
+            # fedlint: disable=FED004 — transferred, not swallowed: the parent re-raises from the errors dict after join
+            except BaseException as e:
                 errors[p] = e
 
         threads = [threading.Thread(target=_coord, daemon=True)] + [

@@ -572,17 +572,23 @@ class HierarchyRound:
 
     def _hrm_want(self, phase: str, g: int, stripe: int, n_stripes: int,
                   nblocks: int, dtype: str) -> Dict[str, Any]:
-        meta = make_region_meta(
-            phase, g, len(self._lay.regions), stripe, n_stripes, nblocks,
-            self._grid.total_elems, dtype, self._grid.fingerprint(), self._members_fp,
-            epoch=self._epoch, level=0, parent=g // self._lay.branch, path=self._node_path(g),
-        )
-        meta.pop("v")
-        return meta
+        return {
+            "ph": phase, "rg": g, "nr": len(self._lay.regions),
+            "s": stripe, "n": n_stripes, "nb": nblocks,
+            "el": self._grid.total_elems, "dt": dtype,
+            "qg": self._grid.fingerprint(), "mf": self._members_fp,
+            "ep": -1 if self._epoch is None else int(self._epoch),
+            "lv": 0, "pa": g // self._lay.branch,
+            "rp": self._node_path(g),
+        }
 
     def _hrm(self, phase: str, g: int, stripe: int, n_stripes: int, nblocks: int, dtype: str) -> str:
         return json.dumps(
-            {"v": HIERARCHY_VERSION, **self._hrm_want(phase, g, stripe, n_stripes, nblocks, dtype)},
+            make_region_meta(
+                phase, g, len(self._lay.regions), stripe, n_stripes, nblocks,
+                self._grid.total_elems, dtype, self._grid.fingerprint(), self._members_fp,
+                epoch=self._epoch, level=0, parent=g // self._lay.branch, path=self._node_path(g),
+            ),
             sort_keys=True,
         )
 

@@ -52,8 +52,11 @@ and after the cutoff it announces the member set; every member replies with
 its self-mask seed and its seeds toward the dropped parties, and the
 orphaned masks are subtracted before the finalize rescale.
 
-Not ported yet, raising ``NotImplementedError`` naming its ROADMAP.md Queue
-A item: ``checkpointer`` (item 9).
+``checkpointer=`` (:class:`rayfed_tpu_torch.checkpoint.FedCheckpointer`):
+each party snapshots the params and server-opt state with the run's
+session, roster epoch and members, coordinator and member log; a fully
+restarted cluster resumes from the latest snapshot (a joiner enters by its
+welcome instead).
 """
 
 from __future__ import annotations
@@ -74,9 +77,6 @@ logger = logging.getLogger(__name__)
 # re-established a round through; ``graceful_handovers`` — announced
 # coordinator ``fed.leave()`` handovers applied.
 QUORUM_STATS = {"coordinator_failovers": 0, "graceful_handovers": 0}
-
-def _unported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, Queue A item {item})")
 
 
 class QuorumRoundError(RuntimeError):
@@ -351,7 +351,8 @@ def quorum_aggregate(
                     return
                 try:
                     value = codec.to_wire(ref.resolve())
-                except BaseException as e:  # transferred: survivable like a failed training
+                # fedlint: disable=FED004 — transferred, not swallowed: a quantize failure of the coordinator's OWN update is survivable under quorum exactly like its training failing
+                except BaseException as e:
                     agg._on_error(i, e)
                     return
                 agg.add_local(i, value)
@@ -543,7 +544,10 @@ def run_quorum_rounds(
       runs masked (:func:`quorum_aggregate`'s ``secagg``); the first round
       runs unquantized and unmasked.
 
-    ``checkpointer`` (item 9) raises ``NotImplementedError``.
+    - ``checkpointer`` (+ ``checkpoint_every``): snapshot ``(round,
+      params, server-opt state)`` with the session, roster epoch and
+      members, coordinator and member log; a restarted cluster resumes
+      from the latest snapshot (skipped when ``join_ticket`` is given).
     """
     import rayfed_tpu_torch as fed
     from rayfed_tpu_torch.fl import quantize as qz
@@ -574,8 +578,6 @@ def run_quorum_rounds(
                 "masked recovery window has not been exercised with a "
                 "post-finalize step (loud exclusion, fl.server_opt)"
             )
-    if checkpointer is not None:
-        raise _unported("checkpointer (quorum snapshots)", 9)
     runtime = get_runtime()
     transport = runtime.transport
     # The replicated state lives on the party's card (its device).
@@ -650,7 +652,22 @@ def run_quorum_rounds(
     w_map = None if weights is None else dict(zip(all_parties, [float(w) for w in weights]))
     wire_dt = torch.bfloat16 if wire_dtype is None else wire_dtype
     backstop = runtime.job_config.recv_backstop_s
+    # One shared log even when the caller passed none: the snapshots embed
+    # it (the restored run replays the same recurrence).
     log = round_log if round_log is not None else []
+
+    restored = None
+    # Where the next round's driver span opens, when a restore or a snapshot
+    # opens the round: the flight recorder tags both with that round's
+    # number, so the round's span covers them (else the trace's round window
+    # is wider than the driver's own span by the snapshot's time).
+    span_open = None
+    if checkpointer is not None and join_ticket is None:
+        t_open = (time.perf_counter(), time.time())
+        restored = _restore_quorum_snapshot(checkpointer, params, roster, log,
+                                            sopt=sopt, sopt_descr=sopt_descr)
+        if restored is not None:
+            span_open = t_open
 
     # The previous round's observed aggregate delta (broadcast values only:
     # the same on every controller), the range of the next round's grid.
@@ -665,6 +682,23 @@ def run_quorum_rounds(
         if wire_quant is not None:
             quant_prev_delta = join_ticket.get("qd")
         _apply_ticket_server_opt(transport, join_ticket, sopt, sopt_descr)
+    elif restored is not None:
+        start_round, session, params = restored
+        if start_round >= rounds:
+            return params
+        # A run that checkpointed after a failover or handover has the old
+        # coordinator off the roster: every resuming controller lands on
+        # the same successor by the deterministic succession rule.
+        _, members_now = roster.snapshot()
+        if coord not in members_now:
+            coord = roster_successor(members_now, coord)
+            if coord is None:
+                raise QuorumRoundError(
+                    f"restored roster {sorted(members_now)} has no live "
+                    f"successor for coordinator {coord0!r}"
+                )
+            logger.info("[%s] restored roster lacks coordinator %s; re-derived successor %s",
+                        me, coord0, coord)
     else:
         start_round = 0
         # One id per run, drawn identically on every non-joining controller.
@@ -847,9 +881,10 @@ def run_quorum_rounds(
             if timings is not None:
                 timings.append(rec)
             if trace_round:
+                t0, t0_wall = span_open or (t_r0, t_r0_wall)
                 telemetry.emit(
                     "driver.round", round=r, epoch=epoch, party=me, peer=coord,
-                    t_start=t_r0_wall, dur_s=time.perf_counter() - t_r0,
+                    t_start=t0_wall, dur_s=time.perf_counter() - t0,
                     detail={k: (round(v, 6) if isinstance(v, float) else v)
                             for k, v in rec.items()} | {"members": sorted(members)},
                 )
@@ -864,8 +899,71 @@ def run_quorum_rounds(
                 server_state=sopt.state if sopt is not None else None,
             )
         coord = next_coord
+        span_open = None
+        if checkpointer is not None and checkpoint_every and (r + 1) % checkpoint_every == 0:
+            span_open = (time.perf_counter(), time.time())
+            ep_now, mem_now = roster.snapshot()
+            snap = {"params": decompress(current)}
+            if sopt is not None:
+                # The state rides the snapshot; its stamp below makes a
+                # cross-config restore refuse instead of resetting momentum.
+                snap["server_state"] = sopt.state
+            checkpointer.save(
+                r + 1, snap,
+                metadata={
+                    "quorum_session": session,
+                    "epoch": int(ep_now),
+                    "members": list(mem_now),
+                    "coordinator": coord,
+                    "member_log": [dict(e) for e in log],
+                    "server_opt": sopt_descr,
+                },
+            )
         r += 1
     return decompress(current)
+
+
+def _restore_quorum_snapshot(checkpointer, params, roster, log, sopt=None, sopt_descr=None):
+    """Resume a quorum run from its latest snapshot: returns ``(start_round,
+    session, params)`` with the roster epoch and members applied, the member
+    log replayed into ``log`` and the server-opt state (when the run carries
+    one) loaded into ``sopt``; or ``None`` when the checkpointer holds
+    nothing yet.  The caller re-derives the coordinator from the restored
+    roster.  The snapshot's ``server_opt`` stamp must match ``sopt_descr``
+    (a refusal either way: ``fl.server_opt.check_snapshot_server_opt``)."""
+    latest = checkpointer.latest_round()
+    if latest is None:
+        return None
+    from rayfed_tpu_torch.fl.compression import PackedTree, decompress, pack_tree
+
+    tmpl = decompress(params) if isinstance(params, PackedTree) else params
+    # "ckpt_meta", not "meta": checkpoint metadata lives on local disk; it
+    # is not frame metadata, whose literal keys fedlint FED006 polices.
+    ckpt_meta = checkpointer.load_metadata(latest)
+    if "quorum_session" not in ckpt_meta:
+        raise QuorumRoundError(
+            f"checkpoint round {latest} was not written by a quorum run (no "
+            f"roster epoch / rendezvous session in its metadata) — a "
+            f"classic-loop checkpoint directory cannot resume a quorum run"
+        )
+    if sopt_descr is not None:
+        from rayfed_tpu_torch.fl.server_opt import check_snapshot_server_opt
+
+        check_snapshot_server_opt(ckpt_meta.get("server_opt"), sopt_descr)
+    target = {"params": tmpl}
+    if sopt is not None:
+        target["server_state"] = sopt.opt.init(pack_tree(tmpl, torch.float32).buf)
+    restored_round, snap = checkpointer.restore(round_num=latest, target=target)
+    if sopt is not None:
+        sopt.load_state(snap["server_state"])
+    roster.apply(int(ckpt_meta["epoch"]), list(ckpt_meta["members"]))
+    del log[:]
+    log.extend(dict(e) for e in (ckpt_meta.get("member_log") or []))
+    logger.info(
+        "resuming quorum run at round %d (roster epoch %s, members %s)",
+        restored_round, ckpt_meta["epoch"], ckpt_meta["members"],
+    )
+    return int(restored_round), str(ckpt_meta["quorum_session"]), snap["params"]
 
 
 def _effective_stream(stream: str, coord: str, coord0: str) -> str:

@@ -226,7 +226,8 @@ class RoundMasker:
                     net = self._compute_net(int(n))
                     with self._lock:
                         self._net = net
-                except BaseException as e:  # transferred: net_mask() re-raises it
+                # fedlint: disable=FED004 — transferred, not swallowed: the error re-raises from net_mask() on the round's thread
+                except BaseException as e:
                     self._net_err = e
 
             self._net_thread = threading.Thread(target=_run, name="rayfed-secagg-prg", daemon=True)

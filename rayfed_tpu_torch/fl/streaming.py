@@ -1398,7 +1398,8 @@ def streaming_aggregate(
                     return
                 try:
                     value = codec.to_wire(ref.resolve())
-                except BaseException as e:  # transferred: fail(e) poisons every waiter
+                # fedlint: disable=FED004 — transferred, not swallowed: fail(e) poisons every result waiter; this callback runs on the resolving task-pool thread, not the driver
+                except BaseException as e:
                     agg.fail(e)
                     return
                 agg.add_local(i, value)

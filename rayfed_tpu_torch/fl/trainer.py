@@ -20,8 +20,10 @@ membership, coordinator failover).  A packed ``server_opt``
 finalizes and every controller resyncs its state replica from the
 broadcast.  ``secure_agg`` masks each round's quantized contributions
 (:mod:`rayfed_tpu_torch.fl.secagg`): the coordinator learns only the sum.
-An option of a later item of the port raises ``NotImplementedError`` naming
-its ROADMAP.md Queue A item: ``checkpointer`` (9).
+With a ``checkpointer`` (:class:`rayfed_tpu_torch.checkpoint.FedCheckpointer`)
+each party snapshots ``(round, params, server-opt state)`` every
+``checkpoint_every`` rounds and a restarted run resumes from its latest
+snapshot.
 """
 
 from __future__ import annotations
@@ -46,10 +48,6 @@ from rayfed_tpu_torch.fl.fedopt import ServerOptimizer
 from rayfed_tpu_torch.fl.quantize import QUANT_DELTA_EXPAND, _host_f32, make_round_grid
 
 logger = logging.getLogger(__name__)
-
-
-def _unported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, Queue A item {item})")
 
 
 def sample_parties(
@@ -107,8 +105,6 @@ def validate_round_config(
     from rayfed_tpu_torch.fl.server_opt import PackedServerOpt
 
     packed_opt = server_opt if isinstance(server_opt, PackedServerOpt) else None
-    if checkpointer is not None:
-        raise _unported("checkpointer", 9)
     legacy_opt = server_opt if packed_opt is None else None
     if legacy_opt is not None and not isinstance(legacy_opt, ServerOptimizer):
         raise ValueError(
@@ -124,6 +120,10 @@ def validate_round_config(
         raise ValueError("checkpoint_every set without a checkpointer")
     if checkpoint_every < 0:
         raise ValueError(f"checkpoint_every must be >= 0, got {checkpoint_every}")
+    if checkpointer is not None and not checkpoint_every:
+        # A checkpointer with checkpoint_every=0 would resume but never
+        # save: snapshot every round rather than silently never.
+        checkpoint_every = 1
     if aggregator is not None and weights is not None:
         raise ValueError(
             "aggregator and weights are mutually exclusive (a custom "
@@ -625,10 +625,15 @@ def run_fedavg_rounds(
             wire_quant=cfg["wire_quant"], region_size=region_size,
             region_branch=region_branch, region_quorum=region_quorum,
             region_deadline_s=region_deadline_s, server_opt=packed_opt,
-            secure_agg=secure_agg,
+            secure_agg=secure_agg, checkpointer=checkpointer,
+            checkpoint_every=cfg["checkpoint_every"],
         )
 
-    from rayfed_tpu_torch.fl.server_opt import PackedServerOptimizer
+    from rayfed_tpu_torch.fl.server_opt import (
+        PackedServerOptimizer,
+        check_snapshot_server_opt,
+        describe_server_opt,
+    )
     from rayfed_tpu_torch.runtime import get_runtime
 
     # The replicated state lives on the party's card (its device).
@@ -653,6 +658,34 @@ def run_fedavg_rounds(
     from rayfed_tpu_torch.fed_object import FedObject
 
     state = legacy_opt.init(params) if legacy_opt is not None else None
+    checkpoint_every = cfg["checkpoint_every"]
+    # The checkpoint stamp of this run's server-opt config: every snapshot
+    # carries it, and a restore across differing configs is refused (a
+    # silent momentum reset changes the trajectory without failing).
+    sopt_descr = describe_server_opt(server_opt)
+    start_round = 0
+    # Where the next round's driver span opens, when a restore or a snapshot
+    # opens the round: the flight recorder tags both with that round's
+    # number, so the round's span covers them.
+    span_open = None
+    if checkpointer is not None and checkpointer.latest_round() is not None:
+        span_open = (time.perf_counter(), time.time())
+        check_snapshot_server_opt(checkpointer.load_metadata().get("server_opt"), sopt_descr)
+        target = {"params": params}
+        if state is not None:
+            target["server_state"] = state
+        if sopt is not None:
+            target["server_state"] = packed_opt.init(pack_tree(params, torch.float32).buf)
+        # Onto the party's card (the checkpointer's default device).
+        restored_round, snap = checkpointer.restore(target=target)
+        params = snap["params"]
+        if state is not None:
+            state = snap["server_state"]
+        if sopt is not None:
+            sopt.load_state(snap["server_state"])
+        start_round = restored_round
+        if start_round >= rounds:
+            return params
     qname = cfg["wire_quant"]
     # Compressed-domain state: the previous round's aggregate delta, from
     # broadcast values only (so equal on every controller); None until one
@@ -664,6 +697,7 @@ def run_fedavg_rounds(
     pipeline = (
         server_opt is None
         and on_round is None
+        and not checkpoint_every
         and aggregator is None  # a reducer needs the raw values
         and not streaming_agg  # streaming materializes at the reducer
         and not error_feedback  # the residual needs the driver's tree
@@ -703,7 +737,7 @@ def run_fedavg_rounds(
         # data would be a two-time pad.
         sa_session = str(_rt.next_seq_id())
 
-    for r in range(rounds):
+    for r in range(start_round, rounds):
         active = round_parties(r)
         # A driver-held tree is compressed before the push (with the
         # carried error-feedback residual, when enabled); a lazy FedObject
@@ -891,6 +925,15 @@ def run_fedavg_rounds(
             current = avg
         if on_round is not None:
             on_round(r, current)
+        t_open = None
+        if checkpoint_every and (r + 1) % checkpoint_every == 0:
+            snap = {"params": current}
+            if state is not None:
+                snap["server_state"] = state
+            if sopt is not None:
+                snap["server_state"] = sopt.state
+            t_open = (time.perf_counter(), time.time())
+            checkpointer.save(r + 1, snap, metadata={"server_opt": sopt_descr})
         if rec is not None:
             # The aggregation call blocks on this party's own training
             # output before any byte can move, so its walls include the
@@ -903,9 +946,10 @@ def run_fedavg_rounds(
             if timings is not None:
                 timings.append(rec)
             if trace_rounds:
+                t0, t0_wall = span_open or (t_r0, t_r0_wall)
                 _telemetry.emit(
                     "driver.round", round=r, party=me, peer=coord,
-                    t_start=t_r0_wall, dur_s=time.perf_counter() - t_r0,
+                    t_start=t0_wall, dur_s=time.perf_counter() - t0,
                     detail={
                         k: (round(v, 6) if isinstance(v, float) else v)
                         for k, v in rec.items()
@@ -915,5 +959,6 @@ def run_fedavg_rounds(
                 "round %d timings: local=%.3fs push=%.3fs agg=%.3fs hidden=%.3fs",
                 r, rec["local_s"], rec["push_s"], rec["agg_s"], rec["hidden_s"],
             )
+        span_open = t_open
 
     return current

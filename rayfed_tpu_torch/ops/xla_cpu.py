@@ -28,6 +28,22 @@ The assumptions:
   and ``apply_llama``), the squares, the sum, the product with f32(1/D) and
   the ``+ eps`` round one by one.  Read from the dumps at D = 8, 16, 48, 64,
   96, 384, 2048 and 4096, eager and jitted; probed at every width to 4099.
+- A whole array's sum (``fl.dp``'s per-leaf sum of squares): unit
+  dimensions dropped, every dimension longer than ``REDUCE_WINDOW`` is cut
+  into windows as above (each dimension padded on its own), and each
+  window, then the window sums, add over XLA's loop nest as LLVM optimizes
+  it (the adds are ``reassoc``): it unrolls the innermost loop and, when
+  a row holds at most 8 elements and neither of the two innermost
+  dimensions is padded, vectorizes the rows loop (``_vector_factor``: 2 to
+  8 lanes by the row count, lane 0 starting from the running sum, the
+  lanes added as a tree, the remainder rows one by one); a dimension
+  padded by one element at its end has its last index split off and added
+  after the rest of the window.  A leaf with no dimension longer than 32
+  fuses its squares: FMAs, in lanes where the rows loop is vectorized (up
+  to 4 elements a row; wider rows square apart, then add).  Read from the
+  dumps at (64, b) for b up to 8, (26, 63), (67, 63), (64, 30, 5), (32, 7)
+  and (5, 2, 5), and from the final reduce of every shape up to (3, 3, 3);
+  probed over random shapes of ranks 1 to 3 and dimensions to 300.
 - The rsqrt: ``xla.rsqrt.f32`` is the hardware estimate (``vrsqrtps``,
   read through ``native/xla_cpu_math.cc``) and two Newton steps that LLVM
   contracts into FMAs, the raw estimate kept for special inputs.
@@ -94,69 +110,167 @@ def _fuses_squares(d: int) -> bool:
     return d <= REDUCE_WINDOW and not 5 <= d <= 8
 
 
+def _fma_sum_sq(xf: torch.Tensor) -> torch.Tensor:
+    """``sum(xf², axis=-1)`` as the FMA chain ``fma(x, x, acc)`` from 0.0."""
+    total = xf.new_zeros(xf.shape[:-1])
+    for i in range(xf.shape[-1]):
+        col = xf[..., i].contiguous()
+        total = fma(col, col, total)
+    return total
+
+
 def sum_sq(xf: torch.Tensor, jitted: bool) -> torch.Tensor:
     """``sum(xf², axis=-1)`` of a CPU f32 tensor in XLA:CPU's order, inside
     a jitted program (``jitted``) or op by op."""
-    d = xf.shape[-1]
-    if jitted and _fuses_squares(d):
-        total = xf.new_zeros(xf.shape[:-1])
-        for i in range(d):
-            col = xf[..., i].contiguous()
-            total = fma(col, col, total)
-        return total
+    if jitted and _fuses_squares(xf.shape[-1]):
+        return _fma_sum_sq(xf)
     return _tree_sum(xf * xf)
 
 
-def _seq_sum(a: np.ndarray) -> np.ndarray:
-    """The sum over the last axis in index order from 0.0, in f32 (numpy's
-    ``add.accumulate`` is sequential in the array's dtype)."""
+def _seq_sum(a: np.ndarray, acc=None) -> np.ndarray:
+    """The sum over the last axis in index order, from ``acc`` (0.0 when
+    None), in f32 (numpy's ``add.accumulate`` is sequential in the array's
+    dtype)."""
+    if acc is not None:
+        a = np.concatenate([np.asarray(acc, np.float32)[..., None], a], axis=-1)
     if a.shape[-1] == 0:
         return np.zeros(a.shape[:-1], np.float32)
     return np.add.accumulate(a, axis=-1, dtype=np.float32)[..., -1]
 
 
+def _vector_factor(rows: int, inner: int, squares: bool = False) -> int:
+    """The lanes LLVM's loop vectorizer gives a reduction's rows loop whose
+    ``inner`` elements per row it unrolled (1: not vectorized), read from
+    XLA:CPU's programs for every ``rows`` to 32 and ``inner`` to 8 (``squares``:
+    the loop squares its elements too): a short loop only when the lanes
+    divide it, else the width whose main part and scalar remainder cost
+    least."""
+    if inner > 8 or rows < 2:
+        return 1
+    if rows < 16:
+        return rows if rows in (2, 4, 8) else 1
+    if (inner >= 7 and not squares) or 20 <= rows < 24 or (28 <= rows < 32 and inner > 2):
+        return 4
+    return 8
+
+
+def _tree_lanes(lanes: np.ndarray) -> np.ndarray:
+    """A vector's horizontal sum (the last axis), halves added pairwise."""
+    while lanes.shape[-1] > 1:
+        h = lanes.shape[-1] // 2
+        lanes = lanes[..., :h] + lanes[..., h:]
+    return lanes[..., 0]
+
+
+def _nest_sum(blocks: np.ndarray, acc: np.ndarray, vectorize: bool) -> np.ndarray:
+    """``acc`` plus each block's sum (the leading axis indexes the blocks) as
+    XLA's loop nest adds it once LLVM has unrolled the innermost loop:
+    outer dimensions in row-major order; with ``vectorize`` and few enough
+    elements per row, the rows loop as vector lanes (lane ``l`` adds rows
+    ``l``, ``l + vf``, ... from ``acc`` in lane 0, then the lanes add as a
+    tree and the remainder rows one by one), else every element in turn."""
+    n = blocks.shape[0]
+    if blocks.ndim < 3 or not vectorize:
+        return _seq_sum(blocks.reshape(n, -1), acc)
+    rows, inner = blocks.shape[-2:]
+    vf = _vector_factor(rows, inner)
+    if vf == 1:
+        return _seq_sum(blocks.reshape(n, -1), acc)
+    main = rows // vf * vf
+    for sub in blocks.reshape(n, -1, rows, inner).transpose(1, 0, 2, 3):
+        lanes = np.zeros((n, vf), np.float32)
+        lanes[:, 0] = acc
+        for r0 in range(0, main, vf):
+            for c in range(inner):
+                lanes += sub[:, r0 : r0 + vf, c]
+        acc = _seq_sum(sub[:, main:].reshape(n, -1), _tree_lanes(lanes))
+    return acc
+
+
+def _window_sums(a: np.ndarray) -> np.ndarray:
+    """One level of XLA:CPU's tree reduction rewriter: every dimension
+    longer than ``REDUCE_WINDOW`` zero-padded to a multiple of it (half the
+    padding, rounded down, before) and cut into windows of it, a shorter one
+    one window of its whole length.  The reduce-window's loop nest adds
+    each window from 0.0 (:func:`_nest_sum`; the rows loop is vectorized
+    only when neither of the two innermost dimensions is padded).  A
+    dimension padded by one element at its end (lo 0, hi 1) has its last
+    index split off by LLVM: it adds after the rest of the window."""
+    pads, split = [], []
+    for d in a.shape:
+        if d > REDUCE_WINDOW:
+            n = -(-d // REDUCE_WINDOW)
+            lo = (n * REDUCE_WINDOW - d) // 2
+            pads.append((lo, n * REDUCE_WINDOW - d - lo))
+            split += [n, REDUCE_WINDOW]
+        else:
+            pads.append((0, 0))
+            split += [1, d]
+    rank = a.ndim
+    counts = split[0::2]
+    blocks = np.pad(a, pads).reshape(split)
+    blocks = blocks.transpose([2 * i for i in range(rank)] + [2 * i + 1 for i in range(rank)])
+    blocks = blocks.reshape(-1, *split[1::2])
+    tail = [k for k, p in enumerate(pads) if p == (0, 1)]
+    moved = None
+    if tail:
+        k = tail[-1]
+        moved = np.take(blocks, [REDUCE_WINDOW - 1], axis=k + 1)
+        blocks = np.take(blocks, range(REDUCE_WINDOW - 1), axis=k + 1)
+    vectorize = rank >= 2 and all(pads[k] in ((0, 0), (0, 1)) for k in (rank - 2, rank - 1))
+    vectorize = vectorize and pads[rank - 1] == (0, 0)
+    sums = _nest_sum(blocks, np.zeros(blocks.shape[0], np.float32), vectorize)
+    if moved is not None:
+        sums = _seq_sum(moved.reshape(moved.shape[0], -1), sums)
+    return sums.reshape(counts)
+
+
 def _window_sum_all(a: np.ndarray) -> np.ndarray:
-    """A whole-array f32 sum as XLA:CPU's tree reduction rewriter lays it
-    out: while any dimension exceeds ``REDUCE_WINDOW``, every dimension
-    longer than that is zero-padded to a multiple of it (half the padding,
-    rounded down, before) and cut into windows of it, a shorter one is one
-    window of its whole length; each window adds in row-major order from
-    0.0.  The small remainder reduces one axis at a time, the last first,
-    each in index order from 0.0."""
+    """A whole-array f32 sum as XLA:CPU compiles it: unit dimensions
+    dropped; while any dimension exceeds ``REDUCE_WINDOW``, a level of
+    window sums (:func:`_window_sums`); then one reduce of what is left,
+    its loop nest as :func:`_nest_sum` adds it."""
+    a = a.reshape([d for d in a.shape if d != 1])
     while any(d > REDUCE_WINDOW for d in a.shape):
-        pads, split = [], []
-        for d in a.shape:
-            if d > REDUCE_WINDOW:
-                n = -(-d // REDUCE_WINDOW)
-                lo = (n * REDUCE_WINDOW - d) // 2
-                pads.append((lo, n * REDUCE_WINDOW - d - lo))
-                split += [n, REDUCE_WINDOW]
-            else:
-                pads.append((0, 0))
-                split += [1, d]
-        a = np.pad(a, pads).reshape(split)
-        rank = len(split) // 2
-        a = a.transpose([2 * i for i in range(rank)] + [2 * i + 1 for i in range(rank)])
-        outer = a.shape[:rank]
-        a = _seq_sum(a.reshape(*outer, -1))
-    while a.ndim:
-        a = _seq_sum(a)
-    return a
+        a = _window_sums(a)
+        a = a.reshape([d for d in a.shape if d != 1])
+    return _nest_sum(a[None], np.zeros(1, np.float32), True)[0]
 
 
 def leaf_sum_sq(x: torch.Tensor) -> torch.Tensor:
     """``jnp.sum(x ** 2)`` over every axis of a CPU f32 tensor, as XLA:CPU
     compiles it inside a jitted program: a leaf with a dimension longer
     than ``REDUCE_WINDOW`` squares, then sums as :func:`_window_sum_all`
-    lays it out; a smaller one fuses its squares into the sum, an FMA
-    chain ``fma(x, x, acc)`` in row-major order (a 0-d f32 tensor)."""
+    lays it out; a smaller one fuses its squares into the sum, each step
+    ``fma(x, x, acc)``, over the loop nest :func:`_nest_sum` describes
+    (vector lanes of FMAs where LLVM vectorized the rows loop).  Returns a
+    0-d f32 tensor."""
     a = x.detach().reshape(x.shape).numpy().astype(np.float32, copy=False)
     if any(d > REDUCE_WINDOW for d in a.shape):
         return torch.from_numpy(np.asarray(_window_sum_all(a * a), np.float32).reshape(()))
-    flat = torch.from_numpy(np.ascontiguousarray(a).reshape(-1, 1))
-    acc = torch.zeros(1, 1, dtype=torch.float32)
-    for i in range(flat.shape[0]):
-        acc = fma(flat[i : i + 1], flat[i : i + 1], acc)
+    a = torch.from_numpy(np.ascontiguousarray(a).reshape([d for d in a.shape if d != 1]))
+    rows, inner = a.shape[-2:] if a.ndim >= 2 else (1, a.numel())
+    vf = _vector_factor(rows, inner, squares=True)
+    acc = torch.zeros(1, dtype=torch.float32)
+    if vf == 1:
+        for v in a.reshape(-1, 1):
+            acc = fma(v, v, acc)
+        return acc.reshape(())
+    main = rows // vf * vf
+    for sub in a.reshape(-1, rows, inner):
+        lanes = torch.zeros(vf, dtype=torch.float32)
+        lanes[0] = acc[0]
+        for r0 in range(0, main, vf):
+            for c in range(inner):
+                col = sub[r0 : r0 + vf, c].contiguous()
+                # Up to 4 per row the vector squares contract into the
+                # adds; wider rows square apart, then add (but the last
+                # column of two rows of 5, which the backend contracts).
+                fused = inner <= 4 or (vf, inner, c) == (2, 5, 4)
+                lanes = fma(col, col, lanes) if fused else lanes + col * col
+        acc = torch.from_numpy(_tree_lanes(lanes.numpy()).reshape(1))
+        for v in sub[main:].reshape(-1, 1):
+            acc = fma(v, v, acc)
     return acc.reshape(())
 
 
@@ -188,9 +302,10 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: fl
     inv_d = torch.full((), 1.0 / d, dtype=torch.float32)
     mean = (_tree_sum(x) * inv_d)[..., None]
     c = x - mean
-    # ``jnp.var`` is one program even op by op: a short row fuses its
-    # squares into the sum as ``sum_sq`` does inside a jitted program.
-    s = sum_sq(c, True)
+    # ``jnp.var`` is one program even op by op: a row of at most 32 fuses
+    # its squares into the sum as an FMA chain, at every such width (unlike
+    # the RMSNorm's row, which XLA vectorizes at 5 to 8).
+    s = _fma_sum_sq(c) if d <= REDUCE_WINDOW else _tree_sum(c * c)
     if jitted:
         mean_eps = fma(s, inv_d.expand(s.shape).contiguous(), torch.full_like(s, eps))
     else:

@@ -122,7 +122,7 @@ def test_validate_round_config_verdicts_equal_the_reference(pair):
 # quorum x ring x quant triple): each merged configuration gets the
 # reference's verdict.
 PORTED_FEATURES = ("wire_quant", "quorum", "ring", "server_opt", "server_opt_legacy", "streaming_agg",
-                   "error_feedback", "sample", "hierarchy", "overlap")
+                   "error_feedback", "sample", "hierarchy", "overlap", "checkpointer", "secure_agg")
 
 
 def _feature(name, which):
@@ -178,8 +178,18 @@ def test_unported_options_name_their_item(option, item):
         with pytest.raises(ValueError, match="secure_agg requires wire_quant"):
             ttrainer.validate_round_config(TRAINERS, compress_wire=True, packed_wire=True, **option)
         return
-    with pytest.raises(NotImplementedError, match=item):
-        ttrainer.validate_round_config(TRAINERS, compress_wire=True, packed_wire=True, **option)
+    # Item 9 is ported: the checkpointer gets the JAX package's verdicts.
+    from rayfed_tpu.fl import trainer as jtrainer
+
+    for clash, match in [
+        ({"checkpointer": None, "checkpoint_every": 2}, "checkpoint_every set without a checkpointer"),
+        ({"checkpoint_every": -1}, "checkpoint_every must be >= 0"),
+        ({"overlap": True}, r"overlap=True is incompatible with \['checkpointer'\]"),
+    ]:
+        for validate in (ttrainer.validate_round_config, jtrainer.validate_round_config):
+            with pytest.raises(ValueError, match=match):
+                validate(TRAINERS, compress_wire=True, packed_wire=True, **{**option, **clash})
+    assert ttrainer.validate_round_config(TRAINERS, **option)["checkpoint_every"] == 1
 
 
 @pytest.mark.parametrize("option,match", [

@@ -384,12 +384,13 @@ def test_hierarchy_regrouped_fold_step_downlink_bitexact():
 # -- state carried across: snapshot stamps, load_state, the wire ------------------
 
 
-def test_checkpoint_state_roundtrip():
-    """The reference's checkpoint round trip, without ``checkpoint.py``
-    (Queue A item 9): a JAX state converted by ``server_state_from_jax``,
-    and a port state through the wire pickle, both decode to the same
-    bytes and spec; the JAX package reads the port's state as its own
-    class."""
+def test_checkpoint_state_roundtrip(tmp_path):
+    """The reference's checkpoint round trip through the port's
+    ``FedCheckpointer`` (the state and its ``server_opt`` stamp restore
+    byte for byte); a JAX state converted by ``server_state_from_jax``, and
+    a port state through the wire pickle, both decode to the same bytes and
+    spec; the JAX package reads the port's state as its own class."""
+    from rayfed_tpu_torch.checkpoint import FedCheckpointer
     from rayfed_tpu.transport import wire as jwire
     from rayfed_tpu_torch.models.convert import server_state_from_jax
 
@@ -402,6 +403,14 @@ def test_checkpoint_state_roundtrip():
     jrunner.ensure(x)
     jrunner.resync(x, x - np.float32(0.01))
     assert _raw(runner.state.bufs[0]) == _raw(jrunner.state.bufs[0])
+
+    ck = FedCheckpointer(str(tmp_path), "alice", device=CPU)
+    ck.save(3, {"params": {"w": torch.from_numpy(x)}, "server_state": runner.state},
+            metadata={"server_opt": opt.describe()})
+    r, snap = ck.restore(target={"params": {"w": torch.zeros(512)}, "server_state": opt.init(torch.zeros(512))})
+    assert r == 3 and ck.load_metadata(3)["server_opt"] == opt.describe()
+    assert _raw(so.PackedServerOptimizer(opt, state=snap["server_state"]).state.bufs[0]) == \
+        _raw(runner.state.bufs[0])
 
     restored = so.PackedServerOptimizer(opt, state=server_state_from_jax(jrunner.state, device=CPU))
     assert _raw(restored.state.bufs[0]) == _raw(runner.state.bufs[0])

@@ -30,10 +30,13 @@ D = 64 and the wider 128 and 256).
   at every width of ``LN_WIDTHS``.
 - ``fl.dp.global_norm``'s per-leaf sum of squares
   (``xla_cpu.leaf_sum_sq``): every dimension longer than 32 is cut into
-  zero-padded windows of 32, a shorter one is one window, each window adds
-  in row-major order and the remainder one axis at a time; a leaf with no
-  long dimension is an FMA chain.  ``_probe_open`` counts the windows whose
-  inner extent is narrow, where XLA's loop differs (ROADMAP.md Queue C).
+  zero-padded windows of 32, a shorter one is one window; each window and
+  the remainder add over XLA's loop nest as LLVM optimized it (a narrow
+  rows loop as vector lanes, a dimension padded by one element at its end
+  with that index last); a leaf with no long dimension fuses its squares
+  (FMAs, in lanes where the rows loop is vectorized).  The forms ROADMAP.md
+  Queue C once listed open are tier-1 tests (narrow widths of the norm,
+  ``NARROW_LEAVES``, 300 random trees); ``_probe_open`` counts them.
 - The gradient through the norm is torch.rsqrt's (the exact forward value
   rides on it), held against ``jax.grad`` at the model tests' 1e-5.
 - ``_probe`` checks each of ``xla_cpu``'s assumptions against the installed
@@ -310,39 +313,48 @@ def _probe(size=200_000):
     return out
 
 
-def _probe_open(seeds=6):
-    """Elements where a form of ``xla_cpu`` is known to differ from the
-    installed jaxlib's program (ROADMAP.md Queue C): the layer norm at
-    widths 5 to 8, a leaf's sum of squares whose reduce window has a narrow
-    inner extent, (64, b) for b from 2 to 8 and (64, 3, 1), and
-    ``fl.dp.global_norm`` over random trees."""
+# The forms ROADMAP.md Queue C once listed open: BERT's norm at widths 5 to 8
+# (the variance's FMA chain), a leaf's sum of squares whose reduce window is
+# narrow (the rows loop LLVM vectorizes: lanes, a tree, a scalar remainder),
+# one padded by one element at its end (that index summed last) or small
+# enough to fuse its squares (FMA lanes), and the DP norm over random trees.
+LN_NARROW_WIDTHS = [5, 6, 7, 8]
+NARROW_LEAVES = [(64, b) for b in range(2, 9)] + [
+    (64, 3, 1), (46, 25, 7), (64, 30, 5), (35, 127, 7), (26, 63), (67, 63), (63, 7),
+    (36, 63, 62), (150, 171, 191), (32, 7), (2, 5), (5, 2, 5), (30, 5), (16, 30, 2),
+]
+NORM_TREES, NORM_TREE_CHUNKS = 300, 3
+
+
+def _layer_norm_mismatches(width, jitted):
     from rayfed_tpu_torch.models import bert
+
+    x, scale, bias = _ln_inputs(width)
+    p = {"scale": torch.from_numpy(scale), "bias": torch.from_numpy(bias)}
+    got = bert._layer_norm(torch.from_numpy(x), p, 1e-12, jitted=jitted).numpy()
+    return int(np.sum(got.view(np.uint32) != _reference_layer_norm(x, scale, bias, jitted).view(np.uint32)))
+
+
+def _leaf_sum_sq_mismatches(shape, seeds):
     from rayfed_tpu_torch.ops import xla_cpu
 
-    out = {}
-    bad = 0
-    for width in range(5, 9):
-        x, scale, bias = _ln_inputs(width)
-        p = {"scale": torch.from_numpy(scale), "bias": torch.from_numpy(bias)}
-        for jitted in (False, True):
-            got = bert._layer_norm(torch.from_numpy(x), p, 1e-12, jitted=jitted).numpy()
-            bad += int(np.sum(got.view(np.uint32) != _reference_layer_norm(x, scale, bias, jitted).view(np.uint32)))
-    out["layer_norm widths 5-8 (eager, jitted; of 3328 elements)"] = bad
     f = jax.jit(lambda x: jnp.sum(x.astype(jnp.float32) ** 2))
-    bad = total = 0
-    for shape in [(64, b) for b in range(2, 9)] + [(64, 3, 1)]:
-        for seed in range(seeds):
-            rng = np.random.default_rng(seed)
-            x = (rng.standard_normal(shape) * rng.uniform(0.01, 3)).astype(np.float32)
-            want = np.asarray(f(jnp.asarray(x)))
-            bad += int(xla_cpu.leaf_sum_sq(torch.from_numpy(x)).numpy().view(np.uint32) != want.view(np.uint32))
-            total += 1
-    out[f"leaf_sum_sq narrow windows (of {total} sums)"] = bad
+    bad = 0
+    for seed in range(seeds):
+        rng = np.random.default_rng(seed)
+        x = (rng.standard_normal(shape) * rng.uniform(0.01, 3)).astype(np.float32)
+        want = np.asarray(f(jnp.asarray(x)))
+        bad += int(xla_cpu.leaf_sum_sq(torch.from_numpy(x)).numpy().view(np.uint32) != want.view(np.uint32))
+    return bad
+
+
+def _global_norm_mismatches(seeds):
+    """Random trees of 1 to 5 leaves, ranks 0-3, dimensions 1-69."""
     from rayfed_tpu.fl import dp as jax_dp
     from rayfed_tpu_torch.fl import dp
 
     bad = 0
-    for seed in range(300):
+    for seed in seeds:
         rng = np.random.default_rng(seed)
         shapes = [tuple(int(d) for d in rng.integers(1, 70, rng.integers(0, 4))) for _ in range(rng.integers(1, 6))]
         tree = {f"l{i}": (rng.standard_normal(s) * rng.uniform(0.01, 3)).astype(np.float32)
@@ -350,8 +362,40 @@ def _probe_open(seeds=6):
         want = np.asarray(jax_dp.global_norm(tree))
         got = dp.global_norm({k: torch.from_numpy(np.asarray(v)) for k, v in tree.items()}).numpy()
         bad += int(got.view(np.uint32) != want.view(np.uint32))
-    out["global_norm of random trees, ranks 0-3, dims 1-69 (of 300)"] = bad
-    return out
+    return bad
+
+
+def _probe_open(seeds=6):
+    """Elements where a form of ``xla_cpu`` that ROADMAP.md Queue C listed
+    open differs from the installed jaxlib's program: the layer norm at
+    widths 5 to 8, a leaf's sum of squares over ``NARROW_LEAVES``, and
+    ``fl.dp.global_norm`` over random trees."""
+    n_ln = 2 * 64 * sum(LN_NARROW_WIDTHS)
+    return {
+        f"layer_norm widths 5-8 (eager, jitted; of {n_ln} elements)":
+            sum(_layer_norm_mismatches(w, j) for w in LN_NARROW_WIDTHS for j in (False, True)),
+        f"leaf_sum_sq narrow windows (of {len(NARROW_LEAVES) * seeds} sums)":
+            sum(_leaf_sum_sq_mismatches(s, seeds) for s in NARROW_LEAVES),
+        f"global_norm of random trees, ranks 0-3, dims 1-69 (of {NORM_TREES})":
+            _global_norm_mismatches(range(NORM_TREES)),
+    }
+
+
+@pytest.mark.parametrize("jitted", [False, True], ids=["eager", "jitted"])
+@pytest.mark.parametrize("width", LN_NARROW_WIDTHS)
+def test_layer_norm_bytes_equal_the_reference_at_narrow_widths(width, jitted):
+    assert _layer_norm_mismatches(width, jitted) == 0
+
+
+@pytest.mark.parametrize("shape", NARROW_LEAVES, ids=lambda s: "x".join(map(str, s)))
+def test_leaf_sum_sq_bytes_equal_the_reference(shape):
+    assert _leaf_sum_sq_mismatches(shape, seeds=3) == 0
+
+
+@pytest.mark.parametrize("chunk", range(NORM_TREE_CHUNKS))
+def test_global_norm_of_random_trees_equals_the_reference(chunk):
+    per = NORM_TREES // NORM_TREE_CHUNKS
+    assert _global_norm_mismatches(range(chunk * per, (chunk + 1) * per)) == 0
 
 
 def test_xla_cpu_assumptions_hold_on_this_jaxlib():
@@ -362,6 +406,6 @@ def test_xla_cpu_assumptions_hold_on_this_jaxlib():
 if __name__ == "__main__":
     for name, count in _probe().items():
         print(f"{name}: {count}")
-    print("known open (ROADMAP.md Queue C):")
+    print("known open until closed (ROADMAP.md Queue C; each must print 0):")
     for name, count in _probe_open().items():
         print(f"  {name}: {count}")
