@@ -218,6 +218,24 @@ Phases, each fatal on failure:
      Perfetto, and ``tool/trace_report.round_report`` agrees with every
      round's driver span within 0.25.  Prints the save ms and bytes, the
      restore ms from the content cache and from disk, the snapshot's size;
+  17. (after 16) phase_parallel: party-local parallelism, worlds of rank
+     processes on the one card (gloo; the ring's K/V rotations and the
+     gathers staged through pinned host buffers).  Four ranks: (1) the
+     flash ring (causal and not), the zigzag ring and Ulysses with
+     flash_attention inside, forward and backward on [1, 16384, 32, 128]
+     bf16 (4096 tokens a rank), each held against one-card flash_attention
+     on the same global tensors (3e-2), with each rank's forward, dQ and
+     dK/dV launches held to ``par_launches``; one ring step's kernel
+     against one rotation and the bytes it stages; (3) TP/FSDP:
+     ``ShardingStrategy(param_rules=llama.PARTITION_RULES)`` on
+     {fsdp: 2, tp: 2} at llama3_8b() width and 2 layers, logits against
+     the unsharded forward (5% of max|logit|); (4) one MoE layer at Switch
+     base-128's widths, B=8 T=512, ep=4, against the one-rank layer (1e-5).
+     Then two ranks, sp=2: (2) Llama-3-8B at full width and depth, a bf16
+     replica a rank, prefill of 8192 tokens and one LoRA step (rank 16 on
+     w[qv], remat, T=4096) through the zigzag ring, against one-card flash
+     (logits 5% of max|logit|, loss and adapter gradients 5% of max|g|);
+     prints each part's ms, each rank's peak memory and the backend;
   7. time each kernel (mean over one window of calls) against its plain
      version, the library call that computes the same function, and the
      card's bound (the forward at the serving shape B=4 and at the training
@@ -3962,6 +3980,454 @@ def phase_checkpoint(federated, ckpt_root, cfg_name="llama3_8b", cfg_kw=None, tr
     return {"llama": llama_out, "quorum": quorum_out}
 
 
+# ---------------------------------------------------------------------------
+# phase_parallel: party-local parallelism (a world of ranks on the one card)
+# ---------------------------------------------------------------------------
+
+# The card's sizes and a CPU rehearsal's: (1) the ops at Llama-3-8B's
+# attention shape over 4 ranks; (2) Llama-3-8B at full width and depth under
+# sp=2 (prefill and one LoRA step through the zigzag ring); (3) TP/FSDP on a
+# {fsdp: 2, tp: 2} mesh at llama3_8b() width, 2 layers; (4) one MoE layer at
+# Switch Transformer base-128's widths (d_model 768, d_ff 3072, 128 experts,
+# top-1, capacity factor 1.25; the JAX layer's GELU) with ep=4.
+PAR_SIZES = {
+    "cuda": dict(shape=(1, 16384, 32, 128), dtype=torch.bfloat16, llama="llama3_8b",
+                 llama_kw=dict(param_dtype=torch.bfloat16), prefill_len=8192, train_len=4096,
+                 tp_len=1024, moe=dict(num_experts=128, top_k=1, capacity_factor=1.25, d_model=768,
+                                       d_ff=3072), moe_batch=8, moe_len=512),
+    "cpu": dict(shape=(1, 64, 4, 16), dtype=torch.bfloat16, llama="llama_tiny", llama_kw={},
+                prefill_len=64, train_len=32, tp_len=16,
+                moe=dict(num_experts=8, top_k=1, capacity_factor=1.25, d_model=16, d_ff=32),
+                moe_batch=2, moe_len=16),
+}
+PAR_RANKS, PAR_SP = 4, 2
+PAR_TP_LAYERS = 2
+PAR_TOL = 3e-2  # the reference's bf16 tolerance (tests/test_ops_attention.py:54)
+MOE_TOL = 1e-5  # the reference's f32 tolerance (tests/test_moe.py)
+PAR_TIMEOUT_S = 420  # hard limit on each world's rank processes
+PAR_PATHS = ("sp_ops", "sp_llama_serve", "sp_llama_train", "tp_fsdp")  # launches_by_path keys
+# The ops of part (1): each builder's keywords; "ulysses" runs flash_attention inside.
+PAR_OPS = (("ring_causal", dict(causal=True, use_flash=True)),
+           ("ring_full", dict(causal=False, use_flash=True)),
+           ("zigzag", dict(causal=True, use_flash=True, layout="zigzag")),
+           ("ulysses", dict(causal=True)))
+
+
+def par_launches(op, rank, n):
+    """Each of the three kernels' launches per rank in one forward and
+    backward of a part-(1) op (PERF.md): the causal ring skips the blocks its
+    mask hides (1 + rank), the full ring runs every step (n), the zigzag ring
+    3 at step 0 and 2 a later step (2n + 1), Ulysses one call (1)."""
+    return {"ring_causal": 1 + rank, "ring_full": n, "zigzag": 2 * n + 1, "ulysses": 1}[op]
+
+
+def _par_sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _par_peak_gb(dev):
+    return torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else 0.0
+
+
+def _digest(t):
+    return hashlib.sha256(t.detach().float().cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def _grad_gap(g, ref):
+    """The largest |g − ref| over 3e-2·max|ref| + 3e-2·|ref| (≤ 1 passes)."""
+    g, ref = g.float(), ref.float()
+    bound = PAR_TOL * ref.abs().max() + PAR_TOL * ref.abs()
+    return float(((g - ref).abs() / bound).max())
+
+
+def _par_op(name, kw, mesh):
+    from rayfed_tpu_torch.ops import make_ring_attention, make_ulysses_attention
+
+    if name == "ulysses":
+        return make_ulysses_attention(mesh, "sp", attn_fn=flash_attention, **kw)
+    return make_ring_attention(mesh, "sp", **kw)
+
+
+def _par_ops_part(rank, dev, size):
+    """Part (1): each op forward and backward on the same global bf16
+    tensors, against one-card flash on rank 0; then one ring step's kernel
+    (rank 0 alone) against one rotation of its K/V block (every rank)."""
+    import torch.distributed as dist
+
+    from rayfed_tpu_torch.ops.ring_attention import _merge_partial
+    from rayfed_tpu_torch.parallel import collectives as coll
+    from rayfed_tpu_torch.parallel.mesh import create_mesh
+
+    mesh = create_mesh({"sp": PAR_RANKS}, device=dev.type)
+    group = mesh.get_group("sp")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    qg, kg, vg, dout = (torch.randn(size["shape"], generator=gen, device=dev).to(size["dtype"])
+                        for _ in range(4))
+    refs, out = {}, {}
+    # One untimed forward and backward first: the kernels' libraries load and
+    # the pinned host buffers are allocated on first use.
+    warm = [x.detach().requires_grad_(True) for x in (qg, kg, vg)]
+    torch.autograd.grad(_par_op(*PAR_OPS[1], mesh)(*warm), warm, dout)
+    del warm
+    for name, kw in PAR_OPS:
+        fn = _par_op(name, kw, mesh)
+        q, k, v = (x.detach().requires_grad_(True) for x in (qg, kg, vg))
+        _zero_counts()
+        coll.STAGING.reset()
+        dist.barrier()
+        _par_sync(dev)
+        t0 = time.perf_counter()
+        o = fn(q, k, v)
+        _par_sync(dev)
+        t1 = time.perf_counter()
+        grads = torch.autograd.grad(o, (q, k, v), dout)
+        _par_sync(dev)
+        rec = {"fwd_ms": (t1 - t0) * 1e3, "bwd_ms": (time.perf_counter() - t1) * 1e3,
+               "launches": _counts(), "staged_mb": coll.STAGING.bytes / 1e6, "staged_ms": coll.STAGING.ms,
+               "digest": [_digest(x) for x in (o, *grads)], "finite": bool(torch.isfinite(o).all())}
+        dist.barrier()
+        if rank == 0:
+            causal = kw["causal"]
+            if causal not in refs:
+                rq, rk, rv = (x.detach().requires_grad_(True) for x in (qg, kg, vg))
+                ro = flash_attention(rq, rk, rv, causal=causal)
+                refs[causal] = (ro.detach(), torch.autograd.grad(ro, (rq, rk, rv), dout))
+            ro, rgrads = refs[causal]
+            o = o.detach()
+            rec["max_abs_err"] = float((o.float() - ro.float()).abs().max())
+            rec["out_ok"] = bool(torch.allclose(o.float(), ro.float(), atol=PAR_TOL, rtol=PAR_TOL))
+            rec["grad_gap"] = max(_grad_gap(g, r) for g, r in zip(grads, rgrads))
+        out[name] = rec
+        del o, grads, q, k, v
+    del refs
+    # One ring step: the kernel on one resident block (rank 0 alone; a full
+    # ring's block, and a zigzag step's two half blocks), then one rotation
+    # of K/V (all ranks, the ring's own ppermute).
+    b, t, h, d = size["shape"]
+    tl = t // PAR_RANKS
+    blk = [torch.randn((b * h, tl, d), generator=gen, device=dev).to(size["dtype"]) for _ in range(3)]
+    half = [x[:, : tl // 2].contiguous() for x in blk]
+    step = {}
+    dist.barrier()
+    if rank == 0 and dev.type == "cuda":
+        scale = d ** -0.5
+        step["kernel_ms"] = _sync_ms(lambda: _flash_forward(*blk, scale=scale, causal=False,
+                                                            out_dtype=torch.float32), 10)
+        step["zigzag_kernel_ms"] = 2 * _sync_ms(lambda: _flash_forward(*half, scale=scale, causal=False,
+                                                                         out_dtype=torch.float32), 10)
+        o_acc, lse_acc = _flash_forward(*blk, scale=scale, causal=False, out_dtype=torch.float32)
+        step["merge_ms"] = _sync_ms(lambda: _merge_partial(o_acc, lse_acc, o_acc, lse_acc), 10)
+        step["merge_bytes"] = 3 * o_acc.numel() * 4 + 3 * lse_acc.numel() * 4
+        del o_acc, lse_acc
+    dist.barrier()
+    coll.STAGING.reset()
+    rot_ms = []
+    for _ in range(3):
+        dist.barrier()
+        t0 = time.perf_counter()
+        coll.ppermute_start(blk[1:], group).wait()
+        _par_sync(dev)
+        rot_ms.append((time.perf_counter() - t0) * 1e3)
+    step.update(rotation_ms=min(rot_ms), rotation_mb=2 * blk[1].numel() * blk[1].element_size() / 1e6,
+                staged_mb=coll.STAGING.bytes / 3 / 1e6, staged_ms=coll.STAGING.ms / 3)
+    return {"ops": out, "step": step}
+
+
+def _par_tp_part(rank, dev, size):
+    """Part (3): the {fsdp: 2, tp: 2} strategy's forward of a 2-layer
+    Llama-3-8B-width model under llama.PARTITION_RULES (attention heads over
+    tp through the flash kernel), against the unsharded forward on rank 0."""
+    import torch.distributed as dist
+
+    from rayfed_tpu_torch.parallel.mesh import create_mesh
+    from rayfed_tpu_torch.parallel.sharding import ShardingStrategy, sharded_attn_fn
+
+    cfg = getattr(llama, size["llama"])(num_layers=PAR_TP_LAYERS, **size["llama_kw"])
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    params = llama.init_llama(cfg, gen, device=dev)
+    ids = torch.randint(0, cfg.vocab_size, (1, size["tp_len"]), generator=gen, device=dev)
+    mesh = create_mesh({"fsdp": 2, "tp": 2}, device=dev.type)
+    strat = ShardingStrategy(mesh=mesh, param_rules=llama.PARTITION_RULES)
+    sharded = strat.shard_params(params)
+    local_gb = sum(x.to_local().numel() * x.to_local().element_size()
+                   for x in torch.utils._pytree.tree_leaves(sharded)) / 1e9
+    attn = sharded_attn_fn(mesh, flash_attention)
+    step = strat.jit_step(lambda p, i: llama.apply_llama(p, i, cfg, attn_fn=attn))
+    step(sharded, ids).full_tensor()  # untimed: DTensor's first dispatch of each op
+    _zero_counts()
+    dist.barrier()
+    _par_sync(dev)
+    t0 = time.perf_counter()
+    logits = step(sharded, ids).full_tensor()
+    _par_sync(dev)
+    rec = {"ms": (time.perf_counter() - t0) * 1e3, "launches": _counts(), "local_param_gb": local_gb,
+           "digest": _digest(logits), "finite": bool(torch.isfinite(logits).all())}
+    dist.barrier()
+    if rank == 0:
+        ref = llama.apply_llama(params, ids, cfg, attn_fn=flash_attention)
+        rec["gap"] = float((logits - ref).abs().max())
+        rec["span"] = float(ref.abs().max())
+    return rec
+
+
+def _par_moe_part(rank, dev, size):
+    """Part (4): the MoE layer with its experts over ep=4 (Shard(0) by
+    moe.PARTITION_RULES) against the one-rank layer on rank 0."""
+    import torch.distributed as dist
+
+    from rayfed_tpu_torch.models import moe
+    from rayfed_tpu_torch.parallel.mesh import create_mesh
+    from rayfed_tpu_torch.parallel.sharding import ShardingStrategy
+
+    cfg = moe.MoeConfig(**size["moe"])
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    params = moe.init_moe(cfg, gen, device=dev)
+    x = torch.randn((size["moe_batch"], size["moe_len"], cfg.d_model), generator=gen, device=dev)
+    mesh = create_mesh({"ep": PAR_RANKS}, device=dev.type)
+    sharded = ShardingStrategy(mesh=mesh, param_rules=moe.PARTITION_RULES).shard_params(params)
+    local = {"gate": sharded["gate"].to_local(), "w_in": sharded["w_in"], "w_out": sharded["w_out"]}
+    ep = mesh.get_group("ep")
+    moe.apply_moe(local, x, cfg, ep_group=ep)  # untimed: the first call of each kernel
+    moe.apply_moe(params, x, cfg)
+    dist.barrier()
+    _par_sync(dev)
+    t0 = time.perf_counter()
+    out, aux = moe.apply_moe(local, x, cfg, return_aux=True, ep_group=ep)
+    _par_sync(dev)
+    rec = {"ms": (time.perf_counter() - t0) * 1e3, "local_experts": sharded["w_in"].to_local().shape[0],
+           "digest": _digest(out), "dropped": float(aux["dropped_fraction"])}
+    dist.barrier()
+    if rank == 0:
+        _par_sync(dev)
+        t0 = time.perf_counter()
+        ref, ref_aux = moe.apply_moe(params, x, cfg, return_aux=True)
+        _par_sync(dev)
+        rec["one_rank_ms"] = (time.perf_counter() - t0) * 1e3
+        rec["max_abs_err"] = float((out - ref).abs().max())
+        rec["ok"] = bool(torch.allclose(out, ref, atol=MOE_TOL, rtol=MOE_TOL))
+        rec["aux_ok"] = abs(float(aux["aux_loss"]) - float(ref_aux["aux_loss"])) <= MOE_TOL * float(ref_aux["aux_loss"])
+    return rec
+
+
+def _par_world_ops(rank, dev, size):
+    """World A (4 ranks): parts (1), (3) and (4), one after another."""
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    rep = {"backend": dist.get_backend()}
+    for part, fn in (("attn", _par_ops_part), ("tp", _par_tp_part), ("moe", _par_moe_part)):
+        t0 = time.perf_counter()
+        rep[part] = fn(rank, dev, size)
+        rep[f"{part}_wall_s"] = time.perf_counter() - t0
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    rep["peak_gb"] = _par_peak_gb(dev)
+    return rep
+
+
+def _par_world_llama(rank, dev, size):
+    """World B (2 ranks, sp=2): Llama-3-8B at full width and depth, a bf16
+    replica on each rank; the zigzag ring's prefill and one LoRA step
+    against one-card flash on rank 0."""
+    import torch.distributed as dist
+
+    from rayfed_tpu_torch.ops import make_ring_attention
+    from rayfed_tpu_torch.parallel import collectives as coll
+    from rayfed_tpu_torch.parallel.mesh import create_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    cfg = getattr(llama, size["llama"])(**size["llama_kw"])
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = llama.init_llama(cfg, gen, device=dev)
+    _par_sync(dev)
+    rep = {"backend": dist.get_backend(), "init_s": time.perf_counter() - t0}
+    mesh = create_mesh({"sp": PAR_SP}, device=dev.type)
+    ring = make_ring_attention(mesh, "sp", causal=True, use_flash=True, layout="zigzag")
+
+    # Serving: prefill of one 8192-token prompt.
+    prompt = torch.randint(0, cfg.vocab_size, (1, size["prefill_len"]), generator=gen, device=dev)
+    _zero_counts()
+    coll.STAGING.reset()
+    dist.barrier()
+    t0 = time.perf_counter()
+    cache, logits = llama.prefill(params, cfg, prompt, size["prefill_len"], attn_fn=ring)
+    _par_sync(dev)
+    serve = {"ms": (time.perf_counter() - t0) * 1e3, "launches": _counts(), "staged_mb": coll.STAGING.bytes / 1e6,
+             "digest": _digest(logits), "finite": bool(torch.isfinite(logits).all()),
+             "cache_gb": sum(t.numel() * t.element_size() for t in cache.values()) / 1e9}
+    dist.barrier()
+    if rank == 0:
+        ref_cache, ref_logits = llama.prefill(params, cfg, prompt, size["prefill_len"], attn_fn=flash_attention)
+        serve["gap"] = float((logits - ref_logits).abs().max())
+        serve["span"] = float(ref_logits.abs().max())
+        k_ring, k_ref = cache["k"][-1].float(), ref_cache["k"][-1].float()
+        serve["cache_gap"] = float((k_ring - k_ref).abs().max())
+        serve["cache_span"] = float(k_ref.abs().max())
+        del ref_cache, ref_logits, k_ring, k_ref
+    del cache, logits
+    rep["serve"] = serve
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # Training: one LoRA step (rank 16 on w[qv], remat) through the ring's backward.
+    tcfg = dataclasses.replace(cfg, remat=True)
+    adapters = lora.init_lora(params, lora.LoraConfig(rank=LORA_RANK, targets=(r"w[qv]$",)), gen, device=dev)
+    for entry in adapters["layers"].values():  # B != 0, or dL/dA is exactly 0
+        entry["b"] = 0.01 * torch.randn(entry["b"].shape, generator=gen, device=dev)
+    ids = torch.randint(0, cfg.vocab_size, (1, size["train_len"]), generator=gen, device=dev)
+    _zero_counts()
+    coll.STAGING.reset()
+    dist.barrier()
+    t0 = time.perf_counter()
+    loss, grads = llama._value_and_grad(llama._lora_loss(tcfg, ring), adapters, params, ids)
+    new_adapters, _ = llama._adam_update(adapters, grads, llama.init_adam(adapters), TRAIN_LR, 0.9, 0.999, 1e-8)
+    _par_sync(dev)
+    train = {"ms": (time.perf_counter() - t0) * 1e3, "launches": _counts(), "staged_mb": coll.STAGING.bytes / 1e6,
+             "loss": float(loss), "digest": _digest(grads["layers"]["wq"]["a"]),
+             "finite": all(bool(torch.isfinite(x).all()) for x in torch.utils._pytree.tree_leaves(new_adapters))}
+    del new_adapters
+    dist.barrier()
+    if rank == 0:
+        ref_loss, ref_grads = llama._value_and_grad(llama._lora_loss(tcfg, flash_attention), adapters, params, ids)
+        train["ref_loss"] = float(ref_loss)
+        train["grad_gaps"] = {
+            f"{target}.{leaf}": (float((grads["layers"][target][leaf] - ref_grads["layers"][target][leaf]).abs().max()),
+                                 float(ref_grads["layers"][target][leaf].abs().max()))
+            for target in adapters["layers"] for leaf in ("a", "b")}
+        del ref_grads
+    rep["train"] = train
+    rep["peak_gb"] = _par_peak_gb(dev)
+    return rep
+
+
+def _par_check(cond, msg):
+    if not cond:
+        raise AssertionError(f"phase_parallel: {msg}")
+
+
+def _par_summary(world_a, world_b, size, on_card):
+    """Print every part's numbers and raise on a failed gate."""
+    b, t, h, d = size["shape"]
+    print(f"[parallel] backend {world_a[0]['backend']} ({PAR_RANKS} ranks, then {PAR_SP}, on one card; "
+          f"the K/V rotations and gathers staged through pinned host buffers)")
+    launches = {}
+    for name, _ in PAR_OPS:
+        recs = [w["attn"]["ops"][name] for w in world_a]
+        r0 = recs[0]
+        _par_check(all(r["digest"] == r0["digest"] for r in recs), f"{name}: ranks returned different results")
+        _par_check(r0["finite"] and r0["out_ok"], f"{name}: output vs one-card flash max_abs_err {r0['max_abs_err']:.4e}")
+        _par_check(r0["grad_gap"] <= 1.0, f"{name}: gradients vs one-card flash at {r0['grad_gap']:.3f} of the bound")
+        for rank, r in enumerate(recs):
+            want = par_launches(name, rank, PAR_RANKS) if on_card else 0
+            _par_check(r["launches"] == {"fwd": want, "bwd_dq": want, "bwd_dkv": want},
+                       f"{name} rank {rank}: launches {r['launches']}, want {want} each")
+        launches[name] = {k: sum(r["launches"][k] for r in recs) for k in ("fwd", "bwd_dq", "bwd_dkv")}
+        print(f"[parallel] (1) {name} [{b}, {t}, {h}, {d}] {str(size['dtype'])[6:]}: fwd "
+              f"{max(r['fwd_ms'] for r in recs):.1f} ms, bwd {max(r['bwd_ms'] for r in recs):.1f} ms (slowest rank); "
+              f"vs one-card flash max_abs_err={r0['max_abs_err']:.4e} (tol {PAR_TOL:g}), grads at "
+              f"{r0['grad_gap']:.3f} of the bound; launches per rank {[r['launches']['fwd'] for r in recs]}; "
+              f"staged {r0['staged_mb']:.1f} MB in {r0['staged_ms']:.1f} ms (rank 0)")
+    step = world_a[0]["attn"]["step"]
+    if on_card:
+        print(f"[parallel] ring step at T_local={t // PAR_RANKS}: kernel {step['kernel_ms']:.3f} ms (flash fwd, one "
+              f"block, rank 0 alone; zigzag's two half blocks {step['zigzag_kernel_ms']:.3f} ms) vs rotation "
+              f"{step['rotation_ms']:.3f} ms of {step['rotation_mb']:.1f} MB K/V ({step['staged_mb']:.1f} MB staged "
+              f"in {step['staged_ms']:.3f} ms, rank 0); _merge_partial {step['merge_ms']:.4f} ms "
+              f"(bound {step['merge_bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms, {step['merge_bytes'] / 1e6:.1f} MB)")
+
+    tp = [w["tp"] for w in world_a]
+    _par_check(all(r["digest"] == tp[0]["digest"] for r in tp), "TP/FSDP: ranks returned different logits")
+    _par_check(tp[0]["finite"] and tp[0]["gap"] <= LOGIT_REL_TOL * tp[0]["span"],
+               f"TP/FSDP logits vs unsharded: max_abs_diff {tp[0]['gap']:.4e}, max|logit| {tp[0]['span']:.4e}")
+    want = PAR_TP_LAYERS if on_card else 0
+    _par_check(all(r["launches"]["fwd"] == want for r in tp), f"TP/FSDP launches {[r['launches'] for r in tp]}")
+    launches["tp_fsdp"] = {k: sum(r["launches"][k] for r in tp) for k in ("fwd", "bwd_dq", "bwd_dkv")}
+    print(f"[parallel] (3) TP/FSDP {{fsdp: 2, tp: 2}} {size['llama']} width, {PAR_TP_LAYERS} layers, B=1 "
+          f"T={size['tp_len']}: forward {max(r['ms'] for r in tp):.1f} ms; logits vs unsharded "
+          f"max_abs_diff={tp[0]['gap']:.4e} max|logit|={tp[0]['span']:.4e} (tol {LOGIT_REL_TOL:g}*max|logit|); "
+          f"params held per rank {tp[0]['local_param_gb']:.3f} GB; flash launches per rank {want}")
+
+    mo = [w["moe"] for w in world_a]
+    _par_check(all(r["digest"] == mo[0]["digest"] for r in mo), "MoE: ranks returned different outputs")
+    _par_check(mo[0]["ok"] and mo[0]["aux_ok"], f"MoE ep={PAR_RANKS} vs one rank: max_abs_err {mo[0]['max_abs_err']:.4e}")
+    print(f"[parallel] (4) MoE {size['moe']} B={size['moe_batch']} T={size['moe_len']} ep={PAR_RANKS} "
+          f"({mo[0]['local_experts']} experts a rank): {max(r['ms'] for r in mo):.1f} ms vs one rank "
+          f"{mo[0]['one_rank_ms']:.1f} ms; max_abs_err={mo[0]['max_abs_err']:.4e} (tol {MOE_TOL:g}); "
+          f"dropped {mo[0]['dropped']:.4f}")
+
+    serve = [w["serve"] for w in world_b]
+    s0 = serve[0]
+    _par_check(all(r["digest"] == s0["digest"] for r in serve), "sp=2 prefill: ranks returned different logits")
+    _par_check(s0["finite"] and s0["gap"] <= LOGIT_REL_TOL * s0["span"],
+               f"sp=2 prefill logits vs one card: {s0['gap']:.4e} over max|logit| {s0['span']:.4e}")
+    _par_check(s0["cache_gap"] <= LOGIT_REL_TOL * s0["cache_span"], f"sp=2 prefill KV cache vs one card {s0['cache_gap']:.4e}")
+    layers = getattr(llama, size["llama"])().num_layers
+    per_layer = 2 * PAR_SP + 1
+    want = per_layer * layers if on_card else 0
+    _par_check(all(r["launches"] == {"fwd": want, "bwd_dq": 0, "bwd_dkv": 0} for r in serve),
+               f"sp=2 prefill launches {[r['launches'] for r in serve]}, want {want} fwd")
+    launches["sp_llama_serve"] = {k: sum(r["launches"][k] for r in serve) for k in ("fwd", "bwd_dq", "bwd_dkv")}
+    print(f"[parallel] (2) {size['llama']} sp={PAR_SP} zigzag prefill B=1 T={size['prefill_len']}: "
+          f"{max(r['ms'] for r in serve):.1f} ms; last logits vs one-card flash max_abs_diff={s0['gap']:.4e} "
+          f"max|logit|={s0['span']:.4e} (tol {LOGIT_REL_TOL:g}*max|logit|), last layer's K cache "
+          f"{s0['cache_gap']:.4e} of max {s0['cache_span']:.4e}; KV cache {s0['cache_gb']:.3f} GB a rank; "
+          f"flash fwd launches per rank {serve[0]['launches']['fwd']}; staged {s0['staged_mb']:.1f} MB (rank 0)")
+
+    train = [w["train"] for w in world_b]
+    t0_ = train[0]
+    _par_check(all(r["digest"] == t0_["digest"] for r in train) and all(r["finite"] for r in train),
+               "sp=2 LoRA step: ranks disagree or the step is not finite")
+    rel = abs(t0_["loss"] - t0_["ref_loss"]) / abs(t0_["ref_loss"])
+    _par_check(rel <= GRAD_REL_TOL, f"sp=2 LoRA loss {t0_['loss']:.6f} vs one card {t0_['ref_loss']:.6f}")
+    worst = 0.0
+    for leaf, (gap, span) in t0_["grad_gaps"].items():
+        _par_check(span > 0 and gap <= GRAD_REL_TOL * span, f"sp=2 adapter gradient d{leaf}: {gap:.4e} vs max|g| {span:.4e}")
+        worst = max(worst, gap / span)
+    want = {"fwd": 2 * per_layer * layers, "bwd_dq": per_layer * layers, "bwd_dkv": per_layer * layers}
+    want = want if on_card else {k: 0 for k in want}
+    _par_check(all(r["launches"] == want for r in train), f"sp=2 LoRA step launches {[r['launches'] for r in train]}, want {want}")
+    launches["sp_llama_train"] = {k: sum(r["launches"][k] for r in train) for k in ("fwd", "bwd_dq", "bwd_dkv")}
+    print(f"[parallel] (2) {size['llama']} sp={PAR_SP} LoRA step (rank {LORA_RANK} w[qv], remat) B=1 "
+          f"T={size['train_len']}: {max(r['ms'] for r in train):.1f} ms; loss {t0_['loss']:.6f} vs one-card flash "
+          f"{t0_['ref_loss']:.6f}; worst adapter gradient gap {worst:.4f} of max|g| (tol {GRAD_REL_TOL:g}); "
+          f"launches per rank {train[0]['launches']}; staged {t0_['staged_mb']:.1f} MB (rank 0)")
+    print(f"[parallel] peak memory per rank: world A {[round(w['peak_gb'], 2) for w in world_a]} GB, "
+          f"world B {[round(w['peak_gb'], 2) for w in world_b]} GB; Llama init {world_b[0]['init_s']:.1f} s")
+    launches["sp_ops"] = {k: sum(launches[n][k] for n, _ in PAR_OPS) for k in ("fwd", "bwd_dq", "bwd_dkv")}
+    return {"launches": launches, "step": step, "ops": world_a[0]["attn"]["ops"]}
+
+
+def phase_parallel(device=None):
+    """Party-local parallelism on the card: two worlds of rank processes
+    (parts 1, 3, 4 on 4 ranks, then part 2 on 2), each part held against its
+    one-card form.  ``device="cpu"`` rehearses it at toy sizes."""
+    from rayfed_tpu_torch.parallel.launch import run_world
+
+    kind = "cpu" if device is not None and torch.device(device).type == "cpu" else "cuda"
+    size = PAR_SIZES[kind]
+    if kind == "cuda":
+        torch.cuda.empty_cache()
+    walls = {}
+    t0 = time.perf_counter()
+    world_a = run_world(_par_world_ops, PAR_RANKS, (size,), device=device, timeout_s=PAR_TIMEOUT_S)
+    walls["ops_tp_moe"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    world_b = run_world(_par_world_llama, PAR_SP, (size,), device=device, timeout_s=PAR_TIMEOUT_S)
+    walls["llama_sp"] = time.perf_counter() - t0
+    print(f"[parallel] worlds: {PAR_RANKS} ranks (attention ops {world_a[0]['attn_wall_s']:.1f} s, TP/FSDP "
+          f"{world_a[0]['tp_wall_s']:.1f} s, MoE {world_a[0]['moe_wall_s']:.1f} s) in {walls['ops_tp_moe']:.1f} s; "
+          f"{PAR_SP} ranks (Llama sp) in {walls['llama_sp']:.1f} s, rank start-up included")
+    out = _par_summary(world_a, world_b, size, kind == "cuda")
+    out["walls"] = walls
+    return out
+
+
 def _timed(walls, fn, *args, **kw):
     """Run one phase and print its wall."""
     t0 = time.perf_counter()
@@ -4013,6 +4479,8 @@ def main() -> int:
     _timed(walls, phase_secagg, card, suite, topo, federated)
     ckpt = _timed(walls, phase_checkpoint, federated, ckpt_root)
     shutil.rmtree(ckpt_root, ignore_errors=True)
+    par = _timed(walls, phase_parallel)
+    par_launches = par["launches"]
     ckpt_llama, ckpt_resnet = ckpt["llama"]["launches"], ckpt["quorum"]["flash_launches"]
     overlap = {k: sum(federated[part]["launches"][k] for part in OVERLAP_PARTS)
                for k in ("fwd", "bwd_dq", "bwd_dkv")}
@@ -4071,7 +4539,11 @@ def main() -> int:
                              "server_opt_resnet": sopt_resnet["fwd"],
                              "async_resnet": async_launches["fwd"],
                              "checkpoint_llama": ckpt_llama["fwd"],
-                             "checkpoint_resnet": ckpt_resnet["fwd"]},
+                             "checkpoint_resnet": ckpt_resnet["fwd"],
+                             # phase_parallel, every rank: the ring, zigzag and Ulysses
+                             # ops at the Llama shape, the sp=2 Llama-3-8B prefill and
+                             # LoRA step, the TP/FSDP forward
+                             **{path: par_launches[path]["fwd"] for path in PAR_PATHS}},
         "bert_shape": bert_times["fwd"],  # bert_base's attention on the split path
         "max_abs_err": slice_err,
         **times,
@@ -4098,7 +4570,11 @@ def main() -> int:
                              "server_opt_resnet": sopt_resnet["bwd_dq"],
                              "async_resnet": async_launches["bwd_dq"],
                              "checkpoint_llama": ckpt_llama["bwd_dq"],
-                             "checkpoint_resnet": ckpt_resnet["bwd_dq"]},
+                             "checkpoint_resnet": ckpt_resnet["bwd_dq"],
+                             # phase_parallel, every rank: the ring, zigzag and Ulysses
+                             # ops at the Llama shape, the sp=2 Llama-3-8B prefill and
+                             # LoRA step, the TP/FSDP forward
+                             **{path: par_launches[path]["bwd_dq"] for path in PAR_PATHS}},
         "bert_shape": bert_times["dq"],  # bert_base's attention on the split path
         "max_abs_err": bwd_err["dq"],
         **bwd_times["dq"],
@@ -4124,7 +4600,11 @@ def main() -> int:
                              "server_opt_resnet": sopt_resnet["bwd_dkv"],
                              "async_resnet": async_launches["bwd_dkv"],
                              "checkpoint_llama": ckpt_llama["bwd_dkv"],
-                             "checkpoint_resnet": ckpt_resnet["bwd_dkv"]},
+                             "checkpoint_resnet": ckpt_resnet["bwd_dkv"],
+                             # phase_parallel, every rank: the ring, zigzag and Ulysses
+                             # ops at the Llama shape, the sp=2 Llama-3-8B prefill and
+                             # LoRA step, the TP/FSDP forward
+                             **{path: par_launches[path]["bwd_dkv"] for path in PAR_PATHS}},
         "bert_shape": bert_times["dkv"],  # bert_base's attention on the split path
         "max_abs_err": bwd_err["dkv"],
         **bwd_times["dkv"],
@@ -4159,7 +4639,8 @@ def main() -> int:
                              # checkpointed Llama runs; the four ResNet-18 parties'
                              # over the uninterrupted and the resumed quorum runs
                              "checkpoint_llama": ckpt["llama"]["fold_launches"],
-                             "checkpoint_resnet": ckpt["quorum"]["fold_launches"]},
+                             "checkpoint_resnet": ckpt["quorum"]["fold_launches"],
+                             **{path: 0 for path in PAR_PATHS}},
         **fold_times["adapters"],  # one contribution of the round's packed adapters
         "wq_shape": fold_times["wq"],
         # The same kernel as the server step's fused multiply-adds: FedAC at

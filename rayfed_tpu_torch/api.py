@@ -7,7 +7,8 @@ cluster; config lives on the Runtime rather than a GCS KV; ``@remote``
 tasks run torch callables on the party's CUDA card.
 
 The JAX package's mesh and multi-host options raise ``NotImplementedError``
-here until their slice is ported (ROADMAP.md, Queue A item 10).  Elastic
+here until their slice is ported (ROADMAP.md, Queue A item 10, second
+slice: the party-local mesh itself is ``rayfed_tpu_torch.parallel``).  Elastic
 membership (``join``/``leave``) rides the quorum rounds of
 :mod:`rayfed_tpu_torch.fl.quorum`.
 """
@@ -95,8 +96,9 @@ def init(
       picks the current CUDA card and raises where there is none; pass
       ``"cpu"`` to run the party on the CPU.  Received tensors are
       decoded onto it;
-    - ``mesh`` / ``mesh_shape``: not supported until intra-party
-      parallelism is ported (ROADMAP.md, Queue A item 10); raise;
+    - ``mesh`` / ``mesh_shape``: a party mesh in ``fed.init`` is not
+      supported until the multi-process party is ported (ROADMAP.md, Queue
+      A item 10, second slice); raise;
     - ``device_put_received``: place received tensor payloads onto
       ``device`` eagerly;
     - ``peer_failfast`` (+ ``peer_health_interval_in_seconds``,
@@ -109,15 +111,15 @@ def init(
     - ``coordinator_address`` + ``num_party_processes`` +
       ``party_process_id``: a party spanning several processes; not
       supported until the multi-host party is ported (ROADMAP.md, Queue A
-      item 10); raise.
+      item 10, second slice); raise.
     """
     assert cluster, "Cluster should be provided."
     assert party, "Party should be provided."
     assert party in cluster, f"Party {party} is not in cluster {cluster}."
     if mesh is not None or mesh_shape is not None:
         raise NotImplementedError(
-            "mesh/mesh_shape: a party device mesh is not ported yet "
-            "(ROADMAP.md, Queue A item 10)"
+            "mesh/mesh_shape: a party device mesh in fed.init is not ported yet "
+            "(ROADMAP.md, Queue A item 10, second slice)"
         )
     if (
         coordinator_address is not None
@@ -126,7 +128,8 @@ def init(
     ):
         raise NotImplementedError(
             "coordinator_address/num_party_processes/party_process_id: a "
-            "multi-host party is not ported yet (ROADMAP.md, Queue A item 10)"
+            "multi-host party is not ported yet (ROADMAP.md, Queue A item 10, "
+            "second slice)"
         )
     device = resolve_device(device)
 

@@ -6,8 +6,9 @@
 - :mod:`hf`: Hugging Face Llama checkpoints into :mod:`llama`'s tree;
 - :mod:`lora`, :mod:`quant`: LoRA adapters and int8 weights;
 - :mod:`logistic`, :mod:`resnet`: the FL baselines' models;
+- :mod:`moe`: the mixture-of-experts layer, with expert parallelism;
 - :mod:`convert`: trees carried across from the JAX package.
 
-The mixture-of-experts model and BERT's tensor-parallel partition rules come
-with the mesh work (ROADMAP.md Queue A item 10).
+``llama``, ``bert``, ``resnet`` and ``moe`` each carry ``PARTITION_RULES`` for
+:func:`rayfed_tpu_torch.parallel.sharding.shard_params_by_rules`.
 """

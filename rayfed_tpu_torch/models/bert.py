@@ -13,8 +13,8 @@ reference's key names (``embeddings/word``, ``layer{i}/attn/wq``, ...) and
 is pluggable through ``attn_fn``: :func:`dot_product_attention` by default,
 or ``flash_attention``, which on the card runs the Hopper kernels (head dim
 64, non-causal at BERT-base's widths) and refuses a dense ``attention_mask``
-as the reference's does.  The tensor-parallel partition rules come with the
-mesh work (ROADMAP Queue A item 10).
+as the reference's does.  :data:`PARTITION_RULES` are the tensor-parallel
+rules for :func:`rayfed_tpu_torch.parallel.sharding.shard_params_by_rules`.
 """
 
 from __future__ import annotations
@@ -198,6 +198,18 @@ def apply_bert(
         params, input_ids, config, attention_mask=attention_mask, attn_fn=attn_fn
     )
     return apply_head(params, apply_pooler(params, hidden))
+
+
+# (regex, spec) rules for parallel.sharding.shard_params_by_rules: the
+# reference's PartitionSpecs as plain tuples.
+PARTITION_RULES = (
+    (r"attn/w[qkv]", (None, "tp")),
+    (r"attn/wo", ("tp", None)),
+    (r"mlp/wi", (None, "tp")),
+    (r"mlp/wo", ("tp", None)),
+    (r"embeddings/word", ("fsdp", None)),
+    (r"pooler/kernel|head/kernel", (None, None)),
+)
 
 
 def split_params(params: Params) -> Tuple[Params, Params]:

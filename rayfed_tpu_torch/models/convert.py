@@ -1,5 +1,5 @@
-"""Carry model trees across from the reference: Llama and BERT weights, LoRA
-adapters, Adam state, the FL baselines' trees (logistic, MLP, ResNet params
+"""Carry model trees across from the reference: Llama, BERT and MoE weights,
+LoRA adapters, Adam state, the FL baselines' trees (logistic, MLP, ResNet params
 and BN state) and the packed server optimizer's state, which also goes back.
 
 The reference's trees are nested dicts (and tuples, for the Adam state
@@ -100,6 +100,12 @@ def bert_params_from_jax(
     ``split_params``) as torch tensors under the same keys; ``dtype`` casts
     every leaf (default: keep each leaf's dtype)."""
     return _tree_from_jax(tree, device, dtype)
+
+
+def moe_params_from_jax(tree: Any, device: Optional[torch.device] = None) -> Any:
+    """The reference's MoE layer params (``gate``, the stacked ``w_in`` and
+    ``w_out``) as torch tensors, each leaf in its own dtype."""
+    return _tree_from_jax(tree, device, None)
 
 
 def server_state_from_jax(state: Any, device: Optional[torch.device] = None) -> Any:

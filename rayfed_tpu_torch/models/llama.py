@@ -296,13 +296,19 @@ class Llama(nn.Module):
         return apply_llama(self.params(), input_ids, self.config, lora=lora, attn_fn=attn_fn)
 
 
+def _sharded(x) -> bool:
+    """A DTensor (``parallel.sharding``): it holds no storage of its own for
+    the native XLA:CPU forms to read, so it takes PyTorch's ops."""
+    return type(x).__module__.startswith("torch.distributed")
+
+
 def _rms_norm(x, scale, eps, jitted=False):
     """RMSNorm.  ``jitted``: the JAX package runs this call site inside one
     jitted program (its decode and train steps), whose CPU bytes differ
     from its op-by-op ones (ops/xla_cpu.py)."""
     xf = x.float()
     r = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
-    if xf.device.type == "cpu":
+    if xf.device.type == "cpu" and not _sharded(xf):
         # The JAX package's bytes on the CPU (ops/xla_cpu.py).  The two
         # values lie within an ulp, so ``r + (exact − r)`` is ``exact``
         # to the bit, while the gradient stays torch.rsqrt's.
@@ -820,6 +826,18 @@ def lm_loss(logits: torch.Tensor, targets: torch.Tensor, mask=None) -> torch.Ten
         mask = mask.to(nll.dtype)
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return nll.mean()
+
+
+# (regex, spec) rules for parallel.sharding.shard_params_by_rules: the
+# reference's PartitionSpecs as plain tuples (stacked layers lead with L).
+PARTITION_RULES = (
+    (r"layers/w[qkv]$", (None, "fsdp", "tp")),
+    (r"layers/wo$", (None, "tp", "fsdp")),
+    (r"layers/w_(gate|up)$", (None, "fsdp", "tp")),
+    (r"layers/w_down$", (None, "tp", "fsdp")),
+    (r"^embed$", ("tp", "fsdp")),
+    (r"^lm_head$", ("fsdp", "tp")),
+)
 
 
 def _adam_update(params, grads, opt, lr, b1, b2, eps, *, inplace=False):

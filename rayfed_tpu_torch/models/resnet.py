@@ -185,6 +185,14 @@ def apply_resnet(
     return logits.to(torch.float32), new_state
 
 
+# (regex, spec) rules for parallel.sharding.shard_params_by_rules: the
+# reference's PartitionSpecs as plain tuples (HWIO kernels over fsdp on O).
+PARTITION_RULES = (
+    (r"conv|proj$", (None, None, None, "fsdp")),
+    (r"head/kernel", (None, ("fsdp", "tp"))),
+)
+
+
 def _make_sgd_step(config: ResNetConfig, lr: float, momentum: float):
     """Shared step body of both train-step factories."""
 

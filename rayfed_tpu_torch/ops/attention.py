@@ -10,7 +10,8 @@ attention slice.
 
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -85,3 +86,94 @@ def mha(
     v = (x @ wv).reshape(b, t, num_heads, -1)
     o = attn_fn(q, k, v, causal=causal)
     return o.reshape(b, t, -1) @ wo
+
+
+def as_attn_fn(sharded, built_causal: bool, built_scale, builder: str):
+    """Give a ring or Ulysses ``(q, k, v)`` attention the ``attn_fn`` signature.
+
+    Model code (:func:`mha`, ``apply_llama``) calls ``attn_fn(q, k, v,
+    causal=..., sm_scale=...)``; a builder bakes masking and scale in at
+    build time, so the wrapper accepts those keywords and rejects
+    *conflicting* values instead of ignoring them.
+    """
+
+    def apply(q, k, v, *, causal=None, sm_scale=None, mask=None, window=None):
+        if mask is not None:
+            raise ValueError(f"{builder} attention does not support a dense mask")
+        if window is not None:
+            # Accepted-then-rejected so LlamaConfig(sliding_window=...) with
+            # a ring/Ulysses attn_fn fails with this explanation, not a bare
+            # unexpected-keyword TypeError.
+            raise ValueError(
+                f"{builder} attention does not support sliding-window "
+                f"attention (window={window}); drop sliding_window or use "
+                f"the flash/dense attention path"
+            )
+        if causal is not None and bool(causal) != built_causal:
+            raise ValueError(
+                f"causal={causal} conflicts with the {builder}(...) "
+                f"build-time setting causal={built_causal}"
+            )
+        if sm_scale is not None:
+            # An explicit value equal to the effective scale (d**-0.5 when
+            # the builder got None) agrees; isclose covers f32 provenance.
+            effective = built_scale if built_scale is not None else q.shape[-1] ** -0.5
+            if not math.isclose(sm_scale, effective, rel_tol=1e-6):
+                raise ValueError(
+                    f"sm_scale={sm_scale} conflicts with the {builder}(...) "
+                    f"build-time scale {effective}"
+                )
+        return sharded(q, k, v)
+
+    return apply
+
+
+def blockwise_accumulate(
+    q: torch.Tensor,
+    k_blk: torch.Tensor,
+    v_blk: torch.Tensor,
+    o_acc: torch.Tensor,
+    m_acc: torch.Tensor,
+    l_acc: torch.Tensor,
+    *,
+    scale: float,
+    q_offset: int,
+    kv_offset: int,
+    causal: bool,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One online-softmax step over a K/V block (the flash recurrence).
+
+    State: ``o_acc`` [B,Tq,H,D] un-normalized output, ``m_acc``/``l_acc``
+    [B,H,Tq] running row max and normalizer, all float32.  The
+    global-position causal mask also handles fully-future blocks (every
+    element masked gives a zero contribution through the m/l guards).
+    """
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k_blk.float())
+    if causal:
+        q_pos = q_offset + torch.arange(q.shape[1], device=q.device)
+        k_pos = kv_offset + torch.arange(k_blk.shape[1], device=q.device)
+        s = torch.where((q_pos[:, None] >= k_pos[None, :])[None, None], s, NEG_INF)
+    m_new = torch.maximum(m_acc, s.amax(dim=-1))
+    # exp(NEG_INF - NEG_INF) would be 1 on fully-masked rows; clamp the
+    # shift so masked rows contribute exp(NEG_INF - 0) == 0 instead.
+    m_safe = torch.where(m_new <= NEG_INF / 2, 0.0, m_new)
+    p = torch.exp(s - m_safe[..., None])
+    correction = torch.exp(torch.where(m_acc <= NEG_INF / 2, NEG_INF, m_acc) - m_safe)
+    l_new = l_acc * correction + p.sum(dim=-1)
+    o_blk = torch.einsum("bhqk,bkhd->bqhd", p, v_blk.float())
+    o_new = o_acc * correction.transpose(1, 2)[..., None] + o_blk
+    return o_new, m_new, l_new
+
+
+def blockwise_finalize(o_acc: torch.Tensor, l_acc: torch.Tensor, dtype) -> torch.Tensor:
+    """Normalize the accumulated output; fully-masked rows become zeros."""
+    l_safe = torch.where(l_acc == 0.0, 1.0, l_acc)
+    return (o_acc / l_safe.transpose(1, 2)[..., None]).to(dtype)
+
+
+def init_blockwise_state(q: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    b, tq, h, d = q.shape
+    o = torch.zeros((b, tq, h, d), dtype=torch.float32, device=q.device)
+    m = torch.full((b, h, tq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, tq), dtype=torch.float32, device=q.device)
+    return o, m, l

@@ -455,9 +455,9 @@ def _refuse_sharded(t: torch.Tensor) -> None:
     if type(t).__module__.startswith("torch.distributed"):
         raise NotImplementedError(
             f"cannot encode a {type(t).__name__} for a cross-party push: "
-            f"sharded tensors are not supported until intra-party "
-            f"parallelism is ported.  Gather it onto one device first "
-            f"(e.g. DTensor.full_tensor())"
+            f"sharded tensors are not supported until their encoding is "
+            f"ported (ROADMAP.md, Queue A item 10, second slice).  Gather it "
+            f"onto one device first (e.g. DTensor.full_tensor())"
         )
 
 
@@ -692,8 +692,8 @@ def decode_payload(
     """
     if mesh is not None:
         raise NotImplementedError(
-            "decoding onto a party mesh is not supported until intra-party "
-            "parallelism is ported"
+            "decoding onto a party mesh is not supported until it is ported "
+            "(ROADMAP.md, Queue A item 10, second slice)"
         )
     target: List[torch.device] = []
 
