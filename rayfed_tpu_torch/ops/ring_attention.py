@@ -202,18 +202,14 @@ def ring_flash_attention(
     group,
     causal: bool = False,
     sm_scale: Optional[float] = None,
-    block_q: int = 1024,
-    block_k: int = 1024,
-    interpret: Optional[bool] = None,
 ) -> torch.Tensor:
     """Ring attention with the flash kernels as the inner step.
 
     Same contract as :func:`ring_attention`; each step's block attention
     runs the flash forward kernel and the partials merge by log-sum-exp.
-    ``block_q``, ``block_k`` and ``interpret`` are accepted for parity with
-    the TPU version and ignored: the kernels tile for themselves.
+    The kernels tile for themselves, so the reference's ``block_q``,
+    ``block_k`` and ``interpret`` have no counterpart.
     """
-    del block_q, block_k, interpret
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
     b, _, h, _ = q.shape
     oh = _RingFlash.apply(_bthd_to_bht(q), _bthd_to_bht(k), _bthd_to_bht(v), group, causal, scale)
@@ -348,9 +344,6 @@ def zigzag_ring_flash_attention(
     *,
     group,
     sm_scale: Optional[float] = None,
-    block_q: int = 1024,
-    block_k: int = 1024,
-    interpret: Optional[bool] = None,
 ) -> torch.Tensor:
     """Collective zigzag causal ring attention over ``group``.
 
@@ -360,7 +353,6 @@ def zigzag_ring_flash_attention(
     permutation on global tensors.  Always causal (a non-causal ring has no
     imbalance to fix).
     """
-    del block_q, block_k, interpret
     if q.shape[1] % 2:
         raise ValueError(
             f"zigzag shards hold a (low, high) chunk pair — T_local "
@@ -395,8 +387,6 @@ def make_ring_attention(
     causal: bool = False,
     sm_scale: Optional[float] = None,
     use_flash: bool = False,
-    block_q: int = 1024,
-    block_k: int = 1024,
     layout: str = "contiguous",
 ):
     """Build a global-view ring attention over ``mesh``'s ``seq_axis``.

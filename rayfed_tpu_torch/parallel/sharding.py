@@ -170,22 +170,16 @@ class ShardingStrategy:
             lambda x: _distribute(x, self.mesh, replicated(self.mesh).placements), tree
         )
 
-    def jit_step(
-        self,
-        step_fn: Callable,
-        donate_argnums: Tuple[int, ...] = (),
-        **jit_kwargs,
-    ) -> Callable:
+    def jit_step(self, step_fn: Callable) -> Callable:
         """``step_fn`` run on this strategy's DTensors (the reference's
         ``jax.jit`` under the mesh; the name is kept for the reader).
 
         Nothing is compiled: the step runs eagerly, DTensor's sharding
         propagation inserts each collective, and plain tensors the step
         meets (ids, tables) count as replicated over the mesh
-        (``implicit_replication``).  ``donate_argnums`` and the jit keywords
-        are accepted and ignored.
+        (``implicit_replication``).  Eager steps donate nothing, so the
+        reference's ``donate_argnums`` and jit keywords have no counterpart.
         """
-        del donate_argnums, jit_kwargs
 
         def _call(*args, **kwargs):
             with implicit_replication():

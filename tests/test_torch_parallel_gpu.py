@@ -8,9 +8,12 @@ and the ranks run only the package's code
 
 Two ranks share the card in one gloo world (the K/V rotations staged
 through pinned host buffers); every ring step launches the Hopper flash
-kernels.  bf16 tolerance: the reference's 3e-2 (``test_ops_attention.py``);
-the gradients against 3e-2 of their max |g| plus 3e-2 of |g| (the ring sums
-its per-step partials in f32, one-card flash inside one kernel).
+kernels.  bf16 tolerance: the reference's 3e-2 (``test_ops_attention.py``),
+and each output row within 1e-2 of its own norm (``chip_smoke.py``
+``PAR_ROW_TOL``: both outputs round to bf16, a few 1e-3 of a row); the
+gradients against 3e-2 of their max |g| plus 3e-2 of |g| (the ring sums its
+per-step partials in f32, one-card flash inside one kernel; the form of
+``chip_smoke.py``'s ``_grad_gap``).
 """
 
 import numpy as np
@@ -23,7 +26,7 @@ from rayfed_tpu_torch.tools.parallel_check import attention_cases
 
 pytestmark = pytest.mark.gpu
 
-RANKS, TOL = 2, 3e-2
+RANKS, TOL, ROW_TOL = 2, 3e-2, 1e-2
 SHAPE = (1, 512, 4, 128)  # [B, T, H, D]: 256 tokens a rank, 128 a zigzag half
 CASES = {
     "ring_causal": {"causal": True, "use_flash": True},
@@ -71,6 +74,11 @@ def test_ring_on_the_card_matches_one_card_flash(results, name):
     for rank, r in enumerate(res[name]):
         assert r["dtype"] == "bfloat16"
         np.testing.assert_allclose(r["out"], out, atol=TOL, rtol=TOL, err_msg=f"rank {rank}")
+        row_err = np.linalg.norm(r["out"] - out, axis=-1) / np.linalg.norm(out, axis=-1)
+        print(f"{name} rank {rank}: worst output row at {row_err.max():.3e} of its norm; gradients at "
+              + ", ".join(f"{np.max(np.abs(g - ref) / (TOL * np.abs(ref).max() + TOL * np.abs(ref))):.3f}"
+                          for g, ref in zip(r["grads"], grads)) + " of the bound")
+        assert row_err.max() <= ROW_TOL, (rank, row_err.max())
         for i, (g, ref) in enumerate(zip(r["grads"], grads)):
             np.testing.assert_allclose(g, ref, atol=TOL * np.abs(ref).max(), rtol=TOL,
                                        err_msg=f"rank {rank} grad {i}")
