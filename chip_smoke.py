@@ -236,6 +236,38 @@ Phases, each fatal on failure:
      w[qv], remat, T=4096) through the zigzag ring, against one-card flash
      (logits 5% of max|logit|, loss and adapter gradients 5% of max|g|);
      prints each part's ms, each rank's peak memory and the backend;
+  18. (after 17) phase_pipeline: pipeline parallelism, one world of 4 rank
+     processes on the card (gloo; every hop and the replicating broadcasts
+     staged through pinned host buffers), Llama-3-8B at full width (random
+     bf16 weights from the seed), the stage a run of its decoder layers with
+     flash_attention, the embedding and the head outside the pipe, B=8
+     sequences of 2048 tokens in M=8 microbatches.  (a) GPipe's forward at
+     pp=4 and full depth (8 layers a stage): the logits (the head applied a
+     sequence at a time) within 5% of max|logit| of one-card apply_llama;
+     (b) one 1F1B step at 8 layers (2 a stage), lm_loss through the fixed
+     head: the loss within 1e-3 relative and every stacked gradient within
+     5% of max|g| of one-card autograd; (c) one interleaved step, pp=2 v=2
+     on the world's first two ranks, against (b)'s loss and gradients; each
+     rank's forward, dQ and dK/dV launches held to ``pp_launches``; prints
+     each part's ms (slowest rank), the bubble, the MB of a hop and staged,
+     and each rank's peak memory;
+  19. (after 18) phase_party_processes: a party of two processes.  Five
+     processes on the card: alice's two, bob, carol and dave.  First alice
+     as one process: one BASELINE #3 round (resnet18, coordinator bob) whose
+     alice step is the mean gradient of two halves of her 32 images.  Then
+     alice as two processes (``coordinator_address``, ``num_party_processes=2``,
+     ``mesh_shape={"dp": 2}``, one gloo world on the card): (a) bob's 64 MB
+     f32 tensor reaches both (the leader over the wire, the member through
+     the leader's bridge), SHA-256 equal to bob's, and an all-reduce over her
+     mesh gives its sum; (c) the collective ``set_max_message_length`` on
+     both processes and back; (b) the same round with her step data-parallel
+     over her two ranks (16 images each, gradients all-reduced): its final
+     model within 5% of max|Δ| of the one-process round, equal SHA-256 at all
+     five processes; (d) her leader killed while her member waits on a value
+     of bob's: the member's recv raises a RemoteError naming the leader
+     within the watchdog's deadline (interval × (pings + 1) + 2 s), not the
+     60 s backstop.  Prints the bridge's bytes and ms, the cap's ms, the
+     round's walls and the time to the poison;
   7. time each kernel (mean over one window of calls) against its plain
      version, the library call that computes the same function, and the
      card's bound (the forward at the serving shape B=4 and at the training
@@ -4482,6 +4514,628 @@ def phase_parallel(device=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase_pipeline: pipeline parallelism (a world of 4 ranks on the one card)
+# ---------------------------------------------------------------------------
+
+# The card's sizes and a CPU rehearsal's: Llama-3-8B at full width, the
+# stage a run of its decoder layers with flash attention, B=8 sequences of
+# 2048 tokens in M=8 microbatches of one.  (a) GPipe's forward at full depth
+# (32 layers, 8 a stage); (b) one 1F1B step and (c) one interleaved step
+# (pp=2, v=2, on the world's first two ranks) at 8 layers, where the
+# one-card autograd reference fits beside the four ranks' weights.
+PIPE_SIZES = {
+    "cuda": dict(llama="llama3_8b", llama_kw=dict(param_dtype=torch.bfloat16), batch=8, seq=2048,
+                 train_layers=8),
+    "cpu": dict(llama="llama_tiny", llama_kw=dict(num_layers=8), batch=8, seq=16, train_layers=8),
+}
+PIPE_RANKS, PIPE_MB = 4, 8
+PIPE_INTER = (2, 2)  # the interleaved schedule's (pp, v)
+PIPE_LOSS_TOL = 1e-3  # the losses' relative gap; gradients GRAD_REL_TOL of max|g|, logits LOGIT_REL_TOL
+PIPE_TIMEOUT_S = 420
+PIPE_PATHS = ("pp_gpipe", "pp_1f1b", "pp_interleaved")  # launches_by_path keys
+
+
+def pp_launches(schedule, layers, m):
+    """Each flash kernel's launches on one rank of one pipeline call
+    (PERF.md), idle ticks skipped, ``layers`` the rank's decoder layers
+    (over all its chunks): GPipe M·layers forward; 1F1B and the
+    interleaved schedule 2·M·layers forward (the forward and the backward's
+    recompute) and M·layers each of dQ and dK/dV."""
+    if schedule == "gpipe":
+        return {"fwd": m * layers, "bwd_dq": 0, "bwd_dkv": 0}
+    return {"fwd": 2 * m * layers, "bwd_dq": m * layers, "bwd_dkv": m * layers}
+
+
+def _init_llama_lean(cfg, seed, dev):
+    """``llama.init_llama``'s tree and scales, drawn a row block at a time in
+    f32 (no f32 copy of a whole stacked leaf: four ranks build the 16 GB
+    model on the one card at once)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    d, dh, h, kv, f, n = (cfg.hidden_size, cfg.head_dim, cfg.num_heads, cfg.num_kv_heads,
+                          cfg.intermediate_size, cfg.num_layers)
+
+    def normal(shape, std, block=512):
+        out = torch.empty(shape, dtype=cfg.param_dtype, device=dev)
+        flat = out.view(-1, shape[-1])
+        for i in range(0, flat.shape[0], block):
+            rows = flat[i:i + block]
+            rows.copy_(torch.randn(rows.shape, generator=gen, device=dev) * std)
+        return out
+
+    ones = lambda *shape: torch.ones(shape, dtype=cfg.param_dtype, device=dev)  # noqa: E731
+    params = {
+        "embed": normal((cfg.vocab_size, d), 0.02 * d**0.5),
+        "layers": {
+            "attn_norm": ones(n, d), "wq": normal((n, d, h * dh), d**-0.5), "wk": normal((n, d, kv * dh), d**-0.5),
+            "wv": normal((n, d, kv * dh), d**-0.5), "wo": normal((n, h * dh, d), (h * dh) ** -0.5),
+            "mlp_norm": ones(n, d), "w_gate": normal((n, d, f), d**-0.5), "w_up": normal((n, d, f), d**-0.5),
+            "w_down": normal((n, f, d), f**-0.5),
+        },
+        "final_norm": ones(d),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = normal((d, cfg.vocab_size), d**-0.5)
+    return params
+
+
+def _pipe_timed(dev, fn, group=None):
+    """Run one pipeline call from zeroed counters, timed from a barrier of
+    ``group``: its result and what this rank ran (ms, each kernel's
+    launches, the schedule's ticks and hops, the bytes staged, peak memory)."""
+    import torch.distributed as dist
+
+    from rayfed_tpu_torch.parallel import collectives as coll
+    from rayfed_tpu_torch.parallel import pipeline as pp
+
+    _par_zero()
+    coll.STAGING.reset()
+    pp.STATS.reset()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    dist.barrier(group=group)
+    _par_sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    _par_sync(dev)
+    return out, {"ms": (time.perf_counter() - t0) * 1e3, "launches": _counts(),
+                 "fold_launches": fold.fold_fma_.launches, "stats": dataclasses.asdict(pp.STATS),
+                 "staged_mb": coll.STAGING.bytes / 1e6, "staged_ms": coll.STAGING.ms, "peak_gb": _par_peak_gb(dev)}
+
+
+def _pipe_grad_gaps(grads, ref):
+    """Each stacked leaf's max|g − ref| and max|ref| (``ref`` may wait on the host)."""
+    gaps = {}
+    for k in ref:
+        g, r = grads[k].float(), ref[k].to(grads[k].device).float()
+        gaps[k] = (float((g - r).abs().max()), float(r.abs().max()))
+    return gaps
+
+
+def _pipe_world(rank, dev, size):
+    """The pipeline phase's rank program (see PIPE_SIZES)."""
+    import torch.distributed as dist
+
+    from rayfed_tpu_torch.parallel import pipeline as pp
+    from rayfed_tpu_torch.parallel.mesh import create_mesh
+    from rayfed_tpu_torch.tools.parallel_check import llama_stage_fn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = getattr(llama, size["llama"])(**size["llama_kw"])
+    t0 = time.perf_counter()
+    params = _init_llama_lean(cfg, SEED, dev)
+    _par_sync(dev)
+    rep = {"backend": dist.get_backend(), "init_s": time.perf_counter() - t0, "layers": cfg.num_layers}
+    mesh = create_mesh({"pp": PIPE_RANKS}, device=dev.type)
+    inter_mesh = create_mesh({"pp": PIPE_INTER[0]}, list(range(PIPE_INTER[0])), device=dev.type)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    ids = torch.randint(0, cfg.vocab_size, (size["batch"], size["seq"]), generator=gen, device=dev)
+    stage = llama_stage_fn(cfg, flash_attention, size["seq"], dev)
+    with torch.no_grad():
+        x = params["embed"].to(cfg.dtype)[ids]  # the embedding stays outside the pipe
+
+        # (a) GPipe's forward at full depth, against the one-card model.
+        fwd = pp.make_pipeline(mesh, stage, num_microbatches=PIPE_MB)
+        # Untimed, one microbatch: each kernel's and buffer's first call.
+        pp.make_pipeline(mesh, stage, num_microbatches=1)(params["layers"], x[:1])
+        h, rec = _pipe_timed(dev, lambda: fwd(params["layers"], x))
+        rec["digest"] = _digest(h)
+
+        def shrink():
+            # (b) and (c) run at train_layers, the first layers of the same
+            # model: a leaf at a time, so the card holds one extra leaf.
+            for k, v in params["layers"].items():
+                params["layers"][k] = v[: size["train_layers"]].clone()
+                del v
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+
+        # Rank 0 keeps the whole model for its one-card reference while the
+        # others shrink: four whole models leave no room for it on one card.
+        if rank:
+            shrink()
+        dist.barrier()
+        if rank == 0:
+            gap = span = 0.0
+            for j in range(size["batch"]):  # a sequence at a time: B=8's f32 logits would take 8.4 GB
+                logits = llama._lm_head(h[j:j + 1], params, cfg)
+                ref = llama.apply_llama(params, ids[j:j + 1], cfg, attn_fn=flash_attention)
+                gap = max(gap, float((logits - ref).abs().max()))
+                span = max(span, float(ref.abs().max()))
+                del logits, ref
+            rec["gap"], rec["span"] = gap, span
+            shrink()
+        rep["gpipe"] = rec
+        del h
+        layers = params.pop("layers")
+        dist.barrier()
+    head = {k: params[k] for k in ("final_norm", "lm_head") if k in params}
+    if cfg.tie_embeddings:
+        head["embed"] = params["embed"]
+
+    def loss_fn(y, tgt):  # lm_loss through the fixed head
+        return llama.lm_loss(llama._lm_head(y, head, cfg)[:, :-1], tgt[:, 1:])
+
+    # (b) one 1F1B step.
+    train = pp.make_pipeline_train(mesh, stage, loss_fn, num_microbatches=PIPE_MB)
+    pp.make_pipeline_train(mesh, stage, loss_fn, num_microbatches=1)(layers, x[:1], ids[:1])  # untimed
+    (loss, grads), rec = _pipe_timed(dev, lambda: train(layers, x, ids))
+    rec.update(loss=float(loss), digest=_digest(grads["wq"]))
+    dist.barrier()
+    if rank == 0:
+        # One card, autograd: the mean microbatch loss, a microbatch at a
+        # time, gradients summed in f32.
+        ref_loss, ref = 0.0, {k: torch.zeros(v.shape, dtype=torch.float32, device=dev) for k, v in layers.items()}
+        mb = size["batch"] // PIPE_MB
+        for j in range(PIPE_MB):
+            with torch.enable_grad():
+                leaves = {k: v.detach().requires_grad_(True) for k, v in layers.items()}
+                lj = loss_fn(stage(leaves, x[j * mb:(j + 1) * mb]), ids[j * mb:(j + 1) * mb]) / PIPE_MB
+                gj = torch.autograd.grad(lj, list(leaves.values()))
+            ref_loss += float(lj.detach())
+            for k, g in zip(leaves, gj):
+                ref[k] += g.float()
+            del lj, gj, leaves
+        rec["ref_loss"] = ref_loss
+        rec["grad_gaps"] = _pipe_grad_gaps(grads, ref)
+        del ref
+    rep["1f1b"] = rec
+    # Room for (c) on the card: rank 0 keeps (b)'s gradients on the host to
+    # compare (c)'s with them, and the ranks outside (c) keep nothing.
+    if rank == 0:
+        grads = {k: v.cpu() for k, v in grads.items()}
+    else:
+        del grads
+    if rank >= PIPE_INTER[0]:
+        for tree in (layers, params, head):
+            tree.clear()
+        del x
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    dist.barrier()
+
+    # (c) the interleaved schedule, pp=2, v=2 on ranks 0 and 1.
+    rec = {"launches": {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}, "fold_launches": 0}
+    if rank < PIPE_INTER[0]:
+        inter = pp.make_pipeline_train(inter_mesh, stage, loss_fn, num_microbatches=PIPE_MB,
+                                       virtual_stages=PIPE_INTER[1])
+        pp.make_pipeline_train(inter_mesh, stage, loss_fn, num_microbatches=PIPE_INTER[0],  # untimed
+                               virtual_stages=PIPE_INTER[1])(layers, x[:PIPE_INTER[0]], ids[:PIPE_INTER[0]])
+        (loss_i, grads_i), rec = _pipe_timed(dev, lambda: inter(layers, x, ids), group=inter_mesh.get_group("pp"))
+        rec.update(loss=float(loss_i), digest=_digest(grads_i["wq"]))
+        if rank == 0:
+            rec["grad_gaps"] = _pipe_grad_gaps(grads_i, grads)
+        del grads_i
+    rep["interleaved"] = rec
+    dist.barrier()
+    return rep
+
+
+def _pipe_bubble(stats, schedule):
+    """Idle ticks over all ticks: the interleaved schedule's ticks are a
+    forward pass and its reversal, each unit a chunk's forward or backward."""
+    live = 2 * stats["live"] if schedule == "interleaved" else stats["live"]
+    return 1.0 - live / stats["ticks"]
+
+
+def _pipe_check(cond, msg):
+    if not cond:
+        raise AssertionError(f"phase_pipeline: {msg}")
+
+
+def _pipe_summary(ranks, size, on_card):
+    """Print every part's numbers and raise on a failed gate."""
+    layers = ranks[0]["layers"]
+    hop_mb = lambda s: s["hop_bytes"] / max(1, s["hops"]) / 1e6  # noqa: E731
+    print(f"[pipeline] backend {ranks[0]['backend']} ({PIPE_RANKS} ranks on one card; the hops and the "
+          f"replicating broadcasts staged through pinned host buffers); {size['llama']}, B={size['batch']} "
+          f"T={size['seq']}, M={PIPE_MB}; init {max(r['init_s'] for r in ranks):.1f} s")
+    out = {"launches": {}, "fold_launches": {}}
+    parts = (("gpipe", "pp_gpipe", PIPE_RANKS, layers // PIPE_RANKS),
+             ("1f1b", "pp_1f1b", PIPE_RANKS, size["train_layers"] // PIPE_RANKS),
+             ("interleaved", "pp_interleaved", PIPE_INTER[0], size["train_layers"] // PIPE_INTER[0]))
+    for part, path, n, per_rank in parts:
+        recs = [r[part] for r in ranks]
+        live = recs[:n]
+        _pipe_check(all(r["digest"] == live[0]["digest"] for r in live), f"{part}: ranks returned different results")
+        for rank, r in enumerate(recs):
+            want = pp_launches("gpipe" if part == "gpipe" else "train", per_rank, PIPE_MB) if rank < n else \
+                {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
+            want = want if on_card else {k: 0 for k in want}
+            _pipe_check(r["launches"] == want, f"{part} rank {rank}: launches {r['launches']}, want {want}")
+        out["launches"][path] = {k: sum(r["launches"][k] for r in recs) for k in ("fwd", "bwd_dq", "bwd_dkv")}
+        out["fold_launches"][path] = sum(r["fold_launches"] for r in recs)
+        bubble = [round(_pipe_bubble(r["stats"], part), 4) for r in live]
+        common = (f"{max(r['ms'] for r in live):.1f} ms (slowest rank); bubble {bubble}; hop "
+                  f"{hop_mb(live[0]['stats']):.1f} MB, hops a rank {[r['stats']['hops'] for r in live]}; staged "
+                  f"{[round(r['staged_mb'], 1) for r in live]} MB in {[round(r['staged_ms'], 1) for r in live]} ms; "
+                  f"launches per rank {[r['launches']['fwd'] for r in recs]} fwd; peak memory "
+                  f"{[round(r['peak_gb'], 2) for r in live]} GB")
+        r0 = recs[0]
+        if part == "gpipe":
+            _pipe_check(r0["gap"] <= LOGIT_REL_TOL * r0["span"],
+                        f"GPipe logits vs one card {r0['gap']:.4e} over max|logit| {r0['span']:.4e}")
+            print(f"[pipeline] (a) GPipe pp={n}, {layers} layers ({per_rank} a stage) forward: {common}; logits vs "
+                  f"one-card apply_llama max_abs_diff={r0['gap']:.4e} max|logit|={r0['span']:.4e} "
+                  f"(tol {LOGIT_REL_TOL:g}*max|logit|)")
+            continue
+        ref_loss = r0["ref_loss"] if part == "1f1b" else ranks[0]["1f1b"]["loss"]
+        rel = abs(r0["loss"] - ref_loss) / abs(ref_loss)
+        _pipe_check(rel <= PIPE_LOSS_TOL, f"{part} loss {r0['loss']:.6f} vs {ref_loss:.6f}")
+        worst = 0.0
+        for leaf, (gap, span) in r0["grad_gaps"].items():
+            _pipe_check(span > 0 and gap <= GRAD_REL_TOL * span, f"{part} d{leaf}: {gap:.4e} vs max|g| {span:.4e}")
+            worst = max(worst, gap / span)
+        what = ("1F1B", "one-card autograd") if part == "1f1b" else (f"interleaved pp={n} v={PIPE_INTER[1]}", "1F1B")
+        print(f"[pipeline] ({'b' if part == '1f1b' else 'c'}) {what[0]}, {size['train_layers']} layers "
+              f"({per_rank} a rank) step: {common}; loss {r0['loss']:.6f} vs {what[1]} {ref_loss:.6f} "
+              f"(tol {PIPE_LOSS_TOL:g} rel); worst stacked gradient gap {worst:.4f} of max|g| (tol {GRAD_REL_TOL:g})")
+        out[part] = {"ms": max(r["ms"] for r in live), "loss": r0["loss"], "worst": worst}
+    print(f"[pipeline] fold_fma launches, all ranks: {out['fold_launches']}")
+    return out
+
+
+def phase_pipeline(device=None):
+    """Pipeline parallelism on the card: one world of 4 rank processes runs
+    GPipe's forward, a 1F1B step and an interleaved step of Llama-3-8B
+    decoder layers on the flash kernels, each held against its one-card
+    form.  ``device="cpu"`` rehearses it at toy sizes."""
+    from rayfed_tpu_torch.parallel.launch import run_world
+
+    kind = "cpu" if device is not None and torch.device(device).type == "cpu" else "cuda"
+    size = PIPE_SIZES[kind]
+    if kind == "cuda":
+        torch.cuda.empty_cache()
+        print(f"[pipeline] this process holds {torch.cuda.memory_allocated() / 1e9:.2f} GB on the card "
+              f"({torch.cuda.memory_reserved() / 1e9:.2f} GB reserved) beside the four ranks")
+    t0 = time.perf_counter()
+    ranks = run_world(_pipe_world, PIPE_RANKS, (size,), device=device, timeout_s=PIPE_TIMEOUT_S)
+    print(f"[pipeline] world of {PIPE_RANKS} ranks in {time.perf_counter() - t0:.1f} s, rank start-up included")
+    return _pipe_summary(ranks, size, kind == "cuda")
+
+
+# ---------------------------------------------------------------------------
+# phase_party_processes: a party of two processes (the multi-process party)
+# ---------------------------------------------------------------------------
+
+# Five processes: alice's two (one card each: the one card here), bob,
+# carol and dave.  Runtime A, alice one process (her second sits out): one
+# BASELINE #3 round, the reference.  Runtime B, alice two processes with the
+# party mesh {"dp": 2}: (a) bob pushes a 64 MB tensor to both, (c) the
+# collective cap change, (b) the same round with alice's step data-parallel
+# over her two ranks, (d) her leader killed while her member waits.
+PARTY_PROCS = ("alice0", "alice1", "bob", "carol", "dave")
+PARTY_TIMEOUT_S = 300
+PARTY_BULK = (4096, 4096)  # f32: 64 MB
+PARTY_HALVES = 2  # alice's step: the mean gradient of two halves of her shard
+PARTY_CAP = 96 * 1024 * 1024  # the cap the collective sets, and sets back
+PARTY_SLOW_S = 8.0  # bob's task in (d): longer than the watchdog's deadline, far below the backstop
+PARTY_KILL_AFTER_S = 2.0
+PARTY_INIT = dict(
+    cross_silo_retry_policy={"maxAttempts": 2, "initialBackoff": "0.2s", "maxBackoff": "0.5s"},
+    enable_waiting_for_other_parties_ready=True, peer_health_interval_in_seconds=0.5,
+    peer_death_pings=2, cross_silo_timeout_in_seconds=15, recv_backstop_in_seconds=60,
+)
+
+
+class _DPResNetTrainer:
+    """BASELINE #3's trainer (``_ResNetTrainer``'s shard and step: one SGD
+    step, momentum 0.9 from zero, per round) whose gradient is the mean of
+    ``halves`` equal halves' gradients (and its BN state their mean): in a
+    party of two processes each takes its own half and the mean is an
+    all-reduce over the party mesh; in one process both, one after another."""
+
+    def __init__(self, seed, device, halves):
+        from rayfed_tpu_torch.models import resnet
+
+        base = _ResNetTrainer(seed, device)
+        self.x, self.y, self.halves = base.x, base.y, halves
+        self.cfg = resnet.resnet18(num_classes=10)
+        self.report = {}
+
+    def train(self, bundle):
+        import torch.distributed as dist
+
+        from rayfed_tpu_torch.fl.compression import pack_tree, unpack_tree
+        from rayfed_tpu_torch.models import resnet
+        from rayfed_tpu_torch.parallel import collectives as coll
+        from rayfed_tpu_torch.runtime import get_runtime
+
+        params, state = unpack_tree(bundle, torch.float32)
+
+        def loss_fn(p, s, x, y):
+            logits, new_state = resnet.apply_resnet(p, s, x, self.cfg, train=True)
+            return softmax_cross_entropy(logits, y), new_state
+
+        mesh = get_runtime().mesh
+        group = mesh.get_group("dp") if mesh is not None and mesh.size() > 1 else None
+        n = len(self.x) // self.halves
+        mine = [dist.get_rank(group)] if group is not None else range(self.halves)
+        tree = None
+        for i in mine:
+            (_, new_state), grads = value_and_grad(loss_fn, params, state, self.x[i * n:(i + 1) * n],
+                                                   self.y[i * n:(i + 1) * n], has_aux=True)
+            part = (grads, new_state)
+            tree = part if tree is None else torch.utils._pytree.tree_map(torch.add, tree, part)
+        leaves, spec = torch.utils._pytree.tree_flatten(tree)
+        if group is not None:
+            leaves = [coll.all_reduce_sum(x, group) for x in leaves]
+        grads, new_state = torch.utils._pytree.tree_unflatten([x / self.halves for x in leaves], spec)
+        params = torch.utils._pytree.tree_map(lambda p, g: p - RESNET_LR * g, params, grads)
+        self.report = {"images": len(mine) * n, "ranks": 1 if group is None else dist.get_world_size(group)}
+        return pack_tree((params, new_state), torch.bfloat16)
+
+    def last_step(self):
+        return self.report
+
+
+def _party_round(fed, party, dev):
+    """One BASELINE #3 round (coordinator bob) from the seed's params: the
+    final tree, on this process's device, and alice's trainer's report."""
+    from rayfed_tpu_torch.models import resnet
+
+    params0 = resnet.init_resnet(torch.Generator().manual_seed(SEED), resnet.resnet18(num_classes=10), device=dev)
+    trainers = {p: fed.remote(_DPResNetTrainer).party(p).remote(SEED + 1 + i, dev, PARTY_HALVES if p == "alice" else 1)
+                for i, p in enumerate(TOPO_PARTIES)}
+    _par_zero()
+    t0 = time.perf_counter()
+    final = fl.run_fedavg_rounds(trainers, params0, rounds=1, compress_wire=True, packed_wire=True,
+                                 coordinator="bob")
+    rep = {"s": time.perf_counter() - t0, "fold_launches": fold.fold_fma_.launches, "flash_launches": _counts(),
+           "digest": _leaf_digest(final),
+           "alice": fed.get(trainers["alice"].last_step.remote())}
+    return params0, final, rep
+
+
+def _tree_gap(a, b):
+    """max|a − b| over the leaves of two trees of the same paths (their dict
+    orders may differ)."""
+    flat = lambda t: {torch.utils._pytree.keystr(k): v  # noqa: E731
+                      for k, v in torch.utils._pytree.tree_flatten_with_path(t)[0]}
+    fa, fb = flat(a), flat(b)
+    if sorted(fa) != sorted(fb):
+        raise AssertionError(f"trees differ in their leaves: {sorted(set(fa) ^ set(fb))}")
+    return max(float((fa[k].float() - fb[k].float()).abs().max()) for k in fa)
+
+
+def _party_proc(name, ports, device, root, out):
+    """A process of the party phase (``name`` one of PARTY_PROCS)."""
+    _deterministic()
+    import rayfed_tpu_torch as fed
+    from rayfed_tpu_torch.exceptions import RemoteError
+    from rayfed_tpu_torch.parallel import collectives as coll
+    from rayfed_tpu_torch.runtime import get_runtime
+
+    party = "alice" if name.startswith("alice") else name
+    rep = {"party": name}
+    try:
+        # Runtime A: alice in one process (alice0), the reference round.
+        if name != "alice1":
+            cluster = {p: {"address": f"127.0.0.1:{port}"} for p, port in zip(TOPO_PARTIES, ports["one"])}
+            dev = fed.init(address="local", cluster=cluster, party=party, device=device, **PARTY_INIT).transport.device
+            params0, final_a, rep["one"] = _party_round(fed, party, dev)
+            fed.shutdown()
+
+        # Runtime B: alice in two processes.
+        cluster = {p: {"address": f"127.0.0.1:{port}"} for p, port in zip(TOPO_PARTIES, ports["two"])}
+        kw = dict(PARTY_INIT)
+        if party == "alice":
+            kw.update(coordinator_address=f"127.0.0.1:{ports['coord']}", num_party_processes=2,
+                      party_process_id=int(name[-1]), mesh_shape={"dp": 2})
+        t0 = time.perf_counter()
+        rt = fed.init(address="local", cluster=cluster, party=party, device=device, **kw)
+        rep["init_s"] = time.perf_counter() - t0
+        # A large broadcast goes eagerly, never as a handle: alice's member
+        # has no object plane to pull one with (its bridge only receives).
+        rt.job_config.blob_broadcast_min_bytes = None
+        dev, tm = rt.transport.device, rt.transport
+        if party == "alice":
+            rep["mesh"] = {"shape": list(rt.mesh.mesh.shape), "rank": torch.distributed.get_rank(),
+                           "backend": torch.distributed.get_backend(), "device": str(dev)}
+
+        # (a) bob's 64 MB to both of alice's processes, then a sum over her mesh.
+        @fed.remote
+        def make_bulk():
+            gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+            return torch.randn(PARTY_BULK, generator=gen, device=dev)
+
+        @fed.remote
+        def bulk_digest(x):
+            return _digest(x)
+
+        @fed.remote
+        def bulk_check(x):
+            mesh = get_runtime().mesh
+            group = mesh.get_group("dp")
+            r, n = torch.distributed.get_rank(group), mesh.size()
+            rows = x.shape[0] // n
+            coll.STAGING.reset()
+            total = coll.all_reduce_sum(x[r * rows:(r + 1) * rows].double().sum(), group)
+            return {"digest": _digest(x), "device": str(x.device), "sum": float(total),
+                    "local_sum": float(x.double().sum()), "staged_b": coll.STAGING.bytes}
+
+        log0 = tm.transfer_log.total_recorded
+        bulk = make_bulk.party("bob").remote()
+        sent_digest = bulk_digest.party("bob").remote(bulk)
+        checked = bulk_check.party("alice").remote(bulk)
+        t0 = time.perf_counter()
+        checked = fed.get(checked)  # each alice process: its own result
+        if party == "alice":
+            rep["bulk"] = dict(checked, get_s=time.perf_counter() - t0)
+            recs, _ = tm.transfer_log.records_since(log0)
+            rep["bulk"]["transfers"] = [(r.direction, r.peer, r.nbytes, r.seconds) for r in recs]
+        rep["bulk_digest"] = fed.get(sent_digest)
+
+        # (c) the collective cap change: every alice process at once.
+        if party == "alice":
+            def caps():  # the cap this process's listener enforces: the wire's, or the bridge's
+                return (tm._inner if tm._inner is not None else tm._bridge_mgr)._server._max_message_size
+
+            before = caps()
+            t0 = time.perf_counter()
+            tries = _collective_cap(fed, PARTY_CAP)
+            rep["cap"] = {"before": before, "set": caps(), "ms": (time.perf_counter() - t0) * 1e3, "tries": tries}
+            _collective_cap(fed, before)
+            rep["cap"]["restored"] = caps()
+
+        # (b) the same round, alice's step data-parallel over her two ranks.
+        _, final_b, rep["two"] = _party_round(fed, party, dev)
+        if name != "alice1":
+            rep["two"]["gap"] = _tree_gap(final_b, final_a)
+            rep["two"]["delta"] = _tree_gap(final_a, params0)
+
+        # (d) alice's leader dies while her member waits on bob's value.
+        @fed.remote
+        def slow():
+            time.sleep(PARTY_SLOW_S)
+            return 1
+
+        value = slow.party("bob").remote()
+        kill_file = os.path.join(root, "leader_killed")
+        if name == "alice0":
+            time.sleep(PARTY_KILL_AFTER_S)
+            out.put(rep)
+            out.close()
+            out.join_thread()
+            with open(kill_file, "w") as f:
+                f.write(repr(time.time()))
+            os._exit(CRASH_EXIT)  # no goodbyes: the sockets and the store die with it
+        if name == "alice1":
+            try:
+                fed.get(value)
+                rep["poisoned"] = None
+            except RemoteError as e:
+                t = time.time()
+                with open(kill_file) as f:
+                    rep["poisoned"] = {"s": t - float(f.read()), "error": str(e)[:160]}
+            out.put(rep)
+            out.close()
+            out.join_thread()
+            os._exit(0)  # the party's world lost its leader: leave without its teardown
+        fed.get(value)
+        fed.shutdown()
+        out.put(rep)
+    except BaseException:
+        out.put({"party": name, "error": traceback.format_exc()})
+        raise
+
+
+def _collective_cap(fed, cap):
+    """``fed.set_max_message_length(cap)`` on every process of the party: a
+    send still in flight makes the whole party refuse it together (the
+    same verdict at every process), and then every process tries again."""
+    for tries in range(1, 51):
+        try:
+            fed.set_max_message_length(cap)
+            return tries
+        except RuntimeError as e:
+            if "in flight" not in str(e):
+                raise
+            time.sleep(0.1)
+    raise AssertionError(f"set_max_message_length({cap}) refused 50 times: sends stayed in flight")
+
+
+def _party_check(cond, msg):
+    if not cond:
+        raise AssertionError(f"phase_party_processes: {msg}")
+
+
+def _party_summary(reports, on_card):
+    a0, a1, bob = reports["alice0"], reports["alice1"], reports["bob"]
+    print(f"[party] alice in two processes: mesh {a0['mesh']} / {a1['mesh']}; init {a0['init_s']:.2f} / "
+          f"{a1['init_s']:.2f} s (the party's store and world, the bridge)")
+    # (a)
+    for a in (a0, a1):
+        b = a["bulk"]
+        _party_check(b["digest"] == bob["bulk_digest"], f"{a['party']} received other bytes than bob sent")
+        _party_check(b["sum"] == b["local_sum"], f"{a['party']}: the mesh's sum {b['sum']} vs {b['local_sum']}")
+    bridge = [t for t in a1["bulk"]["transfers"] if t[0] == "recv"]
+    wire_in = [t for t in a0["bulk"]["transfers"] if t[0] == "recv"]
+    _party_check(bridge and bridge[0][2] >= PARTY_BULK[0] * PARTY_BULK[1] * 4, f"no bridge transfer at alice1: {bridge}")
+    print(f"[party] (a) bob's {PARTY_BULK[0]}x{PARTY_BULK[1]} f32 ({PARTY_BULK[0] * PARTY_BULK[1] * 4 / 1e6:.1f} MB): "
+          f"equal SHA-256 at bob and both alice processes ({a0['bulk']['device']}, {a1['bulk']['device']}); "
+          f"sum over the mesh {a0['bulk']['sum']:.6e} (its all-reduce staged {a0['bulk']['staged_b']} B); "
+          f"leader's wire recv {wire_in[0][2] / 1e6:.1f} MB in {wire_in[0][3] * 1e3:.1f} ms, bridge republish "
+          f"{bridge[0][2] / 1e6:.1f} MB read in {bridge[0][3] * 1e3:.1f} ms "
+          f"({bridge[0][2] / max(bridge[0][3], 1e-9) / 1e9:.2f} GB/s) at alice1; bob's task to alice's "
+          f"result {a0['bulk']['get_s'] * 1e3:.1f} / {a1['bulk']['get_s'] * 1e3:.1f} ms")
+    # (c)
+    for a in (a0, a1):
+        c = a["cap"]
+        _party_check(c["set"] == PARTY_CAP and c["restored"] == c["before"], f"{a['party']} cap {c}")
+    print(f"[party] (c) set_max_message_length({PARTY_CAP}) on both processes: "
+          f"{a0['cap']['ms']:.1f} / {a1['cap']['ms']:.1f} ms (two store barriers and the leader's verdict), then back "
+          f"to {a0['cap']['before']}")
+    # (b)
+    for p in ("alice0", "bob", "carol", "dave"):
+        r = reports[p]
+        _party_check(r["two"]["digest"] == reports["bob"]["two"]["digest"], f"{p}: the two-process round differs")
+        _party_check(r["two"]["gap"] <= GRAD_REL_TOL * r["two"]["delta"],
+                     f"{p}: two-process alice's round vs one-process {r['two']['gap']:.4e} over max|Δ| "
+                     f"{r['two']['delta']:.4e}")
+    _party_check(a1["two"]["digest"] == bob["two"]["digest"], "alice1's final differs")
+    _party_check(a0["two"]["alice"] == {"images": RESNET_N // PARTY_HALVES, "ranks": 2} == a1["two"]["alice"],
+                 f"alice's step was not data-parallel: {a0['two']['alice']}, {a1['two']['alice']}")
+    _party_check(a0["one"]["alice"] == {"images": RESNET_N, "ranks": 1}, f"one-process alice {a0['one']['alice']}")
+    if on_card:
+        _party_check(bob["one"]["fold_launches"] > 0 and bob["two"]["fold_launches"] > 0,
+                     f"bob's fold launched {bob['one']['fold_launches']}, {bob['two']['fold_launches']} times")
+    print(f"[party] (b) BASELINE #3 round (resnet18, 4 parties, coordinator bob) with alice's step over her two "
+          f"ranks ({RESNET_N // PARTY_HALVES} images each, gradients all-reduced): {bob['two']['s']:.2f} s vs "
+          f"{bob['one']['s']:.2f} s with one alice process; final max|Δ two − one| {bob['two']['gap']:.4e} of "
+          f"max|Δ| {bob['two']['delta']:.4e} (tol {GRAD_REL_TOL:g}); equal SHA-256 at all five processes; "
+          f"fold_fma at bob {bob['two']['fold_launches']}")
+    # (d)
+    pz = a1["poisoned"]
+    deadline = PARTY_INIT["peer_health_interval_in_seconds"] * (PARTY_INIT["peer_death_pings"] + 1) + 2.0
+    _party_check(pz is not None and "leader" in pz["error"], f"alice1's parked recv was not poisoned: {pz}")
+    _party_check(pz["s"] <= deadline, f"alice1 poisoned {pz['s']:.2f} s after the leader died (deadline {deadline} s)")
+    print(f"[party] (d) alice's leader killed {PARTY_KILL_AFTER_S:g} s into bob's {PARTY_SLOW_S:g} s task: alice1's "
+          f"parked recv raised {pz['s']:.2f} s after the kill (watchdog deadline {deadline:g} s, backstop "
+          f"{PARTY_INIT['recv_backstop_in_seconds']} s): {pz['error']!r}")
+    rounds = [reports[p][k] for p in PARTY_PROCS for k in ("one", "two") if k in reports[p]]
+    return {"fold_launches": sum(r["fold_launches"] for r in rounds),
+            "flash_launches": {k: sum(r["flash_launches"][k] for r in rounds) for k in ("fwd", "bwd_dq", "bwd_dkv")},
+            "bridge_mb": bridge[0][2] / 1e6, "bridge_ms": bridge[0][3] * 1e3, "poison_s": pz["s"]}
+
+
+def phase_party_processes(device=None):
+    """A party of two processes on the card beside three of one: the bridge,
+    the party mesh, a BASELINE #3 round with a data-parallel step, the
+    collective cap and the leader's death.  ``device="cpu"`` rehearses it."""
+    if device is None:
+        torch.cuda.empty_cache()
+    ports = {"one": _free_ports(4), "two": _free_ports(4), "coord": _free_ports(1)[0]}
+    root = tempfile.mkdtemp(prefix="chip_smoke_party_")
+    t0 = time.perf_counter()
+    try:
+        reports = _spawn_parties(_party_proc, (ports, device, root), PARTY_TIMEOUT_S, parties=PARTY_PROCS,
+                                 exit_codes={"alice0": CRASH_EXIT})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[party] five processes in {time.perf_counter() - t0:.1f} s")
+    return _party_summary(reports, device is None)
+
 def _timed(walls, fn, *args, **kw):
     """Run one phase and print its wall."""
     t0 = time.perf_counter()
@@ -4535,6 +5189,8 @@ def main() -> int:
     shutil.rmtree(ckpt_root, ignore_errors=True)
     par = _timed(walls, phase_parallel)
     par_launches = par["launches"]
+    pipe = _timed(walls, phase_pipeline)
+    party = _timed(walls, phase_party_processes)
     ckpt_llama, ckpt_resnet = ckpt["llama"]["launches"], ckpt["quorum"]["flash_launches"]
     overlap = {k: sum(federated[part]["launches"][k] for part in OVERLAP_PARTS)
                for k in ("fwd", "bwd_dq", "bwd_dkv")}
@@ -4597,7 +5253,11 @@ def main() -> int:
                              # phase_parallel, every rank: the ring, zigzag and Ulysses
                              # ops at the Llama shape, the sp=2 Llama-3-8B prefill and
                              # LoRA step, the TP/FSDP forward
-                             **{path: par_launches[path]["fwd"] for path in PAR_PATHS}},
+                             **{path: par_launches[path]["fwd"] for path in PAR_PATHS},
+                             # phase_pipeline, every rank: GPipe's forward, a 1F1B step,
+                             # an interleaved step; phase_party_processes (ResNet-18)
+                             **{path: pipe["launches"][path]["fwd"] for path in PIPE_PATHS},
+                             "party_resnet": party["flash_launches"]["fwd"]},
         "bert_shape": bert_times["fwd"],  # bert_base's attention on the split path
         "max_abs_err": slice_err,
         **times,
@@ -4628,7 +5288,11 @@ def main() -> int:
                              # phase_parallel, every rank: the ring, zigzag and Ulysses
                              # ops at the Llama shape, the sp=2 Llama-3-8B prefill and
                              # LoRA step, the TP/FSDP forward
-                             **{path: par_launches[path]["bwd_dq"] for path in PAR_PATHS}},
+                             **{path: par_launches[path]["bwd_dq"] for path in PAR_PATHS},
+                             # phase_pipeline, every rank: GPipe's forward, a 1F1B step,
+                             # an interleaved step; phase_party_processes (ResNet-18)
+                             **{path: pipe["launches"][path]["bwd_dq"] for path in PIPE_PATHS},
+                             "party_resnet": party["flash_launches"]["bwd_dq"]},
         "bert_shape": bert_times["dq"],  # bert_base's attention on the split path
         "max_abs_err": bwd_err["dq"],
         **bwd_times["dq"],
@@ -4658,7 +5322,11 @@ def main() -> int:
                              # phase_parallel, every rank: the ring, zigzag and Ulysses
                              # ops at the Llama shape, the sp=2 Llama-3-8B prefill and
                              # LoRA step, the TP/FSDP forward
-                             **{path: par_launches[path]["bwd_dkv"] for path in PAR_PATHS}},
+                             **{path: par_launches[path]["bwd_dkv"] for path in PAR_PATHS},
+                             # phase_pipeline, every rank: GPipe's forward, a 1F1B step,
+                             # an interleaved step; phase_party_processes (ResNet-18)
+                             **{path: pipe["launches"][path]["bwd_dkv"] for path in PIPE_PATHS},
+                             "party_resnet": party["flash_launches"]["bwd_dkv"]},
         "bert_shape": bert_times["dkv"],  # bert_base's attention on the split path
         "max_abs_err": bwd_err["dkv"],
         **bwd_times["dkv"],
@@ -4695,7 +5363,10 @@ def main() -> int:
                              "checkpoint_llama": ckpt["llama"]["fold_launches"],
                              "checkpoint_resnet": ckpt["quorum"]["fold_launches"],
                              # phase_parallel's paths, every rank (read as the flash kernels' are)
-                             **{path: par["fold_launches"][path] for path in PAR_PATHS}},
+                             **{path: par["fold_launches"][path] for path in PAR_PATHS},
+                             **{path: pipe["fold_launches"][path] for path in PIPE_PATHS},
+                             # every process's folds over both rounds (bob, the coordinator)
+                             "party_resnet": party["fold_launches"]},
         **fold_times["adapters"],  # one contribution of the round's packed adapters
         "wq_shape": fold_times["wq"],
         # The same kernel as the server step's fused multiply-adds: FedAC at

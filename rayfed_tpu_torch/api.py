@@ -96,9 +96,12 @@ def init(
       picks the current CUDA card and raises where there is none; pass
       ``"cpu"`` to run the party on the CPU.  Received tensors are
       decoded onto it;
-    - ``mesh`` / ``mesh_shape``: a party mesh in ``fed.init`` is not
-      supported until the multi-process party is ported (ROADMAP.md, Queue
-      A item 10, second slice); raise;
+    - ``mesh`` / ``mesh_shape``: the party's ``DeviceMesh``
+      (``runtime.mesh``; received tensors whose sender sharding fits it
+      decode onto it as DTensors), or its shape, laid over the party's
+      world of processes, one card a process: the shape's size must be
+      the number of party processes (1 for a one-process party, whose
+      one-rank world is started here if there is none);
     - ``device_put_received``: place received tensor payloads onto
       ``device`` eagerly;
     - ``peer_failfast`` (+ ``peer_health_interval_in_seconds``,
@@ -109,29 +112,24 @@ def init(
     - ``process_default``: also register this runtime as the process-wide
       default (disable when simulating multiple parties in one process);
     - ``coordinator_address`` + ``num_party_processes`` +
-      ``party_process_id``: a party spanning several processes; not
-      supported until the multi-host party is ported (ROADMAP.md, Queue A
-      item 10, second slice); raise.
+      ``party_process_id``: a party spanning several processes
+      (:mod:`rayfed_tpu_torch.distributed`): every process runs the same
+      program; process 0 (the leader) runs the cross-party transport and
+      the others receive through its bridge.  ``coordinator_address`` is
+      the party's ``host:port`` for its store (process 0 listens there);
+      process ``p`` runs on ``cuda:(p % device_count)`` unless ``device``
+      says otherwise.
     """
     assert cluster, "Cluster should be provided."
     assert party, "Party should be provided."
     assert party in cluster, f"Party {party} is not in cluster {cluster}."
-    if mesh is not None or mesh_shape is not None:
-        raise NotImplementedError(
-            "mesh/mesh_shape: a party device mesh in fed.init is not ported yet "
-            "(ROADMAP.md, Queue A item 10, second slice)"
+    if coordinator_address is None:
+        device = resolve_device(device)
+    elif num_party_processes is None or party_process_id is None:
+        raise ValueError(
+            "coordinator_address requires num_party_processes and "
+            "party_process_id"
         )
-    if (
-        coordinator_address is not None
-        or num_party_processes is not None
-        or party_process_id is not None
-    ):
-        raise NotImplementedError(
-            "coordinator_address/num_party_processes/party_process_id: a "
-            "multi-host party is not ported yet (ROADMAP.md, Queue A item 10, "
-            "second slice)"
-        )
-    device = resolve_device(device)
 
     # Deterministic fault injection (tests/benches): a JSON schedule in
     # $RAYFED_CHAOS arms the transport/driver chaos hooks for this
@@ -202,12 +200,43 @@ def init(
         # place (newest records kept) instead of silently ignoring it.
         _telemetry.installed().resize(int(trace_capacity))
 
+    party_group = None
+    if coordinator_address is not None:
+        from rayfed_tpu_torch.distributed import PartyProcessGroup
+
+        # Before any CUDA work in this process: it takes its own card and
+        # joins the party's world, which the party mesh spans.
+        party_group = PartyProcessGroup(
+            coordinator_address, num_party_processes, party_process_id, device=device
+        )
+        device = party_group.device
+
+    owned_world = False
+    if mesh is None and mesh_shape is not None:
+        import torch.distributed as dist
+
+        from rayfed_tpu_torch.parallel.mesh import create_mesh
+
+        if party_group is None and not dist.is_initialized():
+            # A one-process party's world: one rank, no port.
+            dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+            owned_world = True
+        try:
+            mesh = create_mesh(mesh_shape, device=device.type)
+        except BaseException:
+            if owned_world:
+                dist.destroy_process_group()
+            if party_group is not None:
+                party_group.shutdown()
+            raise
+
     runtime = Runtime(
         cluster_config=cluster_config,
         job_config=job_config,
         max_workers=max_workers,
         mesh=mesh,
     )
+    runtime.owned_world = owned_world
     set_current_runtime(runtime, process_default=process_default)
     set_thread_party(party)
 
@@ -218,8 +247,42 @@ def init(
     )
     runtime.cleanup_manager.start()
 
-    transport = TransportManager(cluster_config, job_config, device=device)
-    transport.start()
+    if party_group is not None:
+        from rayfed_tpu_torch.distributed import MultiHostTransport
+
+        inner = None
+        if party_group.is_leader:
+            inner = TransportManager(cluster_config, job_config, device=device)
+            inner.mesh_provider = lambda: runtime.mesh
+            # NOT started here: MultiHostTransport must install its
+            # republish hook before the listener accepts the first frame.
+        transport = MultiHostTransport(
+            inner,
+            party_group,
+            allowed=cluster_config.serializing_allowed_list,
+            device_put_received=device_put_received,
+            # Same backstop as the leader's wire recv — the party's
+            # processes must time out together or not at all (a lone
+            # non-leader failure desyncs the SPMD program).
+            timeout_s=job_config.recv_backstop_s,
+            mesh_provider=lambda: runtime.mesh,
+            job_config=job_config,
+            tls_config=tls_config,
+            # The party's advertised address IS the leader's listener:
+            # non-leaders watchdog it so leader death poisons their
+            # parked bridge recvs within the death deadline.
+            leader_address=cluster_config.party_config(party).address,
+            device=device,
+        )
+        # A fatal bridge republish is a send failure for watchdog
+        # purposes: exit-on-failure applies to the intra-party bridge too.
+        transport.failure_handler = (
+            lambda ref, exc: runtime.cleanup_manager.push_to_sending(ref)
+        )
+    else:
+        transport = TransportManager(cluster_config, job_config, device=device)
+        transport.mesh_provider = lambda: runtime.mesh
+        transport.start()
     runtime.send_proxy = transport
     runtime.recv_proxy = transport
     runtime.transport = transport
@@ -443,6 +506,11 @@ def shutdown() -> None:
         runtime.transport.stop()
     runtime.shutdown_actors()
     runtime.executor.shutdown(wait=False)
+    if runtime.owned_world:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
     set_current_runtime(None)
     set_thread_party(None)
     logger.info("Shutdowned rayfed_tpu_torch.")

@@ -5,9 +5,9 @@ of ranks (one process per rank, started by
 :func:`~rayfed_tpu_torch.parallel.collectives.init_world`); a
 ``DeviceMesh`` over them (:func:`create_mesh`) names the axes
 (DP / FSDP / TP / SP / EP / PP) and a :class:`ShardingStrategy` says how a
-task's params and batch map onto them.  The pipeline schedules
-(``parallel/pipeline.py``) come with the next slice (ROADMAP.md, Queue A
-item 10, second slice).
+task's params and batch map onto them; the pipeline schedules
+(:mod:`~rayfed_tpu_torch.parallel.pipeline`: GPipe, 1F1B, interleaved)
+split a stacked layer tree over ``pp``.
 """
 
 from rayfed_tpu_torch.parallel.mesh import (
@@ -19,11 +19,21 @@ from rayfed_tpu_torch.parallel.mesh import (
     AXIS_TP,
     create_mesh,
 )
+from rayfed_tpu_torch.parallel.pipeline import (
+    make_pipeline,
+    make_pipeline_train,
+    pipeline_collective,
+    stack_params,
+)
 from rayfed_tpu_torch.parallel.sharding import ShardingStrategy
 
 __all__ = [
     "create_mesh",
     "ShardingStrategy",
+    "make_pipeline",
+    "make_pipeline_train",
+    "pipeline_collective",
+    "stack_params",
     "AXIS_DP",
     "AXIS_FSDP",
     "AXIS_TP",

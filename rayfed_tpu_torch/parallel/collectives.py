@@ -9,6 +9,9 @@ of a :class:`~torch.distributed.device_mesh.DeviceMesh`,
   attention rotates K/V with it), by ``dist.batch_isend_irecv``;
   :func:`ppermute_start` returns the rotation in flight so that a ring step
   computes while the next block travels;
+- :func:`broadcast` — one rank's tensor on every rank (the pipeline's
+  replicated loss and outputs, the reference's ``psum`` of values that
+  only the last stage holds);
 - :func:`all_to_all` — the tiled ``lax.all_to_all(split_axis,
   concat_axis)`` (Ulysses), by ``dist.all_to_all_single``;
 - :func:`all_gather` and :func:`local_shard` — the out and in specs of a
@@ -76,21 +79,26 @@ def backend_for(device: torch.device, world_size: int) -> str:
 def init_world(
     rank: int,
     world_size: int,
-    port: int,
+    port: Optional[int] = None,
     *,
+    store: Optional[dist.Store] = None,
     device: Optional[Union[str, torch.device]] = None,
     local_rank: Optional[int] = None,
     timeout_s: float = 300.0,
 ) -> torch.device:
     """Join a world of ``world_size`` ranks rendezvousing on
     ``tcp://127.0.0.1:port`` (take the port from
-    :func:`rayfed_tpu_torch.utils.ports.free_loopback_ports`); return this
+    :func:`rayfed_tpu_torch.utils.ports.free_loopback_ports`), or on a
+    ``store`` the caller made (a multi-process party's,
+    :class:`~rayfed_tpu_torch.distributed.PartyProcessGroup`); return this
     rank's device.
 
     The device is ``cuda:(local_rank % device_count)`` (``local_rank``
     defaults to ``rank``) unless ``device`` is given (``"cpu"`` for a CPU
     world); the backend is :func:`backend_for`'s.
     """
+    if (port is None) == (store is None):
+        raise ValueError("init_world needs exactly one of a port and a store")
     if device is None:
         resolve_device(None)  # raises without a card
         lr = rank if local_rank is None else local_rank
@@ -99,12 +107,13 @@ def init_world(
     if device.type == "cuda":
         torch.cuda.set_device(device)
     backend = backend_for(device, world_size)
+    rendezvous = {"store": store} if store is not None else {"init_method": f"tcp://127.0.0.1:{port}"}
     dist.init_process_group(
         backend,
-        init_method=f"tcp://127.0.0.1:{port}",
         rank=rank,
         world_size=world_size,
         timeout=datetime.timedelta(seconds=timeout_s),
+        **rendezvous,
     )
     if backend == "gloo" and device.type == "cuda":
         _stage_functional_all_gather()
@@ -192,27 +201,42 @@ class PendingPermute:
         return self._received
 
 
-def ppermute_start(tensors: Sequence[torch.Tensor], group, shift: int = 1) -> PendingPermute:
+def ppermute_start(
+    tensors: Sequence[torch.Tensor],
+    group,
+    shift: int = 1,
+    *,
+    send: bool = True,
+    recv: bool = True,
+    tag: int = 0,
+) -> PendingPermute:
     """Send each tensor to group rank ``r + shift`` and receive the same
     shapes from ``r − shift`` (mod the group size); returns at once.
+
+    ``send=False`` or ``recv=False`` drops this rank's half of the shift: the
+    tensors are then only the shapes of what is received, or nothing is
+    received (:meth:`PendingPermute.wait` returns ``[]``).  A pipeline's hop
+    is such a half shift, posted by the sending and the receiving stage
+    alone.  ``tag`` offsets the message tags, so that two shifts in flight
+    between the same pair of ranks cannot match each other's messages.
 
     On a gloo group CUDA tensors go through pinned host buffers: the copy
     out completes here, the copy back in :meth:`PendingPermute.wait`.
     """
     tensors = [t.contiguous() for t in tensors]
     n, me = dist.get_world_size(group), dist.get_rank(group)
-    if n == 1 or not tensors:
-        return PendingPermute([], tensors, tensors, None, False)
+    if n == 1 or not tensors or not (send or recv):
+        return PendingPermute([], tensors, tensors if recv else [], None, False)
     device = tensors[0].device
     staged = _staged(group, tensors[0])
-    send = _to_host(tensors) if staged else tensors
-    recv = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) if staged else torch.empty_like(t)
-            for t in send]
+    out = (_to_host(tensors) if staged else tensors) if send else []
+    inbox = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) if staged else torch.empty_like(t)
+             for t in tensors] if recv else []
     dst = dist.get_global_rank(group, (me + shift) % n)
     src = dist.get_global_rank(group, (me - shift) % n)
-    ops = [dist.P2POp(dist.isend, t, dst, group, tag) for tag, t in enumerate(send)]
-    ops += [dist.P2POp(dist.irecv, t, src, group, tag) for tag, t in enumerate(recv)]
-    return PendingPermute(dist.batch_isend_irecv(ops), send, recv, device, staged)
+    ops = [dist.P2POp(dist.isend, t, dst, group, tag + i) for i, t in enumerate(out)]
+    ops += [dist.P2POp(dist.irecv, t, src, group, tag + i) for i, t in enumerate(inbox)]
+    return PendingPermute(dist.batch_isend_irecv(ops), out, inbox, device, staged)
 
 
 class _PPermute(torch.autograd.Function):
@@ -337,6 +361,23 @@ def local_shard(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     if dist.get_world_size(group) == 1:
         return x
     return _LocalShard.apply(x, group, dim)
+
+
+def broadcast(x: torch.Tensor, group, src: int) -> torch.Tensor:
+    """Group rank ``src``'s ``x`` on every rank of ``group`` (the other ranks'
+    ``x`` gives only the shape and dtype).  Not differentiable: the
+    pipeline's schedules replicate their results with it."""
+    if dist.get_world_size(group) == 1:
+        return x
+    x = x.contiguous()
+    staged = _staged(group, x)
+    if staged:  # the source's values go out through a pinned copy; the others only receive
+        mine = dist.get_rank(group) == src
+        buf = _to_host([x])[0] if mine else torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    else:
+        buf = x.clone()
+    dist.broadcast(buf, dist.get_global_rank(group, src), group=group)
+    return _to_device([buf], x.device)[0] if staged else buf
 
 
 def _all_reduce_raw(x: torch.Tensor, group) -> torch.Tensor:

@@ -5,8 +5,9 @@ party-local parallel ops: every rank joins one ``torch.distributed`` world
 (:func:`~rayfed_tpu_torch.parallel.collectives.init_world`, a loopback
 rendezvous on a port from
 :func:`~rayfed_tpu_torch.utils.ports.free_loopback_ports`), runs the same
-function, and hands its result back.  The multi-process party of the
-federated runtime (the reference's ``distributed.py``) is the next slice's.
+function, and hands its result back.  A federated party of several
+processes joins its world through :mod:`rayfed_tpu_torch.distributed`
+instead (``fed.init(coordinator_address=...)``).
 """
 
 from __future__ import annotations

@@ -135,8 +135,8 @@ class ShardingStrategy:
       shard the expert dim over 'ep'.
     - ``seq_axis``: mesh axis for sequence parallelism (ring attention /
       Ulysses), consumed by the attention ops.
-    - ``pp_axis``: mesh axis for pipeline stages (the pipeline is not
-      ported yet).
+    - ``pp_axis``: mesh axis for pipeline stages
+      (:mod:`rayfed_tpu_torch.parallel.pipeline`).
     """
 
     mesh: DeviceMesh

@@ -8,8 +8,8 @@ Here everything a party owns lives on one :class:`Runtime` object:
 - the local :class:`~rayfed_tpu_torch.executor.TaskExecutor`,
 - the cross-party send/recv proxies (asyncio transport),
 - the cleanup/send-watchdog,
-- the party-local device mesh for sharded compute (None until intra-party
-  parallelism is ported).
+- the party-local device mesh for sharded compute (a ``DeviceMesh`` over
+  the party's world of processes, or None).
 
 Runtime resolution is thread-local with a process-wide default.  This is
 what enables *multi-party-in-one-process simulation*: each simulated party
@@ -45,7 +45,10 @@ class Runtime:
         self.cluster_config = cluster_config
         self.job_config = job_config
         self.global_context = GlobalContext()
-        self.mesh = mesh  # party-local device mesh (None in this package)
+        self.mesh = mesh  # party-local DeviceMesh, or None
+        # True when fed.init started a one-rank world for this party's mesh
+        # (fed.shutdown then leaves it).
+        self.owned_world = False
         self.executor = TaskExecutor(
             max_workers=max_workers,
             thread_name_prefix=f"rayfed-{cluster_config.current_party}",

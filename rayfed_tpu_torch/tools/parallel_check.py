@@ -12,11 +12,17 @@ tests.  Inputs arrive as numpy arrays, the same on every rank.
   with ring attention as its ``attn_fn``;
 - :func:`mesh_checks` — mesh shapes and errors, partition-rule specs, the
   data-parallel strategy and a tensor-parallel matmul;
-- :func:`moe_cases` — the MoE layer with its experts split over ``ep``.
+- :func:`moe_cases` — the MoE layer with its experts split over ``ep``;
+- :func:`pipeline_cases` — GPipe, 1F1B and the interleaved schedule through
+  their global-view ``make_*`` functions on sub-meshes of the world (outputs,
+  gradients of ``sum(out²)``, losses and gradient trees, their errors, what
+  each rank's schedule ran), with an MLP stage or a run of Llama decoder
+  layers (:func:`llama_stage_fn`).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List
 
 import numpy as np
@@ -229,4 +235,162 @@ def moe_cases(rank: int, device: torch.device, cases: List[Dict[str, Any]]) -> L
             "local_experts": tuple(params["w_in"].to_local().shape),
             "grads": {n: _np(g.full_tensor()) for n, g in zip(names, grads[:-1])} | {"x": _np(grads[-1])},
         })
+    return results
+
+
+# ---------------------------------------------------------------------------
+# Pipeline schedules
+# ---------------------------------------------------------------------------
+
+
+def mlp_stage_fn(stage_params, x):
+    """The reference test's stage: its stacked layers in order, each
+    ``tanh(x @ w + b)``."""
+    for i in range(stage_params["w"].shape[0]):
+        x = torch.tanh(x @ stage_params["w"][i] + stage_params["b"][i])
+    return x
+
+
+def mse(y, tgt):
+    """The mean squared error, in f32 whatever the activations' dtype."""
+    return ((y.float() - tgt.float()) ** 2).mean()
+
+
+def llama_stage_fn(config, attn_fn, seq_len: int, device, *, jitted: bool = False):
+    """A pipeline stage of Llama decoder layers: ``(stacked layer slice,
+    hidden [mb, T, D]) → hidden``, each layer the model's own
+    ``_layer_fwd`` with ``attn_fn`` (the embedding, the final norm and the
+    head stay outside the pipe)."""
+    from rayfed_tpu_torch.models import llama
+
+    cos, sin = llama.rope_tables(torch.arange(seq_len, device=device), config.head_dim, config.rope_theta)
+
+    def stage(stage_params, x):
+        b, t = x.shape[0], x.shape[1]
+        for i in range(next(iter(stage_params.values())).shape[0]):
+            x, _ = llama._layer_fwd(x, {k: w[i] for k, w in stage_params.items()}, config, cos, sin,
+                                    attn_fn, b, t, jitted=jitted)
+        return x
+
+    return stage
+
+
+def _pipe_fns(case, device):
+    if case.get("llama") is None:
+        return mlp_stage_fn, mse
+    from rayfed_tpu_torch.models import llama
+
+    dtype = _DTYPES[case.get("dtype", "float32")]
+    cfg = llama.llama_tiny(**case["llama"], dtype=dtype, param_dtype=dtype)
+    return llama_stage_fn(cfg, flash_attention, case["x"].shape[1], device, jitted=True), mse
+
+
+def _pipe_case(case: Dict[str, Any], device: torch.device, meshes) -> Dict[str, Any]:
+    from torch.utils import _pytree as pytree
+
+    from rayfed_tpu_torch.parallel import pipeline as pp
+
+    n = case["stages"]
+    mesh = meshes(n)
+    if mesh is None:  # this rank lies outside the case's sub-mesh
+        return {}
+    stage_fn, loss_fn = _pipe_fns(case, device)
+    dtype = _DTYPES[case.get("dtype", "float32")]
+    params = pytree.tree_map(lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device, dtype),
+                             case["params"])
+    x = torch.from_numpy(np.asarray(case["x"], np.float32)).to(device, dtype)
+    kind, m = case["kind"], case["mb"]
+    _zero_launches()
+    pp.STATS.reset()
+    res: Dict[str, Any] = {}
+    if kind == "gpipe":
+        res["out"] = _np(pp.make_pipeline(mesh, stage_fn, num_microbatches=m)(params, x))
+    elif kind == "gpipe_grad":
+        leaves, spec = pytree.tree_flatten(params)
+        leaves = [leaf.requires_grad_(True) for leaf in leaves]
+        out = pp.make_pipeline(mesh, stage_fn, num_microbatches=m)(pytree.tree_unflatten(leaves, spec), x)
+        grads = torch.autograd.grad((out ** 2).sum(), leaves)
+        res["grads"] = _np_tree(pytree.tree_unflatten(list(grads), spec))
+    elif kind == "gpipe_loss_grad":  # the mean microbatch loss through GPipe, by autograd
+        tgt = torch.from_numpy(np.asarray(case["tgt"], np.float32)).to(device)
+        leaves, spec = pytree.tree_flatten(params)
+        leaves = [leaf.requires_grad_(True) for leaf in leaves]
+        y = pp.make_pipeline(mesh, stage_fn, num_microbatches=m)(pytree.tree_unflatten(leaves, spec), x)
+        b = x.shape[0] // m
+        loss = torch.stack([loss_fn(y[i * b:(i + 1) * b], tgt[i * b:(i + 1) * b]) for i in range(m)]).mean()
+        res["loss"] = float(loss.detach())
+        res["grads"] = _np_tree(pytree.tree_unflatten(list(torch.autograd.grad(loss, leaves)), spec))
+    elif kind == "train":
+        tgt = torch.from_numpy(np.asarray(case["tgt"], np.float32)).to(device, dtype)
+        train = pp.make_pipeline_train(mesh, stage_fn, loss_fn, num_microbatches=m,
+                                       virtual_stages=case.get("v", 1))
+        loss, grads = train(params, x, tgt)
+        res["loss"], res["grads"] = float(loss), _np_tree(grads)
+    elif kind == "sgd":  # plain SGD steps on the 1F1B gradients: the losses
+        tgt = torch.from_numpy(np.asarray(case["tgt"], np.float32)).to(device)
+        train = pp.make_pipeline_train(mesh, stage_fn, loss_fn, num_microbatches=m)
+        res["losses"] = []
+        for _ in range(case["steps"]):
+            loss, grads = train(params, x, tgt)
+            res["losses"].append(float(loss))
+            params = pytree.tree_map(lambda p, g: p - case["lr"] * g, params, grads)
+    res["launches"] = _launches()
+    res["stats"] = dataclasses.asdict(pp.STATS)
+    return res
+
+
+def _np_tree(tree):
+    from torch.utils import _pytree as pytree
+
+    return pytree.tree_map(_np, tree)
+
+
+def _pipe_errors(device, meshes) -> Dict[str, str]:
+    """The ``make_*`` functions' ValueErrors, each message as raised (mesh pp=4)."""
+    from rayfed_tpu_torch.parallel import pipeline as pp
+
+    mesh = meshes(4)
+    if mesh is None:
+        return {}
+    six = {"w": torch.zeros(6, 8, 8, device=device), "b": torch.zeros(6, 8, device=device)}
+    four = {"w": torch.zeros(4, 8, 8, device=device), "b": torch.zeros(4, 8, device=device)}
+    eight = {"w": torch.zeros(8, 8, 8, device=device), "b": torch.zeros(8, 8, device=device)}
+    x8, x9, x6 = (torch.zeros(r, 8, device=device) for r in (8, 9, 6))
+    calls = {
+        "leading": lambda: pp.make_pipeline(mesh, mlp_stage_fn, num_microbatches=4)(six, x8),
+        "batch": lambda: pp.make_pipeline(mesh, mlp_stage_fn, num_microbatches=4)(four, x9),
+        "virtual_leading": lambda: pp.make_pipeline_train(
+            mesh, mlp_stage_fn, mse, num_microbatches=4, virtual_stages=2)(six, x8, x8),
+        "virtual_stages": lambda: pp.make_pipeline_train(
+            mesh, mlp_stage_fn, mse, num_microbatches=4, virtual_stages=0),
+        "interleaved_mb": lambda: pp.make_pipeline_train(
+            mesh, mlp_stage_fn, mse, num_microbatches=6, virtual_stages=2)(eight, x6, x6),
+        "train_batch": lambda: pp.make_pipeline_train(mesh, mlp_stage_fn, mse, num_microbatches=4)(four, x9, x9),
+    }
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+            out[name] = None
+        except ValueError as e:
+            out[name] = str(e)
+    return out
+
+
+def pipeline_cases(rank: int, device: torch.device, cases: Dict[str, Dict[str, Any]]) -> Dict[str, Any]:
+    """Run each named case on the sub-mesh ``{"pp": stages}`` over the
+    world's first ``stages`` ranks (ranks outside it report ``{}``), then
+    (in a world of 4 ranks or more) the ``make_*`` functions' errors on ``{"pp": 4}``."""
+    made: Dict[int, Any] = {}
+    world = torch.distributed.get_world_size()
+
+    def meshes(n):
+        if n not in made:  # collective: every rank builds every mesh, in one order
+            made[n] = create_mesh({"pp": n}, list(range(n)), device=device.type)
+        return made[n] if rank < n else None
+
+    for n in sorted({c["stages"] for c in cases.values()} | ({4} if world >= 4 else set())):
+        meshes(n)
+    results = {name: _pipe_case(case, device, meshes) for name, case in cases.items()}
+    results["errors"] = _pipe_errors(device, meshes) if world >= 4 else {}
     return results

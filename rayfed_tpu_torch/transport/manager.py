@@ -391,8 +391,10 @@ class TransportManager:
         # disarmed (an empty window, marked armed=False), so a mixed
         # fleet degrades loudly rather than hanging the collector.
         self._server._observers.append(self._observe_trace_request)
-        # The reference's hook for placing received shards on the party
-        # mesh; stays None until intra-party parallelism is ported.
+        # Party mesh for received shards (set by fed.init to return the
+        # runtime's DeviceMesh): shard-encoded leaves whose sender
+        # sharding fits it decode as DTensors, each process building its
+        # own shard (wire.decode_payload(mesh=)).
         self.mesh_provider = None
 
     # -- lifecycle ------------------------------------------------------------

@@ -34,7 +34,7 @@ import functools
 import json
 import struct
 import threading
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -448,17 +448,127 @@ def _tensor_nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
-def _refuse_sharded(t: torch.Tensor) -> None:
-    """A DTensor (or any tensor class of ``torch.distributed``) holds only
-    this process's shards; the reference refuses a non-fully-addressable
-    ``jax.Array`` the same way."""
-    if type(t).__module__.startswith("torch.distributed"):
-        raise NotImplementedError(
-            f"cannot encode a {type(t).__name__} for a cross-party push: "
-            f"sharded tensors are not supported until their encoding is "
-            f"ported (ROADMAP.md, Queue A item 10, second slice).  Gather it "
-            f"onto one device first (e.g. DTensor.full_tensor())"
-        )
+def _is_dtensor(t: torch.Tensor) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def _fully_addressable(t: torch.Tensor) -> bool:
+    """A DTensor whose local tensor is the whole value: every mesh
+    dimension of size > 1 carries ``Replicate()`` (this process holds one
+    card, so a shard over a larger axis lies partly in other processes —
+    the reference's ``jax.Array.is_fully_addressable``)."""
+    return all(size == 1 or p.is_replicate() for size, p in zip(t.device_mesh.mesh.shape, t.placements))
+
+
+def _sharding_desc(t: torch.Tensor) -> Optional[Dict[str, Any]]:
+    """Portable description of a DTensor's layout: the mesh's axis names
+    and sizes, and for each tensor dim the axes that shard it, in mesh
+    order (the reference's NamedSharding description, one spec entry a
+    dim: ``P("dp", None)``'s form).  None for a mesh without axis names."""
+    from torch.distributed.tensor import Shard
+
+    mesh = t.device_mesh
+    if not mesh.mesh_dim_names:
+        return None
+    entries: List[Any] = [[] for _ in range(t.dim())]
+    for name, placement in zip(mesh.mesh_dim_names, t.placements):
+        if isinstance(placement, Shard):
+            entries[placement.dim].append(str(name))
+    return {
+        "axes": [[str(n), int(s)] for n, s in zip(mesh.mesh_dim_names, mesh.mesh.shape)],
+        "spec": [e if e else None for e in entries],
+    }
+
+
+class MeshSharding(NamedTuple):
+    """A layout on the receiver's party mesh: the mesh and one placement a
+    mesh dimension (what ``DTensor.from_local`` takes)."""
+
+    mesh: Any
+    placements: tuple
+
+
+def resolve_sharding(desc: Optional[Dict[str, Any]], mesh) -> Optional[MeshSharding]:
+    """Rebuild the sender's layout on the *receiver's* ``DeviceMesh`` from a
+    wire desc.
+
+    Only when the local mesh carries every axis the sender's spec uses, at
+    the same size (and an entry of several axes in the mesh's order) —
+    otherwise None (the caller decodes a plain tensor)."""
+    if not desc or mesh is None or not mesh.mesh_dim_names:
+        return None
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = list(mesh.mesh_dim_names)
+    local_axes = dict(zip(names, mesh.mesh.shape))
+    sender_axes = dict((n, s) for n, s in desc["axes"])
+    placements: List[Any] = [Replicate()] * len(names)
+    for dim, entry in enumerate(desc["spec"]):
+        order = []
+        for axis in entry or ():
+            if local_axes.get(axis) != sender_axes.get(axis):
+                return None
+            order.append(names.index(axis))
+            placements[names.index(axis)] = Shard(dim)
+        if order != sorted(order):
+            return None
+    return MeshSharding(mesh, tuple(placements))
+
+
+def _local_region(shape, sharding: MeshSharding) -> Optional[List[Tuple[int, int]]]:
+    """This process's ``[start, stop)`` per dim of a DTensor of ``shape``
+    laid out by ``sharding`` (each Shard a ``torch.chunk``, mesh dims in
+    order, as DTensor splits); None off the mesh."""
+    coord = sharding.mesh.get_coordinate()
+    if coord is None:
+        return None
+    region = [(0, d) for d in shape]
+    for i, placement in enumerate(sharding.placements):
+        if placement.is_shard():
+            d = placement.dim
+            start, stop = region[d]
+            n = int(sharding.mesh.mesh.shape[i])
+            step = -(-(stop - start) // n)
+            lo = min(start + coord[i] * step, stop)
+            region[d] = (lo, min(lo + step, stop))
+    return region
+
+
+def _place_local_shard(mv, offset, spec, name, shape, sharding: MeshSharding, device):
+    """This process's DTensor shard of an ``nds`` leaf, cut from the wire
+    shards that overlap it (one wire shard that is exactly the region is
+    taken as it is); no data moves between processes.  None off the mesh."""
+    from torch.distributed.tensor import DTensor
+
+    region = _local_region(shape, sharding)
+    if region is None:
+        return None
+    extents = [e - s for s, e in region]
+    local = None
+    off = offset
+    for entry in spec["shards"]:
+        n = entry["n"]
+        idx = [tuple(i) for i in entry["idx"]]
+        if idx == region:
+            local = _decode_tensor(mv[off : off + n], name, extents, device, view=False)
+            break
+        lo = [max(a, s) for (a, _), (s, _) in zip(idx, region)]
+        hi = [min(b, e) for (_, b), (_, e) in zip(idx, region)]
+        if all(a < b for a, b in zip(lo, hi)):
+            if local is None:
+                local = torch.empty(extents, dtype=_torch_dtype(name))
+            src = _region_tensor(mv[off : off + n], name, [b - a for a, b in idx], copy=False)
+            local[tuple(slice(a - s, b - s) for a, b, (s, _) in zip(lo, hi, region))] = (
+                src[tuple(slice(a - s, b - s) for a, b, (s, _) in zip(lo, hi, idx))])
+        off += n
+    if local is None:  # an empty region
+        local = torch.empty(extents, dtype=_torch_dtype(name))
+    if device is not None and local.device != device:
+        local = local.to(device)
+    return DTensor.from_local(local, sharding.mesh, sharding.placements, run_check=False,
+                              shape=torch.Size(shape), stride=torch.empty(shape, device="meta").stride())
 
 
 def _host_tensor(t: torch.Tensor) -> torch.Tensor:
@@ -510,11 +620,13 @@ def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
     ).reshape(tuple(host.shape))
 
 
-def _encode_sharded_leaf(leaf: torch.Tensor, manifest_leaves: List, buffers: List):
+def _encode_sharded_leaf(leaf: torch.Tensor, manifest_leaves: List, buffers: List,
+                         desc: Optional[Dict[str, Any]] = None):
     """Encode a large tensor as one lazily fetched buffer: the manifest a
-    single-device ``jax.Array`` gets in the JAX package (one shard that
-    covers it, ``"spec": null`` since it has no NamedSharding), with the
-    device→host copy deferred to the send."""
+    fully addressable ``jax.Array`` gets in the JAX package — one shard that
+    covers it (the tensor is whole in this process), with ``desc`` the
+    layout of the DTensor it came from (``"spec": null`` for a plain
+    tensor) — with the device→host copy deferred to the send."""
     shape = list(leaf.shape)
     nbytes = _tensor_nbytes(leaf)
     buffers.append(LazyBuffer(functools.partial(_tensor_host_view, leaf), nbytes))
@@ -523,7 +635,7 @@ def _encode_sharded_leaf(leaf: torch.Tensor, manifest_leaves: List, buffers: Lis
             "k": "nds",
             "dtype": _dtype_name(leaf),
             "shape": shape,
-            "spec": None,
+            "spec": desc,
             "shards": [{"idx": [[0, d] for d in shape], "n": nbytes}],
         }
     )
@@ -549,19 +661,36 @@ def encode_payload(obj: Any, lazy_shards: bool = False) -> List:
     With ``lazy_shards=True``, tensors of at least SHARD_STREAM_THRESHOLD
     bytes are encoded as :class:`LazyBuffer`s, letting the streaming send
     path overlap device→host fetches with socket writes.
+
+    A DTensor is encoded when this process holds all of it (every mesh
+    dimension of size > 1 replicates it): its local tensor, and with
+    ``lazy_shards`` its layout on the party mesh, which a receiver whose
+    mesh carries the same axes decodes onto (:func:`decode_payload`).  A
+    DTensor sharded across processes raises ``ValueError``.
     """
     leaves, treedef = tree_util.tree_flatten(obj)
     manifest_leaves: List[Dict[str, Any]] = []
     buffers: List = []
     for leaf in leaves:
         if isinstance(leaf, torch.Tensor):
-            _refuse_sharded(leaf)
+            desc = None
+            if _is_dtensor(leaf):
+                if not _fully_addressable(leaf):
+                    raise ValueError(
+                        f"cannot encode a non-fully-addressable global array "
+                        f"(shape {tuple(leaf.shape)}) for a cross-party push: this "
+                        f"process only holds its local shards.  Gather it onto "
+                        f"the party's processes first (e.g. DTensor."
+                        f"full_tensor()) or push per-process shards"
+                    )
+                desc = _sharding_desc(leaf)
+                leaf = leaf.to_local()
             if (
                 lazy_shards
                 and _tensor_nbytes(leaf) >= SHARD_STREAM_THRESHOLD
                 and leaf.dim()  # 0-d can't be sharded
             ):
-                _encode_sharded_leaf(leaf, manifest_leaves, buffers)
+                _encode_sharded_leaf(leaf, manifest_leaves, buffers, desc)
                 continue
             host = _host_tensor(leaf)
             manifest_leaves.append(
@@ -679,8 +808,10 @@ def decode_payload(
     ``torch.Tensor``s; host arrays as ``np.ndarray``s.  With
     ``device_put=True`` the tensors are placed on ``device`` (a
     ``torch.device`` or its name; ``None`` is the current CUDA card, and
-    raises where there is none).  ``mesh`` must be None: placement onto a
-    party mesh comes with intra-party parallelism.
+    raises where there is none).  ``mesh``: the receiver's party
+    ``DeviceMesh`` — with ``device_put``, shard-encoded leaves whose sender
+    layout fits it (:func:`resolve_sharding`) decode as DTensors on it,
+    each process building its own shard from the payload.
     ``zero_copy``: without device_put, large array leaves decode as
     views aliasing the payload — plain ``nd`` leaves at or above
     :data:`ND_ZERO_COPY_MIN_BYTES`, and shard-streamed leaves whose wire
@@ -690,11 +821,6 @@ def decode_payload(
     are READONLY; tensor views are not (torch has no such flag) and must
     not be written, and a read-only payload decodes as copies.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "decoding onto a party mesh is not supported until it is ported "
-            "(ROADMAP.md, Queue A item 10, second slice)"
-        )
     target: List[torch.device] = []
 
     def _target() -> torch.device:
@@ -758,7 +884,13 @@ def decode_payload(
             name = spec["dtype"]
             shape = tuple(spec["shape"])
             total = sum(e["n"] for e in spec["shards"])
-            if _shards_tile_axis0(spec, shape):
+            sharding = resolve_sharding(spec.get("spec"), mesh) if device_put else None
+            placed = None
+            if sharding is not None:
+                placed = _place_local_shard(mv, offset, spec, name, shape, sharding, _target())
+            if placed is not None:
+                leaves.append(placed)
+            elif _shards_tile_axis0(spec, shape):
                 # Shards split only axis 0, in wire order: the payload
                 # region already IS the array in C order — alias it (or
                 # feed it straight to the H2D copy) instead of assembling.

@@ -110,18 +110,59 @@ def test_cleanup_thread_lifecycle():
         assert not cm.check_thread_alive
 
 
+def _one_rank_mesh():
+    from rayfed_tpu_torch.parallel.mesh import single_device_mesh
+
+    return {"mesh": single_device_mesh(CPU)}
+
+
+def _one_process_party():
+    from tests.multiproc import get_free_ports
+
+    return {"coordinator_address": f"127.0.0.1:{get_free_ports(1)[0]}", "num_party_processes": 1,
+            "party_process_id": 0, "mesh_shape": {"dp": 1}}
+
+
 @pytest.mark.parametrize(
-    "kwargs",
-    [
-        {"mesh_shape": {"dp": 2}},
-        {"mesh": object()},
-        {"coordinator_address": "127.0.0.1:1", "num_party_processes": 2, "party_process_id": 0},
-    ],
+    "make_kwargs",
+    [lambda: {"mesh_shape": {"dp": 1}}, _one_rank_mesh, _one_process_party],
     ids=["mesh_shape", "mesh", "multi_host"],
 )
-def test_unported_init_options_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
-        fed.init(address="local", cluster=make_cluster(["solo"]), party="solo", device=CPU, **kwargs)
+def test_unported_init_options_raise(make_kwargs):
+    """The party-mesh and multi-process options of fed.init (once refused):
+    each builds the party's DeviceMesh, a one-rank world for a one-process
+    party; a shape whose size is not the party's process count, and a
+    coordinator without its process count and id, raise ValueError as the
+    JAX package does."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    kwargs = make_kwargs()
+    cluster = make_cluster(["solo"])
+    runtime = fed.init(address="local", cluster=cluster, party="solo", device=CPU, **kwargs)
+    try:
+        assert isinstance(runtime.mesh, DeviceMesh)
+        assert runtime.mesh.mesh_dim_names == ("dp",) and runtime.mesh.size() == 1
+        assert fed.get(fed.remote(lambda x: 2 * x).party("solo").remote(21)) == 42
+        if "coordinator_address" in kwargs:
+            assert runtime.transport.get_stats()["party_num_processes"] == 1
+    finally:
+        fed.shutdown()
+    if "mesh" in kwargs:  # the caller's world stays the caller's
+        assert dist.is_initialized()
+        dist.destroy_process_group()
+    assert not dist.is_initialized()
+    assert get_runtime_or_none() is None
+
+    bad = dict(kwargs, mesh_shape={"dp": 2}) if "mesh" not in kwargs else {"mesh_shape": {"dp": 2}}
+    if "coordinator_address" in bad:
+        bad["coordinator_address"] = _one_process_party()["coordinator_address"]
+    with pytest.raises(ValueError, match=r"requires 2 devices, but 1 are visible"):
+        fed.init(address="local", cluster=cluster, party="solo", device=CPU, **bad)
+    assert not dist.is_initialized() and get_runtime_or_none() is None
+    with pytest.raises(ValueError, match="num_party_processes"):
+        fed.init(address="local", cluster=cluster, party="solo", device=CPU,
+                 coordinator_address="127.0.0.1:1")
     assert get_runtime_or_none() is None
 
 

@@ -164,8 +164,78 @@ def test_jax_sharded_payload_decodes_by_host_assembly():
             out = wire.decode_payload(payload, **kw)["w"]
             assert isinstance(out, torch.Tensor)
             assert out.numpy().tobytes() == x.tobytes()
-    with pytest.raises(NotImplementedError):
-        wire.decode_payload(payload, device_put=True, device="cpu", mesh=mesh)
+    # A party mesh without the sender's 2-way dp axis: the layout does not
+    # resolve and the leaf decodes by host assembly as above.
+    with _one_rank_world() as dmesh:
+        assert wire.resolve_sharding(manifest["leaves"][0]["spec"], dmesh) is None
+        out = wire.decode_payload(payload, device_put=True, device="cpu", mesh=dmesh)["w"]
+        assert type(out) is torch.Tensor and out.numpy().tobytes() == x.tobytes()
+
+
+class _one_rank_world:
+    """A gloo world of this process alone and its ``{"dp": 1}`` DeviceMesh,
+    torn down on exit."""
+
+    def __enter__(self):
+        from rayfed_tpu_torch.parallel.mesh import create_mesh
+        import torch.distributed as dist
+
+        dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+        return create_mesh({"dp": 1}, device="cpu")
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("spec", [("dp", None), (None, "dp"), (None, None), (("dp",), None)],
+                         ids=["rows", "columns", "replicated", "tuple"])
+def test_dtensor_encodes_as_the_reference_array(spec):
+    """A DTensor on a one-rank party mesh (fully addressable) encodes to the
+    payload of the same layout in the JAX package: the same manifest, spec
+    and axes included, and the same bytes; decoding either onto the mesh
+    gives that DTensor back (each process's shard, here the whole)."""
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+    from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+
+    x = _np(MIB8, np.float32)
+    jmesh = Mesh(np.array(jax.devices()[:1]), ("dp",))
+    ref = jax.device_put(jnp.asarray(x), NamedSharding(jmesh, P(*spec)))
+    placement = ([Shard(spec.index("dp"))] if "dp" in spec
+                 else [Shard(0)] if ("dp",) in spec else [Replicate()])
+    with _one_rank_world() as mesh:
+        dt = distribute_tensor(torch.from_numpy(x), mesh, placement)
+        port_payload = _payload(wire, {"w": dt}, lazy_shards=True)
+        ref_payload = _payload(jwire, {"w": ref}, lazy_shards=True)
+        assert port_payload == ref_payload
+        leaf = _manifest_of(port_payload)["leaves"][0]
+        assert leaf["spec"]["axes"] == [["dp", 1]]
+        for payload in (port_payload, ref_payload):
+            out = wire.decode_payload(payload, device_put=True, device="cpu", mesh=mesh)["w"]
+            assert isinstance(out, DTensor) and tuple(out.placements) == tuple(placement)
+            assert out.to_local().numpy().tobytes() == x.tobytes()
+        back = jwire.decode_payload(port_payload, device_put=True)["w"]
+        assert np.asarray(back).tobytes() == x.tobytes()
+        # Without lazy_shards the local tensor goes as a plain device leaf.
+        assert _payload(wire, {"w": dt}) == _payload(wire, {"w": torch.from_numpy(x)})
+
+
+def _manifest_of(payload):
+    return json.loads(payload[4 : 4 + struct.unpack(">I", payload[:4])[0]])
+
+
+def test_resolve_sharding_needs_the_sender_axes_at_their_sizes():
+    from torch.distributed.tensor import Shard
+
+    desc = {"axes": [["fsdp", 2], ["tp", 2]], "spec": [["fsdp", "tp"], None]}
+    assert wire.resolve_sharding(desc, None) is None
+    with _one_rank_world() as mesh:
+        assert wire.resolve_sharding(desc, mesh) is None  # no fsdp axis
+        assert wire.resolve_sharding({"axes": [["dp", 2]], "spec": [["dp"]]}, mesh) is None
+        got = wire.resolve_sharding({"axes": [["dp", 1], ["tp", 4]], "spec": [None, ["dp"]]}, mesh)
+        assert got.mesh is mesh and got.placements == (Shard(1),)
+        assert wire.resolve_sharding({"axes": [["dp", 1]], "spec": [None, None]}, mesh).placements[0].is_replicate()
 
 
 # -- the wire contract: constants and manifest schema --------------------------
