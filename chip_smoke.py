@@ -268,6 +268,15 @@ Phases, each fatal on failure:
      within the watchdog's deadline (interval × (pings + 1) + 2 s), not the
      60 s backstop.  Prints the bridge's bytes and ms, the cap's ms, the
      round's walls and the time to the poison;
+  20. (after 19) phase_examples: the seven files of ``examples_torch/`` at
+     their own sizes, rounds and seeds, with ``device`` left at its default:
+     each federated example's ``run`` in its own party processes on free
+     ports (mesh_fedavg's two parties two processes each, sharing the card
+     over gloo), serve_llama in this process.  Checks: every process exits
+     0 on ``cuda``, the examples' own assertions, equal results at every
+     party, no flash launch (dense attention, as the JAX examples) and no
+     fold_fma launch (no example packs its contribution); prints each
+     example's wall, its processes' run times, results and fold launches;
   7. time each kernel (mean over one window of calls) against its plain
      version, the library call that computes the same function, and the
      card's bound (the forward at the serving shape B=4 and at the training
@@ -5136,6 +5145,126 @@ def phase_party_processes(device=None):
     print(f"[party] five processes in {time.perf_counter() - t0:.1f} s")
     return _party_summary(reports, device is None)
 
+
+# phase_examples: the seven files of examples_torch/ as a user runs them, at
+# their own sizes, rounds and seeds, each party process on the card.  Every
+# example keeps the JAX examples' dense attention, so none launches a flash
+# kernel; none packs its contribution (no compress_wire), so every round
+# folds in `_mean_leaf`'s or the trimmed mean's plain ops and fold_fma
+# launches nowhere either.  mesh_fedavg's parties are two processes each.
+EXAMPLE_RUNS = (
+    ("simple_example", ("alice", "bob")),
+    ("fedavg_mnist", ("alice", "bob")),
+    ("robust_fedavg", ("alice", "bob", "carol")),
+    ("mesh_fedavg", ("alice0", "alice1", "bob0", "bob1")),
+    ("lora_finetune", ("alice", "bob")),
+    ("split_fl_bert", ("alice", "bob")),
+)
+EXAMPLE_TIMEOUT_S = 180  # hard limit on each example's processes
+
+
+def _example_proc(proc, example, cluster, coordinators, device, out):
+    """A process of phase_examples: ``examples_torch.<example>.run`` for its
+    party (``proc`` ends in the process id where a party is several), its
+    runtime's device as the example's ``fed.init`` resolved it, its wall and
+    its flash and fold launches."""
+    import importlib
+
+    import rayfed_tpu_torch as fed
+
+    party = proc.rstrip("0123456789")
+    rep = {"party": proc}
+    try:
+        init = fed.init
+
+        def recording_init(*args, **kw):
+            rt = init(*args, **kw)
+            rep["device"] = str(rt.transport.device)
+            return rt
+
+        fed.init = recording_init
+        kw = {"cluster": cluster}
+        if device is not None:
+            kw["device"] = device
+        if coordinators is not None:
+            kw.update(coordinators=coordinators, process_id=int(proc[len(party):]))
+        run = importlib.import_module(f"examples_torch.{example}").run
+        _zero_counts()
+        fold.fold_fma_.launches = 0
+        t0 = time.perf_counter()
+        rep["result"] = run(party, **kw)
+        rep["s"] = time.perf_counter() - t0
+        rep["flash_launches"], rep["fold_launches"] = _counts(), fold.fold_fma_.launches
+        out.put(rep)
+    except BaseException:
+        out.put({"party": proc, "error": traceback.format_exc()})
+        raise
+
+
+def _example_check(cond, msg):
+    if not cond:
+        raise AssertionError(f"phase_examples: {msg}")
+
+
+def phase_examples(device=None):
+    """The port's seven examples on the card: each federated one in its own
+    party processes on free ports (the card shared over gloo where a party
+    is two processes), serve_llama in this process.  Checks: every process
+    exits 0 on ``cuda``, the examples' own assertions, equal results at
+    every party, no flash or fold launch.  ``device="cpu"`` rehearses it."""
+    from examples_torch import serve_llama
+
+    on_card = device is None
+    summary = {"s": {}, "results": {}, "flash_launches": dict.fromkeys(("fwd", "bwd_dq", "bwd_dkv"), 0),
+               "fold_launches": 0}
+    if on_card:
+        torch.cuda.empty_cache()
+    for example, procs in EXAMPLE_RUNS:
+        parties = sorted({p.rstrip("0123456789") for p in procs})
+        ports = _free_ports(2 * len(parties))
+        cluster = {p: {"address": f"127.0.0.1:{port}"} for p, port in zip(parties, ports)}
+        coordinators = ({p: f"127.0.0.1:{port}" for p, port in zip(parties, ports[len(parties):])}
+                        if example == "mesh_fedavg" else None)
+        t0 = time.perf_counter()
+        reports = _spawn_parties(_example_proc, (example, cluster, coordinators, device), EXAMPLE_TIMEOUT_S,
+                                 parties=procs)
+        wall = time.perf_counter() - t0
+        results = {p: reports[p]["result"] for p in procs}
+        _example_check(len(set(results.values())) == 1, f"{example}: the parties' results differ: {results}")
+        for p in procs:
+            r = reports[p]
+            _example_check(r["device"].startswith("cuda" if on_card else "cpu"),
+                           f"{example}: {p} ran on {r['device']}")
+            _example_check(not any(r["flash_launches"].values()),
+                           f"{example}: {p} launched flash kernels {r['flash_launches']}")
+            _example_check(r["fold_launches"] == 0, f"{example}: {p} launched fold_fma {r['fold_launches']} times")
+            for k, v in r["flash_launches"].items():
+                summary["flash_launches"][k] += v
+            summary["fold_launches"] += r["fold_launches"]
+        summary["s"][example], summary["results"][example] = wall, results[procs[0]]
+        runs = ", ".join(f"{p} {reports[p]['s']:.2f} s" for p in procs)
+        folds = ", ".join(f"{p} {reports[p]['fold_launches']}" for p in procs)
+        devices = sorted({reports[p]["device"] for p in procs})
+        print(f"[examples] {example}: {len(procs)} processes on {devices}, {wall:.2f} s (runs {runs}); "
+              f"returned {results[procs[0]]!r} at every party; flash launches 0; fold_fma {folds}")
+    _zero_counts()
+    fold.fold_fma_.launches = 0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    n = serve_llama.run(device=device)
+    wall = time.perf_counter() - t0
+    flash, folds = _counts(), fold.fold_fma_.launches
+    _example_check(n == serve_llama.NEW_TOKENS, f"serve_llama served {n} tokens")
+    _example_check(not any(flash.values()) and folds == 0, f"serve_llama launched {flash}, fold_fma {folds}")
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    _example_check(not on_card or peak > 0, "serve_llama allocated nothing on the card")
+    summary["s"]["serve_llama"], summary["results"]["serve_llama"] = wall, n
+    print(f"[examples] serve_llama: in this process, {n} tokens a sequence in {wall:.2f} s, peak "
+          f"{peak / 1e6:.1f} MB on the card; flash launches 0; fold_fma 0")
+    print(f"[examples] seven examples in {sum(summary['s'].values()):.1f} s")
+    return summary
+
 def _timed(walls, fn, *args, **kw):
     """Run one phase and print its wall."""
     t0 = time.perf_counter()
@@ -5191,6 +5320,7 @@ def main() -> int:
     par_launches = par["launches"]
     pipe = _timed(walls, phase_pipeline)
     party = _timed(walls, phase_party_processes)
+    examples = _timed(walls, phase_examples)
     ckpt_llama, ckpt_resnet = ckpt["llama"]["launches"], ckpt["quorum"]["flash_launches"]
     overlap = {k: sum(federated[part]["launches"][k] for part in OVERLAP_PARTS)
                for k in ("fwd", "bwd_dq", "bwd_dkv")}
@@ -5257,7 +5387,9 @@ def main() -> int:
                              # phase_pipeline, every rank: GPipe's forward, a 1F1B step,
                              # an interleaved step; phase_party_processes (ResNet-18)
                              **{path: pipe["launches"][path]["fwd"] for path in PIPE_PATHS},
-                             "party_resnet": party["flash_launches"]["fwd"]},
+                             "party_resnet": party["flash_launches"]["fwd"],
+                             # phase_examples: every process of the seven examples
+                             "examples": examples["flash_launches"]["fwd"]},
         "bert_shape": bert_times["fwd"],  # bert_base's attention on the split path
         "max_abs_err": slice_err,
         **times,
@@ -5292,7 +5424,9 @@ def main() -> int:
                              # phase_pipeline, every rank: GPipe's forward, a 1F1B step,
                              # an interleaved step; phase_party_processes (ResNet-18)
                              **{path: pipe["launches"][path]["bwd_dq"] for path in PIPE_PATHS},
-                             "party_resnet": party["flash_launches"]["bwd_dq"]},
+                             "party_resnet": party["flash_launches"]["bwd_dq"],
+                             # phase_examples: every process of the seven examples
+                             "examples": examples["flash_launches"]["bwd_dq"]},
         "bert_shape": bert_times["dq"],  # bert_base's attention on the split path
         "max_abs_err": bwd_err["dq"],
         **bwd_times["dq"],
@@ -5326,7 +5460,9 @@ def main() -> int:
                              # phase_pipeline, every rank: GPipe's forward, a 1F1B step,
                              # an interleaved step; phase_party_processes (ResNet-18)
                              **{path: pipe["launches"][path]["bwd_dkv"] for path in PIPE_PATHS},
-                             "party_resnet": party["flash_launches"]["bwd_dkv"]},
+                             "party_resnet": party["flash_launches"]["bwd_dkv"],
+                             # phase_examples: every process of the seven examples
+                             "examples": examples["flash_launches"]["bwd_dkv"]},
         "bert_shape": bert_times["dkv"],  # bert_base's attention on the split path
         "max_abs_err": bwd_err["dkv"],
         **bwd_times["dkv"],
@@ -5366,7 +5502,9 @@ def main() -> int:
                              **{path: par["fold_launches"][path] for path in PAR_PATHS},
                              **{path: pipe["fold_launches"][path] for path in PIPE_PATHS},
                              # every process's folds over both rounds (bob, the coordinator)
-                             "party_resnet": party["fold_launches"]},
+                             "party_resnet": party["fold_launches"],
+                             # every process of the seven examples: none packs a contribution
+                             "examples": examples["fold_launches"]},
         **fold_times["adapters"],  # one contribution of the round's packed adapters
         "wq_shape": fold_times["wq"],
         # The same kernel as the server step's fused multiply-adds: FedAC at

@@ -6,10 +6,12 @@ Runtime (executor + transport proxies + cleanup watchdog) instead of a Ray
 cluster; config lives on the Runtime rather than a GCS KV; ``@remote``
 tasks run torch callables on the party's CUDA card.
 
-The JAX package's mesh and multi-host options raise ``NotImplementedError``
-here until their slice is ported (ROADMAP.md, Queue A item 10, second
-slice: the party-local mesh itself is ``rayfed_tpu_torch.parallel``).  Elastic
-membership (``join``/``leave``) rides the quorum rounds of
+The JAX package's mesh and multi-host options are ``init``'s too: a party
+mesh (``mesh``/``mesh_shape``, a ``DeviceMesh`` of
+:mod:`rayfed_tpu_torch.parallel`) spans the party's processes, which
+``coordinator_address``/``num_party_processes``/``party_process_id`` join
+(:mod:`rayfed_tpu_torch.distributed`).  Elastic membership
+(``join``/``leave``) rides the quorum rounds of
 :mod:`rayfed_tpu_torch.fl.quorum`.
 """
 

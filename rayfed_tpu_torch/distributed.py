@@ -105,7 +105,12 @@ class PartyProcessGroup:
         timeout_s: float = 300.0,
     ) -> None:
         from rayfed_tpu_torch.parallel.collectives import init_world
+        from rayfed_tpu_torch.utils.platform import resolve_device
 
+        if device is None:
+            # Raise without a card now, not after the store has waited
+            # for the party's other processes.
+            resolve_device(None)
         host, port = _split_address(coordinator_address)
         store = dist.TCPStore(
             host, port, int(num_processes), is_master=int(process_id) == 0,
@@ -247,6 +252,10 @@ class MultiHostTransport:
         # executor the server raw-read and writev paths use).  Created
         # lazily ON the inner loop (single-threaded there, so no race).
         self._bridge_ready_async: Optional[asyncio.Event] = None
+        # Leader: the republishes in flight (touched on the inner loop
+        # only); stop() lets them finish, since a member waits on every
+        # value its leader received.
+        self._republishing: set = set()
         # Set by api.init: called with a failed-send LocalRef so the
         # cleanup watchdog sees a fatal republish (exit-on-failure
         # semantics apply to the intra-party bridge too).
@@ -460,7 +469,26 @@ class MultiHostTransport:
     def _on_leader_message(self, message) -> None:
         # Runs on the inner loop thread; must not block.
         # fedlint: disable=FED002 — provably on-loop: installed as the server's _on_message callback, invoked only from its frame dispatch on the loop thread
-        asyncio.ensure_future(self._republish(message))
+        task = asyncio.ensure_future(self._republish(message))
+        self._republishing.add(task)
+        task.add_done_callback(self._republishing.discard)
+
+    def _drain_republishes(self) -> None:
+        """Wait (up to the cross-silo timeout) for the republishes in
+        flight: stopping the loop would cancel them, and a member whose
+        program still waits on such a value (its leader, ahead of it,
+        already used it) would park until its backstop."""
+        timeout_s = self._inner._job.cross_silo_timeout_s
+
+        async def _wait():
+            pending = list(self._republishing)
+            if pending:
+                await asyncio.wait(pending, timeout=timeout_s)
+
+        try:
+            asyncio.run_coroutine_threadsafe(_wait(), self._inner._loop).result(timeout_s + 5.0)
+        except Exception:
+            logger.warning("bridge republishes still in flight at stop", exc_info=True)
 
     async def _republish(self, message) -> None:
         loop = asyncio.get_running_loop()
@@ -846,6 +874,8 @@ class MultiHostTransport:
 
     def stop(self) -> None:
         if self._inner is not None:
+            if self._bridge_clients:
+                self._drain_republishes()
             self._inner.stop()  # also cancels bridge-client tasks (same loop)
         if self._bridge_mgr is not None:
             self._bridge_mgr.stop()

@@ -96,11 +96,10 @@ def validate_round_config(
 ) -> dict:
     """Validate one round-loop configuration WITHOUT running it.
 
-    For the options this package supports, the verdict is the JAX
-    package's: each pair either passes or raises a ``ValueError`` naming
-    the clash.  An option of a later item raises ``NotImplementedError``
-    naming it.  Returns ``{"wire_quant": <dtype name or None>,
-    "checkpoint_every": <int>, "server_opt_kind": "none"|"fedopt"|"packed"}``.
+    The verdict is the JAX package's, option for option: each pair either
+    passes or raises a ``ValueError`` naming the clash.  Returns
+    ``{"wire_quant": <dtype name or None>, "checkpoint_every": <int>,
+    "server_opt_kind": "none"|"fedopt"|"packed"}``.
     """
     from rayfed_tpu_torch.fl.server_opt import PackedServerOpt
 

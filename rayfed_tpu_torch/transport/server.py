@@ -1410,10 +1410,9 @@ class TransportServer:
     async def stop(self) -> None:
         local.unregister_server(self._local_sid)
         self._local_sid = None
-        if self._uds_server is not None:
-            self._uds_server.close()
-            await self._uds_server.wait_closed()
-            self._uds_server = None
+        listeners = [srv for srv in (self._uds_server, self._server) if srv is not None]
+        for srv in listeners:
+            srv.close()
         if self._uds_path is not None:
             try:
                 import os
@@ -1422,14 +1421,17 @@ class TransportServer:
             except OSError:
                 pass
             self._uds_path = None
-        if self._server is not None:
-            self._server.close()
-            await self._server.wait_closed()
-            self._server = None
         # Server.close() only stops the LISTENER; established
         # connections would linger half-open (a peer's in-flight send
         # then waits out its full ACK deadline instead of seeing EOF
-        # and reconnecting).  Abort them explicitly.
+        # and reconnecting).  Abort them explicitly, before waiting on
+        # the listeners: since Python 3.12.1 wait_closed() also waits for
+        # every established connection, so a peer that stops after this
+        # one (a party process's bridge client, its leader watchdog)
+        # would hold it until the caller's deadline.
         for proto in list(self._protocols):
             proto._abort()
         self._protocols.clear()
+        for srv in listeners:
+            await srv.wait_closed()
+        self._uds_server = self._server = None

@@ -20,6 +20,7 @@ handover.
 import json
 import multiprocessing as mp
 import os
+import threading
 import time
 
 import numpy as np
@@ -281,6 +282,31 @@ DIM, ROUNDS, DEADLINE_S = 8, 4, 2.0
 PARTY_TIMEOUT_S = 60
 
 
+def _await_file(outdir, name):
+    deadline = time.monotonic() + PARTY_TIMEOUT_S
+    while not os.path.exists(os.path.join(outdir, name)):
+        assert time.monotonic() < deadline, f"{name} never appeared"
+        time.sleep(0.01)
+
+
+def _mark_join_queued(outdir):
+    """bob: mark when dave's join request sits in the membership inbox
+    (drained by round 1's announcement, which carol's gate holds back)."""
+    from rayfed_tpu_torch.runtime import get_runtime
+
+    inbox = get_runtime().transport._membership_inbox
+    deadline = time.monotonic() + PARTY_TIMEOUT_S
+    while time.monotonic() < deadline:
+        try:
+            queued = any(m.upstream_seq_id.startswith("roster.req.dave.") for m in list(inbox))
+        except RuntimeError:  # the deque grew while it was copied
+            continue
+        if queued:
+            open(os.path.join(outdir, "dave.join_queued"), "w").close()
+            return
+        time.sleep(0.01)
+
+
 def run_quorum_party(party, cluster, outdir, server_opt=None):
     import rayfed_tpu_torch as fed
     from rayfed_tpu_torch import chaos
@@ -306,12 +332,29 @@ def run_quorum_party(party, cluster, outdir, server_opt=None):
         # carol's round 0 starts past its deadline: cut, late-folded.
         {"hook": "round", "party": "carol", "match": {"round": 0}, "op": "delay_ms",
          "value": int(DEADLINE_S * 1000) + 2000},
-        # Round 1 under its deadline: long enough for dave's join request
-        # to reach bob before round 1's announcement.
-        {"hook": "round", "party": "carol", "match": {"round": 1}, "op": "delay_ms", "value": 1000},
     ]})
+    if party == "carol":
+        # carol's round 1 waits until dave's join request is in bob's
+        # inbox, so round 1's announcement welcomes him, however loaded
+        # the host.
+        fire = chaos.fire
+
+        def gated_fire(hook, **ctx):
+            if hook == "round" and ctx.get("round") == 1:
+                _await_file(outdir, "dave.join_queued")
+            return fire(hook, **ctx)
+
+        chaos.fire = gated_fire
     fed.init(address="local", cluster=cluster, party=party, device=CPU,
              enable_waiting_for_other_parties_ready=True, recv_backstop_in_seconds=45)
+    if party == "bob":
+        threading.Thread(target=_mark_join_queued, args=(outdir,), daemon=True).start()
+    # Every party starts round 0 together: init's readiness pings retry
+    # every 2 s, and a party that left init that much later than the
+    # coordinator would miss round 0's deadline.
+    open(os.path.join(outdir, f"{party}.started"), "w").close()
+    for p in PARTIES4:
+        _await_file(outdir, f"{p}.started")
 
     @fed.remote
     class Trainer:

@@ -289,6 +289,25 @@ def test_ping_ctl_connection(manager):
     assert run(client.ping(timeout_s=1.0, ctl=True)) is False and client._ctl_conn is None
 
 
+def test_stop_does_not_wait_for_a_peer_connection():
+    """A manager stops at once while a peer's client still holds a
+    connection to it: its server aborts the established connections before
+    it waits for its listener (since Python 3.12.1 ``wait_closed`` also
+    waits for every connection, which the peer would close only when it
+    stops itself)."""
+    ports = dict(zip(("alice", "bob"), get_free_ports(2)))
+    alice, bob = _port_manager("alice", ports), _port_manager("bob", ports)
+    alice.start()
+    bob.start()
+    try:
+        assert bob.ping("alice", timeout_s=5.0)
+        t0 = time.monotonic()
+        alice.stop()
+        assert time.monotonic() - t0 < 5.0
+    finally:
+        bob.stop()
+
+
 # -- across the two packages, and the local links ----------------------------
 
 
