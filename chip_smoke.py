@@ -1081,6 +1081,10 @@ def phase_bert_times(gen, card):
 FOLD_SIZES = (("adapters", 2, 6_815_748), ("wq", 4, 32 * 4096 * 4096))
 FOLD_WEIGHTS = (3, 5, 7, 11)
 FOLD_PIECE = 512 * 1024  # bytes handed to a sink at a time
+# The CPU's float fold is held against the card's over at most this many
+# leading elements: the fold is elementwise, so a prefix of the inputs gives
+# the prefix of the result (the whole of wq took the CPU 41 s a weighting).
+FOLD_CPU_ELEMS = 1 << 24
 
 
 def _payload_bytes(packed):
@@ -1143,10 +1147,11 @@ def phase_fold(gen, card):
         t0 = time.perf_counter()
         payloads = [_payload_bytes(p) for p in cpu]
         encode_s = time.perf_counter() - t0
+        cpu_ref = cpu if elems <= FOLD_CPU_ELEMS else [fl.pack_tree({"w": p.buf[:FOLD_CPU_ELEMS]}) for p in cpu]
         for weights in (list(FOLD_WEIGHTS[:n]), None):
             tag = "/".join(map(str, weights)) if weights else "None"
             t0 = time.perf_counter()
-            plain = fl.packed_weighted_sum(cpu, weights)
+            plain = fl.packed_weighted_sum(cpu_ref, weights)
             cpu_s = time.perf_counter() - t0
             held = []
             one_shot_ms = _event_ms(lambda: held.append(fl.packed_weighted_sum(on_card, weights)))
@@ -1161,13 +1166,17 @@ def phase_fold(gen, card):
             got = agg.result(timeout=600)
             torch.cuda.synchronize()
             stream_s = time.perf_counter() - t0
+            n_cpu = plain.buf.numel()
             want = _raw(plain.buf)
-            same = {"streamed": torch.equal(_raw(got.buf), want), "one_shot": torch.equal(_raw(one_shot.buf), want)}
+            same = {"streamed": torch.equal(_raw(got.buf[:n_cpu]), want),
+                    "one_shot": torch.equal(_raw(one_shot.buf[:n_cpu]), want),
+                    "streamed_vs_one_shot": torch.equal(got.buf.view(torch.int16), one_shot.buf.view(torch.int16))}
             print(f"[fold] {name}: {n} x {elems} bf16, weights {tag}, local {local}, arrivals {order} in "
                   f"{FOLD_PIECE // 1024} KiB pieces: streamed on cuda {stream_s * 1e3:.1f} ms wall "
                   f"(stats {json.dumps({k: v for k, v in agg.stats.items() if k.startswith('agg_')})}), "
-                  f"one-shot on cuda {one_shot_ms:.3f} ms, CPU fold {cpu_s * 1e3:.1f} ms; "
-                  f"byte-equal to the CPU fold: {same}")
+                  f"one-shot on cuda {one_shot_ms:.3f} ms, CPU fold over the first {n_cpu} elements "
+                  f"{cpu_s * 1e3:.1f} ms; byte-equal to the CPU fold there, and streamed to one-shot "
+                  f"throughout: {same}")
             if not all(same.values()) or got.buf.device.type != "cuda":
                 raise AssertionError(f"fold {name} weights {tag}: the card's fold differs from the CPU fold")
             del plain, one_shot, got, agg
@@ -1222,7 +1231,7 @@ def phase_fold(gen, card):
               f"{h2d_ms:.3f} ms ({elems * 2 / h2d_ms / 1e6:.1f} GB/s); finalize {fin_ms:.3f} ms; "
               f"error-feedback step (f32 in, bf16 out) {ef_ms:.3f} ms; encode of the payloads "
               f"{encode_s * 1e3:.1f} ms")
-        del cpu, on_card, payloads, pinned, acc, src, ef, tree32
+        del cpu, cpu_ref, on_card, payloads, pinned, acc, src, ef, tree32
         torch.cuda.empty_cache()
     phase_fold_int(gen, card)
     return times
@@ -1261,13 +1270,25 @@ def phase_fold_int(gen, card):
         on_card = [qz.QuantizedPackedTree(c, grid.scales, grid.zps, (), spec, grid.meta()) for c in codes]
         ref_cpu = ref.cpu()
         payloads = [_payload_bytes(p) for p in cpu]
+        # The CPU's fold over the leading whole blocks up to FOLD_CPU_ELEMS
+        # (blockwise and elementwise, so their prefix of the card's result).
+        kb = min(grid.nblocks, -(-FOLD_CPU_ELEMS // grid.chunk_elems))
+        n_cpu = min(elems, kb * grid.chunk_elems)
+        cpu_grid, cpu_ref, ref_cpu_ref = grid, cpu, ref_cpu
+        if n_cpu < elems:
+            cpu_grid = qz.QuantGrid(grid.scales[:kb], grid.zps[:kb], grid.chunk_elems, n_cpu, grid.wire_dtype,
+                                    grid.mode)
+            cpu_spec = fl.PackSpec((("f", 0, n_cpu, (n_cpu,), "float32"),), spec.treedef, grid.wire_dtype)
+            cpu_ref = [qz.QuantizedPackedTree(p.buf[:n_cpu], cpu_grid.scales, cpu_grid.zps, (), cpu_spec,
+                                              cpu_grid.meta()) for p in cpu]
+            ref_cpu_ref = ref_cpu[:n_cpu]
         for weights in (list(FOLD_WEIGHTS[:n]), None):
             tag = "/".join(map(str, weights)) if weights else "None"
             iw, _ = fedavg.quant_weights(weights, n)
             t0 = time.perf_counter()
-            acc_cpu = fedavg._quant_reduce([p.buf for p in cpu], iw, grid.nblocks, grid.chunk_elems,
+            acc_cpu = fedavg._quant_reduce([p.buf for p in cpu_ref], iw, cpu_grid.nblocks, grid.chunk_elems,
                                            torch.device("cpu"))
-            plain = fedavg.packed_quantized_sum(cpu, weights, ref=ref_cpu)
+            plain = fedavg.packed_quantized_sum(cpu_ref, weights, ref=ref_cpu_ref)
             cpu_s = time.perf_counter() - t0
             acc_card = fedavg._quant_reduce([p.buf for p in on_card], iw, grid.nblocks, grid.chunk_elems,
                                             ref.device)
@@ -1284,21 +1305,25 @@ def phase_fold_int(gen, card):
             got = agg.result(timeout=600)
             torch.cuda.synchronize()
             stream_s = time.perf_counter() - t0
-            want, want_acc = _raw(plain.buf), _raw(acc_cpu)
-            same = {"streamed": torch.equal(_raw(got.buf), want),
-                    "streamed_acc": torch.equal(_raw(agg.kept_acc), want_acc),
-                    "one_shot": torch.equal(_raw(one_shot.buf), want),
-                    "one_shot_acc": torch.equal(_raw(acc_card), want_acc)}
+            want, want_acc, n_acc = _raw(plain.buf), _raw(acc_cpu), acc_cpu.numel()
+            same = {"streamed": torch.equal(_raw(got.buf[:n_cpu]), want),
+                    "streamed_acc": torch.equal(_raw(agg.kept_acc[:n_acc]), want_acc),
+                    "one_shot": torch.equal(_raw(one_shot.buf[:n_cpu]), want),
+                    "one_shot_acc": torch.equal(_raw(acc_card[:n_acc]), want_acc),
+                    "streamed_vs_one_shot": torch.equal(_raw(got.buf), _raw(one_shot.buf)),
+                    "streamed_acc_vs_one_shot": torch.equal(_raw(agg.kept_acc), _raw(acc_card))}
             print(f"[fold_int] {name}: {n} x {elems} uint8 codes on one grid ({grid.nblocks} blocks), weights "
                   f"{tag}, local {local}, arrivals {order} in {FOLD_PIECE // 1024} KiB pieces: streamed on "
                   f"cuda {stream_s * 1e3:.1f} ms wall (stats "
                   f"{json.dumps({k: v for k, v in agg.stats.items() if k.startswith('agg_')})}), one-shot on "
                   f"cuda {one_shot_ms:.3f} ms (bound {elems * (n + 8) / hbm * 1e3:.3f}: the codes and ref "
-                  f"read, f32 written), CPU fold {cpu_s * 1e3:.1f} ms; i32 accumulator and finalized "
-                  f"f32 byte-equal to the CPU's: {same}")
+                  f"read, f32 written), CPU fold over the first {n_cpu} elements {cpu_s * 1e3:.1f} ms; i32 "
+                  f"accumulator and finalized f32 byte-equal to the CPU's there, and streamed to one-shot "
+                  f"throughout: {same}")
             if not all(same.values()) or got.buf.device.type != "cuda":
                 raise AssertionError(f"integer fold {name} weights {tag}: the card's fold differs from the CPU's")
             del plain, one_shot, got, agg, acc_cpu, acc_card
+        del cpu_ref, ref_cpu_ref
         # Device times of the pieces: one contribution's i32 fold over all
         # its blocks, the finalize, and the codec's quantize (an f32 update
         # against the reference, with a residual) and dequantize.
@@ -5219,7 +5244,8 @@ def phase_examples(device=None):
                "fold_launches": 0}
     if on_card:
         torch.cuda.empty_cache()
-    for example, procs in EXAMPLE_RUNS:
+
+    def spawn(example, procs):
         parties = sorted({p.rstrip("0123456789") for p in procs})
         ports = _free_ports(2 * len(parties))
         cluster = {p: {"address": f"127.0.0.1:{port}"} for p, port in zip(parties, ports)}
@@ -5228,7 +5254,19 @@ def phase_examples(device=None):
         t0 = time.perf_counter()
         reports = _spawn_parties(_example_proc, (example, cluster, coordinators, device), EXAMPLE_TIMEOUT_S,
                                  parties=procs)
-        wall = time.perf_counter() - t0
+        return reports, time.perf_counter() - t0
+
+    # The examples run at once, each in its own processes on its own ports:
+    # their walls are process start (~13 s a spawn on the card's host), not
+    # their programs, and one after another they took 112-160 s.
+    t_all = time.perf_counter()
+    with ThreadPoolExecutor(len(EXAMPLE_RUNS)) as pool:
+        futures = {example: pool.submit(spawn, example, procs) for example, procs in EXAMPLE_RUNS}
+        spawned = {example: f.result() for example, f in futures.items()}
+    summary["spawned_s"] = time.perf_counter() - t_all
+    print(f"[examples] the six spawned examples at once in {summary['spawned_s']:.2f} s")
+    for example, procs in EXAMPLE_RUNS:
+        reports, wall = spawned[example]
         results = {p: reports[p]["result"] for p in procs}
         _example_check(len(set(results.values())) == 1, f"{example}: the parties' results differ: {results}")
         for p in procs:
@@ -5262,8 +5300,60 @@ def phase_examples(device=None):
     summary["s"]["serve_llama"], summary["results"]["serve_llama"] = wall, n
     print(f"[examples] serve_llama: in this process, {n} tokens a sequence in {wall:.2f} s, peak "
           f"{peak / 1e6:.1f} MB on the card; flash launches 0; fold_fma 0")
-    print(f"[examples] seven examples in {sum(summary['s'].values()):.1f} s")
+    print(f"[examples] seven examples in {summary['spawned_s'] + wall:.1f} s")
     return summary
+
+# -- bench_torch.py --smoke: the reference bench's CI legs and gates ----------
+
+# Legs whose float folds run on the fold kernel on the card: the streamed
+# FedAvg folds, the ring's stripe folds, the pipelined rounds' folds, the
+# server step and resync.
+BENCH_FOLD_LEGS = ("stream_agg", "ring_agg", "overlap", "server_opt")
+
+
+def phase_bench_smoke(device=None):
+    """``bench_torch.run_smoke``: the twelve legs of ``bench.py --smoke`` on
+    the port, each in its own spawned processes with the parties on the card,
+    and every gate of the reference at its threshold.  Fatal: a leg's error,
+    a miss of an exact gate, a flash launch, no fold_fma launch in a leg of
+    BENCH_FOLD_LEGS.  A timed gate (a ratio of walls) that misses is printed
+    beside its value and does not fail the run.  ``device="cpu"`` rehearses
+    it.  The record is written to chiprun_out/bench_smoke.json."""
+    import bench_torch
+
+    dev = "cuda" if device is None else device
+    t0 = time.perf_counter()
+    stats = {}
+    record, failed = bench_torch.run_smoke(dev, stats=stats)
+    wall = time.perf_counter() - t0
+    misses = {"exact": [], "timed": []}
+    for gate in bench_torch.GATES:
+        verdict = bench_torch.gate_passes(gate, record)
+        state = "skipped" if verdict is None else ("pass" if verdict else "MISS")
+        if verdict is False:
+            misses[gate.kind].append(gate.name)
+        want = "true" if gate.op == "true" else f"{gate.op} {gate.threshold!r}"
+        print(f"[bench_smoke] {gate.name} ({gate.kind}): {record.get(gate.key)!r}, must be {want}: {state}")
+    launches = {leg: st["launches"] for leg, st in stats.items()}
+    for leg, st in stats.items():
+        print(f"[bench_smoke] {leg}: {st['s']:.1f} s, launches {st['launches']}")
+    flash = {k: sum(n.get(f"flash_{k}", 0) for n in launches.values()) for k in ("fwd", "bwd_dq", "bwd_dkv")}
+    folds = sum(n.get("fold_fma", 0) for n in launches.values())
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "bench_smoke.json"), "w") as f:
+        json.dump({"record": record, "launches": launches, "failed": failed}, f, indent=1)
+    errors = {k: record[k] for k in failed if k.endswith("_error")}
+    print(f"[bench_smoke] twelve legs on {dev} in {wall:.1f} s; exact gates missed {misses['exact']}, timed "
+          f"gates missed {misses['timed']}, leg errors {sorted(errors)}; fold_fma {folds}, flash {flash}")
+    if errors or misses["exact"]:
+        raise AssertionError(f"phase_bench_smoke: leg errors {errors}, exact gates missed {misses['exact']}")
+    if any(flash.values()):
+        raise AssertionError(f"phase_bench_smoke: flash kernels launched {flash}")
+    if dev != "cpu" and not all(launches.get(leg, {}).get("fold_fma", 0) for leg in BENCH_FOLD_LEGS):
+        raise AssertionError(f"phase_bench_smoke: fold_fma not launched in every leg of {BENCH_FOLD_LEGS}")
+    return {"s": wall, "record": record, "launches": launches, "flash_launches": flash, "fold_launches": folds,
+            "misses": misses, "leg_s": {leg: st["s"] for leg, st in stats.items()}}
+
 
 def _timed(walls, fn, *args, **kw):
     """Run one phase and print its wall."""
@@ -5321,6 +5411,7 @@ def main() -> int:
     pipe = _timed(walls, phase_pipeline)
     party = _timed(walls, phase_party_processes)
     examples = _timed(walls, phase_examples)
+    bench = _timed(walls, phase_bench_smoke)
     ckpt_llama, ckpt_resnet = ckpt["llama"]["launches"], ckpt["quorum"]["flash_launches"]
     overlap = {k: sum(federated[part]["launches"][k] for part in OVERLAP_PARTS)
                for k in ("fwd", "bwd_dq", "bwd_dkv")}
@@ -5389,7 +5480,9 @@ def main() -> int:
                              **{path: pipe["launches"][path]["fwd"] for path in PIPE_PATHS},
                              "party_resnet": party["flash_launches"]["fwd"],
                              # phase_examples: every process of the seven examples
-                             "examples": examples["flash_launches"]["fwd"]},
+                             "examples": examples["flash_launches"]["fwd"],
+                             # phase_bench_smoke: every child of the twelve legs
+                             "bench_smoke": bench["flash_launches"]["fwd"]},
         "bert_shape": bert_times["fwd"],  # bert_base's attention on the split path
         "max_abs_err": slice_err,
         **times,
@@ -5426,7 +5519,9 @@ def main() -> int:
                              **{path: pipe["launches"][path]["bwd_dq"] for path in PIPE_PATHS},
                              "party_resnet": party["flash_launches"]["bwd_dq"],
                              # phase_examples: every process of the seven examples
-                             "examples": examples["flash_launches"]["bwd_dq"]},
+                             "examples": examples["flash_launches"]["bwd_dq"],
+                             # phase_bench_smoke: every child of the twelve legs
+                             "bench_smoke": bench["flash_launches"]["bwd_dq"]},
         "bert_shape": bert_times["dq"],  # bert_base's attention on the split path
         "max_abs_err": bwd_err["dq"],
         **bwd_times["dq"],
@@ -5462,7 +5557,9 @@ def main() -> int:
                              **{path: pipe["launches"][path]["bwd_dkv"] for path in PIPE_PATHS},
                              "party_resnet": party["flash_launches"]["bwd_dkv"],
                              # phase_examples: every process of the seven examples
-                             "examples": examples["flash_launches"]["bwd_dkv"]},
+                             "examples": examples["flash_launches"]["bwd_dkv"],
+                             # phase_bench_smoke: every child of the twelve legs
+                             "bench_smoke": bench["flash_launches"]["bwd_dkv"]},
         "bert_shape": bert_times["dkv"],  # bert_base's attention on the split path
         "max_abs_err": bwd_err["dkv"],
         **bwd_times["dkv"],
@@ -5504,7 +5601,10 @@ def main() -> int:
                              # every process's folds over both rounds (bob, the coordinator)
                              "party_resnet": party["fold_launches"],
                              # every process of the seven examples: none packs a contribution
-                             "examples": examples["fold_launches"]},
+                             "examples": examples["fold_launches"],
+                             # every child of bench_torch.py --smoke's legs: the
+                             # float folds, the server step and resync
+                             "bench_smoke": bench["fold_launches"]},
         **fold_times["adapters"],  # one contribution of the round's packed adapters
         "wq_shape": fold_times["wq"],
         # The same kernel as the server step's fused multiply-adds: FedAC at

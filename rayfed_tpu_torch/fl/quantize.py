@@ -50,7 +50,7 @@ from __future__ import annotations
 
 import json
 import zlib
-from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -416,12 +416,28 @@ def _grid_vectors(grid: QuantGrid, device: torch.device) -> Tuple[torch.Tensor, 
             torch.from_numpy(grid.zps).to(device)[:, None])
 
 
-def _padded_blocks(x: torch.Tensor, grid: QuantGrid) -> torch.Tensor:
-    """A flat buffer zero-padded onto the block grid, as [nblocks, ce]."""
-    pad = grid.nblocks * grid.chunk_elems - grid.total_elems
-    if pad:
-        x = torch.cat([x, x.new_zeros(pad)])
-    return x.reshape(grid.nblocks, grid.chunk_elems)
+def _block_rows(x: torch.Tensor, grid: QuantGrid) -> List[Tuple[torch.Tensor, int, int]]:
+    """A flat buffer of the grid's ``total_elems`` as block rows, without
+    padding: ``(rows, first block, end block)`` for the full blocks as
+    [k, chunk_elems] and for a short last block as [1, rest].  Only the
+    buffer's own elements are computed, however wide the grid's blocks."""
+    n, ce = grid.total_elems, grid.chunk_elems
+    full = n // ce
+    out = []
+    if full:
+        out.append((x[: full * ce].reshape(full, ce), 0, full))
+    if n > full * ce:
+        out.append((x[full * ce: n].reshape(1, n - full * ce), full, full + 1))
+    return out
+
+
+def _joined(parts: List[torch.Tensor], like: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The pieces of ``_block_rows`` as one flat tensor (empty for a grid of
+    no elements)."""
+    flat = [p.reshape(-1) for p in parts]
+    if len(flat) == 1:
+        return flat[0]
+    return torch.cat(flat) if flat else like.new_zeros(0, dtype=dtype)
 
 
 def _quantize_codes(buf: Any, ref: Optional[Any], resid: Optional[torch.Tensor],
@@ -441,13 +457,15 @@ def _quantize_codes(buf: Any, ref: Optional[Any], resid: Optional[torch.Tensor],
         resid = torch.zeros(grid.total_elems, dtype=torch.float32, device=device)
     corrected = value + resid.to(device)
     scales, zps = _grid_vectors(grid, device)
-    a = _padded_blocks(corrected, grid)
-    q = torch.clamp(torch.round(a / scales + zps), qmin, qmax)
-    n = grid.total_elems
-    codes = q.to(compression.torch_dtype(grid.wire_dtype)).reshape(-1)[:n]
-    # corrected − scale·(q − zp), one rounding (see the module doc).
-    new_resid = _fma(-scales, q - zps, a).reshape(-1)[:n]
-    return codes, new_resid
+    code_dt = compression.torch_dtype(grid.wire_dtype)
+    codes, resids = [], []
+    for a, lo, hi in _block_rows(corrected, grid):
+        sc, zp = scales[lo:hi], zps[lo:hi]
+        q = torch.clamp(torch.round(a / sc + zp), qmin, qmax)
+        codes.append(q.to(code_dt))
+        # corrected − scale·(q − zp), one rounding (see the module doc).
+        resids.append(_fma(-sc, q - zp, a))
+    return _joined(codes, corrected, code_dt), _joined(resids, corrected, torch.float32)
 
 
 def _dequantize_codes(codes: Any, ref: Optional[Any], grid: QuantGrid, out_name: str) -> torch.Tensor:
@@ -456,15 +474,18 @@ def _dequantize_codes(codes: Any, ref: Optional[Any], grid: QuantGrid, out_name:
     from rayfed_tpu_torch.fl.fedavg import as_tensor
 
     device = _device_of(codes, ref)
-    a = _padded_blocks(as_tensor(codes, device).reshape(-1).to(torch.float32), grid)
+    q = as_tensor(codes, device).reshape(-1).to(torch.float32)
     scales, zps = _grid_vectors(grid, device)
-    n = grid.total_elems
-    if ref is None:
-        x = (scales * (a - zps)).reshape(-1)[:n]
-    else:
-        # ref + scale·(q − zp), one rounding (see the module doc).
-        x = _fma(scales, a - zps, _padded_blocks(_f32_on(ref, device), grid)).reshape(-1)[:n]
-    return x.to(compression.torch_dtype(out_name))
+    refs = None if ref is None else _block_rows(_f32_on(ref, device).reshape(-1), grid)
+    out = []
+    for k, (a, lo, hi) in enumerate(_block_rows(q, grid)):
+        sc, zp = scales[lo:hi], zps[lo:hi]
+        if refs is None:
+            out.append(sc * (a - zp))
+        else:
+            # ref + scale·(q − zp), one rounding (see the module doc).
+            out.append(_fma(sc, a - zp, refs[k][0]))
+    return _joined(out, q, torch.float32).to(compression.torch_dtype(out_name))
 
 
 def _check_ref(grid: QuantGrid, ref: Optional[Any]):

@@ -25,7 +25,18 @@ from rayfed_tpu_torch.parallel.pipeline import (
     pipeline_collective,
     stack_params,
 )
-from rayfed_tpu_torch.parallel.sharding import ShardingStrategy
+
+
+def __getattr__(name: str):
+    # ShardingStrategy loads lazily: its module imports DTensor (and sympy
+    # under it), ~1 s of start-up in every process that imports the package
+    # for its collectives alone.
+    if name == "ShardingStrategy":
+        from rayfed_tpu_torch.parallel.sharding import ShardingStrategy
+
+        return ShardingStrategy
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 __all__ = [
     "create_mesh",

@@ -12,6 +12,16 @@ _GIVEN: set = set()
 _LOCK = threading.Lock()
 
 
+def _ephemeral_range() -> tuple:
+    """The kernel's ephemeral port range (Linux's default if unreadable)."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            lo, hi = map(int, f.read().split())
+    except (OSError, ValueError):
+        lo, hi = 32768, 60999
+    return lo, hi
+
+
 def free_loopback_ports(n: int) -> List[int]:
     """``n`` loopback ports, each free when chosen, never handed out twice
     in this process.
@@ -19,14 +29,10 @@ def free_loopback_ports(n: int) -> List[int]:
     A port is released before its listener binds it.  A port from the
     kernel's ephemeral range could meanwhile become the local port of an
     outgoing connection, and the bind would fail with EADDRINUSE; so the
-    ports come from below that range, where only an explicit bind takes a
-    port."""
-    try:
-        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
-            lo, hi = map(int, f.read().split())
-    except (OSError, ValueError):
-        lo, hi = 32768, 60999
-    pool = list(range(10000, lo)) if lo - 10000 >= 64 * n else list(range(hi + 1, 65536))
+    ports come from 10000 up, outside that range, where only an explicit
+    bind takes a port."""
+    lo, hi = _ephemeral_range()
+    pool = [p for p in range(10000, 65536) if not lo <= p <= hi]
     random.SystemRandom().shuffle(pool)
     ports: List[int] = []
     with _LOCK:

@@ -16,7 +16,7 @@ from rayfed_tpu_torch.ops.flash_attention import flash_attention
 from rayfed_tpu_torch.utils import platform
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = (sorted((ROOT / "rayfed_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "rayfed_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "bench_torch.py"]
               + sorted((ROOT / "examples_torch").glob("*.py")))
 
 _BLOCKED_IMPORT = r"""
@@ -35,6 +35,7 @@ names = [m.name for m in pkgutil.walk_packages(rayfed_tpu_torch.__path__, "rayfe
 for name in names:
     importlib.import_module(name)
 import chip_smoke  # its import graph; the phases run only under __main__
+import bench_torch  # likewise: the legs run only when called
 import examples_torch
 for ex in pkgutil.iter_modules(examples_torch.__path__, "examples_torch."):
     importlib.import_module(ex.name)
