@@ -717,7 +717,7 @@ HIER_SWEEP = ((4, 2, None, False), (16, 8, None, False), (64, 32, None, False),
               (16, 8, None, False), (256, 16, 4, True))
 
 
-def _run_hierarchy_bench(_party: str, result_q, device, sweep=HIER_SWEEP) -> None:
+def _run_hierarchy_bench(_party: str, result_q, device) -> None:
     """Hierarchical aggregation traffic against N (bench.py's leg): N
     in-process virtual parties, one TransportManager each on loopback
     (shm local links), each driving ``HierarchyRound`` on ``device``.
@@ -766,7 +766,7 @@ def _run_hierarchy_bench(_party: str, result_q, device, sweep=HIER_SWEEP) -> Non
         soft, _ = resource.getrlimit(resource.RLIMIT_NOFILE)
     report["fd_soft_limit"] = int(soft)
 
-    for n_parties, region_size, branch, hub in sweep:
+    for n_parties, region_size, branch, hub in HIER_SWEEP:
         if n_parties >= 256 and soft < 4_096:
             report["n256_skipped"] = f"fd soft ceiling {soft} < 4096 (hard {hard})"
             break
@@ -2156,48 +2156,26 @@ class _NoJaxQueue:
         self._q.join_thread()
 
 
-def _party_child(fn_name: str, party: str, result_q, device: str, args: tuple = (), kwargs=None) -> None:
+def _party_child(fn_name: str, party: str, result_q, device: str, args: tuple = ()) -> None:
     """Spawn-process entry: run the leg ``fn_name`` for ``party`` on
     ``device``.  Nothing touches the card before this process starts."""
-    globals()[fn_name](party, _NoJaxQueue(result_q), device, *args, **(kwargs or {}))
+    globals()[fn_name](party, _NoJaxQueue(result_q), device, *args)
 
 
-@contextlib.contextmanager
-def _main_not_rerun():
-    """Keep spawn from re-running the caller's ``__main__`` script in each
-    child while children start: they run ``bench_torch._party_child`` and
-    need nothing of it (the card's host took ~6 s a child to import
-    chip_smoke.py there).  When this file is ``__main__``, the children do
-    need it, and it is left alone."""
-    main = sys.modules.get("__main__")
-    if main is None or _party_child.__module__ == "__main__" or not hasattr(main, "__file__"):
-        yield
-        return
-    path, spec = main.__file__, main.__spec__
-    del main.__file__
-    main.__spec__ = None
-    try:
-        yield
-    finally:
-        main.__file__, main.__spec__ = path, spec
-
-
-def _one_child(fn_name: str, device: str, launches, timeout: int = 300, kwargs=None):
+def _one_child(fn_name: str, device: str, launches, timeout: int = 300):
     """Run a leg in one spawned child; returns what it reported."""
-    return next(iter(_multi_party(fn_name, ("solo",), device, launches, timeout=timeout, kwargs=kwargs).values()))
+    return next(iter(_multi_party(fn_name, ("solo",), device, launches, timeout=timeout).values()))
 
 
-def _multi_party(fn_name: str, parties, device: str, launches, args: tuple = (), timeout: int = 900,
-                 kwargs=None) -> dict:
+def _multi_party(fn_name: str, parties, device: str, launches, args: tuple = (), timeout: int = 900) -> dict:
     """Run a leg in one spawned child per party; returns each child's
     report by the name it reported under, and adds the children's kernel
     launches to the Counter ``launches``."""
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
-    procs = [ctx.Process(target=_party_child, args=(fn_name, p, q, device, args, kwargs)) for p in parties]
-    with _main_not_rerun():
-        for p in procs:
-            p.start()
+    procs = [ctx.Process(target=_party_child, args=(fn_name, p, q, device, args)) for p in parties]
+    for p in procs:
+        p.start()
     results = {}
     deadline = time.time() + timeout
     while len(results) < len(parties) and time.time() < deadline:
@@ -2236,56 +2214,56 @@ def _section(extra: dict, name: str):
 # The legs in bench.py's order, and the gate table
 # --------------------------------------------------------------------------
 
-def _leg_stream_agg(device, extra, launches, **kw):
-    _fill_stream_extra(extra, _one_child("_run_stream_agg_bench", device, launches, timeout=420, kwargs=kw))
+def _leg_stream_agg(device, extra, launches):
+    _fill_stream_extra(extra, _one_child("_run_stream_agg_bench", device, launches, timeout=420))
 
 
-def _leg_ring_agg(device, extra, launches, **kw):
+def _leg_ring_agg(device, extra, launches):
     res = _multi_party("_run_ring_agg_party", RINGB_PARTIES, device, launches, (_cluster(RINGB_PARTIES),), timeout=420)
     _fill_ring_extra(extra, res)
 
 
-def _leg_overlap(device, extra, launches, **kw):
+def _leg_overlap(device, extra, launches):
     res = _multi_party("_run_overlap_party", OVERLAPB_PARTIES, device, launches, (_cluster(OVERLAPB_PARTIES),),
                        timeout=420)
     _fill_overlap_extra(extra, res)
 
 
-def _leg_send_path(device, extra, launches, **kw):
-    _fill_send_path_extra(extra, _one_child("_run_send_path_bench", device, launches, timeout=420, kwargs=kw))
+def _leg_send_path(device, extra, launches):
+    _fill_send_path_extra(extra, _one_child("_run_send_path_bench", device, launches, timeout=420))
 
 
-def _leg_compressed_agg(device, extra, launches, **kw):
-    _fill_compressed_extra(extra, _one_child("_run_compressed_agg_bench", device, launches, timeout=420, kwargs=kw))
+def _leg_compressed_agg(device, extra, launches):
+    _fill_compressed_extra(extra, _one_child("_run_compressed_agg_bench", device, launches, timeout=420))
 
 
-def _leg_secagg(device, extra, launches, **kw):
-    _fill_secagg_extra(extra, _one_child("_run_secagg_bench", device, launches, timeout=420, kwargs=kw))
+def _leg_secagg(device, extra, launches):
+    _fill_secagg_extra(extra, _one_child("_run_secagg_bench", device, launches, timeout=420))
 
 
-def _leg_server_opt(device, extra, launches, **kw):
-    _fill_server_opt_extra(extra, _one_child("_run_server_opt_bench", device, launches, timeout=420, kwargs=kw))
+def _leg_server_opt(device, extra, launches):
+    _fill_server_opt_extra(extra, _one_child("_run_server_opt_bench", device, launches, timeout=420))
 
 
-def _leg_object_plane(device, extra, launches, **kw):
-    _fill_objectplane_extra(extra, _one_child("_run_objectplane_bench", device, launches, timeout=420, kwargs=kw))
+def _leg_object_plane(device, extra, launches):
+    _fill_objectplane_extra(extra, _one_child("_run_objectplane_bench", device, launches, timeout=420))
 
 
-def _leg_hierarchy(device, extra, launches, **kw):
-    _fill_hierarchy_extra(extra, _one_child("_run_hierarchy_bench", device, launches, timeout=600, kwargs=kw))
+def _leg_hierarchy(device, extra, launches):
+    _fill_hierarchy_extra(extra, _one_child("_run_hierarchy_bench", device, launches, timeout=600))
 
 
-def _leg_chaos(device, extra, launches, **kw):
+def _leg_chaos(device, extra, launches):
     res = _multi_party("_run_chaos_party", CHAOSB_PARTIES, device, launches, (_chaos_cluster(),), timeout=420)
     _fill_chaos_extra(extra, res)
 
 
-def _leg_telemetry(device, extra, launches, **kw):
-    _fill_telemetry_extra(extra, _one_child("_run_telemetry_bench", device, launches, timeout=420, kwargs=kw))
+def _leg_telemetry(device, extra, launches):
+    _fill_telemetry_extra(extra, _one_child("_run_telemetry_bench", device, launches, timeout=420))
 
 
-def _leg_async_rounds(device, extra, launches, **kw):
-    _fill_async_extra(extra, _one_child("_run_async_bench", device, launches, timeout=600, kwargs=kw))
+def _leg_async_rounds(device, extra, launches):
+    _fill_async_extra(extra, _one_child("_run_async_bench", device, launches, timeout=600))
 
 
 # (section, what it runs, runner), in bench.py --smoke's order.
@@ -2413,12 +2391,11 @@ def _check_device(device: str) -> None:
         raise RuntimeError("bench_torch: no CUDA device is available; pass --device cpu to run on the CPU")
 
 
-def run_leg(name: str, device: str = "cuda", stats: Optional[dict] = None, **kw) -> dict:
+def run_leg(name: str, device: str = "cuda", stats: Optional[dict] = None) -> dict:
     """Run one smoke leg on ``device`` and return its keys (with
     ``{name}_error`` when it failed).  ``stats``, when given, gets
     ``stats[name] = {"s": wall, "launches": {kernel: n}}``: the leg's wall,
-    its processes' start included, and its children's kernel launches.
-    ``kw`` goes to the leg's child."""
+    its processes' start included, and its children's kernel launches."""
     _check_device(device)
     (msg, runner), = [(m, r) for n, m, r in LEGS if n == name]
     extra: dict = {}
@@ -2429,7 +2406,7 @@ def run_leg(name: str, device: str = "cuda", stats: Optional[dict] = None, **kw)
     try:
         with _section(extra, name):
             _log(f"{msg} on {device}...")
-            runner(device, extra, launches, **kw)
+            runner(device, extra, launches)
     finally:
         wall = time.perf_counter() - t0
         if before is None:

@@ -1081,10 +1081,31 @@ def phase_bert_times(gen, card):
 FOLD_SIZES = (("adapters", 2, 6_815_748), ("wq", 4, 32 * 4096 * 4096))
 FOLD_WEIGHTS = (3, 5, 7, 11)
 FOLD_PIECE = 512 * 1024  # bytes handed to a sink at a time
-# The CPU's float fold is held against the card's over at most this many
-# leading elements: the fold is elementwise, so a prefix of the inputs gives
-# the prefix of the result (the whole of wq took the CPU 41 s a weighting).
+# The CPU's fold is held against the card's over at most this many
+# elements: whole blocks spread evenly from the buffer's first to its last
+# (the fold is elementwise and blockwise, so the same blocks of the inputs
+# give the same blocks of the result; the whole of wq took the CPU 41 s a
+# weighting).
 FOLD_CPU_ELEMS = 1 << 24
+
+
+def _cpu_blocks(elems, block):
+    """The blocks of ``block`` elements the CPU's fold covers: all of them
+    up to FOLD_CPU_ELEMS, else that many spread over the buffer, its first
+    and its last block (which may be short) among them."""
+    nb = -(-elems // block)
+    k = max(1, FOLD_CPU_ELEMS // block)
+    if nb <= k:
+        return list(range(nb))
+    return sorted({round(i * (nb - 1) / (k - 1)) for i in range(k)})
+
+
+def _take_blocks(t, blocks, block):
+    """The elements of ``blocks`` of the flat tensor ``t``, in order, as one
+    tensor (a view when they are one run from the start)."""
+    if blocks == list(range(len(blocks))):
+        return t[:len(blocks) * block]
+    return torch.cat([t[b * block:(b + 1) * block] for b in blocks])
 
 
 def _payload_bytes(packed):
@@ -1147,7 +1168,9 @@ def phase_fold(gen, card):
         t0 = time.perf_counter()
         payloads = [_payload_bytes(p) for p in cpu]
         encode_s = time.perf_counter() - t0
-        cpu_ref = cpu if elems <= FOLD_CPU_ELEMS else [fl.pack_tree({"w": p.buf[:FOLD_CPU_ELEMS]}) for p in cpu]
+        ce = fedavg.DEFAULT_CHUNK_ELEMS
+        blocks = _cpu_blocks(elems, ce)
+        cpu_ref = [fl.pack_tree({"w": _take_blocks(p.buf, blocks, ce)}) for p in cpu]
         for weights in (list(FOLD_WEIGHTS[:n]), None):
             tag = "/".join(map(str, weights)) if weights else "None"
             t0 = time.perf_counter()
@@ -1168,13 +1191,14 @@ def phase_fold(gen, card):
             stream_s = time.perf_counter() - t0
             n_cpu = plain.buf.numel()
             want = _raw(plain.buf)
-            same = {"streamed": torch.equal(_raw(got.buf[:n_cpu]), want),
-                    "one_shot": torch.equal(_raw(one_shot.buf[:n_cpu]), want),
+            same = {"streamed": torch.equal(_raw(_take_blocks(got.buf, blocks, ce)), want),
+                    "one_shot": torch.equal(_raw(_take_blocks(one_shot.buf, blocks, ce)), want),
                     "streamed_vs_one_shot": torch.equal(got.buf.view(torch.int16), one_shot.buf.view(torch.int16))}
             print(f"[fold] {name}: {n} x {elems} bf16, weights {tag}, local {local}, arrivals {order} in "
                   f"{FOLD_PIECE // 1024} KiB pieces: streamed on cuda {stream_s * 1e3:.1f} ms wall "
                   f"(stats {json.dumps({k: v for k, v in agg.stats.items() if k.startswith('agg_')})}), "
-                  f"one-shot on cuda {one_shot_ms:.3f} ms, CPU fold over the first {n_cpu} elements "
+                  f"one-shot on cuda {one_shot_ms:.3f} ms, CPU fold over {n_cpu} elements in {len(blocks)} "
+                  f"blocks of {ce} ({blocks[0]}..{blocks[-1]}) "
                   f"{cpu_s * 1e3:.1f} ms; byte-equal to the CPU fold there, and streamed to one-shot "
                   f"throughout: {same}")
             if not all(same.values()) or got.buf.device.type != "cuda":
@@ -1188,7 +1212,6 @@ def phase_fold(gen, card):
         acc = torch.zeros(elems, dtype=torch.float32, device="cuda")
         w = fedavg.f32_scalar(3.0, acc.device)
         src = on_card[0].buf
-        ce = fedavg.DEFAULT_CHUNK_ELEMS
 
         def fold_one():
             for off in range(0, elems, ce):
@@ -1270,18 +1293,22 @@ def phase_fold_int(gen, card):
         on_card = [qz.QuantizedPackedTree(c, grid.scales, grid.zps, (), spec, grid.meta()) for c in codes]
         ref_cpu = ref.cpu()
         payloads = [_payload_bytes(p) for p in cpu]
-        # The CPU's fold over the leading whole blocks up to FOLD_CPU_ELEMS
-        # (blockwise and elementwise, so their prefix of the card's result).
-        kb = min(grid.nblocks, -(-FOLD_CPU_ELEMS // grid.chunk_elems))
-        n_cpu = min(elems, kb * grid.chunk_elems)
+        # The CPU's fold over FOLD_CPU_ELEMS of whole grid blocks spread
+        # over the buffer (_cpu_blocks), on the grid of those blocks; the
+        # card's accumulator is padded onto the grid, its outputs are not.
+        ce = grid.chunk_elems
+        blocks = _cpu_blocks(elems, ce)
+        acc_blocks = lambda t: torch.cat([t[b * ce:(b + 1) * ce] for b in blocks])  # noqa: E731
+        elem_blocks = lambda t: _take_blocks(t, blocks, ce)  # noqa: E731
         cpu_grid, cpu_ref, ref_cpu_ref = grid, cpu, ref_cpu
-        if n_cpu < elems:
-            cpu_grid = qz.QuantGrid(grid.scales[:kb], grid.zps[:kb], grid.chunk_elems, n_cpu, grid.wire_dtype,
-                                    grid.mode)
+        if len(blocks) < grid.nblocks:
+            n_cpu = sum(min(elems, (b + 1) * ce) - b * ce for b in blocks)
+            cpu_grid = qz.QuantGrid(grid.scales[blocks], grid.zps[blocks], ce, n_cpu, grid.wire_dtype, grid.mode)
             cpu_spec = fl.PackSpec((("f", 0, n_cpu, (n_cpu,), "float32"),), spec.treedef, grid.wire_dtype)
-            cpu_ref = [qz.QuantizedPackedTree(p.buf[:n_cpu], cpu_grid.scales, cpu_grid.zps, (), cpu_spec,
-                                              cpu_grid.meta()) for p in cpu]
-            ref_cpu_ref = ref_cpu[:n_cpu]
+            cpu_ref = [qz.QuantizedPackedTree(elem_blocks(torch.from_numpy(p.buf)).numpy(), cpu_grid.scales,
+                                              cpu_grid.zps, (), cpu_spec, cpu_grid.meta()) for p in cpu]
+            ref_cpu_ref = elem_blocks(ref_cpu)
+        n_cpu = cpu_grid.total_elems
         for weights in (list(FOLD_WEIGHTS[:n]), None):
             tag = "/".join(map(str, weights)) if weights else "None"
             iw, _ = fedavg.quant_weights(weights, n)
@@ -1305,11 +1332,11 @@ def phase_fold_int(gen, card):
             got = agg.result(timeout=600)
             torch.cuda.synchronize()
             stream_s = time.perf_counter() - t0
-            want, want_acc, n_acc = _raw(plain.buf), _raw(acc_cpu), acc_cpu.numel()
-            same = {"streamed": torch.equal(_raw(got.buf[:n_cpu]), want),
-                    "streamed_acc": torch.equal(_raw(agg.kept_acc[:n_acc]), want_acc),
-                    "one_shot": torch.equal(_raw(one_shot.buf[:n_cpu]), want),
-                    "one_shot_acc": torch.equal(_raw(acc_card[:n_acc]), want_acc),
+            want, want_acc = _raw(plain.buf), _raw(acc_cpu)
+            same = {"streamed": torch.equal(_raw(elem_blocks(got.buf)), want),
+                    "streamed_acc": torch.equal(_raw(acc_blocks(agg.kept_acc)), want_acc),
+                    "one_shot": torch.equal(_raw(elem_blocks(one_shot.buf)), want),
+                    "one_shot_acc": torch.equal(_raw(acc_blocks(acc_card)), want_acc),
                     "streamed_vs_one_shot": torch.equal(_raw(got.buf), _raw(one_shot.buf)),
                     "streamed_acc_vs_one_shot": torch.equal(_raw(agg.kept_acc), _raw(acc_card))}
             print(f"[fold_int] {name}: {n} x {elems} uint8 codes on one grid ({grid.nblocks} blocks), weights "
@@ -1317,7 +1344,8 @@ def phase_fold_int(gen, card):
                   f"cuda {stream_s * 1e3:.1f} ms wall (stats "
                   f"{json.dumps({k: v for k, v in agg.stats.items() if k.startswith('agg_')})}), one-shot on "
                   f"cuda {one_shot_ms:.3f} ms (bound {elems * (n + 8) / hbm * 1e3:.3f}: the codes and ref "
-                  f"read, f32 written), CPU fold over the first {n_cpu} elements {cpu_s * 1e3:.1f} ms; i32 "
+                  f"read, f32 written), CPU fold over {n_cpu} elements in {len(blocks)} blocks "
+                  f"({blocks[0]}..{blocks[-1]}) {cpu_s * 1e3:.1f} ms; i32 "
                   f"accumulator and finalized f32 byte-equal to the CPU's there, and streamed to one-shot "
                   f"throughout: {same}")
             if not all(same.values()) or got.buf.device.type != "cuda":
@@ -1329,7 +1357,6 @@ def phase_fold_int(gen, card):
         # against the reference, with a residual) and dequantize.
         acc = torch.zeros(grid.nblocks * grid.chunk_elems, dtype=torch.int32, device="cuda")
         src = codes[0]
-        ce = grid.chunk_elems
 
         def fold_one():
             for off in range(0, elems, ce):

@@ -153,12 +153,12 @@ def test_run_smoke_returns_the_record_and_its_failed_gates():
     assert stats["object_plane"]["s"] > 0
 
 
-def test_children_do_not_rerun_the_callers_script(monkeypatch):
-    """While children start, the caller's ``__main__`` script is hidden from
-    spawn (the children run bench_torch's own functions), then restored."""
-    main = types.ModuleType("__main__")
-    main.__file__, main.__spec__ = "caller.py", None
-    monkeypatch.setitem(sys.modules, "__main__", main)
-    with bench_torch._main_not_rerun():
-        assert not hasattr(main, "__file__")
-    assert main.__file__ == "caller.py"
+def test_chip_smoke_rerun_in_a_spawned_child_stays_light():
+    """chip_smoke.py calls the legs in-process, so spawn re-runs it as
+    ``__mp_main__`` in every bench child: that run loads no DTensor or
+    sympy and does not touch the card."""
+    code = ("import runpy, sys, torch; runpy.run_path('chip_smoke.py', run_name='__mp_main__'); "
+            "heavy = [m for m in ('sympy', 'torch.distributed.tensor', 'torch._dynamo') if m in sys.modules]; "
+            "assert not heavy and not torch.cuda.is_initialized(), heavy")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]

@@ -22,7 +22,10 @@ from __future__ import annotations
 import contextlib
 import functools
 import math
+import multiprocessing as mp
 import os
+import queue
+import time
 
 import pytest
 
@@ -77,16 +80,56 @@ def _ref_runs():
 
     def ring():
         extra = {}
-        bench._fill_ring_extra(extra, bench._multi_party(
-            "_run_ring_agg_party", parties=bench.RINGB_PARTIES, ndev=1, timeout=420))
+        bench._fill_ring_extra(extra, _ref_ring_parties(bench.RINGB_PARTIES, timeout=420))
         return extra
 
+    # The compressed leg binds its own fixed ports (13140-13143, a local of
+    # the leg): a concurrent ``bench.py --smoke`` on the host can collide.
     return {
         "compressed_agg": one("_run_compressed_agg_bench", bench._fill_compressed_extra),
         "server_opt": one("_run_server_opt_bench", bench._fill_server_opt_extra),
         "hierarchy": one("_run_hierarchy_bench", bench._fill_hierarchy_extra, timeout=600),
         "ring_agg": ring,
     }
+
+
+def _ref_ring_party(party: str, result_q, cluster: dict) -> None:
+    """Spawn-process entry: ``bench.py``'s own ring party on ``cluster``
+    in place of its fixed ports (``RINGB_CLUSTER``, 13110-13113), which a
+    concurrent ``bench.py --smoke`` on the host would hold."""
+    import bench
+
+    bench.RINGB_CLUSTER = cluster
+    bench._party_child("_run_ring_agg_party", party, result_q, 1)
+
+
+def _ref_ring_parties(parties, timeout: int) -> dict:
+    """``bench._multi_party`` for the ring leg, on free loopback ports."""
+    from rayfed_tpu_torch.utils.ports import free_loopback_ports
+
+    cluster = {p: {"address": f"127.0.0.1:{port}"} for p, port in zip(parties, free_loopback_ports(len(parties)))}
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=_ref_ring_party, args=(p, q, cluster)) for p in parties]
+    for p in procs:
+        p.start()
+    results = {}
+    deadline = time.time() + timeout
+    try:
+        while len(results) < len(parties) and time.time() < deadline:
+            try:
+                party, value = q.get(timeout=5)
+                results[party] = value
+            except queue.Empty:
+                if any(p.exitcode not in (None, 0) for p in procs):
+                    break
+    finally:
+        for p in procs:
+            p.join(30)
+            if p.is_alive():
+                p.terminate()
+    assert len(results) == len(parties), f"reference ring leg failed; partial results: {results}"
+    return results
 
 
 @functools.lru_cache(maxsize=None)
