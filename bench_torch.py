@@ -1,27 +1,38 @@
-"""Bench harness of the PyTorch package: ``bench.py``'s ``--smoke`` mode on
-``rayfed_tpu_torch``.
+"""Bench harness of the PyTorch package: ``bench.py``'s ``--smoke`` mode and
+its compute section on ``rayfed_tpu_torch``.
 
 ``python3 bench_torch.py --smoke`` runs the twelve smoke legs of
 ``bench.py --smoke`` on the port, on the CUDA card (``--device cpu`` runs
 them on the host), prints ONE JSON line with the reference's keys and
 exits 1 when a leg fails or a gate misses, with every threshold of the
-reference unchanged.  Without ``--smoke`` it exits 2: the full bench (the
-card's workloads and their cells) is not part of this file yet.
+reference unchanged.  ``python3 bench_torch.py --compute-only`` runs
+``bench.py --compute-only``'s five legs in this process on the card
+(``--device cpu`` on the host): the ~1.07B Llama's Adam step with its MFU
+breakdown, its KV-cache decode, flash against dense attention, Llama-3-8B's
+int8-base LoRA step and int8 decode, and MoE dispatch; it prints ONE JSON
+line with the reference's keys and exits 1 when a leg fails.  The
+federated section (``--fed-only``, or no mode flag) is not ported yet: it
+exits 2.
 
-Each leg keeps the reference's function name, its ``_fill_*_extra``, its
-result keys, its smoke sizes (``RAYFED_BENCH_SMOKE``) and its shape of
+Each smoke leg keeps the reference's function name, its ``_fill_*_extra``,
+its result keys, its smoke sizes (``RAYFED_BENCH_SMOKE``) and its shape of
 processes: ``_one_child`` runs a leg in one spawned process of in-process
 virtual parties, ``_multi_party`` runs one spawned process per party.
 Every child gets the party's ``device`` and asserts, when it reports, that
 it loaded neither JAX nor the JAX package.  Listeners take free loopback
 ports.  Draws the reference makes with numpy are the same numbers here;
 draws it makes with ``jax.random`` come from seeded ``torch.Generator``\\s
-of the same shapes.
+of the same shapes.  Each compute leg keeps the reference's name, sizes,
+repetition counts (keyword arguments, the reference's by default) and
+slope timing, with every timed run ending in a read of its result; the
+shares (``llama_mfu``, ``*_membw_util``) are the port's own work over the
+card's data-sheet peaks (``_PEAK_FLOPS``, ``_PEAK_HBM_BPS``).
 
-``run_smoke(device)`` runs every leg in this process's control and returns
-``(record, failed_gates)``; ``run_leg(name, device)`` runs one leg and
-returns its keys.  ``GATES`` is the gate table: each gate is ``exact``
+``run_smoke(device)`` runs every smoke leg in this process's control and
+returns ``(record, failed_gates)``; ``run_leg(name, device)`` runs one leg
+and returns its keys.  ``GATES`` is the gate table: each gate is ``exact``
 (fixed by sizes, seeds and the arithmetic) or ``timed`` (a ratio of walls).
+``run_compute(device)`` runs the compute legs and returns the record.
 """
 
 from __future__ import annotations
@@ -29,6 +40,8 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import dataclasses
+import functools
 import json
 import math
 import multiprocessing as mp
@@ -41,6 +54,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+from torch.utils import _pytree as pytree  # noqa: E402
 
 # Modules a bench child must never load.
 _FOREIGN = ("jax", "jaxlib", "rayfed_tpu")
@@ -2439,15 +2453,688 @@ def run_smoke(device: str = "cuda", legs=LEG_NAMES, stats: Optional[dict] = None
     return record, failed_gates(extra, legs)
 
 
+# --------------------------------------------------------------------------
+# The compute section: bench.py's accelerator legs, in this process
+# --------------------------------------------------------------------------
+
+# Peak dense bf16 FLOP/s and HBM bytes/s by device name: NVIDIA's data sheet
+# of the H100 SXM part, the card that names itself "NVIDIA H100 80GB HBM3".
+# A card missing here raises: a share of an invented peak is no number.
+_PEAK_FLOPS = {"H100 80GB HBM3": 989e12}
+_PEAK_HBM_BPS = {"H100 80GB HBM3": 3.35e12}
+
+
+def _device_kind(device) -> str:
+    """``"cpu"``, or the CUDA card's name (``torch.cuda.get_device_name``)."""
+    dev = torch.device(device)
+    return "cpu" if dev.type == "cpu" else torch.cuda.get_device_name(dev)
+
+
+def _peak_lookup(table: dict, fallback: float, kind: str) -> float:
+    """The peak of device ``kind`` in ``table``; the host (``"cpu"``) takes
+    the reference's indicative ``fallback``."""
+    if kind == "cpu":
+        return fallback
+    for name, peak in table.items():
+        if name.lower() in kind.lower():
+            return peak
+    raise RuntimeError(f"bench_torch: no published peak for {kind!r}")
+
+
+def _peak_flops(kind: str) -> float:
+    return _peak_lookup(_PEAK_FLOPS, 1e12, kind)  # CPU figure; MFU indicative
+
+
+def _peak_hbm_bps(kind: str) -> float:
+    return _peak_lookup(_PEAK_HBM_BPS, 100e9, kind)
+
+
+def _gen(device, seed: int) -> torch.Generator:
+    """A generator on ``device`` seeded as the reference's ``PRNGKey(seed)``
+    (other numbers than ``jax.random``'s)."""
+    return torch.Generator(device=torch.device(device)).manual_seed(seed)
+
+
+def _bench_llama_config(**kw):
+    """bench.py's ~1.07B Llama: vocab 16384, d 2048, 16 layers, 16 heads
+    over 8 KV heads, ffn 8192, bf16 params and activations."""
+    from rayfed_tpu_torch.models import llama
+
+    return llama.LlamaConfig(
+        vocab_size=16384, hidden_size=2048, num_layers=16, num_heads=16, num_kv_heads=8,
+        intermediate_size=8192, max_seq_len=2048, dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+        **kw,
+    )
+
+
+def _meta_params(cfg):
+    """``cfg``'s param tree on the meta device: shapes and dtypes, no storage
+    (the reference's ``jax.eval_shape``)."""
+    from rayfed_tpu_torch.models import llama
+
+    return llama.init_llama(cfg, None, device="meta")
+
+
+def _llama_step_flops(cfg, batch: int, seq: int, n_matmul: int) -> int:
+    """Model FLOPs of a train step: 6 * matmul-params * tokens (fwd 2NT +
+    bwd 4NT; the embedding gather does none, the lm_head does) plus causal
+    attention 6 * L*B*T^2*d (12 * L*B*T^2*d full, halved for causal)."""
+    return 6 * n_matmul * batch * seq + 6 * cfg.num_layers * batch * seq**2 * cfg.hidden_size
+
+
+def _layer_matmul_flops(cfg, batch: int, seq: int) -> int:
+    """Counted fwd+bwd FLOPs of one layer's matmuls (q/k/v/o and the SwiGLU
+    FFN): the yardstick of the breakdown's matmul line."""
+    d, h, dh, f = cfg.hidden_size, cfg.num_heads, cfg.head_dim, cfg.intermediate_size
+    kv_dim = cfg.num_kv_heads * dh
+    return 6 * (d * h * dh + 2 * d * kv_dim + h * dh * d + 3 * d * f) * batch * seq
+
+
+def _flash_counts() -> Dict[str, int]:
+    return {k: v for k, v in _launches().items() if k.startswith("flash_")}
+
+
+def _train_slope(device, make_loop, fresh, args, n_short: int, n_long: int, stats: dict) -> float:
+    """Seconds per step of ``make_loop(n)(*fresh(), *args)`` by slope between
+    ``n_short`` and ``n_long`` steps, each length run once warm and once
+    timed from fresh state (the loops update it in place, as the
+    reference's donate it).  ``stats`` gets the steps run and their flash
+    launches."""
+    before, steps = _flash_counts(), 0
+
+    def timed_run(n: int) -> float:
+        nonlocal steps
+        loop = make_loop(n)
+        float(loop(*fresh(), *args)[2][-1])  # warm
+        state = fresh()
+        _sync(device)
+        t0 = time.perf_counter()
+        final = float(loop(*state, *args)[2][-1])
+        wall = time.perf_counter() - t0
+        assert final == final, "loss is NaN"
+        steps += 2 * n
+        return wall
+
+    t_short = timed_run(n_short)
+    t_long = timed_run(n_long)
+    after = _flash_counts()
+    stats["train_steps"] = steps
+    stats["train_launches"] = {k: after[k] - before[k] for k in after}
+    return max((t_long - t_short) / (n_long - n_short), 1e-9)
+
+
+def bench_llama(device, *, cfg=None, batch: int = 2, seq: int = 2048, n_short: int = 2, n_long: int = 12,
+                probe_n: Optional[dict] = None, stats: Optional[dict] = None) -> dict:
+    """Full-param Adam training of the ~1.07B Llama, bf16, flash attention
+    and ``remat_policy="dots"`` (bench.py's ``bench_llama``).
+
+    The step time is the slope between ``n_short`` and ``n_long`` steps of
+    ``make_train_loop`` (N step calls here, one compiled scan there), from
+    fresh params and Adam state before every run; the MFU counts the
+    reference's model FLOPs over the card's peak.  Adds the breakdown
+    (:func:`_llama_mfu_breakdown`, ``probe_n`` its counts).
+    """
+    from rayfed_tpu_torch.models import llama
+    from rayfed_tpu_torch.ops.flash_attention import flash_attention
+
+    cfg = cfg or _bench_llama_config(remat=True, remat_policy="dots")
+    stats = {} if stats is None else stats
+    ids = torch.randint(0, cfg.vocab_size, (batch, seq), generator=_gen(device, 1), device=device)
+
+    def fresh():
+        params = llama.init_llama(cfg, _gen(device, 0), device=device)
+        return params, llama.init_adam(params)
+
+    def make_loop(n):
+        return llama.make_train_loop(cfg, n, attn_fn=flash_attention, donate=True)
+
+    _log("  llama train loops (short+long)...")
+    step_time = _train_slope(device, make_loop, fresh, (ids,), n_short, n_long, stats)
+    tokens = batch * seq
+    meta = _meta_params(cfg)
+    flops_per_step = _llama_step_flops(cfg, batch, seq, llama.param_count(meta, exclude_embed=True))
+    out = {
+        "llama_tokens_per_sec": round(tokens / step_time, 1),
+        "llama_mfu": round(flops_per_step / step_time / _peak_flops(_device_kind(device)), 4),
+        "llama_params_millions": round(llama.param_count(meta) / 1e6, 1),
+        "llama_step_ms": round(step_time * 1e3, 2),
+    }
+    out.update(_llama_mfu_breakdown(cfg, batch, seq, step_time, device, probe_n=probe_n))
+    return out
+
+
+# (n_short, n_long) of each breakdown probe: the reference's counts.
+PROBE_N = {"attn": (8, 2048), "matmul": (4, 256), "head": (4, 512), "adam": (4, 48), "norms_rope": (4, 256),
+           "remat": (4, 64)}
+
+
+def _llama_mfu_breakdown(cfg, batch, seq, step_time, device, *, probe_n: Optional[dict] = None) -> dict:
+    """Where the train step's time goes (bench.py's ``_llama_mfu_breakdown``).
+
+    Each component is probed alone at the step's exact shapes, slope-timed
+    (``probe_n``, default :data:`PROBE_N`) and scaled by the layer count:
+    the flash core (fwd+bwd), the layer matmuls (fwd+bwd), the lm_head
+    (fwd+bwd, the port's: the final norm and an f32 product of upcast
+    operands), the whole-tree Adam update (in place, as the step's), the
+    norms and RoPE (fwd+bwd), and the remat recompute.  The reference
+    charges that last one a whole layer forward a layer, since its
+    backward replays the layer; the port's ``"dots"`` keeps every weight
+    product (``aten.mm``), so its backward replays the rest of the forward
+    (norms, RoPE, the flash forward, the SwiGLU elementwise, the
+    residuals): the probe is a layer's forward less its seven weight
+    products.  ``llama_other_ms`` is the step less the probes (embedding,
+    loss, the replay's bookkeeping, Python and launch gaps), clamped at 0
+    as the reference's.
+    """
+    from rayfed_tpu_torch.models import llama
+    from rayfed_tpu_torch.ops.flash_attention import flash_attention
+
+    counts = {**PROBE_N, **(probe_n or {})}
+    B, T, D, L = batch, seq, cfg.hidden_size, cfg.num_layers
+    H, Dh, F, V, KV = cfg.num_heads, cfg.head_dim, cfg.intermediate_size, cfg.vocab_size, cfg.num_kv_heads
+    dt = cfg.dtype
+    gen = _gen(device, 7)
+
+    def normal(*shape, grad=False):
+        x = (torch.randn(shape, generator=gen, device=device) * 0.02).to(dt)
+        return x.requires_grad_(grad)
+
+    def mk_x():
+        return normal(B, T, D)
+
+    def slope(name, body, make_init):
+        """Per-iteration seconds of ``c = body(c)``, from a fresh carry per run."""
+        n_short, n_long = counts[name]
+
+        def run(n):
+            def once():
+                c = make_init()
+                _sync(device)
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    c = body(c)
+                float(pytree.tree_leaves(c)[0].float().sum())
+                return time.perf_counter() - t0
+
+            once()  # warm
+            return once()
+
+        t_s = run(n_short)
+        t_l = run(n_long)
+        return max((t_l - t_s) / (n_long - n_short), 0.0)
+
+    def grads(loss_fn, *inputs):
+        x = inputs[0].detach().requires_grad_(True)
+        return torch.autograd.grad(loss_fn(x), (x, *inputs[1:]))
+
+    def sq(t):
+        return (t.float() ** 2).sum()
+
+    # 1. The flash core, one layer (fwd+bwd: dQ and dK/dV), x L.
+    k_attn, v_attn = normal(B, T, H, Dh, grad=True), normal(B, T, H, Dh, grad=True)
+
+    def attn_body(q):
+        return grads(lambda q: sq(flash_attention(q, k_attn, v_attn, causal=True)), q, k_attn, v_attn)[0].to(dt)
+
+    attn_s = slope("attn", attn_body, lambda: normal(B, T, H, Dh)) * L
+
+    # 2. Layer matmuls: q/k/v/o projections and the SwiGLU FFN, x L.
+    kv_dim = KV * Dh
+    w = {
+        "wq": normal(D, H * Dh, grad=True), "wk": normal(D, kv_dim, grad=True),
+        "wv": normal(D, kv_dim, grad=True), "wo": normal(H * Dh, D, grad=True),
+        "w1": normal(D, F, grad=True), "w3": normal(D, F, grad=True), "w2": normal(F, D, grad=True),
+    }
+
+    def matmul_loss(x):
+        o = (x @ w["wq"]) @ w["wo"]
+        mlp = (torch.nn.functional.silu(x @ w["w1"]) * (x @ w["w3"])) @ w["w2"]
+        return sq(o) + sq(mlp) + sq(x @ w["wk"]) + sq(x @ w["wv"])
+
+    matmul_s = slope("matmul", lambda x: grads(matmul_loss, x, *w.values())[0].to(dt), mk_x) * L
+
+    # 3. lm_head (fwd+bwd) as the step computes it: the final norm and the
+    # product of f32-upcast operands (llama._lm_head).
+    head = {"final_norm": torch.ones(D, dtype=dt, device=device).requires_grad_(True),
+            "lm_head": normal(D, V, grad=True)}
+
+    def head_body(x):
+        return grads(lambda x: sq(llama._lm_head(x, head, cfg)), x, *head.values())[0].to(dt)
+
+    head_s = slope("head", head_body, mk_x)
+
+    # 4. The whole-tree Adam update, in place as the donated train step's.
+    def mk_adam():
+        params = llama.init_llama(cfg, _gen(device, 0), device=device)
+        return params, llama.init_adam(params)
+
+    def adam_body(c):
+        p, o = c
+        return llama._adam_update(p, p, o, 1e-4, 0.9, 0.999, 1e-8, inplace=True)
+
+    adam_s = slope("adam", adam_body, mk_adam)
+
+    # 5. Norms + RoPE (fwd+bwd), x L.
+    g_norm1 = torch.ones(D, dtype=dt, device=device)
+    g_norm2 = torch.ones(D, dtype=dt, device=device)
+    cos_t, sin_t = llama.rope_tables(torch.arange(T, device=device), Dh, cfg.rope_theta)
+
+    def norms_rope_loss(x):
+        a = llama._rms_norm(x, g_norm1, cfg.rms_eps)
+        b2 = llama._rms_norm(x, g_norm2, cfg.rms_eps)
+        q = llama.apply_rope(x.reshape(B, T, H, Dh), cos_t, sin_t)
+        k = llama.apply_rope(x[..., : KV * Dh].reshape(B, T, KV, Dh), cos_t, sin_t)
+        return sq(a) + sq(b2) + sq(q) + sq(k)
+
+    norms_s = slope("norms_rope", lambda x: grads(norms_rope_loss, x)[0].to(dt), mk_x) * L
+
+    # 6. The remat recompute, x L: what the backward replays of a layer's
+    # forward.  Under "dots" the weight products are kept, so the replay is
+    # the forward less its seven products; without a policy, all of it.
+    lp = {"attn_norm": g_norm1, "mlp_norm": g_norm2, "wq": w["wq"], "wk": w["wk"], "wv": w["wv"],
+          "wo": w["wo"], "w_gate": w["w1"], "w_up": w["w3"], "w_down": w["w2"]}
+
+    @torch.no_grad()
+    def layer_fwd(x):
+        return llama._layer_fwd(x, lp, cfg, cos_t, sin_t, flash_attention, B, T)[0]
+
+    @torch.no_grad()
+    def weight_products(x):
+        q, _, _, gate, _ = (x @ w[name] for name in ("wq", "wk", "wv", "w1", "w3"))
+        return q @ w["wo"] + gate @ w["w2"]
+
+    remat_s = 0.0
+    if cfg.remat:
+        remat_s = slope("remat", layer_fwd, mk_x)
+        if cfg.remat_policy == "dots":
+            remat_s = max(remat_s - slope("remat", weight_products, mk_x), 0.0)
+        remat_s *= L
+
+    other_s = max(step_time - attn_s - matmul_s - head_s - adam_s - norms_s - remat_s, 0.0)
+    lines = (("attention core (flash, fwd+bwd)", attn_s), ("layer matmuls (qkv/o + ffn)", matmul_s),
+             ("lm_head", head_s), ("adam update", adam_s), ("norms + rope (fwd+bwd)", norms_s),
+             ("remat recompute (x L)", remat_s), ("other (embed, loss, gaps)", other_s))
+    _log("  mfu breakdown (probes, per step):\n" + "\n".join(
+        f"    {name:34s}{s * 1e3:9.1f} ms ({s / step_time:5.1%})" for name, s in lines))
+    layer_peak_ms = _layer_matmul_flops(cfg, B, T) / _peak_flops(_device_kind(device)) * 1e3
+    if matmul_s > 0:
+        _log(f"  layer matmuls {matmul_s / L * 1e3:.2f} ms/layer vs {layer_peak_ms:.2f} ms of counted FLOPs "
+             f"at peak ({layer_peak_ms / (matmul_s / L * 1e3):.0%})")
+    return {
+        "llama_attn_ms": round(attn_s * 1e3, 1),
+        "llama_matmul_ms": round(matmul_s * 1e3, 1),
+        "llama_head_ms": round(head_s * 1e3, 1),
+        "llama_adam_ms": round(adam_s * 1e3, 1),
+        "llama_norms_rope_ms": round(norms_s * 1e3, 1),
+        "llama_remat_ms": round(remat_s * 1e3, 1),
+        "llama_other_ms": round(other_s * 1e3, 1),
+    }
+
+
+def _live_eff_len(t0: int, n_short: int, n_long: int) -> float:
+    """Mean cache slots a decode step reads, over the steps the long
+    generation adds to the short one.
+
+    ``generate`` runs ``n_new - 1`` decode steps (the last token's logits
+    are never read), and the step at position ``p`` reads the live prefix
+    ``[0, p]``: ``p + 1`` slots, for ``p = t0 .. t0 + n_new - 2``.  (The
+    reference's step reads the whole ``t0 + n_new`` buffer ``n_new``
+    times, so its ``eff_len`` is ``t0 + n_short + n_long``.)
+    """
+    def reads(n_new: int) -> int:
+        return sum(t0 + i + 1 for i in range(n_new - 1))
+
+    return (reads(n_long) - reads(n_short)) / (n_long - n_short)
+
+
+def _decode_slope(cfg, params, prompt, n_short, n_long, attn_fn, reps=3):
+    """Steady-state decode seconds a token by slope between two generation
+    lengths (the same prompt and prefill in both, so the delta is pure
+    decode), median of ``reps``.  Returns ``(per_tok, eff_len)`` with
+    :func:`_live_eff_len`'s cache extent."""
+    from rayfed_tpu_torch.models import llama
+
+    def timed(n_new):
+        int(llama.greedy_generate(params, cfg, prompt, n_new, attn_fn=attn_fn).sum())  # warm
+        vals = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            int(llama.greedy_generate(params, cfg, prompt, n_new, attn_fn=attn_fn).sum())
+            vals.append(time.perf_counter() - t)
+        return sorted(vals)[len(vals) // 2]
+
+    per_tok = max((timed(n_long) - timed(n_short)) / (n_long - n_short), 1e-9)
+    return per_tok, _live_eff_len(prompt.shape[1], n_short, n_long)
+
+
+def _kv_cache_bytes(cfg, batch, eff_len):
+    """Bytes of live KV cache read per decode step.
+
+    Derived from ``cfg.kv_quant``: bf16 is 2 bytes/element; int8 is 1 byte
+    plus the f32 per-(position, head) scale amortized over the head dim.
+    """
+    per_elem = (1 + 4 / cfg.head_dim) if cfg.kv_quant else 2
+    return int(
+        2 * cfg.num_layers * batch * eff_len
+        * cfg.num_kv_heads * cfg.head_dim * per_elem
+    )
+
+
+def bench_decode(device, *, cfg=None, batch: int = 8, t0: int = 128, n_short: int = 16, n_long: int = 528,
+                 t0_long: int = 1536, n_short_long: int = 16, n_long_long: int = 272, reps: int = 3,
+                 stats: Optional[dict] = None) -> dict:
+    """KV-cache greedy decode of the ~1.07B Llama (bench.py's
+    ``bench_decode``): bf16, int8 weights (``quantize_llama_base``), and at
+    ``t0_long`` bf16, int8 weights, and int8 weights with the int8 KV
+    cache.  Flash prefill, slope timing.  Each ``*_membw_util`` is the
+    bytes a step must read (every param once and the live cache) over the
+    card's HBM rate; the f32 upcast of the cache is the port's own traffic,
+    not counted."""
+    from rayfed_tpu_torch.models import llama
+    from rayfed_tpu_torch.models.quant import tree_nbytes
+    from rayfed_tpu_torch.ops.flash_attention import flash_attention
+
+    cfg = cfg or _bench_llama_config()
+    stats = {} if stats is None else stats
+    peak = _peak_hbm_bps(_device_kind(device))
+    params = llama.init_llama(cfg, _gen(device, 0), device=device)
+    prompt = torch.randint(0, cfg.vocab_size, (batch, t0), generator=_gen(device, 1), device=device)
+
+    _log("  decode generations (short+long)...")
+    per_tok, eff_len = _decode_slope(cfg, params, prompt, n_short, n_long, flash_attention, reps)
+    _log("  int8 decode generations (short+long)...")
+    qparams = llama.quantize_llama_base(params)
+    per_tok_q, _ = _decode_slope(cfg, qparams, prompt, n_short, n_long, flash_attention, reps)
+    param_bytes, qparam_bytes = tree_nbytes(params), tree_nbytes(qparams)
+    kv_bytes = _kv_cache_bytes(cfg, batch, eff_len)
+    membw_util = (param_bytes + kv_bytes) / per_tok / peak
+    membw_util_q = (qparam_bytes + kv_bytes) / per_tok_q / peak
+    weight_frac_q = qparam_bytes / peak / per_tok_q
+    out = {
+        "decode_tokens_per_sec": round(batch / per_tok, 1),
+        "decode_step_ms": round(per_tok * 1e3, 2),
+        "decode_membw_util": round(membw_util, 4),
+        "decode_int8_tokens_per_sec": round(batch / per_tok_q, 1),
+        "decode_int8_step_ms": round(per_tok_q * 1e3, 2),
+        "decode_int8_membw_util": round(membw_util_q, 4),
+        "decode_int8_weight_read_frac": round(weight_frac_q, 3),
+        "decode_int8_speedup": round(per_tok / per_tok_q, 3),
+    }
+
+    _log("  long-context decode (bf16, int8 weights, int8 weights + kv)...")
+    prompt_long = torch.randint(0, cfg.vocab_size, (batch, t0_long), generator=_gen(device, 2), device=device)
+    per_tok_l, eff_len_l = _decode_slope(cfg, params, prompt_long, n_short_long, n_long_long, flash_attention, reps)
+    per_tok_lw, _ = _decode_slope(cfg, qparams, prompt_long, n_short_long, n_long_long, flash_attention, reps)
+    cfg_q = dataclasses.replace(cfg, kv_quant=True)
+    per_tok_lq, _ = _decode_slope(cfg_q, qparams, prompt_long, n_short_long, n_long_long, flash_attention, reps)
+    util_l = (param_bytes + _kv_cache_bytes(cfg, batch, eff_len_l)) / per_tok_l / peak
+    util_lq = (qparam_bytes + _kv_cache_bytes(cfg_q, batch, eff_len_l)) / per_tok_lq / peak
+    out.update(
+        decode_long_tokens_per_sec=round(batch / per_tok_l, 1),
+        decode_long_membw_util=round(util_l, 4),
+        decode_long_int8w_tokens_per_sec=round(batch / per_tok_lw, 1),
+        decode_long_int8_tokens_per_sec=round(batch / per_tok_lq, 1),
+        decode_long_int8_membw_util=round(util_lq, 4),
+        decode_long_int8_speedup=round(per_tok_l / per_tok_lq, 3),
+        decode_long_kv_quant_speedup=round(per_tok_lw / per_tok_lq, 3),
+    )
+    stats.update(eff_len=eff_len, eff_len_long=eff_len_l, param_bytes=param_bytes, qparam_bytes=qparam_bytes)
+    return out
+
+
+def _grad_chain_slope(device, step, init, n_short, n_long, reps):
+    """Median of ``reps`` slopes of ``c = step(c)`` chains between
+    ``n_short`` and ``n_long`` iterations, each length run warm once first.
+    ``step`` feeds its gradients back into its inputs, so every call does
+    its work.  Returns ``(median, slopes)``."""
+    def once(n):
+        c = init()
+        _sync(device)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            c = step(c)
+        float(pytree.tree_leaves(c)[0].float().sum())
+        return time.perf_counter() - t0
+
+    once(n_short)  # warm
+    once(n_long)
+    slopes = sorted((once(n_long) - once(n_short)) / (n_long - n_short) for _ in range(reps))
+    return max(slopes[len(slopes) // 2], 1e-9), slopes
+
+
+def bench_flash(device, *, heads: int = 16, head_dim: int = 64, batch: int = 4, seq: int = 2048,
+                batch_long: int = 2, seq_long: int = 4096, n_short: int = 4, n_long: int = 64,
+                n_long_t4096: int = 32, window: int = 1024, reps: int = 3, stats: Optional[dict] = None) -> dict:
+    """Flash vs dense attention, causal fwd+bwd chains, bf16 BTHD (bench.py's
+    ``bench_flash``): ``[batch, seq]`` and ``[batch_long, seq_long]``, and the
+    sliding ``window`` at ``seq_long``; each iteration steps q, k and v by
+    ``1e-6`` times their gradients.  The dense arm is the port's
+    ``dot_product_attention`` (f32 scores)."""
+    from rayfed_tpu_torch.ops.attention import dot_product_attention
+    from rayfed_tpu_torch.ops.flash_attention import flash_attention
+
+    stats = {} if stats is None else stats
+
+    def timed(name, fn, args, n_long):
+        def step(c):
+            q, k, v = (t.detach().requires_grad_(True) for t in c)
+            loss = (fn(q, k, v, causal=True).float() ** 2).sum()
+            gq, gk, gv = torch.autograd.grad(loss, (q, k, v))
+            return (c[0] - 1e-6 * gq, c[1] - 1e-6 * gk, c[2] - 1e-6 * gv)
+
+        t, stats[name] = _grad_chain_slope(device, step, lambda: args, n_short, n_long, reps)
+        return t
+
+    def shape(b, t):
+        gen = _gen(device, 0)
+        return tuple(torch.randn((b, t, heads, head_dim), generator=gen, device=device).to(torch.bfloat16)
+                     for _ in range(3))
+
+    _log(f"  flash/dense attention chains (T={seq})...")
+    args = shape(batch, seq)
+    dense_t = timed("dense", dot_product_attention, args, n_long)
+    flash_t = timed("flash", flash_attention, args, n_long)
+    del args
+    _log(f"  flash/dense attention chains (T={seq_long})...")
+    args_l = shape(batch_long, seq_long)
+    dense_l = timed("dense_long", dot_product_attention, args_l, n_long_t4096)
+    flash_l = timed("flash_long", flash_attention, args_l, n_long_t4096)
+    _log(f"  windowed flash chain (T={seq_long}, W={window})...")
+    swa_l = timed("flash_window", functools.partial(flash_attention, window=window), args_l, n_long_t4096)
+    return {
+        "flash_speedup": round(dense_t / flash_t, 3),
+        "flash_ms": round(flash_t * 1e3, 2),
+        "dense_ms": round(dense_t * 1e3, 2),
+        "flash_speedup_t4096": round(dense_l / flash_l, 3),
+        "flash_ms_t4096": round(flash_l * 1e3, 2),
+        "dense_ms_t4096": round(dense_l * 1e3, 2),
+        "flash_window_ms_t4096": round(swa_l * 1e3, 2),
+        "flash_window_speedup": round(flash_l / swa_l, 3),
+    }
+
+
+def bench_lora_8b(device, *, cfg=None, batch: int = 1, seq: int = 2048, rank: int = 16, n_short: int = 1,
+                  n_long: int = 5, decode_batch: int = 4, prompt_len: int = 128, decode_short: int = 16,
+                  decode_long: int = 272, reps: int = 3, stats: Optional[dict] = None) -> dict:
+    """BASELINE.md #4 at full scale (bench.py's ``bench_lora_8b``):
+    Llama-3-8B on an int8 base drawn directly as int8 on the device
+    (``init_llama_int8``), rank-``rank`` adapters on ``w[qv]`` with Adam,
+    full remat, flash attention, slope-timed; then int8 greedy decode over
+    the same base."""
+    from rayfed_tpu_torch.models import llama, lora
+    from rayfed_tpu_torch.models.quant import tree_nbytes
+    from rayfed_tpu_torch.ops.flash_attention import flash_attention
+
+    cfg = cfg or llama.llama3_8b(max_seq_len=2048, dtype=torch.bfloat16, param_dtype=torch.bfloat16, remat=True)
+    stats = {} if stats is None else stats
+    base = llama.init_llama_int8(cfg, _gen(device, 0), device=device)
+    lcfg = lora.LoraConfig(rank=rank, targets=(r"w[qv]$",))
+    adapter_mb = tree_nbytes(lora.init_lora(base, lcfg, _gen(device, 1), device=device)) / 1e6
+    ids = torch.randint(0, cfg.vocab_size, (batch, seq), generator=_gen(device, 2), device=device)
+
+    def fresh():
+        adapters = lora.init_lora(base, lcfg, _gen(device, 1), device=device)
+        return adapters, llama.init_adam(adapters)
+
+    def make_loop(n):
+        return llama.make_lora_train_loop(cfg, n, attn_fn=flash_attention, donate=True)
+
+    _log("  8B int8-base LoRA train loops (short+long)...")
+    step_time = _train_slope(device, make_loop, fresh, (base, ids), n_short, n_long, stats)
+    out = {
+        "lora_8b_tokens_per_sec": round(batch * seq / step_time, 1),
+        "lora_8b_step_ms": round(step_time * 1e3, 2),
+        "lora_8b_params_b": round(llama.param_count(_meta_params(cfg)) / 1e9, 2),
+        "lora_8b_base_gb": round(tree_nbytes(base) / 1e9, 2),
+        "lora_8b_adapter_mb": round(adapter_mb, 2),
+    }
+
+    # 8B int8 serving over the resident base: each step reads the int8
+    # weights and the live cache.
+    _log("  8B int8 decode generations (short+long)...")
+    prompt = torch.randint(0, cfg.vocab_size, (decode_batch, prompt_len), generator=_gen(device, 3), device=device)
+    per_tok, eff_len = _decode_slope(cfg, base, prompt, decode_short, decode_long, flash_attention, reps)
+    membw_util = (tree_nbytes(base) + _kv_cache_bytes(cfg, decode_batch, eff_len)) / per_tok \
+        / _peak_hbm_bps(_device_kind(device))
+    out.update(
+        decode_8b_tokens_per_sec=round(decode_batch / per_tok, 1),
+        decode_8b_step_ms=round(per_tok * 1e3, 2),
+        decode_8b_membw_util=round(membw_util, 4),
+    )
+    stats["eff_len"] = eff_len
+    return out
+
+
+def bench_moe(device, *, cfg=None, batch: int = 1, seq: int = 4096, n_short: int = 2, n_long: int = 10,
+              reps: int = 3, stats: Optional[dict] = None) -> dict:
+    """Scatter vs one-hot-einsum MoE dispatch, fwd+bwd chains (bench.py's
+    ``bench_moe``): E=16, top-2, d 1024, ffn 4096, bf16 params, x
+    ``[batch, seq, d]``; each iteration steps the params by ``1e-6`` times
+    their gradients."""
+    from rayfed_tpu_torch.models import moe
+
+    cfg = cfg or moe.MoeConfig(num_experts=16, top_k=2, d_model=1024, d_ff=4096, capacity_factor=1.25)
+    stats = {} if stats is None else stats
+    params = {k: v.to(torch.bfloat16) for k, v in moe.init_moe(cfg, _gen(device, 0), device=device).items()}
+    x = torch.randn((batch, seq, cfg.d_model), generator=_gen(device, 1), device=device).to(torch.bfloat16)
+
+    def timed(mode):
+        def step(p):
+            leaves = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+            loss = (moe.apply_moe(leaves, x, cfg, dispatch=mode).float() ** 2).sum()
+            grads = torch.autograd.grad(loss, tuple(leaves.values()))
+            return {k: v - 1e-6 * g.to(v.dtype) for (k, v), g in zip(p.items(), grads)}
+
+        t, stats[mode] = _grad_chain_slope(device, step, lambda: params, n_short, n_long, reps)
+        return t
+
+    _log(f"  moe scatter/einsum chains (T={seq}, E={cfg.num_experts})...")
+    scatter_t = timed("scatter")
+    einsum_t = timed("einsum")
+    return {
+        "moe_scatter_ms": round(scatter_t * 1e3, 2),
+        "moe_einsum_ms": round(einsum_t * 1e3, 2),
+        "moe_scatter_speedup": round(einsum_t / scatter_t, 3),
+    }
+
+
+# (section, what it runs, leg), in bench.py's compute order.
+COMPUTE_LEGS = (
+    ("llama_train", "1.07B Llama full-param Adam (B=2, T=2048, flash, remat dots) and its MFU breakdown",
+     bench_llama),
+    ("decode", "1.07B Llama KV-cache greedy decode (bf16, int8 weights, long context, int8 KV)", bench_decode),
+    ("flash", "flash vs dense attention fwd+bwd chains (T=2048, T=4096, window 1024)", bench_flash),
+    ("lora_8b", "Llama-3-8B int8-base LoRA step and 8B int8 decode", bench_lora_8b),
+    ("moe", "MoE scatter vs einsum dispatch fwd+bwd (T=4096, E=16)", bench_moe),
+)
+COMPUTE_LEG_NAMES = tuple(name for name, _, _ in COMPUTE_LEGS)
+
+
+def _env_keys(device) -> dict:
+    """The reference's environment fingerprint, the device kind included."""
+    import platform
+
+    env: Dict[str, Any] = {"env_cpu_count": os.cpu_count()}
+    try:
+        env["env_loadavg_1m"] = round(os.getloadavg()[0], 2)
+    except OSError:  # pragma: no cover
+        env["env_loadavg_1m"] = None
+    env["env_platform"] = platform.machine()
+    env["env_device_kind"] = _device_kind(device)
+    return env
+
+
+def run_compute(device: str = "cuda", stats: Optional[dict] = None, legs=COMPUTE_LEG_NAMES,
+                leg_kw: Optional[dict] = None) -> dict:
+    """bench.py's compute section on ``device``, every leg of ``legs`` in its
+    order in this process.  Returns the record ``bench.py --compute-only``
+    prints (a failed leg's ``{leg}_error`` in it).  ``leg_kw[leg]`` are
+    keyword arguments of that leg (sizes, counts; the reference's by
+    default).  ``stats``, when given, gets ``stats[leg]``: the leg's wall
+    ``s``, its kernel ``launches``, its ``peak_bytes`` on the card (None on
+    the CPU) and what the leg recorded (the train legs' ``train_steps`` and
+    ``train_launches``, the timed runs' slopes).  Raises before any leg when
+    the card is asked for and there is none."""
+    _check_device(device)
+    on_card = torch.device(device).type == "cuda"
+    extra = _env_keys(device)
+    for name, msg, leg in COMPUTE_LEGS:
+        if name not in legs:
+            continue
+        leg_stats: dict = {}
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(device)
+        before = _launches()
+        t0 = time.perf_counter()
+        with _section(extra, name):
+            _log(f"{msg} on {device}...")
+            extra.update(leg(device, stats=leg_stats, **(leg_kw or {}).get(name, {})))
+        _sync(device)
+        wall = time.perf_counter() - t0
+        after = _launches()
+        leg_stats.update(s=wall, launches={k: after[k] - before[k] for k in after},
+                         peak_bytes=torch.cuda.max_memory_allocated(device) if on_card else None)
+        _log(f"  {name}: {wall:.1f} s, " + json.dumps({k: v for k, v in leg_stats.items() if k != "s"}))
+        if stats is not None:
+            stats[name] = leg_stats
+        if on_card:
+            torch.cuda.empty_cache()
+    record = {
+        "metric": "llama_tokens_per_sec",
+        "value": extra.get("llama_tokens_per_sec", 0.0),
+        "unit": "tokens/s",
+        "vs_baseline": 1.0,
+    }
+    record.update(extra)
+    # NaN is not valid JSON: null, as the reference's record.
+    return {k: (None if isinstance(v, float) and v != v else v) for k, v in record.items()}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--smoke", action="store_true", help="run the twelve smoke legs and their gates")
-    ap.add_argument("--device", default="cuda", help="the parties' device (default: the CUDA card)")
+    ap.add_argument("--compute-only", action="store_true", help="run the compute section's five legs")
+    ap.add_argument("--fed-only", action="store_true", help="the federated section (not ported yet)")
+    ap.add_argument("--device", default="cuda", help="the legs' device (default: the CUDA card)")
     args = ap.parse_args(argv)
-    if not args.smoke:
-        _log("bench_torch: only --smoke is implemented; the full bench comes with the first benchmark cells")
-        return 2
-    record, failed = run_smoke(args.device)
+    if args.fed_only and args.compute_only:
+        raise SystemExit("--fed-only and --compute-only are mutually exclusive")
+    if args.smoke:
+        return _smoke_main(args.device)
+    if args.compute_only:
+        record = run_compute(args.device)
+        print(json.dumps(record), flush=True)
+        errors = [k for k in record if k.endswith("_error")]
+        for name in errors:
+            _log(f"compute leg FAILED: {name}: {record[name]}")
+        return 1 if errors else 0
+    _log("bench_torch: only --smoke and --compute-only are implemented; the federated section "
+         "(--fed-only, or no mode flag) is not ported yet")
+    return 2
+
+
+def _smoke_main(device: str) -> int:
+    record, failed = run_smoke(device)
     print(json.dumps(record), flush=True)
     for gate in GATES:
         verdict = gate_passes(gate, record)

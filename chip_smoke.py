@@ -231,11 +231,12 @@ Phases, each fatal on failure:
      {fsdp: 2, tp: 2} at llama3_8b() width and 2 layers, logits against
      the unsharded forward (5% of max|logit|); (4) one MoE layer at Switch
      base-128's widths, B=8 T=512, ep=4, against the one-rank layer (1e-5).
-     Then two ranks, sp=2: (2) Llama-3-8B at full width and depth, a bf16
-     replica a rank, prefill of 8192 tokens and one LoRA step (rank 16 on
-     w[qv], remat, T=4096) through the zigzag ring, against one-card flash
-     (logits 5% of max|logit|, loss and adapter gradients 5% of max|g|);
-     prints each part's ms, each rank's peak memory and the backend;
+     Then two ranks, sp=2: (2) Llama-3-8B at full width and 8 of its 32
+     layers (``sp_layers``), a bf16 replica a rank, prefill of 8192 tokens
+     and one LoRA step (rank 16 on w[qv], remat, T=4096) through the zigzag
+     ring, against one-card flash (logits 5% of max|logit|, loss and adapter
+     gradients 5% of max|g|); prints each part's ms, each rank's peak memory
+     and the backend;
   18. (after 17) phase_pipeline: pipeline parallelism, one world of 4 rank
      processes on the card (gloo; every hop and the replicating broadcasts
      staged through pinned host buffers), Llama-3-8B at full width (random
@@ -277,6 +278,21 @@ Phases, each fatal on failure:
      party, no flash launch (dense attention, as the JAX examples) and no
      fold_fma launch (no example packs its contribution); prints each
      example's wall, its processes' run times, results and fold launches;
+  21. (after 20) phase_bench_smoke: ``bench_torch.py --smoke``'s twelve
+     legs in their spawned children with the parties on the card; fatal on
+     a leg's error, a missed exact gate, a flash launch, or no fold_fma
+     launch in a leg that folds floats; the timed gates are printed;
+  22. (after 21) phase_bench_compute: ``bench_torch.py --compute-only``'s
+     five legs in this process at the reference's widths, batches and
+     shapes (repetition counts in ``BENCH_COMPUTE_KW``): the ~1.07B Llama's
+     Adam step (B=2, T=2048, remat "dots") with its MFU breakdown, its
+     KV-cache decode (bf16, int8 weights, 1536-token context with the int8
+     cache), flash vs dense attention chains, Llama-3-8B's int8-base LoRA
+     step and int8 decode, MoE scatter vs einsum dispatch.  Checks: no leg
+     error, every value finite and positive, ``llama_mfu`` and every
+     ``*_membw_util`` at most 1.05, the flash launches of every leg that
+     reaches attention and 2L/L/L a train step; prints each leg's wall,
+     launches, peak memory and every key;
   7. time each kernel (mean over one window of calls) against its plain
      version, the library call that computes the same function, and the
      card's bound (the forward at the serving shape B=4 and at the training
@@ -4098,17 +4114,18 @@ def phase_checkpoint(federated, ckpt_root, cfg_name="llama3_8b", cfg_kw=None, tr
 # ---------------------------------------------------------------------------
 
 # The card's sizes and a CPU rehearsal's: (1) the ops at Llama-3-8B's
-# attention shape over 4 ranks; (2) Llama-3-8B at full width and depth under
-# sp=2 (prefill and one LoRA step through the zigzag ring); (3) TP/FSDP on a
-# {fsdp: 2, tp: 2} mesh at llama3_8b() width, 2 layers; (4) one MoE layer at
+# attention shape over 4 ranks; (2) Llama-3-8B at full width, cut to 8 layers
+# to keep the script in its time limit, under sp=2 (prefill and one LoRA step
+# through the zigzag ring); (3) TP/FSDP on a {fsdp: 2, tp: 2} mesh at
+# llama3_8b() width, 2 layers; (4) one MoE layer at
 # Switch Transformer base-128's widths (d_model 768, d_ff 3072, 128 experts,
 # top-1, capacity factor 1.25; the JAX layer's GELU) with ep=4.
 PAR_SIZES = {
     "cuda": dict(shape=(1, 16384, 32, 128), dtype=torch.bfloat16, llama="llama3_8b",
-                 llama_kw=dict(param_dtype=torch.bfloat16), prefill_len=8192, train_len=4096,
+                 llama_kw=dict(param_dtype=torch.bfloat16), sp_layers=8, prefill_len=8192, train_len=4096,
                  tp_len=1024, moe=dict(num_experts=128, top_k=1, capacity_factor=1.25, d_model=768,
                                        d_ff=3072), moe_batch=8, moe_len=512),
-    "cpu": dict(shape=(1, 64, 4, 16), dtype=torch.bfloat16, llama="llama_tiny", llama_kw={},
+    "cpu": dict(shape=(1, 64, 4, 16), dtype=torch.bfloat16, llama="llama_tiny", llama_kw={}, sp_layers=2,
                 prefill_len=64, train_len=32, tp_len=16,
                 moe=dict(num_experts=8, top_k=1, capacity_factor=1.25, d_model=16, d_ff=32),
                 moe_batch=2, moe_len=16),
@@ -4364,9 +4381,9 @@ def _par_world_ops(rank, dev, size):
 
 
 def _par_world_llama(rank, dev, size):
-    """World B (2 ranks, sp=2): Llama-3-8B at full width and depth, a bf16
-    replica on each rank; the zigzag ring's prefill and one LoRA step
-    against one-card flash on rank 0."""
+    """World B (2 ranks, sp=2): Llama-3-8B at full width and ``sp_layers``
+    layers, a bf16 replica on each rank; the zigzag ring's prefill and one
+    LoRA step against one-card flash on rank 0."""
     import torch.distributed as dist
 
     from rayfed_tpu_torch.ops import make_ring_attention
@@ -4376,7 +4393,7 @@ def _par_world_llama(rank, dev, size):
     torch.backends.cuda.matmul.allow_tf32 = False
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    cfg = getattr(llama, size["llama"])(**size["llama_kw"])
+    cfg = getattr(llama, size["llama"])(num_layers=size["sp_layers"], **size["llama_kw"])
     gen = torch.Generator(device=dev).manual_seed(SEED)
     t0 = time.perf_counter()
     params = llama.init_llama(cfg, gen, device=dev)
@@ -4506,13 +4523,13 @@ def _par_summary(world_a, world_b, size, on_card):
     _par_check(s0["finite"] and s0["gap"] <= LOGIT_REL_TOL * s0["span"],
                f"sp=2 prefill logits vs one card: {s0['gap']:.4e} over max|logit| {s0['span']:.4e}")
     _par_check(s0["cache_gap"] <= LOGIT_REL_TOL * s0["cache_span"], f"sp=2 prefill KV cache vs one card {s0['cache_gap']:.4e}")
-    layers = getattr(llama, size["llama"])().num_layers
+    layers = size["sp_layers"]
     per_layer = 2 * PAR_SP + 1
     want = per_layer * layers if on_card else 0
     _par_check(all(r["launches"] == {"fwd": want, "bwd_dq": 0, "bwd_dkv": 0} for r in serve),
                f"sp=2 prefill launches {[r['launches'] for r in serve]}, want {want} fwd")
     launches["sp_llama_serve"] = {k: sum(r["launches"][k] for r in serve) for k in ("fwd", "bwd_dq", "bwd_dkv")}
-    print(f"[parallel] (2) {size['llama']} sp={PAR_SP} zigzag prefill B=1 T={size['prefill_len']}: "
+    print(f"[parallel] (2) {size['llama']} at {layers} layers, sp={PAR_SP} zigzag prefill B=1 T={size['prefill_len']}: "
           f"{max(r['ms'] for r in serve):.1f} ms; last logits vs one-card flash max_abs_diff={s0['gap']:.4e} "
           f"max|logit|={s0['span']:.4e} (tol {LOGIT_REL_TOL:g}*max|logit|), last layer's K cache "
           f"{s0['cache_gap']:.4e} of max {s0['cache_span']:.4e}; KV cache {s0['cache_gb']:.3f} GB a rank; "
@@ -4532,7 +4549,7 @@ def _par_summary(world_a, world_b, size, on_card):
     want = want if on_card else {k: 0 for k in want}
     _par_check(all(r["launches"] == want for r in train), f"sp=2 LoRA step launches {[r['launches'] for r in train]}, want {want}")
     launches["sp_llama_train"] = {k: sum(r["launches"][k] for r in train) for k in ("fwd", "bwd_dq", "bwd_dkv")}
-    print(f"[parallel] (2) {size['llama']} sp={PAR_SP} LoRA step (rank {LORA_RANK} w[qv], remat) B=1 "
+    print(f"[parallel] (2) {size['llama']} at {layers} layers, sp={PAR_SP} LoRA step (rank {LORA_RANK} w[qv], remat) B=1 "
           f"T={size['train_len']}: {max(r['ms'] for r in train):.1f} ms; loss {t0_['loss']:.6f} vs one-card flash "
           f"{t0_['ref_loss']:.6f}; worst adapter gradient gap {worst:.4f} of max|g| (tol {GRAD_REL_TOL:g}); "
           f"launches per rank {train[0]['launches']}; staged {t0_['staged_mb']:.1f} MB (rank 0)")
@@ -5382,6 +5399,96 @@ def phase_bench_smoke(device=None):
             "misses": misses, "leg_s": {leg: st["s"] for leg, st in stats.items()}}
 
 
+# -- bench_torch.py --compute-only: the reference bench's compute section ------
+
+# Flash launches a train step makes, as the code gives them: llama_train's
+# remat_policy="dots" keeps the weight products and replays the rest of each
+# layer in the backward, attention included (the forward twice a layer), and
+# lora_8b's full remat replays the whole layer; dQ and dK/dV run once a layer.
+BENCH_TRAIN_LAYERS = {"llama_train": 16, "lora_8b": 32}
+# Legs whose path launches the flash forward (decode: the prefills), and
+# those that launch the backward kernels too.
+BENCH_FWD_LEGS = ("llama_train", "decode", "flash", "lora_8b")
+BENCH_BWD_LEGS = ("llama_train", "flash", "lora_8b")
+# A share over 1 is a count error, not a fast card.
+BENCH_SHARE_MAX = 1.05
+# Repetition counts this script passes to the legs, cut to fit the script's
+# time limit (bench_torch.py --compute-only keeps the reference's: 333 s of
+# legs on an H100 80GB HBM3 at 700 W, PERF.md); widths, batches, sequence
+# lengths and shapes stay the reference's, and every n_long is at least
+# n_short + 4.
+BENCH_COMPUTE_KW = {
+    "llama_train": dict(n_long=6, probe_n={"attn": (8, 128), "matmul": (4, 32), "head": (4, 16), "adam": (4, 8),
+                                           "norms_rope": (4, 32), "remat": (4, 32)}),
+    "decode": dict(n_long=24, n_long_long=24, reps=1),
+    "flash": dict(n_long=16, n_long_t4096=12, reps=1),
+    "lora_8b": dict(decode_long=24, reps=1),
+}
+
+
+def _train_step_launches(layers):
+    return {"flash_fwd": 2 * layers, "flash_bwd_dq": layers, "flash_bwd_dkv": layers}
+
+
+def phase_bench_compute(device=None):
+    """``bench_torch.run_compute``: the five legs of ``bench.py
+    --compute-only`` in this process (the ~1.07B Llama's Adam step and its
+    MFU breakdown, its decode, flash vs dense attention, Llama-3-8B's int8
+    LoRA step and decode, MoE dispatch), with ``BENCH_COMPUTE_KW``'s counts.
+    Fatal: a leg's error; a non-finite or non-positive value; ``llama_mfu``
+    or a ``*_membw_util`` over ``BENCH_SHARE_MAX``; no flash forward launch
+    in a leg of BENCH_FWD_LEGS, no dQ or dK/dV launch in one of
+    BENCH_BWD_LEGS; a train leg's launches other than
+    ``_train_step_launches`` a step.  ``device="cpu"`` rehearses it (the
+    launch checks expect 0).  The record and each leg's stats are written to
+    chiprun_out/bench_compute.json."""
+    import bench_torch
+
+    dev = "cuda" if device is None else device
+    on_card = dev != "cpu"
+    t0 = time.perf_counter()
+    stats = {}
+    record = bench_torch.run_compute(dev, stats, leg_kw=BENCH_COMPUTE_KW)
+    wall = time.perf_counter() - t0
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "bench_compute.json"), "w") as f:
+        json.dump({"record": record, "stats": stats, "leg_kw": BENCH_COMPUTE_KW}, f, indent=1, default=repr)
+    for leg, st in stats.items():
+        peak = "n/a" if st["peak_bytes"] is None else f"{st['peak_bytes'] / 1e9:.2f} GB"
+        flash = {k: v for k, v in st["launches"].items() if k.startswith("flash_")}
+        print(f"[bench_compute] {leg}: {st['s']:.1f} s, flash launches {flash}, peak {peak}")
+    for key, value in record.items():
+        print(f"[bench_compute] {key}: {value!r}")
+    failures = [f"{k}: {record[k]}" for k in record if k.endswith("_error")]
+    for key, value in record.items():
+        if key.endswith("_error") or key.startswith("env_") or key in ("metric", "unit", "vs_baseline"):
+            continue
+        if not (isinstance(value, (int, float)) and math.isfinite(value) and value > 0):
+            failures.append(f"{key}={value!r} is not finite and positive")
+        elif (key == "llama_mfu" or key.endswith("_membw_util")) and value > BENCH_SHARE_MAX:
+            failures.append(f"{key}={value} over {BENCH_SHARE_MAX}: a count error")
+    expect = 1 if on_card else 0
+    for leg, st in stats.items():
+        got = st["launches"]
+        if leg in BENCH_FWD_LEGS and (got["flash_fwd"] > 0) != bool(expect):
+            failures.append(f"{leg}: flash forward launches {got['flash_fwd']}")
+        if leg in BENCH_BWD_LEGS and any((got[k] > 0) != bool(expect) for k in ("flash_bwd_dq", "flash_bwd_dkv")):
+            failures.append(f"{leg}: backward launches {got}")
+        if leg in BENCH_TRAIN_LAYERS:
+            want = {k: n * st["train_steps"] * expect
+                    for k, n in _train_step_launches(BENCH_TRAIN_LAYERS[leg]).items()}
+            print(f"[bench_compute] {leg}: {st['train_steps']} train steps launched {st['train_launches']} "
+                  f"(want {want})")
+            if st["train_launches"] != want:
+                failures.append(f"{leg}: train steps launched {st['train_launches']}, want {want}")
+    launches = {k: sum(st["launches"].get(k, 0) for st in stats.values())
+                for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "fold_fma")}
+    print(f"[bench_compute] five legs on {dev} in {wall:.1f} s; launches {launches}")
+    if failures:
+        raise AssertionError("phase_bench_compute: " + "; ".join(failures))
+    return {"s": wall, "record": record, "stats": stats, "launches": launches}
+
+
 def _timed(walls, fn, *args, **kw):
     """Run one phase and print its wall."""
     t0 = time.perf_counter()
@@ -5439,6 +5546,7 @@ def main() -> int:
     party = _timed(walls, phase_party_processes)
     examples = _timed(walls, phase_examples)
     bench = _timed(walls, phase_bench_smoke)
+    bench_c = _timed(walls, phase_bench_compute)
     ckpt_llama, ckpt_resnet = ckpt["llama"]["launches"], ckpt["quorum"]["flash_launches"]
     overlap = {k: sum(federated[part]["launches"][k] for part in OVERLAP_PARTS)
                for k in ("fwd", "bwd_dq", "bwd_dkv")}
@@ -5509,7 +5617,9 @@ def main() -> int:
                              # phase_examples: every process of the seven examples
                              "examples": examples["flash_launches"]["fwd"],
                              # phase_bench_smoke: every child of the twelve legs
-                             "bench_smoke": bench["flash_launches"]["fwd"]},
+                             "bench_smoke": bench["flash_launches"]["fwd"],
+                             # phase_bench_compute: the five legs, this process
+                             "bench_compute": bench_c["launches"]["flash_fwd"]},
         "bert_shape": bert_times["fwd"],  # bert_base's attention on the split path
         "max_abs_err": slice_err,
         **times,
@@ -5548,7 +5658,9 @@ def main() -> int:
                              # phase_examples: every process of the seven examples
                              "examples": examples["flash_launches"]["bwd_dq"],
                              # phase_bench_smoke: every child of the twelve legs
-                             "bench_smoke": bench["flash_launches"]["bwd_dq"]},
+                             "bench_smoke": bench["flash_launches"]["bwd_dq"],
+                             # phase_bench_compute: the five legs, this process
+                             "bench_compute": bench_c["launches"]["flash_bwd_dq"]},
         "bert_shape": bert_times["dq"],  # bert_base's attention on the split path
         "max_abs_err": bwd_err["dq"],
         **bwd_times["dq"],
@@ -5586,7 +5698,9 @@ def main() -> int:
                              # phase_examples: every process of the seven examples
                              "examples": examples["flash_launches"]["bwd_dkv"],
                              # phase_bench_smoke: every child of the twelve legs
-                             "bench_smoke": bench["flash_launches"]["bwd_dkv"]},
+                             "bench_smoke": bench["flash_launches"]["bwd_dkv"],
+                             # phase_bench_compute: the five legs, this process
+                             "bench_compute": bench_c["launches"]["flash_bwd_dkv"]},
         "bert_shape": bert_times["dkv"],  # bert_base's attention on the split path
         "max_abs_err": bwd_err["dkv"],
         **bwd_times["dkv"],
@@ -5631,7 +5745,9 @@ def main() -> int:
                              "examples": examples["fold_launches"],
                              # every child of bench_torch.py --smoke's legs: the
                              # float folds, the server step and resync
-                             "bench_smoke": bench["fold_launches"]},
+                             "bench_smoke": bench["fold_launches"],
+                             # the compute legs pack no contribution
+                             "bench_compute": bench_c["launches"]["fold_fma"]},
         **fold_times["adapters"],  # one contribution of the round's packed adapters
         "wq_shape": fold_times["wq"],
         # The same kernel as the server step's fused multiply-adds: FedAC at
