@@ -360,7 +360,7 @@ def _run_compressed_agg_bench(_party: str, result_q, device) -> None:
     padded = [torch.cat([c, c.new_zeros(pad)]) for c in codes]
     sc_rows = torch.from_numpy(grid.scales).to(device)
     zp_rows = torch.from_numpy(grid.zps).to(device)
-    one = torch.ones((), dtype=torch.float32, device=device)
+    one = 1.0  # the fold's weight: a host number, passed to the kernel by value
 
     # Fold-only timing; 6 passes over every contribution per sample.
     fold_passes = 6
@@ -1599,8 +1599,7 @@ def _run_chaos_party(party: str, result_q, device, cluster) -> None:
         packed_weighted_sum([packed] * n, None)
     dga_correct(packed, packed, packed)
     acc = torch.zeros(DEFAULT_CHUNK_ELEMS, dtype=torch.float32, device=device)
-    _fold_block(acc, 0, torch.zeros(DEFAULT_CHUNK_ELEMS, dtype=torch.float32, device=device),
-                torch.ones((), dtype=torch.float32, device=device))
+    _fold_block(acc, 0, torch.zeros(DEFAULT_CHUNK_ELEMS, dtype=torch.float32, device=device), 1.0)
     finalize_packed_stripe(acc, 2.0, dim, torch.float32)
     _sync(device)
 

@@ -68,21 +68,30 @@ Phases, each fatal on failure:
      byte for byte to the DGA recurrence replayed on the card from each
      party's recorded step outputs; prints each part's walls beside the
      synchronous rounds';
-  6. the fold alone, before the party processes start: 2 contributions at
+  6. the fold alone, before the party processes start: first every form
+     of the fold kernel against its plain version on the card, byte for
+     byte (the step and the pair at lengths 1, 7, 8 and 2^21+3 with the
+     operands at element offsets 0-7; the chain of 1, 2, 3, 4 and 9
+     operands, bf16 and f32 wire and output, three weight sets; the rows
+     form at the codec's block shapes); then 2 contributions at
      the adapters' size and 4 at the stacked wq's (536.9e6 bf16 elements),
      from the seed, fed through a CUDA ``StreamingAggregator``'s sinks in
      512 KiB pieces in a shuffled interleaving (one added as the local
      contribution); its result, and the one-shot fold on the card, must
-     equal the CPU fold byte for byte, weights 3/5/7/11 and None; prints
-     the fold's device ms per contribution, the H2D ms of a contribution,
-     the finalize and error-feedback ms, and the fold's GB/s against HBM;
-     the fold kernel (one __fmaf_rn per element) is held byte for byte
-     against its plain version on the card and timed beside it and
-     addcmul_, and counted on the round path (alice's folds).
+     equal the CPU fold byte for byte, weights 3/5/7/11 and None, the
+     one-shot fold in exactly one launch (the chain) and each streamed
+     contribution in one launch a run of blocks; prints the fold's device
+     ms per contribution as one run and block by block, a block launch's
+     host and device µs, the one-shot fold against 2n+2 B/element, the H2D
+     ms of a contribution, the finalize and error-feedback ms, and the
+     fold's GB/s against HBM, beside addcmul_; the fold kernel is counted
+     on the round path (alice's folds, by form).
      The same for the compressed-domain fold (uint8 codes on one grid,
      folded in i32, streamed and one-shot): the i32 accumulator and the
      finalized f32 must equal the CPU's byte for byte; prints the i32 fold,
-     finalize, quantize and dequantize device ms beside their bounds;
+     finalize, quantize and dequantize device ms beside their bounds.  This
+     part and the round session (5) run with the plain ``ops.fold.fma``
+     raising on a CUDA tensor: the codec's FMAs take the kernel's rows form;
   8. (after 4) the int8 serving path: Llama-3-8B on an int8 base
      (``init_llama_int8``), the int8 KV cache and a 1024-token sliding
      window, 4 prompts of 2048 tokens through the flash prefill (32
@@ -1167,13 +1176,149 @@ def _event_ms(fn):
     return start.elapsed_time(end)
 
 
+class _PlainFmaOff:
+    """Within: ``ops.fold.fma``, the fold kernel's plain arithmetic, raises
+    on a CUDA tensor, in every module that bound it (the fold's plain
+    versions, the codec, the finalize's tail), so a run inside shows that no
+    path of the card took it.  CPU tensors pass, for the comparisons."""
+
+    BOUND = (("rayfed_tpu_torch.ops.fold", "fma"), ("rayfed_tpu_torch.fl.quantize", "_fma"),
+             ("rayfed_tpu_torch.ops.xla_cpu", "fma"))
+
+    def __enter__(self):
+        import importlib
+
+        self.saved = []
+        for name, attr in self.BOUND:
+            mod = importlib.import_module(name)
+            orig = getattr(mod, attr)
+
+            def guard(a, b, c, out=None, _orig=orig):
+                if any(isinstance(t, torch.Tensor) and t.is_cuda for t in (a, b, c, out)):
+                    raise AssertionError("the fold's plain fma ran on a CUDA tensor")
+                return _orig(a, b, c, out=out)
+
+            setattr(mod, attr, guard)
+            self.saved.append((mod, attr, orig))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, orig in self.saved:
+            setattr(mod, attr, orig)
+        return False
+
+
+def _at(t, off):
+    """``t`` as a view that starts ``off`` elements into a fresh buffer (an
+    operand at any element offset, as a chunk of a wire frame is)."""
+    buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    view = buf[off:off + t.numel()]
+    view.copy_(t)
+    return view
+
+
+def _edges(n, gen):
+    """Standard normals on the card with signed zeros, subnormals, small
+    integers and ties mixed in."""
+    x = torch.randn(n, generator=gen, device="cuda")
+    edge = torch.tensor([0.0, -0.0, 1e-40, -3e-39, 1.0, -2.0, 2.0 ** -126, 3.0], device="cuda")
+    x[: min(n, 8)] = edge[: min(n, 8)]
+    return x
+
+
+# The forms held against their plain versions: lengths and element offsets
+# of the step and the pair, operand counts, wire and output types and
+# weights of the chain (9 is past fold.MAX_OPS), and the rows form at the
+# codec's block shapes (whole 2^21-element blocks, a short last block, the
+# finalize tail's rows of one).
+FORM_LENGTHS = (1, 7, 8, (1 << 21) + 3)
+FORM_CHAIN_K = (1, 2, 3, 4, 9)
+FORM_CHAIN_WEIGHTS = (None, (3, 5, 7, 11, 13, 2, 9, 4, 6), (1.7, 2.3, 0.9, 4.1, 0.3, 1.1, 2.9, 0.7, 3.3))
+FORM_ROWS = ((3, 1 << 21), (1, 1_048_579), (4, 1))
+
+
+def _fold_forms_vs_plain(gen):
+    """Every form of ``csrc/fold_fma.cu`` against its plain version on the
+    same card inputs, byte for byte; returns the largest |difference| (0
+    when all hold) and the number of cases."""
+    worst, cases = 0.0, 0
+
+    def same(got, want, what):
+        nonlocal worst, cases
+        cases += 1
+        if not torch.equal(_raw(got), _raw(want)):
+            err = (got.float() - want.float()).abs().max().item()
+            worst = max(worst, err)
+            raise AssertionError(f"[fold forms] {what}: the kernel differs from its plain version (max |d| {err})")
+
+    for wire in (torch.bfloat16, torch.float32):
+        for n in FORM_LENGTHS:
+            for off in range(8):
+                x = _at(_edges(n, gen).to(wire), (off + 3) % 8)
+                y = _at(_edges(n, gen).to(wire), off)
+                acc = _at(_edges(n, gen), off)
+                want = fold.step_plain(acc.clone(), 2.3, x)
+                same(fold.fold_fma_(acc, 2.3, x), want, f"step {wire} n={n} offset {off}")
+                same(fold.fold_fma_pair(-0.7, x, 1.9, y), fold.pair_plain(-0.7, x, 1.9, y),
+                     f"pair {wire} n={n} offset {off}")
+        for out in (torch.bfloat16, torch.float32):
+            for k in FORM_CHAIN_K:
+                xs = [_at(_edges(FORM_LENGTHS[-1], gen).to(wire), i % 8) for i in range(k)]
+                for weights in FORM_CHAIN_WEIGHTS:
+                    ws = [1.0] * k if weights is None else list(weights[:k])
+                    before = fold.fold_fma_.by_form["chain"]
+                    got = fold.fold_chain(xs, ws, float(sum(ws)), out)
+                    if fold.fold_fma_.by_form["chain"] - before != -(-k // fold.MAX_OPS):
+                        raise AssertionError(f"[fold forms] chain of {k}: "
+                                             f"{fold.fold_fma_.by_form['chain'] - before} launches")
+                    same(got, fold.chain_plain(xs, ws, float(sum(ws)), out),
+                         f"chain k={k} {wire} -> {out} weights {weights and weights[:k]}")
+                del xs
+    for rows, width in FORM_ROWS:
+        c = _edges(rows * width, gen).reshape(rows, width)
+        sc = torch.rand(rows, 1, generator=gen, device="cuda") * 1e-2
+        zp = torch.round(torch.randn(rows, 1, generator=gen, device="cuda") * 100)
+        codes = torch.randint(0, 256, (rows, width), generator=gen, device="cuda", dtype=torch.uint8)
+        for b in (codes, codes.float()):
+            for negate in (False, True):
+                for z in (zp, None):
+                    same(fold.fma_rows(sc, b, c, z, negate=negate), fold.rows_plain(sc, b, c, z, negate=negate),
+                         f"rows [{rows}, {width}] {b.dtype} negate {negate} zp {z is not None}")
+    torch.cuda.synchronize()
+    return worst, cases
+
+
+def _launch_device_us(fn, calls=20):
+    """Device µs per launch of ``fn``: the launches are queued behind a spin
+    of the card, so the events around them time the card's work and not the
+    host's enqueue."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)  # ~25 ms: longer than enqueueing the calls
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls * 1e3
+
+
 def phase_fold(gen, card):
-    """The streaming fold on the card against the CPU fold, and its times."""
+    """The streaming fold on the card against the CPU fold, every form of
+    the fold kernel against its plain version, and their times."""
     import random
 
     _, (_, hbm) = _peaks(card)
     rng = random.Random(SEED)
     times = {}
+    t0 = time.perf_counter()
+    forms_err, forms_cases = _fold_forms_vs_plain(gen)
+    print(f"[fold forms] step and pair at lengths {FORM_LENGTHS} and element offsets 0-7, chain of "
+          f"{FORM_CHAIN_K} operands (bf16 and f32 wire and output, weights 1s, integers, fractions; "
+          f"fold.MAX_OPS {fold.MAX_OPS} a launch), rows at {FORM_ROWS} (uint8 and f32 b, either sign, with and "
+          f"without the zero point): {forms_cases} cases byte-equal to their plain versions on the card "
+          f"in {time.perf_counter() - t0:.1f} s")
     for name, n, elems in FOLD_SIZES:
         cpu = []
         for _ in range(n):
@@ -1187,24 +1332,29 @@ def phase_fold(gen, card):
         ce = fedavg.DEFAULT_CHUNK_ELEMS
         blocks = _cpu_blocks(elems, ce)
         cpu_ref = [fl.pack_tree({"w": _take_blocks(p.buf, blocks, ce)}) for p in cpu]
+        launches = {}
         for weights in (list(FOLD_WEIGHTS[:n]), None):
             tag = "/".join(map(str, weights)) if weights else "None"
             t0 = time.perf_counter()
             plain = fl.packed_weighted_sum(cpu_ref, weights)
             cpu_s = time.perf_counter() - t0
             held = []
+            fold.reset_launches()
             one_shot_ms = _event_ms(lambda: held.append(fl.packed_weighted_sum(on_card, weights)))
             one_shot = held.pop()
+            launches["one_shot"] = dict(fold.fold_fma_.by_form)
             local = rng.randrange(n)
             order = [i for i in range(n) if i != local]
             agg = streaming.StreamingAggregator(n, weights=weights, device="cuda")
             torch.cuda.synchronize()
+            fold.reset_launches()
             t0 = time.perf_counter()
             agg.add_local(local, on_card[local])
             _feed_interleaved(agg, payloads, order, rng)
             got = agg.result(timeout=600)
             torch.cuda.synchronize()
             stream_s = time.perf_counter() - t0
+            launches["streamed"] = dict(fold.fold_fma_.by_form)
             n_cpu = plain.buf.numel()
             want = _raw(plain.buf)
             same = {"streamed": torch.equal(_raw(_take_blocks(got.buf, blocks, ce)), want),
@@ -1212,47 +1362,84 @@ def phase_fold(gen, card):
                     "streamed_vs_one_shot": torch.equal(got.buf.view(torch.int16), one_shot.buf.view(torch.int16))}
             print(f"[fold] {name}: {n} x {elems} bf16, weights {tag}, local {local}, arrivals {order} in "
                   f"{FOLD_PIECE // 1024} KiB pieces: streamed on cuda {stream_s * 1e3:.1f} ms wall "
-                  f"(stats {json.dumps({k: v for k, v in agg.stats.items() if k.startswith('agg_')})}), "
-                  f"one-shot on cuda {one_shot_ms:.3f} ms, CPU fold over {n_cpu} elements in {len(blocks)} "
-                  f"blocks of {ce} ({blocks[0]}..{blocks[-1]}) "
+                  f"(stats {json.dumps({k: v for k, v in agg.stats.items() if k.startswith('agg_')})}; "
+                  f"{launches['streamed']['step']} step launches for {n} contributions of "
+                  f"{-(-elems // ce)} blocks, one a run), one-shot on cuda {one_shot_ms:.3f} ms cold "
+                  f"({launches['one_shot']['chain']} chain launch, {sum(launches['one_shot'].values())} in all), "
+                  f"CPU fold over {n_cpu} elements in {len(blocks)} blocks of {ce} ({blocks[0]}..{blocks[-1]}) "
                   f"{cpu_s * 1e3:.1f} ms; byte-equal to the CPU fold there, and streamed to one-shot "
                   f"throughout: {same}")
             if not all(same.values()) or got.buf.device.type != "cuda":
                 raise AssertionError(f"fold {name} weights {tag}: the card's fold differs from the CPU fold")
+            if launches["one_shot"] != {"step": 0, "pair": 0, "chain": 1, "rows": 0}:
+                raise AssertionError(f"fold {name}: the one-shot fold of {n} made {launches['one_shot']} launches")
+            if not n <= launches["streamed"]["step"] <= n * -(-elems // ce) or sum(launches["streamed"].values()) \
+                    != launches["streamed"]["step"]:
+                raise AssertionError(f"fold {name}: the streamed fold made {launches['streamed']} launches")
             del plain, one_shot, got, agg
         # Device times of the pieces: one contribution's H2D (pinned), its
-        # fold (one exactly rounded FMA per 2^21-element block), the finalize, and
-        # the error-feedback step over the same elements in f32.
+        # fold block by block (one launch a 2^21-element block, as before
+        # the run fold) and as one run (one launch), the host's and the
+        # card's share of a block's launch, the one-shot fold, the finalize,
+        # and the error-feedback step over the same elements in f32.
         pinned = cpu[0].buf.pin_memory()
         h2d_ms = _event_ms(lambda: pinned.to("cuda", non_blocking=True))
         acc = torch.zeros(elems, dtype=torch.float32, device="cuda")
-        w = fedavg.f32_scalar(3.0, acc.device)
+        w = 3.0
         src = on_card[0].buf
 
         def fold_one():
             for off in range(0, elems, ce):
                 streaming._fold_block(acc, off, src[off:off + ce], w)
 
+        def run_one():
+            streaming._fold_block(acc, 0, src, w)
+
         def plain_one():  # the kernel's plain version, block by block on the card
             for off in range(0, elems, ce):
-                seg = acc[off:off + ce]
-                fold.fma(w, src[off:off + ce].float(), seg, out=seg)
+                fold.step_plain(acc[off:off + ce], w, src[off:off + ce])
 
         # The kernel against its plain version on the same inputs, at the
-        # round's blocks (2^21 elements, the last one short), byte for byte.
+        # round's blocks (2^21 elements, the last one short) and as one
+        # run, byte for byte.
         before = acc.clone()
         plain_one()
         want = acc.clone()
-        acc.copy_(before)
-        fold_one()
+        for fn in (fold_one, run_one):
+            acc.copy_(before)
+            fn()
+            if not torch.equal(acc.view(torch.int32), want.view(torch.int32)):
+                raise AssertionError(f"fold {name}: the kernel's bytes differ from its plain version's")
         fold_err = (acc - want).abs().max().item()
-        if not torch.equal(acc.view(torch.int32), want.view(torch.int32)):
-            raise AssertionError(f"fold {name}: the kernel's bytes differ from its plain version's")
         del before, want
-        fold_ms = _event_ms(fold_one)
+        fold_ms = _sync_ms(fold_one, 3, warmup=1)
+        run_ms = _sync_ms(run_one, 10)
         plain_ms = _event_ms(plain_one)
-        acc.addcmul_(src, w)  # warm: its first call costs more than the fold
-        library_ms = _event_ms(lambda: acc.addcmul_(src, w))
+        block, block_acc = src[:ce], acc[:ce]
+        host_us = _host_us(lambda: fold.fold_fma_(block_acc, w, block))
+        host_us_block = _host_us(lambda: streaming._fold_block(acc, 0, block, w))
+        device_us = _launch_device_us(lambda: fold.fold_fma_(block_acc, w, block))
+        wt = torch.full((), w, device="cuda")
+        library_ms = _sync_ms(lambda: acc.addcmul_(src, wt), 10)
+        # The streamed path's staging of payload bytes onto the card (one
+        # fresh pinned block, a copy into it, the H2D enqueued), host ms,
+        # for one 2^21-element block and for the whole contribution as one
+        # run, each until the card has the bytes.
+        stager = streaming.StreamingAggregator(1, device="cuda")
+        stager._total_elems = elems
+        raw = memoryview(cpu[0].buf.view(torch.uint8).numpy())
+        snap = (None, raw, torch.bfloat16, 2, 0)
+        stager._run_elems(snap, 0, 1)
+        stage_ms = {}
+        for what, hi in (("block", 1), ("run", -(-elems // ce))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            staged = stager._run_elems(snap, 0, hi)
+            torch.cuda.synchronize()
+            stage_ms[what] = (time.perf_counter() - t0) * 1e3
+            del staged
+        del stager, raw, snap
+        one_shot_warm_ms = _sync_ms(lambda: fl.packed_weighted_sum(on_card, list(FOLD_WEIGHTS[:n])), 3, warmup=1)
         fin_ms = _event_ms(lambda: fedavg.finalize_packed_stripe(acc, 26.0, elems, "bfloat16"))
         ef = fl.ErrorFeedback()
         tree32 = {"w": acc}
@@ -1260,19 +1447,32 @@ def phase_fold(gen, card):
         ef_ms = _event_ms(lambda: ef.compress(tree32))
         fold_bytes = elems * (2 + 4 + 4)  # read the bf16 block, read and write the f32 slice
         bound_ms = fold_bytes / hbm * 1e3
-        times[name] = dict(ms=fold_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
-                           library_ms=library_ms, max_abs_err=fold_err, elems=elems,
-                           bound_share=bound_ms / fold_ms)
-        print(f"[fold] {name}: per contribution on the card: fold kernel {fold_ms:.3f} ms "
-              f"({fold_bytes / fold_ms / 1e6:.1f} GB/s; bound {bound_ms:.3f} ms at {hbm / 1e12:.2f} TB/s, "
-              f"{bound_ms / fold_ms:.3f} of it; byte-equal to its plain version, {plain_ms:.3f} ms; "
-              f"addcmul_ {library_ms:.3f} ms), H2D of its {elems * 2 / 1e6:.2f} MB from pinned memory "
-              f"{h2d_ms:.3f} ms ({elems * 2 / h2d_ms / 1e6:.1f} GB/s); finalize {fin_ms:.3f} ms; "
-              f"error-feedback step (f32 in, bf16 out) {ef_ms:.3f} ms; encode of the payloads "
-              f"{encode_s * 1e3:.1f} ms")
-        del cpu, cpu_ref, on_card, payloads, pinned, acc, src, ef, tree32
+        one_shot_bytes = elems * (2 * n + 2)  # each bf16 contribution read once, the bf16 mean written
+        one_shot_bound_ms = one_shot_bytes / hbm * 1e3
+        block_bound_us = ce * 10 / hbm * 1e6
+        times[name] = dict(ms=run_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+                           library_ms=library_ms, max_abs_err=max(fold_err, forms_err), elems=elems,
+                           bound_share=bound_ms / run_ms, per_block_ms=fold_ms, host_us=host_us,
+                           host_us_block=host_us_block, device_us=device_us, block_bound_us=block_bound_us,
+                           one_shot_ms=one_shot_warm_ms, one_shot_bound_ms=one_shot_bound_ms, one_shot_n=n,
+                           phase_launches=launches, form_cases=forms_cases, stage_ms=stage_ms)
+        print(f"[fold] {name}: per contribution on the card: one run (one launch) {run_ms:.4f} ms "
+              f"({fold_bytes / run_ms / 1e6:.1f} GB/s; bound {bound_ms:.4f} ms at {hbm / 1e12:.2f} TB/s, "
+              f"{bound_ms / run_ms:.3f} of it); block by block ({-(-elems // ce)} launches) {fold_ms:.4f} ms "
+              f"({bound_ms / fold_ms:.3f} of the bound); byte-equal to its plain version, {plain_ms:.3f} ms; "
+              f"addcmul_ {library_ms:.4f} ms; a 2^21-element block's launch: host {host_us:.2f} us "
+              f"(through _fold_block {host_us_block:.2f} us), card {device_us:.2f} us (bound "
+              f"{block_bound_us:.2f} us); one-shot fold of {n} {one_shot_warm_ms:.4f} ms warm (bound "
+              f"{one_shot_bound_ms:.4f} ms at 2n+2 = {2 * n + 2} B/elem, {one_shot_bound_ms / one_shot_warm_ms:.3f} "
+              f"of it); staging payload bytes on the card through a fresh pinned block, host: a block "
+              f"{stage_ms['block']:.3f} ms, the contribution as one run {stage_ms['run']:.3f} ms; "
+              f"H2D of its {elems * 2 / 1e6:.2f} MB from pinned memory {h2d_ms:.3f} ms "
+              f"({elems * 2 / h2d_ms / 1e6:.1f} GB/s); finalize {fin_ms:.3f} ms; error-feedback step (f32 in, "
+              f"bf16 out) {ef_ms:.3f} ms; encode of the payloads {encode_s * 1e3:.1f} ms")
+        del cpu, cpu_ref, on_card, payloads, pinned, acc, src, ef, tree32, block, block_acc
         torch.cuda.empty_cache()
-    phase_fold_int(gen, card)
+    with _PlainFmaOff():
+        times["codec"] = phase_fold_int(gen, card)
     return times
 
 
@@ -1296,6 +1496,7 @@ def phase_fold_int(gen, card):
 
     _, (_, hbm) = _peaks(card)
     rng = random.Random(SEED + 1)
+    times = {}
     for name, n, elems in FOLD_SIZES:
         ref = torch.randn(elems, generator=gen, device="cuda")
         grid = qz.make_round_grid(0.01 * torch.randn(elems, generator=gen, device="cuda"),
@@ -1387,7 +1588,15 @@ def phase_fold_int(gen, card):
         quantize = lambda: qz._quantize_codes(update, ref, resid, grid)  # noqa: E731
         dequantize = lambda: qz._dequantize_codes(src, ref, grid, "float32")  # noqa: E731
         quantize(), dequantize()  # warm: the first calls load their kernels
-        quant_ms, deq_ms = _event_ms(quantize), _event_ms(dequantize)
+        fold.reset_launches()
+        quant_ms = _event_ms(quantize)
+        quant_launches = dict(fold.fold_fma_.by_form)
+        fold.reset_launches()
+        deq_ms = _event_ms(dequantize)
+        deq_launches = dict(fold.fold_fma_.by_form)
+        times[name] = dict(quantize_ms=quant_ms, quantize_bound_ms=elems * 17 / hbm * 1e3,
+                           quantize_launches=quant_launches, dequantize_ms=deq_ms,
+                           dequantize_bound_ms=elems * 9 / hbm * 1e3, dequantize_launches=deq_launches)
         fold_bytes = elems * (1 + 4 + 4)  # read the codes, read and write the i32 slice
         bound_ms = fold_bytes / hbm * 1e3
         print(f"[fold_int] {name}: per contribution on the card: i32 fold {fold_ms:.3f} ms "
@@ -1395,10 +1604,11 @@ def phase_fold_int(gen, card):
               f"{bound_ms / fold_ms:.3f} of it); finalize {fin_ms:.3f} ms (bound "
               f"{elems * 12 / hbm * 1e3:.3f}: i32 and ref read, f32 written); quantize {quant_ms:.3f} ms "
               f"(bound {elems * 17 / hbm * 1e3:.3f}: f32 update, ref and residual read, codes and residual "
-              f"written); dequantize {deq_ms:.3f} ms (bound {elems * 9 / hbm * 1e3:.3f}: codes and ref "
-              f"read, f32 written)")
+              f"written; fold_fma {quant_launches}); dequantize {deq_ms:.3f} ms (bound {elems * 9 / hbm * 1e3:.3f}: "
+              f"codes and ref read, f32 written; fold_fma {deq_launches}); the codec's plain fma off the card")
         del ref, grid, codes, cpu, on_card, ref_cpu, payloads, acc, src, update, resid
         torch.cuda.empty_cache()
+    return times
 
 
 # -- the federated path: two party processes on the one card ----------------
@@ -1805,7 +2015,7 @@ def _round_session(fed, party, cache, cfg_name, cfg_kw, train_len, device, ckpt_
         timings = []
         logged = tm.transfer_log.total_recorded
         in0 = tm.get_stats()["receive_bytes"]
-        fold.fold_fma_.launches = 0
+        fold.reset_launches()
         ring0 = dict(RING_STATS)
         t0 = time.perf_counter()
         with _StateDigests() as states:
@@ -1813,7 +2023,8 @@ def _round_session(fed, party, cache, cfg_name, cfg_kw, train_len, device, ckpt_
                                             packed_wire=True, timings=timings, **kw)
             _sync(device)
         wall_s = time.perf_counter() - t0
-        fold_launches = fold.fold_fma_.launches  # this party's float folds of the session
+        fold_launches = fold.fold_fma_.launches  # this party's float folds and codec FMAs of the session
+        fold_by_form = dict(fold.fold_fma_.by_form)
         sent, _ = tm.transfer_log.records_since(logged)
         digests = fed.get([digest.party(p).remote(adapters) for p in FED_PARTIES])
         trainer_reports = fed.get([trainers[p].report.remote() for p in FED_PARTIES])
@@ -1826,6 +2037,7 @@ def _round_session(fed, party, cache, cfg_name, cfg_kw, train_len, device, ckpt_
             "wall_s": wall_s,
             "state_digests": states.seen,
             "fold_launches": fold_launches,
+            "fold_by_form": fold_by_form,
             "ring_stats": {k: RING_STATS[k] - ring0[k] for k in RING_STATS},
             "timings": timings,
             "pushed": [r.nbytes for r in sent if r.direction == "send"],
@@ -1976,7 +2188,8 @@ def _fed_party(party, ports, cfg_name, cfg_kw, train_len, device, ckpt_root, out
         cluster = {p: {"address": f"127.0.0.1:{port}", "transport_options": {"local_link": "auto"}}
                    for p, port in zip(FED_PARTIES, ports["round"])}
         fed.init(address="local", cluster=cluster, party=party, device=device, **FED_INIT)
-        report.update(_round_session(fed, party, cache, cfg_name, cfg_kw, train_len, dev, ckpt_root))
+        with _PlainFmaOff():  # every round's codec and fold on the kernel, none on its plain version
+            report.update(_round_session(fed, party, cache, cfg_name, cfg_kw, train_len, dev, ckpt_root))
         fed.shutdown()
         out.put(report)
     except BaseException:
@@ -2112,6 +2325,11 @@ def _federated_summary(reports, want, wall):
     print(f"[round_overlap] alice's wall per round: synchronous {json.dumps(sync)} s, "
           f"pipelined {json.dumps(pipelined)} s")
     out["round_overlap"]["per_round_s"] = {"sync": sync, "pipelined": pipelined}
+    # The fold kernel's launches by form (step, pair, chain, rows), each
+    # party's, in each round part.
+    out["fold_by_form"] = {key: {p: reports[p][key]["fold_by_form"] for p in FED_PARTIES}
+                           for key, _, _ in ROUND_PARTS}
+    print(f"[round] fold_fma launches by form: {json.dumps(out['fold_by_form'])}")
     return out
 
 
@@ -5748,8 +5966,16 @@ def main() -> int:
                              "bench_smoke": bench["fold_launches"],
                              # the compute legs pack no contribution
                              "bench_compute": bench_c["launches"]["fold_fma"]},
+        # Its forms: the streamed step (one launch a run of blocks), the
+        # pair (the server step), the chain (the whole one-shot fold and its
+        # finalize, up to fold.MAX_OPS operands a launch) and the rows (the
+        # codec's two FMAs); launches by form in alice's round parts.
+        "forms": ["step", "pair", "chain", "rows"],
+        "launches_by_form": federated["fold_by_form"],
         **fold_times["adapters"],  # one contribution of the round's packed adapters
         "wq_shape": fold_times["wq"],
+        # The codec on the rows form (rayfed_tpu/fl/quantize.py:473, :507).
+        "codec": fold_times["codec"],
         # The same kernel as the server step's fused multiply-adds: FedAC at
         # the adapters' size, against the step's plain version (ops/fold.py
         # fma on the card) and its bytes (x, avg and z read, x' written).

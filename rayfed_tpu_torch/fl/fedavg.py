@@ -6,9 +6,10 @@ the contributions and averages them.  Packed contributions
 (:class:`~rayfed_tpu_torch.fl.compression.PackedTree`) reduce as one chain
 over the packed buffers on their device, as XLA compiles the JAX package's
 on the CPU: ``fma(w0, x0, w1·x1)``, then one exactly rounded fused
-multiply-add per further party, then one divide and one cast (the fold
-kernel on the card, :mod:`rayfed_tpu_torch.ops.fold`), so this one-shot fold
-gives the JAX package's one-shot bytes on the CPU and on the card.
+multiply-add per further party, then one divide and one cast (on the card
+one launch of the fold kernel's chain form, :mod:`rayfed_tpu_torch.ops.
+fold`), so this one-shot fold gives the JAX package's one-shot bytes on the
+CPU and on the card.
 
 Integer-code contributions (:class:`~rayfed_tpu_torch.fl.quantize.
 QuantizedPackedTree`, the compressed-domain round) fold in i32: per party an
@@ -33,7 +34,7 @@ from rayfed_tpu_torch import tree_util
 from rayfed_tpu_torch.fl import compression
 from rayfed_tpu_torch.fl.compression import PackedTree, PackSpec
 from rayfed_tpu_torch.ops import xla_cpu
-from rayfed_tpu_torch.ops.fold import fold_fma_, fold_fma_pair
+from rayfed_tpu_torch.ops.fold import fold_chain, fold_fma_, fold_fma_pair
 
 # Elements per block of the canonical chunk grid: one 4 MB bf16 wire chunk.
 DEFAULT_CHUNK_ELEMS = 1 << 21
@@ -132,21 +133,15 @@ def _packed_reduce(bufs, weights: Sequence[float], total_w: float, out_dtype) ->
     """The one-shot fold as XLA compiles the JAX package's program on the
     CPU: the zero init's add folds away, the first two terms become
     ``fma(w0, x0, w1·x1)`` (the second product rounded, the first fused),
-    each further party one more fused multiply-add, rounded once
-    (:mod:`rayfed_tpu_torch.ops.fold`); then the finalize
-    (:func:`finalize_packed_stripe`).  Where a product is inexact (f32 wire
-    buffers, fractional weights) this is not the streamed fold's order, in
-    the reference as here."""
+    each further party one more fused multiply-add, rounded once; then the
+    finalize's divide and cast (:func:`finalize_packed_stripe`'s bytes).  On
+    the card one launch of the fold kernel's chain form does all of it
+    (:func:`rayfed_tpu_torch.ops.fold.fold_chain`).  Where a product is
+    inexact (f32 wire buffers, fractional weights) this is not the streamed
+    fold's order, in the reference as here."""
     device = _fold_device(bufs)
     xs = [as_tensor(b, device).reshape(-1) for b in bufs]
-    ws = [f32_scalar(w, device) for w in weights]
-    if len(xs) == 1:
-        acc = ws[0] * xs[0].to(torch.float32)
-    else:
-        acc = fold_fma_pair(ws[0], xs[0], ws[1], xs[1])
-    for x, w in zip(xs[2:], ws[2:]):
-        fold_fma_(acc, w, x)
-    return finalize_packed_stripe(acc, total_w, acc.numel(), out_dtype)
+    return fold_chain(xs, weights, total_w, compression.torch_dtype(out_dtype))
 
 
 def packed_block_grid(total_elems: int, chunk_elems: Optional[int] = None) -> int:
@@ -429,10 +424,9 @@ def server_step_kernel(kind: str, hyper: Tuple[float, ...]):
             avg, x, m = _server_bufs(avg, x, m)
             if momentum == 0.0 and lr == 1.0:
                 return avg  # plain FedAvg, bit-exactly
-            one = f32_scalar(1.0, avg.device)
             t = x - avg
-            fold_fma_(t, f32_scalar(momentum, avg.device), m)
-            return fold_fma_pair(f32_scalar(-lr, avg.device), t, one, x)
+            fold_fma_(t, momentum, m)
+            return fold_fma_pair(-lr, t, 1.0, x)
 
         return _step
     if kind == "fedac":
@@ -442,12 +436,10 @@ def server_step_kernel(kind: str, hyper: Tuple[float, ...]):
             avg, x, z = _server_bufs(avg, x, z)
             if beta == 0.0 and lam == 1.0:
                 return avg  # plain FedAvg, bit-exactly
-            dev = avg.device
-            one = f32_scalar(1.0, dev)
             delta = x - avg
-            y_new = fold_fma_pair(f32_scalar(-lam, dev), delta, one, x)
-            z_new = fold_fma_pair(f32_scalar(-gamma, dev), delta, one, z)
-            return fold_fma_pair(f32_scalar(1.0 - beta, dev), y_new, f32_scalar(beta, dev), z_new)
+            y_new = fold_fma_pair(-lam, delta, 1.0, x)
+            z_new = fold_fma_pair(-gamma, delta, 1.0, z)
+            return fold_fma_pair(1.0 - beta, y_new, beta, z_new)
 
         return _step
     raise ValueError(
@@ -485,9 +477,8 @@ def server_resync_kernel(kind: str, hyper: Tuple[float, ...]):
 
         def _resync(x, x_new, z):
             x_new, x, z = _server_bufs(x_new, x, z)
-            dev = x.device
-            inner = fold_fma_pair(f32_scalar(1.0 - beta, dev), x, f32_scalar(beta, dev), z)
-            return (fold_fma_pair(f32_scalar(-(gamma / denom), dev), inner - x_new, f32_scalar(1.0, dev), z),)
+            inner = fold_fma_pair(1.0 - beta, x, beta, z)
+            return (fold_fma_pair(-(gamma / denom), inner - x_new, 1.0, z),)
 
         return _resync
     raise ValueError(

@@ -34,10 +34,11 @@ half to even, clip, carry the new residual) and :func:`_dequantize_codes`.
 Divisions stay true divisions.  Two of their multiply-adds XLA compiles
 into fused multiply-adds (one rounding): the new residual ``corrected −
 scale·(q − zp)`` and the reference add ``ref + scale·(q − zp)``.  Those two
-are computed here as exactly rounded fused multiply-adds
-(:func:`rayfed_tpu_torch.ops.fold.fma`),
-the same bytes on the CPU and the card; every other multiply-add stays two
-ops.  So codes, residuals and dequantized buffers equal the reference's
+are computed here as exactly rounded fused multiply-adds, the same bytes on
+the CPU and the card: the plain version (:func:`rayfed_tpu_torch.ops.fold.
+fma`) on CPU tensors, the fold kernel's rows form on the card (one launch a
+piece of block rows, the codes read as they are); every other multiply-add
+stays two ops.  So codes, residuals and dequantized buffers equal the reference's
 bytes on the CPU.
 
 Overflow headroom: a folded code is bounded by ``qabs_max`` (255 for
@@ -59,6 +60,7 @@ from rayfed_tpu_torch import tree_util
 from rayfed_tpu_torch.fl import compression
 from rayfed_tpu_torch.fl.compression import PackedTree, PackSpec
 from rayfed_tpu_torch.ops.fold import fma as _fma
+from rayfed_tpu_torch.ops.fold import fma_rows
 
 # Version of the shared-grid descriptor and semantics (the JAX package's).
 QUANT_GRID_VERSION = 1
@@ -440,6 +442,17 @@ def _joined(parts: List[torch.Tensor], like: torch.Tensor, dtype: torch.dtype) -
     return torch.cat(flat) if flat else like.new_zeros(0, dtype=dtype)
 
 
+def _fma_rows(sc: torch.Tensor, q: torch.Tensor, c: torch.Tensor, zp: torch.Tensor,
+              negate: bool = False) -> torch.Tensor:
+    """``fma(±scale, q − zp, c)`` over block rows (``sc``, ``zp`` [k, 1]
+    beside ``q``, ``c`` [k, width]), rounded once: on CPU tensors the plain
+    version (:func:`_fma`), on the card the fold kernel's rows form
+    (:func:`rayfed_tpu_torch.ops.fold.fma_rows`)."""
+    if q.device.type == "cpu":
+        return _fma(-sc if negate else sc, q - zp, c)
+    return fma_rows(sc, q, c, zp, negate=negate)
+
+
 def _quantize_codes(buf: Any, ref: Optional[Any], resid: Optional[torch.Tensor],
                     grid: QuantGrid) -> Tuple[torch.Tensor, torch.Tensor]:
     """The JAX package's ``_quantize_kernel``: (subtract the reference,) add
@@ -464,7 +477,7 @@ def _quantize_codes(buf: Any, ref: Optional[Any], resid: Optional[torch.Tensor],
         q = torch.clamp(torch.round(a / sc + zp), qmin, qmax)
         codes.append(q.to(code_dt))
         # corrected − scale·(q − zp), one rounding (see the module doc).
-        resids.append(_fma(-sc, q - zp, a))
+        resids.append(_fma_rows(sc, q, a, zp, negate=True))
     return _joined(codes, corrected, code_dt), _joined(resids, corrected, torch.float32)
 
 
@@ -474,7 +487,9 @@ def _dequantize_codes(codes: Any, ref: Optional[Any], grid: QuantGrid, out_name:
     from rayfed_tpu_torch.fl.fedavg import as_tensor
 
     device = _device_of(codes, ref)
-    q = as_tensor(codes, device).reshape(-1).to(torch.float32)
+    q = as_tensor(codes, device).reshape(-1)
+    if ref is None or device.type == "cpu":
+        q = q.to(torch.float32)  # the card's rows form reads the codes themselves
     scales, zps = _grid_vectors(grid, device)
     refs = None if ref is None else _block_rows(_f32_on(ref, device).reshape(-1), grid)
     out = []
@@ -484,7 +499,7 @@ def _dequantize_codes(codes: Any, ref: Optional[Any], grid: QuantGrid, out_name:
             out.append(sc * (a - zp))
         else:
             # ref + scale·(q − zp), one rounding (see the module doc).
-            out.append(_fma(sc, a - zp, refs[k][0]))
+            out.append(_fma_rows(sc, a, refs[k][0], zp))
     return _joined(out, q, torch.float32).to(compression.torch_dtype(out_name))
 
 

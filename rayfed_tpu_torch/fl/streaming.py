@@ -87,10 +87,17 @@ _NOTIFY_BYTES = 512 * 1024
 # Seq ids one streaming_aggregate call consumes.
 STREAM_AGG_SEQ_IDS = 2
 
-def _fold_block(acc: torch.Tensor, off: int, chunk: torch.Tensor, w: torch.Tensor) -> None:
+# Largest pinned block a run of payload bytes is staged through on its way
+# to the card (16 blocks of bf16 wire elements).
+_STAGE_BYTES = 64 << 20
+
+
+def _fold_block(acc: torch.Tensor, off: int, chunk: torch.Tensor, w) -> None:
     """``acc[off:off+n] = fma(w, f32(x), acc[off:off+n])``, in place, rounded
     once: the fused multiply-add XLA compiles the JAX package's
-    ``_accum_kernel`` into on the CPU; on the card the fold kernel."""
+    ``_accum_kernel`` into on the CPU; on the card one launch of the fold
+    kernel's step form, whether ``chunk`` is one block or a run of them.
+    ``w``: a host number (:func:`~rayfed_tpu_torch.ops.fold.f32_arg`)."""
     fold_fma_(acc[off : off + chunk.numel()], w, chunk)
 
 
@@ -770,8 +777,10 @@ class StreamingAggregator:
         )
         return min(self._nblocks, avail_elems // self._chunk_elems)
 
-    def _chunk(self, src: tuple, block: int) -> torch.Tensor:
-        """The block's wire elements on the aggregator's device.
+    def _run_elems(self, src: tuple, lo: int, hi: int) -> torch.Tensor:
+        """The wire elements of blocks ``[lo, hi)`` on the aggregator's
+        device, as one tensor: the blocks of a run are contiguous in the
+        source as in the accumulator, so the run folds in one launch.
 
         ``src`` is an under-the-lock snapshot of the stream's ``(elems,
         payload, dtype, itemsize, data_start)``: a concurrent frame abort
@@ -781,19 +790,27 @@ class StreamingAggregator:
         wire dtype, then copied to the device."""
         elems, payload, dt, itemsize, data_start = src
         ce = self._chunk_elems
-        first = block * ce
-        count = min(ce, self._total_elems - first)
+        first = lo * ce
+        count = min(hi * ce, self._total_elems) - first
         if elems is not None:
             return elems[first : first + count]
-        lo = data_start + first * itemsize
-        region = payload[lo : lo + count * itemsize]
+        start = data_start + first * itemsize
+        region = payload[start : start + count * itemsize]
         if self._stream is not None:
-            # Through a pinned block, so the copy to the card queues on the
-            # fold's stream without holding this thread (the caching host
-            # allocator keeps the block until the copy has run).
-            host = torch.empty(region.nbytes, dtype=torch.uint8, pin_memory=True)
-            host.numpy()[:] = np.frombuffer(region, dtype=np.uint8)
-            return host.view(dt).to(self._device, non_blocking=True)
+            # Into one device buffer through pinned blocks of at most
+            # _STAGE_BYTES, so the copies queue on the fold's stream without
+            # holding this thread (the caching host allocator keeps a block
+            # until its copy has run, then hands it out again): a fresh
+            # pinned block of a whole wq contribution (1.07 GB) cost 0.92 s
+            # to allocate on the card's host.
+            raw = np.frombuffer(region, dtype=np.uint8)
+            out = torch.empty(region.nbytes, dtype=torch.uint8, device=self._device)
+            for start in range(0, region.nbytes, _STAGE_BYTES):
+                piece = raw[start : start + _STAGE_BYTES]
+                host = torch.empty(piece.nbytes, dtype=torch.uint8, pin_memory=True)
+                host.numpy()[:] = piece
+                out[start : start + piece.nbytes].copy_(host, non_blocking=True)
+            return out.view(dt)
         if region.readonly:
             return torch.from_numpy(np.frombuffer(region, dtype=np.uint8).copy()).view(dt)
         return torch.frombuffer(region, dtype=torch.uint8).view(dt)
@@ -853,7 +870,7 @@ class StreamingAggregator:
                     # set folded theirs — the result is then independent of
                     # arrival order.  A failed stream stalls its successors
                     # until the cutoff excludes it.  The chunk source is
-                    # snapshotted HERE, under the lock (see _chunk).
+                    # snapshotted HERE, under the lock (see _run_elems).
                     limit = self._nblocks
                     for i in order:
                         s = self._streams[i]
@@ -893,14 +910,14 @@ class StreamingAggregator:
                 elif self._int_weights is not None:
                     weights, fold = self._int_weights, fedavg.quantized_accum_kernel
                 else:
-                    weights = [fedavg.f32_scalar(w, self._device) for w in self._weights]
-                    fold = _fold_block
+                    weights, fold = list(self._weights), _fold_block
             for i, lo, hi, src, ready in work:
                 t0 = time.perf_counter()
                 if ready is not None:
                     self._stream.wait_event(ready)
-                for b in range(lo, hi):
-                    fold(self._acc, b * self._chunk_elems, self._chunk(src, b), weights[i])
+                # The run of blocks [lo, hi) folds at once: the order per
+                # element (party i after parties 0..i-1) is the limit's.
+                fold(self._acc, lo * self._chunk_elems, self._run_elems(src, lo, hi), weights[i])
                 self._busy_s += time.perf_counter() - t0
                 with self._cond:
                     self._streams[i].applied_blocks = hi

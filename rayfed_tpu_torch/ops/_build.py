@@ -112,11 +112,17 @@ def flash_bwd_lib() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def fold_lib() -> ctypes.CDLL:
-    """The float fold's fused multiply-add kernel, built and loaded once."""
+    """The float fold's fused multiply-add kernels (the step, pair, chain and
+    rows forms), built and loaded once."""
     lib = ctypes.CDLL(str(build("fold_fma")))
-    ptr = ctypes.c_void_p
-    lib.rf_fold_fma.argtypes = [ptr] * 6 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ptr]
-    lib.rf_fold_fma.restype = ctypes.c_int
-    lib.rf_cuda_error_string.argtypes = [ctypes.c_int]
+    ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    lib.rf_fold_step.argtypes = [ptr, ptr, f32, i64, i32, i32, ptr]
+    lib.rf_fold_pair.argtypes = [ptr, ptr, f32, ptr, f32, i64, i32, i32, ptr]
+    lib.rf_fold_chain.argtypes = [ptr, ptr, ctypes.POINTER(ptr), ctypes.POINTER(f32), i32, i64, i32, i32, f32,
+                                  i32, i32, ptr]
+    lib.rf_fold_rows.argtypes = [ptr] * 5 + [i32, i64, i64, i32, i32, ptr]
+    for fn in (lib.rf_fold_step, lib.rf_fold_pair, lib.rf_fold_chain, lib.rf_fold_rows):
+        fn.restype = i32
+    lib.rf_cuda_error_string.argtypes = [i32]
     lib.rf_cuda_error_string.restype = ctypes.c_char_p
     return lib

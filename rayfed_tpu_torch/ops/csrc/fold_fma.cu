@@ -1,24 +1,51 @@
-// The float fold's fused multiply-add for Hopper (sm_90a).
+// The float fold's exactly rounded fused multiply-adds for Hopper (sm_90a).
 //
-// Replaces no Pallas kernel: it is the XLA program the JAX package jits for
-// the float packed fold, `_accum_kernel` of rayfed_tpu/fl/streaming.py (line
-// 63, `acc + w·x`) and `_packed_reduce_jit` of rayfed_tpu/fl/fedavg.py (line
-// 83, the chain `w0·x0 + w1·x1 + ...`), which XLA on the CPU compiles into
-// fused multiply-adds.  Each output element is one __fmaf_rn, the correctly
-// rounded fused multiply-add, so the bytes equal the plain version's
-// (ops/fold.py `fma`: f64 product, TwoSum error, round to odd) on either
-// device, and the JAX package's on the CPU.
+// Replaces no Pallas kernel.  It stands for XLA programs that the JAX
+// package jits and that XLA on the CPU compiles into fused multiply-adds:
+// the streamed fold step `_accum_kernel` (rayfed_tpu/fl/streaming.py:63,
+// `acc + w·x`), the one-shot fold `_packed_reduce_jit` (rayfed_tpu/fl/
+// fedavg.py:83, the chain `w0·x0 + w1·x1 + ...`, the divide and the cast),
+// and the two multiply-adds of the codec's `_quantize_kernel` (rayfed_tpu/
+// fl/quantize.py:473, the residual `a − scale·(q − zp)`) and
+// `_dequantize_kernel` (:507, `ref + scale·(q − zp)`).  Every rounding is a
+// named intrinsic (__fmaf_rn, __fmul_rn, __fsub_rn, __fdiv_rn,
+// __float2bfloat16_rn), so no -fmad setting can contract or
+// reorder one, and the bytes equal the plain versions' (ops/fold.py: the f64
+// product, TwoSum, round to odd) on either device, and the JAX package's on
+// the CPU.
 //
-// Two forms, one kernel: out = fma(w, x, acc) (the streamed step and the
-// one-shot chain's later terms; out may be acc) and out = fma(w, x, v·y)
-// with v·y rounded to f32 first (the one-shot chain's first two terms, as
-// XLA contracts them).  x and y are f32 or bf16 wire elements; the weights
-// are f32 values on the card, read once per thread.
+// Two kernels:
+//   fold_chain: t = acc (the streamed step, or a chain carried on from an
+//     earlier launch), else t = w0·x0 (one operand) or t = fma(w0, x0, w1·x1)
+//     with w1·x1 rounded first (two or more, as XLA contracts the chain);
+//     then t = fma(wk, xk, t) for each further operand; out = t, or
+//     cast(t / total) when it finalizes.  Up to kMaxOps operands travel in
+//     one launch, as pointers and by-value weights in the kernel's parameter
+//     struct.  The step (acc = fma(w, x, acc) in place), the pair
+//     (fma(w, x, v·y)) and the whole one-shot fold are its forms.
+//   fold_rows: out = fma(±s[r], b − z[r], c) with one scale s[r] and zero
+//     point z[r] (optional) a row of `width` elements: the codec's residual
+//     and its reference add over the grid's block rows.
 //
-// What bounds it on the H100: bytes.  One FMA per 10 bytes moved (a bf16 x
-// read, an f32 accumulator read and written), 2 orders of magnitude under
-// the card's flop/byte ridge.  A grid-stride loop of coalesced loads, a few
-// blocks per SM, no shared memory: nothing else to hide.
+// What bounds them on the H100: bytes.  A step moves 10 bytes (bf16 x, f32
+// accumulator read and written) for one FMA, the chain 2n + 2 for n FMAs
+// and a divide, the rows form 9 to 12 for one FMA and a subtract: two orders
+// of magnitude under the card's operations-to-bytes ridge.  So the design is
+// about moving them at the memory's rate:
+//   - 16-byte loads and stores: a thread takes units of 8 elements (one
+//     16-byte load of a bf16 operand, two of an f32 one, one 8-byte
+//     load of 8 codes), kUnroll units a thread, all of a unit's loads issued
+//     before its first FMA, so at least two vectors are in flight a thread;
+//   - a scalar head up to the first element where every operand is 16-byte
+//     aligned (chunks of a wire frame start at any element offset) and a
+//     scalar tail; operands whose alignments disagree take a scalar kernel,
+//     one element a thread, with the same arithmetic;
+//   - a grid sized to the work (no grid-stride loop), 256 threads a block;
+//   - weights, the divisor and the pointers by value, in constant memory:
+//     no thread reads a weight from device memory, no host reads the card;
+//   - one launch for the whole one-shot fold (reads each contribution once
+//     and writes the output once), and one launch for a run of blocks of
+//     the streamed fold, so the host's cost per launch is paid per run.
 
 #include <cstdint>
 
@@ -27,51 +54,443 @@
 
 namespace {
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+constexpr int kMaxOps = 8;    // operands of one chain launch
+constexpr int kVec = 8;       // elements of a unit
+constexpr int kUnroll = 2;    // units a thread
+constexpr int kThreads = 256;
 
-template <typename T>
-__global__ void fold_fma(float* out, const float* acc, const T* x, const float* w, const T* y,
-                         const float* v, int64_t n) {
-  const float wv = *w;
-  const float vv = y != nullptr ? *v : 0.0f;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n; i += stride) {
-    const float addend = y != nullptr ? __fmul_rn(vv, to_f32(y[i])) : acc[i];
-    out[i] = __fmaf_rn(wv, to_f32(x[i]), addend);
+// Element types, as the launcher numbers them.
+enum Dtype : int { kF32 = 0, kBF16 = 1, kU8 = 3, kI8 = 4 };
+
+struct ChainArgs {
+  const void* x[kMaxOps];
+  float w[kMaxOps];
+  const float* acc;  // the running value to continue from; null: the chain starts here
+  void* out;
+  float total;       // the finalize's divisor
+  int nops;
+  int divide;        // 1: out = cast(t / total); 0: out = t (f32)
+  long long n;
+  long long head;    // scalar elements before the first aligned unit
+  long long units;   // aligned units after the head
+};
+
+struct RowsArgs {
+  const void* b;
+  const float* c;
+  float* out;
+  const float* s;    // one scale a row
+  const float* z;    // one zero point a row, or null
+  int negate;        // fma(−s, ...): the codec's residual
+  long long n;
+  long long width;   // elements of a row
+  long long head;
+  long long units;
+};
+
+// ---------------------------------------------------------------- elements
+
+__device__ __forceinline__ float ld1(const float* p, long long i) { return p[i]; }
+__device__ __forceinline__ float ld1(const __nv_bfloat16* p, long long i) { return __bfloat162float(p[i]); }
+__device__ __forceinline__ float ld1(const uint8_t* p, long long i) { return __uint2float_rn(p[i]); }
+__device__ __forceinline__ float ld1(const int8_t* p, long long i) { return __int2float_rn(p[i]); }
+
+__device__ __forceinline__ void st1(float* p, long long i, float v) { p[i] = v; }
+__device__ __forceinline__ void st1(__nv_bfloat16* p, long long i, float v) { p[i] = __float2bfloat16_rn(v); }
+
+// A unit of 8 elements from an aligned address.
+__device__ __forceinline__ void ld8(const float* p, float (&v)[kVec]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+__device__ __forceinline__ void ld8(const __nv_bfloat16* p, float (&v)[kVec]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float2 f = __bfloat1622float2(h[k]);
+    v[2 * k] = f.x;
+    v[2 * k + 1] = f.y;
   }
 }
 
+__device__ __forceinline__ void ld8(const uint8_t* p, float (&v)[kVec]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const uint8_t* b = reinterpret_cast<const uint8_t*>(&u);
+#pragma unroll
+  for (int k = 0; k < kVec; ++k) v[k] = __uint2float_rn(b[k]);
+}
+
+__device__ __forceinline__ void ld8(const int8_t* p, float (&v)[kVec]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const int8_t* b = reinterpret_cast<const int8_t*>(&u);
+#pragma unroll
+  for (int k = 0; k < kVec; ++k) v[k] = __int2float_rn(b[k]);
+}
+
+__device__ __forceinline__ void st8(float* p, const float (&v)[kVec]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+__device__ __forceinline__ void st8(__nv_bfloat16* p, const float (&v)[kVec]) {
+  uint4 u;
+  __nv_bfloat16* h = reinterpret_cast<__nv_bfloat16*>(&u);
+#pragma unroll
+  for (int k = 0; k < kVec; ++k) h[k] = __float2bfloat16_rn(v[k]);
+  *reinterpret_cast<uint4*>(p) = u;
+}
+
+// ---------------------------------------------------------------- the chain
+
+// One element of the chain, scalar: the head, the tail and the kernel for
+// operands whose alignments disagree.
+template <typename T, typename O>
+__device__ __forceinline__ void chain_one(const ChainArgs& a, long long i) {
+  float t;
+  int k0;
+  if (a.acc != nullptr) {
+    t = a.acc[i];
+    k0 = 0;
+  } else if (a.nops == 1) {
+    t = __fmul_rn(a.w[0], ld1(static_cast<const T*>(a.x[0]), i));
+    k0 = 1;
+  } else {
+    t = __fmaf_rn(a.w[0], ld1(static_cast<const T*>(a.x[0]), i),
+                  __fmul_rn(a.w[1], ld1(static_cast<const T*>(a.x[1]), i)));
+    k0 = 2;
+  }
+#pragma unroll
+  for (int k = 0; k < kMaxOps; ++k) {
+    if (k >= k0 && k < a.nops) t = __fmaf_rn(a.w[k], ld1(static_cast<const T*>(a.x[k]), i), t);
+  }
+  st1(static_cast<O*>(a.out), i, a.divide ? __fdiv_rn(t, a.total) : t);
+}
+
+template <typename T, typename O>
+__global__ void __launch_bounds__(kThreads) fold_chain(const ChainArgs a) {
+  float t[kUnroll][kVec], v[kUnroll][kVec];
+  long long at[kUnroll];
+  bool live[kUnroll];
+  const long long first = static_cast<long long>(blockIdx.x) * kThreads * kUnroll + threadIdx.x;
+#pragma unroll
+  for (int r = 0; r < kUnroll; ++r) {
+    const long long u = first + r * kThreads;
+    live[r] = u < a.units;
+    at[r] = a.head + u * kVec;
+  }
+  int k0;
+  if (a.acc != nullptr) {
+#pragma unroll
+    for (int r = 0; r < kUnroll; ++r)
+      if (live[r]) ld8(a.acc + at[r], t[r]);
+    k0 = 0;
+  } else if (a.nops == 1) {
+#pragma unroll
+    for (int r = 0; r < kUnroll; ++r)
+      if (live[r]) ld8(static_cast<const T*>(a.x[0]) + at[r], v[r]);
+#pragma unroll
+    for (int r = 0; r < kUnroll; ++r)
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) t[r][e] = __fmul_rn(a.w[0], v[r][e]);
+    k0 = 1;
+  } else {
+#pragma unroll
+    for (int r = 0; r < kUnroll; ++r) {
+      if (live[r]) {
+        ld8(static_cast<const T*>(a.x[1]) + at[r], t[r]);
+        ld8(static_cast<const T*>(a.x[0]) + at[r], v[r]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kUnroll; ++r)
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) t[r][e] = __fmaf_rn(a.w[0], v[r][e], __fmul_rn(a.w[1], t[r][e]));
+    k0 = 2;
+  }
+#pragma unroll
+  for (int k = 0; k < kMaxOps; ++k) {
+    if (k >= k0 && k < a.nops) {
+#pragma unroll
+      for (int r = 0; r < kUnroll; ++r)
+        if (live[r]) ld8(static_cast<const T*>(a.x[k]) + at[r], v[r]);
+#pragma unroll
+      for (int r = 0; r < kUnroll; ++r)
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) t[r][e] = __fmaf_rn(a.w[k], v[r][e], t[r][e]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kUnroll; ++r) {
+    if (!live[r]) continue;
+    if (a.divide) {
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) t[r][e] = __fdiv_rn(t[r][e], a.total);
+    }
+    st8(static_cast<O*>(a.out) + at[r], t[r]);
+  }
+  // The head and the tail, under kVec elements each, by block 0.
+  if (blockIdx.x == 0 && threadIdx.x < 2 * kVec) {
+    const long long i = threadIdx.x < kVec ? threadIdx.x : a.head + a.units * kVec + (threadIdx.x - kVec);
+    if (threadIdx.x < kVec ? i < a.head : i < a.n) chain_one<T, O>(a, i);
+  }
+}
+
+template <typename T, typename O>
+__global__ void __launch_bounds__(kThreads) fold_chain_scalar(const ChainArgs a) {
+  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i < a.n) chain_one<T, O>(a, i);
+}
+
+// ---------------------------------------------------------------- the rows
+
+template <typename B>
+__device__ __forceinline__ void rows_one(const RowsArgs& a, long long i) {
+  const long long r = i / a.width;
+  const float s = a.negate ? -a.s[r] : a.s[r];
+  float b = ld1(static_cast<const B*>(a.b), i);
+  if (a.z != nullptr) b = __fsub_rn(b, a.z[r]);
+  a.out[i] = __fmaf_rn(s, b, a.c[i]);
+}
+
+template <typename B>
+__global__ void __launch_bounds__(kThreads) fold_rows(const RowsArgs a) {
+  float b[kUnroll][kVec], c[kUnroll][kVec];
+  long long at[kUnroll];
+  bool live[kUnroll];
+  const long long first = static_cast<long long>(blockIdx.x) * kThreads * kUnroll + threadIdx.x;
+#pragma unroll
+  for (int r = 0; r < kUnroll; ++r) {
+    const long long u = first + r * kThreads;
+    live[r] = u < a.units;
+    at[r] = a.head + u * kVec;
+    if (live[r]) {
+      ld8(static_cast<const B*>(a.b) + at[r], b[r]);
+      ld8(a.c + at[r], c[r]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kUnroll; ++r) {
+    if (!live[r]) continue;
+    // The row of each element: one division a unit, then a step at each
+    // row boundary (a unit may cross several rows when they are short).
+    long long row = at[r] / a.width;
+    long long rem = at[r] - row * a.width;
+    float s = a.negate ? -a.s[row] : a.s[row];
+    float z = a.z != nullptr ? a.z[row] : 0.0f;
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) {
+      if (rem == a.width) {
+        ++row;
+        rem = 0;
+        s = a.negate ? -a.s[row] : a.s[row];
+        z = a.z != nullptr ? a.z[row] : 0.0f;
+      }
+      const float d = a.z != nullptr ? __fsub_rn(b[r][e], z) : b[r][e];
+      c[r][e] = __fmaf_rn(s, d, c[r][e]);
+      ++rem;
+    }
+    st8(a.out + at[r], c[r]);
+  }
+  if (blockIdx.x == 0 && threadIdx.x < 2 * kVec) {
+    const long long i = threadIdx.x < kVec ? threadIdx.x : a.head + a.units * kVec + (threadIdx.x - kVec);
+    if (threadIdx.x < kVec ? i < a.head : i < a.n) rows_one<B>(a, i);
+  }
+}
+
+template <typename B>
+__global__ void __launch_bounds__(kThreads) fold_rows_scalar(const RowsArgs a) {
+  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i < a.n) rows_one<B>(a, i);
+}
+
+// ---------------------------------------------------------------- host side
+
+// The first element at which every operand sits on the boundary its unit
+// loads need (16 bytes, 8 for a unit of 1-byte codes), or -1 when no
+// element below kVec puts them all there.
+long long common_head(const void* const* ptrs, const int* sizes, int count) {
+  for (int h = 0; h < kVec; ++h) {
+    bool ok = true;
+    for (int k = 0; k < count && ok; ++k) {
+      const uintptr_t align = sizes[k] == 1 ? 8 : 16;
+      ok = (reinterpret_cast<uintptr_t>(ptrs[k]) + static_cast<uintptr_t>(h) * sizes[k]) % align == 0;
+    }
+    if (ok) return h;
+  }
+  return -1;
+}
+
+// Head, units and grid of a launch over n elements; false: the scalar kernel.
+bool plan(const void* const* ptrs, const int* sizes, int count, long long n, long long* head,
+          long long* units, unsigned* blocks) {
+  long long h = common_head(ptrs, sizes, count);
+  if (h < 0) {
+    *head = n;
+    *units = 0;
+    *blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
+    return false;
+  }
+  if (h > n) h = n;
+  *head = h;
+  *units = (n - h) / kVec;
+  const long long per_block = static_cast<long long>(kThreads) * kUnroll;
+  const long long b = (*units + per_block - 1) / per_block;
+  *blocks = static_cast<unsigned>(b > 0 ? b : 1);
+  return true;
+}
+
+cudaError_t use_device(int device) {
+  int cur = -1;
+  cudaError_t err = cudaGetDevice(&cur);
+  if (err != cudaSuccess) return err;
+  return cur == device ? cudaSuccess : cudaSetDevice(device);
+}
+
+template <typename T, typename O>
+cudaError_t launch_chain(ChainArgs a, cudaStream_t s) {
+  const void* ptrs[kMaxOps + 2];
+  int sizes[kMaxOps + 2];
+  int count = 0;
+  for (int k = 0; k < a.nops; ++k) {
+    ptrs[count] = a.x[k];
+    sizes[count++] = sizeof(T);
+  }
+  ptrs[count] = a.out;
+  sizes[count++] = sizeof(O);
+  if (a.acc != nullptr) {
+    ptrs[count] = a.acc;
+    sizes[count++] = 4;
+  }
+  unsigned blocks;
+  if (plan(ptrs, sizes, count, a.n, &a.head, &a.units, &blocks)) {
+    fold_chain<T, O><<<blocks, kThreads, 0, s>>>(a);
+  } else {
+    fold_chain_scalar<T, O><<<blocks, kThreads, 0, s>>>(a);
+  }
+  return cudaGetLastError();
+}
+
 template <typename T>
-cudaError_t launch(float* out, const float* acc, const void* x, const float* w, const void* y,
-                   const float* v, int64_t n, cudaStream_t s) {
-  constexpr int kThreads = 256;
-  const int64_t want = (n + kThreads - 1) / kThreads;
-  const int blocks = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
-  fold_fma<T><<<blocks, kThreads, 0, s>>>(out, acc, static_cast<const T*>(x), w,
-                                         static_cast<const T*>(y), v, n);
+cudaError_t chain_out(const ChainArgs& a, int out_dtype, cudaStream_t s) {
+  switch (out_dtype) {
+    case kF32: return launch_chain<T, float>(a, s);
+    case kBF16: return launch_chain<T, __nv_bfloat16>(a, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t chain(const ChainArgs& a, int wire, int out_dtype, cudaStream_t s) {
+  if (a.n <= 0) return cudaSuccess;
+  if (a.nops < 1 || a.nops > kMaxOps || (a.divide == 0 && out_dtype != kF32)) return cudaErrorInvalidValue;
+  switch (wire) {
+    case kF32: return chain_out<float>(a, out_dtype, s);
+    case kBF16: return chain_out<__nv_bfloat16>(a, out_dtype, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename B>
+cudaError_t launch_rows(RowsArgs a, cudaStream_t s) {
+  const void* ptrs[3] = {a.b, a.c, a.out};
+  const int sizes[3] = {static_cast<int>(sizeof(B)), 4, 4};
+  unsigned blocks;
+  if (plan(ptrs, sizes, 3, a.n, &a.head, &a.units, &blocks)) {
+    fold_rows<B><<<blocks, kThreads, 0, s>>>(a);
+  } else {
+    fold_rows_scalar<B><<<blocks, kThreads, 0, s>>>(a);
+  }
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// out, acc: [n] f32 (acc may be out; null when y is given); x, y: [n] f32
-// (bf16 == 0) or bf16; w, v: one f32 each on the card (v null when y is).
-// All contiguous on `device`.  Returns a cudaError_t.
-extern "C" int rf_fold_fma(void* out, const void* acc, const void* x, const void* w,
-                           const void* y, const void* v, long long n, int bf16, int device,
-                           void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+// The streamed step: acc = fma(w, x, acc), in place.  acc: [n] f32; x: [n]
+// of `wire` (0 f32, 1 bf16).  Returns a cudaError_t.
+extern "C" int rf_fold_step(void* acc, const void* x, float w, long long n, int wire, int device,
+                            void* stream) {
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return err;
+  ChainArgs a = {};
+  a.x[0] = x;
+  a.w[0] = w;
+  a.acc = static_cast<const float*>(acc);
+  a.out = acc;
+  a.nops = 1;
+  a.n = n;
+  return chain(a, wire, kF32, static_cast<cudaStream_t>(stream));
+}
+
+// The pair: out = fma(w, x, v·y), v·y rounded first.  out: [n] f32; x, y:
+// [n] of `wire`.
+extern "C" int rf_fold_pair(void* out, const void* x, float w, const void* y, float v, long long n,
+                            int wire, int device, void* stream) {
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return err;
+  ChainArgs a = {};
+  a.x[0] = x;
+  a.w[0] = w;
+  a.x[1] = y;
+  a.w[1] = v;
+  a.out = out;
+  a.nops = 2;
+  a.n = n;
+  return chain(a, wire, kF32, static_cast<cudaStream_t>(stream));
+}
+
+// One launch of the chain over nops (1..8) operands xs of `wire` with
+// weights ws: from acc when it is given (an f32 value carried from an
+// earlier launch), else from the chain's first terms; out = t as f32, or,
+// with divide, t / total cast to out_dtype (0 f32, 1 bf16).
+extern "C" int rf_fold_chain(void* out, const void* acc, const void* const* xs, const float* ws,
+                             int nops, long long n, int wire, int out_dtype, float total, int divide,
+                             int device, void* stream) {
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return err;
+  if (nops < 1 || nops > kMaxOps) return cudaErrorInvalidValue;
+  ChainArgs a = {};
+  for (int k = 0; k < nops; ++k) {
+    a.x[k] = xs[k];
+    a.w[k] = ws[k];
+  }
+  a.acc = static_cast<const float*>(acc);
+  a.out = out;
+  a.total = total;
+  a.nops = nops;
+  a.divide = divide;
+  a.n = n;
+  return chain(a, wire, out_dtype, static_cast<cudaStream_t>(stream));
+}
+
+// The rows form: out[i] = fma(±s[i / width], b[i] − z[i / width], c[i])
+// (no subtraction when z is null).  b: [n] of `dtype` (0 f32, 3 uint8,
+// 4 int8); c, out: [n] f32; s, z: one f32 a row.
+extern "C" int rf_fold_rows(void* out, const void* b, const void* c, const void* s, const void* z,
+                            int negate, long long n, long long width, int dtype, int device,
+                            void* stream) {
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return err;
   if (n <= 0) return cudaSuccess;
-  if ((y == nullptr) == (acc == nullptr)) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto* o = static_cast<float*>(out);
-  auto* a = static_cast<const float*>(acc);
-  auto* wp = static_cast<const float*>(w);
-  auto* vp = static_cast<const float*>(v);
-  if (bf16) return launch<__nv_bfloat16>(o, a, x, wp, y, vp, n, s);
-  return launch<float>(o, a, x, wp, y, vp, n, s);
+  if (width <= 0) return cudaErrorInvalidValue;
+  RowsArgs a = {};
+  a.b = b;
+  a.c = static_cast<const float*>(c);
+  a.out = static_cast<float*>(out);
+  a.s = static_cast<const float*>(s);
+  a.z = static_cast<const float*>(z);
+  a.negate = negate;
+  a.n = n;
+  a.width = width;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kF32: return launch_rows<float>(a, st);
+    case kU8: return launch_rows<uint8_t>(a, st);
+    case kI8: return launch_rows<int8_t>(a, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* rf_cuda_error_string(int err) {

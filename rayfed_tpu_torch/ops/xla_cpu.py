@@ -81,7 +81,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from rayfed_tpu_torch.ops.fold import fma
+from rayfed_tpu_torch.ops.fold import fma, fma_rows
 
 REDUCE_WINDOW = 32
 VECTOR_WIDTH, UNROLL = 8, 2
@@ -386,6 +386,10 @@ def sub_scaled(a: torch.Tensor, zp: torch.Tensor, w: torch.Tensor, total_elems: 
     k = _scalar_tail(a.shape[0], n)
     if k:
         rows = torch.arange(n - k, n, device=a.device) // ce
-        inner.reshape(-1)[n - k : n] = fma(-zp.reshape(-1)[rows], w.expand(k).contiguous(),
-                                          a.reshape(-1)[n - k : n])
+        # One FMA an element (a row of one): the fold kernel's rows form on
+        # the card, its plain version on the CPU.
+        inner.reshape(-1)[n - k : n] = fma_rows(
+            zp.reshape(-1)[rows], w.expand(k).reshape(k, 1).contiguous(),
+            a.reshape(-1)[n - k : n].reshape(k, 1).contiguous(), negate=True,
+        ).reshape(-1)
     return inner

@@ -111,6 +111,22 @@ def test_cuda_fma_fold_equals_the_cpu_fold(cuda, wire_dtype, weights):
     assert _raw(_streamed(cpu, weights, cuda)) == _raw(_streamed(cpu, weights, torch.device("cpu")))
 
 
+def test_streamed_runs_staged_in_pieces_equal_the_cpu_fold(cuda, monkeypatch):
+    """A run of payload blocks longer than the staging block reaches the
+    card in several pinned pieces and still folds in one launch a run, with
+    the CPU fold's bytes."""
+    from rayfed_tpu_torch.fl import streaming
+    from rayfed_tpu_torch.ops import fold
+
+    monkeypatch.setattr(streaming, "_STAGE_BYTES", 3 * 4096 * 2 + 6)
+    gen = torch.Generator().manual_seed(4)
+    cpu = [tc.pack_tree({"w": torch.randn(9 * (1 << 12) + 77, generator=gen)}) for _ in range(3)]
+    before = fold.fold_fma_.by_form["step"]
+    got = _streamed(cpu, [1.7, 2.3, 0.9], cuda)
+    assert fold.fold_fma_.by_form["step"] - before <= 3 * 10
+    assert _raw(got) == _raw(_streamed(cpu, [1.7, 2.3, 0.9], torch.device("cpu")))
+
+
 def _edge_values(n, gen, dtype):
     """Random values with signed zeros, subnormals and exact ties mixed in."""
     x = torch.randn(n, generator=gen)
@@ -122,23 +138,114 @@ def _edge_values(n, gen, dtype):
 @pytest.mark.parametrize("n", [1, 1000, (1 << 21) + 3])
 def test_fold_kernel_matches_plain_version(cuda, dtype, n):
     """``csrc/fold_fma.cu`` against ``fold.fma`` on the same card inputs,
-    both forms, byte for byte (both round once; f16 and integer wire
-    elements go through f32 first, as in the reference)."""
+    the step and pair forms, byte for byte (both round once; f16 and integer
+    wire elements go through f32 first, as in the reference)."""
     from rayfed_tpu_torch.ops import fold
 
     gen = torch.Generator().manual_seed(n)
     x, y = (_edge_values(n, gen, torch.float32).mul(100 if dtype == torch.int32 else 1).to(dtype).to(cuda)
             for _ in range(2))
     acc = _edge_values(n, gen, torch.float32).to(cuda)
-    w, v = (torch.tensor(val, dtype=torch.float32, device=cuda) for val in (1.7, -0.3))
-    want = fold.fma(w, x.to(torch.float32), acc)
+    w, v = 1.7, -0.3
+    wt, vt = (torch.tensor(val, dtype=torch.float32, device=cuda) for val in (w, v))
+    want = fold.fma(wt, x.to(torch.float32), acc)
     before = fold.fold_fma_.launches
     got = fold.fold_fma_(acc.clone(), w, x)
     pair = fold.fold_fma_pair(w, x, v, y)
     torch.cuda.synchronize()
     assert fold.fold_fma_.launches == before + 2
     assert _raw(got) == _raw(want)
-    assert _raw(pair) == _raw(fold.fma(w, x.to(torch.float32), v * y.to(torch.float32)))
+    assert _raw(pair) == _raw(fold.fma(wt, x.to(torch.float32), vt * y.to(torch.float32)))
+
+
+def _at(t, off):
+    """``t`` as a view that starts ``off`` elements into a fresh buffer."""
+    buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    view = buf[off:off + t.numel()]
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("wire", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("n", [1, 7, 8, (1 << 21) + 3])
+@pytest.mark.parametrize("off", range(8))
+def test_step_and_pair_at_every_offset(cuda, wire, n, off):
+    """The step and the pair at element offsets 0-7 of the accumulator, with
+    the wire operands at other offsets (alignments that agree and that
+    disagree), byte for byte against their plain versions on the card."""
+    from rayfed_tpu_torch.ops import fold
+
+    gen = torch.Generator().manual_seed(n + off)
+    x = _at(_edge_values(n, gen, torch.float32).to(wire).to(cuda), (off + 3) % 8)
+    y = _at(_edge_values(n, gen, torch.float32).to(wire).to(cuda), off)
+    acc = _at(_edge_values(n, gen, torch.float32).to(cuda), off)
+    want = fold.step_plain(acc.clone(), 2.3, x)
+    got = fold.fold_fma_(acc, 2.3, x)
+    assert _raw(got) == _raw(want)
+    assert _raw(fold.fold_fma_pair(-0.7, x, 1.9, y)) == _raw(fold.pair_plain(-0.7, x, 1.9, y))
+
+
+CHAIN_WEIGHTS = {"ones": None, "ints": [3, 5, 7, 11, 13, 2, 9, 4, 6], "fractions": [1.7, 2.3, 0.9, 4.1, 0.3,
+                                                                                   1.1, 2.9, 0.7, 3.3]}
+
+
+@pytest.mark.parametrize("weights", sorted(CHAIN_WEIGHTS))
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32], ids=["bf16-out", "f32-out"])
+@pytest.mark.parametrize("wire", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 9])
+def test_chain_matches_plain_version(cuda, k, wire, out, weights):
+    """The one-shot chain with its finalize against its plain version on the
+    card, byte for byte, each operand at its own element offset; one launch
+    for up to ``fold.MAX_OPS`` operands, one more per further eight."""
+    from rayfed_tpu_torch.ops import fold
+
+    gen = torch.Generator().manual_seed(k)
+    n = (1 << 20) + 5
+    xs = [_at(_edge_values(n, gen, torch.float32).to(wire).to(cuda), i % 8) for i in range(k)]
+    ws = [1.0] * k if CHAIN_WEIGHTS[weights] is None else CHAIN_WEIGHTS[weights][:k]
+    total = float(sum(ws))
+    before = fold.fold_fma_.by_form["chain"]
+    got = fold.fold_chain(xs, ws, total, out)
+    assert fold.fold_fma_.by_form["chain"] - before == -(-k // fold.MAX_OPS)
+    want = fold.chain_plain(xs, ws, total, out)
+    assert got.dtype == out and _raw(got) == _raw(want)
+
+
+@pytest.mark.parametrize("negate", [False, True], ids=["ref-add", "residual"])
+@pytest.mark.parametrize("codes", [torch.float32, torch.uint8, torch.int8])
+@pytest.mark.parametrize("shape", [(3, 1 << 21), (1, 4099), (5, 1024), (4, 1)])
+def test_rows_match_plain_version(cuda, shape, codes, negate):
+    """The rows form at the codec's block shapes (whole 2^21-element blocks,
+    a short last block, the finalize tail's rows of one) against its plain
+    version on the card, byte for byte, with and without the zero point."""
+    from rayfed_tpu_torch.ops import fold
+
+    gen = torch.Generator().manual_seed(shape[1])
+    rows, width = shape
+    if codes == torch.float32:
+        b = torch.round(torch.randn(shape, generator=gen) * 60)
+    else:
+        b = torch.randint(0, 256, shape, generator=gen).to(torch.uint8).view(codes) if codes == torch.int8 \
+            else torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8)
+    b = b.to(cuda)
+    c = _edge_values(rows * width, gen, torch.float32).reshape(shape).to(cuda)
+    s = (torch.rand(rows, 1, generator=gen) * 1e-2).to(cuda)
+    z = torch.round(torch.randn(rows, 1, generator=gen) * 100).to(cuda)
+    for zp in (z, None):
+        got = fold.fma_rows(s, b, c, zp, negate=negate)
+        assert _raw(got) == _raw(fold.rows_plain(s, b, c, zp, negate=negate))
+
+
+def test_wrappers_raise_on_what_the_kernel_does_not_take(cuda):
+    from rayfed_tpu_torch.ops import fold
+
+    acc = torch.zeros(16, device=cuda)
+    with pytest.raises(TypeError, match="host numbers"):
+        fold.fold_fma_(acc, torch.ones((), device=cuda), acc)
+    with pytest.raises(ValueError, match="contiguous"):
+        fold.fold_fma_(torch.zeros(32, device=cuda)[::2], 1.0, acc)
+    with pytest.raises(ValueError, match="one length"):
+        fold.fold_fma_pair(1.0, acc, 1.0, acc[:8])
 
 
 def test_fold_waits_for_its_inputs_and_its_readers_wait_for_it(cuda):

@@ -307,6 +307,26 @@ def _mark_join_queued(outdir):
         time.sleep(0.01)
 
 
+def _await_round_pushes(parties, rnd):
+    """alice: wait until the round-``rnd`` contribution of each of
+    ``parties`` sits in her mailbox (a push that lands before the round's
+    sinks are registered waits there for them)."""
+    from rayfed_tpu_torch.runtime import get_runtime
+
+    entries = get_runtime().transport._mailbox._entries
+    want = [f"fedavg.{rnd}.up.{p}" for p in parties]
+    deadline = time.monotonic() + PARTY_TIMEOUT_S
+    while time.monotonic() < deadline:
+        try:
+            ups = [key[0] for key in list(entries)]
+        except RuntimeError:  # the dict grew while it was copied
+            continue
+        if all(any(up.endswith(w) for up in ups) for w in want):
+            return
+        time.sleep(0.01)
+    raise AssertionError(f"the round-{rnd} contributions of {parties} never reached alice")
+
+
 def run_quorum_party(party, cluster, outdir, server_opt=None):
     import rayfed_tpu_torch as fed
     from rayfed_tpu_torch import chaos
@@ -333,13 +353,28 @@ def run_quorum_party(party, cluster, outdir, server_opt=None):
         {"hook": "round", "party": "carol", "match": {"round": 0}, "op": "delay_ms",
          "value": int(DEADLINE_S * 1000) + 2000},
     ]})
-    if party == "carol":
-        # carol's round 1 waits until dave's join request is in bob's
-        # inbox, so round 1's announcement welcomes him, however loaded
-        # the host.
-        fire = chaos.fire
-
+    fire = chaos.fire
+    if party == "alice":
+        # alice opens round 0 once bob's and dave's contributions have
+        # reached her, so however loaded the host neither misses its
+        # deadline (a loaded run lost dave's, 0.15 s late, and bob's
+        # before); her round-1 boundary marks round 0 done.
         def gated_fire(hook, **ctx):
+            if hook == "round" and ctx.get("round") == 0:
+                _await_round_pushes(("bob", "dave"), 0)
+            if hook == "round" and ctx.get("round") == 1:
+                open(os.path.join(outdir, "alice.round0_done"), "w").close()
+            return fire(hook, **ctx)
+
+        chaos.fire = gated_fire
+    if party == "carol":
+        # carol's round 0 starts once alice's round 0 is done (then the
+        # chaos delay), so her contribution misses it whenever alice opened
+        # it; her round 1 waits until dave's join request is in bob's inbox,
+        # so round 1's announcement welcomes him, however loaded the host.
+        def gated_fire(hook, **ctx):
+            if hook == "round" and ctx.get("round") == 0:
+                _await_file(outdir, "alice.round0_done")
             if hook == "round" and ctx.get("round") == 1:
                 _await_file(outdir, "dave.join_queued")
             return fire(hook, **ctx)
