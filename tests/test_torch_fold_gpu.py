@@ -12,7 +12,9 @@ wire buffers, fractional weights); and its stream must wait for the work that
 produced a local contribution and be waited on by whoever reads the result.
 The compressed-domain round on CUDA (the codec's codes, residuals and
 dequantized buffers, the i32 fold and its finalize) must give the CPU's
-bytes too.
+bytes too.  Each form of the fold kernel (the step, the pair, the chain and
+the rows) must give its plain version's bytes on the same card inputs, with
+the operands at any element offset.
 """
 
 import random
