@@ -1182,8 +1182,7 @@ class _PlainFmaOff:
     versions, the codec, the finalize's tail), so a run inside shows that no
     path of the card took it.  CPU tensors pass, for the comparisons."""
 
-    BOUND = (("rayfed_tpu_torch.ops.fold", "fma"), ("rayfed_tpu_torch.fl.quantize", "_fma"),
-             ("rayfed_tpu_torch.ops.xla_cpu", "fma"))
+    BOUND = (("rayfed_tpu_torch.ops.fold", "fma"), ("rayfed_tpu_torch.ops.xla_cpu", "fma"))
 
     def __enter__(self):
         import importlib
@@ -1230,18 +1229,23 @@ def _edges(n, gen):
 # of the step and the pair, operand counts, wire and output types and
 # weights of the chain (9 is past fold.MAX_OPS), and the rows form at the
 # codec's block shapes (whole 2^21-element blocks, a short last block, the
-# finalize tail's rows of one).
+# finalize tail's rows of one).  Operands at offsets no head aligns take the
+# scalar kernel; every operand at one offset, the vector kernel after a head
+# (the chain then at 1 to 9 operands, fractional weights).
 FORM_LENGTHS = (1, 7, 8, (1 << 21) + 3)
 FORM_CHAIN_K = (1, 2, 3, 4, 9)
+FORM_HEAD_CHAIN_K = range(1, 10)
 FORM_CHAIN_WEIGHTS = (None, (3, 5, 7, 11, 13, 2, 9, 4, 6), (1.7, 2.3, 0.9, 4.1, 0.3, 1.1, 2.9, 0.7, 3.3))
 FORM_ROWS = ((3, 1 << 21), (1, 1_048_579), (4, 1))
 
 
 def _fold_forms_vs_plain(gen):
     """Every form of ``csrc/fold_fma.cu`` against its plain version on the
-    same card inputs, byte for byte; returns the largest |difference| (0
-    when all hold) and the number of cases."""
-    worst, cases = 0.0, 0
+    same card inputs, byte for byte, and the head each launch planned
+    against the one its operands' offsets give; returns the largest
+    |difference| (0 when all hold), the number of cases and the heads seen
+    (-1: the scalar kernel)."""
+    worst, cases, heads = 0.0, 0, set()
 
     def same(got, want, what):
         nonlocal worst, cases
@@ -1250,6 +1254,11 @@ def _fold_forms_vs_plain(gen):
             err = (got.float() - want.float()).abs().max().item()
             worst = max(worst, err)
             raise AssertionError(f"[fold forms] {what}: the kernel differs from its plain version (max |d| {err})")
+
+    def head(got, want, what):
+        heads.add(got)
+        if got != want:
+            raise AssertionError(f"[fold forms] {what}: the launch planned a head of {got}, not {want}")
 
     for wire in (torch.bfloat16, torch.float32):
         for n in FORM_LENGTHS:
@@ -1284,8 +1293,75 @@ def _fold_forms_vs_plain(gen):
                 for z in (zp, None):
                     same(fold.fma_rows(sc, b, c, z, negate=negate), fold.rows_plain(sc, b, c, z, negate=negate),
                          f"rows [{rows}, {width}] {b.dtype} negate {negate} zp {z is not None}")
+    # Every operand at one element offset: the vector kernel after a head.
+    for wire in (torch.bfloat16, torch.float32):
+        unit = 16 // wire.itemsize
+        for n in FORM_LENGTHS:
+            for off in range(1, 8):
+                x, y = (_at(_edges(n, gen).to(wire), off) for _ in range(2))
+                acc = _at(_edges(n, gen), off)
+                h = -off % unit
+                what = f"{wire} n={n} all at offset {off}"
+                head(fold.vector_head(x, acc), h, f"step {what}")
+                want = fold.step_plain(acc.clone(), 2.3, x)
+                same(fold.fold_fma_(acc, 2.3, x), want, f"step {what}")
+                pair = fold.fold_fma_pair(-0.7, x, 1.9, y)
+                head(fold.vector_head(x, y, pair), h if h % 4 == 0 else -1, f"pair {what}")
+                same(pair, fold.pair_plain(-0.7, x, 1.9, y), f"pair {what}")
+        xs = [_at(_edges(FORM_LENGTHS[-1], gen).to(wire), 4) for _ in range(max(FORM_HEAD_CHAIN_K))]
+        for out in (torch.bfloat16, torch.float32):
+            for k in FORM_HEAD_CHAIN_K:
+                ws = list(FORM_CHAIN_WEIGHTS[2][:k])
+                got = fold.fold_chain(xs[:k], ws, float(sum(ws)), out)
+                what = f"chain k={k} {wire} -> {out} all at offset 4"
+                head(fold.vector_head(*xs[:k], got), 0 if wire == torch.float32 else 4 if out == torch.float32
+                     else -1, what)
+                same(got, fold.chain_plain(xs[:k], ws, float(sum(ws)), out), what)
+        del xs
+    for rows, width in FORM_ROWS:
+        c = _at(_edges(rows * width, gen), 4).reshape(rows, width)
+        sc = torch.rand(rows, 1, generator=gen, device="cuda") * 1e-2
+        zp = torch.round(torch.randn(rows, 1, generator=gen, device="cuda") * 100)
+        codes = torch.randint(0, 256, (rows * width,), generator=gen, device="cuda", dtype=torch.uint8)
+        for b in (codes, codes.float()):
+            b = _at(b, 4).reshape(rows, width)
+            for negate in (False, True):
+                for z in (zp, None):
+                    got = fold.fma_rows(sc, b, c, z, negate=negate)
+                    what = f"rows [{rows}, {width}] {b.dtype} all at offset 4 negate {negate} zp {z is not None}"
+                    head(fold.vector_head(b, c, got), 4 if b.element_size() == 1 else 0, what)
+                    same(got, fold.rows_plain(sc, b, c, z, negate=negate), what)
     torch.cuda.synchronize()
-    return worst, cases
+    return worst, cases, sorted(heads)
+
+
+def _peak_mb(fn):
+    """``fn()``'s result and the most device memory, in MB, that was
+    allocated at once during it beyond what was allocated before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - base) / 1e6
+
+
+def _busy(fn):
+    """The card's busy share over one call of ``fn``, from a torch.profiler
+    trace: its kernels' device ms over the call's wall ms, and their
+    launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernel_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    return {"wall_ms": wall_ms, "kernel_ms": kernel_ms, "busy_share": kernel_ms / wall_ms,
+            "launches": sum(e.count for e in kernels)}
 
 
 def _launch_device_us(fn, calls=20):
@@ -1313,12 +1389,14 @@ def phase_fold(gen, card):
     rng = random.Random(SEED)
     times = {}
     t0 = time.perf_counter()
-    forms_err, forms_cases = _fold_forms_vs_plain(gen)
+    forms_err, forms_cases, forms_heads = _fold_forms_vs_plain(gen)
     print(f"[fold forms] step and pair at lengths {FORM_LENGTHS} and element offsets 0-7, chain of "
           f"{FORM_CHAIN_K} operands (bf16 and f32 wire and output, weights 1s, integers, fractions; "
           f"fold.MAX_OPS {fold.MAX_OPS} a launch), rows at {FORM_ROWS} (uint8 and f32 b, either sign, with and "
-          f"without the zero point): {forms_cases} cases byte-equal to their plain versions on the card "
-          f"in {time.perf_counter() - t0:.1f} s")
+          f"without the zero point), at offsets no head aligns and with every operand at one offset (step "
+          f"and pair at 1-7, chain of {FORM_HEAD_CHAIN_K.start}-{FORM_HEAD_CHAIN_K.stop - 1} and rows at 4): "
+          f"{forms_cases} cases byte-equal to their plain versions on the card, heads planned {forms_heads} "
+          f"(-1: the scalar kernel), in {time.perf_counter() - t0:.1f} s")
     for name, n, elems in FOLD_SIZES:
         cpu = []
         for _ in range(n):
@@ -1346,13 +1424,15 @@ def phase_fold(gen, card):
             local = rng.randrange(n)
             order = [i for i in range(n) if i != local]
             agg = streaming.StreamingAggregator(n, weights=weights, device="cuda")
-            torch.cuda.synchronize()
+
+            def streamed():
+                agg.add_local(local, on_card[local])
+                _feed_interleaved(agg, payloads, order, rng)
+                return agg.result(timeout=600)
+
             fold.reset_launches()
             t0 = time.perf_counter()
-            agg.add_local(local, on_card[local])
-            _feed_interleaved(agg, payloads, order, rng)
-            got = agg.result(timeout=600)
-            torch.cuda.synchronize()
+            got, stream_peak_mb = _peak_mb(streamed)
             stream_s = time.perf_counter() - t0
             launches["streamed"] = dict(fold.fold_fma_.by_form)
             n_cpu = plain.buf.numel()
@@ -1364,7 +1444,10 @@ def phase_fold(gen, card):
                   f"{FOLD_PIECE // 1024} KiB pieces: streamed on cuda {stream_s * 1e3:.1f} ms wall "
                   f"(stats {json.dumps({k: v for k, v in agg.stats.items() if k.startswith('agg_')})}; "
                   f"{launches['streamed']['step']} step launches for {n} contributions of "
-                  f"{-(-elems // ce)} blocks, one a run), one-shot on cuda {one_shot_ms:.3f} ms cold "
+                  f"{-(-elems // ce)} blocks, one a piece of a run, at most {streaming._RUN_ELEMS // ce} blocks; "
+                  f"peak device memory {stream_peak_mb:.1f} MB above its inputs, of which its f32 accumulator "
+                  f"{-(-elems // ce) * ce * 4 / 1e6:.1f} and the bf16 mean {elems * 2 / 1e6:.1f}), one-shot on "
+                  f"cuda {one_shot_ms:.3f} ms cold "
                   f"({launches['one_shot']['chain']} chain launch, {sum(launches['one_shot'].values())} in all), "
                   f"CPU fold over {n_cpu} elements in {len(blocks)} blocks of {ce} ({blocks[0]}..{blocks[-1]}) "
                   f"{cpu_s * 1e3:.1f} ms; byte-equal to the CPU fold there, and streamed to one-shot "
@@ -1373,8 +1456,9 @@ def phase_fold(gen, card):
                 raise AssertionError(f"fold {name} weights {tag}: the card's fold differs from the CPU fold")
             if launches["one_shot"] != {"step": 0, "pair": 0, "chain": 1, "rows": 0}:
                 raise AssertionError(f"fold {name}: the one-shot fold of {n} made {launches['one_shot']} launches")
-            if not n <= launches["streamed"]["step"] <= n * -(-elems // ce) or sum(launches["streamed"].values()) \
-                    != launches["streamed"]["step"]:
+            pieces = -(-elems // max(ce, streaming._RUN_ELEMS // ce * ce))
+            if not n * pieces <= launches["streamed"]["step"] <= n * -(-elems // ce) or \
+                    sum(launches["streamed"].values()) != launches["streamed"]["step"]:
                 raise AssertionError(f"fold {name}: the streamed fold made {launches['streamed']} launches")
             del plain, one_shot, got, agg
         # Device times of the pieces: one contribution's H2D (pinned), its
@@ -1421,24 +1505,34 @@ def phase_fold(gen, card):
         device_us = _launch_device_us(lambda: fold.fold_fma_(block_acc, w, block))
         wt = torch.full((), w, device="cuda")
         library_ms = _sync_ms(lambda: acc.addcmul_(src, wt), 10)
-        # The streamed path's staging of payload bytes onto the card (one
-        # fresh pinned block, a copy into it, the H2D enqueued), host ms,
-        # for one 2^21-element block and for the whole contribution as one
-        # run, each until the card has the bytes.
+        # The streamed path's staging of payload bytes onto the card (a
+        # pinned block, a copy into it, the H2D enqueued), host ms until the
+        # card has them: one 2^21-element block alone, and a contribution
+        # that arrived whole, staged and folded a piece of at most
+        # streaming._RUN_ELEMS at a time as the worker does, with the most
+        # device memory that took beyond the accumulator.
         stager = streaming.StreamingAggregator(1, device="cuda")
         stager._total_elems = elems
         raw = memoryview(cpu[0].buf.view(torch.uint8).numpy())
         snap = (None, raw, torch.bfloat16, 2, 0)
-        stager._run_elems(snap, 0, 1)
+        nb, piece = -(-elems // ce), max(1, streaming._RUN_ELEMS // ce)
+
+        def stage_fold():
+            for a in range(0, nb, piece):
+                streaming._fold_block(acc, a * ce, stager._run_elems(snap, a, min(a + piece, nb)), w)
+
+        stage_fold()  # warm: the caching host allocator's pinned blocks
         stage_ms = {}
-        for what, hi in (("block", 1), ("run", -(-elems // ce))):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            staged = stager._run_elems(snap, 0, hi)
-            torch.cuda.synchronize()
-            stage_ms[what] = (time.perf_counter() - t0) * 1e3
-            del staged
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stager._run_elems(snap, 0, 1)
+        torch.cuda.synchronize()
+        stage_ms["block"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        _, stage_peak_mb = _peak_mb(stage_fold)
+        stage_ms["contribution"] = (time.perf_counter() - t0) * 1e3
         del stager, raw, snap
+        busy = _busy(fold_one) if name == "wq" else None
         one_shot_warm_ms = _sync_ms(lambda: fl.packed_weighted_sum(on_card, list(FOLD_WEIGHTS[:n])), 3, warmup=1)
         fin_ms = _event_ms(lambda: fedavg.finalize_packed_stripe(acc, 26.0, elems, "bfloat16"))
         ef = fl.ErrorFeedback()
@@ -1455,7 +1549,8 @@ def phase_fold(gen, card):
                            bound_share=bound_ms / run_ms, per_block_ms=fold_ms, host_us=host_us,
                            host_us_block=host_us_block, device_us=device_us, block_bound_us=block_bound_us,
                            one_shot_ms=one_shot_warm_ms, one_shot_bound_ms=one_shot_bound_ms, one_shot_n=n,
-                           phase_launches=launches, form_cases=forms_cases, stage_ms=stage_ms)
+                           phase_launches=launches, form_cases=forms_cases, stage_ms=stage_ms,
+                           stage_peak_mb=stage_peak_mb, stream_peak_mb=stream_peak_mb, per_block_busy=busy)
         print(f"[fold] {name}: per contribution on the card: one run (one launch) {run_ms:.4f} ms "
               f"({fold_bytes / run_ms / 1e6:.1f} GB/s; bound {bound_ms:.4f} ms at {hbm / 1e12:.2f} TB/s, "
               f"{bound_ms / run_ms:.3f} of it); block by block ({-(-elems // ce)} launches) {fold_ms:.4f} ms "
@@ -1464,8 +1559,10 @@ def phase_fold(gen, card):
               f"(through _fold_block {host_us_block:.2f} us), card {device_us:.2f} us (bound "
               f"{block_bound_us:.2f} us); one-shot fold of {n} {one_shot_warm_ms:.4f} ms warm (bound "
               f"{one_shot_bound_ms:.4f} ms at 2n+2 = {2 * n + 2} B/elem, {one_shot_bound_ms / one_shot_warm_ms:.3f} "
-              f"of it); staging payload bytes on the card through a fresh pinned block, host: a block "
-              f"{stage_ms['block']:.3f} ms, the contribution as one run {stage_ms['run']:.3f} ms; "
+              f"of it); staging payload bytes on the card through a pinned block, host: a block "
+              f"{stage_ms['block']:.3f} ms, the contribution staged and folded in {-(-nb // piece)} pieces "
+              f"{stage_ms['contribution']:.3f} ms, peak device memory {stage_peak_mb:.1f} MB beyond the "
+              f"accumulator; the block-by-block fold under torch.profiler: {json.dumps(busy)}; "
               f"H2D of its {elems * 2 / 1e6:.2f} MB from pinned memory {h2d_ms:.3f} ms "
               f"({elems * 2 / h2d_ms / 1e6:.1f} GB/s); finalize {fin_ms:.3f} ms; error-feedback step (f32 in, "
               f"bf16 out) {ef_ms:.3f} ms; encode of the payloads {encode_s * 1e3:.1f} ms")
@@ -1542,12 +1639,14 @@ def phase_fold_int(gen, card):
             local = rng.randrange(n)
             order = [i for i in range(n) if i != local]
             agg = _KeepAcc(n, weights=weights, quant=grid, quant_ref=ref, device="cuda")
-            torch.cuda.synchronize()
+
+            def streamed():
+                agg.add_local(local, on_card[local])
+                _feed_interleaved(agg, payloads, order, rng)
+                return agg.result(timeout=600)
+
             t0 = time.perf_counter()
-            agg.add_local(local, on_card[local])
-            _feed_interleaved(agg, payloads, order, rng)
-            got = agg.result(timeout=600)
-            torch.cuda.synchronize()
+            got, stream_peak_mb = _peak_mb(streamed)
             stream_s = time.perf_counter() - t0
             want, want_acc = _raw(plain.buf), _raw(acc_cpu)
             same = {"streamed": torch.equal(_raw(elem_blocks(got.buf)), want),
@@ -1559,7 +1658,10 @@ def phase_fold_int(gen, card):
             print(f"[fold_int] {name}: {n} x {elems} uint8 codes on one grid ({grid.nblocks} blocks), weights "
                   f"{tag}, local {local}, arrivals {order} in {FOLD_PIECE // 1024} KiB pieces: streamed on "
                   f"cuda {stream_s * 1e3:.1f} ms wall (stats "
-                  f"{json.dumps({k: v for k, v in agg.stats.items() if k.startswith('agg_')})}), one-shot on "
+                  f"{json.dumps({k: v for k, v in agg.stats.items() if k.startswith('agg_')})}; peak device "
+                  f"memory {stream_peak_mb:.1f} MB above its inputs, of which its i32 accumulator "
+                  f"{grid.nblocks * ce * 4 / 1e6:.1f}, the kept copy of it as much and the f32 mean "
+                  f"{elems * 4 / 1e6:.1f}), one-shot on "
                   f"cuda {one_shot_ms:.3f} ms (bound {elems * (n + 8) / hbm * 1e3:.3f}: the codes and ref "
                   f"read, f32 written), CPU fold over {n_cpu} elements in {len(blocks)} blocks "
                   f"({blocks[0]}..{blocks[-1]}) {cpu_s * 1e3:.1f} ms; i32 "

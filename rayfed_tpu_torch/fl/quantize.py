@@ -35,11 +35,11 @@ Divisions stay true divisions.  Two of their multiply-adds XLA compiles
 into fused multiply-adds (one rounding): the new residual ``corrected −
 scale·(q − zp)`` and the reference add ``ref + scale·(q − zp)``.  Those two
 are computed here as exactly rounded fused multiply-adds, the same bytes on
-the CPU and the card: the plain version (:func:`rayfed_tpu_torch.ops.fold.
-fma`) on CPU tensors, the fold kernel's rows form on the card (one launch a
-piece of block rows, the codes read as they are); every other multiply-add
-stays two ops.  So codes, residuals and dequantized buffers equal the reference's
-bytes on the CPU.
+the CPU and the card: :func:`rayfed_tpu_torch.ops.fold.fma_rows`, its
+plain version on CPU tensors and the fold kernel's rows form on the card
+(one launch a piece of block rows, the codes read as they are); every other
+multiply-add stays two ops.  So codes, residuals and dequantized buffers
+equal the reference's bytes on the CPU.
 
 Overflow headroom: a folded code is bounded by ``qabs_max`` (255 for
 uint8), so the i32 accumulator holds ``|acc| <= qabs_max * W``; the integer
@@ -59,7 +59,6 @@ import torch
 from rayfed_tpu_torch import tree_util
 from rayfed_tpu_torch.fl import compression
 from rayfed_tpu_torch.fl.compression import PackedTree, PackSpec
-from rayfed_tpu_torch.ops.fold import fma as _fma
 from rayfed_tpu_torch.ops.fold import fma_rows
 
 # Version of the shared-grid descriptor and semantics (the JAX package's).
@@ -442,17 +441,6 @@ def _joined(parts: List[torch.Tensor], like: torch.Tensor, dtype: torch.dtype) -
     return torch.cat(flat) if flat else like.new_zeros(0, dtype=dtype)
 
 
-def _fma_rows(sc: torch.Tensor, q: torch.Tensor, c: torch.Tensor, zp: torch.Tensor,
-              negate: bool = False) -> torch.Tensor:
-    """``fma(±scale, q − zp, c)`` over block rows (``sc``, ``zp`` [k, 1]
-    beside ``q``, ``c`` [k, width]), rounded once: on CPU tensors the plain
-    version (:func:`_fma`), on the card the fold kernel's rows form
-    (:func:`rayfed_tpu_torch.ops.fold.fma_rows`)."""
-    if q.device.type == "cpu":
-        return _fma(-sc if negate else sc, q - zp, c)
-    return fma_rows(sc, q, c, zp, negate=negate)
-
-
 def _quantize_codes(buf: Any, ref: Optional[Any], resid: Optional[torch.Tensor],
                     grid: QuantGrid) -> Tuple[torch.Tensor, torch.Tensor]:
     """The JAX package's ``_quantize_kernel``: (subtract the reference,) add
@@ -477,7 +465,7 @@ def _quantize_codes(buf: Any, ref: Optional[Any], resid: Optional[torch.Tensor],
         q = torch.clamp(torch.round(a / sc + zp), qmin, qmax)
         codes.append(q.to(code_dt))
         # corrected − scale·(q − zp), one rounding (see the module doc).
-        resids.append(_fma_rows(sc, q, a, zp, negate=True))
+        resids.append(fma_rows(sc, q, a, zp, negate=True))
     return _joined(codes, corrected, code_dt), _joined(resids, corrected, torch.float32)
 
 
@@ -488,8 +476,8 @@ def _dequantize_codes(codes: Any, ref: Optional[Any], grid: QuantGrid, out_name:
 
     device = _device_of(codes, ref)
     q = as_tensor(codes, device).reshape(-1)
-    if ref is None or device.type == "cpu":
-        q = q.to(torch.float32)  # the card's rows form reads the codes themselves
+    if ref is None:
+        q = q.to(torch.float32)  # the rows form reads the codes themselves
     scales, zps = _grid_vectors(grid, device)
     refs = None if ref is None else _block_rows(_f32_on(ref, device).reshape(-1), grid)
     out = []
@@ -499,7 +487,7 @@ def _dequantize_codes(codes: Any, ref: Optional[Any], grid: QuantGrid, out_name:
             out.append(sc * (a - zp))
         else:
             # ref + scale·(q − zp), one rounding (see the module doc).
-            out.append(_fma_rows(sc, a, refs[k][0], zp))
+            out.append(fma_rows(sc, a, refs[k][0], zp))
     return _joined(out, q, torch.float32).to(compression.torch_dtype(out_name))
 
 

@@ -87,9 +87,12 @@ _NOTIFY_BYTES = 512 * 1024
 # Seq ids one streaming_aggregate call consumes.
 STREAM_AGG_SEQ_IDS = 2
 
-# Largest pinned block a run of payload bytes is staged through on its way
-# to the card (16 blocks of bf16 wire elements).
-_STAGE_BYTES = 64 << 20
+# Most elements one fold call takes (16 of the round's 2^21-element
+# blocks): a longer run folds piece by piece, so what a call stages and
+# allocates stays bounded whatever the run's length (64 MiB of bf16 wire
+# bytes, one pinned block and one device buffer; the integer fold's two i32
+# temporaries, 128 MiB each).
+_RUN_ELEMS = 1 << 25
 
 
 def _fold_block(acc: torch.Tensor, off: int, chunk: torch.Tensor, w) -> None:
@@ -778,9 +781,10 @@ class StreamingAggregator:
         return min(self._nblocks, avail_elems // self._chunk_elems)
 
     def _run_elems(self, src: tuple, lo: int, hi: int) -> torch.Tensor:
-        """The wire elements of blocks ``[lo, hi)`` on the aggregator's
-        device, as one tensor: the blocks of a run are contiguous in the
-        source as in the accumulator, so the run folds in one launch.
+        """The wire elements of blocks ``[lo, hi)`` (at most
+        :data:`_RUN_ELEMS` of them) on the aggregator's device, as one
+        tensor: the blocks of a run are contiguous in the source as in the
+        accumulator, so they fold in one launch.
 
         ``src`` is an under-the-lock snapshot of the stream's ``(elems,
         payload, dtype, itemsize, data_start)``: a concurrent frame abort
@@ -797,20 +801,13 @@ class StreamingAggregator:
         start = data_start + first * itemsize
         region = payload[start : start + count * itemsize]
         if self._stream is not None:
-            # Into one device buffer through pinned blocks of at most
-            # _STAGE_BYTES, so the copies queue on the fold's stream without
-            # holding this thread (the caching host allocator keeps a block
-            # until its copy has run, then hands it out again): a fresh
-            # pinned block of a whole wq contribution (1.07 GB) cost 0.92 s
-            # to allocate on the card's host.
-            raw = np.frombuffer(region, dtype=np.uint8)
-            out = torch.empty(region.nbytes, dtype=torch.uint8, device=self._device)
-            for start in range(0, region.nbytes, _STAGE_BYTES):
-                piece = raw[start : start + _STAGE_BYTES]
-                host = torch.empty(piece.nbytes, dtype=torch.uint8, pin_memory=True)
-                host.numpy()[:] = piece
-                out[start : start + piece.nbytes].copy_(host, non_blocking=True)
-            return out.view(dt)
+            # Through a pinned block, so the copy to the card queues on the
+            # fold's stream without holding this thread (the caching host
+            # allocator keeps the block until the copy has run, then hands
+            # it out again for a later piece of the same size).
+            host = torch.empty(region.nbytes, dtype=torch.uint8, pin_memory=True)
+            host.numpy()[:] = np.frombuffer(region, dtype=np.uint8)
+            return host.view(dt).to(self._device, non_blocking=True)
         if region.readonly:
             return torch.from_numpy(np.frombuffer(region, dtype=np.uint8).copy()).view(dt)
         return torch.frombuffer(region, dtype=torch.uint8).view(dt)
@@ -911,16 +908,20 @@ class StreamingAggregator:
                     weights, fold = self._int_weights, fedavg.quantized_accum_kernel
                 else:
                     weights, fold = list(self._weights), _fold_block
+            piece = max(1, _RUN_ELEMS // self._chunk_elems)
             for i, lo, hi, src, ready in work:
-                t0 = time.perf_counter()
                 if ready is not None:
                     self._stream.wait_event(ready)
-                # The run of blocks [lo, hi) folds at once: the order per
-                # element (party i after parties 0..i-1) is the limit's.
-                fold(self._acc, lo * self._chunk_elems, self._run_elems(src, lo, hi), weights[i])
-                self._busy_s += time.perf_counter() - t0
-                with self._cond:
-                    self._streams[i].applied_blocks = hi
+                # The run of blocks [lo, hi) folds a piece of at most
+                # _RUN_ELEMS at a time: the order per element (party i after
+                # parties 0..i-1) is the limit's.
+                for a in range(lo, hi, piece):
+                    b = min(a + piece, hi)
+                    t0 = time.perf_counter()
+                    fold(self._acc, a * self._chunk_elems, self._run_elems(src, a, b), weights[i])
+                    self._busy_s += time.perf_counter() - t0
+                    with self._cond:
+                        self._streams[i].applied_blocks = b
 
         t0 = time.perf_counter()
         t0_wall = time.time()

@@ -123,6 +123,8 @@ def fold_lib() -> ctypes.CDLL:
     lib.rf_fold_rows.argtypes = [ptr] * 5 + [i32, i64, i64, i32, i32, ptr]
     for fn in (lib.rf_fold_step, lib.rf_fold_pair, lib.rf_fold_chain, lib.rf_fold_rows):
         fn.restype = i32
+    lib.rf_fold_head.argtypes = [ctypes.POINTER(ptr), ctypes.POINTER(i32), i32]
+    lib.rf_fold_head.restype = i64
     lib.rf_cuda_error_string.argtypes = [i32]
     lib.rf_cuda_error_string.restype = ctypes.c_char_p
     return lib

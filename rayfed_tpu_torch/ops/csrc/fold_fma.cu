@@ -493,6 +493,14 @@ extern "C" int rf_fold_rows(void* out, const void* b, const void* c, const void*
   }
 }
 
+// The head a launch over these operands plans (common_head): elements
+// folded one by one before every operand sits on its vector boundary, or -1
+// for the scalar kernel.  ptrs: count operand addresses; sizes: their
+// element sizes in bytes.
+extern "C" long long rf_fold_head(const void* const* ptrs, const int* sizes, int count) {
+  return common_head(ptrs, sizes, count);
+}
+
 extern "C" const char* rf_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -216,10 +216,12 @@ def fma_rows(s: torch.Tensor, b: torch.Tensor, c: torch.Tensor, z: Optional[torc
     one f32 scale ``s`` and zero point ``z`` (optional) a row, as a new f32
     tensor: the codec's residual ``fma(−scale, q − zp, a)`` and reference add
     ``fma(scale, q − zp, ref)``.  ``b``: f32, or the codes (uint8, int8),
-    read as f32."""
+    read as f32; ``c``: f32."""
     if b.dim() != 2 or c.shape != b.shape:
         raise ValueError(f"the rows form takes b and c of one [rows, width] shape, got {tuple(b.shape)}, "
                          f"{tuple(c.shape)}")
+    if c.dtype != torch.float32:
+        raise ValueError(f"the rows form adds an f32 c, not {c.dtype}")
     rows = b.shape[0]
     vecs = [s] if z is None else [s, z]
     if any(t.dtype != torch.float32 or t.numel() != rows or not t.is_contiguous() for t in vecs):
@@ -236,6 +238,17 @@ def fma_rows(s: torch.Tensor, b: torch.Tensor, c: torch.Tensor, z: Optional[torc
         out.data_ptr(), b.data_ptr(), c.data_ptr(), s.data_ptr(), None if z is None else z.data_ptr(),
         int(negate), out.numel(), b.shape[1], _ROWS_B[b.dtype], dev, _stream(dev)))
     return out
+
+
+def vector_head(*ts: torch.Tensor) -> int:
+    """The head the kernel's launcher plans for operands at these addresses:
+    the elements it folds one by one before every operand sits on the
+    boundary of its vector loads, or -1 when no head aligns them all and the
+    scalar kernel runs.  Reads the built library's own rule."""
+    lib = _LIB or _lib()
+    ptrs = (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
+    sizes = (ctypes.c_int * len(ts))(*[t.element_size() for t in ts])
+    return lib.rf_fold_head(ptrs, sizes, len(ts))
 
 
 # -- launching ---------------------------------------------------------------

@@ -134,12 +134,15 @@ def test_chain_plain_is_the_op_sequence_and_the_reference_program(k, wire, weigh
     assert np.asarray(ref).tobytes() == _raw(fold.fold_chain(xs, ws, total, out))
 
 
-def _streamed(tp, weights, chunk_elems, order, split_runs=False, monkeypatch=None):
+def _streamed(tp, weights, chunk_elems, order, split_runs=False, monkeypatch=None, cap=None):
     """A CPU StreamingAggregator over ``tp`` (party 0 local), payloads fed in
     pieces interleaved by ``order``; with ``split_runs`` every run of blocks
-    is folded block by block.  Returns the result and the runs' lengths."""
+    is folded block by block; ``cap``: the most blocks one fold call takes.
+    Returns the result and the lengths of the fold calls, in blocks."""
     runs = []
     monkeypatch.undo()  # the module's own fold, whatever an earlier call patched in
+    if cap is not None:
+        monkeypatch.setattr(tss, "_RUN_ELEMS", cap * chunk_elems)
     fold_block = tss._fold_block
 
     def recording(acc, off, chunk, w):
@@ -168,9 +171,11 @@ def _streamed(tp, weights, chunk_elems, order, split_runs=False, monkeypatch=Non
     return agg.result(timeout=60).buf, runs
 
 
+@pytest.mark.parametrize("cap", [None, 3], ids=["whole-runs", "runs-of-3"])
 @pytest.mark.parametrize("seed", [0, 1])
-def test_run_fold_equals_the_block_fold_and_the_reference(monkeypatch, seed):
-    """A streaming aggregator that folds each run of blocks in one call
+def test_run_fold_equals_the_block_fold_and_the_reference(monkeypatch, seed, cap):
+    """A streaming aggregator that folds each run of blocks in one call (or
+    in pieces of at most ``cap`` blocks, as ``_RUN_ELEMS`` cuts a long run)
     gives the bytes of one that folds block by block and of the JAX
     package's streamed fold (its ``_accum_kernel`` per block), under
     interleaved arrivals; f32 wire and fractional weights, so the streamed
@@ -187,10 +192,12 @@ def test_run_fold_equals_the_block_fold_and_the_reference(monkeypatch, seed):
     weights = [1.7, 2.3, 0.9, 4.1]
     order = [(int(i), int(step)) for i, step in zip(rng.integers(1, 4, 60), rng.integers(5000, 20000, 60))]
     order += [(i, 1 << 30) for i in (1, 2, 3)]
-    runs_out, runs = _streamed(tp, weights, ce, order, monkeypatch=monkeypatch)
+    runs_out, runs = _streamed(tp, weights, ce, order, monkeypatch=monkeypatch, cap=cap)
     blocks_out, _ = _streamed(tp, weights, ce, order, split_runs=True, monkeypatch=monkeypatch)
     assert runs_out.numpy().tobytes() == blocks_out.numpy().tobytes()
-    assert max(runs) > 1 and sum(runs) == 4 * 8  # whole runs folded at once, every block once
+    assert max(runs) > 1 and sum(runs) == 4 * 8  # runs folded at once, every block once
+    if cap is not None:
+        assert max(runs) == cap  # the local contribution's 8 blocks: 3, 3, 2
 
     n = tp[0].buf.numel()
     acc = jnp.zeros(n, jnp.float32)
@@ -253,7 +260,7 @@ def test_by_value_weights_are_f32_scalar_bits(value):
 
 
 @pytest.mark.parametrize("case", ["step", "pair", "chain", "rows", "card-weight", "chain-weights",
-                                  "rows-shape", "rows-vectors"])
+                                  "rows-shape", "rows-vectors", "rows-c-dtype"])
 def test_wrappers_raise_on_what_the_kernel_does_not_take(case):
     """Without a card: a tensor that is neither on the CPU nor on a CUDA
     device, a weight that lives on a device, and shapes the kernel does not
@@ -271,6 +278,8 @@ def test_wrappers_raise_on_what_the_kernel_does_not_take(case):
         "rows-shape": (ValueError, "rows, width", lambda: fold.fma_rows(torch.empty(1, device="meta"), meta, meta)),
         "rows-vectors": (ValueError, "scale and zero point", lambda: fold.fma_rows(
             torch.empty(3, 1, device="meta"), meta.reshape(2, 4), meta.reshape(2, 4))),
+        "rows-c-dtype": (ValueError, "f32 c", lambda: fold.fma_rows(
+            torch.empty(2, 1, device="meta"), meta.reshape(2, 4), meta.reshape(2, 4).to(torch.bfloat16))),
     }
     exc, match, call = calls[case]
     with pytest.raises(exc, match=match):

@@ -14,7 +14,8 @@ The compressed-domain round on CUDA (the codec's codes, residuals and
 dequantized buffers, the i32 fold and its finalize) must give the CPU's
 bytes too.  Each form of the fold kernel (the step, the pair, the chain and
 the rows) must give its plain version's bytes on the same card inputs, with
-the operands at any element offset.
+the operands at any element offset: at offsets that no head aligns (the
+scalar kernel) and at one common offset (the vector kernel after a head).
 """
 
 import random
@@ -114,18 +115,18 @@ def test_cuda_fma_fold_equals_the_cpu_fold(cuda, wire_dtype, weights):
 
 
 def test_streamed_runs_staged_in_pieces_equal_the_cpu_fold(cuda, monkeypatch):
-    """A run of payload blocks longer than the staging block reaches the
-    card in several pinned pieces and still folds in one launch a run, with
-    the CPU fold's bytes."""
+    """A run of blocks longer than ``_RUN_ELEMS`` folds piece by piece, each
+    piece of payload bytes staged through one pinned block and folded in one
+    launch, with the CPU fold's bytes."""
     from rayfed_tpu_torch.fl import streaming
     from rayfed_tpu_torch.ops import fold
 
-    monkeypatch.setattr(streaming, "_STAGE_BYTES", 3 * 4096 * 2 + 6)
+    monkeypatch.setattr(streaming, "_RUN_ELEMS", 3 * 4096)
     gen = torch.Generator().manual_seed(4)
     cpu = [tc.pack_tree({"w": torch.randn(9 * (1 << 12) + 77, generator=gen)}) for _ in range(3)]
     before = fold.fold_fma_.by_form["step"]
     got = _streamed(cpu, [1.7, 2.3, 0.9], cuda)
-    assert fold.fold_fma_.by_form["step"] - before <= 3 * 10
+    assert 3 * 4 <= fold.fold_fma_.by_form["step"] - before <= 3 * 10  # 10 blocks, at most 3 a launch
     assert _raw(got) == _raw(_streamed(cpu, [1.7, 2.3, 0.9], torch.device("cpu")))
 
 
@@ -172,9 +173,11 @@ def _at(t, off):
 @pytest.mark.parametrize("n", [1, 7, 8, (1 << 21) + 3])
 @pytest.mark.parametrize("off", range(8))
 def test_step_and_pair_at_every_offset(cuda, wire, n, off):
-    """The step and the pair at element offsets 0-7 of the accumulator, with
-    the wire operands at other offsets (alignments that agree and that
-    disagree), byte for byte against their plain versions on the card."""
+    """The step and the pair at element offsets 0-7 of the accumulator and
+    ``y``, with ``x`` three elements further on, so that no head aligns ``x``
+    with the others and the scalar kernel runs; byte for byte against their
+    plain versions on the card (the vector kernel's heads:
+    ``test_vector_kernel_after_a_head``)."""
     from rayfed_tpu_torch.ops import fold
 
     gen = torch.Generator().manual_seed(n + off)
@@ -238,6 +241,78 @@ def test_rows_match_plain_version(cuda, shape, codes, negate):
         assert _raw(got) == _raw(fold.rows_plain(s, b, c, zp, negate=negate))
 
 
+@pytest.mark.parametrize("wire", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("n", [1, 7, 8, 1027, (1 << 21) + 3])
+@pytest.mark.parametrize("off", range(1, 8))
+def test_vector_kernel_after_a_head(cuda, wire, n, off):
+    """Every operand of the step at one element offset 1-7: the vector
+    kernel runs after a head of (8 − off) mod 8 bf16 or (4 − off) mod 4 f32
+    elements, as the launcher's own rule (``fold.vector_head``) says; the
+    pair with ``x`` and ``y`` there too, and its fresh output at 0, takes it
+    where one head aligns all three.  Byte for byte against the plain
+    versions on the card."""
+    from rayfed_tpu_torch.ops import fold
+
+    gen = torch.Generator().manual_seed(100 * n + off)
+    x = _at(_edge_values(n, gen, torch.float32).to(wire).to(cuda), off)
+    y = _at(_edge_values(n, gen, torch.float32).to(wire).to(cuda), off)
+    acc = _at(_edge_values(n, gen, torch.float32).to(cuda), off)
+    head = -off % (16 // x.element_size())
+    assert fold.vector_head(x, acc) == head
+    want = fold.step_plain(acc.clone(), 2.3, x)
+    assert _raw(fold.fold_fma_(acc, 2.3, x)) == _raw(want)
+    pair = fold.fold_fma_pair(-0.7, x, 1.9, y)
+    assert fold.vector_head(x, y, pair) == (head if head % 4 == 0 else -1)
+    assert _raw(pair) == _raw(fold.pair_plain(-0.7, x, 1.9, y))
+
+
+@pytest.mark.parametrize("weights", sorted(CHAIN_WEIGHTS))
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32], ids=["bf16-out", "f32-out"])
+@pytest.mark.parametrize("wire", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("k", range(1, 10))
+def test_chain_vector_kernel_at_a_common_offset(cuda, k, wire, out, weights):
+    """Every operand of the chain at element 4 of its buffer, the output
+    fresh: the vector kernel after a head of 4 (bf16 wire, f32 out), of 0
+    (f32 wire), and the scalar kernel where no head aligns a bf16 output
+    with bf16 operands there; byte for byte against the plain version, for
+    1 to 9 operands (9: two launches through the f32 carry)."""
+    from rayfed_tpu_torch.ops import fold
+
+    gen = torch.Generator().manual_seed(10 + k)
+    n = (1 << 20) + 5
+    xs = [_at(_edge_values(n, gen, torch.float32).to(wire).to(cuda), 4) for _ in range(k)]
+    ws = [1.0] * k if CHAIN_WEIGHTS[weights] is None else CHAIN_WEIGHTS[weights][:k]
+    total = float(sum(ws))
+    got = fold.fold_chain(xs, ws, total, out)
+    want_head = 0 if wire == torch.float32 else 4 if out == torch.float32 else -1
+    assert fold.vector_head(*xs, got) == want_head
+    assert got.dtype == out and _raw(got) == _raw(fold.chain_plain(xs, ws, total, out))
+
+
+@pytest.mark.parametrize("codes", [torch.float32, torch.uint8, torch.int8])
+@pytest.mark.parametrize("shape", [(3, 1 << 21), (1, 4099), (4, 1)])
+def test_rows_vector_kernel_at_a_common_offset(cuda, shape, codes):
+    """The rows form with ``b`` and ``c`` at element 4 of their buffers and
+    the output fresh: the vector kernel after a head of 4 for 1-byte codes,
+    of 0 for f32; byte for byte against the plain version, either sign, with
+    and without the zero point."""
+    from rayfed_tpu_torch.ops import fold
+
+    gen = torch.Generator().manual_seed(shape[1] + 7)
+    rows, width = shape
+    b = torch.randint(0, 256, (rows * width,), generator=gen, dtype=torch.uint8)
+    b = b.view(torch.int8) if codes == torch.int8 else b if codes == torch.uint8 else b.float() - 128
+    b = _at(b.to(cuda), 4).reshape(shape)
+    c = _at(_edge_values(rows * width, gen, torch.float32).to(cuda), 4).reshape(shape)
+    s = (torch.rand(rows, 1, generator=gen) * 1e-2).to(cuda)
+    z = torch.round(torch.randn(rows, 1, generator=gen) * 100).to(cuda)
+    for negate in (False, True):
+        for zp in (z, None):
+            got = fold.fma_rows(s, b, c, zp, negate=negate)
+            assert fold.vector_head(b, c, got) == (4 if b.element_size() == 1 else 0)
+            assert _raw(got) == _raw(fold.rows_plain(s, b, c, zp, negate=negate))
+
+
 def test_wrappers_raise_on_what_the_kernel_does_not_take(cuda):
     from rayfed_tpu_torch.ops import fold
 
@@ -248,6 +323,8 @@ def test_wrappers_raise_on_what_the_kernel_does_not_take(cuda):
         fold.fold_fma_(torch.zeros(32, device=cuda)[::2], 1.0, acc)
     with pytest.raises(ValueError, match="one length"):
         fold.fold_fma_pair(1.0, acc, 1.0, acc[:8])
+    with pytest.raises(ValueError, match="f32 c"):
+        fold.fma_rows(torch.ones(2, 1, device=cuda), acc.reshape(2, 8), acc.reshape(2, 8).to(torch.bfloat16))
 
 
 def test_fold_waits_for_its_inputs_and_its_readers_wait_for_it(cuda):

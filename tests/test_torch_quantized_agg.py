@@ -231,8 +231,9 @@ def test_codec_computes_only_the_buffers_elements(monkeypatch, n, chunk):
     x = rng.standard_normal(n).astype(np.float32)
     ref = rng.standard_normal(n).astype(np.float32)
     seen = []
-    fma = qz._fma
-    monkeypatch.setattr(qz, "_fma", lambda a, b, c, **kw: (seen.append(b.numel()), fma(a, b, c, **kw))[1])
+    fma_rows = qz.fma_rows
+    monkeypatch.setattr(qz, "fma_rows",
+                        lambda s, b, c, *a, **kw: (seen.append(b.numel()), fma_rows(s, b, c, *a, **kw))[1])
     jgrid = jqz.make_round_grid(x - ref, chunk_elems=chunk)
     tgrid = qz.make_round_grid(x - ref, chunk_elems=chunk)
     _assert_grid_equal(tgrid, jgrid)
