@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import concurrent.futures
 import contextlib
 import dataclasses
 import functools
@@ -2432,15 +2433,38 @@ def run_leg(name: str, device: str = "cuda", stats: Optional[dict] = None) -> di
     return extra
 
 
-def run_smoke(device: str = "cuda", legs=LEG_NAMES, stats: Optional[dict] = None) -> Tuple[dict, List[str]]:
+def run_smoke(device: str = "cuda", legs=LEG_NAMES, stats: Optional[dict] = None,
+              lanes: int = 1) -> Tuple[dict, List[str]]:
     """Every smoke leg of ``legs`` on ``device``, in bench.py's order.
     Returns the record bench.py --smoke prints and the names of the failed
     legs and missed gates; ``stats`` as ``run_leg``'s.  Raises before any
-    leg when the card is asked for and there is none."""
+    leg when the card is asked for and there is none.
+
+    ``lanes`` > 1 runs that many legs at once: each lane takes the next leg
+    in order when its last one has ended.  The legs share no port, socket
+    path or process, and the record is merged in bench.py's order, so only
+    the timed gates change: their walls then share the host's cores."""
     _check_device(device)
+    by_leg: dict = {}
+    if lanes == 1:
+        for name in legs:
+            by_leg[name] = run_leg(name, device, stats)
+    else:
+        # Set for the whole pool: a lane's run_leg restores what it found,
+        # and must not take the flag from under another lane's children.
+        before = os.environ.get("RAYFED_BENCH_SMOKE")
+        os.environ["RAYFED_BENCH_SMOKE"] = "1"
+        try:
+            with concurrent.futures.ThreadPoolExecutor(lanes) as pool:
+                by_leg = dict(zip(legs, pool.map(lambda name: run_leg(name, device, stats), legs)))
+        finally:
+            if before is None:
+                del os.environ["RAYFED_BENCH_SMOKE"]
+            else:
+                os.environ["RAYFED_BENCH_SMOKE"] = before
     extra: dict = {}
     for name in legs:
-        extra.update(run_leg(name, device, stats))
+        extra.update(by_leg[name])
     record = {
         "metric": "cross_party_stream_agg_GBps",
         "value": extra.get("cross_party_stream_agg_GBps", 0.0),

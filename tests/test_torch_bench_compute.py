@@ -47,8 +47,8 @@ TINY_KW = {
 def _may_be_zero(key):
     """A share or a size, rounded to the reference's precision, which at this
     size can round to 0 (``chip_smoke.py``'s phase_bench_compute holds every
-    key positive at the card's sizes), or a probe line the reference clamps
-    at 0.  Every time, rate and speedup must be positive here too."""
+    key positive at the card's sizes but the residual ``llama_other_ms``),
+    or a probe line the reference clamps at 0.  Every time, rate and speedup must be positive here too."""
     return key.endswith(("_mfu", "_membw_util", "_frac", "_params_b", "_base_gb")) or key in (
         "llama_other_ms", "llama_remat_ms")
 

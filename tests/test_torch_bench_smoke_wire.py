@@ -4,8 +4,11 @@ command line and the gate table.  See ``tests/torch_bench_smoke.py``."""
 
 import json
 import math
+import os
 import subprocess
 import sys
+import threading
+import time
 import types
 from pathlib import Path
 
@@ -151,6 +154,34 @@ def test_run_smoke_returns_the_record_and_its_failed_gates():
     # The children report their kernel launches: none on the CPU.
     assert stats["object_plane"]["launches"] == {"fold_fma": 0, "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     assert stats["object_plane"]["s"] > 0
+
+
+def test_run_smoke_lanes_run_legs_at_once_and_merge_in_order(monkeypatch):
+    """Two lanes run two legs at once (each waits at a barrier for the
+    other), each under the smoke flag until both have ended, and the record
+    merges their keys in the legs' order as one lane does."""
+    barrier = threading.Barrier(2, timeout=30)
+    seen = {}
+
+    def leg(name, wait):
+        def runner(device, extra, launches):
+            if wait:
+                barrier.wait()
+            time.sleep(0.2 if name == "a" else 0.0)  # "b" ends first: its flag must outlive it
+            seen[name] = os.environ.get("RAYFED_BENCH_SMOKE")
+            extra[f"{name}_key"] = 1
+            extra["shared"] = name
+        return (name, f"leg {name}", runner)
+
+    monkeypatch.delenv("RAYFED_BENCH_SMOKE", raising=False)
+    monkeypatch.setattr(bench_torch, "LEGS", (leg("a", True), leg("b", True), leg("c", False)))
+    stats = {}
+    record, failed = bench_torch.run_smoke("cpu", legs=("a", "b", "c"), stats=stats, lanes=2)
+    assert failed == [] and seen == {"a": "1", "b": "1", "c": "1"}
+    assert record["shared"] == "c" and list(record)[-4:] == ["a_key", "shared", "b_key", "c_key"]
+    assert set(stats) == {"a", "b", "c"} and "RAYFED_BENCH_SMOKE" not in os.environ
+    monkeypatch.setattr(bench_torch, "LEGS", (leg("a", False), leg("b", False), leg("c", False)))
+    assert bench_torch.run_smoke("cpu", legs=("a", "b", "c"))[0] == record
 
 
 def test_chip_smoke_rerun_in_a_spawned_child_stays_light():
