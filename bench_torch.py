@@ -10,9 +10,17 @@ reference unchanged.  ``python3 bench_torch.py --compute-only`` runs
 (``--device cpu`` on the host): the ~1.07B Llama's Adam step with its MFU
 breakdown, its KV-cache decode, flash against dense attention, Llama-3-8B's
 int8-base LoRA step and int8 decode, and MoE dispatch; it prints ONE JSON
-line with the reference's keys and exits 1 when a leg fails.  The
-federated section (``--fed-only``, or no mode flag) is not ported yet: it
-exits 2.
+line with the reference's keys and exits 1 when a leg fails.
+``python3 bench_torch.py --fed-only`` runs ``bench.py``'s federated section
+on the port, on the card (``--device cpu`` on the host): the pipeline
+against DP over a 4-rank world, split learning's activation push, the raw
+push path, the full-size send-path, streaming, ring and overlap legs, the
+2-party Llama-LoRA fine-tune, 4-party ResNet-18 FedAvg with its floor and
+DP control, and the headline 2-party FedAvg
+(``fedavg_mnist_2party_rounds_per_sec``); it prints ONE JSON line with the
+reference's keys and exits 1 when a leg fails.  With no mode flag it runs
+the federated section, then the compute section, and prints one line, as
+``bench.py`` does.
 
 Each smoke leg keeps the reference's function name, its ``_fill_*_extra``,
 its result keys, its smoke sizes (``RAYFED_BENCH_SMOKE``) and its shape of
@@ -32,7 +40,9 @@ card's data-sheet peaks (``_PEAK_FLOPS``, ``_PEAK_HBM_BPS``).
 returns ``(record, failed_gates)``; ``run_leg(name, device)`` runs one leg
 and returns its keys.  ``GATES`` is the gate table: each gate is ``exact``
 (fixed by sizes, seeds and the arithmetic) or ``timed`` (a ratio of walls).
-``run_compute(device)`` runs the compute legs and returns the record.
+``run_compute(device)`` runs the compute legs and returns the record;
+``run_fed(device)`` runs the federated legs (each leg's sizes and counts
+keyword arguments, the reference's by default) and returns the record.
 """
 
 from __future__ import annotations
@@ -145,7 +155,7 @@ def _rotating_quarter(bundle):
     return base32, contribution
 
 
-def _run_stream_agg_bench(_party: str, result_q, device) -> None:
+def _run_stream_agg_bench(_party: str, result_q, device, kw: Optional[dict] = None) -> None:
     """Streaming FedAvg round with the delta cache (bench.py's leg): three
     peers push packed bf16 bundles on per-peer delta streams to alice,
     whose ``StreamingAggregator`` folds each chunk on ``device`` as it
@@ -168,7 +178,7 @@ def _run_stream_agg_bench(_party: str, result_q, device) -> None:
         bundle = fl_comp.compress(
             resnet.init_resnet(torch.Generator().manual_seed(0), cfg, device=device), packed=True
         )
-        rounds = 3
+        rounds = _kw(kw, "rounds", 3)
 
     bundle_bytes = bundle.buf.numel() * bundle.buf.element_size()
     _, contribution = _rotating_quarter(bundle)
@@ -641,8 +651,11 @@ def _run_objectplane_bench(_party: str, result_q, device) -> None:
     m0 = model(0)
     m0c = rf_objects.canonical_host(m0)
     b0 = payload_bytes(mgrs["alice"])
-    mgrs["alice"].send("dave", welcome_of(m0), "w.eager", "roster")
+    sent = mgrs["alice"].send("dave", welcome_of(m0), "w.eager", "roster")
     eager_val = mgrs["dave"].recv("alice", "w.eager", "roster").resolve(timeout=120)["params"]
+    # The sender counts a frame's bytes after writing it, which may trail
+    # the receiver's read: wait for the send to resolve before reading.
+    sent.resolve(timeout=120)
     eager_bytes = payload_bytes(mgrs["alice"]) - b0
 
     # --- 2a. cold handle rejoin (carol has nothing cached) -----------
@@ -650,18 +663,20 @@ def _run_objectplane_bench(_party: str, result_q, device) -> None:
     handle = mgrs["alice"].objects.handle_for(fp, nb)
     b1 = payload_bytes(mgrs["alice"])
     t0 = time.perf_counter()
-    mgrs["alice"].send("carol", welcome_of(None, handle), "w.cold", "roster")
+    sent = mgrs["alice"].send("carol", welcome_of(None, handle), "w.cold", "roster")
     wc = mgrs["carol"].recv("alice", "w.cold", "roster").resolve(timeout=120)
     cold_val = rf_objects.maybe_resolve_handle(mgrs["carol"], wc["model"])
     cold_s = time.perf_counter() - t0
+    sent.resolve(timeout=120)
     cold_bytes = payload_bytes(mgrs["alice"]) - b1
 
     # --- 2b. warm handle rejoin (dave's cache holds the model) -------
     mgrs["dave"].objects.publish(rf_objects.canonical_host(eager_val))
     b2 = payload_bytes(mgrs["alice"])
-    mgrs["alice"].send("dave", welcome_of(None, handle), "w.warm", "roster")
+    sent = mgrs["alice"].send("dave", welcome_of(None, handle), "w.warm", "roster")
     ww = mgrs["dave"].recv("alice", "w.warm", "roster").resolve(timeout=120)
     warm_val = rf_objects.maybe_resolve_handle(mgrs["dave"], ww["model"])
+    sent.resolve(timeout=120)
     warm_bytes = payload_bytes(mgrs["alice"]) - b2
 
     # Handle-resolved state == eager-push state, receiver-decoded.
@@ -1252,7 +1267,7 @@ def _fill_server_opt_extra(extra: dict, s: dict) -> None:
     )
 
 
-def _run_send_path_bench(_party: str, result_q, device) -> None:
+def _run_send_path_bench(_party: str, result_q, device, kw: Optional[dict] = None) -> None:
     """The coordinator's send path (bench.py's leg): (N-1) packed bf16
     bundles in, the aggregate out, against sequential single-payload pushes
     of the same bundle (``wire_vs_push_capability``), the send/read phase
@@ -1274,7 +1289,7 @@ def _run_send_path_bench(_party: str, result_q, device) -> None:
         from rayfed_tpu_torch.models import resnet
 
         tree = resnet.init_resnet(torch.Generator().manual_seed(0), resnet.resnet18(num_classes=10), device=device)
-        rounds = 3
+        rounds = _kw(kw, "rounds", 3)
     bundle = fl_comp.compress(tree, packed=True)
     _sync(device)
     bundle_bytes = bundle.buf.numel() * bundle.buf.element_size()
@@ -1417,7 +1432,7 @@ def _fill_send_path_extra(extra: dict, s: dict) -> None:
 RINGB_PARTIES = ("alice", "bob", "carol", "dave")
 
 
-def _run_ring_agg_party(party: str, result_q, device, cluster) -> None:
+def _run_ring_agg_party(party: str, result_q, device, cluster, kw: Optional[dict] = None) -> None:
     """Ring against hub FedAvg rounds over the fed API (bench.py's leg; one
     process per party): ``streaming_aggregate`` into alice against
     ``ring_aggregate``'s striped reduce-scatter and all-gather, each
@@ -1440,7 +1455,7 @@ def _run_ring_agg_party(party: str, result_q, device, cluster) -> None:
         from rayfed_tpu_torch.models import resnet
 
         tree = resnet.init_resnet(torch.Generator().manual_seed(0), resnet.resnet18(num_classes=10), device=device)
-        rounds = 3
+        rounds = _kw(kw, "rounds", 3)
         chunk_elems = None  # the canonical grid
 
     bundle = fl_comp.compress(tree, packed=True)
@@ -2012,7 +2027,7 @@ def _fill_async_extra(extra: dict, s: dict) -> None:
 OVERLAPB_PARTIES = ("alice", "bob", "carol", "dave")
 
 
-def _run_overlap_party(party: str, result_q, device, cluster) -> None:
+def _run_overlap_party(party: str, result_q, device, cluster, kw: Optional[dict] = None) -> None:
     """Pipelined (``overlap=True``) against synchronous FedAvg rounds
     (bench.py's leg; one process per party): the same matmul-chain trainer
     on ``device`` through ``run_fedavg_rounds`` both ways from one warmed
@@ -2028,7 +2043,7 @@ def _run_overlap_party(party: str, result_q, device, cluster) -> None:
     # fixed latency; 50 steps of the chain are the compute it hides under.
     dim = 512
     steps = 50
-    rounds = 6 if smoke else 8
+    rounds = 6 if smoke else _kw(kw, "rounds", 8)
 
     @fed.remote
     class Trainer:
@@ -2149,19 +2164,28 @@ def _launches() -> Dict[str, int]:
     return out
 
 
+def _peak_bytes() -> Optional[int]:
+    """This process's peak device memory so far (None without the card)."""
+    return torch.cuda.max_memory_allocated() if torch.cuda.is_initialized() else None
+
+
+def _assert_no_jax() -> None:
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in _FOREIGN)
+    if loaded:
+        raise AssertionError(f"a bench_torch child loaded {loaded}")
+
+
 class _NoJaxQueue:
     """The child's end of the result queue: every report first asserts that
     the child loaded neither JAX nor the JAX package, and carries the
-    child's kernel launches so far."""
+    child's kernel launches and peak device memory so far."""
 
     def __init__(self, q):
         self._q = q
 
     def put(self, item) -> None:
-        loaded = sorted(m for m in sys.modules if m.split(".")[0] in _FOREIGN)
-        if loaded:
-            raise AssertionError(f"a bench_torch child loaded {loaded}")
-        self._q.put((*item, _launches()))
+        _assert_no_jax()
+        self._q.put((*item, _launches(), _peak_bytes()))
 
     def close(self) -> None:
         self._q.close()
@@ -2170,33 +2194,47 @@ class _NoJaxQueue:
         self._q.join_thread()
 
 
-def _party_child(fn_name: str, party: str, result_q, device: str, args: tuple = ()) -> None:
+def _party_child(fn_name: str, party: str, result_q, device: str, args: tuple = (),
+                 smoke: Optional[bool] = None) -> None:
     """Spawn-process entry: run the leg ``fn_name`` for ``party`` on
-    ``device``.  Nothing touches the card before this process starts."""
+    ``device``.  Nothing touches the card before this process starts.
+    ``smoke`` True or False sets or clears ``RAYFED_BENCH_SMOKE`` here
+    (None: as inherited), so that a federated leg runs at its full size
+    whatever another section running beside it set in the parent."""
+    if smoke is not None:
+        if smoke:
+            os.environ["RAYFED_BENCH_SMOKE"] = "1"
+        else:
+            os.environ.pop("RAYFED_BENCH_SMOKE", None)
     globals()[fn_name](party, _NoJaxQueue(result_q), device, *args)
 
 
-def _one_child(fn_name: str, device: str, launches, timeout: int = 300):
+def _one_child(fn_name: str, device: str, launches, timeout: int = 300, args: tuple = (),
+               peaks: Optional[list] = None, smoke: Optional[bool] = None):
     """Run a leg in one spawned child; returns what it reported."""
-    return next(iter(_multi_party(fn_name, ("solo",), device, launches, timeout=timeout).values()))
+    return next(iter(_multi_party(fn_name, ("solo",), device, launches, args, timeout, peaks, smoke).values()))
 
 
-def _multi_party(fn_name: str, parties, device: str, launches, args: tuple = (), timeout: int = 900) -> dict:
+def _multi_party(fn_name: str, parties, device: str, launches, args: tuple = (), timeout: int = 900,
+                 peaks: Optional[list] = None, smoke: Optional[bool] = None) -> dict:
     """Run a leg in one spawned child per party; returns each child's
-    report by the name it reported under, and adds the children's kernel
-    launches to the Counter ``launches``."""
+    report by the name it reported under, adds the children's kernel
+    launches to the Counter ``launches`` and their peak device memory to
+    the list ``peaks`` (when given); ``smoke`` as ``_party_child``'s."""
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
-    procs = [ctx.Process(target=_party_child, args=(fn_name, p, q, device, args)) for p in parties]
+    procs = [ctx.Process(target=_party_child, args=(fn_name, p, q, device, args, smoke)) for p in parties]
     for p in procs:
         p.start()
     results = {}
     deadline = time.time() + timeout
     while len(results) < len(parties) and time.time() < deadline:
         try:
-            party, value, child_launches = q.get(timeout=5)
+            party, value, child_launches, peak = q.get(timeout=5)
             results[party] = value
             launches.update(child_launches)
+            if peaks is not None and peak is not None:
+                peaks.append(peak)
         except Exception:
             # Fail fast: a crashed child, or every child gone with results
             # still missing, means no full set is coming.
@@ -3133,11 +3171,939 @@ def run_compute(device: str = "cuda", stats: Optional[dict] = None, legs=COMPUTE
     return {k: (None if isinstance(v, float) and v != v else v) for k, v in record.items()}
 
 
+# --------------------------------------------------------------------------
+# The federated section: bench.py's legs before its compute section
+# --------------------------------------------------------------------------
+
+# The headline's sizes (bench.py's N, D, CLASSES and round counts).
+N, D, CLASSES = 1024, 784, 10
+LOCAL_STEPS = 4
+WARMUP_ROUNDS = 3
+MEASURE_ROUNDS = 20
+FED_PARTIES = ("alice", "bob")
+RESNET_PARTIES = ("alice", "bob", "carol", "dave")
+RESNET_N_PER_PARTY, RESNET_HW = 32, 32  # a CIFAR-10-shaped shard per party
+RESNET_ROUNDS = 3
+SETTLE_S = 3.0  # bench.py's _settle() between the federated legs
+HEADLINE = "fedavg_mnist_2party_rounds_per_sec"
+
+
+def _kw(kw: Optional[dict], name: str, default):
+    return (kw or {}).get(name, default)
+
+
+def _run_fedavg_party(party: str, result_q, device, cluster, kw: Optional[dict] = None) -> None:
+    """BASELINE #2's headline (bench.py's leg): 2-party FedAvg of a
+    logistic model over the real push transport, each party's trainer on
+    ``device``; rounds/s over ``rounds`` rounds after ``warmup``."""
+    import logging
+
+    import rayfed_tpu_torch as fed
+    from rayfed_tpu_torch.fl import aggregate
+    from rayfed_tpu_torch.models import logistic
+
+    n, d, classes = _kw(kw, "n", N), _kw(kw, "d", D), _kw(kw, "classes", CLASSES)
+    local_steps, warmup, rounds = _kw(kw, "local_steps", LOCAL_STEPS), _kw(kw, "warmup", WARMUP_ROUNDS), \
+        _kw(kw, "rounds", MEASURE_ROUNDS)
+    logging.disable(logging.WARNING)
+    fed.init(address="local", cluster=cluster, party=party, device=device)
+
+    @fed.remote
+    class Trainer:
+        def __init__(self, seed: int):
+            self._x = torch.randn((n, d), generator=torch.Generator().manual_seed(seed)).to(device)
+            w = torch.randn((d, classes), generator=torch.Generator().manual_seed(0)).to(device)
+            self._y = torch.argmax(self._x @ w, dim=-1)
+            self._step = logistic.make_train_step(logistic.apply_logistic, lr=0.2)
+
+        def train(self, params):
+            for _ in range(local_steps):
+                params, _loss = self._step(params, self._x, self._y)
+            _sync(device)
+            return params
+
+    alice = Trainer.party("alice").remote(1)
+    bob = Trainer.party("bob").remote(2)
+    params = logistic.init_logistic(d, classes, device=device)
+
+    def do_round(params):
+        return aggregate([alice.train.remote(params), bob.train.remote(params)])
+
+    for _ in range(warmup):
+        params = do_round(params)
+    _sync(device)
+    t0 = time.perf_counter()
+    for _ in range(rounds):
+        params = do_round(params)
+    _sync(device)
+    elapsed = time.perf_counter() - t0
+    result_q.put((party, rounds / elapsed))
+    fed.shutdown()
+
+
+def _run_split_party(party: str, result_q, device, cluster, kw: Optional[dict] = None) -> None:
+    """BASELINE #5's activation push (bench.py's leg): the pipelined split
+    step (K microbatches' forwards pushed back to back) between two party
+    processes, f32 and bf16 wire, best of three windows with the
+    TransferLog's read/send decomposition; alice's serial compute probe of
+    both halves gives the serialized ceiling."""
+    import logging
+
+    import rayfed_tpu_torch as fed
+    from rayfed_tpu_torch import metrics
+    from rayfed_tpu_torch.fl import SplitTrainer
+    from rayfed_tpu_torch.models.logistic import softmax_cross_entropy
+
+    logging.disable(logging.WARNING)
+    fed.init(address="local", cluster=cluster, party=party, device=device)
+    n, d_in, d_hidden, classes, k_mb = (_kw(kw, "n", 4096), _kw(kw, "d_in", 16), _kw(kw, "d_hidden", 1024),
+                                         _kw(kw, "classes", 10), _kw(kw, "k_mb", 8))
+
+    def make_encoder_params():
+        return {"k": torch.randn((d_in, d_hidden), generator=torch.Generator().manual_seed(0)).to(device) * 0.05}
+
+    def make_head_params():
+        return {"k": torch.randn((d_hidden, classes), generator=torch.Generator().manual_seed(1)).to(device) * 0.05}
+
+    def make_x(mb):
+        return torch.randn((n, d_in), generator=torch.Generator().manual_seed(70 + mb)).to(device)
+
+    def make_y(mb):
+        return torch.randint(0, classes, (n,), generator=torch.Generator().manual_seed(80 + mb)).to(device)
+
+    def encoder_apply(params, x):
+        return torch.relu(x @ params["k"])
+
+    def head_apply(params, h):
+        return h @ params["k"]
+
+    def make_trainer(wire_dtype):
+        return SplitTrainer(encoder_party="alice", head_party="bob", encoder_params=make_encoder_params(),
+                            encoder_apply=encoder_apply, head_params=make_head_params(), head_apply=head_apply,
+                            loss_fn=softmax_cross_entropy, lr=0.1, wire_dtype=wire_dtype)
+
+    load_x, load_y = fed.remote(make_x), fed.remote(make_y)
+    x_objs = [load_x.party("alice").remote(mb) for mb in range(k_mb)]
+    y_objs = [load_y.party("bob").remote(mb) for mb in range(k_mb)]
+    # A host of two cores or fewer takes the serialized step (K = 1), as
+    # the reference does.
+    k_mb_eff = k_mb if os.cpu_count() and os.cpu_count() > 2 else 1
+    steps = _kw(kw, "steps", 8 if k_mb_eff > 1 else 24)
+    windows = _kw(kw, "windows", 3)
+    xs, ys = x_objs[:k_mb_eff], y_objs[:k_mb_eff]
+
+    def timed(trainer):
+        trainer.step_pipelined(xs, ys)  # warmup
+        best = None
+        for _w in range(windows):
+            fed.get(trainer.encoder_params())  # every earlier step's traffic drained
+            total0 = metrics.get_transfer_log().total_recorded
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                trainer.step_pipelined(xs, ys)
+            fed.get(trainer.encoder_params())
+            elapsed = time.perf_counter() - t0
+            recs, complete = metrics.get_transfer_log().records_since(total0)
+            if complete:
+                read_s = sum(r.seconds for r in recs if r.direction == "recv")
+                send_s = sum(r.seconds for r in recs if r.direction == "send")
+            else:  # the ring evicted part of the window
+                read_s = send_s = float("nan")
+            key = (not complete, elapsed)
+            if best is None or key < best[0]:
+                best = (key, (elapsed, read_s, send_s))
+        return best[1]
+
+    def compute_probe_ms() -> float:
+        """Alice alone: both halves' math back to back, as the actors do it
+        (encoder forward and recompute-backward, head loss and grads)."""
+        if party != "alice":
+            return 0.0
+        k_enc, k_head = make_encoder_params()["k"], make_head_params()["k"]
+        x, y = make_x(0), make_y(0)
+        h = encoder_apply({"k": k_enc}, x)
+        g = torch.ones_like(h)
+
+        def one_step():
+            with torch.no_grad():
+                encoder_apply({"k": k_enc}, x)
+            p = k_enc.detach().requires_grad_(True)
+            torch.autograd.grad(encoder_apply({"k": p}, x), p, g)
+            ph, hh = k_head.detach().requires_grad_(True), h.detach().requires_grad_(True)
+            torch.autograd.grad(softmax_cross_entropy(head_apply({"k": ph}, hh), y), (ph, hh))
+            _sync(device)
+
+        one_step()
+        t0 = time.perf_counter()
+        for _ in range(4):
+            one_step()
+        return (time.perf_counter() - t0) / 4 * 1e3
+
+    probe_ms = compute_probe_ms() * k_mb_eff
+    el_f32, read_f32, send_f32 = timed(make_trainer(None))
+    el_bf16, _read, _send = timed(make_trainer(torch.bfloat16))
+    bytes_per_step = 2 * k_mb_eff * n * d_hidden * 4  # K x (activations + their grads), f32
+    result_q.put((party, {
+        "gbps": steps * bytes_per_step / el_f32 / 1e9,
+        "steps_per_sec": steps / el_f32,
+        "bf16_steps_per_sec": steps / el_bf16,
+        "wire_read_ms": read_f32 / steps * 1e3,
+        "send_path_ms": send_f32 / steps * 1e3,
+        "other_ms": max(el_f32 - read_f32 - send_f32, 0.0) / steps * 1e3,
+        "compute_probe_ms": probe_ms,
+    }))
+    fed.shutdown()
+
+
+def _run_push_bench(_party: str, result_q, device, kw: Optional[dict] = None) -> None:
+    """The raw push path (bench.py's leg): a 128 MB f32 [8192, 4096] tensor
+    on the sender's ``device`` pushed over loopback to a receiver that keeps
+    host arrays (``push_GBps``) or puts them on its ``device``
+    (``push_reshard_GBps``), best of three windows; one payload striped over
+    4 rails against 1; a 64-leaf 45 MB f32 tree compressed to bf16 and
+    pushed end to end, packed against per-leaf."""
+    from rayfed_tpu_torch import tree_util
+    from rayfed_tpu_torch.config import ClusterConfig, JobConfig, PartyConfig
+    from rayfed_tpu_torch.fl import compression as fl_comp
+    from rayfed_tpu_torch.transport.manager import TransportManager
+    from rayfed_tpu_torch.utils.ports import free_loopback_ports
+
+    rows, cols = _kw(kw, "rows", 8192), _kw(kw, "cols", 4096)
+    steps, reshard_steps, reps = _kw(kw, "steps", 6), _kw(kw, "reshard_steps", 4), _kw(kw, "reps", 3)
+    rail_steps, rail_reps = _kw(kw, "rail_steps", 3), _kw(kw, "rail_reps", 2)
+    leaves, leaf_rows = _kw(kw, "leaves", 64), _kw(kw, "leaf_rows", 44)
+
+    def pair(device_put_received, options=None):
+        """A started sender and receiver on free loopback ports; ``options``:
+        the sender's transport options (the receiver keeps the defaults)."""
+        ports = free_loopback_ports(2)
+        out = []
+        for party in ("alice", "bob"):
+            pcs = [{"address": f"127.0.0.1:{port}"} for port in ports]
+            if options and party == "alice":
+                pcs = [dict(pc, transport_options=options) for pc in pcs]
+            cc = ClusterConfig(parties={p: PartyConfig.from_dict(pc) for p, pc in zip(("alice", "bob"), pcs)},
+                               current_party=party)
+            job = JobConfig(device_put_received=device_put_received, zero_copy_host_arrays=not device_put_received)
+            out.append(TransportManager(cc, job, device=device))
+        for m in out:
+            m.start()
+        return out
+
+    x = torch.arange(rows * cols, dtype=torch.float32, device=device).reshape(rows, cols)
+    _sync(device)
+    nbytes = x.numel() * x.element_size()
+
+    def run(device_put_received, n_steps):
+        a, b = pair(device_put_received)
+        a.send("bob", x, "warm", "0").resolve()
+        b.recv("alice", "warm", "0").resolve()
+        best_dt, seq = float("inf"), 0
+        for _rep in range(reps):
+            send_refs = []
+            t0 = time.perf_counter()
+            for _ in range(n_steps):
+                send_refs.append(a.send("bob", x, f"p{seq}", "0"))
+                got = b.recv("alice", f"p{seq}", "0").resolve()
+                seq += 1
+            _sync(device)
+            dt = time.perf_counter() - t0
+            results = [r.resolve(timeout=60) for r in send_refs]
+            if not all(results):
+                raise RuntimeError(f"push send failed: {results}")
+            best_dt = min(best_dt, dt)
+        where = got.device.type if isinstance(got, torch.Tensor) else "host"
+        a.stop()
+        b.stop()
+        return nbytes * n_steps / best_dt / 1e9, where
+
+    wire_gbps, wire_at = run(False, steps)
+    reshard_gbps, reshard_at = run(True, reshard_steps)
+    if torch.device(device).type == "cuda" and (wire_at == "cuda" or reshard_at != "cuda"):
+        raise RuntimeError(f"push bench: host-array receive landed on {wire_at}, device receive on {reshard_at}")
+
+    def run_rails(rails):
+        # stripe_rails explicit: the host-adaptive default turns striping
+        # off on few-core hosts, and this probe measures it.
+        a, b = pair(False, {"connections_per_peer": rails, "stripe_rails": rails})
+        a.send("bob", x, "warmr", "0").resolve()
+        b.recv("alice", "warmr", "0").resolve()
+        best_dt = float("inf")
+        for rep in range(rail_reps):
+            refs = []
+            t0 = time.perf_counter()
+            for i in range(rail_steps):
+                refs.append(a.send("bob", x, f"mr{rep}-{i}", "0"))
+                b.recv("alice", f"mr{rep}-{i}", "0").resolve()
+            dt = time.perf_counter() - t0
+            results = [r.resolve(timeout=60) for r in refs]
+            if not all(results):
+                raise RuntimeError(f"multirail push failed: {results}")
+            best_dt = min(best_dt, dt)
+        a.stop()
+        b.stop()
+        return nbytes * rail_steps / best_dt / 1e9
+
+    multirail_gbps = run_rails(4)
+    singlerail_gbps = run_rails(1)
+
+    tree = {f"layer{i}": torch.arange(leaf_rows * 4096, dtype=torch.float32, device=device).reshape(leaf_rows, 4096)
+            + i for i in range(leaves)}
+    _sync(device)
+
+    def run_tree(packed, n_steps=3, n_reps=2):
+        a, b = pair(False)
+        payload = fl_comp.compress(tree, packed=packed)
+        wire_bytes = sum(leaf.numel() * leaf.element_size() for leaf in tree_util.tree_leaves(payload)
+                         if isinstance(leaf, torch.Tensor))
+        a.send("bob", payload, "warmt", "0").resolve()
+        fl_comp.decompress(b.recv("alice", "warmt", "0").resolve(timeout=60))
+        stats0 = a.get_stats()
+        best_dt, seq = float("inf"), 0
+        for _rep in range(n_reps):
+            send_refs = []
+            t0 = time.perf_counter()
+            for _ in range(n_steps):
+                payload = fl_comp.compress(tree, packed=packed)
+                send_refs.append(a.send("bob", payload, f"t{seq}", "0"))
+                fl_comp.decompress(b.recv("alice", f"t{seq}", "0").resolve(timeout=60))
+                _sync(device)
+                seq += 1
+            dt = time.perf_counter() - t0
+            results = [r.resolve(timeout=60) for r in send_refs]
+            if not all(results):
+                raise RuntimeError(f"tree push send failed: {results}")
+            best_dt = min(best_dt, dt)
+        stats1 = a.get_stats()
+        stats = {k: stats1[k] - stats0[k] for k in ("send_prepare_s", "send_write_s", "send_frame_wall_s")}
+        a.stop()
+        b.stop()
+        return wire_bytes * n_steps / best_dt / 1e9, stats
+
+    packed_gbps, packed_stats = run_tree(True)
+    perleaf_gbps, _stats = run_tree(False)
+    busy = packed_stats["send_prepare_s"] + packed_stats["send_write_s"]
+    saved = max(0.0, busy - packed_stats["send_frame_wall_s"])
+    overlap_frac = saved / busy if busy > 0 else 0.0
+    result_q.put(("push", (wire_gbps, reshard_gbps, packed_gbps, perleaf_gbps, overlap_frac, multirail_gbps,
+                           singlerail_gbps)))
+
+
+def _resnet_party_data(cfg, seed: int, device, batch: int = RESNET_N_PER_PARTY, hw: int = RESNET_HW):
+    """A synthetic CIFAR-shaped shard (NHWC, as the reference's): one recipe
+    for the FedAvg trainer, the in-process floor and the DP control."""
+    x = torch.randn((batch, hw, hw, 3), generator=torch.Generator().manual_seed(seed))
+    probe = torch.randn((3, cfg.num_classes), generator=torch.Generator().manual_seed(0))
+    y = torch.argmax(x.mean(dim=(1, 2)) @ probe, dim=-1)
+    return x.to(device), y.to(device)
+
+
+def _cpu_seconds() -> float:
+    """This process's consumed CPU time (user + sys)."""
+    import resource
+
+    r = resource.getrusage(resource.RUSAGE_SELF)
+    return r.ru_utime + r.ru_stime
+
+
+def _run_resnet_party(party: str, result_q, device, cluster, kw: Optional[dict] = None, barrier=None) -> None:
+    """BASELINE #3 (bench.py's leg): 4-party ResNet-18 FedAvg over the real
+    transport, pipelined rounds (``aggregate(..., materialize=False)``
+    feeding the next round), packed bf16 bundles; in the same processes the
+    contention floor (bare local rounds, barrier-synced) before and after
+    the FedAvg window, and the decompression probe, packed against
+    per-leaf."""
+    import logging
+
+    import rayfed_tpu_torch as fed
+    from rayfed_tpu_torch import metrics, tree_util
+    from rayfed_tpu_torch.fl import aggregate
+    from rayfed_tpu_torch.fl import compression as fl_comp
+    from rayfed_tpu_torch.models import resnet
+    from rayfed_tpu_torch.runtime import get_runtime_or_none
+
+    logging.disable(logging.WARNING)
+    fed.init(address="local", cluster=cluster, party=party, device=device)
+    batch, hw = _kw(kw, "batch", RESNET_N_PER_PARTY), _kw(kw, "hw", RESNET_HW)
+    rounds = _kw(kw, "rounds", RESNET_ROUNDS)
+    cfg = resnet.resnet18(num_classes=10)
+    phases: dict = {}
+    fed_step = resnet.make_fed_train_step(cfg, lr=0.05)
+
+    @fed.remote
+    class Trainer:
+        def __init__(self, seed: int):
+            self._x, self._y = _resnet_party_data(cfg, seed, device, batch, hw)
+
+        def train(self, bundle):
+            t0 = time.perf_counter()
+            out, loss = fed_step(bundle, self._x, self._y)
+            _sync(device)
+            phases["step_s"] = phases.get("step_s", 0.0) + time.perf_counter() - t0
+            return out
+
+    trainers = {p: Trainer.party(p).remote(i + 1) for i, p in enumerate(RESNET_PARTIES)}
+    bundle = fl_comp.compress(resnet.init_resnet(torch.Generator().manual_seed(0), cfg, device=device), packed=True)
+    bundle_bytes = sum(leaf.numel() * leaf.element_size() for leaf in tree_util.tree_leaves(bundle)
+                       if isinstance(leaf, torch.Tensor))
+
+    def do_round(bundle_or_obj):
+        return aggregate([trainers[p].train.remote(bundle_or_obj) for p in RESNET_PARTIES], materialize=False)
+
+    bundle = fed.get(do_round(bundle))  # warmup: the first full exchange
+    _sync(device)
+
+    def drain_sends():
+        rt = get_runtime_or_none()
+        cm = rt.cleanup_manager if rt is not None else None
+        if cm is not None:
+            cm.wait_sending()
+
+    drain_sends()
+    phases.clear()
+
+    def floor_leg(seed_bundle, x_loc, y_loc):
+        barrier.wait(timeout=300)
+        fcpu0, ft0 = _cpu_seconds(), time.perf_counter()
+        fb = seed_bundle
+        for _ in range(rounds):
+            fb, _floss = fed_step(fb, x_loc, y_loc)
+            _sync(device)
+            barrier.wait(timeout=300)
+        return rounds / (time.perf_counter() - ft0), (_cpu_seconds() - fcpu0) / rounds
+
+    floor_rps = floor_cpu = float("nan")
+    if barrier is not None:
+        x_loc, y_loc = _resnet_party_data(cfg, RESNET_PARTIES.index(party) + 1, device, batch, hw)
+        fed_step(bundle, x_loc, y_loc)
+        _sync(device)
+        floor_pre = floor_leg(bundle, x_loc, y_loc)
+
+    total0 = metrics.get_transfer_log().total_recorded
+    cpu0 = _cpu_seconds()
+    t0 = time.perf_counter()
+    obj = do_round(bundle)
+    for _ in range(rounds - 1):
+        obj = do_round(obj)  # lazy: the rounds pipeline through the DAG
+    bundle = fed.get(obj)
+    _sync(device)
+    elapsed = time.perf_counter() - t0
+    cpu_s = _cpu_seconds() - cpu0
+    drain_sends()
+
+    if barrier is not None:
+        floor_post = floor_leg(bundle, x_loc, y_loc)
+        floor_rps = 2.0 / (1.0 / floor_pre[0] + 1.0 / floor_post[0])
+        floor_cpu = (floor_pre[1] + floor_post[1]) / 2.0
+
+    def probe(fn, reps=3):
+        best = float("inf")
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            _sync(device)
+            best = min(best, time.perf_counter() - t0)
+        return best * 1e3
+
+    decomp_packed_ms = probe(lambda: fl_comp.decompress(bundle, torch.float32))
+    leaf_tree = fl_comp.unpack_tree(bundle)  # the per-leaf bf16 wire form
+    decomp_perleaf_ms = probe(lambda: fl_comp.cast_floats(leaf_tree, torch.float32))
+
+    recs, complete = metrics.get_transfer_log().records_since(total0)
+    if complete:
+        read_ms = sum(r.seconds for r in recs if r.direction == "recv") / rounds * 1e3
+        send_ms = sum(r.seconds for r in recs if r.direction == "send") / rounds * 1e3
+    else:  # the ring evicted part of the window
+        read_ms = send_ms = float("nan")
+    wire_bytes = 2 * (len(RESNET_PARTIES) - 1) * bundle_bytes * rounds  # the hub: N-1 in, N-1 out
+    result_q.put((party, (rounds / elapsed, wire_bytes / elapsed / 1e9, read_ms, send_ms,
+                          phases.get("step_s", 0.0) / rounds * 1e3, cpu_s / rounds, elapsed / rounds,
+                          floor_rps, floor_cpu, decomp_packed_ms, decomp_perleaf_ms)))
+    fed.shutdown()
+
+
+def _resnet_solo_rounds_per_sec(device, batch: int, seed: int, hw: int, rounds: int):
+    """The DP control's body: ResNet-18 on the same synthetic data at
+    ``batch``, one warm step, then ``rounds`` timed steps.  Returns
+    (rounds/s, CPU seconds a round)."""
+    from rayfed_tpu_torch.models import resnet
+
+    cfg = resnet.resnet18(num_classes=10)
+    x, y = _resnet_party_data(cfg, seed, device, batch, hw)
+    params, state = resnet.init_resnet(torch.Generator().manual_seed(0), cfg, device=device)
+    opt = resnet.init_opt_state(params)
+    step = resnet.make_train_step(cfg, lr=0.05)
+    params, state, opt, loss = step(params, state, opt, x, y)
+    _sync(device)
+    cpu0 = _cpu_seconds()
+    t0 = time.perf_counter()
+    for _ in range(rounds):
+        params, state, opt, loss = step(params, state, opt, x, y)
+    _sync(device)
+    elapsed = time.perf_counter() - t0
+    return rounds / elapsed, (_cpu_seconds() - cpu0) / rounds
+
+
+def _run_resnet_dp_control(_party: str, result_q, device, kw: Optional[dict] = None) -> None:
+    """The north-star denominator (bench.py's leg): one process, ResNet-18
+    at the parties' total batch (4 x 32)."""
+    batch = _kw(kw, "batch", RESNET_N_PER_PARTY) * len(RESNET_PARTIES)
+    result_q.put(("dp", _resnet_solo_rounds_per_sec(device, batch, 0, _kw(kw, "hw", RESNET_HW),
+                                                     _kw(kw, "rounds", RESNET_ROUNDS))))
+
+
+def _run_lora_party(party: str, result_q, device, cluster, kw: Optional[dict] = None) -> None:
+    """BASELINE #4 (bench.py's leg): a 2-party Llama-LoRA fine-tune, each
+    party training rank-8 adapters on ``w[qv]`` and ``lm_head`` over a
+    frozen f32 base with the default dense attention, the adapters averaged
+    each round; rounds/s and the adapter MB a push."""
+    import logging
+
+    import rayfed_tpu_torch as fed
+    from rayfed_tpu_torch import tree_util
+    from rayfed_tpu_torch.fl import aggregate
+    from rayfed_tpu_torch.models import llama, lora
+
+    logging.disable(logging.WARNING)
+    fed.init(address="local", cluster=cluster, party=party, device=device)
+    cfg = llama.LlamaConfig(**{**LORA_CONFIG, **_kw(kw, "config", {})})
+    lcfg = lora.LoraConfig(rank=8, targets=(r"w[qv]$", r"lm_head$"))
+    seq, batch, rounds = _kw(kw, "seq", 128), _kw(kw, "batch", 4), _kw(kw, "rounds", 5)
+
+    def base_params():
+        return llama.init_llama(cfg, torch.Generator(device=torch.device(device)).manual_seed(42), device=device)
+
+    @fed.remote
+    class Tuner:
+        def __init__(self, seed: int):
+            self._base = base_params()
+            self._ids = torch.randint(0, cfg.vocab_size, (batch, seq),
+                                      generator=torch.Generator().manual_seed(seed)).to(device)
+            self._step = llama.make_lora_train_step(cfg, lr=1e-3)
+
+        def train(self, adapters):
+            opt = llama.init_adam(adapters)
+            adapters, opt, loss = self._step(adapters, opt, self._base, self._ids)
+            _sync(device)
+            return adapters
+
+    tuners = {p: Tuner.party(p).remote(i + 10) for i, p in enumerate(FED_PARTIES)}
+    adapters = lora.init_lora(base_params(), lcfg, torch.Generator(device=torch.device(device)).manual_seed(7),
+                              device=device)
+    adapter_bytes = sum(leaf.numel() * leaf.element_size() for leaf in tree_util.tree_leaves(adapters))
+
+    def do_round(adapters):
+        return aggregate([tuners[p].train.remote(adapters) for p in FED_PARTIES])
+
+    adapters = do_round(adapters)  # warmup: the first exchange
+    _sync(device)
+    t0 = time.perf_counter()
+    for _ in range(rounds):
+        adapters = do_round(adapters)
+    _sync(device)
+    elapsed = time.perf_counter() - t0
+    result_q.put((party, (rounds / elapsed, adapter_bytes / 1e6)))
+    fed.shutdown()
+
+
+# The LoRA leg's Llama (bench.py's): f32, 4 layers of width 256.
+LORA_CONFIG = dict(vocab_size=2048, hidden_size=256, num_layers=4, num_heads=8, num_kv_heads=4,
+                   intermediate_size=1024, max_seq_len=256, dtype=torch.float32)
+
+
+def _pp_world(rank: int, dev, kw: Optional[dict]) -> dict:
+    """A rank of the pipeline leg (bench.py's ``_run_pp_vs_dp`` over a
+    4-rank world): the 1F1B and interleaved (v=2) pipeline train steps of 8
+    tanh layers of width 512 at B=64, M=8, against the DP step at equal
+    params and batch (each rank a quarter of the batch, the gradients
+    all-reduced), each the best of ``reps`` windows of ``n`` steps from a
+    barrier.  Returns this rank's seconds a step, kernel launches and peak
+    device memory."""
+    import torch.distributed as dist
+
+    from rayfed_tpu_torch.parallel import collectives as coll
+    from rayfed_tpu_torch.parallel import pipeline as pp
+    from rayfed_tpu_torch.parallel.mesh import create_mesh
+
+    width, layers, batch, num_mb = (_kw(kw, "width", 512), _kw(kw, "layers", 8), _kw(kw, "batch", 64),
+                                    _kw(kw, "num_mb", 8))
+    n, reps = _kw(kw, "n", 4), _kw(kw, "reps", 3)
+    world = dist.get_world_size()
+    gen = torch.Generator().manual_seed(0)
+    params = pp.stack_params([{"w": torch.randn((width, width), generator=gen) * width ** -0.5,
+                               "b": torch.zeros(width)} for _ in range(layers)])
+    params = {k: v.to(dev) for k, v in params.items()}
+    x = torch.randn((batch, width), generator=torch.Generator().manual_seed(1)).to(dev)
+    tgt = torch.randn((batch, width), generator=torch.Generator().manual_seed(2)).to(dev)
+
+    def stage_fn(stage_params, h):
+        for i in range(stage_params["w"].shape[0]):
+            h = torch.tanh(h @ stage_params["w"][i] + stage_params["b"][i])
+        return h
+
+    def mse(y, t):
+        return torch.mean((y - t) ** 2)
+
+    def timed(step, args):
+        step(*args)
+        _sync(dev)
+        best = float("inf")
+        for _ in range(reps):
+            dist.barrier()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                out = step(*args)
+            _sync(dev)
+            best = min(best, (time.perf_counter() - t0) / n)
+        del out
+        return best
+
+    mesh = create_mesh({"pp": world}, device=dev.type)
+    pp_t = timed(pp.make_pipeline_train(mesh, stage_fn, mse, num_microbatches=num_mb), (params, x, tgt))
+    ppi_t = timed(pp.make_pipeline_train(mesh, stage_fn, mse, num_microbatches=num_mb, virtual_stages=2),
+                  (params, x, tgt))
+    shard = batch // world
+    xs, ts = x[rank * shard:(rank + 1) * shard], tgt[rank * shard:(rank + 1) * shard]
+
+    def dp_step(p, xs, ts):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+        loss = mse(stage_fn(leaves, xs), ts)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        # The global batch's mean: the shards' means averaged.
+        return (coll.all_reduce_sum(loss.detach(), None) / world,
+                {k: coll.all_reduce_sum(g, None) / world for k, g in zip(leaves, grads)})
+
+    dp_t = timed(dp_step, (params, xs, ts))
+    _assert_no_jax()
+    return {"pp": pp_t, "ppi": ppi_t, "dp": dp_t, "launches": _launches(), "peak": _peak_bytes()}
+
+
+# -- the legs' runners and their keys, in bench.py's order ----------------
+
+def _fed_leg_pp(device, extra, launches, peaks, kw):
+    from rayfed_tpu_torch.parallel.launch import run_world
+
+    on_card = torch.device(device).type == "cuda"
+    ranks = run_world(_pp_world, 4, (kw,), device=None if on_card else device, timeout_s=_kw(kw, "timeout", 900))
+    for r in ranks:
+        launches.update(r["launches"])
+        if r["peak"] is not None:
+            peaks.append(r["peak"])
+    # The slowest rank's window is the step's.
+    pp_t, ppi_t, dp_t = (max(r[k] for r in ranks) for k in ("pp", "ppi", "dp"))
+    extra["pp_step_ms"] = round(pp_t * 1e3, 2)
+    extra["pp_interleaved_step_ms"] = round(ppi_t * 1e3, 2)
+    extra["dp_step_ms"] = round(dp_t * 1e3, 2)
+    extra["pp_vs_dp_step_ratio"] = round(dp_t / pp_t, 3)
+    extra["pp_interleaved_vs_dp_step_ratio"] = round(dp_t / ppi_t, 3)
+    _log(f"  pp(1f1b) {pp_t * 1e3:.1f} ms, pp(interleaved v=2) {ppi_t * 1e3:.1f} ms vs dp {dp_t * 1e3:.1f} ms "
+         f"(ratios {dp_t / pp_t:.3f} / {dp_t / ppi_t:.3f}; ideal bubble bounds 0.57 / 0.73 at M=8, S=4)")
+
+
+def _fed_leg_split(device, extra, launches, peaks, kw):
+    sres = _multi_party("_run_split_party", FED_PARTIES, device, launches, (_cluster(FED_PARTIES), kw), peaks=peaks,
+                        smoke=False)
+    gbps = sum(v["gbps"] for v in sres.values()) / len(sres)
+    extra["split_fl_GBps"] = round(gbps, 3)
+    extra["split_fl_steps_per_sec"] = round(sum(v["steps_per_sec"] for v in sres.values()) / len(sres), 3)
+    extra["split_fl_bf16_steps_per_sec"] = round(sum(v["bf16_steps_per_sec"] for v in sres.values()) / len(sres), 3)
+    alice = sres.get("alice", next(iter(sres.values())))
+    extra["split_fl_wire_read_ms"] = round(alice["wire_read_ms"], 2)
+    extra["split_fl_send_path_ms"] = round(alice["send_path_ms"], 2)
+    extra["split_fl_other_ms"] = round(alice["other_ms"], 2)
+    extra["split_fl_compute_probe_s"] = round(sum(v["compute_probe_ms"] for v in sres.values()) / 1e3, 4)
+    _log(f"  split: {gbps:.3f} GB/s; per-step wire-read {alice['wire_read_ms']:.1f} ms, send-path "
+         f"{alice['send_path_ms']:.1f} ms, compute+sched {alice['other_ms']:.1f} ms; bf16 wire "
+         f"{extra['split_fl_bf16_steps_per_sec']:.2f} vs f32 {extra['split_fl_steps_per_sec']:.2f} steps/s")
+
+
+def _fed_leg_push(device, extra, launches, peaks, kw):
+    push, reshard, packed, perleaf, overlap, multirail, onerail = _one_child(
+        "_run_push_bench", device, launches, timeout=900, args=(kw,), peaks=peaks, smoke=False)
+    extra["push_GBps"] = round(push, 3)
+    extra["_push_gbps"] = push
+    extra["push_reshard_GBps"] = round(reshard, 3)
+    extra["multirail_GBps"] = round(multirail, 3)
+    extra["singlerail_GBps"] = round(onerail, 3)
+    extra["multirail_vs_single_rail"] = round(multirail / onerail, 3) if onerail > 0 else None
+    extra["cross_party_packed_GBps"] = round(packed, 3)
+    extra["cross_party_perleaf_GBps"] = round(perleaf, 3)
+    extra["packed_codec_speedup"] = round(packed / perleaf, 3) if perleaf > 0 else None
+    extra["send_overlap_saved_frac"] = round(overlap, 3)
+    _log(f"  push: {push:.3f} GB/s wire, {reshard:.3f} GB/s onto the receiver's device; packed tree "
+         f"{packed:.3f} GB/s vs per-leaf {perleaf:.3f} GB/s ({extra['packed_codec_speedup']}x), send overlap "
+         f"saves {overlap:.0%} of busy time; multirail {multirail:.3f} GB/s vs single-rail {onerail:.3f} GB/s")
+
+
+def _fed_leg_send_path(device, extra, launches, peaks, kw):
+    _fill_send_path_extra(extra, _one_child("_run_send_path_bench", device, launches, timeout=600, args=(kw,),
+                                            peaks=peaks, smoke=False))
+
+
+def _fed_leg_stream_agg(device, extra, launches, peaks, kw):
+    _fill_stream_extra(extra, _one_child("_run_stream_agg_bench", device, launches, timeout=600, args=(kw,),
+                                         peaks=peaks, smoke=False))
+
+
+def _fed_leg_ring_agg(device, extra, launches, peaks, kw):
+    res = _multi_party("_run_ring_agg_party", RINGB_PARTIES, device, launches, (_cluster(RINGB_PARTIES), kw),
+                       timeout=900, peaks=peaks, smoke=False)
+    _fill_ring_extra(extra, res)
+
+
+def _fed_leg_overlap(device, extra, launches, peaks, kw):
+    res = _multi_party("_run_overlap_party", OVERLAPB_PARTIES, device, launches, (_cluster(OVERLAPB_PARTIES), kw),
+                       timeout=900, peaks=peaks, smoke=False)
+    _fill_overlap_extra(extra, res)
+
+
+def _fed_leg_lora(device, extra, launches, peaks, kw):
+    lres = _multi_party("_run_lora_party", FED_PARTIES, device, launches, (_cluster(FED_PARTIES), kw), peaks=peaks,
+                        smoke=False)
+    lrps = sum(v[0] for v in lres.values()) / len(lres)
+    adapter_mb = next(iter(lres.values()))[1]
+    extra["lora_2party_rounds_per_sec"] = round(lrps, 3)
+    extra["lora_adapter_MB_per_push"] = round(adapter_mb, 3)
+    _log(f"  lora: {lrps:.3f} rounds/s, {adapter_mb:.3f} MB adapters/push")
+
+
+def _fed_leg_resnet(device, extra, launches, peaks, kw):
+    barrier = mp.get_context("spawn").Barrier(len(RESNET_PARTIES))
+    res = _multi_party("_run_resnet_party", RESNET_PARTIES, device, launches,
+                       (_cluster(RESNET_PARTIES), kw, barrier), peaks=peaks, smoke=False)
+    _fill_resnet_extra(extra, res)
+
+
+def _fill_resnet_extra(extra: dict, res: dict) -> None:
+    """bench.py's resnet_fedavg keys from the four parties' reports."""
+    rps = sum(v[0] for v in res.values()) / len(res)
+    xgbps = sum(v[1] for v in res.values()) / len(res)
+    extra["resnet_4party_rounds_per_sec"] = round(rps, 3)
+    extra["cross_party_goodput_GBps"] = round(xgbps, 3)
+    coord = res.get("alice", next(iter(res.values())))
+    extra["resnet_coord_wire_read_ms"] = round(coord[2], 2)
+    extra["resnet_coord_send_path_ms"] = round(coord[3], 2)
+    coord_bytes_per_round = coord[1] * 1e9 * coord[6]
+    wire_session_s = (coord[2] + coord[3]) / 1e3
+    if wire_session_s > 0:
+        extra["cross_party_GBps"] = round(coord_bytes_per_round / wire_session_s / 1e9, 3)
+        extra["cross_party_wire_GBps"] = extra["cross_party_GBps"]
+    if coord[2] > 0:
+        extra["resnet_coord_send_vs_read_ratio"] = round(coord[3] / coord[2], 3)
+    step_ms = sum(v[4] for v in res.values()) / len(res)
+    cpu_pr = sum(v[5] for v in res.values())
+    wall_pr = sum(v[6] for v in res.values()) / len(res)
+    extra["resnet_round_step_ms"] = round(step_ms, 1)
+    extra["resnet_round_cpu_s_total"] = round(cpu_pr, 2)
+    extra["resnet_round_busy_frac"] = round(cpu_pr / wall_pr, 3)
+    extra["resnet_round_step_wall_frac"] = round(step_ms / 1e3 / wall_pr, 3)
+    decomp_ms = sum(v[9] for v in res.values()) / len(res)
+    decomp_perleaf_ms = sum(v[10] for v in res.values()) / len(res)
+    extra["resnet_decomp_ms"] = round(decomp_ms, 2)
+    extra["resnet_decomp_perleaf_ms"] = round(decomp_perleaf_ms, 2)
+    extra["resnet_decomp_speedup"] = round(decomp_perleaf_ms / decomp_ms, 3) if decomp_ms > 0 else None
+    extra["resnet_decomp_step_frac"] = round(decomp_ms / 1e3 / wall_pr, 3)
+    _log(f"  resnet: {rps:.3f} rounds/s, goodput {xgbps:.3f} GB/s, wire-session {extra.get('cross_party_GBps')} "
+         f"GB/s; coordinator wire-read {coord[2]:.1f} ms + send {coord[3]:.1f} ms per round; decomp packed "
+         f"{decomp_ms:.1f} ms vs per-leaf {decomp_perleaf_ms:.1f} ms; step {step_ms / 1e3:.2f} s of "
+         f"{wall_pr:.2f} s wall, 4-party CPU {cpu_pr:.2f} s")
+    floor_rps = sum(v[7] for v in res.values()) / len(res)
+    floor_cpu = sum(v[8] for v in res.values())
+    extra["resnet_compute_floor_rounds_per_sec"] = round(floor_rps, 3)
+    extra["resnet_floor_cpu_s_total"] = round(floor_cpu, 2)
+    extra["resnet_fedavg_overhead_ratio"] = round(rps / floor_rps, 3)
+    _log(f"  floor (the same local program, in the party processes): {floor_rps:.3f} rounds/s; fedavg/floor "
+         f"{rps / floor_rps:.3f}")
+
+
+def _fed_leg_resnet_dp(device, extra, launches, peaks, kw):
+    dp_rps, dp_cpu = _one_child("_run_resnet_dp_control", device, launches, args=(kw,), peaks=peaks, smoke=False)
+    extra["resnet_dp_control_rounds_per_sec"] = round(dp_rps, 3)
+    extra["resnet_dp_cpu_s"] = round(dp_cpu, 2)
+    extra["_resnet_dp_rps"] = dp_rps
+    _log(f"  dp control: {dp_rps:.3f} rounds/s ({dp_cpu:.2f} s CPU)")
+
+
+def _fill_fed_derived(extra: dict) -> None:
+    """The keys bench.py computes from two legs' keys, once both are in
+    ``extra`` (a failed leg leaves them out): the split step's serialized
+    ceiling from the split and push legs, and the ResNet-18 ratios to the DP
+    control, with the 4-slice prediction under 0.9."""
+    push = extra.get("push_GBps")
+    split_compute_s = extra.get("split_fl_compute_probe_s")
+    split_sps = extra.get("split_fl_steps_per_sec")
+    split_gbps = extra.get("split_fl_GBps")
+    if push is not None:
+        extra["split_fl_ceiling_steps_per_sec"] = None
+        extra["split_fl_vs_ceiling"] = None
+    if push and split_compute_s and split_sps and split_gbps:
+        step_bytes = split_gbps * 1e9 / split_sps
+        wire_s = step_bytes / (extra["_push_gbps"] * 1e9)
+        ceiling_sps = 1.0 / (split_compute_s + wire_s)
+        extra["split_fl_ceiling_steps_per_sec"] = round(ceiling_sps, 3)
+        extra["split_fl_vs_ceiling"] = round(split_sps / ceiling_sps, 3)
+        _log(f"  split serialized model: {ceiling_sps:.2f} steps/s (compute {split_compute_s * 1e3:.0f} ms + "
+             f"wire {wire_s * 1e3:.0f} ms) -> measured f32 is {extra['split_fl_vs_ceiling']} of it")
+    dp_rps = extra.get("_resnet_dp_rps")
+    dp_cpu = extra.get("resnet_dp_cpu_s")
+    fed_rps = extra.get("resnet_4party_rounds_per_sec")
+    fl_rps = extra.get("resnet_compute_floor_rounds_per_sec")
+    fl_cpu = extra.get("resnet_floor_cpu_s_total")
+    if not (dp_rps and fed_rps and fl_rps and fl_cpu):
+        return
+    ratio = fed_rps / dp_rps
+    extra["resnet_fedavg_vs_dp_ratio"] = round(ratio, 3)
+    extra["resnet_batch_efficiency_ratio"] = round(dp_cpu / fl_cpu, 3)
+    extra["resnet_vs_dp_method"] = (
+        "4-party pipelined FedAvg rounds/s over the real transport divided by the single-process DP "
+        "control at the same total batch, both on this host; all parties share the host's cores and "
+        "its one card, so process contention and the 4x batch-32-vs-128 gap are inside the measured ratio"
+    )
+    if ratio < 0.9:
+        # The 4-slice model: each party on a card of its own, its round the
+        # CPU seconds it used, only the wire not hidden exposed.
+        per_slice_s = fl_cpu / 4.0
+        wire_s = (extra.get("resnet_coord_wire_read_ms", 0.0) + extra.get("resnet_coord_send_path_ms", 0.0)) / 1e3
+        h = float(extra.get("overlap_hidden_comm_frac", 0.0))
+        extra["resnet_pred_compute_floor_s"] = round(per_slice_s, 3)
+        extra["resnet_pred_wire_s"] = round(wire_s, 3)
+        extra["resnet_pred_overlap_frac"] = round(h, 3)
+        pred_rps = 1.0 / (per_slice_s + (1.0 - h) * wire_s)
+        pred_rps_hidden = 1.0 / max(per_slice_s, wire_s)
+        extra["resnet_pred_4slice_ratio"] = round(pred_rps / dp_rps, 3)
+        extra["resnet_pred_4slice_ratio_full_overlap"] = round(pred_rps_hidden / dp_rps, 3)
+    _log(f"  fedavg/dp ratio {ratio:.3f}")
+
+
+def _fed_leg_fedavg_mnist(device, extra, launches, peaks, kw):
+    res = _multi_party("_run_fedavg_party", FED_PARTIES, device, launches, (_cluster(FED_PARTIES), kw), peaks=peaks,
+                       smoke=False)
+    extra[HEADLINE] = sum(res.values()) / len(res)
+
+
+# (section, what it runs, runner), in bench.py's order; _settle() after
+# every one but pp_bench and the headline, as there.
+FED_LEGS = (
+    ("pp_bench", "1F1B + interleaved pipeline vs DP train step (4-rank world)", _fed_leg_pp),
+    ("split_fl", "split-FL activation push (two party processes, real transport)", _fed_leg_split),
+    ("push_bench", "raw push throughput (128 MB from the sender's device, loopback)", _fed_leg_push),
+    ("send_path", "coordinator send-path probe (4-party hub, ResNet-18 bundles, arena + multi-rail)",
+     _fed_leg_send_path),
+    ("stream_agg", "streaming FedAvg aggregation (ResNet-18 packed rounds, delta cache, 4 parties)",
+     _fed_leg_stream_agg),
+    ("ring_agg", "ring FedAvg aggregation (ResNet-18 packed rounds, 4-party ring vs hub)", _fed_leg_ring_agg),
+    ("overlap", "pipelined FedAvg rounds (4-party overlap vs sync)", _fed_leg_overlap),
+    ("lora_2party", "2-party Llama-LoRA federated fine-tune", _fed_leg_lora),
+    ("resnet_fedavg", "4-party ResNet-18 FedAvg (real transport) and its contention floor", _fed_leg_resnet),
+    ("resnet_dp", "ResNet-18 single-process DP control (north-star denominator)", _fed_leg_resnet_dp),
+    ("fedavg_mnist", "2-party FedAvg (real transport)", _fed_leg_fedavg_mnist),
+)
+FED_LEG_NAMES = tuple(name for name, _, _ in FED_LEGS)
+# The keys each leg sets (bench.py's), the 4-slice prediction's (under a
+# fedavg/dp ratio of 0.9) and the environment's.
+FED_KEYS = {
+    "pp_bench": ("pp_step_ms", "pp_interleaved_step_ms", "dp_step_ms", "pp_vs_dp_step_ratio",
+                 "pp_interleaved_vs_dp_step_ratio"),
+    "split_fl": ("split_fl_GBps", "split_fl_steps_per_sec", "split_fl_bf16_steps_per_sec", "split_fl_wire_read_ms",
+                 "split_fl_send_path_ms", "split_fl_other_ms", "split_fl_compute_probe_s"),
+    "push_bench": ("push_GBps", "push_reshard_GBps", "multirail_GBps", "singlerail_GBps", "multirail_vs_single_rail",
+                   "cross_party_packed_GBps", "cross_party_perleaf_GBps", "packed_codec_speedup",
+                   "send_overlap_saved_frac", "split_fl_ceiling_steps_per_sec", "split_fl_vs_ceiling"),
+    "send_path": ("cross_party_wire_GBps", "send_path_wire_GBps", "push_capability_GBps", "wire_vs_push_capability",
+                  "send_vs_read_wall_ratio", "coord_wire_read_ms", "coord_send_path_ms", "send_path_overhead_ratio",
+                  "send_path_breakdown_ms", "send_path_striped_payloads", "local_link_GBps", "local_link_backend",
+                  "local_link_uds_GBps", "local_link_vs_wire"),
+    "stream_agg": ("cross_party_stream_agg_GBps", "agg_overlap_frac", "delta_bytes_saved_frac", "stream_agg_round_ms",
+                   "stream_agg_contrib_ms", "stream_agg_bcast_ms", "stream_agg_busy_ms", "stream_agg_tail_ms",
+                   "stream_agg_wire_ms", "stream_agg_bundle_mb"),
+    "ring_agg": ("ring_agg_GBps", "ring_vs_coord_speedup", "coord_bytes_in_frac", "coord_bytes_in_frac_hub",
+                 "ring_coord_ingress_vs_hub", "ring_round_ms", "hub_round_ms", "ring_bundle_mb", "ring_quant_bytes_frac",
+                 "ring_quant_round_ms", "ring_f32cold_round_ms"),
+    "overlap": ("overlap_hidden_comm_frac", "round_wall_speedup", "overlap_round_ms", "sync_round_ms",
+                "overlap_comms_ms_per_round", "overlap_local_ms_per_round"),
+    "lora_2party": ("lora_2party_rounds_per_sec", "lora_adapter_MB_per_push"),
+    "resnet_fedavg": ("resnet_4party_rounds_per_sec", "cross_party_goodput_GBps", "resnet_coord_wire_read_ms",
+                      "resnet_coord_send_path_ms", "cross_party_GBps", "cross_party_wire_GBps",
+                      "resnet_coord_send_vs_read_ratio", "resnet_round_step_ms", "resnet_round_cpu_s_total",
+                      "resnet_round_busy_frac", "resnet_round_step_wall_frac", "resnet_decomp_ms",
+                      "resnet_decomp_perleaf_ms", "resnet_decomp_speedup", "resnet_decomp_step_frac",
+                      "resnet_compute_floor_rounds_per_sec", "resnet_floor_cpu_s_total", "resnet_fedavg_overhead_ratio"),
+    "resnet_dp": ("resnet_dp_control_rounds_per_sec", "resnet_dp_cpu_s", "resnet_fedavg_vs_dp_ratio",
+                  "resnet_batch_efficiency_ratio", "resnet_vs_dp_method"),
+    "fedavg_mnist": ("metric", "value", "unit", "vs_baseline"),
+}
+FED_PRED_KEYS = ("resnet_pred_compute_floor_s", "resnet_pred_wire_s", "resnet_pred_overlap_frac",
+                 "resnet_pred_4slice_ratio", "resnet_pred_4slice_ratio_full_overlap")
+ENV_KEYS = ("env_cpu_count", "env_loadavg_1m", "env_platform", "env_device_kind")
+_NO_SETTLE = ("pp_bench", "fedavg_mnist")
+
+
+def run_fed(device: str = "cuda", stats: Optional[dict] = None, legs=FED_LEG_NAMES,
+            leg_kw: Optional[dict] = None, settle_s: float = SETTLE_S, lanes: int = 1) -> dict:
+    """bench.py's federated section on ``device``: every leg of ``legs`` in
+    its order, each in its spawned processes with every party's compute on
+    ``device``, ``settle_s`` of sleep after each leg (bench.py's
+    ``_settle()``).  Returns the record ``bench.py --fed-only`` prints: the
+    headline ``fedavg_mnist_2party_rounds_per_sec`` (``vs_baseline`` 1.0:
+    the reference's ``BENCH_r*.json`` hold the JAX package's CPU numbers),
+    every leg's keys, a failed leg's ``{leg}_error``.  ``leg_kw[leg]`` are
+    keyword arguments of that leg (sizes and counts; the reference's by
+    default).  ``stats``, when given, gets ``stats[leg]``: the leg's wall
+    ``s`` (its processes' start included), its children's kernel
+    ``launches`` and their largest ``peak_bytes`` on the card (None on the
+    CPU).  ``lanes`` > 1 runs that many legs at once, each lane taking the
+    next leg when its last has ended and settled, as ``run_smoke``'s: the
+    legs share no port or process, only the host's cores and the card.
+    Raises before any leg when the card is asked for and there is none."""
+    _check_device(device)
+
+    def one(entry) -> dict:
+        name, msg, runner = entry
+        extra: dict = {}
+        launches: collections.Counter = collections.Counter()
+        peaks: list = []
+        t0 = time.perf_counter()
+        with _section(extra, name):
+            _log(f"{msg} on {device}...")
+            runner(device, extra, launches, peaks, (leg_kw or {}).get(name))
+        wall = time.perf_counter() - t0
+        leg_stats = {"s": wall, "launches": dict(launches), "peak_bytes": max(peaks) if peaks else None}
+        _log(f"  {name}: {wall:.1f} s, " + json.dumps({k: v for k, v in leg_stats.items() if k != "s"}))
+        if stats is not None:
+            stats[name] = leg_stats
+        if name not in _NO_SETTLE:
+            time.sleep(settle_s)
+        return extra
+
+    chosen = [entry for entry in FED_LEGS if entry[0] in legs]
+    extra = _env_keys(device)
+    if lanes == 1:
+        by_leg = [one(entry) for entry in chosen]
+    else:
+        with concurrent.futures.ThreadPoolExecutor(lanes) as pool:
+            by_leg = list(pool.map(one, chosen))
+    for leg_extra in by_leg:
+        extra.update(leg_extra)
+    _fill_fed_derived(extra)
+    for key in ("_push_gbps", "_resnet_dp_rps"):
+        extra.pop(key, None)
+    rps = extra.pop(HEADLINE, None)
+    if rps is not None:
+        record = {"metric": HEADLINE, "value": round(rps, 3), "unit": "rounds/s", "vs_baseline": 1.0}
+    else:  # the headline leg failed (its error is in extra): the reference's fallback
+        record = {"metric": "llama_tokens_per_sec", "value": extra.get("llama_tokens_per_sec", 0.0),
+                  "unit": "tokens/s", "vs_baseline": 1.0}
+    record.update(extra)
+    return {k: (None if isinstance(v, float) and v != v else v) for k, v in record.items()}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--smoke", action="store_true", help="run the twelve smoke legs and their gates")
     ap.add_argument("--compute-only", action="store_true", help="run the compute section's five legs")
-    ap.add_argument("--fed-only", action="store_true", help="the federated section (not ported yet)")
+    ap.add_argument("--fed-only", action="store_true",
+                    help="run the federated section's legs only (with no mode flag: the federated section, then "
+                         "the compute section)")
     ap.add_argument("--device", default="cuda", help="the legs' device (default: the CUDA card)")
     args = ap.parse_args(argv)
     if args.fed_only and args.compute_only:
@@ -3146,14 +4112,18 @@ def main(argv=None) -> int:
         return _smoke_main(args.device)
     if args.compute_only:
         record = run_compute(args.device)
-        print(json.dumps(record), flush=True)
-        errors = [k for k in record if k.endswith("_error")]
-        for name in errors:
-            _log(f"compute leg FAILED: {name}: {record[name]}")
-        return 1 if errors else 0
-    _log("bench_torch: only --smoke and --compute-only are implemented; the federated section "
-         "(--fed-only, or no mode flag) is not ported yet")
-    return 2
+    else:
+        record = run_fed(args.device)
+        if not args.fed_only:
+            compute = run_compute(args.device)
+            if record["metric"] != HEADLINE:  # the headline leg failed: the llama headline, as bench.py
+                record.update({k: compute[k] for k in ("metric", "value", "unit", "vs_baseline")})
+            record.update({k: v for k, v in compute.items() if k not in ("metric", "value", "unit", "vs_baseline")})
+    print(json.dumps(record), flush=True)
+    errors = [k for k in record if k.endswith("_error")]
+    for name in errors:
+        _log(f"leg FAILED: {name}: {record[name]}")
+    return 1 if errors else 0
 
 
 def _smoke_main(device: str) -> int:

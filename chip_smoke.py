@@ -304,6 +304,20 @@ Phases, each fatal on failure:
      ``*_membw_util`` at most 1.05, the flash launches of every leg that
      reaches attention and 2L/L/L a train step; prints each leg's wall,
      launches, peak memory and every key;
+  23. (beside 21, before 22) phase_bench_fed: ``bench_torch.py --fed-only``'s eleven
+     legs in their spawned children and ranks with every party's compute
+     on the card, at the reference's widths, tensors and bundles
+     (repetition counts in ``BENCH_FED_KW``, ``BENCH_FED_SETTLE_S`` after
+     each leg, two legs at a time, ``BENCH_FED_LANES``): the pipelines
+     against DP over 4 gloo ranks, split learning's
+     activation push, the 128 MB push from the card, the full-size
+     send-path, streaming, ring and overlap legs, the 2-party Llama-LoRA
+     fine-tune, 4-party ResNet-18 FedAvg and its DP control, the headline
+     2-party FedAvg.  Checks: no leg error, every key of the reference's
+     section present and finite, timed keys > 0, the size-fixed keys the
+     port's own sizes, no flash launch, a fold_fma launch in every leg that
+     folds floats, no JAX in any child; prints each leg's wall, launches
+     and peak memory;
   7. time each kernel (mean over one window of calls) against its plain
      version, the library call that computes the same function, and the
      card's bound (the forward at the serving shape B=4 and at the training
@@ -340,7 +354,7 @@ from rayfed_tpu_torch.checkpoint import FedCheckpointer
 from rayfed_tpu_torch.fl import fedavg, streaming
 from rayfed_tpu_torch.models import bert, hf, llama, lora
 from rayfed_tpu_torch.models.logistic import softmax_cross_entropy, value_and_grad
-from rayfed_tpu_torch.ops import _build, fold
+from rayfed_tpu_torch.ops import _build, fold, ftz
 from rayfed_tpu_torch.ops.attention import dot_product_attention
 from rayfed_tpu_torch.utils.ports import free_loopback_ports as _free_ports
 from rayfed_tpu_torch.ops.flash_attention import (
@@ -1184,7 +1198,8 @@ class _PlainFmaOff:
     versions, the codec, the finalize's tail), so a run inside shows that no
     path of the card took it.  CPU tensors pass, for the comparisons."""
 
-    BOUND = (("rayfed_tpu_torch.ops.fold", "fma"), ("rayfed_tpu_torch.ops.xla_cpu", "fma"))
+    BOUND = (("rayfed_tpu_torch.ops.fold", "fma"), ("rayfed_tpu_torch.ops.xla_cpu", "fma"),
+             ("rayfed_tpu_torch.ops.fold", "fma_ftz"), ("rayfed_tpu_torch.ops.xla_cpu", "fma_ftz"))
 
     def __enter__(self):
         import importlib
@@ -1253,7 +1268,7 @@ def _fold_forms_vs_plain(gen):
         nonlocal worst, cases
         cases += 1
         if not torch.equal(_raw(got), _raw(want)):
-            err = (got.float() - want.float()).abs().max().item()
+            err = (got.float().cpu() - want.float().cpu()).abs().max().item()
             worst = max(worst, err)
             raise AssertionError(f"[fold forms] {what}: the kernel differs from its plain version (max |d| {err})")
 
@@ -1333,8 +1348,62 @@ def _fold_forms_vs_plain(gen):
                     what = f"rows [{rows}, {width}] {b.dtype} all at offset 4 negate {negate} zp {z is not None}"
                     head(fold.vector_head(b, c, got), 4 if b.element_size() == 1 else 0, what)
                     same(got, fold.rows_plain(sc, b, c, z, negate=negate), what)
+    # The flush at 2^-126: operands whose products, FMAs and quotients
+    # land within 64 ulps of it on both sides (some tiny, some rounding up
+    # to it), subnormals beside them; every form, at both wires.
+    for wire in (torch.bfloat16, torch.float32):
+        for w in (2.3, -0.7, _f32(1 - 2 ** -24)):
+            n = FORM_LENGTHS[-1]
+            x, y = (_tiny_edges(n, w, gen).to(wire) for _ in range(2))
+            acc = _tiny_edges(n, 1.0, gen)
+            what = f"{wire} at the flush, weight {w}"
+            same(fold.fold_fma_(acc.clone(), w, x), fold.step_plain(acc.clone(), w, x), f"step {what}")
+            same(fold.fold_fma_pair(w, x, w, y), fold.pair_plain(w, x, w, y), f"pair {what}")
+            for out in (torch.bfloat16, torch.float32):
+                for k in (1, 2, 3):
+                    xs = [x, y, x][:k]
+                    same(fold.fold_chain(xs, [w] * k, 1.0, out), fold.chain_plain(xs, [w] * k, 1.0, out),
+                         f"chain k={k} -> {out} {what}")
+                same(fold.finalize(acc, 1.0 / w, out), fold.finalize_plain(acc, 1.0 / w, out),
+                     f"finalize -> {out} {what}")
+            rows = acc.reshape(-1)[: 4 * (n // 4)].reshape(4, -1)
+            sc = torch.full((4, 1), abs(w), device="cuda")
+            zp = torch.tensor([[0.0], [1e-40], [-0.0], [2.0 ** -126]], device="cuda")
+            for negate in (False, True):
+                same(fold.fma_rows(sc, rows.contiguous(), rows.contiguous(), zp, negate=negate),
+                     fold.rows_plain(sc, rows.contiguous(), rows.contiguous(), zp, negate=negate),
+                     f"rows {what} negate {negate}")
+    # The binary form against ops/ftz.py's PyTorch ops on the host: the
+    # products and quotients at the flush, sums of subnormals; b whole,
+    # one value a row, one value, and the one value first.
+    a = _tiny_edges(FORM_LENGTHS[-1], 1.0, gen).reshape(1, -1)
+    ws = torch.tensor([[2.3], [-0.7], [_f32(1 - 2 ** -24)]], device="cuda")
+    prods = torch.cat([_tiny_edges(FORM_LENGTHS[-1], float(w), gen).reshape(1, -1) for w in ws.reshape(-1)])
+    quots = torch.cat([_tiny_edges(FORM_LENGTHS[-1], 1.0 / float(w), gen).reshape(1, -1) for w in ws.reshape(-1)])
+    for op, x, y in (("mul", prods, ws), ("div", quots, 1.0 / ws), ("add", prods, a * 0.75), ("sub", prods, a)):
+        for y_form in (y, y.expand_as(x).contiguous(), y.reshape(-1)[:1].reshape(())):
+            fn = getattr(ftz, op)
+            same(fn(x, y_form), fn(x.cpu(), y_form.cpu()), f"ftz {op} b {tuple(y_form.shape)}")
+        same(getattr(ftz, op)(y.reshape(-1)[:1].reshape(()), x), getattr(ftz, op)(
+            y.reshape(-1)[:1].reshape(()).cpu(), x.cpu()), f"ftz {op} a one value")
     torch.cuda.synchronize()
     return worst, cases, sorted(heads)
+
+
+def _f32(v: float) -> float:
+    """``v`` rounded to f32."""
+    return torch.tensor(v, dtype=torch.float32).item()
+
+
+def _tiny_edges(n, w, gen):
+    """f32 operands on the card whose products with ``w`` sweep 2^-126 ± 64
+    ulps in both signs, subnormals and signed zeros every 7th element."""
+    k = torch.arange(n, device="cuda") % 129 - 64
+    base = _f32(2.0 ** -126 / _f32(w))
+    x = (base * (1 + k.double() * 2.0 ** -24)).float()
+    x = torch.where(torch.rand(n, generator=gen, device="cuda") < 0.5, x, -x)
+    x[::7] = torch.tensor([1e-40, -3e-39, 0.0, -0.0, 1e-45, 2.0 ** -126, -5.9e-39], device="cuda").repeat(n)[: x[::7].numel()]
+    return x
 
 
 def _peak_mb(fn):
@@ -1456,11 +1525,12 @@ def phase_fold(gen, card):
                   f"throughout: {same}")
             if not all(same.values()) or got.buf.device.type != "cuda":
                 raise AssertionError(f"fold {name} weights {tag}: the card's fold differs from the CPU fold")
-            if launches["one_shot"] != {"step": 0, "pair": 0, "chain": 1, "rows": 0}:
+            if launches["one_shot"] != {"step": 0, "pair": 0, "chain": 1, "rows": 0, "finalize": 0, "ftz": 0}:
                 raise AssertionError(f"fold {name}: the one-shot fold of {n} made {launches['one_shot']} launches")
             pieces = -(-elems // max(ce, streaming._RUN_ELEMS // ce * ce))
             if not n * pieces <= launches["streamed"]["step"] <= n * -(-elems // ce) or \
-                    sum(launches["streamed"].values()) != launches["streamed"]["step"]:
+                    launches["streamed"]["finalize"] != 1 or \
+                    sum(launches["streamed"].values()) != launches["streamed"]["step"] + 1:
                 raise AssertionError(f"fold {name}: the streamed fold made {launches['streamed']} launches")
             del plain, one_shot, got, agg
         # Device times of the pieces: one contribution's H2D (pinned), its
@@ -1857,11 +1927,10 @@ def phase_server_opt(card):
                 lam, gamma, beta = hyper
 
                 def plain():
-                    d = xc - avgc
-                    y = fold.fma(fedavg.f32_scalar(-lam, xc.device), d, xc)
-                    z = fold.fma(fedavg.f32_scalar(-gamma, xc.device), d, stc)
-                    return fold.fma(fedavg.f32_scalar(1.0 - beta, xc.device), y,
-                                    fedavg.f32_scalar(beta, xc.device) * z)
+                    d = ftz.sub(xc, avgc)
+                    y = fold.fma_ftz(fedavg.f32_scalar(-lam, xc.device), d, xc)
+                    z = fold.fma_ftz(fedavg.f32_scalar(-gamma, xc.device), d, stc)
+                    return fold.fma_ftz(fedavg.f32_scalar(1.0 - beta, xc.device), y, ftz.mul(beta, z))
 
                 if not torch.equal(_raw(plain()), _raw(got)):
                     raise AssertionError("[server_opt] the card's FedAC step differs from its plain version")
@@ -5828,6 +5897,131 @@ def phase_bench_compute(device=None):
     return {"s": wall, "record": record, "stats": stats, "launches": launches}
 
 
+# -- bench_torch.py --fed-only: the reference bench's federated section -------
+
+# Legs whose parties fold floats on the card (the packed ResNet-18 rounds);
+# the others move tensors, or average plain trees (lora_2party,
+# fedavg_mnist: fl.aggregate's leaf means), and launch no fold.
+BENCH_FED_FOLD_LEGS = ("stream_agg", "ring_agg", "overlap", "resnet_fedavg")
+# Repetition counts this script passes to the legs, cut to fit its time limit
+# (bench_torch.py --fed-only keeps the reference's; the eleven legs took
+# 279.1 s one after another, PERF.md): split learning's best of 1 window
+# (3), the push bench's best of 2 windows (3) of 3 pushes (6) and 2 onto the
+# card (4); widths, batches, tensors, bundles and round counts stay the
+# reference's.  Two legs run at a time (BENCH_FED_LANES), as the smoke
+# legs do, with 1 s (3 s) of settle after each.
+BENCH_FED_KW = {"split_fl": {"windows": 1}, "push_bench": {"reps": 2, "steps": 3, "reshard_steps": 2}}
+BENCH_FED_SETTLE_S = 1.0
+BENCH_FED_LANES = 2
+# Timed keys (ms, s, GB/s, a rate) must be > 0; this one is the step less its
+# read and send sessions, clamped at 0 as the reference clamps it.
+BENCH_FED_CLAMPED = ("split_fl_other_ms",)
+
+
+def _bench_fed_sizes():
+    """The federated legs' size-fixed keys, from the port's own sizes: the
+    packed bf16 ResNet-18 bundle's MB and the LoRA leg's adapters' MB."""
+    import bench_torch
+    from rayfed_tpu_torch import tree_util
+    from rayfed_tpu_torch.models import resnet
+
+    cpu = torch.device("cpu")
+    bundle = fl.compression.compress(
+        resnet.init_resnet(torch.Generator().manual_seed(0), resnet.resnet18(num_classes=10), device=cpu), packed=True)
+    bundle_mb = round(bundle.buf.numel() * bundle.buf.element_size() / 1e6, 1)
+    cfg = llama.LlamaConfig(**bench_torch.LORA_CONFIG)
+    base = llama.init_llama(cfg, torch.Generator().manual_seed(42), device=cpu)
+    adapters = lora.init_lora(base, lora.LoraConfig(rank=8, targets=(r"w[qv]$", r"lm_head$")),
+                              torch.Generator().manual_seed(7), device=cpu)
+    adapter_mb = sum(t.numel() * t.element_size() for t in tree_util.tree_leaves(adapters)) / 1e6
+    return {"stream_agg_bundle_mb": bundle_mb, "ring_bundle_mb": bundle_mb,
+            "lora_adapter_MB_per_push": round(adapter_mb, 3)}
+
+
+def _bench_fed_timed(key: str) -> bool:
+    return "_ms" in key or key.endswith("_s") or key.endswith("GBps") or "per_sec" in key
+
+
+def phase_bench_fed(device=None):
+    """``bench_torch.run_fed``: the federated section of ``bench.py`` (its
+    first half without a mode flag) on the port, every leg in its spawned
+    processes with every party's compute on the card: the 1F1B and
+    interleaved pipelines against DP over a 4-rank gloo world, split
+    learning's activation push, the raw push of a 128 MB tensor from the
+    card, the send-path, streaming, ring and overlap legs at their full
+    (ResNet-18) sizes, the 2-party Llama-LoRA fine-tune, 4-party ResNet-18
+    FedAvg with its floor and the DP control, and the headline 2-party
+    FedAvg.  Cut to fit the script's limit, widths untouched: split
+    learning's best of 1 window (the reference's 3), the push bench's best of
+    2 windows (3) of 3 pushes (6) and of 2 onto the card (4)
+    (``BENCH_FED_KW``), 1 s of settle after each leg (3 s,
+    ``BENCH_FED_SETTLE_S``), and two legs at a time (``BENCH_FED_LANES``: the
+    walls of two legs then share the host and the card).  Fatal: a leg's error; a missing key of the reference's
+    section; a value that is not finite, a timed one (ms, s, GB/s, a rate)
+    that is not > 0 (``BENCH_FED_CLAMPED`` at least 0), any other number
+    below 0; a size-fixed key other than the port's own sizes give
+    (``_bench_fed_sizes``); a flash launch (the LoRA leg's attention is
+    dense); no fold_fma launch in a leg of BENCH_FED_FOLD_LEGS; JAX loaded
+    here (every child asserts it loaded none before it reports).  Prints
+    each leg's wall, launches and peak device memory.  ``device="cpu"``
+    rehearses it (no launch expected).  The record and the stats are written
+    to chiprun_out/bench_fed.json."""
+    import bench_torch
+
+    dev = "cuda" if device is None else device
+    on_card = dev != "cpu"
+    t0 = time.perf_counter()
+    stats = {}
+    record = bench_torch.run_fed(dev, stats=stats, leg_kw=BENCH_FED_KW, settle_s=BENCH_FED_SETTLE_S,
+                                 lanes=BENCH_FED_LANES)
+    wall = time.perf_counter() - t0
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "bench_fed.json"), "w") as f:
+        json.dump({"record": record, "stats": stats, "leg_kw": BENCH_FED_KW}, f, indent=1, default=repr)
+    for leg, st in stats.items():
+        peak = "n/a" if st["peak_bytes"] is None else f"{st['peak_bytes'] / 1e9:.3f} GB"
+        print(f"[bench_fed] {leg}: {st['s']:.1f} s, launches {st['launches']}, peak device memory {peak}")
+    for key, value in record.items():
+        print(f"[bench_fed] {key}: {value!r}")
+    failures = [f"{k}: {record[k]}" for k in record if k.endswith("_error")]
+    want = [k for leg in bench_torch.FED_LEG_NAMES for k in bench_torch.FED_KEYS[leg]] + list(bench_torch.ENV_KEYS)
+    if record.get("resnet_fedavg_vs_dp_ratio", 1.0) < 0.9:
+        want += bench_torch.FED_PRED_KEYS
+    failures += [f"{k} missing" for k in want if k not in record]
+    for key, value in record.items():
+        if key.endswith("_error") or key.startswith("env_") or key in ("metric", "unit") \
+                or isinstance(value, (str, dict)):
+            continue
+        if not (isinstance(value, (int, float)) and math.isfinite(value)):
+            failures.append(f"{key}={value!r} is not finite")
+        elif _bench_fed_timed(key) and key not in BENCH_FED_CLAMPED and value <= 0:
+            failures.append(f"{key}={value!r} is not > 0")
+        elif value < 0:
+            failures.append(f"{key}={value!r} is below 0")
+    for key, value in _bench_fed_sizes().items():
+        if record.get(key) != value:
+            failures.append(f"{key}={record.get(key)!r}, the port's sizes give {value!r}")
+    if record.get("metric") != bench_torch.HEADLINE or record.get("env_device_kind") != bench_torch._device_kind(dev):
+        failures.append(f"headline {record.get('metric')!r} on {record.get('env_device_kind')!r}")
+    launches = {leg: st["launches"] for leg, st in stats.items()}
+    flash = {k: sum(n.get(f"flash_{k}", 0) for n in launches.values()) for k in ("fwd", "bwd_dq", "bwd_dkv")}
+    folds = {leg: n.get("fold_fma", 0) for leg, n in launches.items()}
+    if any(flash.values()):
+        failures.append(f"flash kernels launched {flash}")
+    if on_card and not all(folds.get(leg, 0) for leg in BENCH_FED_FOLD_LEGS):
+        failures.append(f"fold_fma not launched in every leg of {BENCH_FED_FOLD_LEGS}: {folds}")
+    if not on_card and any(folds.values()):
+        failures.append(f"fold_fma launched off the card: {folds}")
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "rayfed_tpu"))
+    if loaded:
+        failures.append(f"this process loaded {loaded}")
+    print(f"[bench_fed] {len(stats)} legs on {dev} in {wall:.1f} s; fold_fma by leg {folds}, flash {flash}")
+    if failures:
+        raise AssertionError("phase_bench_fed: " + "; ".join(failures))
+    return {"s": wall, "record": record, "stats": stats, "flash_launches": flash,
+            "fold_launches": sum(folds.values()), "folds_by_leg": folds}
+
+
 def _timed(walls, fn, *args, **kw):
     """Run one phase and print its wall."""
     t0 = time.perf_counter()
@@ -5884,7 +6078,13 @@ def main() -> int:
     pipe = _timed(walls, phase_pipeline)
     party = _timed(walls, phase_party_processes)
     examples = _timed(walls, phase_examples)
-    bench = _timed(walls, phase_bench_smoke)
+    # The smoke and federated legs are spawned children bound by the host:
+    # the two phases run at once, each with its own children, counts and
+    # checks (their walls share the host's cores and the card).
+    with ThreadPoolExecutor(1) as pool:
+        fed_run = pool.submit(_timed, walls, phase_bench_fed)
+        bench = _timed(walls, phase_bench_smoke)
+        bench_f = fed_run.result()
     bench_c = _timed(walls, phase_bench_compute)
     ckpt_llama, ckpt_resnet = ckpt["llama"]["launches"], ckpt["quorum"]["flash_launches"]
     overlap = {k: sum(federated[part]["launches"][k] for part in OVERLAP_PARTS)
@@ -5958,7 +6158,9 @@ def main() -> int:
                              # phase_bench_smoke: every child of the twelve legs
                              "bench_smoke": bench["flash_launches"]["fwd"],
                              # phase_bench_compute: the five legs, this process
-                             "bench_compute": bench_c["launches"]["flash_fwd"]},
+                             "bench_compute": bench_c["launches"]["flash_fwd"],
+                             # phase_bench_fed: every child and rank of its legs
+                             "bench_fed": bench_f["flash_launches"]["fwd"]},
         "bert_shape": bert_times["fwd"],  # bert_base's attention on the split path
         "max_abs_err": slice_err,
         **times,
@@ -5999,7 +6201,9 @@ def main() -> int:
                              # phase_bench_smoke: every child of the twelve legs
                              "bench_smoke": bench["flash_launches"]["bwd_dq"],
                              # phase_bench_compute: the five legs, this process
-                             "bench_compute": bench_c["launches"]["flash_bwd_dq"]},
+                             "bench_compute": bench_c["launches"]["flash_bwd_dq"],
+                             # phase_bench_fed: every child and rank of its legs
+                             "bench_fed": bench_f["flash_launches"]["bwd_dq"]},
         "bert_shape": bert_times["dq"],  # bert_base's attention on the split path
         "max_abs_err": bwd_err["dq"],
         **bwd_times["dq"],
@@ -6039,7 +6243,9 @@ def main() -> int:
                              # phase_bench_smoke: every child of the twelve legs
                              "bench_smoke": bench["flash_launches"]["bwd_dkv"],
                              # phase_bench_compute: the five legs, this process
-                             "bench_compute": bench_c["launches"]["flash_bwd_dkv"]},
+                             "bench_compute": bench_c["launches"]["flash_bwd_dkv"],
+                             # phase_bench_fed: every child and rank of its legs
+                             "bench_fed": bench_f["flash_launches"]["bwd_dkv"]},
         "bert_shape": bert_times["dkv"],  # bert_base's attention on the split path
         "max_abs_err": bwd_err["dkv"],
         **bwd_times["dkv"],
@@ -6086,12 +6292,17 @@ def main() -> int:
                              # float folds, the server step and resync
                              "bench_smoke": bench["fold_launches"],
                              # the compute legs pack no contribution
-                             "bench_compute": bench_c["launches"]["fold_fma"]},
+                             "bench_compute": bench_c["launches"]["fold_fma"],
+                             # every child of bench_torch.py --fed-only's legs: the
+                             # packed ResNet-18 rounds' folds and finalizes
+                             "bench_fed": bench_f["fold_launches"]},
         # Its forms: the streamed step (one launch a run of blocks), the
         # pair (the server step), the chain (the whole one-shot fold and its
-        # finalize, up to fold.MAX_OPS operands a launch) and the rows (the
-        # codec's two FMAs); launches by form in alice's round parts.
-        "forms": ["step", "pair", "chain", "rows"],
+        # finalize, up to fold.MAX_OPS operands a launch), the finalize (a
+        # streamed or striped fold's divide and cast), the rows (the
+        # codec's two FMAs) and ftz (the round's flushed add, subtract,
+        # multiply and divide); launches by form in alice's round parts.
+        "forms": ["step", "pair", "chain", "finalize", "rows", "ftz"],
         "launches_by_form": federated["fold_by_form"],
         **fold_times["adapters"],  # one contribution of the round's packed adapters
         "wq_shape": fold_times["wq"],

@@ -240,10 +240,13 @@ def unpack_tree(packed: PackedTree, dtype: Any = None) -> Any:
 
 def _ef_step(buf32: torch.Tensor, resid: torch.Tensor, wire_dt: torch.dtype):
     """The error-feedback step over the packed f32 buffer: add the carried
-    residual, cast to the wire dtype, carry the new cast error."""
-    corrected = buf32 + resid
+    residual, cast to the wire dtype, carry the new cast error; subnormals
+    flushed as the JAX package's program flushes them."""
+    from rayfed_tpu_torch.ops import ftz
+
+    corrected = ftz.add(buf32, resid)
     wire_buf = corrected.to(wire_dt)
-    return wire_buf, corrected - wire_buf.to(torch.float32)
+    return wire_buf, ftz.sub(corrected, wire_buf.to(torch.float32))
 
 
 class ErrorFeedback:

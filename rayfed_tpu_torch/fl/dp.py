@@ -19,7 +19,9 @@ Every function runs on the device of its inputs.  On CPU tensors
 :func:`global_norm` is the JAX package's jitted program as XLA:CPU compiles
 it (each leaf's sum of squares laid out by its tree reduction,
 :func:`rayfed_tpu_torch.ops.xla_cpu.leaf_sum_sq`), so the norm and the
-clipped tree equal its bytes; on the card the sums are PyTorch's.
+clipped tree equal its bytes; on the card the sums are PyTorch's.  Every
+product, quotient and FMA flushes subnormals as the JAX package's program
+does (:mod:`rayfed_tpu_torch.ops.ftz`).
 :func:`privatize` draws its noise from an explicit ``torch.Generator`` (the
 JAX package splits a PRNG key): the same scale and shape, another stream.
 """
@@ -32,14 +34,15 @@ import numpy as np
 import torch
 
 from rayfed_tpu_torch import tree_util
-from rayfed_tpu_torch.ops import xla_cpu
+from rayfed_tpu_torch.ops import ftz, xla_cpu
+from rayfed_tpu_torch.ops.fold import fma_ftz
 
 
 def _leaf_sum_sq(leaf: torch.Tensor) -> torch.Tensor:
     x = leaf.to(torch.float32)
     if x.device.type == "cpu":
         return xla_cpu.leaf_sum_sq(x)
-    return torch.sum(x * x)
+    return torch.sum(ftz.mul(x, x))
 
 
 def global_norm(tree: Any) -> torch.Tensor:
@@ -54,7 +57,7 @@ def global_norm(tree: Any) -> torch.Tensor:
         x = torch.as_tensor(leaf)
         if total is not None and x.numel() == 1 and x.device.type == "cpu":
             xf = x.to(torch.float32).reshape(1)
-            total = xla_cpu.fma(xf, xf, total.reshape(1)).reshape(())
+            total = fma_ftz(xf, xf, total.reshape(1)).reshape(())
             continue
         s = _leaf_sum_sq(x)
         total = s if total is None else total + s.to(total.device)
@@ -78,9 +81,9 @@ def clip_by_global_norm(tree: Any, clip_norm: float) -> Tuple[Any, torch.Tensor]
     norm = global_norm(tree)
     one = torch.ones((), dtype=torch.float32, device=norm.device)
     floor = torch.full((), 1e-12, dtype=torch.float32, device=norm.device)
-    factor = torch.minimum(one, torch.full_like(one, clip_norm) / torch.maximum(norm, floor))
+    factor = torch.minimum(one, ftz.div(torch.full_like(one, clip_norm), torch.maximum(norm, floor)))
     clipped = tree_util.tree_map(
-        lambda leaf: (leaf.to(torch.float32) * factor.to(leaf.device)).to(leaf.dtype), tree,
+        lambda leaf: ftz.mul(leaf.to(torch.float32), factor.to(leaf.device)).to(leaf.dtype), tree,
     )
     return clipped, norm
 

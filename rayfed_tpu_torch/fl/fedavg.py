@@ -33,8 +33,8 @@ import torch
 from rayfed_tpu_torch import tree_util
 from rayfed_tpu_torch.fl import compression
 from rayfed_tpu_torch.fl.compression import PackedTree, PackSpec
-from rayfed_tpu_torch.ops import xla_cpu
-from rayfed_tpu_torch.ops.fold import fold_chain, fold_fma_, fold_fma_pair
+from rayfed_tpu_torch.ops import ftz, xla_cpu
+from rayfed_tpu_torch.ops.fold import finalize, fold_chain, fold_fma_, fold_fma_pair
 
 # Elements per block of the canonical chunk grid: one 4 MB bf16 wire chunk.
 DEFAULT_CHUNK_ELEMS = 1 << 21
@@ -165,14 +165,12 @@ def packed_stripe_schedule(nblocks: int, n_stripes: int) -> List[List[int]]:
 
 
 def finalize_packed_stripe(acc: torch.Tensor, total_w: float, total_elems: int, out_dtype):
-    """THE packed-aggregate finalize: ``(acc[:n] / total_w).to(out)``.
-
-    The divisor is an f32 tensor on ``acc``'s device: on the card a CPU
-    scalar divisor would turn the division into a product with its
-    reciprocal, which is not the same bytes.
+    """THE packed-aggregate finalize: ``(acc[:n] / total_w).to(out)``, a
+    true f32 division with subnormals flushed: on the card one launch of the
+    fold kernel's finalize form (:func:`rayfed_tpu_torch.ops.fold.finalize`),
+    on the CPU its plain version.
     """
-    total = f32_scalar(total_w, acc.device)
-    return (acc[: int(total_elems)] / total).to(compression.torch_dtype(out_dtype))
+    return finalize(acc[: int(total_elems)], total_w, compression.torch_dtype(out_dtype))
 
 
 def _packed_result(buf, passthrough, spec: PackSpec, out_name: str) -> PackedTree:
@@ -360,7 +358,9 @@ def finalize_packed_quantized(
     ``ref`` (delta-coded rounds): the shared reference buffer the codes were
     taken against, ``total_elems`` elements (a tensor or an array).  ``W``
     is an f32 0-d tensor on the accumulator's device, so the divide is a
-    true division there too.
+    true division there too.  Every op flushes subnormals as the JAX
+    package's program does (:mod:`rayfed_tpu_torch.ops.ftz`); the grid's
+    vectors are read flushed.
     """
     from rayfed_tpu_torch.fl.quantize import _f32_on
 
@@ -375,15 +375,16 @@ def finalize_packed_quantized(
     w = f32_scalar(total_w, device)
     n, ce = int(total_elems), int(chunk_elems)
     a = acc.reshape(-1, ce).to(torch.float32)
-    zp = _f32_on(zps, device)[:, None]
-    # An f32 output's a − zp·W as XLA compiles it (fused in its scalar tail).
+    zp = ftz.flush(_f32_on(zps, device)[:, None])
+    # An f32 output's a − zp·W as XLA compiles it (fused in its scalar tail);
+    # integers both, so exact.
     inner = xla_cpu.sub_scaled(a, zp, w, n) if compression.dtype_name(out_dtype) == "float32" else a - zp * w
-    x = _f32_on(scales, device)[:, None] * inner
-    x = x.reshape(-1)[:n] / w
+    x = ftz.mul(_f32_on(scales, device)[:, None], inner)
+    x = ftz.div(x.reshape(-1)[:n], w)
     if ref is not None:
         # Delta-coded rounds: the codes summed to W·(mean delta); the
         # shared reference adds back AFTER the divide.
-        x = ref + x
+        x = ftz.add(ref, x)
     return x.to(compression.torch_dtype(out_dtype))
 
 
@@ -393,6 +394,15 @@ def _server_bufs(*bufs):
     there in f32."""
     device = _fold_device(bufs)
     return [as_tensor(b, device).reshape(-1).to(torch.float32) for b in bufs]
+
+
+def _blend(y: torch.Tensor, z: torch.Tensor, beta: float) -> torch.Tensor:
+    """``(1−β)·y + β·z`` as XLA:CPU compiles it: ``fma(1−β, y, f32(β·z))``,
+    except at ``1−β = β``, where its simplifier factors the shared constant
+    out, ``(y + z)·β``."""
+    if 1.0 - beta == beta:
+        return ftz.mul(ftz.add(y, z), beta)
+    return fold_fma_pair(1.0 - beta, y, beta, z)
 
 
 @functools.lru_cache(maxsize=None)
@@ -408,12 +418,14 @@ def server_step_kernel(kind: str, hyper: Tuple[float, ...]):
     multiply-adds; the port computes each contraction as one exactly
     rounded FMA (the fold's forms, :mod:`rayfed_tpu_torch.ops.fold`: ``fma``
     on CPU tensors, ``csrc/fold_fma.cu`` on the card), so the bytes are the
-    reference's on the CPU and the same on the card.  With ``Δ = x − avg``:
+    reference's on the CPU and the same on the card, subnormals flushed as
+    it flushes them (:mod:`rayfed_tpu_torch.ops.ftz`).  With ``Δ = x − avg``:
 
     - ``"momentum"`` ``(lr, momentum)``: ``fma(−lr, fma(momentum, m, Δ),
       x)``; ``lr=1, momentum=0`` returns ``avg`` itself (plain FedAvg).
     - ``"fedac"`` ``(lam, gamma, beta)``: ``fma(1−β, fma(−λ, Δ, x),
-      f32(β·fma(−γ, Δ, z)))``; ``lam=1, beta=0`` returns ``avg`` itself.
+      f32(β·fma(−γ, Δ, z)))`` (``(y' + z')·β`` at ``1−β = β``, where XLA
+      factors the constant out); ``lam=1, beta=0`` returns ``avg`` itself.
 
     The state advances only through :func:`server_resync_kernel`.
     """
@@ -424,7 +436,7 @@ def server_step_kernel(kind: str, hyper: Tuple[float, ...]):
             avg, x, m = _server_bufs(avg, x, m)
             if momentum == 0.0 and lr == 1.0:
                 return avg  # plain FedAvg, bit-exactly
-            t = x - avg
+            t = ftz.sub(x, avg)
             fold_fma_(t, momentum, m)
             return fold_fma_pair(-lr, t, 1.0, x)
 
@@ -436,10 +448,10 @@ def server_step_kernel(kind: str, hyper: Tuple[float, ...]):
             avg, x, z = _server_bufs(avg, x, z)
             if beta == 0.0 and lam == 1.0:
                 return avg  # plain FedAvg, bit-exactly
-            delta = x - avg
+            delta = ftz.sub(x, avg)
             y_new = fold_fma_pair(-lam, delta, 1.0, x)
             z_new = fold_fma_pair(-gamma, delta, 1.0, z)
-            return fold_fma_pair(1.0 - beta, y_new, beta, z_new)
+            return _blend(y_new, z_new, beta)
 
         return _step
     raise ValueError(
@@ -459,7 +471,9 @@ def server_resync_kernel(kind: str, hyper: Tuple[float, ...]):
       broadcast realized.
     - ``"fedac"``: ``z' = fma(−c, fma(1−β, x, f32(β·z)) − x_new, z)`` with
       ``c = f32(γ/D)`` and ``D = (1−β)·λ + β·γ``, the reference's
-      ``z − (γ/D)·((1−β)·x + β·z − x_new)`` as XLA:CPU contracts it.
+      ``z − (γ/D)·((1−β)·x + β·z − x_new)`` as XLA:CPU contracts it; at
+      ``1−β = β`` its simplifier factors the constant out first, and the
+      inner term is ``fma(β, x + z, −x_new)``.
     """
     if kind == "momentum":
         lr, _momentum = (float(h) for h in hyper)
@@ -468,7 +482,7 @@ def server_resync_kernel(kind: str, hyper: Tuple[float, ...]):
             del m  # replaced wholesale by the realized step
             x_new, x = _server_bufs(x_new, x)
             inv_lr = 1.0 / f32_scalar(lr, x.device)
-            return ((x - x_new) * inv_lr,)
+            return (ftz.mul(ftz.sub(x, x_new), inv_lr),)
 
         return _resync
     if kind == "fedac":
@@ -477,8 +491,12 @@ def server_resync_kernel(kind: str, hyper: Tuple[float, ...]):
 
         def _resync(x, x_new, z):
             x_new, x, z = _server_bufs(x_new, x, z)
-            inner = fold_fma_pair(1.0 - beta, x, beta, z)
-            return (fold_fma_pair(-(gamma / denom), inner - x_new, 1.0, z),)
+            if 1.0 - beta == beta:
+                # Factored as in the step, then contracted with − x_new.
+                inner = fold_fma_pair(beta, ftz.add(x, z), -1.0, x_new)
+            else:
+                inner = ftz.sub(fold_fma_pair(1.0 - beta, x, beta, z), x_new)
+            return (fold_fma_pair(-(gamma / denom), inner, 1.0, z),)
 
         return _resync
     raise ValueError(

@@ -59,6 +59,7 @@ import torch
 from rayfed_tpu_torch import tree_util
 from rayfed_tpu_torch.fl import compression
 from rayfed_tpu_torch.fl.compression import PackedTree, PackSpec
+from rayfed_tpu_torch.ops import ftz
 from rayfed_tpu_torch.ops.fold import fma_rows
 
 # Version of the shared-grid descriptor and semantics (the JAX package's).
@@ -413,8 +414,11 @@ tree_util.register_pytree_node(
 
 
 def _grid_vectors(grid: QuantGrid, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
-    return (torch.from_numpy(grid.scales).to(device)[:, None],
-            torch.from_numpy(grid.zps).to(device)[:, None])
+    """The grid's scales and zero points as [nblocks, 1] f32 on ``device``,
+    read flushed (a subnormal is a zero of its sign), as the JAX package's
+    programs read them."""
+    return (ftz.flush(torch.from_numpy(grid.scales).to(device)[:, None]),
+            ftz.flush(torch.from_numpy(grid.zps).to(device)[:, None]))
 
 
 def _block_rows(x: torch.Tensor, grid: QuantGrid) -> List[Tuple[torch.Tensor, int, int]]:
@@ -453,16 +457,16 @@ def _quantize_codes(buf: Any, ref: Optional[Any], resid: Optional[torch.Tensor],
     device = _device_of(buf, ref, resid)
     value = as_tensor(buf, device).reshape(-1).to(torch.float32)
     if ref is not None:
-        value = value - _f32_on(ref, device)
+        value = ftz.sub(value, _f32_on(ref, device))
     if resid is None:  # the reference adds zeros: -0.0 + 0.0 is +0.0
         resid = torch.zeros(grid.total_elems, dtype=torch.float32, device=device)
-    corrected = value + resid.to(device)
+    corrected = ftz.add(value, resid.to(device))
     scales, zps = _grid_vectors(grid, device)
     code_dt = compression.torch_dtype(grid.wire_dtype)
     codes, resids = [], []
     for a, lo, hi in _block_rows(corrected, grid):
         sc, zp = scales[lo:hi], zps[lo:hi]
-        q = torch.clamp(torch.round(a / sc + zp), qmin, qmax)
+        q = torch.clamp(torch.round(ftz.add(ftz.div(a, sc), zp)), qmin, qmax)
         codes.append(q.to(code_dt))
         # corrected − scale·(q − zp), one rounding (see the module doc).
         resids.append(fma_rows(sc, q, a, zp, negate=True))
@@ -484,7 +488,7 @@ def _dequantize_codes(codes: Any, ref: Optional[Any], grid: QuantGrid, out_name:
     for k, (a, lo, hi) in enumerate(_block_rows(q, grid)):
         sc, zp = scales[lo:hi], zps[lo:hi]
         if refs is None:
-            out.append(sc * (a - zp))
+            out.append(ftz.mul(sc, a - zp))  # a − zp: integers, exact
         else:
             # ref + scale·(q − zp), one rounding (see the module doc).
             out.append(fma_rows(sc, a, refs[k][0], zp))

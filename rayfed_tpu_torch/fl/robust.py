@@ -21,7 +21,9 @@ lower one.  The trimmed mean sums its kept values in index order (XLA:CPU's
 tree reduction over more than 32 of them,
 :func:`rayfed_tpu_torch.ops.xla_cpu._tree_sum`) and multiplies by
 ``f32(1/k)``, as XLA:CPU compiles the JAX package's program: the median and
-the trimmed mean equal its bytes, on the CPU and on the card alike.
+the trimmed mean equal its bytes, on the CPU and on the card alike.  Their
+sorts read subnormals as zeros and their arithmetic flushes them, as that
+program does (:mod:`rayfed_tpu_torch.ops.ftz`).
 
 Krum's Gram product is a plain f32 product (elementwise, summed in f32) on
 every device, never a TF32 tensor-core product whatever the global switch
@@ -38,7 +40,7 @@ from typing import Any, List, Sequence
 import torch
 
 from rayfed_tpu_torch import tree_util
-from rayfed_tpu_torch.ops import xla_cpu
+from rayfed_tpu_torch.ops import ftz, xla_cpu
 
 
 def _stack_leaves(trees: Sequence[Any]):
@@ -51,13 +53,21 @@ def _stack_leaves(trees: Sequence[Any]):
     return stacked, trees[0]
 
 
+def _sorted(s: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """``s`` sorted along ``dim`` as the JAX package's sort orders it on the
+    CPU: a stable sort whose comparisons read subnormals as zeros (DAZ), the
+    values themselves moved unchanged."""
+    return torch.gather(s, dim, torch.argsort(ftz.flush(s), dim=dim, stable=True))
+
+
 def _median_leaf(s: torch.Tensor) -> torch.Tensor:
     """The midpoint median over axis 0: ``(lo + hi)·0.5`` of the two middle
-    sorted values (the same value twice for an odd count)."""
+    sorted values (the same value twice for an odd count), subnormals
+    flushed."""
     n = s.shape[0]
-    srt = torch.sort(s, dim=0).values
+    srt = _sorted(s)
     lo, hi = srt[(n - 1) // 2], srt[n // 2]
-    return (lo + hi) * 0.5
+    return ftz.mul(ftz.add(lo, hi), 0.5)
 
 
 def _median_tree(stacked: Any) -> Any:
@@ -81,11 +91,15 @@ def tree_median(trees: Sequence[Any]) -> Any:
 
 def _tmean_tree(stacked: Any, trim: int) -> Any:
     def leaf(s):
-        s = torch.sort(s, dim=0).values
+        s = _sorted(s)
         kept = s[trim : s.shape[0] - trim] if trim else s
         k = kept.shape[0]
-        total = xla_cpu._tree_sum(kept.movedim(0, -1))
-        return total * torch.full((), 1.0 / k, dtype=torch.float32, device=total.device)
+        if k == 1:
+            # XLA's simplifier drops a one-element sum and the product with
+            # 1: the value itself, unflushed.
+            return kept[0]
+        total = xla_cpu._tree_sum(kept.movedim(0, -1), add=ftz.add)
+        return ftz.mul(total, 1.0 / k)
 
     return tree_util.tree_map(leaf, stacked)
 
@@ -110,13 +124,14 @@ def tree_trimmed_mean(trees: Sequence[Any], *, trim: int) -> Any:
 def _gram_f32(flat: torch.Tensor) -> torch.Tensor:
     """``flat @ flat.T`` [n, n] as plain f32 products summed in f32, one
     row at a time (never a TF32 product)."""
-    return torch.stack([(flat * flat[i]).sum(dim=1) for i in range(flat.shape[0])])
+    return torch.stack([ftz.flush(ftz.mul(flat, flat[i]).sum(dim=1)) for i in range(flat.shape[0])])
 
 
 def _pairwise_sq_dists(flat: torch.Tensor) -> torch.Tensor:
-    """[n, d] → [n, n] squared euclidean distances (clamped at 0)."""
-    sq = torch.sum(flat * flat, dim=1)
-    d2 = sq[:, None] + sq[None, :] - 2.0 * _gram_f32(flat)
+    """[n, d] → [n, n] squared euclidean distances (clamped at 0), products
+    and sums flushed."""
+    sq = torch.sum(ftz.mul(flat, flat), dim=1)
+    d2 = ftz.sub(ftz.add(sq[:, None], sq[None, :]), ftz.mul(2.0, _gram_f32(flat)))
     return torch.clamp(d2, min=0.0)
 
 

@@ -112,8 +112,9 @@ def flash_bwd_lib() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def fold_lib() -> ctypes.CDLL:
-    """The float fold's fused multiply-add kernels (the step, pair, chain and
-    rows forms), built and loaded once."""
+    """The float fold's fused multiply-add kernels (the step, pair, chain,
+    finalize and rows forms) and the flushing binary ops, built and loaded
+    once."""
     lib = ctypes.CDLL(str(build("fold_fma")))
     ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.rf_fold_step.argtypes = [ptr, ptr, f32, i64, i32, i32, ptr]
@@ -123,6 +124,8 @@ def fold_lib() -> ctypes.CDLL:
     lib.rf_fold_rows.argtypes = [ptr] * 5 + [i32, i64, i64, i32, i32, ptr]
     for fn in (lib.rf_fold_step, lib.rf_fold_pair, lib.rf_fold_chain, lib.rf_fold_rows):
         fn.restype = i32
+    lib.rf_ftz_binary.argtypes = [ptr, ptr, i32, ptr, i32, i32, i64, i64, i32, ptr]
+    lib.rf_ftz_binary.restype = i32
     lib.rf_fold_head.argtypes = [ctypes.POINTER(ptr), ctypes.POINTER(i32), i32]
     lib.rf_fold_head.restype = i64
     lib.rf_cuda_error_string.argtypes = [i32]

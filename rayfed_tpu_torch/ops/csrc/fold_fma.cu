@@ -14,6 +14,17 @@
 // product, TwoSum, round to odd) on either device, and the JAX package's on
 // the CPU.
 //
+// Subnormals flush as XLA:CPU's programs (DAZ and FTZ) and the TPU flush
+// them: every f32 operand read, and every weight, is a zero of its sign when
+// it is subnormal (daz), and every result that is tiny after rounding, x86's
+// rule (the exact value rounded to 24 bits with an unbounded exponent lies
+// below 2^-126), is a zero of its sign.  The flushing is written out here
+// (the ftz_* helpers) rather than left to `.ftz` instructions or -ftz=true,
+// whose tininess rule is not x86's and which would also change the flash
+// kernels built with the same flags: a product, FMA or quotient that rounds
+// to exactly ±2^-126 is done once more with one operand scaled by 2^64, where
+// the exact value is normal and its rounding decides.
+//
 // Two kernels:
 //   fold_chain: t = acc (the streamed step, or a chain carried on from an
 //     earlier launch), else t = w0·x0 (one operand) or t = fma(w0, x0, w1·x1)
@@ -22,10 +33,16 @@
 //     cast(t / total) when it finalizes.  Up to kMaxOps operands travel in
 //     one launch, as pointers and by-value weights in the kernel's parameter
 //     struct.  The step (acc = fma(w, x, acc) in place), the pair
-//     (fma(w, x, v·y)) and the whole one-shot fold are its forms.
+//     (fma(w, x, v·y)), the whole one-shot fold and the finalize of a
+//     streamed or striped fold (cast(acc / total), no operand) are its forms.
 //   fold_rows: out = fma(±s[r], b − z[r], c) with one scale s[r] and zero
 //     point z[r] (optional) a row of `width` elements: the codec's residual
 //     and its reference add over the grid's block rows.
+//   ftz_binary: out = a + b, a − b, a·b or a / b over [rows, width] f32,
+//     each operand whole, one value a row or one value, flushed as above:
+//     the round's elementwise passes around the fold (the codec's subtract,
+//     add and divide, the compressed-domain finalize's rescale, error
+//     feedback), one pass each instead of PyTorch's op and its flushing.
 //
 // What bounds them on the H100: bytes.  A step moves 10 bytes (bf16 x, f32
 // accumulator read and written) for one FMA, the chain 2n + 2 for n FMAs
@@ -47,6 +64,7 @@
 //     and writes the output once), and one launch for a run of blocks of
 //     the streamed fold, so the host's cost per launch is paid per run.
 
+#include <cmath>
 #include <cstdint>
 
 #include <cuda_bf16.h>
@@ -58,6 +76,10 @@ constexpr int kMaxOps = 8;    // operands of one chain launch
 constexpr int kVec = 8;       // elements of a unit
 constexpr int kUnroll = 2;    // units a thread
 constexpr int kThreads = 256;
+
+constexpr float kFltMin = 0x1p-126f;  // the least normal f32
+constexpr float kUp = 0x1p64f;        // scales a result near kFltMin into the normal range
+constexpr float kTinyUp = 0x1p-62f;   // kFltMin · kUp
 
 // Element types, as the launcher numbers them.
 enum Dtype : int { kF32 = 0, kBF16 = 1, kU8 = 3, kI8 = 4 };
@@ -75,6 +97,18 @@ struct ChainArgs {
   long long units;   // aligned units after the head
 };
 
+// An operand of ftz_binary: read whole, one value a row, or one value.
+enum Broadcast : int { kWhole = 0, kPerRow = 1, kOne = 2 };
+enum BinaryOp : int { kAdd = 0, kSub = 1, kMul = 2, kDiv = 3 };
+
+struct BinaryArgs {
+  const float* a;
+  const float* b;
+  float* out;
+  int a_mode, b_mode, op;
+  long long width;   // elements of a row (the grid's y is the row)
+};
+
 struct RowsArgs {
   const void* b;
   const float* c;
@@ -88,10 +122,47 @@ struct RowsArgs {
   long long units;
 };
 
+// ---------------------------------------------------------------- flushing
+
+// A subnormal operand reads as a zero of its sign.
+__device__ __forceinline__ float daz(float x) { return fabsf(x) < kFltMin ? copysignf(0.0f, x) : x; }
+
+// A result r, a zero of its sign when it is tiny after rounding; `scaled` is
+// the same operation with an operand times 2^64, read only when |r| = 2^-126.
+#define RF_FLUSHED(r, scaled)                                                  \
+  do {                                                                         \
+    const float m_ = fabsf(r);                                                 \
+    if (m_ < kFltMin || (m_ == kFltMin && fabsf(scaled) < kTinyUp)) r = copysignf(0.0f, r); \
+  } while (0)
+
+__device__ __forceinline__ float ftz_fma(float a, float b, float c) {
+  float r = __fmaf_rn(a, b, c);
+  RF_FLUSHED(r, __fmaf_rn(__fmul_rn(a, kUp), b, __fmul_rn(c, kUp)));
+  return r;
+}
+
+__device__ __forceinline__ float ftz_mul(float a, float b) {
+  float r = __fmul_rn(a, b);
+  RF_FLUSHED(r, __fmul_rn(__fmul_rn(a, kUp), b));
+  return r;
+}
+
+__device__ __forceinline__ float ftz_div(float a, float b) {
+  float r = __fdiv_rn(a, b);
+  RF_FLUSHED(r, __fdiv_rn(__fmul_rn(a, kUp), b));
+  return r;
+}
+
+// A sum or difference of two normal values below 2^-126 is exact: flushed as
+// it is.
+__device__ __forceinline__ float ftz_sub(float a, float b) { return daz(__fsub_rn(a, b)); }
+__device__ __forceinline__ float ftz_add(float a, float b) { return daz(__fadd_rn(a, b)); }
+
 // ---------------------------------------------------------------- elements
 
-__device__ __forceinline__ float ld1(const float* p, long long i) { return p[i]; }
-__device__ __forceinline__ float ld1(const __nv_bfloat16* p, long long i) { return __bfloat162float(p[i]); }
+// Float elements are read flushed (daz); codes are integers.
+__device__ __forceinline__ float ld1(const float* p, long long i) { return daz(p[i]); }
+__device__ __forceinline__ float ld1(const __nv_bfloat16* p, long long i) { return daz(__bfloat162float(p[i])); }
 __device__ __forceinline__ float ld1(const uint8_t* p, long long i) { return __uint2float_rn(p[i]); }
 __device__ __forceinline__ float ld1(const int8_t* p, long long i) { return __int2float_rn(p[i]); }
 
@@ -102,8 +173,8 @@ __device__ __forceinline__ void st1(__nv_bfloat16* p, long long i, float v) { p[
 __device__ __forceinline__ void ld8(const float* p, float (&v)[kVec]) {
   const float4 a = reinterpret_cast<const float4*>(p)[0];
   const float4 b = reinterpret_cast<const float4*>(p)[1];
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  v[0] = daz(a.x); v[1] = daz(a.y); v[2] = daz(a.z); v[3] = daz(a.w);
+  v[4] = daz(b.x); v[5] = daz(b.y); v[6] = daz(b.z); v[7] = daz(b.w);
 }
 
 __device__ __forceinline__ void ld8(const __nv_bfloat16* p, float (&v)[kVec]) {
@@ -112,8 +183,8 @@ __device__ __forceinline__ void ld8(const __nv_bfloat16* p, float (&v)[kVec]) {
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     const float2 f = __bfloat1622float2(h[k]);
-    v[2 * k] = f.x;
-    v[2 * k + 1] = f.y;
+    v[2 * k] = daz(f.x);
+    v[2 * k + 1] = daz(f.y);
   }
 }
 
@@ -153,21 +224,21 @@ __device__ __forceinline__ void chain_one(const ChainArgs& a, long long i) {
   float t;
   int k0;
   if (a.acc != nullptr) {
-    t = a.acc[i];
+    t = ld1(a.acc, i);
     k0 = 0;
   } else if (a.nops == 1) {
-    t = __fmul_rn(a.w[0], ld1(static_cast<const T*>(a.x[0]), i));
+    t = ftz_mul(a.w[0], ld1(static_cast<const T*>(a.x[0]), i));
     k0 = 1;
   } else {
-    t = __fmaf_rn(a.w[0], ld1(static_cast<const T*>(a.x[0]), i),
-                  __fmul_rn(a.w[1], ld1(static_cast<const T*>(a.x[1]), i)));
+    t = ftz_fma(a.w[0], ld1(static_cast<const T*>(a.x[0]), i),
+                ftz_mul(a.w[1], ld1(static_cast<const T*>(a.x[1]), i)));
     k0 = 2;
   }
 #pragma unroll
   for (int k = 0; k < kMaxOps; ++k) {
-    if (k >= k0 && k < a.nops) t = __fmaf_rn(a.w[k], ld1(static_cast<const T*>(a.x[k]), i), t);
+    if (k >= k0 && k < a.nops) t = ftz_fma(a.w[k], ld1(static_cast<const T*>(a.x[k]), i), t);
   }
-  st1(static_cast<O*>(a.out), i, a.divide ? __fdiv_rn(t, a.total) : t);
+  st1(static_cast<O*>(a.out), i, a.divide ? ftz_div(t, a.total) : t);
 }
 
 template <typename T, typename O>
@@ -195,7 +266,7 @@ __global__ void __launch_bounds__(kThreads) fold_chain(const ChainArgs a) {
 #pragma unroll
     for (int r = 0; r < kUnroll; ++r)
 #pragma unroll
-      for (int e = 0; e < kVec; ++e) t[r][e] = __fmul_rn(a.w[0], v[r][e]);
+      for (int e = 0; e < kVec; ++e) t[r][e] = ftz_mul(a.w[0], v[r][e]);
     k0 = 1;
   } else {
 #pragma unroll
@@ -208,7 +279,7 @@ __global__ void __launch_bounds__(kThreads) fold_chain(const ChainArgs a) {
 #pragma unroll
     for (int r = 0; r < kUnroll; ++r)
 #pragma unroll
-      for (int e = 0; e < kVec; ++e) t[r][e] = __fmaf_rn(a.w[0], v[r][e], __fmul_rn(a.w[1], t[r][e]));
+      for (int e = 0; e < kVec; ++e) t[r][e] = ftz_fma(a.w[0], v[r][e], ftz_mul(a.w[1], t[r][e]));
     k0 = 2;
   }
 #pragma unroll
@@ -220,7 +291,7 @@ __global__ void __launch_bounds__(kThreads) fold_chain(const ChainArgs a) {
 #pragma unroll
       for (int r = 0; r < kUnroll; ++r)
 #pragma unroll
-        for (int e = 0; e < kVec; ++e) t[r][e] = __fmaf_rn(a.w[k], v[r][e], t[r][e]);
+        for (int e = 0; e < kVec; ++e) t[r][e] = ftz_fma(a.w[k], v[r][e], t[r][e]);
     }
   }
 #pragma unroll
@@ -228,7 +299,7 @@ __global__ void __launch_bounds__(kThreads) fold_chain(const ChainArgs a) {
     if (!live[r]) continue;
     if (a.divide) {
 #pragma unroll
-      for (int e = 0; e < kVec; ++e) t[r][e] = __fdiv_rn(t[r][e], a.total);
+      for (int e = 0; e < kVec; ++e) t[r][e] = ftz_div(t[r][e], a.total);
     }
     st8(static_cast<O*>(a.out) + at[r], t[r]);
   }
@@ -250,10 +321,10 @@ __global__ void __launch_bounds__(kThreads) fold_chain_scalar(const ChainArgs a)
 template <typename B>
 __device__ __forceinline__ void rows_one(const RowsArgs& a, long long i) {
   const long long r = i / a.width;
-  const float s = a.negate ? -a.s[r] : a.s[r];
+  const float s = daz(a.negate ? -a.s[r] : a.s[r]);
   float b = ld1(static_cast<const B*>(a.b), i);
-  if (a.z != nullptr) b = __fsub_rn(b, a.z[r]);
-  a.out[i] = __fmaf_rn(s, b, a.c[i]);
+  if (a.z != nullptr) b = ftz_sub(b, daz(a.z[r]));
+  a.out[i] = ftz_fma(s, b, ld1(a.c, i));
 }
 
 template <typename B>
@@ -279,18 +350,18 @@ __global__ void __launch_bounds__(kThreads) fold_rows(const RowsArgs a) {
     // row boundary (a unit may cross several rows when they are short).
     long long row = at[r] / a.width;
     long long rem = at[r] - row * a.width;
-    float s = a.negate ? -a.s[row] : a.s[row];
-    float z = a.z != nullptr ? a.z[row] : 0.0f;
+    float s = daz(a.negate ? -a.s[row] : a.s[row]);
+    float z = a.z != nullptr ? daz(a.z[row]) : 0.0f;
 #pragma unroll
     for (int e = 0; e < kVec; ++e) {
       if (rem == a.width) {
         ++row;
         rem = 0;
-        s = a.negate ? -a.s[row] : a.s[row];
-        z = a.z != nullptr ? a.z[row] : 0.0f;
+        s = daz(a.negate ? -a.s[row] : a.s[row]);
+        z = a.z != nullptr ? daz(a.z[row]) : 0.0f;
       }
-      const float d = a.z != nullptr ? __fsub_rn(b[r][e], z) : b[r][e];
-      c[r][e] = __fmaf_rn(s, d, c[r][e]);
+      const float d = a.z != nullptr ? ftz_sub(b[r][e], z) : b[r][e];
+      c[r][e] = ftz_fma(s, d, c[r][e]);
       ++rem;
     }
     st8(a.out + at[r], c[r]);
@@ -305,6 +376,29 @@ template <typename B>
 __global__ void __launch_bounds__(kThreads) fold_rows_scalar(const RowsArgs a) {
   const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (i < a.n) rows_one<B>(a, i);
+}
+
+// ---------------------------------------------------------------- binary ops
+
+__device__ __forceinline__ float operand(const float* p, int mode, long long row, long long i) {
+  return daz(mode == kWhole ? p[i] : mode == kPerRow ? p[row] : p[0]);
+}
+
+__global__ void __launch_bounds__(kThreads) ftz_binary(const BinaryArgs p) {
+  const long long row = blockIdx.y;
+  const long long col = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (col >= p.width) return;
+  const long long i = row * p.width + col;
+  const float a = operand(p.a, p.a_mode, row, i);
+  const float b = operand(p.b, p.b_mode, row, i);
+  float r;
+  switch (p.op) {
+    case kAdd: r = ftz_add(a, b); break;
+    case kSub: r = ftz_sub(a, b); break;
+    case kMul: r = ftz_mul(a, b); break;
+    default: r = ftz_div(a, b); break;
+  }
+  p.out[i] = r;
 }
 
 // ---------------------------------------------------------------- host side
@@ -342,6 +436,10 @@ bool plan(const void* const* ptrs, const int* sizes, int count, long long n, lon
   *blocks = static_cast<unsigned>(b > 0 ? b : 1);
   return true;
 }
+
+// A weight or divisor as the kernel reads it: a subnormal is a zero of its
+// sign.
+float host_daz(float x) { return std::fabs(x) < kFltMin ? std::copysign(0.0f, x) : x; }
 
 cudaError_t use_device(int device) {
   int cur = -1;
@@ -385,7 +483,9 @@ cudaError_t chain_out(const ChainArgs& a, int out_dtype, cudaStream_t s) {
 
 cudaError_t chain(const ChainArgs& a, int wire, int out_dtype, cudaStream_t s) {
   if (a.n <= 0) return cudaSuccess;
-  if (a.nops < 1 || a.nops > kMaxOps || (a.divide == 0 && out_dtype != kF32)) return cudaErrorInvalidValue;
+  const bool finalize = a.nops == 0 && a.acc != nullptr && a.divide;  // cast(acc / total)
+  if ((a.nops < 1 && !finalize) || a.nops > kMaxOps || (a.divide == 0 && out_dtype != kF32))
+    return cudaErrorInvalidValue;
   switch (wire) {
     case kF32: return chain_out<float>(a, out_dtype, s);
     case kBF16: return chain_out<__nv_bfloat16>(a, out_dtype, s);
@@ -416,7 +516,7 @@ extern "C" int rf_fold_step(void* acc, const void* x, float w, long long n, int 
   if (err != cudaSuccess) return err;
   ChainArgs a = {};
   a.x[0] = x;
-  a.w[0] = w;
+  a.w[0] = host_daz(w);
   a.acc = static_cast<const float*>(acc);
   a.out = acc;
   a.nops = 1;
@@ -432,9 +532,9 @@ extern "C" int rf_fold_pair(void* out, const void* x, float w, const void* y, fl
   if (err != cudaSuccess) return err;
   ChainArgs a = {};
   a.x[0] = x;
-  a.w[0] = w;
+  a.w[0] = host_daz(w);
   a.x[1] = y;
-  a.w[1] = v;
+  a.w[1] = host_daz(v);
   a.out = out;
   a.nops = 2;
   a.n = n;
@@ -444,21 +544,22 @@ extern "C" int rf_fold_pair(void* out, const void* x, float w, const void* y, fl
 // One launch of the chain over nops (1..8) operands xs of `wire` with
 // weights ws: from acc when it is given (an f32 value carried from an
 // earlier launch), else from the chain's first terms; out = t as f32, or,
-// with divide, t / total cast to out_dtype (0 f32, 1 bf16).
+// with divide, t / total cast to out_dtype (0 f32, 1 bf16).  nops 0 with acc
+// and divide is the finalize of a streamed or striped fold: cast(acc / total).
 extern "C" int rf_fold_chain(void* out, const void* acc, const void* const* xs, const float* ws,
                              int nops, long long n, int wire, int out_dtype, float total, int divide,
                              int device, void* stream) {
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return err;
-  if (nops < 1 || nops > kMaxOps) return cudaErrorInvalidValue;
+  if (nops < 0 || nops > kMaxOps) return cudaErrorInvalidValue;
   ChainArgs a = {};
   for (int k = 0; k < nops; ++k) {
     a.x[k] = xs[k];
-    a.w[k] = ws[k];
+    a.w[k] = host_daz(ws[k]);
   }
   a.acc = static_cast<const float*>(acc);
   a.out = out;
-  a.total = total;
+  a.total = host_daz(total);
   a.nops = nops;
   a.divide = divide;
   a.n = n;
@@ -491,6 +592,30 @@ extern "C" int rf_fold_rows(void* out, const void* b, const void* c, const void*
     case kI8: return launch_rows<int8_t>(a, st);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// The binary form: out[r, c] = op(a, b) over rows x width f32 (op 0 add,
+// 1 sub, 2 mul, 3 div), each operand read whole (mode 0), one value a row
+// (1) or one value (2), operands and result flushed.  rows: 1 to 65535.
+extern "C" int rf_ftz_binary(void* out, const void* a, int a_mode, const void* b, int b_mode, int op,
+                             long long rows, long long width, int device, void* stream) {
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return err;
+  if (rows <= 0 || width <= 0) return cudaSuccess;
+  if (rows > 65535 || op < kAdd || op > kDiv || a_mode < kWhole || a_mode > kOne || b_mode < kWhole ||
+      b_mode > kOne)
+    return cudaErrorInvalidValue;
+  BinaryArgs p = {};
+  p.a = static_cast<const float*>(a);
+  p.b = static_cast<const float*>(b);
+  p.out = static_cast<float*>(out);
+  p.a_mode = a_mode;
+  p.b_mode = b_mode;
+  p.op = op;
+  p.width = width;
+  const dim3 grid(static_cast<unsigned>((width + kThreads - 1) / kThreads), static_cast<unsigned>(rows));
+  ftz_binary<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  return cudaGetLastError();
 }
 
 // The head a launch over these operands plans (common_head): elements

@@ -12,14 +12,22 @@ its bytes equal the reference's on the CPU and are the same on the card:
   exact in f64, TwoSum gives the sum's rounding error, rounding to odd keeps
   it, and rounding that to f32 is the correctly rounded FMA (53 ≥ 2·24 + 2
   bits).
-- The kernel ``csrc/fold_fma.cu`` has four forms, each a wrapper here with
+- The kernel ``csrc/fold_fma.cu`` has five forms, each a wrapper here with
   its plain version beside it: :func:`fold_fma_` (the streamed step ``acc =
   fma(w, x, acc)``, in place), :func:`fold_fma_pair` (``fma(w, x, v·y)``),
   :func:`fold_chain` (the whole one-shot fold, ``fma(w0, x0, w1·x1)``, then
   ``fma(wk, xk, t)``, then ``cast(t / total)``, in one launch of up to
-  :data:`MAX_OPS` operands) and :func:`fma_rows` (``fma(±s[r], b − z[r],
-  c)`` over rows, the codec's two FMAs).  CPU tensors run the plain version;
-  CUDA tensors launch the kernel on the current stream or raise.
+  :data:`MAX_OPS` operands), :func:`finalize` (a streamed fold's
+  ``cast(acc / total)``) and :func:`fma_rows` (``fma(±s[r], b − z[r], c)``
+  over rows, the codec's two FMAs); and :func:`ftz_binary`, the round's
+  elementwise add, subtract, multiply and divide with subnormals flushed
+  (its plain version is ``ops/ftz.py``'s PyTorch ops).  CPU tensors run
+  the plain version; CUDA tensors launch the kernel on the current stream
+  or raise.
+- Every form flushes subnormals as the JAX package's programs do (DAZ and
+  FTZ, ``ops/ftz.py``): :func:`fma_ftz` is the plain versions' FMA, while
+  :func:`fma` keeps subnormals for the model programs ``ops/xla_cpu.py``
+  emulates.
 
 Weights are host numbers (Python floats, or CPU 0-d tensors), passed to the
 kernel by value as the f32 :func:`f32_arg` makes of them: the bits that
@@ -34,6 +42,8 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+
+from rayfed_tpu_torch.ops import ftz
 
 # Rows of an operand per slice of fma: its f64 temporaries stay near 128 MiB
 # each whatever the buffer's size.
@@ -62,26 +72,50 @@ def _fma_f64_to_odd(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.
     return torch.where((err != 0) & even, torch.nextafter(s, toward), s)
 
 
-def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
-        out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The f32 fused multiply-add ``a·b + c`` with one rounding, for ``b``
-    and ``c`` of one shape and ``a`` either 0-d or one row per row of ``b``
-    ([nblocks, 1] beside [nblocks, chunk]); computed a slice of rows at a
-    time, into ``out`` (which may be ``c``) or a new f32 tensor."""
+def _fma_slices(a, b, c, out, flushed: bool) -> torch.Tensor:
     rows = max(1, _FMA_SLICE_ELEMS // max(1, b[0].numel()))
     if out is None:
         out = torch.empty(b.shape, dtype=torch.float32, device=b.device)
     for lo in range(0, b.shape[0], rows):
         hi = lo + rows
-        a_rows = a if a.dim() == 0 else a[lo:hi]
-        out[lo:hi] = _fma_f64_to_odd(a_rows, b[lo:hi], c[lo:hi]).to(torch.float32)
+        ops = (a if a.dim() == 0 else a[lo:hi], b[lo:hi], c[lo:hi])
+        if flushed:
+            ops = [ftz.flush(t.to(torch.float32)) for t in ops]
+        s = _fma_f64_to_odd(*ops)
+        r = s.to(torch.float32)
+        if flushed:
+            # Tiny after rounding: the exact value, scaled by 2^64 into the
+            # normal range and rounded there, is below 2^-62.
+            r = torch.where((s * 2.0 ** 64).to(torch.float32).abs() < ftz.FLT_MIN * 2.0 ** 64, r * 0.0, r)
+        out[lo:hi] = r
     return out
+
+
+def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+        out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The f32 fused multiply-add ``a·b + c`` with one rounding, for ``b``
+    and ``c`` of one shape and ``a`` either 0-d or one row per row of ``b``
+    ([nblocks, 1] beside [nblocks, chunk]); computed a slice of rows at a
+    time, into ``out`` (which may be ``c``) or a new f32 tensor.  Subnormals
+    are kept (gradual underflow): the form XLA:CPU's model programs are
+    emulated with (``ops/xla_cpu.py``)."""
+    return _fma_slices(a, b, c, out, flushed=False)
+
+
+def fma_ftz(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+            out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`fma` with subnormals flushed as the round's programs flush
+    them (``ops/ftz.py``): subnormal operands read as zeros of their sign,
+    and a result that is tiny after rounding is a zero of its sign.  The
+    fold kernel's arithmetic."""
+    return _fma_slices(a, b, c, out, flushed=True)
 
 
 def f32_arg(w) -> float:
     """A weight as the kernel's by-value f32 argument: ``np.float32`` of a
     host number (a CPU 0-d tensor is read as its value), as a Python float
-    that ctypes passes without rounding again."""
+    that ctypes passes without rounding again.  The kernel reads it flushed,
+    as the plain versions do."""
     if isinstance(w, torch.Tensor):
         if w.device.type != "cpu":
             raise TypeError(
@@ -102,13 +136,13 @@ def _scalar(w, device: torch.device) -> torch.Tensor:
 
 def step_plain(acc: torch.Tensor, w, x: torch.Tensor) -> torch.Tensor:
     """``acc = fma(w, f32(x), acc)`` in place, returned."""
-    return fma(_scalar(w, acc.device), x.to(torch.float32), acc, out=acc)
+    return fma_ftz(_scalar(w, acc.device), x.to(torch.float32), acc, out=acc)
 
 
 def pair_plain(w, x: torch.Tensor, v, y: torch.Tensor) -> torch.Tensor:
     """``fma(w, f32(x), v·f32(y))``, ``v·y`` rounded first, as a new f32
     tensor."""
-    return fma(_scalar(w, x.device), x.to(torch.float32), _scalar(v, x.device) * y.to(torch.float32))
+    return fma_ftz(_scalar(w, x.device), x.to(torch.float32), ftz.mul(_scalar(v, x.device), y.to(torch.float32)))
 
 
 def chain_plain(xs: Sequence[torch.Tensor], ws: Sequence, total, out_dtype: torch.dtype) -> torch.Tensor:
@@ -116,12 +150,17 @@ def chain_plain(xs: Sequence[torch.Tensor], ws: Sequence, total, out_dtype: torc
     ``fma(w0, x0, w1·x1)``; then one step per further operand; then
     ``(t / total)`` (a true f32 division) cast to ``out_dtype``."""
     if len(xs) == 1:
-        t = _scalar(ws[0], xs[0].device) * xs[0].to(torch.float32)
+        t = ftz.mul(_scalar(ws[0], xs[0].device), xs[0].to(torch.float32))
     else:
         t = pair_plain(ws[0], xs[0], ws[1], xs[1])
     for x, w in zip(xs[2:], ws[2:]):
         step_plain(t, w, x)
-    return (t / _scalar(total, t.device)).to(out_dtype)
+    return finalize_plain(t, total, out_dtype)
+
+
+def finalize_plain(acc: torch.Tensor, total, out_dtype: torch.dtype) -> torch.Tensor:
+    """``(acc / total)`` (a true f32 division) cast to ``out_dtype``."""
+    return ftz.div(acc, _scalar(total, acc.device)).to(out_dtype)
 
 
 def rows_plain(s: torch.Tensor, b: torch.Tensor, c: torch.Tensor, z: Optional[torch.Tensor] = None,
@@ -131,8 +170,8 @@ def rows_plain(s: torch.Tensor, b: torch.Tensor, c: torch.Tensor, z: Optional[to
     s = s.reshape(-1, 1)
     d = b.to(torch.float32)
     if z is not None:
-        d = d - z.reshape(-1, 1)
-    return fma(-s if negate else s, d, c)
+        d = ftz.sub(d, z.reshape(-1, 1))
+    return fma_ftz(-s if negate else s, d, c)
 
 
 # -- the kernel's wrappers ---------------------------------------------------
@@ -210,6 +249,25 @@ def fold_chain(xs: Sequence[torch.Tensor], ws: Sequence, total, out_dtype: torch
     return out if direct else out.to(out_dtype)
 
 
+def finalize(acc: torch.Tensor, total, out_dtype: torch.dtype) -> torch.Tensor:
+    """The finalize of a streamed or striped fold: ``cast(acc / total)``
+    (:func:`finalize_plain`) as a new ``out_dtype`` tensor; ``acc``: a
+    contiguous f32 [n].  On the card one launch of the chain kernel that
+    continues from ``acc`` with no operand: it reads ``acc`` once and writes
+    the output once."""
+    if not acc.is_cuda:
+        return _off_card(acc, finalize_plain, acc, total, out_dtype)
+    if acc.dtype != torch.float32:
+        raise ValueError(f"the finalize divides an f32 accumulator, not {acc.dtype}")
+    direct = out_dtype in _WIRE
+    out = torch.empty(acc.shape, dtype=out_dtype if direct else torch.float32, device=acc.device)
+    _check("finalize", out, acc)
+    lib, dev = _LIB or _lib(), out.get_device()
+    _done("finalize", lib, lib.rf_fold_chain(out.data_ptr(), acc.data_ptr(), None, None, 0, out.numel(), 0,
+                                             _WIRE[out.dtype], f32_arg(total), 1, dev, _stream(dev)))
+    return out if direct else out.to(out_dtype)
+
+
 def fma_rows(s: torch.Tensor, b: torch.Tensor, c: torch.Tensor, z: Optional[torch.Tensor] = None,
              negate: bool = False) -> torch.Tensor:
     """``fma(±s[r], b − z[r], c)`` over ``b`` and ``c`` [rows, width] with
@@ -237,6 +295,49 @@ def fma_rows(s: torch.Tensor, b: torch.Tensor, c: torch.Tensor, z: Optional[torc
     _done("rows", lib, lib.rf_fold_rows(
         out.data_ptr(), b.data_ptr(), c.data_ptr(), s.data_ptr(), None if z is None else z.data_ptr(),
         int(negate), out.numel(), b.shape[1], _ROWS_B[b.dtype], dev, _stream(dev)))
+    return out
+
+
+_BINARY_OPS = {"add": 0, "sub": 1, "mul": 2, "div": 3}
+_GRID_ROWS = 65535  # the most rows of one launch of the binary form (the grid's y)
+
+
+def ftz_binary(op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a op b`` (``"add"``, ``"sub"``, ``"mul"`` or ``"div"``, a true
+    division) in f32 with subnormals flushed (``ops/ftz.py``), broadcast as
+    PyTorch broadcasts, as a new f32 tensor on the card: one launch of the
+    kernel's binary form, each operand read whole, one value a row of the
+    last dimension, or one value; other broadcasts are expanded first.  CUDA
+    tensors only (a one-element operand may be a CPU tensor); the CPU's
+    version is :mod:`rayfed_tpu_torch.ops.ftz`'s PyTorch ops."""
+    dev = a.device if a.is_cuda else b.device
+    if dev.type != "cuda":
+        raise RuntimeError(f"the fold kernel runs on cuda, not {dev}")
+    a, b = (t.to(device=dev, dtype=torch.float32) for t in (a, b))
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+    out = torch.empty(shape, dtype=torch.float32, device=dev)
+    n = out.numel()
+    if n == 0:
+        return out
+    width = shape[-1] if len(shape) else 1
+    rows = n // width
+    per_row = tuple(shape[:-1]) + (1,)
+
+    def mode(t):
+        if t.numel() == 1:
+            return 2, t
+        if tuple(t.shape) == tuple(shape) and t.is_contiguous():
+            return 0, t
+        if rows <= _GRID_ROWS and tuple(t.shape) == per_row and t.is_contiguous():
+            return 1, t
+        return 0, t.expand(shape).contiguous()
+
+    (am, a), (bm, b) = mode(a), mode(b)
+    if rows > _GRID_ROWS:  # one row of every element
+        rows, width = 1, n
+    lib = _LIB or _lib()
+    _done("ftz", lib, lib.rf_ftz_binary(out.data_ptr(), a.data_ptr(), am, b.data_ptr(), bm, _BINARY_OPS[op],
+                                        rows, width, out.get_device(), _stream(out.get_device())))
     return out
 
 
@@ -294,7 +395,7 @@ def _check(form: str, out: torch.Tensor, *ins: torch.Tensor) -> None:
             raise ValueError(f"the fold's {form} takes operands of one length: {t.numel()} vs {n}")
         if not t.is_contiguous():
             raise ValueError(f"the fold's {form} takes contiguous operands")
-    if form != "chain" and out.dtype != torch.float32:
+    if form not in ("chain", "finalize") and out.dtype != torch.float32:
         raise ValueError(f"the fold's {form} writes an f32 output, not {out.dtype}")
 
 
@@ -309,7 +410,7 @@ def _done(form: str, lib, err: int) -> None:
 # CUDA kernel launches, counted where they are launched: every form
 # together, and each form apart.
 fold_fma_.launches = 0
-fold_fma_.by_form = dict.fromkeys(("step", "pair", "chain", "rows"), 0)
+fold_fma_.by_form = dict.fromkeys(("step", "pair", "chain", "rows", "finalize", "ftz"), 0)
 
 
 def reset_launches() -> None:

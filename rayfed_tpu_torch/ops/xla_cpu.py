@@ -44,6 +44,9 @@ The assumptions:
   dumps at (64, b) for b up to 8, (26, 63), (67, 63), (64, 30, 5), (32, 7)
   and (5, 2, 5), and from the final reduce of every shape up to (3, 3, 3);
   probed over random shapes of ranks 1 to 3 and dimensions to 300.
+  Its operands and products flush subnormals (``ops/ftz.py``), as every
+  float program of the round does; a sum of non-negative normal values is
+  never tiny, so the adds need no flushing.
 - The rsqrt: ``xla.rsqrt.f32`` is the hardware estimate (``vrsqrtps``,
   read through ``native/xla_cpu_math.cc``) and two Newton steps that LLVM
   contracts into FMAs, the raw estimate kept for special inputs.
@@ -81,14 +84,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from rayfed_tpu_torch.ops.fold import fma, fma_rows
+from rayfed_tpu_torch.ops import ftz
+from rayfed_tpu_torch.ops.fold import fma, fma_ftz, fma_rows
 
 REDUCE_WINDOW = 32
 VECTOR_WIDTH, UNROLL = 8, 2
 
 
-def _tree_sum(sq: torch.Tensor) -> torch.Tensor:
-    """The sum over the last axis as XLA:CPU's tree reduction computes it."""
+def _tree_sum(sq: torch.Tensor, add=torch.add) -> torch.Tensor:
+    """The sum over the last axis as XLA:CPU's tree reduction computes it,
+    each step ``add(acc, x)`` (``ftz.add`` where the program's operands
+    and sums may be subnormal)."""
     while sq.shape[-1] > REDUCE_WINDOW:
         n = sq.shape[-1]
         nw = -(-n // REDUCE_WINDOW)
@@ -98,10 +104,10 @@ def _tree_sum(sq: torch.Tensor) -> torch.Tensor:
         windows = sq.reshape(*sq.shape[:-1], nw, REDUCE_WINDOW)
         sq = windows.new_zeros(windows.shape[:-1])
         for i in range(REDUCE_WINDOW):
-            sq = sq + windows[..., i]
+            sq = add(sq, windows[..., i])
     total = sq.new_zeros(sq.shape[:-1])
     for i in range(sq.shape[-1]):
-        total = total + sq[..., i]
+        total = add(total, sq[..., i])
     return total
 
 
@@ -245,16 +251,17 @@ def leaf_sum_sq(x: torch.Tensor) -> torch.Tensor:
     ``fma(x, x, acc)``, over the loop nest :func:`_nest_sum` describes
     (vector lanes of FMAs where LLVM vectorized the rows loop).  Returns a
     0-d f32 tensor."""
-    a = x.detach().reshape(x.shape).numpy().astype(np.float32, copy=False)
+    x = ftz.flush(x.detach().to(torch.float32))
+    a = x.numpy()
     if any(d > REDUCE_WINDOW for d in a.shape):
-        return torch.from_numpy(np.asarray(_window_sum_all(a * a), np.float32).reshape(()))
+        return torch.from_numpy(np.asarray(_window_sum_all(ftz.mul(x, x).numpy()), np.float32).reshape(()))
     a = torch.from_numpy(np.ascontiguousarray(a).reshape([d for d in a.shape if d != 1]))
     rows, inner = a.shape[-2:] if a.ndim >= 2 else (1, a.numel())
     vf = _vector_factor(rows, inner, squares=True)
     acc = torch.zeros(1, dtype=torch.float32)
     if vf == 1:
         for v in a.reshape(-1, 1):
-            acc = fma(v, v, acc)
+            acc = fma_ftz(v, v, acc)
         return acc.reshape(())
     main = rows // vf * vf
     for sub in a.reshape(-1, rows, inner):
@@ -267,10 +274,10 @@ def leaf_sum_sq(x: torch.Tensor) -> torch.Tensor:
                 # adds; wider rows square apart, then add (but the last
                 # column of two rows of 5, which the backend contracts).
                 fused = inner <= 4 or (vf, inner, c) == (2, 5, 4)
-                lanes = fma(col, col, lanes) if fused else lanes + col * col
+                lanes = fma_ftz(col, col, lanes) if fused else lanes + ftz.mul(col, col)
         acc = torch.from_numpy(_tree_lanes(lanes.numpy()).reshape(1))
         for v in sub[main:].reshape(-1, 1):
-            acc = fma(v, v, acc)
+            acc = fma_ftz(v, v, acc)
     return acc.reshape(())
 
 

@@ -7,6 +7,7 @@ command line.  The key sets and the reference's formulas are read from
 import ast
 import dataclasses
 import importlib
+import json
 import math
 import subprocess
 import sys
@@ -336,10 +337,36 @@ def test_compute_only_without_a_card_fails_before_any_leg():
 
 
 @pytest.mark.parametrize("argv", [["--fed-only"], []])
-def test_federated_section_exits_2(argv, capsys):
-    assert bench_torch.main([*argv, "--device", "cpu"]) == 2
-    out = capsys.readouterr()
-    assert out.out == "" and "federated section" in out.err
+def test_federated_section_exits_2(argv, capsys, monkeypatch):
+    """The federated section is ported (it exited 2 before): ``--fed-only``
+    runs it alone, no mode flag runs it and then the compute section, each
+    printing one record line with the federated headline and every leg's
+    keys, and exiting 1 when a leg failed.  The sections are stubbed here:
+    ``tests/test_torch_bench_fed_*.py`` run the legs."""
+    calls = []
+
+    def fed(device, **kw):
+        calls.append(("fed", device))
+        return {"metric": bench_torch.HEADLINE, "value": 1.5, "unit": "rounds/s", "vs_baseline": 1.0,
+                "env_device_kind": "cpu", "push_GBps": 2.0}
+
+    def compute(device, **kw):
+        calls.append(("compute", device))
+        return {"metric": "llama_tokens_per_sec", "value": 9.0, "unit": "tokens/s", "vs_baseline": 1.0,
+                "env_device_kind": "cpu", "llama_mfu": 0.1}
+
+    monkeypatch.setattr(bench_torch, "run_fed", fed)
+    monkeypatch.setattr(bench_torch, "run_compute", compute)
+    assert bench_torch.main([*argv, "--device", "cpu"]) == 0
+    want = [("fed", "cpu")] + ([] if argv else [("compute", "cpu")])
+    assert calls == want
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1
+    record = json.loads(lines[0])
+    assert record["metric"] == bench_torch.HEADLINE and record["push_GBps"] == 2.0
+    assert ("llama_mfu" in record) == (not argv)
+    monkeypatch.setattr(bench_torch, "run_fed", lambda device, **kw: {**fed(device), "split_fl_error": "x"})
+    assert bench_torch.main([*argv, "--device", "cpu"]) == 1
 
 
 def test_fed_only_and_compute_only_are_mutually_exclusive():

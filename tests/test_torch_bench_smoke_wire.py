@@ -76,10 +76,15 @@ def test_smoke_without_a_card_fails_before_any_leg():
 
 
 def test_without_smoke_exits_2():
-    proc = subprocess.run([sys.executable, "bench_torch.py", "--device", "cpu"], cwd=ROOT, capture_output=True,
-                          text=True, timeout=120)
-    assert proc.returncode == 2
-    assert "--smoke" in proc.stderr and proc.stdout.strip() == ""
+    """Without ``--smoke`` (no mode flag) the bench runs ``bench.py``'s
+    federated and compute sections, which exited 2 before they were ported;
+    without a card it fails before any leg and prints no record."""
+    _no_card()
+    proc = subprocess.run([sys.executable, "bench_torch.py"], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
+    assert not any(f"{msg} on" in proc.stderr for _, msg, _ in bench_torch.FED_LEGS)  # no leg started
+    assert proc.stdout.strip() == ""
 
 
 def test_run_smoke_raises_without_a_card():

@@ -17,7 +17,7 @@ import torch
 from rayfed_tpu_torch.fl import compression as tc
 from rayfed_tpu_torch.fl import quantize as qz
 from rayfed_tpu_torch.fl import streaming as tss
-from rayfed_tpu_torch.ops import fold
+from rayfed_tpu_torch.ops import fold, ftz
 from rayfed_tpu_torch.transport import wire
 
 CPU = torch.device("cpu")
@@ -86,14 +86,14 @@ def test_fold_fma_refuses_a_device_without_the_kernel():
 CHAIN_WEIGHTS = {"ones": None, "ints": [3, 5, 7, 11, 13], "fractions": [1.7, 2.3, 0.9, 4.1, 0.3]}
 
 
-def _wire_operands(k, n, wire, seed, subnormals=True):
+def _wire_operands(k, n, wire, seed):
     """k operands of standard normals with signed zeros, small integers and
-    (``subnormals``) subnormal values mixed in."""
+    subnormal values mixed in."""
     rng = np.random.default_rng(seed)
     out = []
     for _ in range(k):
         x = rng.standard_normal(n).astype(np.float32)
-        x[:8] = [0.0, -0.0, 1e-40 if subnormals else 1.5, -3e-39 if subnormals else -0.5, 1.0, -2.0, 0.25, 3.0]
+        x[:8] = [0.0, -0.0, 1e-40, -3e-39, 1.0, -2.0, 0.25, 3.0]
         out.append(torch.from_numpy(x).to(wire))
     return out
 
@@ -104,10 +104,9 @@ def _wire_operands(k, n, wire, seed, subnormals=True):
 @pytest.mark.parametrize("k", [1, 2, 3, 4, 5])
 def test_chain_plain_is_the_op_sequence_and_the_reference_program(k, wire, weights, out):
     """The chain's plain version (what a CPU tensor takes) equals the pair,
-    step and finalize sequence op by op, subnormals included, and the JAX
-    package's one-shot program ``_packed_reduce_jit`` on buffers of normal
-    values: XLA:CPU flushes subnormal inputs and results to zero, the port
-    keeps them (ROADMAP Queue C)."""
+    step and finalize sequence op by op, and the JAX package's one-shot
+    program ``_packed_reduce_jit``, subnormals included: both flush them as
+    XLA:CPU does (``ops/ftz.py``)."""
     import jax.numpy as jnp
 
     from rayfed_tpu.fl import fedavg as jf
@@ -119,7 +118,7 @@ def test_chain_plain_is_the_op_sequence_and_the_reference_program(k, wire, weigh
     got = fold.fold_chain(xs, ws, total, out)
 
     if k == 1:
-        t = tf.f32_scalar(ws[0], CPU) * xs[0].float()
+        t = ftz.mul(tf.f32_scalar(ws[0], CPU), xs[0].float())
     else:
         t = fold.fold_fma_pair(ws[0], xs[0], ws[1], xs[1])
     for x, w in zip(xs[2:], ws[2:]):
@@ -127,7 +126,6 @@ def test_chain_plain_is_the_op_sequence_and_the_reference_program(k, wire, weigh
     seq = tf.finalize_packed_stripe(t, total, t.numel(), tc.dtype_name(out))
     assert got.dtype == out and _raw(got) == _raw(seq)
 
-    xs = _wire_operands(k, 3001, wire, seed=k, subnormals=False)
     jbufs = tuple(jnp.asarray(x.float().numpy()).astype(jnp.dtype(tc.dtype_name(wire))) for x in xs)
     ref = jf._packed_reduce_jit(tc.dtype_name(out))(jbufs, jnp.asarray(np.asarray(ws, np.float32)),
                                                     np.float32(total))
@@ -260,7 +258,7 @@ def test_by_value_weights_are_f32_scalar_bits(value):
 
 
 @pytest.mark.parametrize("case", ["step", "pair", "chain", "rows", "card-weight", "chain-weights",
-                                  "rows-shape", "rows-vectors", "rows-c-dtype"])
+                                  "rows-shape", "rows-vectors", "rows-c-dtype", "finalize", "ftz"])
 def test_wrappers_raise_on_what_the_kernel_does_not_take(case):
     """Without a card: a tensor that is neither on the CPU nor on a CUDA
     device, a weight that lives on a device, and shapes the kernel does not
@@ -278,6 +276,8 @@ def test_wrappers_raise_on_what_the_kernel_does_not_take(case):
         "rows-shape": (ValueError, "rows, width", lambda: fold.fma_rows(torch.empty(1, device="meta"), meta, meta)),
         "rows-vectors": (ValueError, "scale and zero point", lambda: fold.fma_rows(
             torch.empty(3, 1, device="meta"), meta.reshape(2, 4), meta.reshape(2, 4))),
+        "finalize": (RuntimeError, "cuda", lambda: fold.finalize(meta, 2.0, torch.bfloat16)),
+        "ftz": (RuntimeError, "cuda", lambda: fold.ftz_binary("mul", meta, meta)),
         "rows-c-dtype": (ValueError, "f32 c", lambda: fold.fma_rows(
             torch.empty(2, 1, device="meta"), meta.reshape(2, 4), meta.reshape(2, 4).to(torch.bfloat16))),
     }

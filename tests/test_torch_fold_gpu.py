@@ -12,10 +12,11 @@ wire buffers, fractional weights); and its stream must wait for the work that
 produced a local contribution and be waited on by whoever reads the result.
 The compressed-domain round on CUDA (the codec's codes, residuals and
 dequantized buffers, the i32 fold and its finalize) must give the CPU's
-bytes too.  Each form of the fold kernel (the step, the pair, the chain and
-the rows) must give its plain version's bytes on the same card inputs, with
-the operands at any element offset: at offsets that no head aligns (the
-scalar kernel) and at one common offset (the vector kernel after a head).
+bytes too.  Each form of the fold kernel (the step, the pair, the chain, the
+finalize and the rows) must give its plain version's bytes on the same card
+inputs, with the operands at any element offset: at offsets that no head
+aligns (the scalar kernel) and at one common offset (the vector kernel after
+a head), and at the flush of subnormals.
 """
 
 import random
@@ -140,10 +141,11 @@ def _edge_values(n, gen, dtype):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16, torch.int32])
 @pytest.mark.parametrize("n", [1, 1000, (1 << 21) + 3])
 def test_fold_kernel_matches_plain_version(cuda, dtype, n):
-    """``csrc/fold_fma.cu`` against ``fold.fma`` on the same card inputs,
-    the step and pair forms, byte for byte (both round once; f16 and integer
+    """``csrc/fold_fma.cu`` against ``fold.fma_ftz`` (its plain arithmetic:
+    one rounding, subnormals flushed as the reference flushes them) on the
+    same card inputs, the step and pair forms, byte for byte (f16 and integer
     wire elements go through f32 first, as in the reference)."""
-    from rayfed_tpu_torch.ops import fold
+    from rayfed_tpu_torch.ops import fold, ftz
 
     gen = torch.Generator().manual_seed(n)
     x, y = (_edge_values(n, gen, torch.float32).mul(100 if dtype == torch.int32 else 1).to(dtype).to(cuda)
@@ -151,14 +153,14 @@ def test_fold_kernel_matches_plain_version(cuda, dtype, n):
     acc = _edge_values(n, gen, torch.float32).to(cuda)
     w, v = 1.7, -0.3
     wt, vt = (torch.tensor(val, dtype=torch.float32, device=cuda) for val in (w, v))
-    want = fold.fma(wt, x.to(torch.float32), acc)
+    want = fold.fma_ftz(wt, x.to(torch.float32), acc)
     before = fold.fold_fma_.launches
     got = fold.fold_fma_(acc.clone(), w, x)
     pair = fold.fold_fma_pair(w, x, v, y)
     torch.cuda.synchronize()
     assert fold.fold_fma_.launches == before + 2
     assert _raw(got) == _raw(want)
-    assert _raw(pair) == _raw(fold.fma(wt, x.to(torch.float32), vt * y.to(torch.float32)))
+    assert _raw(pair) == _raw(fold.fma_ftz(wt, x.to(torch.float32), ftz.mul(vt, y.to(torch.float32))))
 
 
 def _at(t, off):
@@ -411,3 +413,84 @@ def test_cuda_integer_fold_equals_the_cpu_fold(cuda, weights):
     cw, cdec, cd = qz.quantize_downlink(plain, grid, ref, None)
     gw, gdec, gd = qz.quantize_downlink(out, grid, ref.to(cuda), None)
     assert gw.buf.tobytes() == cw.buf.tobytes() and _raw(gdec.buf) == _raw(cdec.buf) and gd == cd
+
+
+def _flush_edges(n, w, gen):
+    """Operands whose products with ``w`` sweep 2^-126 ± 64 ulps in both
+    signs, with subnormals and signed zeros every 7th element."""
+    k = torch.arange(n) % 129 - 64
+    base = torch.tensor(2.0 ** -126 / torch.tensor(w, dtype=torch.float32).item(), dtype=torch.float32).item()
+    x = (base * (1 + k.double() * 2.0 ** -24)).float()
+    x = torch.where(torch.rand(n, generator=gen) < 0.5, x, -x)
+    x[::7] = torch.tensor([1e-40, -3e-39, 0.0, -0.0, 1e-45, 2.0 ** -126, -5.9e-39]).repeat(n)[: x[::7].numel()]
+    return x
+
+
+@pytest.mark.parametrize("w", [2.3, -0.7, 1 - 2 ** -24])
+@pytest.mark.parametrize("wire_dtype", [torch.bfloat16, torch.float32])
+def test_forms_flush_at_2_pow_minus_126_as_on_the_cpu(cuda, wire_dtype, w):
+    """Every form at the flush: products, FMAs and quotients that land just
+    below 2^-126 (tiny after rounding: a zero of its sign) or round up to
+    it, and subnormal operands, give on the card the bytes of the CPU's
+    plain versions, which hold the JAX package's
+    (``tests/test_torch_subnormals.py``)."""
+    from rayfed_tpu_torch.ops import fold
+
+    gen = torch.Generator().manual_seed(9)
+    n = 4 * 5003
+    x, y, acc = (_flush_edges(n, w, gen) for _ in range(3))
+    x, y = x.to(wire_dtype), y.to(wire_dtype)
+    assert _raw(fold.fold_fma_(acc.clone().to(cuda), w, x.to(cuda))) == _raw(fold.step_plain(acc.clone(), w, x))
+    assert _raw(fold.fold_fma_pair(w, x.to(cuda), w, y.to(cuda))) == _raw(fold.pair_plain(w, x, w, y))
+    for out in (torch.bfloat16, torch.float32):
+        for k in (1, 2, 3):
+            xs = [x, y, x][:k]
+            got = fold.fold_chain([t.to(cuda) for t in xs], [w] * k, 1.0, out)
+            assert _raw(got) == _raw(fold.chain_plain(xs, [w] * k, 1.0, out)), (out, k)
+        assert _raw(fold.finalize(acc.to(cuda), 1.0 / w, out)) == _raw(fold.finalize_plain(acc, 1.0 / w, out))
+    rows = acc.reshape(4, -1)
+    sc = torch.full((4, 1), abs(w))
+    zp = torch.tensor([[0.0], [1e-40], [-0.0], [2.0 ** -126]])
+    for negate in (False, True):
+        got = fold.fma_rows(sc.to(cuda), rows.to(cuda), rows.to(cuda), zp.to(cuda), negate=negate)
+        assert _raw(got) == _raw(fold.rows_plain(sc, rows, rows, zp, negate=negate)), negate
+
+
+def _binary_operands(op, mode, gen, rows=5, width=4099):
+    """``a`` [rows, width] and ``b`` (whole, one value a row, or 0-d) for the
+    binary form: products and quotients that land at 2^-126 on both sides,
+    sums and differences of subnormals and tiny normals."""
+    ws = torch.tensor([2.3, -0.7, 1 - 2 ** -24, 1.5, 0.25])[:rows].reshape(rows, 1)
+    if op in ("mul", "div"):
+        per = ws if op == "mul" else 1.0 / ws
+        a = torch.cat([_flush_edges(width, float(w), gen).reshape(1, width) for w in per.reshape(-1)])
+        b = per
+    else:
+        a = _flush_edges(rows * width, 1.0, gen).reshape(rows, width)
+        b = _flush_edges(rows * width, 1.0, gen).reshape(rows, width) * 0.75
+    if mode == "whole":
+        b = b.expand(rows, width).contiguous()
+    elif mode == "scalar":
+        b = b.reshape(-1)[0].clone()
+    return a, b
+
+
+@pytest.mark.parametrize("mode", ["whole", "per-row", "scalar"])
+@pytest.mark.parametrize("op", ["add", "sub", "mul", "div"])
+def test_ftz_binary_matches_plain_version(cuda, op, mode):
+    """The kernel's binary form (one launch) against ``ops/ftz.py``'s PyTorch
+    ops on the CPU, byte for byte, at the flush, with ``b`` read whole, one
+    value a row, or one value; and with the one-value operand first."""
+    from rayfed_tpu_torch.ops import fold, ftz
+
+    gen = torch.Generator().manual_seed(11)
+    a, b = _binary_operands(op, "whole" if mode == "per-row" and op in ("add", "sub") else mode, gen)
+    if mode == "per-row" and op in ("add", "sub"):
+        b = b[:, :1].contiguous()
+    before = fold.fold_fma_.by_form["ftz"]
+    got = getattr(ftz, op)(a.to(cuda), b.to(cuda))
+    assert fold.fold_fma_.by_form["ftz"] == before + 1
+    assert _raw(got) == _raw(getattr(ftz, op)(a, b))
+    if mode == "scalar":
+        got = getattr(ftz, op)(b.to(cuda), a.to(cuda))
+        assert _raw(got) == _raw(getattr(ftz, op)(b, a))

@@ -7,7 +7,7 @@ the machine with the card it runs without the repo's conftest:
 
 Tolerance: byte identity.  The server step and resync on CUDA tensors launch
 the fold kernel (``csrc/fold_fma.cu``) for their fused multiply-adds and
-must give the CPU plain version's bytes; a ``PackedServerOptimizer`` on the
+their flushed subtractions and must give the CPU plain version's bytes; a ``PackedServerOptimizer`` on the
 card keeps its state there; the async buffer's i32 fold on the card must
 give the CPU buffer's finalized bytes.
 """
@@ -51,7 +51,8 @@ def test_server_step_and_resync_on_the_card_equal_the_cpu(cuda, kind, hyper, n):
     launches = fold.fold_fma_.launches
     assert got.device.type == "cuda" and _raw(got) == _raw(want)
     degenerate = hyper in ((1.0, 0.0), (1.0, 3.0, 0.0))
-    assert launches == (0 if degenerate else 2 if kind == "momentum" else 3)
+    # The FMAs' launches and one of the binary form for Δ = x − avg.
+    assert launches == (0 if degenerate else 3 if kind == "momentum" else 4)
     got_r = resync(x.to(cuda), got, st.to(cuda))[0]
     assert got_r.device.type == "cuda" and _raw(got_r) == _raw(resync(x, want, st)[0])
 
