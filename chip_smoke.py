@@ -90,7 +90,7 @@ Phases, each fatal on failure:
      folded in i32, streamed and one-shot): the i32 accumulator and the
      finalized f32 must equal the CPU's byte for byte; prints the i32 fold,
      finalize, quantize and dequantize device ms beside their bounds.  This
-     part and the round session (5) run with the plain ``ops.fold.fma``
+     part and the round session (5) run with the plain ``ops.fold.fma_ftz``
      raising on a CUDA tensor: the codec's FMAs take the kernel's rows form;
   8. (after 4) the int8 serving path: Llama-3-8B on an int8 base
      (``init_llama_int8``), the int8 KV cache and a 1024-token sliding
@@ -1193,13 +1193,12 @@ def _event_ms(fn):
 
 
 class _PlainFmaOff:
-    """Within: ``ops.fold.fma``, the fold kernel's plain arithmetic, raises
+    """Within: ``ops.fold.fma_ftz``, the fold kernel's plain arithmetic, raises
     on a CUDA tensor, in every module that bound it (the fold's plain
     versions, the codec, the finalize's tail), so a run inside shows that no
     path of the card took it.  CPU tensors pass, for the comparisons."""
 
-    BOUND = (("rayfed_tpu_torch.ops.fold", "fma"), ("rayfed_tpu_torch.ops.xla_cpu", "fma"),
-             ("rayfed_tpu_torch.ops.fold", "fma_ftz"), ("rayfed_tpu_torch.ops.xla_cpu", "fma_ftz"))
+    BOUND = (("rayfed_tpu_torch.ops.fold", "fma_ftz"), ("rayfed_tpu_torch.ops.xla_cpu", "fma_ftz"))
 
     def __enter__(self):
         import importlib
@@ -1923,7 +1922,7 @@ def phase_server_opt(card):
             rec = dict(ms=step_ms, resync_ms=resync_ms, launches=step_launches, resync_launches=resync_launches,
                        bound_ms=step_bytes / hbm * 1e3, resync_bound_ms=resync_bytes / hbm * 1e3, elems=n)
             if size_name == "llama_adapters" and (kind, hyper) == SOPT_CONFIGS[1]:
-                # The plain version of the same step on the card (ops/fold.py fma).
+                # The plain version of the same step on the card (ops/fold.py fma_ftz).
                 lam, gamma, beta = hyper
 
                 def plain():
@@ -6310,7 +6309,7 @@ def main() -> int:
         "codec": fold_times["codec"],
         # The same kernel as the server step's fused multiply-adds: FedAC at
         # the adapters' size, against the step's plain version (ops/fold.py
-        # fma on the card) and its bytes (x, avg and z read, x' written).
+        # fma_ftz on the card) and its bytes (x, avg and z read, x' written).
         "server_step": {"replaces": "rayfed_tpu/fl/fedavg.py:365", "launches": step_rec["launches"],
                         "ms": step_rec["ms"], "plain_ms": step_rec["plain_ms"], "bound_ms": step_rec["bound_ms"],
                         "bound_by": "bytes", "library_ms": None, "max_abs_err": 0.0,

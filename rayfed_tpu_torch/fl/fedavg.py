@@ -67,17 +67,23 @@ def _f32(leaf: Any) -> Any:
 def _mean_leaf(*leaves):
     """Mean of one leaf position: floats accumulate in f32 and cast back;
     everything else keeps its library's promoting arithmetic (an int mean
-    is a float, never a truncated int)."""
+    is a float, never a truncated int).  The JAX package's jitted mean adds
+    the leaves in order and multiplies by the count's f32 reciprocal (XLA
+    rewrites a division by a constant so); on the CPU every op flushes
+    subnormals as its program does."""
     if compression._is_float_leaf(leaves[0]):
         dt = leaves[0].dtype
         acc = _f32(leaves[0])
+        inv = np.float32(1.0 / len(leaves))
+        if isinstance(acc, torch.Tensor) and acc.device.type == "cpu":
+            for leaf in leaves[1:]:
+                acc = ftz.add(acc, _f32(leaf))
+            return ftz.mul(acc, inv).to(dt)
         for leaf in leaves[1:]:
             acc = acc + _f32(leaf)
         if isinstance(acc, torch.Tensor):
-            # A tensor divisor: on the card a CPU scalar one turns the
-            # division into a product with its reciprocal.
-            return (acc / f32_scalar(len(leaves), acc.device)).to(dt)
-        return (acc / len(leaves)).astype(dt)
+            return (acc * f32_scalar(inv, acc.device)).to(dt)
+        return (acc * inv).astype(dt)
     return sum(leaves[1:], start=leaves[0]) / len(leaves)
 
 
@@ -416,7 +422,7 @@ def server_step_kernel(kind: str, hyper: Tuple[float, ...]):
 
     The JAX package's program, as XLA:CPU compiles it, contracts the
     multiply-adds; the port computes each contraction as one exactly
-    rounded FMA (the fold's forms, :mod:`rayfed_tpu_torch.ops.fold`: ``fma``
+    rounded FMA (the fold's forms, :mod:`rayfed_tpu_torch.ops.fold`: ``fma_ftz``
     on CPU tensors, ``csrc/fold_fma.cu`` on the card), so the bytes are the
     reference's on the CPU and the same on the card, subnormals flushed as
     it flushes them (:mod:`rayfed_tpu_torch.ops.ftz`).  With ``Δ = x − avg``:

@@ -28,9 +28,15 @@ program does (:mod:`rayfed_tpu_torch.ops.ftz`).
 Krum's Gram product is a plain f32 product (elementwise, summed in f32) on
 every device, never a TF32 tensor-core product whatever the global switch
 says: Krum selects by argmin, and a lower-precision product could flip a
-near-tied selection.  Its scores hold the JAX package's to a tolerance (its
-Gram product is Eigen's blocked f32 GEMM); its selection is the same on
-inputs without near ties.
+near-tied selection.  On the CPU the rest of the score is the JAX package's
+program byte for byte: the row sums of squares and the scores' sums in
+XLA:CPU's tree order (:func:`rayfed_tpu_torch.ops.xla_cpu._tree_sum`), and
+the distances ``sq_i + sq_j − 2·G`` clamped at 0, all flushed.  The Gram
+product itself holds the JAX package's to a tolerance: XLA:CPU hands the
+``dot`` to a library kernel that it picks, with its summation order, from
+the host's instruction set and cache sizes at run time (ROADMAP.md's
+records), so no fixed order equals its bytes on every host.  The selection
+is the same on inputs without near ties.
 """
 
 from __future__ import annotations
@@ -98,7 +104,7 @@ def _tmean_tree(stacked: Any, trim: int) -> Any:
             # XLA's simplifier drops a one-element sum and the product with
             # 1: the value itself, unflushed.
             return kept[0]
-        total = xla_cpu._tree_sum(kept.movedim(0, -1), add=ftz.add)
+        total = xla_cpu._tree_sum(kept.movedim(0, -1))
         return ftz.mul(total, 1.0 / k)
 
     return tree_util.tree_map(leaf, stacked)
@@ -127,21 +133,27 @@ def _gram_f32(flat: torch.Tensor) -> torch.Tensor:
     return torch.stack([ftz.flush(ftz.mul(flat, flat[i]).sum(dim=1)) for i in range(flat.shape[0])])
 
 
-def _pairwise_sq_dists(flat: torch.Tensor) -> torch.Tensor:
-    """[n, d] → [n, n] squared euclidean distances (clamped at 0), products
-    and sums flushed."""
-    sq = torch.sum(ftz.mul(flat, flat), dim=1)
-    d2 = ftz.sub(ftz.add(sq[:, None], sq[None, :]), ftz.mul(2.0, _gram_f32(flat)))
-    return torch.clamp(d2, min=0.0)
+def _row_sums(a: torch.Tensor) -> torch.Tensor:
+    """The sums over the last axis: XLA:CPU's tree order on the CPU, flushed
+    (the JAX package's bytes), PyTorch's sum on the card."""
+    if a.device.type == "cpu":
+        return xla_cpu._tree_sum(a)
+    return torch.sum(a, dim=-1)
+
+
+def _scores(sq: torch.Tensor, gram: torch.Tensor, k: int) -> torch.Tensor:
+    """Each party's sum of its ``k`` smallest squared distances to the
+    others, ``sq_i + sq_j − 2·G`` clamped at 0 (each op flushed), from the
+    rows' sums of squares and the Gram product."""
+    d2 = torch.clamp(ftz.sub(ftz.add(sq[:, None], sq[None, :]), ftz.mul(2.0, gram)), min=0.0)
+    # Push the self-distance past every real distance, then sum the k
+    # smallest.
+    d2 = d2 + torch.diag(torch.full((sq.shape[0],), float("inf"), device=sq.device))
+    return _row_sums(torch.sort(d2, dim=1).values[:, :k])
 
 
 def _krum_scores_flat(flat: torch.Tensor, k: int) -> torch.Tensor:
-    d2 = _pairwise_sq_dists(flat)
-    # Push the self-distance past every real distance, then sum the k
-    # smallest.
-    d2 = d2 + torch.diag(torch.full((flat.shape[0],), float("inf"), device=flat.device))
-    nearest = torch.sort(d2, dim=1).values[:, :k]
-    return torch.sum(nearest, dim=1)
+    return _scores(_row_sums(ftz.mul(flat, flat)), _gram_f32(flat), k)
 
 
 def krum_scores(trees: Sequence[Any], *, num_byzantine: int) -> torch.Tensor:

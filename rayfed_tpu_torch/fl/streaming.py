@@ -12,7 +12,7 @@ Each block folds as one exactly rounded fused multiply-add per element,
 ``acc = fma(w, f32(x), acc)`` from a zeroed accumulator — the program XLA
 compiles the JAX package's ``_accum_kernel`` into on the CPU: on the card
 the fold kernel ``ops/csrc/fold_fma.cu`` (``__fmaf_rn``), on the CPU its
-plain version (:func:`rayfed_tpu_torch.ops.fold.fma`).  Blocks fold in
+plain version (:func:`rayfed_tpu_torch.ops.fold.fma_ftz`).  Blocks fold in
 **party order per block** (party ``i``'s block ``b`` only after parties
 ``0..i-1`` folded theirs), so arrival order only affects scheduling: the
 streamed aggregate is byte-identical to the JAX package's streamed fold.

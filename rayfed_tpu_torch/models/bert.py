@@ -96,18 +96,6 @@ def init_bert(
     return params
 
 
-class _ForwardValue(torch.autograd.Function):
-    """``value`` forward, the gradient of ``out`` backward."""
-
-    @staticmethod
-    def forward(ctx, out, value):
-        return value
-
-    @staticmethod
-    def backward(ctx, grad):
-        return grad, None
-
-
 def _layer_norm(x, p, eps, jitted=False):
     """LayerNorm in the activation dtype, population variance.  On f32 CPU
     tensors the value is XLA:CPU's program of the JAX package's norm, op by
@@ -120,7 +108,7 @@ def _layer_norm(x, p, eps, jitted=False):
     out = out * scale + bias
     if x.device.type == "cpu" and x.dtype == torch.float32:
         exact = xla_cpu.layer_norm(x.detach(), scale.detach(), bias.detach(), eps, jitted)
-        out = _ForwardValue.apply(out, exact)
+        out = xla_cpu.ForwardValue.apply(out, exact)
     return out
 
 

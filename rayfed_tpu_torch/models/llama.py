@@ -41,7 +41,7 @@ from rayfed_tpu_torch.models.quant import (
     quantize_int8,
     split_output_scale,
 )
-from rayfed_tpu_torch.ops import xla_cpu
+from rayfed_tpu_torch.ops import ftz, xla_cpu
 from rayfed_tpu_torch.ops.attention import NEG_INF, dot_product_attention
 from rayfed_tpu_torch.utils.platform import resolve_device
 
@@ -305,16 +305,14 @@ def _sharded(x) -> bool:
 def _rms_norm(x, scale, eps, jitted=False):
     """RMSNorm.  ``jitted``: the JAX package runs this call site inside one
     jitted program (its decode and train steps), whose CPU bytes differ
-    from its op-by-op ones (ops/xla_cpu.py)."""
+    from its op-by-op ones (ops/xla_cpu.py).  On CPU tensors the value is
+    that program's, subnormals flushed, and the gradient PyTorch's."""
     xf = x.float()
     r = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    out = (xf * r * scale.float()).to(x.dtype)
     if xf.device.type == "cpu" and not _sharded(xf):
-        # The JAX package's bytes on the CPU (ops/xla_cpu.py).  The two
-        # values lie within an ulp, so ``r + (exact − r)`` is ``exact``
-        # to the bit, while the gradient stays torch.rsqrt's.
-        exact = xla_cpu.rms_rsqrt(xf.detach(), eps, jitted)
-        r = r + (exact - r).detach()
-    return (xf * r * scale.float()).to(x.dtype)
+        out = xla_cpu.ForwardValue.apply(out, xla_cpu.rms_norm(x.detach(), scale.detach(), eps, jitted))
+    return out
 
 
 def rope_tables(positions: torch.Tensor, head_dim: int, theta: float, *, folded: bool = False):
@@ -326,7 +324,7 @@ def rope_tables(positions: torch.Tensor, head_dim: int, theta: float, *, folded:
     PyTorch's."""
     exponents = torch.arange(0, head_dim, 2, dtype=torch.float32, device=positions.device) / head_dim
     if positions.device.type == "cpu":
-        angles = positions.float()[:, None] * xla_cpu.rope_freqs(exponents, theta, folded)[None, :]
+        angles = ftz.mul(positions.float()[:, None], xla_cpu.rope_freqs(exponents, theta, folded)[None, :])
         return xla_cpu.cos(angles), xla_cpu.sin(angles)
     freqs = 1.0 / theta ** exponents
     angles = positions.float()[:, None] * freqs[None, :]

@@ -8,10 +8,11 @@ streamed step ``fl/streaming.py`` ``_accum_kernel`` and the one-shot chain
 (``fl/quantize.py``).  The port computes each as an exactly rounded FMA, so
 its bytes equal the reference's on the CPU and are the same on the card:
 
-- :func:`fma` is the plain arithmetic, on any device: the f32 product is
-  exact in f64, TwoSum gives the sum's rounding error, rounding to odd keeps
-  it, and rounding that to f32 is the correctly rounded FMA (53 ≥ 2·24 + 2
-  bits).
+- :func:`fma_ftz` is the plain arithmetic, on any device: the f32 product
+  is exact in f64, TwoSum gives the sum's rounding error, rounding to odd
+  keeps it, and rounding that to f32 is the correctly rounded FMA (53 ≥
+  2·24 + 2 bits); subnormals are flushed as the JAX package's programs
+  flush them (DAZ and FTZ, ``ops/ftz.py``).
 - The kernel ``csrc/fold_fma.cu`` has five forms, each a wrapper here with
   its plain version beside it: :func:`fold_fma_` (the streamed step ``acc =
   fma(w, x, acc)``, in place), :func:`fold_fma_pair` (``fma(w, x, v·y)``),
@@ -24,10 +25,9 @@ its bytes equal the reference's on the CPU and are the same on the card:
   (its plain version is ``ops/ftz.py``'s PyTorch ops).  CPU tensors run
   the plain version; CUDA tensors launch the kernel on the current stream
   or raise.
-- Every form flushes subnormals as the JAX package's programs do (DAZ and
-  FTZ, ``ops/ftz.py``): :func:`fma_ftz` is the plain versions' FMA, while
-  :func:`fma` keeps subnormals for the model programs ``ops/xla_cpu.py``
-  emulates.
+- Every form flushes subnormals as the JAX package's programs do, and so
+  do the model programs ``ops/xla_cpu.py`` reproduces on the CPU with
+  :func:`fma_ftz`.
 
 Weights are host numbers (Python floats, or CPU 0-d tensors), passed to the
 kernel by value as the f32 :func:`f32_arg` makes of them: the bits that
@@ -45,7 +45,7 @@ import torch
 
 from rayfed_tpu_torch.ops import ftz
 
-# Rows of an operand per slice of fma: its f64 temporaries stay near 128 MiB
+# Rows of an operand per slice of fma_ftz: its f64 temporaries stay near 128 MiB
 # each whatever the buffer's size.
 _FMA_SLICE_ELEMS = 1 << 24
 
@@ -72,43 +72,27 @@ def _fma_f64_to_odd(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.
     return torch.where((err != 0) & even, torch.nextafter(s, toward), s)
 
 
-def _fma_slices(a, b, c, out, flushed: bool) -> torch.Tensor:
+def fma_ftz(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+            out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The f32 fused multiply-add ``a·b + c`` with one rounding, for ``b``
+    and ``c`` of one shape and ``a`` either 0-d or one row per row of ``b``
+    ([nblocks, 1] beside [nblocks, chunk]); computed a slice of rows at a
+    time, into ``out`` (which may be ``c``) or a new f32 tensor.  Subnormals
+    are flushed as XLA:CPU's programs flush them (``ops/ftz.py``): subnormal
+    operands read as zeros of their sign, and a result that is tiny after
+    rounding is a zero of its sign.  The fold kernel's arithmetic."""
     rows = max(1, _FMA_SLICE_ELEMS // max(1, b[0].numel()))
     if out is None:
         out = torch.empty(b.shape, dtype=torch.float32, device=b.device)
     for lo in range(0, b.shape[0], rows):
         hi = lo + rows
         ops = (a if a.dim() == 0 else a[lo:hi], b[lo:hi], c[lo:hi])
-        if flushed:
-            ops = [ftz.flush(t.to(torch.float32)) for t in ops]
-        s = _fma_f64_to_odd(*ops)
+        s = _fma_f64_to_odd(*[ftz.flush(t.to(torch.float32)) for t in ops])
         r = s.to(torch.float32)
-        if flushed:
-            # Tiny after rounding: the exact value, scaled by 2^64 into the
-            # normal range and rounded there, is below 2^-62.
-            r = torch.where((s * 2.0 ** 64).to(torch.float32).abs() < ftz.FLT_MIN * 2.0 ** 64, r * 0.0, r)
-        out[lo:hi] = r
+        # Tiny after rounding: the exact value, scaled by 2^64 into the
+        # normal range and rounded there, is below 2^-62.
+        out[lo:hi] = torch.where((s * 2.0 ** 64).to(torch.float32).abs() < ftz.FLT_MIN * 2.0 ** 64, r * 0.0, r)
     return out
-
-
-def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
-        out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The f32 fused multiply-add ``a·b + c`` with one rounding, for ``b``
-    and ``c`` of one shape and ``a`` either 0-d or one row per row of ``b``
-    ([nblocks, 1] beside [nblocks, chunk]); computed a slice of rows at a
-    time, into ``out`` (which may be ``c``) or a new f32 tensor.  Subnormals
-    are kept (gradual underflow): the form XLA:CPU's model programs are
-    emulated with (``ops/xla_cpu.py``)."""
-    return _fma_slices(a, b, c, out, flushed=False)
-
-
-def fma_ftz(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
-            out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """:func:`fma` with subnormals flushed as the round's programs flush
-    them (``ops/ftz.py``): subnormal operands read as zeros of their sign,
-    and a result that is tiny after rounding is a zero of its sign.  The
-    fold kernel's arithmetic."""
-    return _fma_slices(a, b, c, out, flushed=True)
 
 
 def f32_arg(w) -> float:

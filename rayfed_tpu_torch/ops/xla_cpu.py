@@ -66,14 +66,22 @@ The assumptions:
   remainder fuses ``acc − zp·W`` into an FMA.
 - A division by a constant is a product with the constant's f32
   reciprocal (XLA's algebraic simplifier rewrites it before codegen).
+- Subnormals: XLA:CPU runs every program with DAZ and FTZ, tininess
+  decided after rounding (``ops/ftz.py``).  Every arithmetic op of these
+  forms flushes as it does: the norms' sums, products, FMAs and Newton
+  steps, the reciprocal's product, RoPE's quotient and its folded
+  frequencies.  ``cos``/``sin`` are libm calls, which take and return
+  subnormals unflushed, as XLA's do.
 
-Which device follows which: the RMSNorm's form and ``cos``/``sin`` apply
-to CPU tensors only (the card's norm and RoPE tables are PyTorch's, within
-an ulp, as the model tests' tolerances allow).  The reciprocal and the finalize's fused tail apply on
-every device, so that a round's bytes do not depend on the device that
-finalized them: the ring's stripe owners, a hub coordinator and the
-coordinator fallback may each run on the card or on the CPU, beside
-parties of the JAX package, and all must give the JAX package's bytes.
+Which device follows which: the norms' forms, ``cos``/``sin``, RoPE's
+frequencies and the reciprocal's flush apply to CPU tensors only (the
+card's norms and RoPE tables are PyTorch's, within an ulp, as the model
+tests' tolerances allow, and keep gradual underflow).  The reciprocal and
+the finalize's fused tail apply on every device, so that a round's bytes do
+not depend on the device that finalized them: the ring's stripe owners, a
+hub coordinator and the coordinator fallback may each run on the card or on
+the CPU, beside parties of the JAX package, and all must give the JAX
+package's bytes.
 
 The float fold's fused multiply-add, which XLA:CPU also contracts, lives
 with the fold kernel it is the plain version of (``ops/fold.py``).
@@ -85,16 +93,28 @@ import numpy as np
 import torch
 
 from rayfed_tpu_torch.ops import ftz
-from rayfed_tpu_torch.ops.fold import fma, fma_ftz, fma_rows
+from rayfed_tpu_torch.ops.fold import fma_ftz, fma_rows
 
 REDUCE_WINDOW = 32
 VECTOR_WIDTH, UNROLL = 8, 2
 
 
-def _tree_sum(sq: torch.Tensor, add=torch.add) -> torch.Tensor:
+class ForwardValue(torch.autograd.Function):
+    """``apply(out, value)``: ``value`` (one of this module's forms) forward,
+    the gradient of ``out`` (PyTorch's ops on the same inputs) backward."""
+
+    @staticmethod
+    def forward(ctx, out, value):
+        return value
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def _tree_sum(sq: torch.Tensor) -> torch.Tensor:
     """The sum over the last axis as XLA:CPU's tree reduction computes it,
-    each step ``add(acc, x)`` (``ftz.add`` where the program's operands
-    and sums may be subnormal)."""
+    each step ``acc + x`` with subnormals flushed (``ftz.add``)."""
     while sq.shape[-1] > REDUCE_WINDOW:
         n = sq.shape[-1]
         nw = -(-n // REDUCE_WINDOW)
@@ -104,10 +124,10 @@ def _tree_sum(sq: torch.Tensor, add=torch.add) -> torch.Tensor:
         windows = sq.reshape(*sq.shape[:-1], nw, REDUCE_WINDOW)
         sq = windows.new_zeros(windows.shape[:-1])
         for i in range(REDUCE_WINDOW):
-            sq = add(sq, windows[..., i])
+            sq = ftz.add(sq, windows[..., i])
     total = sq.new_zeros(sq.shape[:-1])
     for i in range(sq.shape[-1]):
-        total = add(total, sq[..., i])
+        total = ftz.add(total, sq[..., i])
     return total
 
 
@@ -117,20 +137,21 @@ def _fuses_squares(d: int) -> bool:
 
 
 def _fma_sum_sq(xf: torch.Tensor) -> torch.Tensor:
-    """``sum(xf², axis=-1)`` as the FMA chain ``fma(x, x, acc)`` from 0.0."""
+    """``sum(xf², axis=-1)`` as the FMA chain ``fma(x, x, acc)`` from 0.0,
+    subnormals flushed."""
     total = xf.new_zeros(xf.shape[:-1])
     for i in range(xf.shape[-1]):
         col = xf[..., i].contiguous()
-        total = fma(col, col, total)
+        total = fma_ftz(col, col, total)
     return total
 
 
 def sum_sq(xf: torch.Tensor, jitted: bool) -> torch.Tensor:
     """``sum(xf², axis=-1)`` of a CPU f32 tensor in XLA:CPU's order, inside
-    a jitted program (``jitted``) or op by op."""
+    a jitted program (``jitted``) or op by op, subnormals flushed."""
     if jitted and _fuses_squares(xf.shape[-1]):
         return _fma_sum_sq(xf)
-    return _tree_sum(xf * xf)
+    return _tree_sum(ftz.mul(xf, xf))
 
 
 def _seq_sum(a: np.ndarray, acc=None) -> np.ndarray:
@@ -281,17 +302,19 @@ def leaf_sum_sq(x: torch.Tensor) -> torch.Tensor:
     return acc.reshape(())
 
 
-def rms_rsqrt(xf: torch.Tensor, eps: float, jitted: bool = False) -> torch.Tensor:
-    """``rsqrt(mean(xf²) + eps)`` [..., 1] of a CPU f32 tensor, as XLA:CPU
-    compiles the JAX package's RMSNorm inside a jitted program
-    (``jitted``) or op by op."""
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float, jitted: bool = False) -> torch.Tensor:
+    """The JAX package's RMSNorm of a CPU tensor as XLA:CPU compiles it,
+    inside a jitted program (``jitted``) or op by op: ``xf = f32(x)``,
+    ``r = rsqrt(mean(xf²) + eps)``, ``(xf·r)·f32(scale)`` cast back to
+    ``x``'s dtype, every op flushed."""
+    xf = ftz.flush(x.float())
     total = sum_sq(xf, jitted)
     inv_d = torch.full_like(total, 1.0 / xf.shape[-1])
     if jitted:
-        mean_eps = fma(total, inv_d, torch.full_like(total, eps))
+        mean_eps = fma_ftz(total, inv_d, torch.full_like(total, eps))
     else:
-        mean_eps = total * inv_d + eps
-    return rsqrt(mean_eps)[..., None]
+        mean_eps = ftz.add(ftz.mul(total, inv_d), eps)
+    return ftz.mul(ftz.mul(xf, rsqrt(mean_eps)[..., None]), scale.float()).to(x.dtype)
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float,
@@ -304,39 +327,42 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: fl
     mean`` (a separate loop: no FMA).  Op by op the variance divides its
     sum by ``D`` and every later op rounds alone; inside a jitted program
     the division is ``·f32(1/D)`` contracted with ``+ eps`` into one FMA,
-    and the affine tail ``t·scale + bias`` into another."""
+    and the affine tail ``t·scale + bias`` into another.  Every op flushes
+    subnormals."""
     d = x.shape[-1]
     inv_d = torch.full((), 1.0 / d, dtype=torch.float32)
-    mean = (_tree_sum(x) * inv_d)[..., None]
-    c = x - mean
+    x = ftz.flush(x)
+    mean = ftz.mul(_tree_sum(x), inv_d)[..., None]
+    c = ftz.sub(x, mean)
     # ``jnp.var`` is one program even op by op: a row of at most 32 fuses
     # its squares into the sum as an FMA chain, at every such width (unlike
     # the RMSNorm's row, which XLA vectorizes at 5 to 8).
-    s = _fma_sum_sq(c) if d <= REDUCE_WINDOW else _tree_sum(c * c)
+    s = _fma_sum_sq(c) if d <= REDUCE_WINDOW else _tree_sum(ftz.mul(c, c))
     if jitted:
-        mean_eps = fma(s, inv_d.expand(s.shape).contiguous(), torch.full_like(s, eps))
+        mean_eps = fma_ftz(s, inv_d.expand(s.shape).contiguous(), torch.full_like(s, eps))
     else:
-        mean_eps = s / d + eps
-    t = c * rsqrt(mean_eps)[..., None]
+        mean_eps = ftz.add(ftz.div(s, float(d)), eps)
+    t = ftz.mul(c, rsqrt(mean_eps)[..., None])
     if not jitted:
-        return t * scale + bias
+        return ftz.add(ftz.mul(t, scale), bias)
     lead = t.reshape(-1, d)
-    out = fma(scale.expand(lead.shape).contiguous(), lead, bias.expand(lead.shape).contiguous())
+    out = fma_ftz(scale.expand(lead.shape).contiguous(), lead, bias.expand(lead.shape).contiguous())
     return out.reshape(x.shape)
 
 
 def rsqrt(x: torch.Tensor) -> torch.Tensor:
     """``jax.lax.rsqrt`` of a CPU f32 tensor: the hardware estimate, then
     two Newton steps ``y ← fma(y·(−½), fma(x·y, y, −1), y)``, the raw
-    estimate kept where the input is not a positive finite."""
+    estimate kept where the input is not a positive finite; a subnormal
+    input reads as a zero and every step flushes."""
     from rayfed_tpu_torch.native import rsqrt_estimate
 
-    flat = x.reshape(-1)
+    flat = ftz.flush(x.reshape(-1))
     y0 = rsqrt_estimate(flat)
     y, minus_one = y0, torch.full_like(flat, -1.0)
     for _ in range(2):
-        e = fma(flat * y, y, minus_one)
-        y = fma(y * -0.5, e, y)
+        e = fma_ftz(ftz.mul(flat, y), y, minus_one)
+        y = fma_ftz(ftz.mul(y, -0.5), e, y)
     return torch.where(torch.isfinite(flat) & (flat > 0), y, y0).reshape(x.shape)
 
 
@@ -358,18 +384,21 @@ def sin(x: torch.Tensor) -> torch.Tensor:
 
 def rope_freqs(exponents: torch.Tensor, theta: float, folded: bool) -> torch.Tensor:
     """RoPE's ``1/θ^e`` of a CPU f32 tensor of exponents: as XLA folds it
-    inside a jitted program (``folded``), else as its eager ops compute it."""
+    inside a jitted program (``folded``), else as its eager ops compute it;
+    a result that is tiny flushes (θ^e near 2^128)."""
     from rayfed_tpu_torch.native import libm_pow
 
     if folded:
-        return libm_pow(theta, -exponents)
-    return 1.0 / libm_pow(theta, exponents)
+        return ftz.flush(libm_pow(theta, -exponents))
+    return ftz.div(1.0, libm_pow(theta, exponents))
 
 
 def div_const(x: torch.Tensor, c: float) -> torch.Tensor:
     """``x / c`` for a constant ``c``, as XLA compiles it: ``x`` times the
-    f32 reciprocal of ``c``."""
-    return x * torch.full((), 1.0 / c, dtype=torch.float32, device=x.device)
+    f32 reciprocal of ``c``, flushed on the CPU (the card's product is
+    PyTorch's)."""
+    r = torch.full((), 1.0 / c, dtype=torch.float32, device=x.device)
+    return ftz.mul(x, r) if x.device.type == "cpu" else x * r
 
 
 def _scalar_tail(nblocks: int, total_elems: int) -> int:

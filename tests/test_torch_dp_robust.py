@@ -251,17 +251,22 @@ def test_trimmed_mean_preserves_dtype():
 
 @pytest.mark.parametrize("n,f", [(4, 1), (5, 1), (7, 2), (12, 3)])
 def test_krum_scores_and_picks_equal_the_reference(n, f):
+    """The scores within 1e-6 (the Gram product's summation order is the
+    host's library kernel's; everything around it is byte-held in
+    ``tests/test_torch_subnormals_models.py``), their order, the pick and
+    the multi-Krum average byte for byte."""
     jt, tt = _contribs(n, 50 + n, outlier=n - 1)
     want = np.asarray(jr.krum_scores(jt, num_byzantine=f))
     got = tr.krum_scores(tt, num_byzantine=f).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-6)
+    assert np.argsort(got, kind="stable").tolist() == np.argsort(want, kind="stable").tolist()
     pick, jpick = tr.krum(tt, num_byzantine=f), jr.krum(jt, num_byzantine=f)
     assert all(_raw(pick[k]) == _raw(jpick[k]) for k in jpick)
     m = n - f - 2
     got_mk, want_mk = tr.multi_krum(tt, num_byzantine=f, num_selected=m), \
         jr.multi_krum(jt, num_byzantine=f, num_selected=m)
     for k in want_mk:
-        np.testing.assert_allclose(got_mk[k].numpy(), np.asarray(want_mk[k]), rtol=1e-6, atol=1e-7)
+        assert _raw(got_mk[k]) == _raw(want_mk[k]), k
 
 
 def test_krum_selects_central_contribution():

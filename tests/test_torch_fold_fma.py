@@ -1,9 +1,10 @@
 """The exact fused multiply-add of ``rayfed_tpu_torch.ops.fold`` on the CPU.
 
-``fma`` is the plain version of the fold kernel (``csrc/fold_fma.cu``): one
-rounding of ``a·b + c``.  Held against numpy's exact product and sum in
-f64, then rounded once to f32 through round-to-odd (tolerance: byte
-identity), against a two-op chain (which it must differ from somewhere), and
+``fma_ftz`` is the plain version of the fold kernel (``csrc/fold_fma.cu``):
+one rounding of ``a·b + c``, subnormal operands read as zeros.  Held against
+the exact product and sum of the flushed operands, rounded once to f32
+(tolerance: byte identity), against a two-op chain (which it must differ
+from somewhere), and
 for the dispatch rule: CPU tensors run the plain version, other devices
 launch the kernel or raise, with no fallback.
 """
@@ -52,8 +53,8 @@ def test_fma_is_the_correctly_rounded_fused_multiply_add():
     c = rng.standard_normal(3000).astype(np.float32)
     c[:8] = [0.0, -0.0, 1e-40, -1e-40, 3.0, -3.0, 1e30, -1e-30]
     a = np.float32(1.7)
-    got = fold.fma(torch.tensor(a), torch.from_numpy(b), torch.from_numpy(c)).numpy()
-    want = _exact_fma(a, b, c)
+    got = fold.fma_ftz(torch.tensor(a), torch.from_numpy(b), torch.from_numpy(c)).numpy()
+    want = _exact_fma(a, b, ftz.flush(torch.from_numpy(c)).numpy())
     assert got.tobytes() == want.tobytes()
     assert np.any(got != (a * b + c))  # a two-op chain rounds twice
 
@@ -64,10 +65,10 @@ def test_fold_forms_on_the_cpu():
     y = torch.randn(5000, generator=gen)
     acc = torch.randn(5000, generator=gen)
     w, v = torch.tensor(2.3), torch.tensor(0.9)
-    want = fold.fma(w, x.float(), acc)
+    want = fold.fma_ftz(w, x.float(), acc)
     got = acc.clone()
     assert fold.fold_fma_(got, w, x) is got and torch.equal(got, want)
-    assert torch.equal(fold.fold_fma_pair(w, x, v, y), fold.fma(w, x.float(), v * y))
+    assert torch.equal(fold.fold_fma_pair(w, x, v, y), fold.fma_ftz(w, x.float(), ftz.mul(v, y)))
 
 
 def test_fold_fma_refuses_a_device_without_the_kernel():

@@ -73,7 +73,7 @@ def _jwire(x, wire):
 def test_the_reference_flushes_after_rounding():
     """What the port reproduces: a jitted product of (1 − 2^-24) and 2^-126
     is a zero of its sign in the JAX package's arithmetic, and so it is in
-    the port's helpers and the fold's FMA."""
+    the port's helpers, the fold's FMA and the model programs' forms."""
     import jax
 
     x = np.array([TINY, -TINY, 1e-40], np.float32)
@@ -82,8 +82,19 @@ def test_the_reference_flushes_after_rounding():
     assert _raw(ftz.mul(BELOW_ONE, torch.from_numpy(x))) == _raw(ref)
     got = fold.fma_ftz(torch.tensor(BELOW_ONE), torch.from_numpy(x), torch.zeros(3))
     assert _raw(got) == _raw(ref)
-    # The model programs' FMA keeps gradual underflow.
-    assert fold.fma(torch.tensor(BELOW_ONE), torch.from_numpy(x), torch.zeros(3))[0] == TINY
+    # The model programs flush too: BERT's jitted affine tail
+    # ``fma(scale, t, bias)`` at t = ±2^-126 (a row whose norm is exact).
+    from rayfed_tpu.models import bert as jax_bert
+    from rayfed_tpu_torch.ops import xla_cpu
+
+    row = np.array([[2.0 ** 11, -(2.0 ** 10), -(2.0 ** 10), 2.0 ** -116, -(2.0 ** -116), 0.0]], np.float32)
+    scale = np.array([1, 1, 1, BELOW_ONE, BELOW_ONE, 1], np.float32)
+    bias = np.zeros(6, np.float32)
+    want = jax.jit(jax_bert._layer_norm, static_argnums=2)(row, {"scale": scale, "bias": bias}, 1e-12)
+    assert _raw(np.asarray(want)[0, 3:5]) == np.array([0.0, -0.0], np.float32).tobytes()
+    got = xla_cpu.layer_norm(torch.from_numpy(row), torch.from_numpy(scale), torch.from_numpy(bias), 1e-12,
+                             jitted=True)
+    assert _raw(got) == _raw(want)
 
 
 @pytest.mark.parametrize("w", [1.7, BELOW_ONE, 0.5, 1e-20], ids=["1.7", "below-one", "0.5", "1e-20"])
@@ -261,6 +272,25 @@ def test_dp_clip_flushes_as_the_reference(scale, clip):
     assert _raw(got_norm) == _raw(want_norm)
     for k in tree:
         assert _raw(got[k]) == _raw(want[k]), k
+
+
+@pytest.mark.parametrize("n", [2, 3, 5, 7])
+def test_tree_average_flushes_as_the_reference(n):
+    """``fl/fedavg.py:57`` ``_tree_mean``: the adds in order, then the
+    product with f32(1/n) (XLA's rewrite of the division by the count), on
+    leaves with subnormals and sums that land near 2^-126; f32 and bf16
+    leaves."""
+    from rayfed_tpu.fl import fedavg as jf
+
+    trees = [{"w": _edge_values(N, 40 + i, 1e-37 if i % 2 else 1.0), "b": _edge_values(33, 50 + i)}
+             for i in range(n)]
+    want = jf.tree_average(trees)
+    got = tf.tree_average([{k: torch.from_numpy(v) for k, v in t.items()} for t in trees])
+    for k in want:
+        assert _raw(got[k]) == _raw(want[k]), k
+    want = jf.tree_average([{"w": _jwire(t["w"], torch.bfloat16)} for t in trees])
+    got = tf.tree_average([{"w": torch.from_numpy(t["w"]).to(torch.bfloat16)} for t in trees])
+    assert _raw(got["w"]) == _raw(want["w"])
 
 
 @pytest.mark.parametrize("n", [3, 4, 5])

@@ -39,6 +39,13 @@ D = 64 and the wider 128 and 256).
   ``NARROW_LEAVES``, 300 random trees); ``_probe_open`` counts them.
 - The gradient through the norm is torch.rsqrt's (the exact forward value
   rides on it), held against ``jax.grad`` at the model tests' 1e-5.
+- Every form flushes subnormals as XLA:CPU does (DAZ, and FTZ with
+  tininess after rounding): the norms on the operands of
+  ``tests/test_torch_subnormals_models.py``, ``rsqrt``, ``div_const`` and
+  the cosine and sine on subnormal inputs, RoPE's frequencies where ``θ^e``
+  nears 2^128, and Krum's rows' sums of squares and its scores given the
+  reference's Gram product (the Gram product itself follows the host's
+  library kernel and is held to a tolerance there).
 - ``_probe`` checks each of ``xla_cpu``'s assumptions against the installed
   jaxlib on this host and names the one that fails; run ``JAX_PLATFORMS=cpu
   python -m tests.test_torch_xla_cpu_ops`` to print it.
@@ -240,6 +247,11 @@ def test_layer_norm_gradient_is_torchs():
     np.testing.assert_allclose(tx.grad.numpy(), ux.grad.numpy(), rtol=1e-5, atol=1e-5)
 
 
+# Subnormals of both signs, the smallest normals and the boundary 2^-126.
+EDGES = np.array([1e-39, -3e-39, 1e-45, -1e-45, 5.9e-39, -1.1754942e-38, 2.0 ** -126, -(2.0 ** -126), 0.0, -0.0],
+                 np.float32)
+
+
 def _probe(size=200_000):
     """Elements, per assumption of ``xla_cpu``, where the installed jaxlib's
     program and the port's form differ (0 everywhere while each holds), and
@@ -247,8 +259,12 @@ def _probe(size=200_000):
     import re
 
     from rayfed_tpu.fl import fedavg as jf
+    from rayfed_tpu.fl import robust as jax_robust
     from rayfed_tpu_torch.fl import fedavg as tf
+    from rayfed_tpu_torch.fl import robust
     from rayfed_tpu_torch.ops import xla_cpu
+    from tests.test_torch_subnormals_models import _krum_flat
+    from tests.test_torch_subnormals_models import _operands as _subnormal_operands
 
     out = {}
     hlo = jax.jit(jax_llama._rms_norm, static_argnums=2).lower(
@@ -272,6 +288,32 @@ def _probe(size=200_000):
             want = _reference_layer_norm(x, scale, bias, jitted)
             bad += int(np.sum(got.view(np.uint32) != want.view(np.uint32)))
     out["layer_norm (eager, jitted)"] = bad
+    bad = 0
+    for width in (8, 64, 4096):
+        x, scale = _subnormal_operands(width, width)
+        for jitted in (False, True):
+            got = xla_cpu.rms_norm(torch.from_numpy(x), torch.from_numpy(scale), 1e-5, jitted).numpy()
+            bad += int(np.sum(got.view(np.uint32) != _reference_norm(x, scale, jitted).view(np.uint32)))
+    for width in [5, 32, 33] + LN_WIDTHS:
+        x, scale = _subnormal_operands(width, 1000 + width, balanced=True)
+        bias = np.zeros(width, np.float32)
+        for jitted in (False, True):
+            got = xla_cpu.layer_norm(torch.from_numpy(x), torch.from_numpy(scale), torch.from_numpy(bias),
+                                     1e-12, jitted).numpy()
+            want = _reference_layer_norm(x, scale, bias, jitted)
+            bad += int(np.sum(got.view(np.uint32) != want.view(np.uint32)))
+    out["rms_norm, layer_norm with subnormals (DAZ, FTZ after rounding)"] = bad
+    bad = 0
+    for n, d in ((4, 1000), (5, 50000), (12, 4096)):
+        flat = _krum_flat(n, d)
+        k = n - max(1, (n - 3) // 3) - 2
+        sq_ref = np.array(jax.jit(lambda a: jnp.sum(a ** 2, axis=1))(flat))
+        gram_ref = np.array(jax.jit(lambda a: jnp.matmul(a, a.T, precision=jax.lax.Precision.HIGHEST))(flat))
+        sq = robust._row_sums(robust.ftz.mul(torch.from_numpy(flat), torch.from_numpy(flat))).numpy()
+        bad += int(np.sum(sq.view(np.uint32) != sq_ref.view(np.uint32)))
+        got = robust._scores(torch.from_numpy(sq_ref), torch.from_numpy(gram_ref), k).numpy()
+        bad += int(np.sum(got.view(np.uint32) != np.asarray(jax_robust._krum_scores_flat(flat, k)).view(np.uint32)))
+    out["krum sq, and scores given the reference's Gram"] = bad
     f = jax.jit(lambda x: jnp.sum(x.astype(jnp.float32) ** 2))
     bad = 0
     for i, shape in enumerate([(3, 3, 64, 64), (3, 1000), (40, 3), (7, 9), (100,), (33,), (57,), (64, 48),
@@ -281,6 +323,7 @@ def _probe(size=200_000):
         bad += int(xla_cpu.leaf_sum_sq(torch.from_numpy(x)).numpy().view(np.uint32) != want.view(np.uint32))
     out["leaf_sum_sq (window layout, FMA chain)"] = bad
     x = np.random.default_rng(0).lognormal(0.0, 6.0, size).astype(np.float32)
+    x[:len(EDGES)] = EDGES
     want = np.asarray(jax.jit(jax.lax.rsqrt)(jnp.asarray(x)))
     out["rsqrt"] = int(np.sum(xla_cpu.rsqrt(torch.from_numpy(x)).numpy().view(np.uint32) != want.view(np.uint32)))
     want = np.asarray(jax.jit(lambda a: a / 127.0)(jnp.asarray(x)))
@@ -298,12 +341,14 @@ def _probe(size=200_000):
         bad += int(np.sum(got.view(np.uint32) != want.view(np.uint32)))
     out["VECTOR_WIDTH, UNROLL"] = bad
     a = np.random.default_rng(1).uniform(-1e4, 1e4, size).astype(np.float32)
+    a[:len(EDGES)] = EDGES
     for name, ours, theirs in (("cos", xla_cpu.cos, jnp.cos), ("sin", xla_cpu.sin, jnp.sin)):
         want = np.asarray(jax.jit(theirs)(jnp.asarray(a)))
         out[name] = int(np.sum(ours(torch.from_numpy(a)).numpy().view(np.uint32) != want.view(np.uint32)))
     bad = 0
     for dh in range(8, 257, 8):
-        for theta in (10000.0, 500000.0, 123456.7):
+        # 3e38: θ^e nears 2^128, and the eager quotient underflows.
+        for theta in (10000.0, 500000.0, 123456.7, 3e38):
             e = torch.arange(0, dh, 2, dtype=torch.float32) / dh
             for folded, fn in ((False, lambda: 1.0 / theta ** (jnp.arange(0, dh, 2, dtype=jnp.float32) / dh)),
                                (True, jax.jit(lambda: 1.0 / theta ** (jnp.arange(0, dh, 2, dtype=jnp.float32) / dh)))):
@@ -403,9 +448,73 @@ def test_xla_cpu_assumptions_hold_on_this_jaxlib():
     assert not any(probe.values()), f"assumptions of ops/xla_cpu.py that fail: {probe}"
 
 
+def _reference_gram(flat):
+    return np.asarray(jax.jit(lambda a: jnp.matmul(a, a.T, precision=jax.lax.Precision.HIGHEST))(flat))
+
+
+def _gram_order(n, d):
+    """The summation order of the installed jaxlib's f32 Gram product on
+    this host, read by cancellation: row r holds +2^60 at column 0, −2^60
+    at column j and ones elsewhere, the last row ones, so ``d − G[r, −1]``
+    is the number of columns in the smallest partial sum that holds both.
+    Returns (lanes, block): the stride of the chain through column 0, and
+    the columns summed into one block before the next block's add."""
+    big, sizes = np.float32(2.0 ** 60), {}
+    for j0 in range(1, 9, n - 1):
+        f = np.ones((n, d), np.float32)
+        js = range(j0, min(9, j0 + n - 1))
+        for r, j in enumerate(js):
+            f[r, 0], f[r, j] = big, -big
+        g = _reference_gram(f)
+        sizes.update({j: int(d - g[r, n - 1]) for r, j in enumerate(js)})
+    lanes = min([j for j, v in sizes.items() if v == 2] or [1])
+    return lanes, sizes[max(1, lanes // 2)]
+
+
+def _gram_emulated(flat, lanes, block):
+    """``flat @ flat.T`` as ``lanes`` chains of FMAs over the columns of
+    each ``block`` (column k in lane k mod ``lanes``), the lanes added as a
+    tree of neighbours, the blocks' sums added in order."""
+    from rayfed_tpu_torch.ops import ftz
+    from rayfed_tpu_torch.ops.fold import fma_ftz
+
+    f = torch.from_numpy(flat)
+    n, d = f.shape
+    a, b = f[:, None, :].expand(n, n, d).reshape(n * n, d), f[None].expand(n, n, d).reshape(n * n, d)
+    total = None
+    for b0 in range(0, d, block):
+        acc = torch.zeros(n * n, lanes)
+        for k in range(b0, min(d, b0 + block), lanes):
+            m = min(lanes, d - k, b0 + block - k)
+            acc[:, :m] = fma_ftz(a[:, k:k + m].contiguous(), b[:, k:k + m].contiguous(), acc[:, :m].contiguous())
+        while acc.shape[1] > 1:
+            acc = ftz.add(acc[:, 0::2], acc[:, 1::2])
+        total = acc[:, 0] if total is None else ftz.add(total, acc[:, 0])
+    return total.reshape(n, n).numpy()
+
+
+def _gram_probe():
+    """The Gram product's order on this host (lanes, block) at Krum's test
+    shapes, and the entries an emulation of that order gets right, beside
+    the same order with the lanes of the AVX2 kernels (2) and of a plain
+    chain (1): the order decides the bytes, and the host decides the
+    order."""
+    out = {}
+    for n, d in ((4, 1000), (5, 50000), (12, 4096)):
+        lanes, block = _gram_order(n, d)
+        flat = (np.random.default_rng(n).standard_normal((n, d)) * 0.1).astype(np.float32)
+        want = _reference_gram(flat).view(np.uint32)
+        hits = {k: int(np.sum(_gram_emulated(flat, k, block).view(np.uint32) == want)) for k in (lanes, 2, 1)}
+        out[f"gram {n}x{d}: lanes {lanes}, block {block}; entries equal (of {n * n}) by lanes"] = hits
+    return out
+
+
 if __name__ == "__main__":
     for name, count in _probe().items():
         print(f"{name}: {count}")
     print("known open until closed (ROADMAP.md Queue C; each must print 0):")
     for name, count in _probe_open().items():
         print(f"  {name}: {count}")
+    print("Krum's Gram product: the host's order (held to a tolerance, not probed as an assumption):")
+    for name, hits in _gram_probe().items():
+        print(f"  {name}: {hits}")
