@@ -1,0 +1,8 @@
+"""agg.fold_ms.resnet: the coordinator's fold and finalize spans a round
+(``readings.fold_ms``), in the cells of the resnet kind. Layer: the codec
+and fold."""
+
+from fedbench import readings
+
+TRACE, UNIT, LAYER, MOVES, KIND = 1, "ms", "codec and fold", "round_s.resnet", "resnet"
+read = readings.fold_ms

@@ -1,0 +1,8 @@
+"""round.exchange_s.resnet: the exchange and fold a round waits for past the
+coordinator's local steps (``readings.exchange_s``), in the cells of the
+resnet kind. Layer: the round loop."""
+
+from fedbench import readings
+
+TRACE, UNIT, LAYER, MOVES, KIND = 1, "s", "round loop", "round_s.resnet", "resnet"
+read = readings.exchange_s

@@ -1,0 +1,8 @@
+"""round.local_s.resnet: the coordinator's own local steps a round
+(``readings.local_s``), in the cells of the resnet kind. Layer: the round
+loop."""
+
+from fedbench import readings
+
+TRACE, UNIT, LAYER, MOVES, KIND = 1, "s", "round loop", "round_s.resnet", "resnet"
+read = readings.local_s

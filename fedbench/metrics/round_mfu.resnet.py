@@ -1,0 +1,8 @@
+"""round_mfu.resnet: every party's model FLOPs over the traced rounds' wall and
+the bfloat16 peak (``readings.mfu``), in the cells of the resnet kind.
+Layer: the local step."""
+
+from fedbench import readings
+
+TRACE, UNIT, LAYER, MOVES, KIND = 1, "%", "local step", "round_s.resnet", "resnet"
+read = readings.mfu
