@@ -1,0 +1,8 @@
+"""wire.transfer_ms.resnet: mean wire.send span less the sender's waits for the
+card inside it (``spans.transfer_ms``), in the cells of the resnet kind.
+Layer: the transport."""
+
+from fedbench import spans
+
+TRACE, UNIT, LAYER, MOVES, KIND = 1, "ms", "transport", "round_s.resnet", "resnet"
+read = spans.transfer_ms

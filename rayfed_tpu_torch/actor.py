@@ -60,6 +60,7 @@ class FedActorHandle:
                 cls_kwargs,
                 bind_runtime_fn=self._runtime._bind_to_current_thread,
                 name=f"{self._body.__name__}-{self._fed_class_task_id}",
+                party=self._party,
             )
             self._runtime.register_actor(self._actor_instance)
 

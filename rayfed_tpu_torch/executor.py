@@ -28,8 +28,10 @@ from __future__ import annotations
 import concurrent.futures
 import logging
 import threading
+import time
 from typing import Any, Callable, Optional, Sequence
 
+from rayfed_tpu_torch import telemetry
 from rayfed_tpu_torch.utils.platform import fence_for_handoff
 
 logger = logging.getLogger(__name__)
@@ -161,6 +163,42 @@ def _materialize_arg(arg: Any) -> Any:
     return arg
 
 
+def _call(fn: Callable, args: tuple, kwargs: dict, rec, party, name: str, t_submit: float) -> Any:
+    """Materialise the top-level arguments, run the body and fence its result
+    for the threads it is handed to.
+
+    With the flight recorder armed (``rec``, read once at submission) the
+    call leaves three spans with ``detail["fn"]`` naming the body:
+    ``exec.args`` (the wait for the inputs), ``exec.call`` (the body on the
+    host, with the time it queued in the pool) and ``exec.device`` (the
+    body's return until the card has run the work its tensors depend on,
+    closed by the recorder's watcher thread)."""
+    if rec is None:
+        value = fn(*(_materialize_arg(a) for a in args),
+                   **{k: _materialize_arg(v) for k, v in kwargs.items()})
+        fence_for_handoff(value)
+        return value
+    detail = {"fn": name}
+    t_args = time.time()
+    resolved_args = tuple(_materialize_arg(a) for a in args)
+    resolved_kwargs = {k: _materialize_arg(v) for k, v in kwargs.items()}
+    t_call = time.time()
+    rec.emit("exec.args", party=party, t_start=t_args, dur_s=t_call - t_args, detail=detail)
+    call_detail = {"fn": name, "queued_ms": round((t_args - t_submit) * 1e3, 3)}
+    try:
+        value = fn(*resolved_args, **resolved_kwargs)
+    except BaseException:
+        rec.emit("exec.call", party=party, t_start=t_call, dur_s=time.time() - t_call,
+                 outcome="error", detail=call_detail)
+        raise
+    t_ret = time.time()
+    rec.emit("exec.call", party=party, t_start=t_call, dur_s=t_ret - t_call, detail=call_detail)
+    events = fence_for_handoff(value, record_events=True)
+    if events:
+        rec.watch(events, "exec.device", t_ret, party=party, detail=detail)
+    return value
+
+
 class TaskExecutor:
     """Thread-pool dispatch of party-local work.
 
@@ -175,11 +213,13 @@ class TaskExecutor:
         max_workers: int = 16,
         thread_name_prefix: str = "rayfed-worker",
         bind_runtime_fn: Optional[Callable[[], None]] = None,
+        party: Optional[str] = None,
     ) -> None:
         self._pool = concurrent.futures.ThreadPoolExecutor(
             max_workers=max_workers, thread_name_prefix=thread_name_prefix
         )
         self._bind_runtime_fn = bind_runtime_fn
+        self._party = party  # stamped on the flight recorder's exec.* spans
         self._shutdown = False
 
     def submit(
@@ -201,6 +241,8 @@ class TaskExecutor:
         if self._shutdown:
             raise RuntimeError("TaskExecutor has been shut down")
         task_name = name or getattr(fn, "__name__", None) or repr(fn)
+        rec = telemetry.active()
+        t_submit = time.time() if rec is not None else 0.0
 
         def _run():
             if self._bind_runtime_fn is not None:
@@ -209,15 +251,9 @@ class TaskExecutor:
             base_name = thread.name
             thread.name = f"{base_name}[{task_name}]"
             try:
-                resolved_args = tuple(_materialize_arg(a) for a in args)
-                resolved_kwargs = {
-                    k: _materialize_arg(v) for k, v in kwargs.items()
-                }
-                # The result leaves this thread: its CUDA work must be
-                # ordered before the transport's copies (platform.py).
-                value = fn(*resolved_args, **resolved_kwargs)
-                fence_for_handoff(value)
-                return value
+                # The result leaves this thread: its CUDA work is ordered
+                # before the transport's copies (platform.py).
+                return _call(fn, args, kwargs, rec, self._party, task_name, t_submit)
             except BaseException as e:
                 # The exception also travels to the LocalRef; this log
                 # line is the one place that pairs it with the task name.
@@ -354,11 +390,14 @@ class ActorInstance:
         cls_kwargs: dict,
         bind_runtime_fn: Optional[Callable[[], None]] = None,
         name: str = "actor",
+        party: Optional[str] = None,
     ) -> None:
         self._pool = concurrent.futures.ThreadPoolExecutor(
             max_workers=1, thread_name_prefix=f"rayfed-actor-{name}"
         )
         self._bind_runtime_fn = bind_runtime_fn
+        self._cls_name = getattr(cls, "__name__", "actor")
+        self._party = party  # stamped on the flight recorder's exec.* spans
         self._instance: Any = None
         self._killed = False
         self._lock = threading.Lock()
@@ -383,20 +422,18 @@ class ActorInstance:
         with self._lock:
             if self._killed:
                 raise RuntimeError("actor has been killed")
+            rec = telemetry.active()
+            t_submit = time.time() if rec is not None else 0.0
 
             def _run():
                 if self._bind_runtime_fn is not None:
                     self._bind_runtime_fn()
                 # Surface constructor failure on first method call.
                 self._ready_ref.resolve()
-                resolved_args = tuple(_materialize_arg(a) for a in args)
-                resolved_kwargs = {
-                    k: _materialize_arg(v) for k, v in kwargs.items()
-                }
-                method = getattr(self._instance, method_name)
-                value = method(*resolved_args, **resolved_kwargs)
-                fence_for_handoff(value)
-                return value
+                return _call(
+                    getattr(self._instance, method_name), args, kwargs, rec,
+                    self._party, f"{self._cls_name}.{method_name}", t_submit,
+                )
 
             future = self._pool.submit(_run)
         if num_returns == 1:

@@ -33,12 +33,13 @@ Usage (each side of the exchange)::
 from __future__ import annotations
 
 import math
+import time
 from typing import Any, NamedTuple, Tuple
 
 import numpy as np
 import torch
 
-from rayfed_tpu_torch import tree_util
+from rayfed_tpu_torch import telemetry, tree_util
 from rayfed_tpu_torch.transport import wire
 
 # ml_dtypes' dtypes hand back one stored ``.name`` string, numpy's own
@@ -290,22 +291,43 @@ class ErrorFeedback:
         return PackedTree(wire_buf, packed32.passthrough, spec)
 
 
+def _codec_span(rec, phase: str, t0: float, wire_form: Any) -> None:
+    """A ``codec.*`` span of the armed flight recorder, its party the
+    calling thread's, ``nbytes`` the wire form's tensor bytes."""
+    from rayfed_tpu_torch.runtime import get_runtime_or_none
+
+    runtime = get_runtime_or_none()
+    bufs = [wire_form.buf] if isinstance(wire_form, PackedTree) else tree_util.tree_leaves(wire_form)
+    rec.emit(phase, party=runtime.party if runtime is not None else None, t_start=t0,
+             dur_s=time.time() - t0,
+             nbytes=sum(b.numel() * b.element_size() for b in bufs if isinstance(b, torch.Tensor)))
+
+
 def compress(tree: Any, *, packed: bool = False, wire_dtype: Any = torch.bfloat16):
     """Wire form of a float param tree (half the push bytes at bf16).
 
     ``packed=True`` selects the single-buffer form (:class:`PackedTree`).
+    A ``codec.compress`` span when the flight recorder is armed.
     """
-    if packed:
-        return pack_tree(tree, wire_dtype)
-    return cast_floats(tree, wire_dtype)
+    rec = telemetry.active()
+    t0 = time.time() if rec is not None else 0.0
+    out = pack_tree(tree, wire_dtype) if packed else cast_floats(tree, wire_dtype)
+    if rec is not None:
+        _codec_span(rec, "codec.compress", t0, out)
+    return out
 
 
 def decompress(tree: Any, dtype: Any = torch.float32) -> Any:
     """Restore a wire-compressed tree (any form) to the compute dtype,
-    through ``tree.unpack`` (the integer form dequantizes first)."""
-    if isinstance(tree, PackedTree):
-        return tree.unpack(dtype)
-    return cast_floats(tree, dtype)
+    through ``tree.unpack`` (the integer form dequantizes first).  A
+    ``codec.decompress`` span when the flight recorder is armed: at a party
+    it holds the model's staging from the host to the card."""
+    rec = telemetry.active()
+    t0 = time.time() if rec is not None else 0.0
+    out = tree.unpack(dtype) if isinstance(tree, PackedTree) else cast_floats(tree, dtype)
+    if rec is not None:
+        _codec_span(rec, "codec.decompress", t0, tree)
+    return out
 
 
 # The shared-grid integer codec, re-exported: one import surface for wire

@@ -71,6 +71,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from rayfed_tpu_torch import telemetry
 from rayfed_tpu_torch.fl import fedavg
 from rayfed_tpu_torch.fl.compression import PackedTree, dtype_name
 from rayfed_tpu_torch.fl.fedavg import DEFAULT_CHUNK_ELEMS
@@ -607,8 +608,6 @@ class StreamingAggregator:
             "quorum cutoff: aggregating %d/%d contributions (excluded: %s); "
             "reweighting to the arrived sum", len(ready), self._n, excluded,
         )
-        from rayfed_tpu_torch import telemetry
-
         telemetry.event(
             "quorum.cutoff", party=self._party,
             detail={"members": [self._labels[i] for i in ready], "excluded": excluded},
@@ -824,6 +823,12 @@ class StreamingAggregator:
             self.fail(e)
 
     def _run_inner(self) -> None:
+        """The fold loop.  With the flight recorder armed (read once here)
+        its work is spans at this thread: ``agg.wait`` (the wait for more
+        bytes), ``agg.stage`` (a piece's pinned host copy and its enqueue to
+        the card), ``agg.launch`` (the fold call of a piece) and
+        ``agg.finalize``, within the ``agg.fold`` window."""
+        rec = telemetry.active()
         weights = None
         while True:
             with self._cond:
@@ -893,7 +898,13 @@ class StreamingAggregator:
                     wait_s = 0.5
                     if self._deadline_at is not None and self._participating is None:
                         wait_s = min(wait_s, max(0.05, self._deadline_at - time.monotonic()))
-                    self._cond.wait(timeout=wait_s)
+                    if rec is None:
+                        self._cond.wait(timeout=wait_s)
+                    else:
+                        t_wait = time.time()
+                        self._cond.wait(timeout=wait_s)
+                        rec.emit("agg.wait", party=self._party, t_start=t_wait,
+                                 dur_s=time.time() - t_wait)
                     continue
                 if all_complete and not self._t_all_complete:
                     self._t_all_complete = max(self._streams[i].t_complete for i in order)
@@ -917,9 +928,17 @@ class StreamingAggregator:
                 # parties 0..i-1) is the limit's.
                 for a in range(lo, hi, piece):
                     b = min(a + piece, hi)
-                    t0 = time.perf_counter()
-                    fold(self._acc, a * self._chunk_elems, self._run_elems(src, a, b), weights[i])
-                    self._busy_s += time.perf_counter() - t0
+                    t0 = time.time()
+                    elems = self._run_elems(src, a, b)
+                    t1 = time.time() if rec is not None else t0
+                    fold(self._acc, a * self._chunk_elems, elems, weights[i])
+                    t2 = time.time()
+                    self._busy_s += t2 - t0
+                    if rec is not None:
+                        if src[0] is None:  # bytes from a payload: staged
+                            rec.emit("agg.stage", party=self._party, t_start=t0, dur_s=t1 - t0,
+                                     nbytes=elems.numel() * elems.element_size())
+                        rec.emit("agg.launch", party=self._party, t_start=t1, dur_s=t2 - t1)
                     with self._cond:
                         self._streams[i].applied_blocks = b
 
@@ -934,9 +953,7 @@ class StreamingAggregator:
         tail_s = max(0.0, self._t_done - self._t_all_complete)
         busy = max(self._busy_s, 1e-9)
         excluded = 0 if self._participating is None else self._n - len(self._participating)
-        from rayfed_tpu_torch import telemetry as _telemetry
-
-        _tr = _telemetry.active()
+        _tr = telemetry.active()
         if _tr is not None:
             # The fold window (first byte → every block folded) and the
             # single finalize, as spans.
@@ -947,10 +964,7 @@ class StreamingAggregator:
                     party=self._party,
                     t_start=now_w - (now_p - self._t_first_byte),
                     dur_s=max(0.0, self._t_all_complete - self._t_first_byte),
-                    detail={
-                        "busy_ms": round(self._busy_s * 1e3, 3),
-                        "parties": len(self._streams),
-                    },
+                    detail={"parties": len(self._streams)},
                 )
             _tr.emit(
                 "agg.finalize", party=self._party,

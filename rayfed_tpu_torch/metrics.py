@@ -38,7 +38,11 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from rayfed_tpu_torch import telemetry
 from rayfed_tpu_torch.runtime import get_runtime_or_none
+
+# The name of start_profile's clock marker in the trace it captures.
+PROFILE_ANCHOR = "rayfed.clock_anchor"
 
 TransferRecord = collections.namedtuple(
     "TransferRecord", ["direction", "peer", "up_id", "down_id", "nbytes", "seconds"]
@@ -243,7 +247,12 @@ _profiler: Optional[Any] = None
 def start_profile(log_dir: str) -> None:
     """Begin a torch profiler capture of the host and, where present, the
     CUDA card; :func:`stop_profile` writes it to ``log_dir`` as a
-    TensorBoard/Perfetto-viewable trace."""
+    TensorBoard/Perfetto-viewable trace.
+
+    With the flight recorder armed the capture opens with a
+    ``record_function`` marker at a recorded ``time.time_ns()``, kept in the
+    ring as a ``clock.anchor`` event (:func:`telemetry.clock_anchor`), so
+    the trace can be placed on the recorder's timeline."""
     global _profiler
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
@@ -257,6 +266,7 @@ def start_profile(log_dir: str) -> None:
         )
         prof.start()
         _profiler = prof
+        telemetry.clock_anchor(PROFILE_ANCHOR)
 
 
 def stop_profile() -> None:

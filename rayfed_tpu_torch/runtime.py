@@ -53,6 +53,7 @@ class Runtime:
             max_workers=max_workers,
             thread_name_prefix=f"rayfed-{cluster_config.current_party}",
             bind_runtime_fn=self._bind_to_current_thread,
+            party=cluster_config.current_party,
         )
         self._actors: list[ActorInstance] = []
         self._actors_lock = threading.Lock()

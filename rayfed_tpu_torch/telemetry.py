@@ -52,6 +52,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import json
+import queue
 import threading
 import time
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
@@ -93,6 +94,8 @@ class FlightRecorder:
         self._lock = threading.Lock()
         self._total = 0  # monotonic append count (ring may evict)
         self.t_armed = time.time()
+        # The device watcher (see watch): started by its first use.
+        self._watch_q: Optional[queue.SimpleQueue] = None
 
     def emit(
         self,
@@ -139,6 +142,46 @@ class FlightRecorder:
         with self._lock:
             self._dq.append(rec)
             self._total += 1
+
+    def watch(self, events: Sequence[Any], phase: str, t_start: float, **kw: Any) -> None:
+        """Emit ``phase`` from ``t_start`` to the instant the card has run
+        past every one of ``events`` (CUDA events recorded by the caller).
+
+        One watcher thread per recorder, started here on first use, waits
+        on the events in the order they were handed in and stamps the end
+        when it wakes; the caller's thread never synchronises.  Events
+        made with ``blocking=True`` let the watcher sleep instead of spin."""
+        with self._lock:
+            if self._watch_q is None:
+                self._watch_q = queue.SimpleQueue()
+                threading.Thread(
+                    target=self._watch_loop, args=(self._watch_q,),
+                    name="rayfed-trace-watch", daemon=True,
+                ).start()
+            q = self._watch_q
+        q.put((events, phase, t_start, kw))
+
+    def _watch_loop(self, q: queue.SimpleQueue) -> None:
+        while True:
+            item = q.get()
+            if item is None:
+                return
+            events, phase, t_start, kw = item
+            outcome = "ok"
+            try:
+                for ev in events:
+                    ev.synchronize()
+            except Exception:  # a failed device: the span still closes
+                outcome = "error"
+            self.emit(phase, t_start=t_start, dur_s=max(0.0, time.time() - t_start),
+                      outcome=outcome, **kw)
+
+    def close(self) -> None:
+        """Stop the device watcher once it has emitted what it holds."""
+        with self._lock:
+            q, self._watch_q = self._watch_q, None
+        if q is not None:
+            q.put(None)
 
     def records(
         self, rounds: Any = None, party: Optional[str] = None,
@@ -208,13 +251,17 @@ def install(
     """Arm the flight recorder process-wide; returns it.  Re-installing
     replaces the ring (tests that want a fresh window)."""
     global _ACTIVE
-    _ACTIVE = FlightRecorder(party=party, capacity=capacity)
+    old, _ACTIVE = _ACTIVE, FlightRecorder(party=party, capacity=capacity)
+    if old is not None:
+        old.close()
     return _ACTIVE
 
 
 def uninstall() -> None:
     global _ACTIVE
-    _ACTIVE = None
+    old, _ACTIVE = _ACTIVE, None
+    if old is not None:
+        old.close()
 
 
 def installed() -> Optional[FlightRecorder]:
@@ -311,6 +358,89 @@ def span(phase: str, **kw: Any):
         )
         raise
     rec.emit(phase, t_start=t_wall, dur_s=time.perf_counter() - t0, **kw)
+
+
+# Intervals of one stage closer than this merge into one record (the
+# record budget: a payload's chunks run back to back).
+STAGE_MERGE_S = 1e-4
+# A stretch without a stage shorter than this is one thread's bookkeeping
+# between two of its stages, not a wait: it is not recorded.
+STAGE_GAP_MIN_S = 1e-5
+
+
+class FrameSpans:
+    """One payload frame's ``wire.frame`` span and its stage spans, gathered
+    from every thread that runs a stage and emitted when the frame closes.
+
+    The threads that wait on the card, copy to the host, checksum and write
+    add their intervals with :meth:`add`, stamped with ``time.time()`` where
+    each ran, and :meth:`close` emits ``wire.frame`` from its opening to the
+    end of its last stage, each stage's intervals (those of a stage that lie
+    within :data:`STAGE_MERGE_S` of each other as one record), and the
+    stretches in which no stage ran (longer than :data:`STAGE_GAP_MIN_S`)
+    as ``wire.loop_wait``.  Made by :func:`frame_spans` only when the
+    recorder is armed."""
+
+    __slots__ = ("rec", "tags", "t0", "iv")
+
+    def __init__(self, rec: FlightRecorder, **tags: Any) -> None:
+        self.rec, self.tags = rec, tags
+        self.t0 = time.time()
+        self.iv: List[Tuple[str, float, float]] = []  # list.append: thread-safe
+
+    def add(self, phase: str, t0: float, t1: Optional[float] = None) -> None:
+        self.iv.append((phase, t0, time.time() if t1 is None else t1))
+
+    def close(self, nbytes: int = 0, outcome: str = "ok") -> None:
+        ivs = sorted(self.iv, key=lambda x: x[1])
+        end = max((b for _p, _a, b in ivs), default=time.time())
+        emit = self.rec.emit
+        emit("wire.frame", t_start=self.t0, dur_s=max(0.0, end - self.t0),
+             nbytes=nbytes, outcome=outcome, **self.tags)
+        runs: Dict[str, List[List[float]]] = {}
+        t = self.t0
+        for phase, a, b in ivs:
+            if a - t > STAGE_GAP_MIN_S:
+                _merge(runs.setdefault("wire.loop_wait", []), t, a)
+            t = max(t, b)
+            _merge(runs.setdefault(phase, []), a, b)
+        for phase, spans in runs.items():
+            for a, b in spans:
+                emit(phase, t_start=a, dur_s=max(0.0, b - a), **self.tags)
+
+
+def frame_spans(**tags: Any) -> Optional[FrameSpans]:
+    """A frame's :class:`FrameSpans` with ``tags`` (party, peer, stream) on
+    every record, or None with the recorder disarmed (one global read)."""
+    rec = _ACTIVE
+    return None if rec is None else FrameSpans(rec, **tags)
+
+
+def _merge(out: List[List[float]], a: float, b: float) -> None:
+    if out and a - out[-1][1] <= STAGE_MERGE_S:
+        out[-1][1] = max(out[-1][1], b)
+    else:
+        out.append([a, b])
+
+
+def clock_anchor(label: str) -> Optional[int]:
+    """Tie a ``torch.profiler`` capture to the recorder's clock: a
+    ``record_function(label)`` marker around a ``time.time_ns()`` reading,
+    kept in the ring as a ``clock.anchor`` event whose ``detail`` holds the
+    label and the reading.  A trace event named ``label`` then maps onto the
+    recorder's timeline by ``t_ns / 1e3 - ts`` microseconds.  Disarmed: one
+    global read, no marker; returns the reading or None."""
+    rec = _ACTIVE
+    if rec is None:
+        return None
+    from torch.profiler import record_function
+
+    with record_function(f"{label}.warm"):  # a capture's first marker is slow to open
+        pass
+    with record_function(label):
+        wall_ns = time.time_ns()
+    rec.emit("clock.anchor", t_start=wall_ns / 1e9, detail={"label": label, "t_ns": wall_ns})
+    return wall_ns
 
 
 # ---------------------------------------------------------------------------

@@ -160,24 +160,21 @@ class _DeltaStream:
         return arena.view(size)
 
 
-def _iter_chunk_views(payload_bufs: List, csz: int, timings: Dict[str, float]):
+def _iter_chunk_views(payload_bufs: List, csz: int, timings: Dict[str, float], stages=None):
     """Yield ``(nbytes, [views])`` covering the payload in ``csz`` chunks.
 
     Buffers materialize lazily in walk order — a LazyBuffer's
     device→host fetch happens when the walk first reaches it, i.e.
     while earlier chunks are already on a socket — and a chunk spanning
     buffer boundaries yields multiple views (vectored write, no copy).
-    ``timings["d2h"]`` accumulates the fetch seconds.
+    ``timings["d2h"]`` accumulates the fetch seconds; ``stages`` (armed
+    only) gets the fetches' stage spans (:func:`wire.fetch`).
     """
     cur: List = []
     cur_n = 0
     for buf in payload_bufs:
-        t0 = time.perf_counter()
-        host = buf.produce() if isinstance(buf, wire.LazyBuffer) else buf
-        mv = host if isinstance(host, memoryview) else memoryview(host)
-        if mv.format != "B":
-            mv = mv.cast("B")
-        timings["d2h"] += time.perf_counter() - t0
+        mv, dt = wire.fetch(buf, stages)
+        timings["d2h"] += dt
         off = 0
         while off < mv.nbytes:
             take = min(csz - cur_n, mv.nbytes - off)
@@ -757,8 +754,11 @@ class TransportClient:
     async def _roundtrip(
         self, msg_type: int, header: Dict[str, Any], payload_bufs: List,
         crc_trailer: bool = False, timeout_s: Optional[float] = None,
-        conn: Optional[_Conn] = None,
+        conn: Optional[_Conn] = None, stages=None,
     ) -> Dict[str, Any]:
+        """Write one frame and wait for its reply.  ``stages``: the
+        payload's ``wire.frame`` stage spans when a caller gathers them
+        (armed only); otherwise the write opens its own."""
         if chaos.installed() is not None:
             # Chaos "wire" hook: fires on EVERY outbound frame — data,
             # health pings, handshakes — so a partition rule makes the
@@ -799,7 +799,8 @@ class TransportClient:
                         msg_type, header, payload_len=payload_len, flags=flags
                     )
                     await self._write_frame(
-                        loop, conn, frame_bufs, payload_bufs, crc_trailer
+                        loop, conn, frame_bufs, payload_bufs, crc_trailer,
+                        stages,
                     )
                 except (SendError, ConnectionError, OSError,
                         asyncio.IncompleteReadError):
@@ -853,7 +854,7 @@ class TransportClient:
 
     async def _write_frame(
         self, loop, conn: _Conn, frame_bufs: List, payload_bufs: List,
-        crc_trailer: bool,
+        crc_trailer: bool, stages=None,
     ) -> None:
         """Write one frame (prefix+header+payload[+crc trailer]).
 
@@ -866,9 +867,19 @@ class TransportClient:
         another, so a large payload's encode/compress cost hides under
         the wire instead of serializing in front of it.  Fallback:
         asyncio writer (same pipeline, SSL owns the socket).
+
+        With the flight recorder armed a payload frame is a ``wire.frame``
+        span with its stages (:class:`telemetry.FrameSpans`): the fetch
+        (``wire.device_wait``, ``wire.d2h``), each chunk's ``wire.crc`` and
+        ``wire.socket`` where they ran, and ``wire.loop_wait`` between.
+        ``stages``: the caller's, when the frame is one of a payload's.
         """
         if crc_trailer:
             from rayfed_tpu_torch import native
+
+        own = None
+        if stages is None and payload_bufs:
+            stages = own = self._frame_stages()
 
         use_fd = conn.fd is not None
         if use_fd:
@@ -878,8 +889,12 @@ class TransportClient:
             fd = conn.fd  # capture: teardown may null it under our feet
 
             def _writev(bufs):
+                # The write itself, in the executor thread that runs it.
+                t0 = time.time() if stages is not None else 0.0
                 try:
                     _native.writev_full(fd, bufs, timeout_ms=timeout_ms)
+                    if stages is not None:
+                        stages.add("wire.socket", t0)
                 except TimeoutError as e:
                     # A stalled fd mid-frame desyncs the stream; surface
                     # as a connection failure (teardown), NOT a deadline
@@ -894,32 +909,30 @@ class TransportClient:
 
         async def _write(bufs: List) -> None:
             nonlocal write_s
-            t0 = time.perf_counter()
+            t0 = time.time()
             if use_fd:
                 await loop.run_in_executor(None, _writev, bufs)
             else:
                 for buf in bufs:
                     conn.writer.write(buf)
                 await conn.writer.drain()
-            write_s += time.perf_counter() - t0
+            t1 = time.time()
+            write_s += t1 - t0
+            if stages is not None and not use_fd:
+                stages.add("wire.socket", t0, t1)
 
         if not payload_bufs:
             await _write(frame_bufs)
             return
 
-        def _produce(buf):
-            """Executor hop: materialize one payload buffer as a byte view."""
-            t0 = time.perf_counter()
-            host = buf.produce() if isinstance(buf, wire.LazyBuffer) else buf
-            mv = host if isinstance(host, memoryview) else memoryview(host)
-            if mv.format != "B":
-                mv = mv.cast("B")
-            return mv, time.perf_counter() - t0
-
         def _crc(view, seed):
-            t0 = time.perf_counter()
+            t0 = time.time()
             # Chained seed: the trailer equals crc32c(concat(payload)).
-            return native.crc32c(view, seed), time.perf_counter() - t0
+            crc = native.crc32c(view, seed)
+            t1 = time.time()
+            if stages is not None:
+                stages.add("wire.crc", t0, t1)
+            return crc, t1 - t0
 
         t_frame0 = time.perf_counter()
         prepare_s = 0.0
@@ -928,7 +941,8 @@ class TransportClient:
         payload_nbytes = 0
         crc = 0
         head: List = list(frame_bufs)  # rides along with the first chunk
-        prefetch = loop.run_in_executor(None, _produce, payload_bufs[0])
+        # Executor hops: each payload buffer's fetch as a byte view.
+        prefetch = loop.run_in_executor(None, wire.fetch, payload_bufs[0], stages)
         for i in range(len(payload_bufs)):
             mv, dt = await prefetch
             prepare_s += dt
@@ -936,7 +950,7 @@ class TransportClient:
             payload_nbytes += mv.nbytes
             if i + 1 < len(payload_bufs):
                 prefetch = loop.run_in_executor(
-                    None, _produce, payload_bufs[i + 1]
+                    None, wire.fetch, payload_bufs[i + 1], stages
                 )
             nchunks = max(1, -(-mv.nbytes // WRITE_CHUNK_BYTES))
             views = [
@@ -971,26 +985,10 @@ class TransportClient:
         self.stats["send_crc_s"] += crc_s
         self.stats["send_socket_s"] += write_s
         self._bill_backend(d2h=d2h_s, crc=crc_s, socket=write_s)
-        frame_wall = time.perf_counter() - t_frame0
-        self.stats["send_frame_wall_s"] += frame_wall
-        _tr = telemetry.active()
-        if _tr is not None:
-            # The PR 5 send-path stage breakdown as a SPAN: one record
-            # per payload frame with where its wall actually went
-            # (device→host fetch, checksum, socket) — what get_stats'
-            # cumulative {encode,d2h,crc,loop_wait,socket}_ms can only
-            # show summed over the whole session.  Ring append only —
-            # this coroutine runs on the transport loop.
-            _tr.emit(
-                "wire.frame", party=self._src_party,
-                peer=self._dest_party, nbytes=payload_nbytes,
-                t_start=time.time() - frame_wall, dur_s=frame_wall,
-                detail={
-                    "d2h_ms": round(d2h_s * 1e3, 3),
-                    "crc_ms": round(crc_s * 1e3, 3),
-                    "socket_ms": round(write_s * 1e3, 3),
-                },
-            )
+        self.stats["send_frame_wall_s"] += time.perf_counter() - t_frame0
+        if own is not None:
+            # Ring appends only: this coroutine runs on the transport loop.
+            own.close(payload_nbytes)
 
     def _dest_known_dead(self) -> bool:
         """True while the health monitor has the destination declared
@@ -1009,6 +1007,13 @@ class TransportClient:
             f"health monitor; skipping the retry backoff ladder "
             f"(last attempt: {last_exc})"
         ) from last_exc
+
+    def _frame_stages(self, stream: Optional[str] = None):
+        """A payload's ``wire.frame`` with its stage spans toward this
+        client's peer, or None with the flight recorder disarmed."""
+        return telemetry.frame_spans(
+            party=self._src_party, peer=self._dest_party, stream=stream
+        )
 
     @property
     def checksum_enabled(self) -> bool:
@@ -1032,7 +1037,7 @@ class TransportClient:
     # -- multi-rail striped sends (wire v4) -----------------------------------
 
     def _produce_plain_chunks(
-        self, loop, payload_bufs, csz, ready, abort=None
+        self, loop, payload_bufs, csz, ready, abort=None, stages=None
     ) -> None:
         """Executor job: cut the payload into ``csz`` chunks as
         zero-copy views (lazy buffers fetched in walk order) + per-chunk
@@ -1040,21 +1045,25 @@ class TransportClient:
         chunk k is written to a rail while chunk k+1 is still being
         fetched from device and CRC'd here.  ``abort`` (threading.Event)
         stops production between chunks: a failed attempt must not make
-        its retry wait out the full d2h+CRC pass of a dead payload."""
+        its retry wait out the full d2h+CRC pass of a dead payload.
+        ``stages`` (armed only) gets the fetches and checksums."""
         import zlib
 
         timings = {"d2h": 0.0}
         idx = 0
         d2h_prev = 0.0
         try:
-            for _nbytes, views in _iter_chunk_views(payload_bufs, csz, timings):
+            for _nbytes, views in _iter_chunk_views(payload_bufs, csz, timings, stages):
                 if abort is not None and abort.is_set():
                     raise SendError("send aborted; chunk production stopped")
-                t0 = time.perf_counter()
+                t0 = time.time()
                 crc = 0
                 for v in views:
                     crc = zlib.crc32(v, crc)
-                crc_s = time.perf_counter() - t0
+                t1 = time.time()
+                crc_s = t1 - t0
+                if stages is not None:
+                    stages.add("wire.crc", t0, t1)
                 d2h_s = timings["d2h"] - d2h_prev
                 d2h_prev = timings["d2h"]
                 item = (
@@ -1070,7 +1079,7 @@ class TransportClient:
 
     def _produce_arena_chunks(
         self, loop, payload_bufs, arena_mv, csz,
-        base_mv=None, base_ccrc=None, ready=None, abort=None,
+        base_mv=None, base_ccrc=None, ready=None, abort=None, stages=None,
     ):
         """Executor job: ONE pass copying the payload into the send
         arena chunk-by-chunk, CRC'ing each chunk as it lands and — when
@@ -1083,7 +1092,9 @@ class TransportClient:
         Returns ``(ccrcs, changed, (d2h_s, copy_s, crc_s))`` —
         ``changed`` is None without a base; the totals are billed by
         the caller on the loop thread (the pipelined path bills per
-        chunk through the ready items instead).
+        chunk through the ready items instead).  ``stages`` (armed only)
+        gets the fetches, each chunk's copy into the arena (``wire.d2h``:
+        the rest of the way to the send buffer) and its checksum.
         """
         import zlib
 
@@ -1096,19 +1107,22 @@ class TransportClient:
         idx = 0
         chunk_start = 0
         try:
-            for nbytes, views in _iter_chunk_views(payload_bufs, csz, timings):
+            for nbytes, views in _iter_chunk_views(payload_bufs, csz, timings, stages):
                 if abort is not None and abort.is_set():
                     raise SendError("send aborted; chunk production stopped")
-                t0 = time.perf_counter()
+                t0 = time.time()
                 off = chunk_start
                 for v in views:
                     arena_mv[off : off + v.nbytes] = v
                     off += v.nbytes
-                copy_s = time.perf_counter() - t0
                 chunk_view = arena_mv[chunk_start : chunk_start + nbytes]
-                t1 = time.perf_counter()
+                t1 = time.time()
                 crc = zlib.crc32(chunk_view)
-                crc_s = time.perf_counter() - t1
+                t2 = time.time()
+                copy_s, crc_s = t1 - t0, t2 - t1
+                if stages is not None:
+                    stages.add("wire.d2h", t0, t1)
+                    stages.add("wire.crc", t1, t2)
                 ccrcs.append(crc)
                 if changed is not None:
                     base_chunk = base_mv[chunk_start : chunk_start + nbytes]
@@ -1155,7 +1169,7 @@ class TransportClient:
         return ready
 
     async def _send_striped_frames(
-        self, base_header, total, csz, nch, ready, base_fp=None,
+        self, base_header, total, csz, nch, ready, base_fp=None, stages=None,
     ) -> Dict[str, Any]:
         """Ship one payload as per-chunk stripe frames fanned
         round-robin across the rails (wire v4).
@@ -1164,7 +1178,9 @@ class TransportClient:
         non-None marks the frames as a delta against the receiver's
         cached base.  On any frame failure every other rail drains
         before the error surfaces — the payload fails (and retries) as
-        a unit.  Returns the completing frame's ACK header.
+        a unit.  Returns the completing frame's ACK header.  ``stages``:
+        the payload's ``wire.frame`` spans (armed only), which every stripe
+        frame's write joins.
         """
         nf = len(ready)
         sid = next(self._sid)
@@ -1188,7 +1204,9 @@ class TransportClient:
                 total, wire.encode_chunk_bitmap([idx], nch), base_fp
             )
             hdr["stp"] = wire.make_stripe_marker(sid, nf)
-            ack = await self._roundtrip(wire.MSG_DATA, hdr, views, conn=conn)
+            ack = await self._roundtrip(
+                wire.MSG_DATA, hdr, views, conn=conn, stages=stages
+            )
             st["send_stripe_frames"] += 1
             return ack
 
@@ -1263,14 +1281,17 @@ class TransportClient:
 
             ready = [loop.create_future() for _ in range(nch)]
             abort = _threading.Event()
+            stages = self._frame_stages()
             producer = loop.run_in_executor(
                 None, self._produce_plain_chunks, loop, payload_bufs, csz,
-                ready, abort,
+                ready, abort, stages,
             )
+            ok = False
             try:
                 ack = await self._send_striped_frames(
-                    base_header, payload_len, csz, nch, ready
+                    base_header, payload_len, csz, nch, ready, stages=stages
                 )
+                ok = True
                 return ack.get("result", "OK")
             except FatalSendError:
                 raise
@@ -1299,6 +1320,8 @@ class TransportClient:
                         fut.exception()  # mark retrieved
                     elif not fut.done():
                         fut.cancel()
+                if stages is not None:
+                    stages.close(payload_len, "ok" if ok else "error")
         raise SendError(
             f"striped send to {self._dest_party} failed after "
             f"{policy.max_attempts} attempts: {last_exc}"
@@ -1412,6 +1435,7 @@ class TransportClient:
             base_header["crc"] = crc
         loop = asyncio.get_running_loop()
         t_frame0 = time.perf_counter()
+        stages = self._frame_stages()
         if stream_snapshot is not None:
             payload: Any = stream_snapshot[0]
             d2h_s = copy_s = 0.0  # billed to the fan-out's codec pass
@@ -1420,10 +1444,10 @@ class TransportClient:
             # a GIL handoff each) costs more than the copy itself — at
             # N=64 virtual parties the hierarchy round hands off ~2k
             # stripe-sized frames, all under this bound.
-            payload, d2h_s, copy_s = local.materialize(payload_bufs)
+            payload, d2h_s, copy_s = local.materialize(payload_bufs, stages)
         elif total:
             payload, d2h_s, copy_s = await loop.run_in_executor(
-                None, local.materialize, payload_bufs
+                None, local.materialize, payload_bufs, stages
             )
         else:
             payload, d2h_s, copy_s = bytearray(0), 0.0, 0.0
@@ -1441,7 +1465,7 @@ class TransportClient:
                     attempt + 1, policy.max_attempts,
                 )
                 await asyncio.sleep(backoff)
-            t_hand = time.perf_counter()
+            t_hand = time.time()
             try:
                 ack = await self._shm_roundtrip(
                     wire.MSG_DATA, base_header, payload
@@ -1461,7 +1485,8 @@ class TransportClient:
                     policy.max_attempts, e,
                 )
                 continue
-            handoff_s = time.perf_counter() - t_hand
+            t_ack = time.time()
+            handoff_s = t_ack - t_hand
             st = self.stats
             st["send_frames"] += 1
             st["send_payload_bytes"] += total
@@ -1472,21 +1497,12 @@ class TransportClient:
             self._bill_backend(
                 backend="shm", d2h=d2h_s, copy=copy_s, socket=handoff_s
             )
-            frame_wall = time.perf_counter() - t_frame0
-            st["send_frame_wall_s"] += frame_wall
-            _tr = telemetry.active()
-            if _tr is not None:
-                _tr.emit(
-                    "wire.frame", party=self._src_party,
-                    peer=self._dest_party, nbytes=total,
-                    t_start=time.time() - frame_wall, dur_s=frame_wall,
-                    detail={
-                        "backend": "shm",
-                        "d2h_ms": round(d2h_s * 1e3, 3),
-                        "crc_ms": 0.0,
-                        "socket_ms": round(handoff_s * 1e3, 3),
-                    },
-                )
+            st["send_frame_wall_s"] += time.perf_counter() - t_frame0
+            if stages is not None:
+                # The hand-off to the receiver, up to its ACK, is the
+                # shared-memory link's socket.
+                stages.add("wire.socket", t_hand, t_ack)
+                stages.close(total)
             return ack.get("result", "OK")
         raise SendError(
             f"send to {self._dest_party} failed after "
@@ -1667,7 +1683,7 @@ class TransportClient:
         return out
 
     @staticmethod
-    def snapshot_stream_payload(payload_bufs: List):
+    def snapshot_stream_payload(payload_bufs: List, stages=None):
         """Materialize the payload contiguously + its chunk CRCs.
 
         Delta diffing needs a stable byte snapshot of the whole payload
@@ -1676,18 +1692,22 @@ class TransportClient:
         chunks entirely — the right trade when most chunks repeat.
         Static so a fan-out (``TransportManager.send_many``) computes it
         ONCE and shares it with every destination's client; run it on a
-        codec/executor thread, not the event loop."""
+        codec/executor thread, not the event loop.  ``stages`` (armed
+        only) gets the fetches, the gather (``wire.d2h``) and the chunk
+        checksums."""
         from rayfed_tpu_torch import native
 
-        views = []
-        for buf in payload_bufs:
-            host = buf.produce() if isinstance(buf, wire.LazyBuffer) else buf
-            mv = host if isinstance(host, memoryview) else memoryview(host)
-            if mv.format != "B":
-                mv = mv.cast("B")
-            views.append(mv)
+        views = [wire.fetch(buf, stages)[0] for buf in payload_bufs]
+        if stages is None:
+            full = native.gather_copy(views)
+            return full, wire.chunk_crcs(full)
+        t0 = time.time()
         full = native.gather_copy(views)
-        return full, wire.chunk_crcs(full)
+        t1 = time.time()
+        ccrcs = wire.chunk_crcs(full)
+        stages.add("wire.d2h", t0, t1)
+        stages.add("wire.crc", t1)
+        return full, ccrcs
 
     @staticmethod
     def _diff_chunks(full, base, ccrcs, base_ccrcs) -> List[int]:
@@ -1787,6 +1807,9 @@ class TransportClient:
             ccrcs: Optional[List[int]] = None
             changed: Optional[List[int]] = None
             pipelined = False
+            # The payload's frame work toward this peer, from its first
+            # byte's production to its last write (armed only).
+            stages = self._frame_stages(stream)
             if snapshot is not None:
                 # Fan-out path: ONE shared snapshot + CRC pass serves
                 # every destination (codec thread); only the diff
@@ -1809,7 +1832,7 @@ class TransportClient:
                     arena_mv, csz,
                     state.data if has_base else None,
                     state.ccrc if has_base else None,
-                    None,
+                    None, None, stages,
                 )
                 full = arena_mv
                 st = self.stats
@@ -1847,7 +1870,7 @@ class TransportClient:
                             producer = loop.run_in_executor(
                                 None, self._produce_arena_chunks, loop,
                                 payload_bufs, full, csz, None, None, ready,
-                                abort,
+                                abort, stages,
                             )
                         else:
                             ready = self._ready_chunks(
@@ -1855,7 +1878,8 @@ class TransportClient:
                                 total,
                             )
                         ack = await self._send_striped_frames(
-                            base_header, total, csz, nch, ready
+                            base_header, total, csz, nch, ready,
+                            stages=stages,
                         )
                     elif (
                         not force_full
@@ -1871,7 +1895,7 @@ class TransportClient:
                         )
                         ack = await self._send_striped_frames(
                             base_header, total, csz, nch, ready,
-                            base_fp=state.fp,
+                            base_fp=state.fp, stages=stages,
                         )
                     else:
                         header = dict(base_header)
@@ -1890,7 +1914,7 @@ class TransportClient:
                             header["ccrc"] = ccrcs
                             bufs = [full] if total else []
                         ack = await self._roundtrip(
-                            wire.MSG_DATA, header, bufs
+                            wire.MSG_DATA, header, bufs, stages=stages
                         )
                 except DeltaBaseError:
                     if force_full:  # full sends can't need a base
@@ -1922,6 +1946,9 @@ class TransportClient:
                         self._src_party, self._dest_party, attempt,
                         policy.max_attempts, e,
                     )
+                    if stages is not None:
+                        stages.close(total, "error")
+                        stages = self._frame_stages(stream)
                     if attempt >= max(1, policy.max_attempts):
                         break
                     if self._dest_known_dead():
@@ -1950,6 +1977,8 @@ class TransportClient:
                                 elif not fut.done():
                                     fut.cancel()
                 # ACKed: the peer now holds `full` — it IS the new base.
+                if stages is not None:
+                    stages.close(total)
                 wire_bytes = (
                     total if force_full
                     else sum(min(csz, total - i * csz) for i in changed)

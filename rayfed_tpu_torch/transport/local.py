@@ -450,28 +450,25 @@ async def deliver(
     return await asyncio.wait_for(fut, timeout=timeout_s)
 
 
-def materialize(payload_bufs: List) -> Tuple[Any, float, float]:
+def materialize(payload_bufs: List, stages=None) -> Tuple[Any, float, float]:
     """Executor job: fetch + gather the payload into ONE fresh buffer.
 
     The result is handed to the receiver by reference, so it must be
     freshly allocated here (never a reused arena slot) — this gather is
     the single copy a shared-memory send pays.  Returns
-    ``(buffer, d2h_seconds, copy_seconds)``.
+    ``(buffer, d2h_seconds, copy_seconds)``; ``stages`` (the flight
+    recorder's, armed only) gets the fetches and the gather (``wire.d2h``).
     """
-    t0 = time.perf_counter()
-    views = []
-    for buf in payload_bufs:
-        host = buf.produce() if isinstance(buf, wire.LazyBuffer) else buf
-        mv = host if isinstance(host, memoryview) else memoryview(host)
-        if mv.format != "B":
-            mv = mv.cast("B")
-        views.append(mv)
-    d2h_s = time.perf_counter() - t0
-    t1 = time.perf_counter()
+    fetched = [wire.fetch(buf, stages) for buf in payload_bufs]
+    views = [mv for mv, _dt in fetched]
+    t0 = time.time()
     if len(views) == 1:
         payload: Any = bytearray(views[0])
     else:
         from rayfed_tpu_torch import native
 
         payload = native.gather_copy(views)
-    return payload, d2h_s, time.perf_counter() - t1
+    t1 = time.time()
+    if stages is not None:
+        stages.add("wire.d2h", t0, t1)
+    return payload, sum(dt for _mv, dt in fetched), t1 - t0

@@ -1070,9 +1070,15 @@ class TransportManager:
                     # client snapshots into its reusable per-(dest,
                     # stream) send arena instead (zero per-round
                     # allocation, pipelined with the stripe frames).
-                    snapshot = TransportClient.snapshot_stream_payload(
-                        bufs
+                    stages = telemetry.frame_spans(
+                        party=self._party, peer=None, stream=stream
                     )
+                    snapshot = TransportClient.snapshot_stream_payload(
+                        bufs, stages
+                    )
+                    if stages is not None:
+                        # The fan-out's shared frame work: no one peer's.
+                        stages.close(nbytes)
                 self.stats["send_encode_s"] += time.perf_counter() - t_enc0
                 crc = None
                 if stream is None and not streaming and self._get_client(

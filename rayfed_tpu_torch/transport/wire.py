@@ -34,6 +34,7 @@ import functools
 import json
 import struct
 import threading
+import time
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -356,20 +357,39 @@ class LazyBuffer:
     shard k is still being written to the socket, overlapping the fetch
     with the wire.  ``nbytes`` is known up front (from shard metadata) so
     the frame length can be declared before any fetch happens.
+    ``device``: the CUDA device the bytes come from, or None.
     """
 
-    __slots__ = ("_produce", "nbytes")
+    __slots__ = ("_produce", "nbytes", "device")
 
-    def __init__(self, produce, nbytes: int) -> None:
+    def __init__(self, produce, nbytes: int, device: Optional[torch.device] = None) -> None:
         self._produce = produce
         self.nbytes = nbytes
+        self.device = device
 
-    def produce(self) -> memoryview:
+    def produce(self, stages=None) -> memoryview:
+        """The bytes on the host; the copy from the card runs here.
+        ``stages`` (a :class:`~rayfed_tpu_torch.telemetry.FrameSpans`,
+        given only while the flight recorder is armed) gets the copy as
+        ``wire.d2h``, preceded for a CUDA source by ``wire.device_wait``:
+        an event recorded on the source's default stream ahead of the copy
+        and waited on, the time the card still owed the payload."""
+        if stages is not None:
+            t0 = time.time()
+            if self.device is not None:
+                ready = torch.cuda.Event(blocking=True)
+                ready.record(torch.cuda.default_stream(self.device))
+                ready.synchronize()
+                t1 = time.time()
+                stages.add("wire.device_wait", t0, t1)
+                t0 = t1
         buf = self._produce()
         if buf.nbytes != self.nbytes:  # pragma: no cover - internal invariant
             raise ValueError(
                 f"lazy buffer produced {buf.nbytes} bytes, declared {self.nbytes}"
             )
+        if stages is not None:
+            stages.add("wire.d2h", t0)
         return buf
 
 
@@ -379,21 +399,32 @@ class SharedLazyBuffer(LazyBuffer):
     Fan-out sends push the SAME payload to several parties; without
     sharing, each destination's write path would repeat the device→host
     fetch.  The cached view lives until the last send drops the buffer
-    list.
+    list.  Only the reader whose produce copies records stage spans: a
+    cached view waits on nothing of the card.
     """
 
     __slots__ = ("_lock", "_cached")
 
     def __init__(self, inner: LazyBuffer) -> None:
-        super().__init__(inner._produce, inner.nbytes)
+        super().__init__(inner._produce, inner.nbytes, inner.device)
         self._lock = threading.Lock()
         self._cached: Optional[memoryview] = None
 
-    def produce(self) -> memoryview:
+    def produce(self, stages=None) -> memoryview:
         with self._lock:
             if self._cached is None:
-                self._cached = super().produce()
+                self._cached = super().produce(stages)
             return self._cached
+
+
+def fetch(buf, stages=None) -> Tuple[memoryview, float]:
+    """One payload buffer as a byte view, and the seconds its fetch took;
+    a LazyBuffer's copy to the host runs here (``stages``: see
+    :meth:`LazyBuffer.produce`)."""
+    t0 = time.time()
+    host = buf.produce(stages) if isinstance(buf, LazyBuffer) else buf
+    mv = host if isinstance(host, memoryview) else memoryview(host)
+    return (mv if mv.format == "B" else mv.cast("B")), time.time() - t0
 
 
 def share_buffers(buffers: List) -> List:
@@ -629,7 +660,8 @@ def _encode_sharded_leaf(leaf: torch.Tensor, manifest_leaves: List, buffers: Lis
     tensor) — with the device→host copy deferred to the send."""
     shape = list(leaf.shape)
     nbytes = _tensor_nbytes(leaf)
-    buffers.append(LazyBuffer(functools.partial(_tensor_host_view, leaf), nbytes))
+    buffers.append(LazyBuffer(functools.partial(_tensor_host_view, leaf), nbytes,
+                              leaf.device if leaf.is_cuda else None))
     manifest_leaves.append(
         {
             "k": "nds",

@@ -28,7 +28,7 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     return torch.device("cuda", torch.cuda.current_device())
 
 
-def fence_for_handoff(value: Any) -> None:
+def fence_for_handoff(value: Any, record_events: bool = False) -> Optional[list]:
     """Order the work that produced ``value``'s CUDA tensors before what is
     enqueued later on their devices' default streams.
 
@@ -38,9 +38,14 @@ def fence_for_handoff(value: Any) -> None:
     thread's current stream is not the default one, the default stream
     waits on an event recorded on it now; on the default stream the order
     holds already.
+
+    With ``record_events`` (the flight recorder's ``exec.device``) it also
+    returns one event a device, recorded on this thread's current stream
+    after the fence: the card has finished the work ``value`` depends on
+    once it has passed them.  Otherwise it returns None.
     """
     if not torch.cuda.is_initialized():
-        return
+        return None
     from rayfed_tpu_torch import tree_util
 
     devices = {
@@ -48,8 +53,14 @@ def fence_for_handoff(value: Any) -> None:
         for leaf in tree_util.tree_leaves(value)
         if isinstance(leaf, torch.Tensor) and leaf.is_cuda
     }
+    events = [] if record_events else None
     for dev in devices:
         current = torch.cuda.current_stream(dev)
         default = torch.cuda.default_stream(dev)
         if current != default:
             default.wait_stream(current)
+        if events is not None:
+            ev = torch.cuda.Event(blocking=True)
+            ev.record(current)
+            events.append(ev)
+    return events
