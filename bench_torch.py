@@ -2158,9 +2158,12 @@ def _launches() -> Dict[str, int]:
 
     fold = importlib.import_module("rayfed_tpu_torch.ops.fold")
     flash = importlib.import_module("rayfed_tpu_torch.ops.flash_attention").flash_attention
+    norm = importlib.import_module("rayfed_tpu_torch.ops.rms_norm").rms_norm
     out = {"fold_fma": fold.fold_fma_.launches}
     for k in ("fwd", "bwd_dq", "bwd_dkv"):
         out[f"flash_{k}"] = getattr(flash, f"{k}_launches")
+    for k in ("fwd", "bwd", "dscale"):
+        out[f"rms_norm_{k}"] = getattr(norm, f"{k}_launches")
     return out
 
 

@@ -355,6 +355,7 @@ from rayfed_tpu_torch.fl import fedavg, streaming
 from rayfed_tpu_torch.models import bert, hf, llama, lora
 from rayfed_tpu_torch.models.logistic import softmax_cross_entropy, value_and_grad
 from rayfed_tpu_torch.ops import _build, fold, ftz
+from rayfed_tpu_torch.ops import rms_norm as rms_norm_op
 from rayfed_tpu_torch.ops.attention import dot_product_attention
 from rayfed_tpu_torch.utils.ports import free_loopback_ports as _free_ports
 from rayfed_tpu_torch.ops.flash_attention import (
@@ -464,14 +465,53 @@ def _peaks(name):
     return "SXM", PEAKS["SXM"]
 
 
+FLASH_KEYS = ("fwd", "bwd_dq", "bwd_dkv")
+# The RMSNorm kernels' launches (ops/rms_norm.py): forward, backward, and the
+# reduce of dscale's partials (where a norm's scale trains).
+NORM_KEYS = ("norm_fwd", "norm_bwd", "norm_dscale")
+COUNT_KEYS = FLASH_KEYS + NORM_KEYS
+
+
 def _counts():
-    return {name: getattr(flash_attention, f"{name}_launches")
-            for name in ("fwd", "bwd_dq", "bwd_dkv")}
+    """This process's launches of the three flash kernels and of the RMSNorm
+    kernels (``norm_*``) since ``_zero_counts``."""
+    out = {name: getattr(flash_attention, f"{name}_launches") for name in FLASH_KEYS}
+    out.update({key: getattr(rms_norm_op.rms_norm, f"{key[5:]}_launches") for key in NORM_KEYS})
+    return out
 
 
 def _zero_counts():
-    for name in _counts():
+    for name in FLASH_KEYS:
         setattr(flash_attention, f"{name}_launches", 0)
+    rms_norm_op.reset_launches()
+
+
+def _flash(counts):
+    """The flash kernels' part of a ``_counts()`` record."""
+    return {k: counts[k] for k in FLASH_KEYS}
+
+
+def _bench_norms(launches):
+    """The RMSNorm kernels' launches over every leg of a ``bench_torch``
+    run's ``{leg: {kernel: n}}``, keyed as ``_counts()`` keys them."""
+    return {f"norm_{k}": sum(n.get(f"rms_norm_{k}", 0) for n in launches.values()) for k in ("fwd", "bwd", "dscale")}
+
+
+def _norm_pass(layers):
+    """The RMSNorm forward launches of one Llama forward pass: two a layer
+    and the final norm."""
+    return 2 * layers + 1
+
+
+def _lora_step_want(layers, remat=True, on_card=True):
+    """One LoRA step's launches on the card (zeros off it): the flash
+    kernels' two forwards a layer (the backward replays it) and a dQ and
+    dK/dV; the norms' forward pass, the layers' again under remat, and a
+    backward for each but layer 0's attention norm (it reads the frozen
+    embedding); no dscale (the norms' scales are frozen)."""
+    want = {"fwd": 2 * layers, "bwd_dq": layers, "bwd_dkv": layers,
+            "norm_fwd": _norm_pass(layers) + (2 * layers if remat else 0), "norm_bwd": 2 * layers, "norm_dscale": 0}
+    return want if on_card else dict.fromkeys(want, 0)
 
 
 # The tensor-core kernels of each source: each of their 4 instantiations
@@ -529,13 +569,14 @@ def _sass_counts(lib_path):
 
 
 def phase_build():
-    names = ("flash_fwd", "flash_bwd", "fold_fma")
+    names = ("flash_fwd", "flash_bwd", "fold_fma", "rms_norm")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source, together
         paths = list(pool.map(_build.build, names))
     _build.flash_fwd_lib()
     _build.flash_bwd_lib()
     _build.fold_lib()
+    _build.rms_norm_lib()
     built = ", ".join(f"{n} -> {p.name}" for n, p in zip(names, paths))
     print(f"[build] {built} in {time.perf_counter() - t0:.2f} s")
     for name, path in zip(names, paths):
@@ -690,17 +731,21 @@ def phase_slice(gen):
     prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT_LEN), generator=gen, device="cuda")
 
     torch.cuda.reset_peak_memory_stats()
-    flash_attention.fwd_launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     out = llama.generate(params, cfg, prompts, NEW_TOKENS, attn_fn=flash_attention)
     torch.cuda.synchronize()
     generate_s = time.perf_counter() - t0
     launches = flash_attention.fwd_launches
+    # The prefill and NEW_TOKENS - 1 decode steps: a forward pass each.
+    norms = {k: v for k, v in _counts().items() if k in NORM_KEYS}
+    want_norms = {"norm_fwd": NEW_TOKENS * _norm_pass(cfg.num_layers), "norm_bwd": 0, "norm_dscale": 0}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"[slice] generate B={BATCH} T0={PROMPT_LEN} new={NEW_TOKENS}: {generate_s * 1e3:.1f} ms "
-          f"(first call), flash_fwd launches={launches}, max_memory_allocated={peak_gb:.2f} GB")
-    if launches != cfg.num_layers:
-        raise AssertionError(f"expected {cfg.num_layers} flash_fwd launches, got {launches}")
+          f"(first call), flash_fwd launches={launches}, norms={norms}, max_memory_allocated={peak_gb:.2f} GB")
+    if launches != cfg.num_layers or norms != want_norms:
+        raise AssertionError(f"expected {cfg.num_layers} flash_fwd launches and norms {want_norms}, got "
+                             f"{launches}, {norms}")
     if out.shape != (BATCH, PROMPT_LEN + NEW_TOKENS) or not torch.equal(out[:, :PROMPT_LEN], prompts):
         raise AssertionError(f"generate returned {tuple(out.shape)} or altered the prompt")
     new = out[:, PROMPT_LEN:]
@@ -743,7 +788,7 @@ def phase_slice(gen):
         raise AssertionError("flash prefill logits disagree with the dense path")
     del params
     torch.cuda.empty_cache()
-    return dict(launches=launches, prefill_ms=prefill_ms, decode_ms=decode_ms,
+    return dict(launches=launches, norms=norms, prefill_ms=prefill_ms, decode_ms=decode_ms,
                 cache_bytes=cache_bytes, peak_gb=peak_gb)
 
 
@@ -764,7 +809,7 @@ def phase_train(gen):
           f"lr={TRAIN_LR:g}: set up in {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.reset_peak_memory_stats()
-    want = {"fwd": 2 * cfg.num_layers, "bwd_dq": cfg.num_layers, "bwd_dkv": cfg.num_layers}
+    want = _lora_step_want(cfg.num_layers, cfg.remat)
     losses, step_ms = [], []
     _zero_counts()
     for i in range(TRAIN_STEPS):
@@ -858,14 +903,17 @@ def phase_serve_int8(gen, bf16):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    flash_attention.fwd_launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     cache, logits = llama.prefill(params, cfg, prompts, max_len, attn_fn=flash_attention)
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t0) * 1e3
     launches = flash_attention.fwd_launches
-    if launches != cfg.num_layers:
-        raise AssertionError(f"expected {cfg.num_layers} flash_fwd launches, got {launches}")
+    norms = {k: v for k, v in _counts().items() if k in NORM_KEYS}
+    want_norms = {"norm_fwd": _norm_pass(cfg.num_layers), "norm_bwd": 0, "norm_dscale": 0}
+    if launches != cfg.num_layers or norms != want_norms:
+        raise AssertionError(f"expected {cfg.num_layers} flash_fwd launches and norms {want_norms}, got "
+                             f"{launches}, {norms}")
     if cache["k"].dtype != torch.int8 or not bool(torch.isfinite(logits).all()):
         raise AssertionError("the int8 prefill gave no int8 cache or non-finite logits")
     t0 = time.perf_counter()
@@ -875,7 +923,7 @@ def phase_serve_int8(gen, bf16):
     cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
     bf16_bytes = 2 * cache["k"].numel() * 2
     ratio = cache_bytes / bf16_bytes
-    print(f"[serve_int8] prefill B={BATCH} T0={PROMPT_LEN}: flash_fwd launches={launches}; "
+    print(f"[serve_int8] prefill B={BATCH} T0={PROMPT_LEN}: flash_fwd launches={launches}, norms={norms}; "
           f"{prefill_ms:.1f} ms ({first_ms:.1f} ms first call); int8 cache {cache_bytes / 1e6:.2f} MB "
           f"for {max_len} slots = {ratio:.4f} of the bf16 cache's {bf16_bytes / 1e6:.2f} MB")
     if ratio > INT8_CACHE_RATIO:
@@ -934,7 +982,7 @@ def phase_serve_int8(gen, bf16):
           f"{bf16['cache_bytes'] / 1e6:.2f} MB; peak {peak_gb:.2f} vs {bf16['peak_gb']:.2f} GB")
     del params, prompts
     torch.cuda.empty_cache()
-    return dict(launches=launches, prefill_ms=prefill_ms, linear_ms=linear_ms, rolling_ms=roll_ms,
+    return dict(launches=launches, norms=norms, prefill_ms=prefill_ms, linear_ms=linear_ms, rolling_ms=roll_ms,
                 cache_bytes=cache_bytes, peak_gb=peak_gb)
 
 
@@ -953,7 +1001,7 @@ def phase_train_int8(gen, bf16):
           f"({lora.num_lora_params(adapters) / 1e6:.3f}e6 adapter params), B=1 T={TRAIN_LEN}, "
           f"lr={TRAIN_LR:g}: set up in {time.perf_counter() - t0:.1f} s")
     torch.cuda.reset_peak_memory_stats()
-    want = {"fwd": 2 * cfg.num_layers, "bwd_dq": cfg.num_layers, "bwd_dkv": cfg.num_layers}
+    want = _lora_step_want(cfg.num_layers, cfg.remat)
     losses, step_ms = [], []
     _zero_counts()
     for i in range(TRAIN_STEPS):
@@ -1111,6 +1159,80 @@ def phase_bert_times(gen, card):
               f"bound {bound_ms:.4f} ms ({bound_by}; {n_mm} products of {mm / 1e9:.2f} GFLOP, "
               f"{nbytes / 1e6:.1f} MB), {n_mm * mm / ms[name] / 1e9:.1f} TFLOP/s, "
               f"{bound_ms / ms[name]:.3f} of the bound")
+    return out
+
+
+# The Llama RMSNorm's kernels at the Mistral-7B cell's shape: one local
+# step's rows (B=1 x T=8192) of D=4096, bf16 activations and scale.
+RMS_SHAPE, RMS_EPS = (8192, 4096), 1e-5
+
+
+def phase_rms_norm(gen, card):
+    """The RMSNorm kernels vs the model's formula as PyTorch ops (and
+    autograd's backward of it), F.rms_norm as a yardstick only, and the
+    bound: one read of x and one write of y forward; reads of x and dy and a
+    write of dx backward (the f32 rstd a row beside them).  The host's time
+    to enqueue a forward at Mistral's shape and at a decode step's [4, 1,
+    4096], through the model's entry (``rms_norm.rms_norm``) and as the
+    formula's ops."""
+    rn = rms_norm_op
+    rows, width = RMS_SHAPE
+    bf = torch.bfloat16
+    x = (3 * torch.randn(rows, width, generator=gen, device="cuda")).to(bf)
+    scale = (1 + 0.5 * torch.randn(width, generator=gen, device="cuda")).to(bf)
+    dy = torch.randn(rows, width, generator=gen, device="cuda").to(bf)
+    y, rstd = rn._forward(x, scale, RMS_EPS, want_rstd=True)
+    xg, sg = x.clone().requires_grad_(True), scale.clone().requires_grad_(True)
+    y_p = rn.rms_norm_plain(xg, sg, RMS_EPS)
+    dx_p, ds_p = torch.autograd.grad(y_p, (xg, sg), dy)
+    dx, ds = rn._backward(dy, x, rstd, scale, want_dscale=True)
+    torch.cuda.synchronize()
+    gaps = {}  # the largest gap over the largest value
+    for name, got, want in (("y", y, y_p.detach()), ("dx", dx, dx_p), ("dscale", ds, ds_p)):
+        gap = (got.float() - want.float()).abs()
+        gaps[name] = gap.max().item() / want.float().abs().max().item()
+        print(f"[rms_norm] {name}: max gap {gap.max().item():.3e} ({gaps[name]:.2e} of the largest), "
+              f"{(gap > 0).float().mean().item():.2e} of elements differ")
+        if (gap > 2.0**-7 * want.float().abs() + 1e-4 * want.float().abs().max()).any():
+            raise AssertionError(f"rms_norm {name} is off the formula by more than a bf16 step")
+
+    nbytes = {"fwd": rows * width * 2 * 2 + rows * 4, "bwd": rows * width * 2 * 3 + rows * 4}
+    fwd_ms = _sync_ms(lambda: rn._forward(x, scale, RMS_EPS, want_rstd=True), iters=20)
+    bwd_ms = _sync_ms(lambda: rn._backward(dy, x, rstd, scale, want_dscale=False), iters=20)
+    dscale_ms = _sync_ms(lambda: rn._backward(dy, x, rstd, scale, want_dscale=True), iters=20)
+    # The formula's forward: the model's norm on the card before the kernels.
+    plain_fwd = _sync_ms(lambda: rn.rms_norm_plain(x, scale, RMS_EPS), iters=20)
+    xa = x.clone().requires_grad_(True)
+
+    def fwd_bwd(norm):
+        return _sync_ms(lambda: torch.autograd.grad(norm(xa), xa, dy), iters=20)
+
+    # The model's backward before the kernels: autograd through the formula.
+    plain_bwd = fwd_bwd(lambda t: rn.rms_norm_plain(t, scale, RMS_EPS)) - plain_fwd
+    # F.rms_norm: a yardstick only; the port never calls it.
+    lib_fwd = _sync_ms(lambda: F.rms_norm(x, (width,), scale, RMS_EPS), iters=20)
+    lib_bwd = fwd_bwd(lambda t: F.rms_norm(t, (width,), scale, RMS_EPS)) - lib_fwd
+    host_us = {}
+    xd = x[:4].reshape(4, 1, width)
+    with torch.no_grad():
+        for shape, t, calls in (("mistral", x, 20), ("decode", xd, 100)):  # well inside the launch queue
+            host_us[shape] = {"kernel": _host_us(lambda: rn.rms_norm(t, scale, RMS_EPS), calls=calls),
+                              "plain": _host_us(lambda: rn.rms_norm_plain(t, scale, RMS_EPS), calls=calls)}
+    out = {}
+    for name, ms, plain, library in (("fwd", fwd_ms, plain_fwd, lib_fwd), ("bwd", bwd_ms, plain_bwd, lib_bwd)):
+        bound_ms = nbytes[name] / _peaks(card)[1][1] * 1e3
+        out[name] = dict(ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by="bytes", library_ms=library,
+                         bound_share=bound_ms / ms, gbps=nbytes[name] / ms / 1e6,
+                         max_gap=gaps["y" if name == "fwd" else "dx"])
+        print(f"[times] rms_norm_{name} [{rows}, {width}] bf16: kernel {ms:.4f} ms "
+              f"({nbytes[name] / ms / 1e6:.0f} GB/s), plain {plain:.4f} ms, F.rms_norm {library:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({nbytes[name] / 1e6:.1f} MB), {bound_ms / ms:.3f} of the bound")
+    out["bwd"].update(dscale_ms=dscale_ms, max_gap_dscale=gaps["dscale"])
+    out["fwd"]["host_us"] = host_us
+    print(f"[times] rms_norm_bwd: with dscale (full-parameter training) {dscale_ms:.4f} ms; plain is autograd "
+          f"through the formula")
+    print(f"[times] rms_norm_fwd host us per call to enqueue (kernel vs the formula's ops): "
+          + ", ".join(f"{k} {v['kernel']:.1f} vs {v['plain']:.1f}" for k, v in host_us.items()))
     return out
 
 
@@ -2440,7 +2562,7 @@ def phase_federated(ckpt_root):
     t0 = time.perf_counter()
     reports = _run_parties("llama3_8b", dict(param_dtype=torch.bfloat16, remat=True), TRAIN_LEN, None, ckpt_root)
     wall = time.perf_counter() - t0
-    want = {"fwd": 2 * cfg.num_layers, "bwd_dq": cfg.num_layers, "bwd_dkv": cfg.num_layers}
+    want = _lora_step_want(cfg.num_layers, cfg.remat)
     return _federated_summary(reports, want, wall)
 
 
@@ -2822,7 +2944,8 @@ def phase_split():
 def _split_summary(reports, cfg, wall):
     """Check both parties' reports of the split phase and print them."""
     alice, bob = reports["alice"], reports["bob"]
-    one = {"fwd": 2 * cfg.num_layers, "bwd_dq": cfg.num_layers, "bwd_dkv": cfg.num_layers}
+    # BERT's LayerNorm is no RMSNorm: no norm kernel launches.
+    one = {"fwd": 2 * cfg.num_layers, "bwd_dq": cfg.num_layers, "bwd_dkv": cfg.num_layers, **dict.fromkeys(NORM_KEYS, 0)}
     total = {k: 0 for k in one}
     out = {"wall_s": wall, "modes": {}}
     for mode, n in SPLIT_MODES:
@@ -4488,7 +4611,7 @@ def phase_checkpoint(federated, ckpt_root, cfg_name="llama3_8b", cfg_kw=None, tr
                                                   resumed_dir, device), CKPT_TIMEOUT_S)
     # The kernels launch on the card only (a CPU rehearsal runs their plain versions).
     on_card = device is None or torch.device(device).type == "cuda"
-    want = {"fwd": 2 * cfg.num_layers, "bwd_dq": cfg.num_layers, "bwd_dkv": cfg.num_layers}
+    want = _lora_step_want(cfg.num_layers, cfg.remat)
     llama_out = _ckpt_llama_summary(federated, resumed, {k: v if on_card else 0 for k, v in want.items()})
     ports = {k: _free_ports(len(TOPO_PARTIES)) for k in ("uninterrupted", "crashed", "resumed")}
     first = _spawn_parties(_ckpt_quorum_party, (ports, ckpt_root, "first", device), CKPT_TIMEOUT_S,
@@ -4870,9 +4993,9 @@ def _par_summary(world_a, world_b, size, on_card):
         _par_check(r0["grad_gap"] <= 1.0, f"{name}: gradients vs one-card flash at {r0['grad_gap']:.3f} of the bound")
         for rank, r in enumerate(recs):
             want = par_launches(name, rank, PAR_RANKS) if on_card else 0
-            _par_check(r["launches"] == {"fwd": want, "bwd_dq": want, "bwd_dkv": want},
+            _par_check(r["launches"] == {**dict.fromkeys(FLASH_KEYS, want), **dict.fromkeys(NORM_KEYS, 0)},
                        f"{name} rank {rank}: launches {r['launches']}, want {want} each")
-        launches[name] = {k: sum(r["launches"][k] for r in recs) for k in ("fwd", "bwd_dq", "bwd_dkv")}
+        launches[name] = {k: sum(r["launches"][k] for r in recs) for k in COUNT_KEYS}
         print(f"[parallel] (1) {name} [{b}, {t}, {h}, {d}] {str(size['dtype'])[6:]}: fwd "
               f"{max(r['fwd_ms'] for r in recs):.1f} ms, bwd {max(r['bwd_ms'] for r in recs):.1f} ms (slowest rank); "
               f"vs one-card flash max_abs_err={r0['max_abs_err']:.4e} (tol {PAR_TOL:g}), worst row "
@@ -4892,8 +5015,11 @@ def _par_summary(world_a, world_b, size, on_card):
     _par_check(tp[0]["finite"] and tp[0]["gap"] <= LOGIT_REL_TOL * tp[0]["span"],
                f"TP/FSDP logits vs unsharded: max_abs_diff {tp[0]['gap']:.4e}, max|logit| {tp[0]['span']:.4e}")
     want = PAR_TP_LAYERS if on_card else 0
-    _par_check(all(r["launches"]["fwd"] == want for r in tp), f"TP/FSDP launches {[r['launches'] for r in tp]}")
-    launches["tp_fsdp"] = {k: sum(r["launches"][k] for r in tp) for k in ("fwd", "bwd_dq", "bwd_dkv")}
+    # Every rank's norms on the kernels: a forward pass over its gathered rows.
+    want_tp = {"fwd": want, "norm_fwd": _norm_pass(PAR_TP_LAYERS) * bool(on_card), "norm_bwd": 0, "norm_dscale": 0}
+    _par_check(all({k: r["launches"][k] for k in want_tp} == want_tp for r in tp),
+               f"TP/FSDP launches {[r['launches'] for r in tp]}, want {want_tp}")
+    launches["tp_fsdp"] = {k: sum(r["launches"][k] for r in tp) for k in COUNT_KEYS}
     print(f"[parallel] (3) TP/FSDP {{fsdp: 2, tp: 2}} {size['llama']} width, {PAR_TP_LAYERS} layers, B=1 "
           f"T={size['tp_len']}: forward {max(r['ms'] for r in tp):.1f} ms; logits vs unsharded "
           f"max_abs_diff={tp[0]['gap']:.4e} max|logit|={tp[0]['span']:.4e} (tol {LOGIT_REL_TOL:g}*max|logit|); "
@@ -4915,10 +5041,12 @@ def _par_summary(world_a, world_b, size, on_card):
     _par_check(s0["cache_gap"] <= LOGIT_REL_TOL * s0["cache_span"], f"sp=2 prefill KV cache vs one card {s0['cache_gap']:.4e}")
     layers = size["sp_layers"]
     per_layer = 2 * PAR_SP + 1
-    want = per_layer * layers if on_card else 0
-    _par_check(all(r["launches"] == {"fwd": want, "bwd_dq": 0, "bwd_dkv": 0} for r in serve),
-               f"sp=2 prefill launches {[r['launches'] for r in serve]}, want {want} fwd")
-    launches["sp_llama_serve"] = {k: sum(r["launches"][k] for r in serve) for k in ("fwd", "bwd_dq", "bwd_dkv")}
+    want = {"fwd": per_layer * layers, "bwd_dq": 0, "bwd_dkv": 0, "norm_fwd": _norm_pass(layers), "norm_bwd": 0,
+            "norm_dscale": 0}
+    want = want if on_card else dict.fromkeys(want, 0)
+    _par_check(all(r["launches"] == want for r in serve),
+               f"sp=2 prefill launches {[r['launches'] for r in serve]}, want {want}")
+    launches["sp_llama_serve"] = {k: sum(r["launches"][k] for r in serve) for k in COUNT_KEYS}
     print(f"[parallel] (2) {size['llama']} at {layers} layers, sp={PAR_SP} zigzag prefill B=1 T={size['prefill_len']}: "
           f"{max(r['ms'] for r in serve):.1f} ms; last logits vs one-card flash max_abs_diff={s0['gap']:.4e} "
           f"max|logit|={s0['span']:.4e} (tol {LOGIT_REL_TOL:g}*max|logit|), last layer's K cache "
@@ -4935,17 +5063,19 @@ def _par_summary(world_a, world_b, size, on_card):
     for leaf, (gap, span) in t0_["grad_gaps"].items():
         _par_check(span > 0 and gap <= GRAD_REL_TOL * span, f"sp=2 adapter gradient d{leaf}: {gap:.4e} vs max|g| {span:.4e}")
         worst = max(worst, gap / span)
-    want = {"fwd": 2 * per_layer * layers, "bwd_dq": per_layer * layers, "bwd_dkv": per_layer * layers}
+    # The norms as a one-card LoRA step's (remat), on each rank's rows.
+    norms = {k: n for k, n in _lora_step_want(layers).items() if k in NORM_KEYS}
+    want = {"fwd": 2 * per_layer * layers, "bwd_dq": per_layer * layers, "bwd_dkv": per_layer * layers, **norms}
     want = want if on_card else {k: 0 for k in want}
     _par_check(all(r["launches"] == want for r in train), f"sp=2 LoRA step launches {[r['launches'] for r in train]}, want {want}")
-    launches["sp_llama_train"] = {k: sum(r["launches"][k] for r in train) for k in ("fwd", "bwd_dq", "bwd_dkv")}
+    launches["sp_llama_train"] = {k: sum(r["launches"][k] for r in train) for k in COUNT_KEYS}
     print(f"[parallel] (2) {size['llama']} at {layers} layers, sp={PAR_SP} LoRA step (rank {LORA_RANK} w[qv], remat) B=1 "
           f"T={size['train_len']}: {max(r['ms'] for r in train):.1f} ms; loss {t0_['loss']:.6f} vs one-card flash "
           f"{t0_['ref_loss']:.6f}; worst adapter gradient gap {worst:.4f} of max|g| (tol {GRAD_REL_TOL:g}); "
           f"launches per rank {train[0]['launches']}; staged {t0_['staged_mb']:.1f} MB (rank 0)")
     print(f"[parallel] peak memory per rank: world A {[round(w['peak_gb'], 2) for w in world_a]} GB, "
           f"world B {[round(w['peak_gb'], 2) for w in world_b]} GB; Llama init {world_b[0]['init_s']:.1f} s")
-    launches["sp_ops"] = {k: sum(launches[n][k] for n, _ in PAR_OPS) for k in ("fwd", "bwd_dq", "bwd_dkv")}
+    launches["sp_ops"] = {k: sum(launches[n][k] for n, _ in PAR_OPS) for k in COUNT_KEYS}
     # fold_fma's launches on each path, read from every rank's counter
     fold_launches = {
         "sp_ops": sum(w["attn"]["ops"][n]["fold_launches"] for w in world_a for n, _ in PAR_OPS),
@@ -5183,7 +5313,7 @@ def _pipe_world(rank, dev, size):
     dist.barrier()
 
     # (c) the interleaved schedule, pp=2, v=2 on ranks 0 and 1.
-    rec = {"launches": {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}, "fold_launches": 0}
+    rec = {"launches": dict.fromkeys(COUNT_KEYS, 0), "fold_launches": 0}
     if rank < PIPE_INTER[0]:
         inter = pp.make_pipeline_train(inter_mesh, stage, loss_fn, num_microbatches=PIPE_MB,
                                        virtual_stages=PIPE_INTER[1])
@@ -5230,8 +5360,15 @@ def _pipe_summary(ranks, size, on_card):
             want = pp_launches("gpipe" if part == "gpipe" else "train", per_rank, PIPE_MB) if rank < n else \
                 {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
             want = want if on_card else {k: 0 for k in want}
-            _pipe_check(r["launches"] == want, f"{part} rank {rank}: launches {r['launches']}, want {want}")
-        out["launches"][path] = {k: sum(r["launches"][k] for r in recs) for k in ("fwd", "bwd_dq", "bwd_dkv")}
+            _pipe_check(_flash(r["launches"]) == want, f"{part} rank {rank}: launches {r['launches']}, want {want}")
+            # The norms of a live rank's layers on the kernels (and, training,
+            # their backward with dscale: the stages' norm scales train).
+            norms = {k: r["launches"][k] > 0 for k in NORM_KEYS}
+            want_norms = {"norm_fwd": True, "norm_bwd": part != "gpipe", "norm_dscale": part != "gpipe"}
+            want_norms = {k: v and on_card and rank < n for k, v in want_norms.items()}
+            _pipe_check(norms == want_norms, f"{part} rank {rank}: norm launches {r['launches']}, want > 0 where "
+                                             f"{want_norms}")
+        out["launches"][path] = {k: sum(r["launches"][k] for r in recs) for k in COUNT_KEYS}
         out["fold_launches"][path] = sum(r["fold_launches"] for r in recs)
         bubble = [round(_pipe_bubble(r["stats"], part), 4) for r in live]
         common = (f"{max(r['ms'] for r in live):.1f} ms (slowest rank); bubble {bubble}; hop "
@@ -5674,8 +5811,8 @@ def phase_examples(device=None):
     from examples_torch import serve_llama
 
     on_card = device is None
-    summary = {"s": {}, "results": {}, "flash_launches": dict.fromkeys(("fwd", "bwd_dq", "bwd_dkv"), 0),
-               "fold_launches": 0}
+    summary = {"s": {}, "results": {}, "flash_launches": dict.fromkeys(FLASH_KEYS, 0),
+               "norm_launches": dict.fromkeys(NORM_KEYS, 0), "fold_launches": 0}
     if on_card:
         torch.cuda.empty_cache()
 
@@ -5707,18 +5844,21 @@ def phase_examples(device=None):
             r = reports[p]
             _example_check(r["device"].startswith("cuda" if on_card else "cpu"),
                            f"{example}: {p} ran on {r['device']}")
-            _example_check(not any(r["flash_launches"].values()),
+            _example_check(not any(_flash(r["flash_launches"]).values()),
                            f"{example}: {p} launched flash kernels {r['flash_launches']}")
             _example_check(r["fold_launches"] == 0, f"{example}: {p} launched fold_fma {r['fold_launches']} times")
+            _example_check(on_card or not any(r["flash_launches"][k] for k in NORM_KEYS),
+                           f"{example}: {p} launched the RMSNorm kernels off the card")
             for k, v in r["flash_launches"].items():
-                summary["flash_launches"][k] += v
+                summary["norm_launches" if k in NORM_KEYS else "flash_launches"][k] += v
             summary["fold_launches"] += r["fold_launches"]
         summary["s"][example], summary["results"][example] = wall, results[procs[0]]
         runs = ", ".join(f"{p} {reports[p]['s']:.2f} s" for p in procs)
         folds = ", ".join(f"{p} {reports[p]['fold_launches']}" for p in procs)
         devices = sorted({reports[p]["device"] for p in procs})
+        norms = {k: sum(reports[p]["flash_launches"][k] for p in procs) for k in NORM_KEYS}
         print(f"[examples] {example}: {len(procs)} processes on {devices}, {wall:.2f} s (runs {runs}); "
-              f"returned {results[procs[0]]!r} at every party; flash launches 0; fold_fma {folds}")
+              f"returned {results[procs[0]]!r} at every party; flash launches 0; fold_fma {folds}; norms {norms}")
     _zero_counts()
     fold.fold_fma_.launches = 0
     if on_card:
@@ -5726,14 +5866,20 @@ def phase_examples(device=None):
     t0 = time.perf_counter()
     n = serve_llama.run(device=device)
     wall = time.perf_counter() - t0
-    flash, folds = _counts(), fold.fold_fma_.launches
+    counts, folds = _counts(), fold.fold_fma_.launches
+    flash, norms = _flash(counts), {k: counts[k] for k in NORM_KEYS}
     _example_check(n == serve_llama.NEW_TOKENS, f"serve_llama served {n} tokens")
     _example_check(not any(flash.values()) and folds == 0, f"serve_llama launched {flash}, fold_fma {folds}")
+    # Its Llama's norms on the kernels on the card: forward passes only.
+    _example_check((norms["norm_fwd"] > 0) == on_card and norms["norm_bwd"] == norms["norm_dscale"] == 0,
+                   f"serve_llama's norm launches {norms}")
+    for k, v in norms.items():
+        summary["norm_launches"][k] += v
     peak = torch.cuda.max_memory_allocated() if on_card else 0
     _example_check(not on_card or peak > 0, "serve_llama allocated nothing on the card")
     summary["s"]["serve_llama"], summary["results"]["serve_llama"] = wall, n
     print(f"[examples] serve_llama: in this process, {n} tokens a sequence in {wall:.2f} s, peak "
-          f"{peak / 1e6:.1f} MB on the card; flash launches 0; fold_fma 0")
+          f"{peak / 1e6:.1f} MB on the card; flash launches 0; fold_fma 0; norms {norms}")
     print(f"[examples] seven examples in {summary['spawned_s'] + wall:.1f} s")
     return summary
 
@@ -5780,13 +5926,15 @@ def phase_bench_smoke(device=None):
     for leg, st in stats.items():
         print(f"[bench_smoke] {leg}: {st['s']:.1f} s, launches {st['launches']}")
     flash = {k: sum(n.get(f"flash_{k}", 0) for n in launches.values()) for k in ("fwd", "bwd_dq", "bwd_dkv")}
+    norms = _bench_norms(launches)
     folds = sum(n.get("fold_fma", 0) for n in launches.values())
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "bench_smoke.json"), "w") as f:
         json.dump({"record": record, "launches": launches, "failed": failed}, f, indent=1)
     errors = {k: record[k] for k in failed if k.endswith("_error")}
     print(f"[bench_smoke] twelve legs on {dev} in {wall:.1f} s; exact gates missed {misses['exact']}, timed "
-          f"gates missed {misses['timed']}, leg errors {sorted(errors)}; fold_fma {folds}, flash {flash}")
+          f"gates missed {misses['timed']}, leg errors {sorted(errors)}; fold_fma {folds}, flash {flash}, "
+          f"norms {norms}")
     if errors or misses["exact"]:
         raise AssertionError(f"phase_bench_smoke: leg errors {errors}, exact gates missed {misses['exact']}")
     if any(flash.values()):
@@ -5794,7 +5942,7 @@ def phase_bench_smoke(device=None):
     if dev != "cpu" and not all(launches.get(leg, {}).get("fold_fma", 0) for leg in BENCH_FOLD_LEGS):
         raise AssertionError(f"phase_bench_smoke: fold_fma not launched in every leg of {BENCH_FOLD_LEGS}")
     return {"s": wall, "record": record, "launches": launches, "flash_launches": flash, "fold_launches": folds,
-            "misses": misses, "leg_s": {leg: st["s"] for leg, st in stats.items()}}
+            "norm_launches": norms, "misses": misses, "leg_s": {leg: st["s"] for leg, st in stats.items()}}
 
 
 # -- bench_torch.py --compute-only: the reference bench's compute section ------
@@ -5808,6 +5956,7 @@ BENCH_TRAIN_LAYERS = {"llama_train": 16, "lora_8b": 32}
 # those that launch the backward kernels too.
 BENCH_FWD_LEGS = ("llama_train", "decode", "flash", "lora_8b")
 BENCH_BWD_LEGS = ("llama_train", "flash", "lora_8b")
+BENCH_NORM_LEGS = ("llama_train", "decode", "lora_8b")  # the legs that run a Llama
 # A share over 1 is a count error, not a fast card.
 BENCH_SHARE_MAX = 1.05
 # The breakdown's residual, the step less its six probes, which the
@@ -5888,8 +6037,16 @@ def phase_bench_compute(device=None):
                   f"(want {want})")
             if st["train_launches"] != want:
                 failures.append(f"{leg}: train steps launched {st['train_launches']}, want {want}")
+        norms = {k: got.get(f"rms_norm_{k}", 0) for k in ("fwd", "bwd", "dscale")}
+        # The Llama legs' norms on the kernels; the full-parameter step's
+        # scales train, so its backward reduces dscale too.
+        if leg in BENCH_NORM_LEGS and (norms["fwd"] > 0) != bool(expect):
+            failures.append(f"{leg}: RMSNorm launches {norms}")
+        if leg == "llama_train" and (norms["dscale"] > 0) != bool(expect):
+            failures.append(f"{leg}: the full-parameter step's dscale launches {norms['dscale']}")
     launches = {k: sum(st["launches"].get(k, 0) for st in stats.values())
-                for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "fold_fma")}
+                for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "fold_fma", "rms_norm_fwd", "rms_norm_bwd",
+                          "rms_norm_dscale")}
     print(f"[bench_compute] five legs on {dev} in {wall:.1f} s; launches {launches}")
     if failures:
         raise AssertionError("phase_bench_compute: " + "; ".join(failures))
@@ -6004,6 +6161,7 @@ def phase_bench_fed(device=None):
         failures.append(f"headline {record.get('metric')!r} on {record.get('env_device_kind')!r}")
     launches = {leg: st["launches"] for leg, st in stats.items()}
     flash = {k: sum(n.get(f"flash_{k}", 0) for n in launches.values()) for k in ("fwd", "bwd_dq", "bwd_dkv")}
+    norms = _bench_norms(launches)
     folds = {leg: n.get("fold_fma", 0) for leg, n in launches.items()}
     if any(flash.values()):
         failures.append(f"flash kernels launched {flash}")
@@ -6014,10 +6172,13 @@ def phase_bench_fed(device=None):
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "rayfed_tpu"))
     if loaded:
         failures.append(f"this process loaded {loaded}")
-    print(f"[bench_fed] {len(stats)} legs on {dev} in {wall:.1f} s; fold_fma by leg {folds}, flash {flash}")
+    if not on_card and any(norms.values()):
+        failures.append(f"RMSNorm kernels launched off the card: {norms}")
+    print(f"[bench_fed] {len(stats)} legs on {dev} in {wall:.1f} s; fold_fma by leg {folds}, flash {flash}, "
+          f"norms {norms}")
     if failures:
         raise AssertionError("phase_bench_fed: " + "; ".join(failures))
-    return {"s": wall, "record": record, "stats": stats, "flash_launches": flash,
+    return {"s": wall, "record": record, "stats": stats, "flash_launches": flash, "norm_launches": norms,
             "fold_launches": sum(folds.values()), "folds_by_leg": folds}
 
 
@@ -6086,13 +6247,11 @@ def main() -> int:
         bench_f = fed_run.result()
     bench_c = _timed(walls, phase_bench_compute)
     ckpt_llama, ckpt_resnet = ckpt["llama"]["launches"], ckpt["quorum"]["flash_launches"]
-    overlap = {k: sum(federated[part]["launches"][k] for part in OVERLAP_PARTS)
-               for k in ("fwd", "bwd_dq", "bwd_dkv")}
+    overlap = {k: sum(federated[part]["launches"][k] for part in OVERLAP_PARTS) for k in COUNT_KEYS}
     overlap_fold = sum(federated[part]["fold_launches"] for part in OVERLAP_PARTS)
     ring_launches = federated["round_ring"]["launches"]
     ring_fold = federated["round_ring"]["fold_launches"]
-    sopt_llama = {k: sum(federated[part]["launches"][k] for part in SOPT_PARTS)
-                  for k in ("fwd", "bwd_dq", "bwd_dkv")}
+    sopt_llama = {k: sum(federated[part]["launches"][k] for part in SOPT_PARTS) for k in COUNT_KEYS}
     sopt_llama_fold = sum(federated[part]["fold_launches"] for part in SOPT_PARTS)
     sopt_resnet = {k: sum(topo_flash[n][k] for n, _ in SOPT_TOPO_PARTS) for k in ("fwd", "bwd_dq", "bwd_dkv")}
     sopt_resnet_fold = sum(topo_fold[n] for n, _ in SOPT_TOPO_PARTS)
@@ -6102,6 +6261,7 @@ def main() -> int:
     times, train_times = _timed(walls, phase_times, gen, card)
     bwd_times = _timed(walls, phase_bwd_times, gen, card)
     bert_times = _timed(walls, phase_bert_times, gen, card)
+    rms_times = _timed(walls, phase_rms_norm, gen, card)
     # The server step's share of a server-opt round: its device ms at the
     # adapters' size against alice's wall per round.
     step_rec = sopt["step"][("llama_adapters",) + SOPT_CONFIGS[1]]
@@ -6116,6 +6276,29 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     )
     print(smi.stdout.strip())
+    def norms_by_path(key):
+        """The RMSNorm kernels' ``key`` launches on every path, read as the
+        flash kernels' are (0 where a path runs no Llama)."""
+        return {"serve": serve["norms"][key], "train": train_launches[key],
+                "federated": federated["launches"][key], "round": round_launches[key],
+                "serve_int8": serve_int8["norms"][key], "train_int8": train_int8["launches"][key],
+                "round_quant": quant_launches[key], "split": split_launches[key],
+                "round_ring": ring_launches[key],
+                "ring_resnet": topo_flash["ring"].get(key, 0) + topo_flash["ring_quant"].get(key, 0),
+                "quorum_resnet": topo_flash["quorum"].get(key, 0),
+                "hierarchy_resnet": sum(topo_flash[n].get(key, 0) for n in HIER_PARTS),
+                "hier_multilevel": ml_launches.get(key, 0), "round_overlap": overlap[key],
+                "server_opt_llama": sopt_llama[key],
+                "server_opt_resnet": sum(topo_flash[n].get(key, 0) for n, _ in SOPT_TOPO_PARTS),
+                "async_resnet": async_launches.get(key, 0), "checkpoint_llama": ckpt_llama[key],
+                "checkpoint_resnet": ckpt_resnet.get(key, 0),
+                **{path: par_launches[path][key] for path in PAR_PATHS},
+                **{path: pipe["launches"][path][key] for path in PIPE_PATHS},
+                "party_resnet": party["flash_launches"].get(key, 0),
+                "examples": examples["norm_launches"][key], "bench_smoke": bench["norm_launches"][key],
+                "bench_compute": bench_c["launches"][f"rms_norm_{key[5:]}"],
+                "bench_fed": bench_f["norm_launches"][key]}
+
     # `launches`: the training path's 4 steps; the serving path's count of
     # the forward kernel stands beside it.
     train_launches = train["launches"]
@@ -6314,7 +6497,21 @@ def main() -> int:
                         "ms": step_rec["ms"], "plain_ms": step_rec["plain_ms"], "bound_ms": step_rec["bound_ms"],
                         "bound_by": "bytes", "library_ms": None, "max_abs_err": 0.0,
                         "resync_ms": step_rec["resync_ms"], "resync_bound_ms": step_rec["resync_bound_ms"]},
-    }]
+    }] + [{
+        # Not Pallas: the JAX package's norm is jnp ops that XLA fuses; on
+        # the card a forward and a backward kernel replace PyTorch's passes.
+        # Launches: phase_train's 4 LoRA steps (remat); times at Mistral's shape.
+        "name": f"rms_norm_{name}",
+        "route": "cuda",
+        "source": "rayfed_tpu_torch/ops/csrc/rms_norm.cu",
+        "replaces": "rayfed_tpu/models/llama.py _rms_norm (XLA-fused jnp ops)",
+        "launches": train_launches[f"norm_{name}"],
+        "launches_by_path": norms_by_path(f"norm_{name}"),
+        # The backward's second kernel, the reduce of dscale's partials,
+        # where a norm's scale trains (full-parameter steps, pipeline stages).
+        **({"dscale_launches_by_path": norms_by_path("norm_dscale")} if name == "bwd" else {}),
+        **rms_times[name],
+    } for name in ("fwd", "bwd")]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))

@@ -42,6 +42,7 @@ from rayfed_tpu_torch.models.quant import (
     split_output_scale,
 )
 from rayfed_tpu_torch.ops import ftz, xla_cpu
+from rayfed_tpu_torch.ops import rms_norm as rms_norm_op
 from rayfed_tpu_torch.ops.attention import NEG_INF, dot_product_attention
 from rayfed_tpu_torch.utils.platform import resolve_device
 
@@ -306,11 +307,13 @@ def _rms_norm(x, scale, eps, jitted=False):
     """RMSNorm.  ``jitted``: the JAX package runs this call site inside one
     jitted program (its decode and train steps), whose CPU bytes differ
     from its op-by-op ones (ops/xla_cpu.py).  On CPU tensors the value is
-    that program's, subnormals flushed, and the gradient PyTorch's."""
-    xf = x.float()
-    r = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
-    out = (xf * r * scale.float()).to(x.dtype)
-    if xf.device.type == "cpu" and not _sharded(xf):
+    that program's, subnormals flushed, and the gradient PyTorch's.  On the
+    card every norm, a DTensor's too, runs the kernels of
+    ``ops/rms_norm.py``, which raise on what they do not take."""
+    if x.device.type == "cuda":
+        return rms_norm_op.rms_norm(x, scale, eps)
+    out = rms_norm_op.rms_norm_plain(x, scale, eps)
+    if x.device.type == "cpu" and not _sharded(x):
         out = xla_cpu.ForwardValue.apply(out, xla_cpu.rms_norm(x.detach(), scale.detach(), eps, jitted))
     return out
 

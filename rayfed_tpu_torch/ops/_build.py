@@ -131,3 +131,19 @@ def fold_lib() -> ctypes.CDLL:
     lib.rf_cuda_error_string.argtypes = [i32]
     lib.rf_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def rms_norm_lib() -> ctypes.CDLL:
+    """The RMSNorm kernels (forward, backward and the dscale reduce), built
+    and loaded once."""
+    lib = ctypes.CDLL(str(build("rms_norm")))
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.rf_rms_norm_resident.argtypes = [i32] * 5
+    lib.rf_rms_norm_fwd.argtypes = [ptr] * 4 + [i32] * 4 + [f32] + [i32] * 2 + [ptr]
+    lib.rf_rms_norm_bwd.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
+    for fn in (lib.rf_rms_norm_resident, lib.rf_rms_norm_fwd, lib.rf_rms_norm_bwd):
+        fn.restype = i32
+    lib.rf_cuda_error_string.argtypes = [i32]
+    lib.rf_cuda_error_string.restype = ctypes.c_char_p
+    return lib

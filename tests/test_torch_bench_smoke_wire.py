@@ -157,7 +157,8 @@ def test_run_smoke_returns_the_record_and_its_failed_gates():
         "metric": "cross_party_stream_agg_GBps", "unit": "GB/s", "vs_baseline": 1.0, "smoke": True}
     assert json.loads(json.dumps(record)) == record
     # The children report their kernel launches: none on the CPU.
-    assert stats["object_plane"]["launches"] == {"fold_fma": 0, "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    assert stats["object_plane"]["launches"] == {"fold_fma": 0, "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                                                 "rms_norm_fwd": 0, "rms_norm_bwd": 0, "rms_norm_dscale": 0}
     assert stats["object_plane"]["s"] > 0
 
 
